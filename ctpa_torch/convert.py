@@ -1,0 +1,92 @@
+"""Carry ``ctpa``'s flax parameters into the port's modules.
+
+The flax tree (nested dicts of arrays, the ``"params"`` collection of any
+ctpa module) becomes the ``state_dict`` of the matching ``ctpa_torch``
+module.  The layout rules:
+
+* a 2-D ``kernel`` is a flax ``Dense`` weight, stored (in, out); a torch
+  ``Linear`` stores (out, in), so it is transposed into ``weight``;
+* ``embedding`` becomes ``weight``; a flax ``LayerNorm`` ``scale`` becomes
+  ``weight``;
+* every other leaf keeps its name and layout: ``gamma``, ``q_scale``,
+  ``k_scale``, the PEG's (3, 3, 3, 1, c) ``kernel``, ``PatchEmbed3D``'s
+  ``norm_in_scale``/``norm_in_bias``/``proj_kernel``/``proj_bias``, the fused
+  ``to_kv`` (split at use), ``temperature``;
+* numbered flax submodules ``peg_i``, ``block_i``, ``layer_i``, ``mlp_i``
+  become the entries of the ModuleLists ``pegs``, ``blocks``, ``layers``,
+  ``mlp``.
+
+Conversion is strict: an unused flax leaf, a missing torch entry or a shape
+mismatch raises.  It imports no JAX: leaves are anything ``numpy.asarray``
+takes.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+from torch import nn
+
+from ctpa_torch.ops.vq import VQState
+
+_LISTS = re.compile(r"^(peg|block|layer|mlp)_(\d+)$")
+_LIST_NAMES = {"peg": "pegs", "block": "blocks", "layer": "layers", "mlp": "mlp"}
+
+
+def _flatten(tree, prefix=()):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flatten(val, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(val)
+
+
+def _torch_key(path: tuple[str, ...], value: np.ndarray) -> tuple[str, np.ndarray]:
+    *mods, leaf = path
+    parts = []
+    for mod in mods:
+        m = _LISTS.match(mod)
+        parts += [_LIST_NAMES[m.group(1)], m.group(2)] if m else [mod]
+    if leaf == "kernel" and value.ndim == 2:
+        leaf, value = "weight", value.T
+    elif leaf in ("embedding", "scale"):
+        leaf = "weight"
+    return ".".join(parts + [leaf]), value
+
+
+def flax_to_state_dict(params: dict) -> dict[str, np.ndarray]:
+    """Rename and re-lay-out a flax param tree; values stay numpy."""
+    out = {}
+    for path, value in _flatten(params):
+        key, value = _torch_key(path, value)
+        if key in out:
+            raise KeyError(f"two flax leaves map to {key}")
+        out[key] = value
+    return out
+
+
+def load_flax_params(module: nn.Module, params: dict) -> nn.Module:
+    """Load a flax param tree into ``module`` (strict), casting each value to
+    the dtype and device of the parameter it replaces."""
+    converted = flax_to_state_dict(params)
+    own = module.state_dict()
+    unused = sorted(set(converted) - set(own))
+    missing = sorted(set(own) - set(converted))
+    if unused or missing:
+        raise KeyError(f"flax/torch parameter mismatch: unused {unused}, missing {missing}")
+    state = {}
+    for key, ref in own.items():
+        value = converted[key]
+        if tuple(value.shape) != tuple(ref.shape):
+            raise ValueError(f"{key}: flax shape {value.shape} != torch shape {tuple(ref.shape)}")
+        state[key] = torch.from_numpy(np.array(value, np.float32)).to(
+            device=ref.device, dtype=ref.dtype)
+    module.load_state_dict(state, strict=True)
+    return module
+
+
+def vq_state_from_numpy(state, device="cuda") -> VQState:
+    """ctpa's VQState (codebook, cluster_size, embed_avg), any array type."""
+    return VQState(*(torch.as_tensor(np.asarray(x, np.float32), device=device) for x in state))

@@ -1,0 +1,118 @@
+"""Typed configuration of the serving slice — an own copy of the dataclasses
+of ``ctpa/core/config.py`` that this package needs (the port imports nothing
+of ``ctpa``).  Field names and defaults are the same, so a ``ctpa`` config
+maps field by field; the training-only fields wait for the training slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class PreprocessConfig:
+    """Canonical CT preprocessing parameters.  Train and inference windowings
+    differ on purpose (train: clip +-1000 HU then /1000; inference: clip
+    [-1000, 200] then (x+400)/600), as in the reference pipeline."""
+
+    hu_min: float = -1000.0
+    hu_max: float = 1000.0
+    hu_shift: float = 0.0
+    hu_scale: float = 1000.0
+    target_spacing: tuple[float, float, float] = (1.5, 0.75, 0.75)
+    target_shape: tuple[int, int, int] = (240, 480, 480)
+    pad_value: float = -1.0
+
+    @staticmethod
+    def train() -> "PreprocessConfig":
+        return PreprocessConfig(hu_min=-1000.0, hu_max=1000.0, hu_shift=0.0, hu_scale=1000.0)
+
+    @staticmethod
+    def inference() -> "PreprocessConfig":
+        return PreprocessConfig(hu_min=-1000.0, hu_max=200.0, hu_shift=400.0, hu_scale=600.0)
+
+
+@dataclass(frozen=True)
+class CTViTConfig:
+    """3D vision tower at the shipped CT-CLIP geometry."""
+
+    dim: int = 512
+    codebook_size: int = 8192
+    image_size: int = 480           # spatial H = W
+    patch_size: int = 20
+    temporal_size: int = 240        # axial slices
+    temporal_patch_size: int = 10
+    spatial_depth: int = 4
+    temporal_depth: int = 4
+    dim_head: int = 32
+    heads: int = 8
+    channels: int = 1
+    ff_mult: int = 4
+    use_vq: bool = True
+    # reproduce the reference PEG's temporal-fold layout scramble (needed for
+    # checkpoints trained with it; see ctpa's CTViTConfig)
+    peg_reference_layout: bool = False
+    # project self-attention K/V from the LayerNormed tokens (False keeps the
+    # reference quirk: K/V from the un-normalized input)
+    attn_kv_from_normed: bool = False
+    # route the spatial fold's attention through the flash-attention kernel
+    # (csrc/flash_attention.cu) on CUDA tensors
+    flash_axial: bool = False
+    # route the patch embed through the fused patchify kernel
+    # (csrc/patchify.cu) on CUDA tensors; the name is kept from ctpa
+    pallas_patchify: bool = False
+
+    @property
+    def spatial_tokens(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def temporal_tokens(self) -> int:
+        return self.temporal_size // self.temporal_patch_size
+
+    @property
+    def patch_dim(self) -> int:
+        return self.channels * self.temporal_patch_size * self.patch_size * self.patch_size
+
+    @staticmethod
+    def tiny() -> "CTViTConfig":
+        return CTViTConfig(
+            dim=64, codebook_size=64, image_size=32, patch_size=8,
+            temporal_size=16, temporal_patch_size=4, spatial_depth=1,
+            temporal_depth=1, dim_head=16, heads=4,
+        )
+
+
+@dataclass(frozen=True)
+class BertConfig:
+    """Text tower, BERT-base geometry (CXR-BERT)."""
+
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+
+    @staticmethod
+    def tiny() -> "BertConfig":
+        return BertConfig(vocab_size=512, hidden_size=64, num_layers=2, num_heads=4,
+                          intermediate_size=128, max_position_embeddings=128)
+
+
+@dataclass(frozen=True)
+class CTCLIPConfig:
+    """Dual-encoder CLIP, serving fields."""
+
+    dim_latent: int = 512
+    dim_text: int = 768
+    dim_image: int = 294912         # 24*24*512 after temporal mean-pool + flatten
+    temperature_init: float = 1.0   # log-temperature, exp'd at use
+
+    @staticmethod
+    def tiny(vit: CTViTConfig, bert: BertConfig) -> "CTCLIPConfig":
+        s = vit.image_size // vit.patch_size
+        return CTCLIPConfig(dim_latent=32, dim_text=bert.hidden_size,
+                            dim_image=s * s * vit.dim)

@@ -1,0 +1,205 @@
+"""Transformer blocks of the CTViT tower (port of ``ctpa/models/attention.py``):
+gamma-only LayerNorm, GEGLU feed-forward, PEG depthwise-conv positional
+encoding, QK-l2norm cosine attention with learned scales, the continuous
+position bias, pre-norm residual blocks.
+
+Every module takes ``device`` and ``dtype``; parameters live in that dtype.
+Cross-attention (null key/values, a context input) belongs to the report
+generator's slice and is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ctpa_torch.ops.attention_ops import (
+    continuous_position_bias_grid,
+    cosine_attention,
+    l2norm,
+    merge_heads,
+    peg_conv3d,
+    split_heads,
+)
+from ctpa_torch.ops.flash_attention import flash_attention
+
+# flax's LayerNorm default epsilon, which ctpa's blocks use
+LN_EPS = 1e-6
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with a learned gain and no bias."""
+
+    def __init__(self, dim: int, device=None, dtype=None):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+
+    def forward(self, x):
+        return F.layer_norm(x, (x.shape[-1],), eps=LN_EPS) * self.gamma
+
+
+class GEGLU(nn.Module):
+    """x * gelu(gate), with the exact erf gelu."""
+
+    def forward(self, x):
+        x, gate = x.chunk(2, dim=-1)
+        return x * F.gelu(gate)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, dim: int, mult: int = 4, device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        inner = int(dim * mult * 2 / 3)
+        # scale-and-bias LayerNorm here, unlike the gamma-only one around attention
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS, **fk)
+        self.proj_in = nn.Linear(dim, inner * 2, bias=False, **fk)
+        self.geglu = GEGLU()
+        self.proj_out = nn.Linear(inner, dim, bias=False, **fk)
+
+    def forward(self, x):
+        return self.proj_out(self.geglu(self.proj_in(self.norm(x))))
+
+
+class PEG(nn.Module):
+    """Residual depthwise 3D conv over the full (t, h, w) token grid, rebuilt
+    from whichever axial fold the caller is in.  ``reference_layout``
+    reproduces the reference's temporal-fold scramble (the (b*h*w, t, d)
+    fold reshaped straight to (b, t, h, w, d))."""
+
+    def __init__(self, dim: int, causal: bool = True, reference_layout: bool = False,
+                 device=None, dtype=None):
+        super().__init__()
+        self.causal = causal
+        self.reference_layout = reference_layout
+        self.kernel = nn.Parameter(torch.zeros(3, 3, 3, 1, dim, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
+
+    def forward(self, x, shape3d: tuple[int, int, int], fold: str = "full"):
+        t, h, w = shape3d
+        B, n, d = x.shape
+        temporal_fixed = fold == "temporal" and not self.reference_layout
+        if fold == "spatial":           # (b*t, h*w, d)
+            grid = x.reshape(B // t, t, h, w, d)
+        elif fold == "temporal":        # (b*h*w, t, d)
+            b = B // (h * w)
+            grid = (x.reshape(b, h, w, t, d).permute(0, 3, 1, 2, 4) if temporal_fixed
+                    else x.reshape(b, t, h, w, d))
+        else:                           # (b, t*h*w, d)
+            grid = x.reshape(B, t, h, w, d)
+        out = grid + peg_conv3d(grid, self.kernel, causal=self.causal) + self.bias
+        if temporal_fixed:
+            out = out.permute(0, 2, 3, 1, 4)
+        return out.reshape(B, n, d)
+
+
+class CosineAttention(nn.Module):
+    """Multi-head self-attention with QK l2-norm and learned (dim_head,) q/k
+    scales shared across heads.  K/V are projected from the UN-normalized
+    input unless ``kv_from_normed`` (the reference quirk, kept so imported
+    checkpoints reproduce).  ``use_flash`` routes the attention through the
+    flash-attention kernel with the analytic logit bound of cosine attention."""
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, scale: float = 8.0,
+                 kv_from_normed: bool = False, use_flash: bool = False,
+                 device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        inner = heads * dim_head
+        self.heads = heads
+        self.scale = scale
+        self.kv_from_normed = kv_from_normed
+        self.use_flash = use_flash
+        self.norm = LayerNorm(dim, **fk)
+        self.to_q = nn.Linear(dim, inner, bias=False, **fk)
+        self.to_kv = nn.Linear(dim, inner * 2, bias=False, **fk)
+        self.q_scale = nn.Parameter(torch.ones(dim_head, **fk))
+        self.k_scale = nn.Parameter(torch.ones(dim_head, **fk))
+        self.to_out = nn.Linear(inner, dim, bias=False, **fk)
+
+    def forward(self, x, mask=None, bias=None):
+        raw = x
+        x = self.norm(x)
+        kv_in = x if self.kv_from_normed else raw
+        q = self.to_q(x)
+        k, v = self.to_kv(kv_in).chunk(2, dim=-1)
+        q, k, v = (split_heads(t, self.heads) for t in (q, k, v))
+
+        if self.use_flash and mask is None:
+            qn = (l2norm(q) * self.q_scale).to(q.dtype).contiguous()
+            kn = (l2norm(k) * self.k_scale).to(k.dtype).contiguous()
+            # |s| <= scale * max|q_scale| * max|k_scale| (+ max bias): the
+            # kernel's flat softmax needs no running max under this bound
+            bound = (self.scale * self.q_scale.abs().max().float()
+                     * self.k_scale.abs().max().float())
+            if bias is not None:
+                bound = bound + bias.max().float()
+            out = flash_attention(qn, kn, v.contiguous(), bias=bias, scale=self.scale,
+                                  logit_bound=bound)
+        else:
+            out = cosine_attention(q, k, v, q_scale=self.q_scale, k_scale=self.k_scale,
+                                   scale=self.scale, bias=bias, mask=mask)
+        return self.to_out(merge_heads(out))
+
+
+class ContinuousPositionBias(nn.Module):
+    """MLP over signed-log relative positions of the 2D token grid, giving an
+    (heads, n, n) additive bias; leaky_relu slope 0.1."""
+
+    def __init__(self, dim: int = 512, heads: int = 8, num_layers: int = 2,
+                 device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        self.mlp = nn.ModuleList(
+            [nn.Linear(2 if i == 0 else dim, dim, **fk) for i in range(num_layers)])
+        self.to_heads = nn.Linear(dim, heads, **fk)
+
+    def forward(self, height: int, width: int):
+        w = self.to_heads.weight
+        h = continuous_position_bias_grid(height, width, device=w.device).to(w.dtype)
+        for layer in self.mlp:
+            h = F.leaky_relu(layer(h), negative_slope=0.1)
+        return self.to_heads(h).permute(2, 0, 1).contiguous()
+
+
+class TransformerBlock(nn.Module):
+    def __init__(self, dim: int, heads: int, dim_head: int, ff_mult: int = 4,
+                 use_flash: bool = False, kv_from_normed: bool = False,
+                 device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        self.attn = CosineAttention(dim, heads, dim_head, use_flash=use_flash,
+                                    kv_from_normed=kv_from_normed, **fk)
+        self.ff = FeedForward(dim, ff_mult, **fk)
+
+    def forward(self, x, mask=None, bias=None):
+        x = x + self.attn(x, mask=mask, bias=bias)
+        return x + self.ff(x)
+
+
+class Transformer(nn.Module):
+    """Pre-norm stack with a PEG before every block (when ``peg``) and a final
+    gamma-only LayerNorm.  The 3D grid shape comes with the call, so one stack
+    serves the spatial (b*t, h*w, d) and temporal (b*h*w, t, d) folds."""
+
+    def __init__(self, dim: int, depth: int, heads: int = 8, dim_head: int = 32,
+                 ff_mult: int = 4, peg: bool = False, peg_causal: bool = True,
+                 peg_reference_layout: bool = False, use_flash: bool = False,
+                 kv_from_normed: bool = False, device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        self.pegs = nn.ModuleList(
+            [PEG(dim, causal=peg_causal, reference_layout=peg_reference_layout, **fk)
+             for _ in range(depth)] if peg else [])
+        self.blocks = nn.ModuleList(
+            [TransformerBlock(dim, heads, dim_head, ff_mult, use_flash=use_flash,
+                              kv_from_normed=kv_from_normed, **fk) for _ in range(depth)])
+        self.norm_out = LayerNorm(dim, **fk)
+
+    def forward(self, x, shape3d=None, fold: str = "full", mask=None, bias=None):
+        for i, block in enumerate(self.blocks):
+            if self.pegs:
+                x = self.pegs[i](x, shape3d, fold)
+            x = block(x, mask=mask, bias=bias)
+        return self.norm_out(x)

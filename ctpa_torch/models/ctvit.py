@@ -1,0 +1,112 @@
+"""CTViT encoder — factorized spatial/temporal 3D vision transformer with a
+cosine VQ bottleneck (port of ``ctpa/models/ctvit.py``, encode side, axial
+path).  The decoder, ``reconstruct`` and the fused full-sequence encoder
+belong to later slices."""
+
+from __future__ import annotations
+
+import torch
+from einops import rearrange
+from torch import nn
+
+from ctpa_torch.core.config import CTViTConfig
+from ctpa_torch.models.attention import ContinuousPositionBias, Transformer
+from ctpa_torch.ops.patchify import patchify_project
+from ctpa_torch.ops.vq import VQOutput, VQState, vq_encode
+
+
+class PatchEmbed3D(nn.Module):
+    """b c (t pt) (h p1) (w p2) -> b t h w d as LayerNorm -> Linear -> LayerNorm.
+
+    Parameters keep ctpa's names and layout: ``norm_in_scale``,
+    ``norm_in_bias`` (patch_dim,), ``proj_kernel`` (patch_dim, dim),
+    ``proj_bias`` (dim,).  With ``cfg.pallas_patchify`` (one channel) the
+    fused patchify kernel computes the LN-folded projection; otherwise the
+    patch layout is formed explicitly."""
+
+    def __init__(self, cfg: CTViTConfig, eps: float = 1e-5, device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        self.cfg = cfg
+        self.eps = eps
+        pd, dim = cfg.patch_dim, cfg.dim
+        self.norm_in_scale = nn.Parameter(torch.ones(pd, **fk))
+        self.norm_in_bias = nn.Parameter(torch.zeros(pd, **fk))
+        self.proj_kernel = nn.Parameter(torch.zeros(pd, dim, **fk))
+        self.proj_bias = nn.Parameter(torch.zeros(dim, **fk))
+        self.norm_out = nn.LayerNorm(dim, eps=eps, **fk)
+
+    def forward(self, video: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        pt, p = c.temporal_patch_size, c.patch_size
+        dtype = self.proj_kernel.dtype
+        g_in, b_in, kernel = self.norm_in_scale, self.norm_in_bias, self.proj_kernel
+        shift = (b_in @ kernel) + self.proj_bias
+        if c.pallas_patchify and c.channels == 1:
+            y = torch.stack([
+                patchify_project(v, g_in, kernel, pt, p, p, eps=self.eps, out_dtype=dtype)
+                for v in video[:, 0].to(dtype)])
+            return self.norm_out(y + shift.to(y.dtype))
+        x = rearrange(video.to(dtype), "b c (t pt) (h p1) (w p2) -> b t h w (c pt p1 p2)",
+                      pt=pt, p1=p, p2=p)
+        xf = x.to(torch.float32)
+        mean = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, unbiased=False, keepdim=True)
+        xhat = ((xf - mean) * torch.rsqrt(var + self.eps)).to(dtype)
+        y = (xhat * g_in) @ kernel
+        return self.norm_out(y + shift.to(y.dtype))
+
+
+class CTViT(nn.Module):
+    """forward(video, vq_state) -> (tokens, VQOutput | None); video is
+    (b, c, T, H, W) and tokens (b, t, h, w, d), quantized when a VQ state is
+    given and ``cfg.use_vq``."""
+
+    def __init__(self, cfg: CTViTConfig, device="cuda", dtype=torch.float32):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        self.cfg = cfg
+        self.patch_embed = PatchEmbed3D(cfg, **fk)
+        self.spatial_rel_pos_bias = ContinuousPositionBias(cfg.dim, cfg.heads, **fk)
+        tkw = dict(dim=cfg.dim, heads=cfg.heads, dim_head=cfg.dim_head, ff_mult=cfg.ff_mult,
+                   peg=True, peg_causal=True, peg_reference_layout=cfg.peg_reference_layout,
+                   kv_from_normed=cfg.attn_kv_from_normed, **fk)
+        # the 576-token spatial fold goes through the flash kernel with
+        # flash_axial; the 24-token temporal fold stays plain
+        self.enc_spatial_transformer = Transformer(depth=cfg.spatial_depth,
+                                                   use_flash=cfg.flash_axial, **tkw)
+        self.enc_temporal_transformer = Transformer(depth=cfg.temporal_depth, **tkw)
+
+    @property
+    def grid(self) -> tuple[int, int, int]:
+        c = self.cfg
+        return (c.temporal_tokens, c.image_size // c.patch_size, c.image_size // c.patch_size)
+
+    def encode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Axial encode: spatial fold, then temporal fold."""
+        b, t, h, w, d = tokens.shape
+        bias = self.spatial_rel_pos_bias(h, w)                   # (heads, hw, hw)
+        x = rearrange(tokens, "b t h w d -> (b t) (h w) d")
+        x = self.enc_spatial_transformer(x, shape3d=(t, h, w), fold="spatial", bias=bias)
+        x = rearrange(x, "(b t) (h w) d -> (b h w) t d", b=b, h=h, w=w)
+        x = self.enc_temporal_transformer(x, shape3d=(t, h, w), fold="temporal")
+        return rearrange(x, "(b h w) t d -> b t h w d", b=b, h=h, w=w)
+
+    def token_mask(self, frame_mask: torch.Tensor) -> torch.Tensor:
+        """(b, T) frame validity -> (b, t*h*w) token mask: a temporal patch is
+        valid if any of its frames is."""
+        b = frame_mask.shape[0]
+        t, h, w = self.grid
+        fm = rearrange(frame_mask, "b (t pt) -> b t pt", pt=self.cfg.temporal_patch_size)
+        tok = fm.bool().any(dim=-1)
+        return tok.repeat_interleave(h * w, dim=-1).reshape(b, t * h * w)
+
+    def forward(self, video: torch.Tensor, vq_state: VQState | None = None,
+                frame_mask: torch.Tensor | None = None):
+        tokens = self.encode_tokens(self.patch_embed(video))
+        if vq_state is None or not self.cfg.use_vq:
+            return tokens, None
+        b, t, h, w, d = tokens.shape
+        mask = self.token_mask(frame_mask) if frame_mask is not None else None
+        out: VQOutput = vq_encode(vq_state, tokens.reshape(b, t * h * w, d), mask=mask)
+        return out.quantized.reshape(b, t, h, w, d), out

@@ -1,0 +1,150 @@
+"""Canonical CT preprocessing — HU rescale/window, trilinear resample and
+center crop/pad — in PyTorch (port of ``ctpa/ops/preprocess.py``).
+
+Trilinear interpolation is separable: each axis is resampled by a dense
+``(target, source)`` interpolation matrix with at most two non-zeros per row,
+and the crop/pad offset is folded into the matrix rows, so the resampled
+volume is never formed.  The resample is three matrix contractions.  No
+hand-written kernel is involved; ``torch.einsum`` runs them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ctpa_torch.core.config import PreprocessConfig
+
+
+def hu_rescale(x: torch.Tensor, slope, intercept) -> torch.Tensor:
+    """DICOM rescale: HU = slope * stored + intercept."""
+    return x * slope + intercept
+
+
+def hu_window(x: torch.Tensor, cfg: PreprocessConfig) -> torch.Tensor:
+    """Clip to [hu_min, hu_max], shift, scale."""
+    x = torch.clamp(x, cfg.hu_min, cfg.hu_max)
+    return (x + cfg.hu_shift) / cfg.hu_scale
+
+
+def _resampled_len(extent: int, spacing: float, target_spacing: float) -> int:
+    """floor(extent * spacing / target_spacing) in float32, as ctpa computes it."""
+    ratio = np.float32(spacing) / np.float32(target_spacing)
+    return int(np.float32(extent) * ratio)
+
+
+def _interp_matrix(source: int, n: int, target: int, *, pad_mask_out: bool = True,
+                   true_len: int | None = None, device="cuda"):
+    """Dense (target, source) trilinear-interp matrix for one axis with the
+    crop/pad offset folded in; half-pixel centers (align_corners=False) with
+    edge clamping.  ``true_len`` (<= source) marks how many leading source
+    entries are real when the axis is end-padded to a bucket size.
+
+    Returns (W, valid): W float32 (target, source); valid (target,) bool marks
+    rows inside the virtual resampled extent."""
+    eff = source if true_len is None else int(true_len)
+    offset = (n - target) // 2 if n >= target else -((target - n) // 2)
+    idx = torch.arange(target, device=device) + offset
+    valid = (idx >= 0) & (idx < n)
+    ratio = float(np.float32(eff) / np.float32(n))
+    src = (idx.to(torch.float32) + 0.5) * ratio - 0.5
+    i0 = torch.floor(src)
+    frac = src - i0
+    i0c = torch.clamp(i0, 0, eff - 1).long()
+    i1c = torch.clamp(i0 + 1, 0, eff - 1).long()
+    s = torch.arange(source, device=device)
+    # when i0c == i1c (edge clamp) the two weights add up to 1
+    w = (torch.where(s[None, :] == i0c[:, None], 1.0 - frac[:, None], 0.0)
+         + torch.where(s[None, :] == i1c[:, None], frac[:, None], 0.0))
+    if pad_mask_out:
+        w = w * valid[:, None]
+    return w.to(torch.float32), valid
+
+
+def resample_crop_pad(volume: torch.Tensor, spacing, cfg: PreprocessConfig, *,
+                      apply_window: bool = True, src_shape=None) -> torch.Tensor:
+    """Resample (d, h, w) to ``cfg.target_spacing`` and center crop/pad to
+    ``cfg.target_shape``; out-of-extent voxels get ``cfg.pad_value``.
+
+    ``spacing`` is the source voxel spacing (z, y, x) in mm; ``src_shape``
+    the true extents when ``volume`` is end-padded to a shape bucket."""
+    d, h, w = volume.shape
+    td, th, tw = cfg.target_shape
+    sp = [float(s) for s in torch.as_tensor(spacing).tolist()]
+    if src_shape is None:
+        true = (None, None, None)
+        ext = (d, h, w)
+    else:
+        true = tuple(int(s) for s in torch.as_tensor(src_shape).tolist())
+        ext = true
+    n = [_resampled_len(e, s, t) for e, s, t in zip(ext, sp, cfg.target_spacing)]
+    dev = volume.device
+    wd, vd = _interp_matrix(d, n[0], td, true_len=true[0], device=dev)
+    wh, vh = _interp_matrix(h, n[1], th, true_len=true[1], device=dev)
+    ww, vw = _interp_matrix(w, n[2], tw, true_len=true[2], device=dev)
+
+    x = volume.to(torch.float32)
+    x = torch.einsum("Dd,dhw->Dhw", wd, x)
+    x = torch.einsum("Hh,Dhw->DHw", wh, x)
+    x = torch.einsum("Ww,DHw->DHW", ww, x)
+    if apply_window:
+        x = hu_window(x, cfg)
+    valid = vd[:, None, None] & vh[None, :, None] & vw[None, None, :]
+    return torch.where(valid, x, torch.full_like(x, cfg.pad_value))
+
+
+def crop_or_pad(volume: torch.Tensor, target_shape: tuple[int, int, int],
+                pad_value: float) -> torch.Tensor:
+    """Center crop/pad each axis to ``target_shape`` (no resample)."""
+    out = volume
+    for axis, tgt in enumerate(target_shape):
+        size = out.shape[axis]
+        if size > tgt:
+            start = (size - tgt) // 2
+            out = out.narrow(axis, start, tgt)
+        elif size < tgt:
+            before = (tgt - size) // 2
+            pads = [0, 0] * out.ndim          # F.pad lists the last axis first
+            j = 2 * (out.ndim - 1 - axis)
+            pads[j], pads[j + 1] = before, tgt - size - before
+            out = F.pad(out, pads, value=pad_value)
+    return out
+
+
+def _as_tensor(x, device) -> torch.Tensor:
+    """A tensor stays where it is; an array goes to ``device``."""
+    return x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x), device=device)
+
+
+def preprocess_volume(raw, slope, intercept, spacing,
+                      cfg: PreprocessConfig = PreprocessConfig.train(),
+                      window_first: bool = False, src_shape=None,
+                      device="cuda") -> torch.Tensor:
+    """Train-path operator: raw (z, y, x) volume -> (1, D, H, W) model input.
+
+    ``window_first=True`` is the offline order (rescale -> window ->
+    resample); the default is the online order (rescale -> resample ->
+    window).  A raw array that is not a tensor yet is placed on ``device``."""
+    raw = _as_tensor(raw, device)
+    x = hu_rescale(raw.to(torch.float32), slope, intercept)
+    if window_first:
+        x = resample_crop_pad(hu_window(x, cfg), spacing, cfg, apply_window=False,
+                              src_shape=src_shape)
+    else:
+        x = resample_crop_pad(x, spacing, cfg, apply_window=True, src_shape=src_shape)
+    return x[None]
+
+
+def preprocess_volume_inference(vol, cfg: PreprocessConfig = PreprocessConfig.inference(),
+                                prescale: float = 1000.0, device="cuda") -> torch.Tensor:
+    """Inference-path operator: a pre-normalised (h, w, d) volume -> (1, D, H, W).
+
+    The input is multiplied back by ``prescale``, windowed to [-1000, 200]
+    and mapped by (x+400)/600, then center cropped/padded in (h, w, d) order
+    and permuted to (d, h, w)."""
+    vol = _as_tensor(vol, device)
+    x = hu_window(vol.to(torch.float32) * prescale, cfg)
+    th, tw, td = cfg.target_shape[1], cfg.target_shape[2], cfg.target_shape[0]
+    x = crop_or_pad(x, (th, tw, td), cfg.pad_value)
+    return x.permute(2, 0, 1).contiguous()[None]

@@ -1,0 +1,55 @@
+"""The port stands alone: ctpa_torch, chip_smoke.py and profile_zeroshot.py
+import neither JAX, flax nor anything of ctpa, build no kernel through
+PyTorch's C++ extension machinery, and call no library attention."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, importlib.util, pkgutil, sys
+
+BLOCKED = {"jax", "jaxlib", "flax", "optax", "ctpa"}
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked import of " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import ctpa_torch
+names = ["ctpa_torch"] + [m.name for m in pkgutil.walk_packages(ctpa_torch.__path__, "ctpa_torch.")]
+for name in names:
+    importlib.import_module(name)
+for script in ("chip_smoke", "profile_zeroshot"):
+    spec = importlib.util.spec_from_file_location(script, script + ".py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("imported", len(names), "modules")
+"""
+
+
+def test_port_imports_without_jax_or_ctpa():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "imported" in proc.stdout
+
+
+def test_port_sources_avoid_torch_extensions_and_library_attention():
+    py = list((ROOT / "ctpa_torch").rglob("*.py"))
+    cu = list((ROOT / "ctpa_torch" / "csrc").glob("*.cu"))
+    assert len(cu) == 2
+    banned_py = ("import torch.utils.cpp_extension", "from torch.utils.cpp_extension",
+                 "cpp_extension.load", "torch.compile(", "scaled_dot_product_attention(")
+    for path in py:
+        text = path.read_text()
+        assert not [b for b in banned_py if b in text], path
+    for path in cu:
+        assert "#include <torch/" not in path.read_text(), path
