@@ -1,23 +1,41 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's zero-shot serving path once on one CUDA card.
+"""Drive the PyTorch/CUDA port's zero-shot serving and contrastive training
+paths once on one CUDA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases, each printing its seconds:
-  1. card    — the device's name and nvidia-smi's name and power limit;
-  2. build   — nvcc builds every kernel under ctpa_torch/csrc/, with each
-               kernel's registers, shared memory and spills from -Xptxas -v;
-  3. kernels — each kernel against its plain PyTorch version at the shapes
-               the serving path gives it, then timed with CUDA events beside
-               its plain version, a one-call PyTorch yardstick where one
-               exists, and the card's bound for the same work;
-  4. serving — CTCLIP at the shipped geometry in bf16 with seeded random
-               weights: the 36 prompt latents are encoded once, then 4
-               inference-path requests and one train-path raw volume are
-               served; each request prints its latency, its 18
-               probabilities, its kernel launches and the peak memory;
-  5. plain   — the same requests through the model's plain paths (no hand
-               kernel), with the differences bounded.
+  1. card          — the device's name and nvidia-smi's name and power limit;
+  2. build         — nvcc builds every kernel under ctpa_torch/csrc/, with
+                     each kernel's registers, shared memory and spills from
+                     -Xptxas -v;
+  3. kernels       — K1 and the K2 forward against their plain PyTorch
+                     versions at the shapes the serving path gives them,
+                     then timed with CUDA events beside the plain version, a
+                     one-call PyTorch yardstick where one exists, and the
+                     card's bound for the same work;
+  4. serving       — CTCLIP at the shipped geometry in bf16 with seeded
+                     random weights: the 36 prompt latents are encoded once,
+                     then 4 inference-path requests and one train-path raw
+                     volume are served; each request prints its latency, its
+                     18 probabilities, its kernel launches and peak memory;
+  5. plain         — the same requests through the model's plain paths (no
+                     hand kernel), with the differences bounded;
+  6. train-kernels — K2 with its logsumexp and the four K3 backward passes
+                     against their plain versions at the training shapes
+                     (batch 2), bf16 and fp32, three bias forms and a ragged
+                     n; timed as in phase 3, beside the forward and backward
+                     of scaled_dot_product_attention as a yardstick;
+  7. training      — CTCLIP at the shipped geometry with fp32 parameters,
+                     bf16 autocast and block remat takes 4 AdamW steps
+                     through CTClipTrainer on 2 preprocessed synthetic
+                     volumes and 512-token reports; each step prints its
+                     wall time, loss, grad norm, temperature, peak memory
+                     and kernel launches;
+  8. train-plain   — the first step again from the same state with
+                     flash_axial off (no hand kernel), the loss and the
+                     spatial fold's gradients bounded against the kernel
+                     path's.
 
 The line before the last is nvidia-smi's "name, power.limit"; the one before
 that a JSON object with one entry per kernel.  The last line is
@@ -29,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
@@ -59,6 +78,22 @@ FP32_ATOL, FP32_RTOL = 1e-4, 1e-4
 PROB_ATOL = 2e-2
 PREVQ_LATENT_MIN_COS = 0.999
 VQ_LATENT_MIN_COS = 0.8
+# the logsumexp is fp32 in both dtypes and sums the same fp32 terms in
+# another order
+LSE_ATOL, LSE_RTOL = 1e-4, 1e-4
+
+# training: batch 2 (the reference fine-tune's), 512-token reports, 4 steps
+TRAIN_BATCH = 2
+TEXT_LEN = 512
+TRAIN_STEPS = 4
+TRAIN_SPACINGS = ((2.0, 0.75, 0.75), (1.5, 0.7, 0.7))
+RAGGED_N = 500
+# kernel path vs plain path, first step from one state: the spatial fold's
+# gradients point the same way (bf16 rounds at other places on the two
+# paths); the loss passes through the VQ, whose codes flip on bf16 noise,
+# so it is bounded loosely
+TRAIN_GRAD_MIN_COS = 0.99
+TRAIN_LOSS_ATOL = 0.05
 
 
 @contextlib.contextmanager
@@ -172,7 +207,7 @@ def check_kernels(dev) -> dict:
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=bb, scale=scale))
     nbytes = 4 * b * heads * n * d * 2 + heads * n * n * 2 + 4
     b_ms, b_by = bound_ms(nbytes, 4.0 * b * heads * n * n * d)
-    rows["flash_attention"] = dict(
+    rows["flash_attention_fwd"] = dict(
         name="flash_attention_fwd", route="cuda", source="ctpa_torch/csrc/flash_attention.cu",
         replaces="ctpa/ops/pallas/flash_attention.py:918", max_abs_err=k2_err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
@@ -235,12 +270,12 @@ def serve(model, vq, clf, requests, dev, dtype, expect_launches=None):
     (latent, probabilities, model input)."""
     import torch
 
-    from ctpa_torch.ops.flash_attention import flash_attention
+    from ctpa_torch.ops.flash_attention import LAUNCHES
     from ctpa_torch.ops.patchify import patchify_project
 
     results = []
     for label, preprocess in requests:
-        k1, k2 = patchify_project.launches, flash_attention.launches
+        k1, k2 = patchify_project.launches, LAUNCHES["flash_attention_fwd"]
         if dev != "cpu":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -251,7 +286,7 @@ def serve(model, vq, clf, requests, dev, dtype, expect_launches=None):
         if dev != "cpu":
             torch.cuda.synchronize()
         latency = time.perf_counter() - t0
-        launches = (patchify_project.launches - k1, flash_attention.launches - k2)
+        launches = (patchify_project.launches - k1, LAUNCHES["flash_attention_fwd"] - k2)
         peak = torch.cuda.max_memory_allocated() if dev != "cpu" else 0
         if not (torch.isfinite(latent).all() and torch.isfinite(probs).all()):
             raise AssertionError(f"{label}: non-finite output")
@@ -285,6 +320,324 @@ def compare_serving(model, plain, kernel_res, plain_res):
             raise AssertionError(f"request {i}: kernel path and plain path disagree")
 
 
+TRAIN_KERNELS = ("flash_attention_fwd_lse", "flash_attention_bwd_delta", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "flash_attention_bwd_dbias")
+ATTN_FAMILY = ("fmha", "flash", "attention", "attn", "cudnn", "sdp")
+
+
+def sdpa_backend(fn) -> str:
+    """The CUDA kernels one call of ``fn`` launches whose names look like
+    attention, from a profiler trace; "not seen" when the trace has none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({ev.name for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA
+                    and any(w in ev.name.lower() for w in ATTN_FAMILY)})
+    return "; ".join(n[:90] for n in names) or "not seen"
+
+
+def check_train_kernels(dev) -> dict:
+    """Phase 6: K2 with its logsumexp and the four K3 passes against their
+    plain versions at the training shapes, then timed (bf16, CPB-shaped
+    bias (h, n, m), flat softmax: the spatial fold's case)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ctpa_torch.core.config import CTViTConfig
+    from ctpa_torch.ops import flash_attention as fa
+    from ctpa_torch.ops.attention_ops import l2norm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    bf16 = torch.bfloat16
+    cfg = CTViTConfig()
+    b, heads, n, d = TRAIN_BATCH * cfg.temporal_tokens, cfg.heads, cfg.spatial_tokens, cfg.dim_head
+    scale = 8.0
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def inputs(n_q, bias_form, dtype):
+        q = l2norm(randn(b, heads, n_q, d)).to(dtype)
+        k = l2norm(randn(b, heads, n, d)).to(dtype)
+        v, do = randn(b, heads, n, d).to(dtype), randn(b, heads, n_q, d).to(dtype)
+        shape = {"h": (heads, n_q, n), "1": (1, n_q, n), "bh": (b, heads, n_q, n)}
+        bias = None if bias_form is None else (0.5 * randn(*shape[bias_form])).to(dtype)
+        return q, k, v, bias, do
+
+    cases = [("bias (h,n,m), bound", n, "h", True), ("bias (1,n,m), bound", n, "1", True),
+             ("bias (b,h,n,m), bound", n, "bh", True), ("bias (h,n,m), online softmax", n, "h", False),
+             ("no bias, online softmax", n, None, False),
+             (f"ragged n={RAGGED_N}, bias (h,n,m), bound", RAGGED_N, "h", True)]
+    errs = {}
+    for dtype, atol, rtol in ((bf16, BF16_ATOL, BF16_RTOL), (torch.float32, FP32_ATOL, FP32_RTOL)):
+        for label, n_q, form, with_bound in cases:
+            q, k, v, bias, do = inputs(n_q, form, dtype)
+            lb = (scale + bias.max().float()) if with_bound else None
+            tag = f"{dtype} {label}"
+            out, lse = fa.flash_attention(q, k, v, bias=bias, scale=scale, logit_bound=lb,
+                                          return_lse=True)
+            ref_out, ref_lse = fa.flash_attention_plain(q, k, v, bias, scale, lb, return_lse=True)
+            e = {"fwd": compare(f"flash_attention_fwd_lse out {tag}", out, ref_out, atol, rtol),
+                 "lse": compare(f"flash_attention_fwd_lse lse {tag}", lse, ref_lse,
+                                LSE_ATOL, LSE_RTOL)}
+            delta = fa.flash_attention_bwd_delta(out, do)
+            e["delta"] = compare(f"flash_attention_bwd_delta {tag}", delta,
+                                 fa.flash_attention_bwd_delta_plain(out, do), FP32_ATOL, FP32_RTOL)
+            args = (q, k, v, bias, lse, delta, do, scale)
+            e["dq"] = compare(f"flash_attention_bwd_dq {tag}", fa.flash_attention_bwd_dq(*args),
+                              fa.flash_attention_bwd_dq_plain(*args), atol, rtol)
+            (dk, dv), (rdk, rdv) = fa.flash_attention_bwd_dkv(*args), fa.flash_attention_bwd_dkv_plain(*args)
+            e["dkv"] = max(compare(f"flash_attention_bwd_dkv dk {tag}", dk, rdk, atol, rtol),
+                           compare(f"flash_attention_bwd_dkv dv {tag}", dv, rdv, atol, rtol))
+            if bias is not None:
+                e["dbias"] = compare(f"flash_attention_bwd_dbias {tag}",
+                                     fa.flash_attention_bwd_dbias(*args),
+                                     fa.flash_attention_bwd_dbias_plain(*args), atol, rtol)
+            if dtype == bf16 and label == cases[0][0]:
+                errs = e
+            del q, k, v, bias, do, out, lse, ref_out, ref_lse, delta, args
+
+    # timing at the spatial fold's case, bf16
+    q, k, v, bias, do = inputs(n, "h", bf16)
+    lb = scale + bias.max().float()
+    out, lse = fa.flash_attention(q, k, v, bias=bias, scale=scale, logit_bound=lb, return_lse=True)
+    delta = fa.flash_attention_bwd_delta(out, do)
+    args = (q, k, v, bias, lse, delta, do, scale)
+    timed = {
+        "flash_attention_fwd_lse": (
+            lambda: fa.flash_attention(q, k, v, bias=bias, scale=scale, logit_bound=lb,
+                                       return_lse=True),
+            lambda: fa.flash_attention_plain(q, k, v, bias, scale, lb, return_lse=True)),
+        "flash_attention_bwd_delta": (lambda: fa.flash_attention_bwd_delta(out, do),
+                                      lambda: fa.flash_attention_bwd_delta_plain(out, do)),
+        "flash_attention_bwd_dq": (lambda: fa.flash_attention_bwd_dq(*args),
+                                   lambda: fa.flash_attention_bwd_dq_plain(*args)),
+        "flash_attention_bwd_dkv": (lambda: fa.flash_attention_bwd_dkv(*args),
+                                    lambda: fa.flash_attention_bwd_dkv_plain(*args)),
+        "flash_attention_bwd_dbias": (lambda: fa.flash_attention_bwd_dbias(*args),
+                                      lambda: fa.flash_attention_bwd_dbias_plain(*args)),
+    }
+    # yardsticks, never called by the port: the library forward, and its
+    # forward plus backward with a bias that requires grad
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias[None])]
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=scale)
+        torch.autograd.grad(o, leaves, grad_outputs=do)
+
+    lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                                                scale=scale))
+    lib_fwd_bwd_ms = cuda_ms(sdpa_fwd_bwd)
+    backend = sdpa_backend(sdpa_fwd_bwd)
+    print(f"  scaled_dot_product_attention forward {lib_fwd_ms:.4f} ms, forward+backward "
+          f"{lib_fwd_bwd_ms:.4f} ms (bias requires grad); its kernels: {backend}")
+
+    # bytes each function must move and the operations it does (bf16 = 2 bytes)
+    qkv = b * heads * n * d * 2                       # one of q, k, v, out, dO, dq, ...
+    rowf = b * heads * n * 4                          # one fp32 (b, h, n) row vector
+    slab = heads * n * n * 2                          # the (h, n, m) bias
+    prod = 2.0 * b * heads * n * n * d                # one (n, m, d) product, all slabs
+    work = {"flash_attention_fwd_lse": (4 * qkv + slab + rowf + 4, 2 * prod),
+            "flash_attention_bwd_delta": (2 * qkv + rowf, 2.0 * b * heads * n * d),
+            "flash_attention_bwd_dq": (5 * qkv + slab + 2 * rowf, 3 * prod),
+            "flash_attention_bwd_dkv": (6 * qkv + slab + 2 * rowf, 4 * prod),
+            "flash_attention_bwd_dbias": (4 * qkv + 2 * slab + 2 * rowf, 2 * prod)}
+    sources = {"flash_attention_fwd_lse": ("ctpa_torch/csrc/flash_attention.cu",
+                                           "ctpa/ops/pallas/flash_attention.py:270"),
+               "flash_attention_bwd_delta": ("ctpa_torch/csrc/flash_attention_bwd.cu",
+                                             "ctpa/ops/pallas/flash_attention.py:597"),
+               "flash_attention_bwd_dq": ("ctpa_torch/csrc/flash_attention_bwd.cu",
+                                          "ctpa/ops/pallas/flash_attention.py:505"),
+               "flash_attention_bwd_dkv": ("ctpa_torch/csrc/flash_attention_bwd.cu",
+                                           "ctpa/ops/pallas/flash_attention.py:451"),
+               "flash_attention_bwd_dbias": ("ctpa_torch/csrc/flash_attention_bwd.cu",
+                                             "ctpa/ops/pallas/flash_attention.py:550")}
+    err_key = {"flash_attention_fwd_lse": "fwd", "flash_attention_bwd_delta": "delta",
+               "flash_attention_bwd_dq": "dq", "flash_attention_bwd_dkv": "dkv",
+               "flash_attention_bwd_dbias": "dbias"}
+    rows = {}
+    for name in TRAIN_KERNELS:
+        kernel_fn, plain_fn = timed[name]
+        ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
+        b_ms, b_by = bound_ms(*work[name])
+        lib_ms = lib_fwd_ms if name == "flash_attention_fwd_lse" else None
+        source, replaces = sources[name]
+        rows[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
+                          max_abs_err=max(errs[err_key[name]], errs["lse"])
+                          if name == "flash_attention_fwd_lse" else errs[err_key[name]],
+                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=lib_ms)
+        print(f"  {name}: {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms * 1e3:.1f} us "
+              f"({b_by}: {work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.2f} GFLOP)  "
+              f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    k3 = sum(rows[name]["ms"] for name in TRAIN_KERNELS[1:])
+    print(f"  K3 in all (delta + dq + dkv + dbias): {k3:.4f} ms; scaled_dot_product_attention "
+          f"forward+backward {lib_fwd_bwd_ms:.4f} ms")
+    return rows
+
+
+def spatial_fold_grads(model) -> dict:
+    """Gradients of the parameters whose gradient passes through the flash
+    kernels: the spatial fold's attention projections and scales and the
+    CPB MLP.  The CPB's to_heads.bias is left out: it shifts every logit of
+    a head alike, so softmax ignores it and its gradient is zero up to
+    rounding noise."""
+    out = {}
+    for name, p in model.named_parameters():
+        attn = "enc_spatial_transformer" in name and any(
+            key in name for key in ("attn.to_q", "attn.to_kv", "attn.q_scale", "attn.k_scale"))
+        if attn or ("spatial_rel_pos_bias" in name and not name.endswith("to_heads.bias")):
+            out[name] = p.grad.detach().float().clone()
+    return out
+
+
+def build_training(dev, flash_axial: bool):
+    """CTCLIP at the shipped geometry for training: fp32 parameters, block
+    remat, the plain patch embed (the patchify kernel is forward-only)."""
+    import torch
+
+    from ctpa_torch.core.config import BertConfig, CTCLIPConfig, CTViTConfig
+    from ctpa_torch.models.ctclip import CTCLIP
+
+    vit_cfg = dataclasses.replace(CTViTConfig(), flash_axial=flash_axial, pallas_patchify=False)
+    return CTCLIP(CTCLIPConfig(), vit_cfg, BertConfig(), device=dev, dtype=torch.float32,
+                  remat=True)
+
+
+def make_train_batch(model, dev) -> dict:
+    """2 synthetic raw (160, 512, 512) volumes at two spacings, preprocessed
+    on the card by preprocess_batch, and random 512-token reports."""
+    import torch
+
+    from ctpa_torch.core.config import PreprocessConfig
+    from ctpa_torch.ops.preprocess import preprocess_batch
+
+    vit_cfg = model.visual_transformer.cfg
+    grid = (vit_cfg.temporal_size, vit_cfg.image_size, vit_cfg.image_size)
+    cfg = dataclasses.replace(PreprocessConfig.train(), target_shape=grid)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    raws = torch.randint(-24, 3000, (TRAIN_BATCH,) + RAW_SHAPE, generator=gen,
+                         device=dev).to(torch.float32)
+    video = preprocess_batch(raws, [1.0] * TRAIN_BATCH, [-1024.0] * TRAIN_BATCH,
+                             TRAIN_SPACINGS, cfg, device=dev)
+    vocab = model.text_transformer.cfg.vocab_size
+    ids = torch.randint(1, vocab, (TRAIN_BATCH, TEXT_LEN), generator=gen, device=dev)
+    return {"input_ids": ids, "attention_mask": torch.ones_like(ids), "video": video}
+
+
+def train(dev, rows: dict):
+    """Phase 7: 4 steps through CTClipTrainer.  Returns the first step's loss,
+    its spatial-fold gradients, the initial parameters and VQ state, and the
+    batch."""
+    import torch
+
+    from ctpa_torch.core.config import OptimizerConfig, TrainConfig
+    from ctpa_torch.core.init import random_init_
+    from ctpa_torch.ops.flash_attention import LAUNCHES
+    from ctpa_torch.ops.vq import VQState, vq_init
+    from ctpa_torch.train.clip_trainer import CTClipTrainer
+    from ctpa_torch.train.optim import get_optimizer
+    from ctpa_torch.train.train_state import CLIPTrainState
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = random_init_(build_training(dev, flash_axial=True), gen)
+    vit_cfg = model.visual_transformer.cfg
+    vq = vq_init(gen, vit_cfg.codebook_size, vit_cfg.dim, device=dev)
+    start = ({k: v.clone() for k, v in model.state_dict().items()},
+             VQState(*(t.clone() for t in vq)))
+    batch = make_train_batch(model, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  CTCLIP: {n_params / 1e6:.1f} M parameters (fp32), batch {TRAIN_BATCH}, "
+          f"video {tuple(batch['video'].shape)}, text {tuple(batch['input_ids'].shape)}")
+    # each step sees the batch with a small shift of the volumes, as
+    # bench_clip_train.py does
+    loader = (dict(batch, video=batch["video"] + 1e-3 * i) for i in itertools.count())
+    cfg = TrainConfig(precision="bf16", results_dir="build/chip_smoke/results",
+                      checkpoint_dir="build/chip_smoke/checkpoints")
+    opt_cfg = OptimizerConfig()
+    state = CLIPTrainState.create(model, get_optimizer(opt_cfg, model), vq)
+    trainer = CTClipTrainer(model, state, loader, cfg=cfg, opt_cfg=opt_cfg)
+    expect = dict.fromkeys(LAUNCHES, 0)
+    expect["flash_attention_fwd_lse"] = 2 * vit_cfg.spatial_depth     # remat runs it twice
+    for name in TRAIN_KERNELS[1:]:
+        expect[name] = vit_cfg.spatial_depth
+    torch.cuda.synchronize()
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    first = None
+    for i in range(TRAIN_STEPS):
+        before = dict(LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m = {k: float(v) for k, v in metrics.items()}
+        launched = {key: LAUNCHES[key] - before[key] for key in LAUNCHES}
+        print(f"  step {i}: wall {wall * 1e3:.1f} ms  loss {m['loss']:.6f}  grad norm "
+              f"{m['grad_norm']:.6f}  temperature {m['temperature']:.6f}  vq commit "
+              f"{m['vq_commit']:.6f}  peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        print("    launches " + " ".join(f"{k.removeprefix('flash_attention_')} {v}"
+                                         for k, v in launched.items()))
+        if not math.isfinite(m["loss"]) or not m["grad_norm"] > 0:
+            raise AssertionError(f"step {i}: loss {m['loss']}, grad norm {m['grad_norm']}")
+        if launched != expect:
+            raise AssertionError(f"step {i}: launches {launched}, expected {expect}")
+        if i == 0:
+            first = (m["loss"], spatial_fold_grads(model))
+    print(f"  main path ({TRAIN_STEPS} steps): " + " ".join(
+        f"{k} {LAUNCHES[k]}" for k in TRAIN_KERNELS))
+    for name in TRAIN_KERNELS:
+        rows[name]["launches"] = LAUNCHES[name]
+        if LAUNCHES[name] == 0:
+            raise AssertionError(f"{name} never launched on the training path")
+    return first, start, batch
+
+
+def train_plain(dev, first, start, batch) -> None:
+    """Phase 8: the first step from the same state with flash_axial off."""
+    import torch
+
+    from ctpa_torch.core.config import OptimizerConfig
+    from ctpa_torch.core.precision import Policy
+    from ctpa_torch.ops.flash_attention import LAUNCHES
+    from ctpa_torch.train.clip_trainer import make_clip_train_step
+    from ctpa_torch.train.optim import get_optimizer
+    from ctpa_torch.train.train_state import CLIPTrainState
+
+    params, vq = start
+    model = build_training(dev, flash_axial=False)
+    model.load_state_dict(params)
+    tx = get_optimizer(OptimizerConfig(), model)
+    step = make_clip_train_step(model, tx, vq_decay=model.visual_transformer.cfg.vq_decay,
+                                policy=Policy())
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    _, m = step(CLIPTrainState.create(model, tx, vq), batch)
+    torch.cuda.synchronize()
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"the plain path launched hand kernels: {LAUNCHES}")
+    loss_k, grads_k = first
+    loss_p = float(m["loss"])
+    print(f"  loss: kernel path {loss_k:.6f}, plain path {loss_p:.6f}, |diff| "
+          f"{abs(loss_k - loss_p):.3e} (<= {TRAIN_LOSS_ATOL})")
+    worst = 1.0
+    for name, g in spatial_fold_grads(model).items():
+        cos = torch.nn.functional.cosine_similarity(grads_k[name].flatten(), g.flatten(),
+                                                    dim=0).item()
+        worst = min(worst, cos)
+        print(f"  grad cos {cos:.6f}  {name}")
+    print(f"  spatial-fold gradients: min cosine {worst:.6f} (>= {TRAIN_GRAD_MIN_COS}) over "
+          f"{len(grads_k)} tensors")
+    if abs(loss_k - loss_p) > TRAIN_LOSS_ATOL or worst < TRAIN_GRAD_MIN_COS:
+        raise AssertionError("training step: kernel path and plain path disagree")
+
+
 def main() -> int:
     import torch
 
@@ -293,7 +646,7 @@ def main() -> int:
         return 1
     from ctpa_torch.core.config import BertConfig, CTCLIPConfig, CTViTConfig
     from ctpa_torch.kernels import build
-    from ctpa_torch.ops.flash_attention import flash_attention
+    from ctpa_torch.ops.flash_attention import LAUNCHES
     from ctpa_torch.ops.patchify import patchify_project
 
     dev = "cuda"
@@ -326,15 +679,16 @@ def main() -> int:
             requests = make_requests(vit_cfg, dev, N_REQUESTS, INFER_SHAPE, RAW_SHAPE)
             torch.cuda.synchronize()
             patchify_project.launches = 0
-            flash_attention.launches = 0
+            for key in LAUNCHES:
+                LAUNCHES[key] = 0
             kernel_res = serve(model, vq, clf, requests, dev, dtype,
                                expect_launches=(1, vit_cfg.spatial_depth))
             rows["patchify_project"]["launches"] = patchify_project.launches
-            rows["flash_attention"]["launches"] = flash_attention.launches
+            rows["flash_attention_fwd"]["launches"] = LAUNCHES["flash_attention_fwd"]
             print(f"  main path: patchify_project launched {patchify_project.launches} times, "
-                  f"flash_attention {flash_attention.launches} times for "
+                  f"flash_attention_fwd {LAUNCHES['flash_attention_fwd']} times for "
                   f"{len(requests)} volumes")
-            for key in ("patchify_project", "flash_attention"):
+            for key in ("patchify_project", "flash_attention_fwd"):
                 if rows[key]["launches"] == 0:
                     raise AssertionError(f"{key} never launched on the main path")
 
@@ -346,10 +700,23 @@ def main() -> int:
             plain.load_state_dict(model.state_dict())
             plain_res = serve(plain, vq, clf, requests, dev, dtype, expect_launches=(0, 0))
             compare_serving(model, plain, kernel_res, plain_res)
+        del model, plain, clf, kernel_res, plain_res, requests
+    torch.cuda.empty_cache()
+
+    # training runs outside inference_mode
+    with phase("train-kernels"):
+        rows.update(check_train_kernels(dev))
+    torch.cuda.empty_cache()
+    with phase("training"):
+        first, start, batch = train(dev, rows)
+    torch.cuda.empty_cache()
+    with phase("train-plain"):
+        train_plain(dev, first, start, batch)
 
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{key: rows[k][key] for key in order} for k in ("patchify_project", "flash_attention")]
+    kernels = [{key: rows[k][key] for key in order}
+               for k in ("patchify_project", "flash_attention_fwd") + TRAIN_KERNELS]
     for row in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(row[key]):

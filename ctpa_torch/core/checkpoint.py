@@ -1,0 +1,66 @@
+"""Checkpoint / resume (port of ``ctpa/core/checkpoint.py``).
+
+ctpa keeps a step-indexed orbax store; the port keeps the methods the
+CLIP trainer uses on ``torch.save``/``torch.load``: one ``<step>/state.pt``
+per step under the directory, the newest ``max_to_keep`` kept.  Writes are
+synchronous, so ``wait`` and ``close`` have nothing to do.  The JSON
+metadata beside a step waits for the report trainer's slice.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+from typing import Any, Optional
+
+import torch
+
+_STATE = "state.pt"
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, max_to_keep: int = 5):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _dir(self, step: int) -> str:
+        return os.path.join(self.directory, str(step))
+
+    def save(self, step: int, state: Any, force: bool = False) -> None:
+        """Write ``state`` (anything ``torch.save`` takes) as step ``step``;
+        an existing step is overwritten only with ``force``."""
+        path = self._dir(step)
+        if os.path.exists(path) and not force:
+            raise FileExistsError(f"checkpoint step {step} exists in {self.directory}")
+        tmp = path + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(state, os.path.join(tmp, _STATE))
+        shutil.rmtree(path, ignore_errors=True)
+        os.replace(tmp, path)
+        for old in self.all_steps()[:-self.max_to_keep]:
+            shutil.rmtree(self._dir(old))
+
+    def restore(self, step: Optional[int] = None, map_location=None) -> Any:
+        """The state saved at ``step`` (the latest by default), or None when
+        there is none; the caller loads it into its own objects."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        return torch.load(os.path.join(self._dir(step), _STATE), map_location=map_location,
+                          weights_only=False)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def all_steps(self) -> list[int]:
+        return sorted(int(name) for name in os.listdir(self.directory) if name.isdigit()
+                      and os.path.exists(os.path.join(self.directory, name, _STATE)))
+
+    def wait(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

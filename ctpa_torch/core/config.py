@@ -1,7 +1,8 @@
-"""Typed configuration of the serving slice — an own copy of the dataclasses
-of ``ctpa/core/config.py`` that this package needs (the port imports nothing
-of ``ctpa``).  Field names and defaults are the same, so a ``ctpa`` config
-maps field by field; the training-only fields wait for the training slice.
+"""Typed configuration — an own copy of the dataclasses of
+``ctpa/core/config.py`` that this package needs (the port imports nothing of
+``ctpa``).  Field names and defaults are the same, so a ``ctpa`` config maps
+field by field; fields of parts not ported yet (dropout, the decoder, the
+fused encoder, the LLM) are left out.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ class CTViTConfig:
     # project self-attention K/V from the LayerNormed tokens (False keeps the
     # reference quirk: K/V from the un-normalized input)
     attn_kv_from_normed: bool = False
+    vq_decay: float = 0.99          # EMA codebook decay
     # route the spatial fold's attention through the flash-attention kernel
     # (csrc/flash_attention.cu) on CUDA tensors
     flash_axial: bool = False
@@ -104,15 +106,49 @@ class BertConfig:
 
 @dataclass(frozen=True)
 class CTCLIPConfig:
-    """Dual-encoder CLIP, serving fields."""
+    """Dual-encoder CLIP.  The port trains the shipped form: the FILIP,
+    CLOOB, downsample and MLM switches raise in ``models/ctclip.py`` until
+    their slice lands."""
 
     dim_latent: int = 512
     dim_text: int = 768
     dim_image: int = 294912         # 24*24*512 after temporal mean-pool + flatten
     temperature_init: float = 1.0   # log-temperature, exp'd at use
+    decoupled_contrastive_learning: bool = False
+    extra_latent_projection: bool = False   # CLOOB-style
+    downsample_image_embeds: bool = False
+    use_all_token_embeds: bool = False      # FILIP
+    use_mlm: bool = False
 
     @staticmethod
     def tiny(vit: CTViTConfig, bert: BertConfig) -> "CTCLIPConfig":
         s = vit.image_size // vit.patch_size
         return CTCLIPConfig(dim_latent=32, dim_text=bert.hidden_size,
                             dim_image=s * s * vit.dim)
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """AdamW with weight decay on parameters of ndim >= 2 only, global-norm
+    gradient clipping and a per-step learning rate."""
+
+    name: str = "adamw"             # 'adam' (wd=0) or 'adamw'
+    lr: float = 1.25e-6
+    weight_decay: float = 1e-2      # applied only to params with ndim >= 2
+    betas: tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    grad_clip_norm: float = 0.5
+    schedule: str = "constant"      # constant | cosine_warmup_restarts | onecycle | cosine
+    warmup_steps: int = 10000
+    total_steps: int = 100001
+    min_lr_ratio: float = 0.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    num_train_steps: int = 100001
+    save_model_every: int = 2000
+    save_results_every: int = 2000
+    precision: str = "bf16"         # activations/compute dtype; params fp32
+    results_dir: str = "results"
+    checkpoint_dir: str = "checkpoints"

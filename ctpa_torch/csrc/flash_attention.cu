@@ -6,6 +6,16 @@
 //
 //   out = softmax(scale * q k^T + bias) v
 //
+// and, for the backward (flash_attention_bwd.cu), optionally the fp32 row
+// logsumexp of the post-scale, post-bias logits s:
+//
+//   lse_i = log sum_j exp(s_ij) = shift_i + log sum_j exp(s_ij - shift_i)
+//
+// with shift_i the bound (flat softmax) or the row max (online softmax).  It
+// costs one store per row; the serving launch passes no lse buffer.  ctpa's
+// bound-relative lse and spare-lane denominator are TPU lane tricks and are
+// not carried over.
+//
 // with an optional additive bias shaped (h, n, m), (1, n, m) or (b, h, n, m)
 // (given to the kernel as two strides), non-causal, fp32 accumulation and
 // bf16 or fp32 inputs.  With a logit bound B (a device scalar that bounds
@@ -21,8 +31,10 @@
 // MB in all, 10.0 us at 3.35 TB/s; the 4 * 24 * 8 * 576^2 * 32 = 8.15 GFLOP
 // take 8.2 us at the bf16 tensor-core rate.  The two are close; the bytes
 // set the floor, and a kernel near it must also run its products on the
-// tensor cores.  This first version runs them on the fp32 FMA units and
-// stays well above the floor; mma/wgmma tiles are later work.
+// tensor cores.  At the training shape (48 slabs at batch 2, with the lse)
+// it is 62.8 MB and 16.3 GFLOP, 18.8 us, again set by the bytes.  This
+// first version runs the products on the fp32 FMA units and stays well
+// above the floor; mma/wgmma tiles are later work.
 //
 // Design: one thread owns one query row (q, the accumulator and the softmax
 // statistics stay in registers); a block of 64 rows walks the keys in tiles
@@ -55,7 +67,7 @@ __global__ void __launch_bounds__(kBQ)
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const T* __restrict__ bias,
                            const float* __restrict__ bound, T* __restrict__ out,
-                           int heads, int n, int m, int bias_stride_b,
+                           float* __restrict__ lse, int heads, int n, int m, int bias_stride_b,
                            int bias_stride_h, float scale) {
   const int bh = blockIdx.x;
   const int b = bh / heads;
@@ -156,59 +168,78 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (live) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
+    const float lc = fmaxf(l, 1e-30f);
+    const float inv = 1.f / lc;
     T* o = out + (long long)(bh * (long long)n + row) * D;
 #pragma unroll
     for (int d = 0; d < D; ++d) o[d] = from_float<T>(acc[d] * inv);
+    if (lse != nullptr) lse[(long long)bh * n + row] = (flat ? shift_flat : m_run) + logf(lc);
   }
 }
 
 template <typename T, int D>
 void launch(const void* q, const void* k, const void* v, const void* bias, const void* bound,
-            void* out, int batch, int heads, int n, int m, int bias_stride_b,
+            void* out, void* lse, int batch, int heads, int n, int m, int bias_stride_b,
             int bias_stride_h, float scale, cudaStream_t st) {
   const dim3 grid(batch * heads, (n + kBQ - 1) / kBQ);
   flash_attention_fwd_kernel<T, D><<<grid, kBQ, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(bias), static_cast<const float*>(bound), static_cast<T*>(out),
-      heads, n, m, bias_stride_b, bias_stride_h, scale);
+      static_cast<float*>(lse), heads, n, m, bias_stride_b, bias_stride_h, scale);
 }
 
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, const void* bias, const void* bound,
-             void* out, int batch, int heads, int n, int m, int d, int bias_stride_b,
-             int bias_stride_h, float scale, cudaStream_t st) {
+             void* out, void* lse, int batch, int heads, int n, int m, int d,
+             int bias_stride_b, int bias_stride_h, float scale, cudaStream_t st) {
   switch (d) {
     case 16:
-      launch<T, 16>(q, k, v, bias, bound, out, batch, heads, n, m, bias_stride_b, bias_stride_h, scale, st);
+      launch<T, 16>(q, k, v, bias, bound, out, lse, batch, heads, n, m, bias_stride_b, bias_stride_h, scale, st);
       return 0;
     case 32:
-      launch<T, 32>(q, k, v, bias, bound, out, batch, heads, n, m, bias_stride_b, bias_stride_h, scale, st);
+      launch<T, 32>(q, k, v, bias, bound, out, lse, batch, heads, n, m, bias_stride_b, bias_stride_h, scale, st);
       return 0;
     case 64:
-      launch<T, 64>(q, k, v, bias, bound, out, batch, heads, n, m, bias_stride_b, bias_stride_h, scale, st);
+      launch<T, 64>(q, k, v, bias, bound, out, lse, batch, heads, n, m, bias_stride_b, bias_stride_h, scale, st);
       return 0;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+int launch_any(const void* q, const void* k, const void* v, const void* bias, const void* bound,
+               void* out, void* lse, int batch, int heads, int n, int m, int d,
+               int bias_stride_b, int bias_stride_h, float scale, int is_bf16, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rc = is_bf16
+                     ? launch_d<__nv_bfloat16>(q, k, v, bias, bound, out, lse, batch, heads, n, m,
+                                               d, bias_stride_b, bias_stride_h, scale, st)
+                     : launch_d<float>(q, k, v, bias, bound, out, lse, batch, heads, n, m, d,
+                                       bias_stride_b, bias_stride_h, scale, st);
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 when the launch was
-// accepted).  `bias` and `bound` may be null.  The caller has checked:
+// Both launch on `stream` and return cudaGetLastError() (0 when the launch
+// was accepted).  `bias` and `bound` may be null.  The caller has checked:
 // d in {16, 32, 64}, contiguous buffers, bias strides in elements.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                           const void* bias, const void* bound, void* out,
                                           int batch, int heads, int n, int m, int d,
                                           int bias_stride_b, int bias_stride_h, float scale,
                                           int is_bf16, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rc = is_bf16
-                     ? launch_d<__nv_bfloat16>(q, k, v, bias, bound, out, batch, heads, n, m, d,
-                                               bias_stride_b, bias_stride_h, scale, st)
-                     : launch_d<float>(q, k, v, bias, bound, out, batch, heads, n, m, d,
-                                       bias_stride_b, bias_stride_h, scale, st);
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
+  return launch_any(q, k, v, bias, bound, out, nullptr, batch, heads, n, m, d, bias_stride_b,
+                    bias_stride_h, scale, is_bf16, stream);
+}
+
+// The same with the fp32 (b, h, n) row logsumexp written to `lse`.
+extern "C" int flash_attention_fwd_lse_launch(const void* q, const void* k, const void* v,
+                                              const void* bias, const void* bound, void* out,
+                                              void* lse, int batch, int heads, int n, int m,
+                                              int d, int bias_stride_b, int bias_stride_h,
+                                              float scale, int is_bf16, void* stream) {
+  return launch_any(q, k, v, bias, bound, out, lse, batch, heads, n, m, d, bias_stride_b,
+                    bias_stride_h, scale, is_bf16, stream);
 }

@@ -4,8 +4,10 @@ encoding, QK-l2norm cosine attention with learned scales, the continuous
 position bias, pre-norm residual blocks.
 
 Every module takes ``device`` and ``dtype``; parameters live in that dtype.
-Cross-attention (null key/values, a context input) belongs to the report
-generator's slice and is not ported yet.
+``Transformer(remat=True)`` recomputes each block in the backward
+(``torch.utils.checkpoint``), as ctpa's ``nn.remat``.  Cross-attention (null
+key/values, a context input) belongs to the report generator's slice and is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ctpa_torch.ops.attention_ops import (
     continuous_position_bias_grid,
@@ -186,9 +189,10 @@ class Transformer(nn.Module):
     def __init__(self, dim: int, depth: int, heads: int = 8, dim_head: int = 32,
                  ff_mult: int = 4, peg: bool = False, peg_causal: bool = True,
                  peg_reference_layout: bool = False, use_flash: bool = False,
-                 kv_from_normed: bool = False, device=None, dtype=None):
+                 kv_from_normed: bool = False, remat: bool = False, device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
+        self.remat = remat
         self.pegs = nn.ModuleList(
             [PEG(dim, causal=peg_causal, reference_layout=peg_reference_layout, **fk)
              for _ in range(depth)] if peg else [])
@@ -201,5 +205,8 @@ class Transformer(nn.Module):
         for i, block in enumerate(self.blocks):
             if self.pegs:
                 x = self.pegs[i](x, shape3d, fold)
-            x = block(x, mask=mask, bias=bias)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, mask, bias, use_reentrant=False)
+            else:
+                x = block(x, mask=mask, bias=bias)
         return self.norm_out(x)

@@ -1,6 +1,7 @@
 """BERT text encoder (port of ``ctpa/models/bert.py``), HF BertModel geometry.
 Attention is plain scaled dot-product with an fp32 softmax; no hand-written
-kernel is involved.  LoRA overlays and the MLM head belong to later slices."""
+kernel is involved.  ``remat`` recomputes each layer in the backward, as
+ctpa's ``nn.remat``.  LoRA overlays and the MLM head belong to later slices."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ctpa_torch.core.config import BertConfig
 
@@ -76,10 +78,11 @@ class BertLayer(nn.Module):
 class BertEncoder(nn.Module):
     """forward(input_ids, attention_mask) -> (last_hidden_state, CLS embedding)."""
 
-    def __init__(self, cfg: BertConfig, device="cuda", dtype=torch.float32):
+    def __init__(self, cfg: BertConfig, device="cuda", dtype=torch.float32, remat: bool = False):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         self.cfg = cfg
+        self.remat = remat
         self.embeddings = BertEmbeddings(cfg, **fk)
         self.layers = nn.ModuleList([BertLayer(cfg, **fk) for _ in range(cfg.num_layers)])
 
@@ -90,5 +93,8 @@ class BertEncoder(nn.Module):
         neg = torch.finfo(torch.float32).min
         bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, neg).to(torch.float32)
         for layer in self.layers:
-            x = layer(x, bias)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, bias, use_reentrant=False)
+            else:
+                x = layer(x, bias)
         return x, x[:, 0]

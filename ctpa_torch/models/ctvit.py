@@ -60,9 +60,12 @@ class PatchEmbed3D(nn.Module):
 class CTViT(nn.Module):
     """forward(video, vq_state) -> (tokens, VQOutput | None); video is
     (b, c, T, H, W) and tokens (b, t, h, w, d), quantized when a VQ state is
-    given and ``cfg.use_vq``."""
+    given and ``cfg.use_vq`` (straight-through in the backward).  ``remat``
+    recomputes each transformer block in the backward.  Training keeps
+    ``cfg.pallas_patchify`` off: the patchify kernel is forward-only."""
 
-    def __init__(self, cfg: CTViTConfig, device="cuda", dtype=torch.float32):
+    def __init__(self, cfg: CTViTConfig, device="cuda", dtype=torch.float32,
+                 remat: bool = False):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         self.cfg = cfg
@@ -70,7 +73,7 @@ class CTViT(nn.Module):
         self.spatial_rel_pos_bias = ContinuousPositionBias(cfg.dim, cfg.heads, **fk)
         tkw = dict(dim=cfg.dim, heads=cfg.heads, dim_head=cfg.dim_head, ff_mult=cfg.ff_mult,
                    peg=True, peg_causal=True, peg_reference_layout=cfg.peg_reference_layout,
-                   kv_from_normed=cfg.attn_kv_from_normed, **fk)
+                   kv_from_normed=cfg.attn_kv_from_normed, remat=remat, **fk)
         # the 576-token spatial fold goes through the flash kernel with
         # flash_axial; the 24-token temporal fold stays plain
         self.enc_spatial_transformer = Transformer(depth=cfg.spatial_depth,

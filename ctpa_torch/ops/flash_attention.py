@@ -1,16 +1,26 @@
-"""Flash-attention forward (kernel K2).
+"""Flash attention: the forward (kernel K2) and the backward (kernel K3).
 
-Replaces the forward of the TPU kernel
-``ctpa/ops/pallas/flash_attention.py:flash_attention``.  The CUDA kernel is
-``ctpa_torch/csrc/flash_attention.cu`` (its header states the bound it
-faces on the H100 and what its design does about it).  ``flash_attention``
-launches it for CUDA tensors and takes the plain PyTorch version,
-``flash_attention_plain``, only for CPU tensors.
+Replaces the TPU kernel ``ctpa/ops/pallas/flash_attention.py:flash_attention``
+(forward, ``_flash_call``) and its custom-VJP backward (``_flash_bwd``).  The
+CUDA kernels are ``ctpa_torch/csrc/flash_attention.cu`` (forward, optionally
+with the row logsumexp) and ``ctpa_torch/csrc/flash_attention_bwd.cu`` (the
+delta pre-pass, dQ, dK/dV and d(bias)); each file's header states the bound
+it faces on the H100 and what its design does about it.  The wrappers launch
+them for CUDA tensors and take the plain PyTorch versions
+(``flash_attention_plain``, ``flash_attention_bwd_plain`` and one
+``*_plain`` per backward pass) only for CPU tensors.
 
-Ported: bias in its three broadcast forms, non-causal, ``scale``,
-``logit_bound`` (flat softmax), fp32 accumulation, bf16 and fp32 inputs.
-``causal``, ``q_offset``, ``kv_mask`` and returning the logsumexp come with
-the report-generation and training slices; until then they raise.
+``flash_attention`` goes through a ``torch.autograd.Function`` whenever grad
+mode is on and q, k, v or the bias requires grad: its forward launches the
+logsumexp variant of K2 and its backward launches K3.  ``logit_bound`` and
+the returned logsumexp carry no gradient (softmax is invariant to the
+shift, as in ctpa).
+
+Ported: bias in its three broadcast forms (the per-item ``(b, h, n, m)``
+bias gets its gradient from the same kernels, with no batch sum), ``scale``,
+``logit_bound`` (flat softmax), the logsumexp output, fp32 accumulation,
+bf16 and fp32 inputs.  ``causal``, ``q_offset`` and ``kv_mask`` come with the
+report-generation slice; until then they raise.
 """
 
 from __future__ import annotations
@@ -19,10 +29,17 @@ import math
 
 import torch
 
+from ctpa_torch.core.precision import full_precision
 from ctpa_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (16, 32, 64)
+
+# launches of each CUDA kernel, under the name chip_smoke.py reports it by;
+# a wrapper adds one where it launches, and nowhere else
+LAUNCHES = dict.fromkeys(("flash_attention_fwd", "flash_attention_fwd_lse",
+                          "flash_attention_bwd_delta", "flash_attention_bwd_dq",
+                          "flash_attention_bwd_dkv", "flash_attention_bwd_dbias"), 0)
 
 
 def _bias_strides(bias, b, h, n, m):
@@ -35,6 +52,16 @@ def _bias_strides(bias, b, h, n, m):
         return 0, 0
     raise ValueError(f"bias {tuple(bias.shape)} is none of (h, n, m), (1, n, m), "
                      f"(b, h, n, m) for q/k of ({b}, {h}, {n}/{m})")
+
+
+def _bias_items(bias, b, h):
+    """(items, item_stride): how many of the b*h batch items share each slab
+    of the bias, and the stride between them."""
+    if bias.ndim == 4:
+        return 1, 0
+    if bias.shape[0] == 1:
+        return b * h, 1
+    return b, h
 
 
 def _check(q, k, v, bias, logit_bound):
@@ -61,25 +88,245 @@ def _check(q, k, v, bias, logit_bound):
         raise ValueError("all inputs must be on one device")
 
 
-def flash_attention_plain(q, k, v, bias=None, scale: float | None = None,
-                          logit_bound=None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: fp32 scores and sums."""
-    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+def _check_bwd(q, k, v, bias, lse, do, delta=None, out=None):
+    """What the backward passes take: ``_check``'s inputs, dO (and O) like q,
+    and the fp32 (b, h, n) lse (and delta), all contiguous on one device."""
+    _check(q, k, v, bias, None)
+    b, h, n, _ = q.shape
+    for name, t in (("do", do), ("out", out)):
+        if t is not None and (t.shape != q.shape or t.dtype != q.dtype):
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} must match q "
+                             f"{tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t is not None and (t.shape != (b, h, n) or t.dtype != torch.float32):
+            raise ValueError(f"{name} must be float32 {(b, h, n)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    rest = [t for t in (do, out, lse, delta) if t is not None]
+    if not all(t.is_contiguous() for t in rest):
+        raise ValueError("do, out, lse and delta must be contiguous")
+    if len({q.device, *(t.device for t in rest)}) != 1:
+        raise ValueError("all inputs must be on one device")
+
+
+def _scores(q, k, bias, scale):
+    """fp32 post-scale, post-bias logits (b, h, n, m)."""
     s = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)) * scale
     if bias is not None:
         s = s + (bias[None] if bias.ndim == 3 else bias).to(torch.float32)
-    if logit_bound is None:
-        p = torch.exp(s - s.amax(-1, keepdim=True))
-    else:
-        p = torch.exp(s - torch.as_tensor(logit_bound, dtype=torch.float32, device=s.device))
-    out = torch.matmul(p, v.to(torch.float32)) / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
-    return out.to(q.dtype)
+    return s
+
+
+def flash_attention_plain(q, k, v, bias=None, scale: float | None = None,
+                          logit_bound=None, return_lse: bool = False):
+    """The forward kernel's function in plain PyTorch: fp32 scores and sums;
+    with ``return_lse`` also the fp32 (b, h, n) row logsumexp."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    with full_precision(q.device):
+        s = _scores(q, k, bias, scale)
+        if logit_bound is None:
+            shift = s.amax(-1, keepdim=True)
+        else:
+            shift = torch.as_tensor(logit_bound, dtype=torch.float32, device=s.device)
+        p = torch.exp(s - shift)
+        denom = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+        out = (torch.matmul(p, v.to(torch.float32)) / denom).to(q.dtype)
+        if not return_lse:
+            return out
+        return out, (shift + torch.log(denom)).squeeze(-1)
+
+
+def _sum_bias(ds, bias):
+    """d(bias) from the fp32 (b, h, n, m) ds: summed over the batch items that
+    broadcast the bias, in the bias dtype."""
+    if bias.ndim == 3:
+        ds = ds.sum(0)
+        if bias.shape[0] == 1:
+            ds = ds.sum(0, keepdim=True)
+    return ds.to(bias.dtype)
+
+
+def _probs_and_ds(q, k, v, bias, lse, delta, do, scale):
+    """The dense recompute: p = exp(s - lse) and ds = p (dO v^T - delta), fp32."""
+    p = torch.exp(_scores(q, k, bias, scale) - lse[..., None])
+    dp = torch.matmul(do.to(torch.float32), v.to(torch.float32).transpose(-1, -2))
+    return p, p * (dp - delta[..., None])
+
+
+def flash_attention_bwd_delta_plain(out, do):
+    """delta = rowsum(dO * O), fp32 (b, h, n)."""
+    return (do.to(torch.float32) * out.to(torch.float32)).sum(-1)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, bias, lse, delta, do, scale: float):
+    with full_precision(q.device):
+        _, ds = _probs_and_ds(q, k, v, bias, lse, delta, do, scale)
+        return (torch.matmul(ds, k.to(torch.float32)) * scale).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, bias, lse, delta, do, scale: float):
+    with full_precision(q.device):
+        p, ds = _probs_and_ds(q, k, v, bias, lse, delta, do, scale)
+        dk = torch.matmul(ds.transpose(-1, -2), q.to(torch.float32)) * scale
+        dv = torch.matmul(p.transpose(-1, -2), do.to(torch.float32))
+        return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_dbias_plain(q, k, v, bias, lse, delta, do, scale: float):
+    with full_precision(q.device):
+        return _sum_bias(_probs_and_ds(q, k, v, bias, lse, delta, do, scale)[1], bias)
+
+
+def flash_attention_bwd_plain(q, k, v, bias, out, lse, do, scale: float):
+    """The backward kernels' function in plain PyTorch, as the four passes
+    compose it: (dq, dk, dv, dbias), dbias None without a bias; dbias is
+    summed over the batch items that broadcast the bias and carries no
+    scale."""
+    delta = flash_attention_bwd_delta_plain(out, do)
+    args = (q, k, v, bias, lse, delta, do, scale)
+    dk, dv = flash_attention_bwd_dkv_plain(*args)
+    dbias = None if bias is None else flash_attention_bwd_dbias_plain(*args)
+    return flash_attention_bwd_dq_plain(*args), dk, dv, dbias
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _device(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+def _forward(q, k, v, bias, scale: float, bound, with_lse: bool):
+    """(out, lse or None) from the kernel on the card, the plain version on
+    the CPU.  ``bound`` is None or a float32 scalar tensor on q's device."""
+    if _device(q) == "cpu":
+        res = flash_attention_plain(q, k, v, bias, scale, bound, return_lse=with_lse)
+        return res if with_lse else (res, None)
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    sb, sh = _bias_strides(bias, b, h, n, m) if bias is not None else (0, 0)
+    bound_ptr = bound.reshape(1).data_ptr() if bound is not None else None
+    bias_ptr = bias.data_ptr() if bias is not None else None
+    out = torch.empty_like(q)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, bound_ptr, out.data_ptr())
+    common = (b, h, n, m, d, sb, sh, scale, int(q.dtype == torch.bfloat16), _stream(q))
+    if not with_lse:
+        _launch("flash_attention_fwd", *ins, *common)
+        return out, None
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    _launch("flash_attention_fwd_lse", *ins, lse.data_ptr(), *common)
+    return out, lse
+
+
+def _launch(name: str, *args) -> None:
+    build.check_launch(getattr(build.library().lib, name + "_launch")(*args), name)
+    LAUNCHES[name] += 1
+
+
+def _bwd_args(q, k, bias):
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    sb, sh = _bias_strides(bias, b, h, n, m) if bias is not None else (0, 0)
+    return b, h, n, m, d, sb, sh, (bias.data_ptr() if bias is not None else None)
+
+
+def flash_attention_bwd_delta(out, do) -> torch.Tensor:
+    """delta = rowsum(dO * O), fp32 (b, h, n): the K3 pre-pass."""
+    _check_bwd(out, out, out, None, None, do)
+    if _device(out) == "cpu":
+        return flash_attention_bwd_delta_plain(out, do)
+    b, h, n, d = out.shape
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=out.device)
+    _launch("flash_attention_bwd_delta", out.data_ptr(), do.data_ptr(), delta.data_ptr(),
+            b, h, n, d, int(out.dtype == torch.bfloat16), _stream(out))
+    return delta
+
+
+def flash_attention_bwd_dq(q, k, v, bias, lse, delta, do, scale: float) -> torch.Tensor:
+    """dQ (K3's dq pass)."""
+    _check_bwd(q, k, v, bias, lse, do, delta=delta)
+    if _device(q) == "cpu":
+        return flash_attention_bwd_dq_plain(q, k, v, bias, lse, delta, do, scale)
+    b, h, n, m, d, sb, sh, bias_ptr = _bwd_args(q, k, bias)
+    dq = torch.empty_like(q)
+    _launch("flash_attention_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+            lse.data_ptr(), delta.data_ptr(), do.data_ptr(), dq.data_ptr(), b, h, n, m, d,
+            sb, sh, scale, int(q.dtype == torch.bfloat16), _stream(q))
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, bias, lse, delta, do, scale: float):
+    """(dK, dV) (K3's dk/dv pass)."""
+    _check_bwd(q, k, v, bias, lse, do, delta=delta)
+    if _device(q) == "cpu":
+        return flash_attention_bwd_dkv_plain(q, k, v, bias, lse, delta, do, scale)
+    b, h, n, m, d, sb, sh, bias_ptr = _bwd_args(q, k, bias)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_attention_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+            lse.data_ptr(), delta.data_ptr(), do.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, n, m, d, sb, sh, scale, int(q.dtype == torch.bfloat16), _stream(q))
+    return dk, dv
+
+
+def flash_attention_bwd_dbias(q, k, v, bias, lse, delta, do, scale: float) -> torch.Tensor:
+    """d(bias), summed over the batch items that broadcast it (K3's d(bias)
+    pass)."""
+    _check_bwd(q, k, v, bias, lse, do, delta=delta)
+    if bias is None:
+        raise ValueError("d(bias) needs a bias")
+    if _device(q) == "cpu":
+        return flash_attention_bwd_dbias_plain(q, k, v, bias, lse, delta, do, scale)
+    b, h, n, m, d, _, _, bias_ptr = _bwd_args(q, k, bias)
+    items, item_stride = _bias_items(bias, b, h)
+    dbias = torch.empty_like(bias)
+    _launch("flash_attention_bwd_dbias", q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+            lse.data_ptr(), delta.data_ptr(), do.data_ptr(), dbias.data_ptr(), b, h, n, m, d,
+            items, item_stride, scale, int(q.dtype == torch.bfloat16), _stream(q))
+    return dbias
+
+
+def flash_attention_bwd(q, k, v, bias, out, lse, do, scale: float, need_dbias: bool = True):
+    """(dq, dk, dv, dbias) of ``flash_attention`` from its output ``out``, its
+    fp32 row logsumexp ``lse`` (b, h, n) and the output gradient ``do``; on
+    the card by the four K3 kernels, on the CPU by the plain version.  dbias
+    is None without a bias or when ``need_dbias`` is False."""
+    _check_bwd(q, k, v, bias, lse, do, out=out)
+    if _device(q) == "cpu":
+        dq, dk, dv, dbias = flash_attention_bwd_plain(q, k, v, bias, out, lse, do, scale)
+        return dq, dk, dv, dbias if need_dbias else None
+    delta = flash_attention_bwd_delta(out, do)
+    args = (q, k, v, bias, lse, delta, do, scale)
+    dq = flash_attention_bwd_dq(*args)
+    dk, dv = flash_attention_bwd_dkv(*args)
+    dbias = flash_attention_bwd_dbias(*args) if bias is not None and need_dbias else None
+    return dq, dk, dv, dbias
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """Forward by K2 with the logsumexp, backward by K3."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale, bound):
+        out, lse = _forward(q, k, v, bias, scale, bound, with_lse=True)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv, dbias = flash_attention_bwd(q, k, v, bias, out, lse, dout.contiguous(),
+                                                ctx.scale, need_dbias=ctx.needs_input_grad[3])
+        return dq, dk, dv, dbias, None, None
 
 
 def flash_attention(q, k, v, bias=None, causal: bool = False, scale: float | None = None,
-                    kv_mask=None, q_offset=None, logit_bound=None,
-                    return_lse: bool = False) -> torch.Tensor:
-    """softmax(scale * q k^T + bias) v on (b, h, n, d) q and (b, h, m, d) k, v.
+                    kv_mask=None, q_offset=None, logit_bound=None, return_lse: bool = False):
+    """softmax(scale * q k^T + bias) v on (b, h, n, d) q and (b, h, m, d) k, v;
+    with ``return_lse`` the pair (out, fp32 (b, h, n) logsumexp of the logits).
 
     ``logit_bound`` (a float or a scalar tensor) must bound every post-scale
     logit including the bias from above; it selects the flat softmax."""
@@ -87,32 +334,14 @@ def flash_attention(q, k, v, bias=None, causal: bool = False, scale: float | Non
         raise NotImplementedError("causal flash attention (and q_offset) is not ported yet")
     if kv_mask is not None:
         raise NotImplementedError("flash attention kv_mask is not ported yet")
-    if return_lse:
-        raise NotImplementedError("flash attention logsumexp output is not ported yet")
     _check(q, k, v, bias, logit_bound)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, bias, scale, logit_bound)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    b, h, n, d = q.shape
-    m = k.shape[2]
-    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
-    sb, sh = _bias_strides(bias, b, h, n, m) if bias is not None else (0, 0)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     bound = None
     if logit_bound is not None:
-        bound = torch.as_tensor(logit_bound, dtype=torch.float32, device=q.device).reshape(1)
-    out = torch.empty_like(q)
-    lib = build.library().lib
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.flash_attention_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        bias.data_ptr() if bias is not None else None,
-        bound.data_ptr() if bound is not None else None,
-        out.data_ptr(), b, h, n, m, d, sb, sh, scale,
-        int(q.dtype == torch.bfloat16), stream)
-    build.check_launch(rc, "flash_attention")
-    flash_attention.launches += 1
-    return out
-
-
-flash_attention.launches = 0
+        bound = torch.as_tensor(logit_bound, dtype=torch.float32, device=q.device).detach()
+    inputs = (q, k, v) if bias is None else (q, k, v, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        out, lse = _FlashAttentionFn.apply(q, k, v, bias, scale, bound)
+    else:
+        out, lse = _forward(q, k, v, bias, scale, bound, with_lse=return_lse)
+    return (out, lse) if return_lse else out

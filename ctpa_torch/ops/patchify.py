@@ -5,6 +5,11 @@ The CUDA kernel is ``ctpa_torch/csrc/patchify.cu`` (its header states the
 bound it faces on the H100 and what its design does about it).
 ``patchify_project`` launches it for CUDA tensors and takes the plain
 PyTorch version, ``patchify_project_plain``, only for CPU tensors.
+
+The kernel is forward-only, as ctpa's is (a Pallas call has no VJP): under
+grad mode with an input that requires grad, ``patchify_project`` raises on
+every device, instead of returning an output that silently carries no
+gradient.  Training keeps ``pallas_patchify`` off.
 """
 
 from __future__ import annotations
@@ -34,6 +39,10 @@ def _check(volume, g, kernel, pt, p1, p2, out_dtype):
         raise ValueError("volume must be contiguous")
     if len({volume.device, g.device, kernel.device}) != 1:
         raise ValueError("volume, g and kernel must be on one device")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (volume, g, kernel)):
+        raise RuntimeError("patchify_project is forward-only (no backward, as ctpa's kernel has "
+                           "no VJP): call it under torch.no_grad() or torch.inference_mode(), "
+                           "or train with pallas_patchify=False")
 
 
 def kernel_limits(volume, kernel, p2, out_dtype):

@@ -148,3 +148,25 @@ def preprocess_volume_inference(vol, cfg: PreprocessConfig = PreprocessConfig.in
     th, tw, td = cfg.target_shape[1], cfg.target_shape[2], cfg.target_shape[0]
     x = crop_or_pad(x, (th, tw, td), cfg.pad_value)
     return x.permute(2, 0, 1).contiguous()[None]
+
+
+def preprocess_batch(raws, slopes, intercepts, spacings,
+                     cfg: PreprocessConfig = PreprocessConfig.train(), window_first: bool = False,
+                     device="cuda") -> torch.Tensor:
+    """``preprocess_volume`` over a batch of same-shape raw volumes (B, z, y, x)
+    with per-volume slope, intercept and (z, y, x) spacing -> (B, 1, D, H, W)."""
+    return preprocess_batch_bucketed(raws, slopes, intercepts, spacings, None, cfg,
+                                     window_first, device)
+
+
+def preprocess_batch_bucketed(raws, slopes, intercepts, spacings, src_shapes,
+                              cfg: PreprocessConfig = PreprocessConfig.train(),
+                              window_first: bool = False, device="cuda") -> torch.Tensor:
+    """The batch of bucket-padded raw volumes (B, db, hb, wb) with their true
+    (B, 3) extents ``src_shapes`` (None: the whole volume) -> (B, 1, D, H, W);
+    exact for every raw shape inside the bucket."""
+    return torch.stack([
+        preprocess_volume(raws[i], float(slopes[i]), float(intercepts[i]), spacings[i], cfg,
+                          window_first, None if src_shapes is None else src_shapes[i],
+                          device=device)
+        for i in range(len(raws))])

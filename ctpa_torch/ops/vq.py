@@ -1,7 +1,8 @@
-"""Cosine-similarity vector quantization, encode side (port of
-``ctpa/ops/vq.py``).  The codebook state is explicit, as in ctpa; the EMA
-update and the decode lookup belong to the training and generative slices.
-The (n, d) x (d, K) nearest-code search is one ``torch.matmul``."""
+"""Cosine-similarity vector quantization (port of ``ctpa/ops/vq.py``): the
+encode with its straight-through estimator and the EMA codebook update.  The
+codebook state is explicit, as in ctpa; the decode lookup belongs to the
+generative slice.  The (n, d) x (d, K) nearest-code search is one
+``torch.matmul``, in fp32 also under a bf16 autocast, as ctpa computes it."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ from typing import NamedTuple
 
 import torch
 
+from ctpa_torch.core.precision import full_precision
 from ctpa_torch.ops.attention_ops import l2norm
 
 
@@ -41,6 +43,11 @@ def vq_encode(state: VQState, x: torch.Tensor, mask: torch.Tensor | None = None)
 
     ``mask`` (...,) bool: True = real token.  Masked tokens still get indices
     but add nothing to counts, sums or the commit loss."""
+    with full_precision(x.device):
+        return _vq_encode(state, x, mask)
+
+
+def _vq_encode(state: VQState, x: torch.Tensor, mask: torch.Tensor | None) -> VQOutput:
     shape = x.shape
     d = shape[-1]
     flat = x.reshape(-1, d).to(torch.float32)
@@ -62,3 +69,19 @@ def vq_encode(state: VQState, x: torch.Tensor, mask: torch.Tensor | None = None)
     return VQOutput(quantized=quant_st.reshape(shape).to(x.dtype),
                     indices=idx.reshape(shape[:-1]).to(torch.int32),
                     commit_loss=commit, counts=counts, sums=sums)
+
+
+@torch.no_grad()
+def ema_update(state: VQState, counts: torch.Tensor, sums: torch.Tensor,
+               decay: float = 0.99, eps: float = 1e-5) -> VQState:
+    """EMA codebook update from one batch's assignment ``counts`` and
+    ``sums``; a code whose EMA count falls below ``eps`` (dead) keeps its old
+    embedding rather than collapsing to NaN."""
+    cluster = state.cluster_size * decay + counts * (1.0 - decay)
+    embed_avg = state.embed_avg * decay + sums * (1.0 - decay)
+    n = torch.sum(cluster)
+    smoothed = (cluster + eps) / (n + cluster.shape[0] * eps) * n
+    codebook = l2norm(embed_avg / smoothed[:, None])
+    dead = cluster < eps
+    codebook = torch.where(dead[:, None], state.codebook, codebook)
+    return VQState(codebook=codebook, cluster_size=cluster, embed_avg=embed_avg)

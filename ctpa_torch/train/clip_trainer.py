@@ -1,0 +1,161 @@
+"""Contrastive CLIP trainer (port of ``ctpa/train/clip_trainer.py``) on one
+device.
+
+One step: forward of both towers under the precision policy, bidirectional
+InfoNCE (plus the weighted VQ commitment loss when asked), backward, gradient
+clipping and AdamW (``train/optim.py``), then the VQ EMA codebook update.
+ctpa compiles this into one XLA program; the port runs it eagerly and
+updates the parameters and moments in place.  Data parallelism (``mesh``,
+``contrastive_loss_sharded``), the MLM and visual-SSL losses wait for later
+slices and raise.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Callable, Iterator, Optional
+
+import torch
+from torch import nn
+
+from ctpa_torch.core.checkpoint import CheckpointManager
+from ctpa_torch.core.config import OptimizerConfig, TrainConfig
+from ctpa_torch.core.precision import Policy, policy as precision_policy
+from ctpa_torch.models.ctclip import CTCLIP
+from ctpa_torch.ops.vq import ema_update
+from ctpa_torch.train.metrics import MetricsTracker
+from ctpa_torch.train.optim import Optimizer, get_optimizer, global_norm
+from ctpa_torch.train.train_state import CLIPTrainState
+
+
+def make_clip_train_step(model: CTCLIP, tx: Optimizer, vq_decay: float = 0.99,
+                         commit_weight: float = 0.0, policy: Optional[Policy] = None,
+                         use_mlm: bool = False, use_visual_ssl: bool = False):
+    """The (state, batch) -> (state, metrics) step.
+
+    batch: {"input_ids": (B, L), "attention_mask": (B, L), "video": (B, c, T, H, W)},
+    tensors on the model's device.  ``model`` and ``tx`` are the state's model
+    and optimizer; their parameters and moments are updated in place, the
+    returned state carries the new VQ state and step.  Metrics are 0-d
+    tensors: loss, grad_norm (of the unclipped gradients), temperature
+    (before the update) and vq_commit."""
+    if use_mlm or use_visual_ssl:
+        raise NotImplementedError("the MLM and visual-SSL losses are not ported yet")
+    policy = policy or Policy()
+
+    def train_step(state: CLIPTrainState, batch: dict):
+        device = model.temperature.device
+        model.zero_grad(set_to_none=True)
+        with policy.autocast(device):
+            out = model(batch["input_ids"], batch["attention_mask"],
+                        policy.cast_to_compute(batch["video"]), state.vq_state, return_loss=True)
+        loss = out.loss
+        if out.vq_commit_loss is not None and commit_weight > 0:
+            loss = loss + commit_weight * out.vq_commit_loss
+        loss.backward()
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads),
+                   "temperature": torch.exp(model.temperature.detach())}
+        tx.step(state.step)
+        vq_state = state.vq_state
+        if vq_state is not None and out.vq_counts is not None:
+            vq_state = ema_update(vq_state, out.vq_counts, out.vq_sums, decay=vq_decay)
+        if out.vq_commit_loss is not None:
+            metrics["vq_commit"] = out.vq_commit_loss.detach()
+        return (CLIPTrainState(model=state.model, optimizer=state.optimizer, vq_state=vq_state,
+                               step=state.step + 1), metrics)
+
+    return train_step
+
+
+def clip_finetune_mask(model: nn.Module, unfreeze: tuple[str, ...] = (
+        "visual_transformer", "text_transformer")) -> dict[str, bool]:
+    """The reference fine-tune selection: every parameter frozen but those of
+    the listed top-level modules (by default both towers; the latent
+    projections and the temperature stay frozen)."""
+    return {name: bool(set(name.split(".")) & set(unfreeze))
+            for name, _ in model.named_parameters()}
+
+
+class CTClipTrainer:
+    """Training loop: data iterator -> step -> periodic eval and checkpoint.
+
+    ``train_loader`` yields batches (dicts of arrays or tensors with the
+    batch leading); they are moved to the model's device.
+    ``eval_fn(state, step)`` is the zero-shot evaluation hook, run every
+    ``cfg.save_results_every`` steps.  ``trainable_mask`` (name -> bool, or
+    a callable model -> that) freezes the False parameters, e.g.
+    ``clip_finetune_mask``."""
+
+    def __init__(self, model: CTCLIP, state: CLIPTrainState, train_loader: Iterator,
+                 cfg: TrainConfig = TrainConfig(), opt_cfg: OptimizerConfig = OptimizerConfig(),
+                 mesh=None, eval_fn: Optional[Callable[[CLIPTrainState, int], dict]] = None,
+                 commit_weight: float = 0.0, trainable_mask: Optional[Any] = None):
+        if mesh is not None:
+            raise NotImplementedError("data-parallel training (mesh) is not ported yet")
+        self.model = model
+        self.cfg = cfg
+        self.train_loader = train_loader
+        self.eval_fn = eval_fn
+        self.device = model.temperature.device
+        mask = trainable_mask(model) if callable(trainable_mask) else trainable_mask
+        self.tx = get_optimizer(opt_cfg, model, trainable=mask)
+        if mask is None:
+            # keep the moments the caller's state holds (a resumed run)
+            for p in self.tx.params:
+                if p in state.optimizer.opt.state:
+                    self.tx.opt.state[p] = state.optimizer.opt.state[p]
+        self.state = CLIPTrainState(model=model, optimizer=self.tx, vq_state=state.vq_state,
+                                    step=state.step)
+        # the EMA decay of the model's config (ctpa's trainer takes the
+        # default, 0.99, which the config's default equals)
+        self._step = make_clip_train_step(
+            model, self.tx, vq_decay=model.visual_transformer.cfg.vq_decay,
+            commit_weight=commit_weight, policy=precision_policy(cfg.precision))
+        self.ckpt = CheckpointManager(cfg.checkpoint_dir)
+        self.metrics = MetricsTracker(os.path.join(cfg.results_dir, "train_metrics.json"))
+
+    def _place(self, batch: dict) -> dict:
+        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+
+    def train_step(self) -> dict:
+        self.state, metrics = self._step(self.state, self._place(next(self.train_loader)))
+        return metrics
+
+    def train(self, num_steps: Optional[int] = None) -> dict:
+        num_steps = num_steps or self.cfg.num_train_steps
+        last = {}
+        t0 = time.time()
+        while self.state.step < num_steps:
+            metrics = self.train_step()
+            step = self.state.step
+            host = {k: float(v) for k, v in metrics.items()}
+            host["steps_per_sec"] = 1.0 / max(time.time() - t0, 1e-9)
+            t0 = time.time()
+            self.metrics.log(step, host)
+            last = host
+            if self.eval_fn is not None and step % self.cfg.save_results_every == 0:
+                eval_metrics = self.eval_fn(self.state, step)
+                self.metrics.log(step, {f"eval/{k}": v for k, v in eval_metrics.items()})
+            if step % self.cfg.save_model_every == 0:
+                self.save(step)
+        # always leave a final checkpoint (short runs never reach the interval)
+        if self.state.step not in self.ckpt.all_steps():
+            self.save(self.state.step)
+        self.metrics.flush()
+        return last
+
+    def save(self, step: int) -> None:
+        self.ckpt.save(step, self.state.state_dict())
+
+    def close(self) -> None:
+        self.metrics.flush()
+        self.ckpt.wait()
+        self.ckpt.close()
+
+    def load(self, step: Optional[int] = None) -> CLIPTrainState:
+        restored = self.ckpt.restore(step, map_location=self.device)
+        if restored is not None:
+            self.state.load_state_dict(restored)
+        return self.state

@@ -1,0 +1,45 @@
+"""The CLIP train state (port of ``ctpa/train/train_state.py``).
+
+ctpa threads an immutable pytree (params, opt_state, vq_state, step) through
+a jitted step.  In the port the parameters live in the model and the AdamW
+moments in the optimizer, and the step updates both in place; the state
+names them beside the VQ codebook state and the step count, so one
+``state_dict()`` holds everything a checkpoint needs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from ctpa_torch.ops.vq import VQState
+from ctpa_torch.train.optim import Optimizer
+
+
+@dataclass
+class CLIPTrainState:
+    model: nn.Module                 # the parameters
+    optimizer: Optimizer             # the optimizer state
+    vq_state: VQState | None
+    step: int = 0
+
+    @classmethod
+    def create(cls, model: nn.Module, tx: Optimizer, vq_state: VQState | None = None):
+        return cls(model=model, optimizer=tx, vq_state=vq_state, step=0)
+
+    def state_dict(self) -> dict:
+        return {"params": self.model.state_dict(), "opt_state": self.optimizer.state_dict(),
+                "vq_state": None if self.vq_state is None else self.vq_state._asdict(),
+                "step": self.step}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore in place; the VQ state goes to the model's device."""
+        self.model.load_state_dict(state["params"])
+        self.optimizer.load_state_dict(state["opt_state"])
+        device = next(self.model.parameters()).device
+        vq = state["vq_state"]
+        self.vq_state = None if vq is None else VQState(
+            **{k: torch.as_tensor(v, device=device) for k, v in vq.items()})
+        self.step = int(state["step"])

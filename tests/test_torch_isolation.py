@@ -1,4 +1,4 @@
-"""The port stands alone: ctpa_torch, chip_smoke.py and profile_zeroshot.py
+"""The port stands alone: ctpa_torch, chip_smoke.py and the profile scripts
 import neither JAX, flax nor anything of ctpa, build no kernel through
 PyTorch's C++ extension machinery, and call no library attention."""
 
@@ -12,7 +12,7 @@ ROOT = Path(__file__).resolve().parent.parent
 _PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
 
-BLOCKED = {"jax", "jaxlib", "flax", "optax", "ctpa"}
+BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "pandas", "ctpa"}
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -25,7 +25,7 @@ import ctpa_torch
 names = ["ctpa_torch"] + [m.name for m in pkgutil.walk_packages(ctpa_torch.__path__, "ctpa_torch.")]
 for name in names:
     importlib.import_module(name)
-for script in ("chip_smoke", "profile_zeroshot"):
+for script in ("chip_smoke", "profile_zeroshot", "profile_clip_train"):
     spec = importlib.util.spec_from_file_location(script, script + ".py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -45,7 +45,7 @@ def test_port_imports_without_jax_or_ctpa():
 def test_port_sources_avoid_torch_extensions_and_library_attention():
     py = list((ROOT / "ctpa_torch").rglob("*.py"))
     cu = list((ROOT / "ctpa_torch" / "csrc").glob("*.cu"))
-    assert len(cu) == 2
+    assert len(cu) == 3
     banned_py = ("import torch.utils.cpp_extension", "from torch.utils.cpp_extension",
                  "cpp_extension.load", "torch.compile(", "scaled_dot_product_attention(")
     for path in py:

@@ -154,8 +154,10 @@ def test_patch_embed_matches_ctpa_plain_path(kernel_path):
     p = np_params(jm.init(KEY, video)["params"], 18)
     ref = jm.apply({"params": p}, video)
     tm = port(PatchEmbed3D(dataclasses.replace(VIT, pallas_patchify=kernel_path)), p)
-    # the kernel path's LN-folded form adds fp32 cancellation (mu*rsig*v2)
-    close(tm(_t(video)), ref, atol=1e-4 if kernel_path else ATOL)
+    # the kernel path's LN-folded form adds fp32 cancellation (mu*rsig*v2);
+    # the kernel is forward-only, so it runs without grad
+    with torch.no_grad():
+        close(tm(_t(video)), ref, atol=1e-4 if kernel_path else ATOL)
 
 
 def _vq_np(seed, k, d):
@@ -177,13 +179,15 @@ def test_ctvit_with_vq_and_frame_mask_matches_ctpa(kernels):
                                    jnp.asarray(frame_mask))
     cfg = dataclasses.replace(VIT, pallas_patchify=kernels, flash_axial=kernels)
     tm = port(CTViT(cfg, device="cpu"), p)
-    tokens, out = tm(_t(video), vq_state_from_numpy(vq, device="cpu"), _t(frame_mask))
+    with torch.no_grad():       # the patchify kernel is forward-only
+        tokens, out = tm(_t(video), vq_state_from_numpy(vq, device="cpu"), _t(frame_mask))
+        encoded = tm(_t(video))[0]
     np.testing.assert_array_equal(out.indices.numpy(), np.asarray(out_ref.indices))
     close(tokens, tokens_ref)
     close(out.commit_loss, out_ref.commit_loss)
     close(out.counts, out_ref.counts)
     # and the encoder alone, before the bottleneck
-    close(tm(_t(video))[0], jm.apply({"params": p}, video, None)[0], atol=TOWER_ATOL)
+    close(encoded, jm.apply({"params": p}, video, None)[0], atol=TOWER_ATOL)
 
 
 def test_token_mask_matches_ctpa():

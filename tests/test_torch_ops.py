@@ -298,7 +298,7 @@ def _k2_args(**over):
     (dict(causal=True), NotImplementedError),
     (dict(q_offset=3), NotImplementedError),
     (dict(kv_mask=torch.ones(2, 9)), NotImplementedError),
-    (dict(return_lse=True), NotImplementedError),
+    (dict(kv_mask=torch.ones(2, 9), return_lse=True), NotImplementedError),  # lse ported, mask not
     (dict(q=torch.randn(2, 3, 8, 16, device="meta")), ValueError),       # mixed devices
 ])
 def test_flash_wrapper_rejects_bad_input(bad, err):
