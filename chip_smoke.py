@@ -27,7 +27,7 @@ Phases, each printing its seconds:
                      n; timed as in phase 3, beside the forward and backward
                      of scaled_dot_product_attention as a yardstick;
   7. training      — CTCLIP at the shipped geometry with fp32 parameters,
-                     bf16 autocast and block remat takes 4 AdamW steps
+                     bf16 compute and block remat takes 4 AdamW steps
                      through CTClipTrainer on 2 preprocessed synthetic
                      volumes and 512-token reports; each step prints its
                      wall time, loss, grad norm, temperature, peak memory
@@ -35,7 +35,28 @@ Phases, each printing its seconds:
   8. train-plain   — the first step again from the same state with
                      flash_axial off (no hand kernel), the loss and the
                      spatial fold's gradients bounded against the kernel
-                     path's.
+                     path's;
+  9. report-kernels — the decode-attention kernel (K8) against its plain
+                     version at the decode shape of Meditron-7B (batch 4, a
+                     608-slot cache), bf16 and int8 caches, a GQA case and
+                     a cache with holes; timed as in phase 3 beside
+                     scaled_dot_product_attention (float cache);
+ 10. report        — CTReportGenerator at Meditron-7B width (LLMConfig()),
+                     the shipped CTViT with pallas_patchify, bf16 weights
+                     built on the card from a seed, flash_decode: 4
+                     inference-path volumes and 4 prompts right-padded to
+                     512 tokens, 96 new tokens decoded greedily; prints the
+                     prefill and decode-step times, tokens/s, peak memory
+                     and the launches (4 K1, 32 x 95 K8), then decodes 16
+                     tokens with the int8 KV cache;
+ 11. report-plain  — the same weights with flash_decode off, and the same
+                     weights in fp32 with flash_decode off, teacher-forced
+                     on the kernel path's tokens (which it must give back):
+                     the kernel path's fused logits must be as close to the
+                     fp32 reference as the plain path's, and agree with the
+                     plain path's on the top-1 token; the kernel path with a
+                     planted fault (the prompt's holes ignored, or the wrong
+                     layer's planes read) must fail these gates.
 
 The line before the last is nvidia-smi's "name, power.limit"; the one before
 that a JSON object with one entry per kernel.  The last line is
@@ -94,6 +115,30 @@ RAGGED_N = 500
 # so it is bounded loosely
 TRAIN_GRAD_MIN_COS = 0.99
 TRAIN_LOSS_ATOL = 0.05
+
+# report generation: batch 4, prompts right-padded to 512 with these real
+# lengths, 96 new tokens (a 608-slot cache, the reference's serving shape)
+PROMPT_LENS = (512, 448, 384, 320)
+NEW_TOKENS = 96
+INT8_NEW_TOKENS = 16
+# kernel path vs plain path, teacher-forced on the same tokens.  The fused
+# logits are bf16 (lm_head's output): its ulp near the top logits (~4-7) is
+# 0.03, the top-2 gap of 32,000 random logits ~0.3.  Both bf16 paths of
+# this 32-layer model lie ~7.5% of the max logit per step from the fp32
+# model, and ~6.4% from each other: a bound between the two bf16 paths
+# alone would sit inside their rounding noise.
+# So the kernel path is held against an fp32 teacher-forced
+# reference, as closely as the bf16 plain path is: its worst per-step
+# max |diff| / max |logit| and its mean |diff| within REPORT_FP32_RATIO of
+# the plain path's, its top-1 agreement with fp32 at most
+# REPORT_FP32_TOP1_SLACK below the plain path's; and top-1 agreement with
+# the plain path on >= REPORT_TOP1_MIN of the (lane, step) pairs (a
+# disagreement is a near-tie).  A kernel error beyond bf16 noise moves the
+# kernel path away from the fp32 reference while the plain path stays;
+# report-plain plants two such errors and checks that the gates reject them.
+REPORT_TOP1_MIN = 0.8
+REPORT_FP32_RATIO = 1.25
+REPORT_FP32_TOP1_SLACK = 0.03
 
 
 @contextlib.contextmanager
@@ -638,6 +683,347 @@ def train_plain(dev, first, start, batch) -> None:
         raise AssertionError("training step: kernel path and plain path disagree")
 
 
+def decode_cache(gen, dev, cfg, b: int, m: int, kvh: int, quant: bool):
+    """A full stacked cache (L, b, kvh, m, hd) of random rows, bf16 or int8
+    with its fp32 scales."""
+    import torch
+
+    shape = (cfg.num_layers, b, kvh, m, cfg.head_dim)
+    if not quant:
+        return (*(torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2)), None, None)
+    rows = [torch.randint(-127, 128, shape, generator=gen, device=dev).to(torch.int8)
+            for _ in range(2)]
+    scales = [0.001 + 0.02 * torch.rand(shape[:4], generator=gen, device=dev) for _ in range(2)]
+    return (*rows, *scales)
+
+
+def prompt_validity(dev, m: int):
+    """(4, m) slot validity after the main path's prefill: each lane's real
+    prompt slots, the pads between them and slot 512 invalid, the decode
+    slots valid."""
+    import torch
+
+    n = max(PROMPT_LENS)
+    slot = torch.arange(m, device=dev)
+    lens = torch.tensor(PROMPT_LENS, device=dev)
+    return (slot[None] < lens[:, None]) | (slot[None] >= n)
+
+
+def check_report_kernels(dev) -> dict:
+    """Phase 9: K8 against its plain version at the decode shape, then timed
+    (cycling over the 32 layers, so each launch reads planes that are not in
+    the L2 cache, as on the decode path)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ctpa_torch.core.config import LLMConfig
+    from ctpa_torch.ops import decode_attention as da
+
+    cfg = LLMConfig()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    b, m, h, hd, L = len(PROMPT_LENS), max(PROMPT_LENS) + NEW_TOKENS, cfg.num_heads, \
+        cfg.head_dim, cfg.num_layers
+    scale = hd ** -0.5
+    holes = prompt_validity(dev, m)
+    full = torch.ones_like(holes)
+    q = torch.randn(b, h, hd, generator=gen, device=dev).to(torch.bfloat16)
+    errs = {}
+    for label, kvh, quant, valid in (("bf16", cfg.num_kv_heads, False, full),
+                                     ("bf16 holes", cfg.num_kv_heads, False, holes),
+                                     ("int8 holes", cfg.num_kv_heads, True, holes),
+                                     ("bf16 GQA rep 4 holes", cfg.num_kv_heads // 4, False, holes)):
+        ck, cv, ks, vs = decode_cache(gen, dev, cfg, b, m, kvh, quant)
+        for layer in (0, L - 1):
+            errs[label, layer] = compare(
+                f"decode_attention {label}, layer {layer}",
+                da.decode_attention(q, ck, cv, valid, layer, ks, vs, scale),
+                da.decode_attention_plain(q, ck, cv, valid, layer, ks, vs, scale),
+                BF16_ATOL, BF16_RTOL)
+        del ck, cv, ks, vs
+
+    def cycled(fn):
+        it = itertools.cycle(range(L))
+        return lambda: fn(next(it))
+
+    times = {}
+    for quant in (False, True):
+        ck, cv, ks, vs = decode_cache(gen, dev, cfg, b, m, cfg.num_kv_heads, quant)
+        times[quant] = (
+            cuda_ms(cycled(lambda i: da.decode_attention(q, ck, cv, holes, i, ks, vs, scale)),
+                    iters=2 * L),
+            cuda_ms(cycled(lambda i: da.decode_attention_plain(q, ck, cv, holes, i, ks, vs,
+                                                               scale)), iters=2 * L))
+        if not quant:
+            # yardstick only, never called by the port
+            lib_ms = cuda_ms(cycled(lambda i: F.scaled_dot_product_attention(
+                q[:, :, None], ck[i], cv[i], attn_mask=holes[:, None, None, :], scale=scale)),
+                iters=2 * L)
+        del ck, cv, ks, vs
+    # the kernel loads the K and V rows (and scales) of the valid slots only,
+    # so the bound counts this run's valid rows
+    kvh = cfg.num_kv_heads
+    n_valid = int(holes.sum().item())
+    n_rows = n_valid * kvh
+    io = 2 * b * h * hd * 2 + b * m                   # q and out in bf16, valid
+    flops = 4.0 * n_valid * h * hd                    # two products, a multiply and an add each
+    bounds = {False: bound_ms(2 * n_rows * hd * 2 + io, flops),
+              True: bound_ms(2 * n_rows * hd + 2 * n_rows * 4 + io, flops)}
+    print(f"  timed on the main path's last-step validity: {n_valid} of {b * m} slots valid")
+    for quant, label in ((False, "bf16"), (True, "int8")):
+        (ms, plain_ms), (b_ms, b_by) = times[quant], bounds[quant]
+        print(f"  decode_attention {label} cache (b {b}, h {h}, kvh {kvh}, m {m}, hd {hd}): "
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  "
+              f"library {'%.4f ms (scaled_dot_product_attention)' % lib_ms if not quant else 'none'}")
+    (ms, plain_ms), (b_ms, b_by) = times[False], bounds[False]
+    return {"decode_attention": dict(
+        name="decode_attention", route="cuda", source="ctpa_torch/csrc/decode_attention.cu",
+        replaces="ctpa/ops/pallas/decode_attention.py:124", max_abs_err=max(errs.values()),
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)}
+
+
+def report_inputs(vit_cfg, llm_cfg, dev):
+    """4 inference-path volumes preprocessed on the device and 4 prompts
+    right-padded to 512 tokens, all from a seeded generator."""
+    import torch
+
+    from ctpa_torch.core.config import PreprocessConfig
+    from ctpa_torch.ops.preprocess import preprocess_volume_inference
+
+    grid = (vit_cfg.temporal_size, vit_cfg.image_size, vit_cfg.image_size)
+    cfg = dataclasses.replace(PreprocessConfig.inference(), target_shape=grid)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    video = torch.stack([
+        preprocess_volume_inference(torch.rand(INFER_SHAPE, generator=gen, device=dev) * 2 - 1,
+                                    cfg, device=dev) for _ in PROMPT_LENS]).to(torch.bfloat16)
+    n = max(PROMPT_LENS)
+    mask = (torch.arange(n, device=dev)[None] < torch.tensor(PROMPT_LENS, device=dev)[:, None])
+    ids = torch.randint(1, llm_cfg.vocab_size, (len(PROMPT_LENS), n), generator=gen, device=dev)
+    return video, ids * mask, mask.long()
+
+
+def twin(model, **llm_changes):
+    """A CTReportGenerator on the same parameter tensors (no copy) with other
+    LLM settings."""
+    from ctpa_torch.models.report_generator import CTReportGenerator
+
+    out = CTReportGenerator(dataclasses.replace(model.llm_cfg, **llm_changes), model.vit_cfg,
+                            model.gen_cfg, device="meta")
+    out.load_state_dict(model.state_dict(), assign=True)
+    return out.eval()
+
+
+def step_timer(model):
+    """CUDA events recorded at the start of every trunk call (prefill, then
+    one per decode step) and once at the end: step times on the device's
+    clock, each including the host's gaps."""
+    import torch
+
+    events = []
+
+    def mark(*_):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    handle = model.llm.model.register_forward_pre_hook(mark)
+    return events, mark, handle
+
+
+def report(dev, rows: dict):
+    """Phase 10: CTReportGenerator at Meditron-7B width on the kernel path."""
+    import torch
+
+    from ctpa_torch.core.config import CTViTConfig, LLMConfig, ReportGenConfig
+    from ctpa_torch.core.init import random_init_
+    from ctpa_torch.models.report_generator import CTReportGenerator
+    from ctpa_torch.ops import decode_attention as da
+    from ctpa_torch.ops.patchify import patchify_project
+
+    llm_cfg = dataclasses.replace(LLMConfig(), flash_decode=True)
+    vit_cfg = dataclasses.replace(CTViTConfig(), pallas_patchify=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = random_init_(CTReportGenerator(llm_cfg, vit_cfg, ReportGenConfig(), device=dev,
+                                           dtype=torch.bfloat16), gen).eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  CTReportGenerator: {n_params / 1e9:.3f} B parameters (bf16) built on the card "
+          f"in {time.perf_counter() - t0:.1f} s")
+    video, ids, mask = report_inputs(vit_cfg, llm_cfg, dev)
+    b, n = ids.shape
+    layers = llm_cfg.num_layers
+    with torch.inference_mode():
+        model.generate(video[:1], ids[:1, :8], mask[:1, :8], 2, -1, greedy=True)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events, mark, handle = step_timer(model)
+        patchify_project.launches = 0
+        da.LAUNCHES["decode_attention"] = 0
+        mark()
+        res = model.generate(video, ids, mask, NEW_TOKENS, eos_token_id=-1, greedy=True)
+        mark()
+        torch.cuda.synchronize()
+        handle.remove()
+        k1, k8 = patchify_project.launches, da.LAUNCHES["decode_attention"]
+    ms = [a.elapsed_time(z) for a, z in zip(events, events[1:])]
+    vision_ms, prefill_ms, steps = ms[0], ms[1], sorted(ms[2:])
+    decode_s = sum(steps) / 1e3
+    print(f"  generate: vision {vision_ms:.2f} ms  prefill ({b} x {n}) {prefill_ms:.2f} ms  "
+          f"decode step median {steps[len(steps) // 2]:.3f} ms (min {steps[0]:.3f}, max "
+          f"{steps[-1]:.3f}, {len(steps)} steps)  {b * len(steps) / decode_s:.1f} tokens/s  "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  main path launches: patchify_project {k1}, decode_attention {k8} "
+          f"({layers} layers x {NEW_TOKENS - 1} steps = {layers * (NEW_TOKENS - 1)})")
+    tokens = res.tokens
+    if tokens.shape != (b, NEW_TOKENS) or not ((tokens >= 0) & (tokens < llm_cfg.vocab_size)).all() \
+            or not (res.lengths == NEW_TOKENS).all():
+        raise AssertionError(f"generate: tokens {tuple(tokens.shape)}, lengths {res.lengths}")
+    if k1 != b or k8 != layers * (NEW_TOKENS - 1):
+        raise AssertionError(f"launches: patchify {k1} (expected {b}), decode_attention {k8} "
+                             f"(expected {layers * (NEW_TOKENS - 1)})")
+    # the patchify_project row keeps the serving path's count; this path's
+    # (4) is printed and checked above
+    rows["decode_attention"]["launches"] = k8
+    print("  tokens lane 0: " + " ".join(map(str, tokens[0, :24].tolist())) + " ...")
+
+    int8 = twin(model, kv_quant="int8")
+    with torch.inference_mode():
+        da.LAUNCHES["decode_attention"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res8 = int8.generate(video, ids, mask, INT8_NEW_TOKENS, eos_token_id=-1, greedy=True)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k8_int8 = da.LAUNCHES["decode_attention"]
+    same = (res8.tokens == tokens[:, :INT8_NEW_TOKENS]).float().mean().item()
+    print(f"  int8 KV cache: {INT8_NEW_TOKENS} tokens in {wall * 1e3:.1f} ms, decode_attention "
+          f"launches {k8_int8}; tokens equal to the bf16 cache's on {same:.1%} of positions")
+    if k8_int8 != layers * (INT8_NEW_TOKENS - 1) or not (res8.lengths == INT8_NEW_TOKENS).all():
+        raise AssertionError(f"int8 KV cache: launches {k8_int8}, lengths {res8.lengths}")
+    return model, (video, ids, mask), tokens
+
+
+def teacher_forced_logits(model, video, ids, mask, tokens):
+    """The fused logits generate computes at each of its steps, with
+    ``tokens`` (b, steps) fed back in: (b, steps, vocab) fp32."""
+    import torch
+
+    from ctpa_torch.models.layers import compute_dtype
+    from ctpa_torch.models.llm import KVCache
+
+    b, n = ids.shape
+    steps = tokens.shape[1]
+    vision = model.extract_vision(video)
+    cache = KVCache.create(model.llm_cfg, b, max_len=n + steps,
+                           dtype=compute_dtype(model, model.llm.lm_head.weight), device=ids.device)
+    hidden, cache = model.llm.model(ids, mask, cache, shared_kv_offset=True)
+    last = torch.clamp(mask.sum(-1) - 1, min=0)
+    out = [model._fused_logits(hidden[torch.arange(b), last][:, None], vision)[:, 0].float()]
+    for i in range(1, steps):
+        hidden, cache = model.llm.model(tokens[:, i - 1:i], None, cache, shared_kv_offset=True)
+        out.append(model._fused_logits(hidden, vision)[:, 0].float())
+    return torch.stack(out, 1)
+
+
+def fp32_twin(model):
+    """The same weights in fp32 (a copy), flash_decode and the patchify
+    kernel off: the reference both bf16 paths approximate."""
+    from ctpa_torch.models.report_generator import CTReportGenerator
+
+    out = CTReportGenerator(dataclasses.replace(model.llm_cfg, flash_decode=False),
+                            dataclasses.replace(model.vit_cfg, pallas_patchify=False),
+                            model.gen_cfg, device="meta")
+    out.load_state_dict({k: v.float() for k, v in model.state_dict().items()}, assign=True)
+    return out.eval()
+
+
+def logit_distance(got, ref) -> tuple[float, float, float]:
+    """(worst per-step max |diff| / max |ref logit|, mean |diff|, top-1
+    agreement) of two (b, steps, vocab) teacher-forced logits."""
+    diff = (got - ref).abs()
+    rel = (diff.amax(dim=(0, 2)) / ref.abs().amax(dim=(0, 2))).max().item()
+    return rel, diff.mean().item(), (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+
+
+def report_gate(label: str, got, plain, fp32, p_f) -> bool:
+    """Print the distances of teacher-forced logits ``got`` to the plain
+    path's and the fp32 reference's, and whether they pass the gates."""
+    g_p, g_f = logit_distance(got, plain), logit_distance(got, fp32)
+    ok = (g_f[0] <= REPORT_FP32_RATIO * p_f[0] and g_f[1] <= REPORT_FP32_RATIO * p_f[1]
+          and g_f[2] >= p_f[2] - REPORT_FP32_TOP1_SLACK and g_p[2] >= REPORT_TOP1_MIN)
+    for other, (rel, mean, top1) in (("plain", g_p), ("fp32", g_f)):
+        print(f"    {label + ' vs ' + other:<30} {rel:.4f}  {mean:.5f}  {top1:.4f}")
+    print(f"    {label}: distance to fp32 / plain path's {g_f[0] / p_f[0]:.3f} and "
+          f"{g_f[1] / p_f[1]:.3f} (<= {REPORT_FP32_RATIO}); top-1 with fp32 {g_f[2]:.4f} vs "
+          f"{p_f[2]:.4f} (slack {REPORT_FP32_TOP1_SLACK}); top-1 with plain {g_p[2]:.4f} "
+          f"(>= {REPORT_TOP1_MIN}): {'pass' if ok else 'FAIL'}")
+    return ok
+
+
+@contextlib.contextmanager
+def planted_fault(kind: str, n_prompt: int):
+    """The flash_decode path with a deliberate fault in what it hands the
+    kernel: "holes ignored" (the padded prompt slots count as valid) or
+    "wrong layer" (layer i reads layer i + 1's planes)."""
+    from ctpa_torch.models import llm
+
+    kernel = llm.decode_attention
+
+    def faulty(q, ck, cv, valid, layer_idx, *args, **kw):
+        if kind == "holes ignored":
+            valid = valid.clone()
+            valid[:, :n_prompt] = True
+        else:
+            layer_idx = (layer_idx + 1) % ck.shape[0]
+        return kernel(q, ck, cv, valid, layer_idx, *args, **kw)
+
+    llm.decode_attention = faulty
+    try:
+        yield
+    finally:
+        llm.decode_attention = kernel
+
+
+def report_plain(model, inputs, tokens) -> None:
+    """Phase 11: the kernel path, the plain path and the fp32 plain path
+    teacher-forced on the kernel path's tokens; then the kernel path with
+    each of two planted faults, which the gates must reject."""
+    import torch
+
+    from ctpa_torch.ops import decode_attention as da
+
+    with torch.inference_mode():
+        kernel = teacher_forced_logits(model, *inputs, tokens)
+        before = da.LAUNCHES["decode_attention"]
+        plain = teacher_forced_logits(twin(model, flash_decode=False), *inputs, tokens)
+        if da.LAUNCHES["decode_attention"] != before:
+            raise AssertionError("the plain path launched the decode-attention kernel")
+        reference = fp32_twin(model)
+        fp32 = teacher_forced_logits(reference, *inputs, tokens)
+        del reference
+        faults = {}
+        for kind in ("holes ignored", "wrong layer"):
+            with planted_fault(kind, inputs[1].shape[1]):
+                faults[kind] = teacher_forced_logits(model, *inputs, tokens)
+    if not all(torch.isfinite(x).all() for x in (kernel, plain, fp32)):
+        raise AssertionError("non-finite logits")
+    if not torch.equal(kernel.argmax(-1), tokens):
+        raise AssertionError("teacher-forced kernel path does not give back its generated tokens")
+    p_f = logit_distance(plain, fp32)
+    steps = tokens.shape[1]
+    print(f"  fused logits over {steps} steps, {tokens.numel()} (lane, step) pairs: worst max "
+          f"|diff| / max |logit| per step, mean |diff|, top-1 agreement")
+    print(f"    {'plain vs fp32':<30} {p_f[0]:.4f}  {p_f[1]:.5f}  {p_f[2]:.4f}")
+    if not report_gate("kernel", kernel, plain, fp32, p_f):
+        raise AssertionError("report generation: the kernel path is farther from the fp32 "
+                             "reference than the plain path")
+    for kind, got in faults.items():
+        if report_gate(f"planted fault: {kind}", got, plain, fp32, p_f):
+            raise AssertionError(f"the gates do not see a planted decode-attention fault "
+                                 f"({kind})")
+
+
 def main() -> int:
     import torch
 
@@ -712,11 +1098,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("train-plain"):
         train_plain(dev, first, start, batch)
+    del first, start, batch
+    torch.cuda.empty_cache()
+
+    with phase("report-kernels"):
+        with torch.inference_mode():
+            rows.update(check_report_kernels(dev))
+    torch.cuda.empty_cache()
+    with phase("report"):
+        model, inputs, tokens = report(dev, rows)
+    with phase("report-plain"):
+        report_plain(model, inputs, tokens)
+    del model, inputs
+    torch.cuda.empty_cache()
 
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{key: rows[k][key] for key in order}
-               for k in ("patchify_project", "flash_attention_fwd") + TRAIN_KERNELS]
+               for k in ("patchify_project", "flash_attention_fwd") + TRAIN_KERNELS
+               + ("decode_attention",)]
     for row in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(row[key]):

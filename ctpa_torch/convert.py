@@ -12,9 +12,11 @@ module.  The layout rules:
   ``k_scale``, the PEG's (3, 3, 3, 1, c) ``kernel``, ``PatchEmbed3D``'s
   ``norm_in_scale``/``norm_in_bias``/``proj_kernel``/``proj_bias``, the fused
   ``to_kv`` (split at use), ``temperature``;
-* numbered flax submodules ``peg_i``, ``block_i``, ``layer_i``, ``mlp_i``
-  become the entries of the ModuleLists ``pegs``, ``blocks``, ``layers``,
-  ``mlp``.
+* numbered flax submodules ``peg_i``, ``block_i``, ``layer_i`` (BERT),
+  ``layers_i`` (the LLM), ``mlp_i`` become the entries of the ModuleLists
+  ``pegs``, ``blocks``, ``layers``, ``layers``, ``mlp``;
+* the LLM's RMSNorm ``weight`` and LoRA's (in, r) ``lora_a`` and (r, out)
+  ``lora_b`` keep their names and layout.
 
 Conversion is strict: an unused flax leaf, a missing torch entry or a shape
 mismatch raises.  It imports no JAX: leaves are anything ``numpy.asarray``
@@ -31,8 +33,9 @@ from torch import nn
 
 from ctpa_torch.ops.vq import VQState
 
-_LISTS = re.compile(r"^(peg|block|layer|mlp)_(\d+)$")
-_LIST_NAMES = {"peg": "pegs", "block": "blocks", "layer": "layers", "mlp": "mlp"}
+_LISTS = re.compile(r"^(peg|block|layers?|mlp)_(\d+)$")
+_LIST_NAMES = {"peg": "pegs", "block": "blocks", "layer": "layers", "layers": "layers",
+               "mlp": "mlp"}
 
 
 def _flatten(tree, prefix=()):

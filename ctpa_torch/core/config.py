@@ -2,12 +2,14 @@
 ``ctpa/core/config.py`` that this package needs (the port imports nothing of
 ``ctpa``).  Field names and defaults are the same, so a ``ctpa`` config maps
 field by field; fields of parts not ported yet (dropout, the decoder, the
-fused encoder, the LLM) are left out.
+fused encoder) are left out.  The LLM configs are copied whole; the models
+raise on the values whose paths are not ported (``models/llm.py``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -152,3 +154,75 @@ class TrainConfig:
     precision: str = "bf16"         # activations/compute dtype; params fp32
     results_dir: str = "results"
     checkpoint_dir: str = "checkpoints"
+
+
+@dataclass(frozen=True)
+class LoRAConfig:
+    """LoRA overlay on the attention projections."""
+
+    rank: int = 16
+    alpha: float = 32.0
+    dropout: float = 0.0
+    target_projections: tuple[str, ...] = ("q_proj", "v_proj", "k_proj", "o_proj")
+
+
+@dataclass(frozen=True)
+class LLMConfig:
+    """Decoder-only LLM, Meditron-7B (llama-2) geometry by default.  The
+    comments name what each switch selects in ctpa."""
+
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    intermediate_size: int = 11008
+    max_seq_len: int = 2048
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    # no-cache forwards of at least flash_min_len tokens through the flash
+    # kernel with causal + key masks (report training; not ported yet)
+    flash_prefill: bool = False
+    flash_min_len: int = 512
+    # quantized serving weights: None | "int8" (not ported yet)
+    weight_quant: Optional[str] = None
+    # quant_impl, quant_fused, kv_quant_group and kv_scale_dtype act only on
+    # the quantized-weight and int4-cache paths: the port accepts their
+    # defaults and refuses any other value
+    quant_impl: str = "pallas"           # "pallas" | "xla"
+    quant_fused: bool = True
+    quant_ffn_kernel: bool = False       # the fused quantized SwiGLU (not ported yet)
+    quant_act: bool = False              # w8a8 activations (not ported yet)
+    # quantized KV cache: None | "int8" (per-(kv-head, token) absmax scales)
+    # | "int4" (not ported yet)
+    kv_quant: Optional[str] = None
+    kv_quant_group: int = 32
+    kv_scale_dtype: str = "float32"
+    kv_int8_dots: bool = False           # int8 x int8 attention dots (not ported yet)
+    # single-token cached attention through the decode-attention kernel
+    # (csrc/decode_attention.cu on CUDA tensors)
+    flash_decode: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @staticmethod
+    def tiny() -> "LLMConfig":
+        return LLMConfig(vocab_size=512, hidden_size=64, num_layers=2, num_heads=4,
+                         num_kv_heads=2, intermediate_size=128, max_seq_len=256)
+
+
+@dataclass(frozen=True)
+class ReportGenConfig:
+    """Report generation: the vision feature width, decoding defaults and the
+    training knobs of the report trainer."""
+
+    vision_dim: int = 512
+    max_new_tokens: int = 512
+    temperature: float = 0.7
+    max_prompt_len: int = 128
+    llm_lr: float = 2e-5
+    cross_attn_lr: float = 1e-4
+    lora: LoRAConfig = field(default_factory=LoRAConfig)

@@ -1,14 +1,16 @@
-"""Precision policy: fp32 parameters, bf16 compute (port of
-``ctpa/core/precision.py``).
+"""Precision policy (port of ``ctpa/core/precision.py``): fp32 parameters,
+compute in the policy's compute dtype.
 
-ctpa keeps its parameters in fp32 and lets each flax module cast them to the
-compute dtype at use.  The port keeps the parameters in fp32 too and runs
-the forward under ``torch.autocast`` in the compute dtype
-(``Policy.autocast``): matrix products take bf16 operands, normalisations
-and reductions stay fp32.  Where ctpa asks for an fp32 result from bf16
-operands (``preferred_element_type=float32``: attention scores, the VQ
-search, the contrastive similarity), the port computes inside
-``full_precision``, a region with autocast off.
+ctpa sets the precision of a computation through each flax module's
+``dtype``: parameters stay fp32 and are cast to that dtype at use, so
+``CTCLIP(dtype=jnp.bfloat16)`` (its bf16 training program) computes the
+projections, LayerNorm outputs, PEG and the residual stream in bf16, and
+the default fp32 modules (its training CLI) compute in fp32 throughout.  In
+both, attention scores, the VQ search and the contrastive similarity are
+fp32 (``preferred_element_type=float32``).  The port's modules do the same
+through their compute dtype (``models/layers.py``); the training step sets
+it from the policy, whose two modes are ``policy("bf16")`` and
+``policy("fp32")``.  Nothing runs under ``torch.autocast``.
 """
 
 from __future__ import annotations
@@ -33,12 +35,6 @@ class Policy:
             return type(tree)(self.cast_to_compute(v) for v in tree)
         return tree
 
-    def autocast(self, device) -> torch.autocast:
-        """The region a forward runs in: autocast to the compute dtype, off
-        when it equals the parameter dtype."""
-        return torch.autocast(device_type=torch.device(device).type, dtype=self.compute_dtype,
-                              enabled=self.compute_dtype != self.param_dtype)
-
 
 def policy(name: str = "bf16") -> Policy:
     if name in ("bf16", "bfloat16", "mixed"):
@@ -46,8 +42,3 @@ def policy(name: str = "bf16") -> Policy:
     if name in ("fp32", "float32", "full"):
         return Policy(compute_dtype=torch.float32)
     raise ValueError(f"unknown precision policy {name!r}")
-
-
-def full_precision(device) -> torch.autocast:
-    """A region with autocast off, for the sums the policy keeps in fp32."""
-    return torch.autocast(device_type=torch.device(device).type, enabled=False)

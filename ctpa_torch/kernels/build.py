@@ -37,6 +37,7 @@ SIGNATURES = {
     "flash_attention_bwd_dq_launch": (_P,) * 8 + (_I,) * 7 + (_F, _I, _P),
     "flash_attention_bwd_dkv_launch": (_P,) * 9 + (_I,) * 7 + (_F, _I, _P),
     "flash_attention_bwd_dbias_launch": (_P,) * 8 + (_I,) * 7 + (_F, _I, _P),
+    "decode_attention_launch": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
 }
 
 

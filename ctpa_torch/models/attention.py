@@ -3,11 +3,14 @@ gamma-only LayerNorm, GEGLU feed-forward, PEG depthwise-conv positional
 encoding, QK-l2norm cosine attention with learned scales, the continuous
 position bias, pre-norm residual blocks.
 
-Every module takes ``device`` and ``dtype``; parameters live in that dtype.
-``Transformer(remat=True)`` recomputes each block in the backward
-(``torch.utils.checkpoint``), as ctpa's ``nn.remat``.  Cross-attention (null
-key/values, a context input) belongs to the report generator's slice and is
-not ported yet.
+Every module takes ``device`` and ``dtype``; parameters live in that dtype
+and are cast at use to the compute dtype (``models/layers.py``), as ctpa's
+flax modules cast theirs to their ``dtype``: in bf16 the LayerNorm outputs,
+the projections, PEG (its kernel and bias too) and the residual stream are
+bf16, while the attention scores stay fp32.  ``Transformer(remat=True)``
+recomputes each block in the backward (``torch.utils.checkpoint``), as
+ctpa's ``nn.remat``.  Cross-attention (null key/values, a context input)
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ctpa_torch.ops.attention_ops import (
     peg_conv3d,
     split_heads,
 )
+from ctpa_torch.models.layers import AffineLayerNorm, Dense, compute_dtype, layer_norm
 from ctpa_torch.ops.flash_attention import flash_attention
 
 # flax's LayerNorm default epsilon, which ctpa's blocks use
@@ -39,7 +43,8 @@ class LayerNorm(nn.Module):
         self.gamma = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
 
     def forward(self, x):
-        return F.layer_norm(x, (x.shape[-1],), eps=LN_EPS) * self.gamma
+        dt = compute_dtype(self, self.gamma)
+        return layer_norm(x, None, None, LN_EPS, dt) * self.gamma.to(dt)
 
 
 class GEGLU(nn.Module):
@@ -56,10 +61,10 @@ class FeedForward(nn.Module):
         fk = dict(device=device, dtype=dtype)
         inner = int(dim * mult * 2 / 3)
         # scale-and-bias LayerNorm here, unlike the gamma-only one around attention
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS, **fk)
-        self.proj_in = nn.Linear(dim, inner * 2, bias=False, **fk)
+        self.norm = AffineLayerNorm(dim, eps=LN_EPS, **fk)
+        self.proj_in = Dense(dim, inner * 2, bias=False, **fk)
         self.geglu = GEGLU()
-        self.proj_out = nn.Linear(inner, dim, bias=False, **fk)
+        self.proj_out = Dense(inner, dim, bias=False, **fk)
 
     def forward(self, x):
         return self.proj_out(self.geglu(self.proj_in(self.norm(x))))
@@ -91,7 +96,8 @@ class PEG(nn.Module):
                     else x.reshape(b, t, h, w, d))
         else:                           # (b, t*h*w, d)
             grid = x.reshape(B, t, h, w, d)
-        out = grid + peg_conv3d(grid, self.kernel, causal=self.causal) + self.bias
+        dt = compute_dtype(self, self.kernel)
+        out = grid + peg_conv3d(grid, self.kernel.to(dt), causal=self.causal) + self.bias.to(dt)
         if temporal_fixed:
             out = out.permute(0, 2, 3, 1, 4)
         return out.reshape(B, n, d)
@@ -115,11 +121,11 @@ class CosineAttention(nn.Module):
         self.kv_from_normed = kv_from_normed
         self.use_flash = use_flash
         self.norm = LayerNorm(dim, **fk)
-        self.to_q = nn.Linear(dim, inner, bias=False, **fk)
-        self.to_kv = nn.Linear(dim, inner * 2, bias=False, **fk)
+        self.to_q = Dense(dim, inner, bias=False, **fk)
+        self.to_kv = Dense(dim, inner * 2, bias=False, **fk)
         self.q_scale = nn.Parameter(torch.ones(dim_head, **fk))
         self.k_scale = nn.Parameter(torch.ones(dim_head, **fk))
-        self.to_out = nn.Linear(inner, dim, bias=False, **fk)
+        self.to_out = Dense(inner, dim, bias=False, **fk)
 
     def forward(self, x, mask=None, bias=None):
         raw = x
@@ -155,12 +161,13 @@ class ContinuousPositionBias(nn.Module):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         self.mlp = nn.ModuleList(
-            [nn.Linear(2 if i == 0 else dim, dim, **fk) for i in range(num_layers)])
-        self.to_heads = nn.Linear(dim, heads, **fk)
+            [Dense(2 if i == 0 else dim, dim, **fk) for i in range(num_layers)])
+        self.to_heads = Dense(dim, heads, **fk)
 
     def forward(self, height: int, width: int):
         w = self.to_heads.weight
-        h = continuous_position_bias_grid(height, width, device=w.device).to(w.dtype)
+        h = continuous_position_bias_grid(height, width, device=w.device).to(
+            compute_dtype(self, w))
         for layer in self.mlp:
             h = F.leaky_relu(layer(h), negative_slope=0.1)
         return self.to_heads(h).permute(2, 0, 1).contiguous()

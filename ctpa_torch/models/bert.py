@@ -1,6 +1,7 @@
 """BERT text encoder (port of ``ctpa/models/bert.py``), HF BertModel geometry.
-Attention is plain scaled dot-product with an fp32 softmax; no hand-written
-kernel is involved.  ``remat`` recomputes each layer in the backward, as
+Attention is plain scaled dot-product with fp32 scores and softmax; no
+hand-written kernel is involved.  Parameters are cast to the compute dtype
+at use (``models/layers.py``).  ``remat`` recomputes each layer in the backward, as
 ctpa's ``nn.remat``.  LoRA overlays and the MLM head belong to later slices."""
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ctpa_torch.core.config import BertConfig
+from ctpa_torch.models.layers import AffineLayerNorm, Dense, compute_dtype
 
 
 class BertEmbeddings(nn.Module):
@@ -23,7 +25,7 @@ class BertEmbeddings(nn.Module):
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **fk)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size, **fk)
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size, **fk)
-        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **fk)
+        self.LayerNorm = AffineLayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **fk)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
         if position_ids is None:
@@ -32,8 +34,9 @@ class BertEmbeddings(nn.Module):
         position_ids = torch.clamp(position_ids, max=self.cfg.max_position_embeddings - 1)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = (self.word_embeddings(input_ids) + self.position_embeddings(position_ids)
-             + self.token_type_embeddings(token_type_ids))
+        dt = compute_dtype(self, self.word_embeddings.weight)
+        x = (self.word_embeddings(input_ids).to(dt) + self.position_embeddings(position_ids).to(dt)
+             + self.token_type_embeddings(token_type_ids).to(dt))
         return self.LayerNorm(x)
 
 
@@ -42,16 +45,17 @@ class BertSelfAttention(nn.Module):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         self.heads = cfg.num_heads
-        self.query = nn.Linear(cfg.hidden_size, cfg.hidden_size, **fk)
-        self.key = nn.Linear(cfg.hidden_size, cfg.hidden_size, **fk)
-        self.value = nn.Linear(cfg.hidden_size, cfg.hidden_size, **fk)
+        self.query = Dense(cfg.hidden_size, cfg.hidden_size, **fk)
+        self.key = Dense(cfg.hidden_size, cfg.hidden_size, **fk)
+        self.value = Dense(cfg.hidden_size, cfg.hidden_size, **fk)
 
     def forward(self, x, attn_bias):
         b, n, hidden = x.shape
         dh = hidden // self.heads
         q, k, v = (t.reshape(b, n, self.heads, dh).transpose(1, 2)
                    for t in (self.query(x), self.key(x), self.value(x)))
-        sim = torch.matmul(q, k.transpose(-1, -2)).to(torch.float32) / math.sqrt(dh) + attn_bias
+        # fp32 scores from the compute-dtype q and k (preferred_element_type)
+        sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(dh) + attn_bias
         attn = torch.softmax(sim, dim=-1).to(v.dtype)
         return torch.matmul(attn, v).transpose(1, 2).reshape(b, n, hidden)
 
@@ -62,11 +66,11 @@ class BertLayer(nn.Module):
         fk = dict(device=device, dtype=dtype)
         hs, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.attention_self = BertSelfAttention(cfg, **fk)
-        self.attention_output_dense = nn.Linear(hs, hs, **fk)
-        self.attention_output_LayerNorm = nn.LayerNorm(hs, eps=eps, **fk)
-        self.intermediate_dense = nn.Linear(hs, cfg.intermediate_size, **fk)
-        self.output_dense = nn.Linear(cfg.intermediate_size, hs, **fk)
-        self.output_LayerNorm = nn.LayerNorm(hs, eps=eps, **fk)
+        self.attention_output_dense = Dense(hs, hs, **fk)
+        self.attention_output_LayerNorm = AffineLayerNorm(hs, eps=eps, **fk)
+        self.intermediate_dense = Dense(hs, cfg.intermediate_size, **fk)
+        self.output_dense = Dense(cfg.intermediate_size, hs, **fk)
+        self.output_LayerNorm = AffineLayerNorm(hs, eps=eps, **fk)
 
     def forward(self, x, attn_bias):
         attn_out = self.attention_output_dense(self.attention_self(x, attn_bias))

@@ -14,9 +14,9 @@ from einops import rearrange
 from torch import nn
 
 from ctpa_torch.core.config import BertConfig, CTCLIPConfig, CTViTConfig
-from ctpa_torch.core.precision import full_precision
 from ctpa_torch.models.bert import BertEncoder
 from ctpa_torch.models.ctvit import CTViT
+from ctpa_torch.models.layers import Dense
 from ctpa_torch.ops.attention_ops import l2norm
 from ctpa_torch.ops.vq import VQState
 
@@ -62,6 +62,12 @@ def infonce_loss(sim: torch.Tensor, decoupled: bool = False,
 
 
 class CTCLIP(nn.Module):
+    """``dtype`` is the parameters' dtype.  The compute dtype, what ctpa's
+    ``CTCLIP(dtype=...)`` names, is set with
+    ``models.layers.set_compute_dtype`` (the training step sets it from its
+    precision policy); by default the model computes in its parameters'
+    dtype."""
+
     def __init__(self, cfg: CTCLIPConfig, vit_cfg: CTViTConfig, bert_cfg: BertConfig,
                  device="cuda", dtype=torch.float32, remat: bool = False):
         super().__init__()
@@ -74,9 +80,9 @@ class CTCLIP(nn.Module):
         self.cfg = cfg
         self.text_transformer = BertEncoder(bert_cfg, remat=remat, **fk)
         self.visual_transformer = CTViT(vit_cfg, remat=remat, **fk)
-        self.to_text_latent = nn.Linear(cfg.dim_text, cfg.dim_latent, bias=False, **fk)
+        self.to_text_latent = Dense(cfg.dim_text, cfg.dim_latent, bias=False, **fk)
         # 294,912 -> 512 at the shipped geometry: a plain matrix product
-        self.to_visual_latent = nn.Linear(cfg.dim_image, cfg.dim_latent, bias=False, **fk)
+        self.to_visual_latent = Dense(cfg.dim_image, cfg.dim_latent, bias=False, **fk)
         self.temperature = nn.Parameter(torch.tensor(cfg.temperature_init, **fk))
 
     def encode_text(self, input_ids, attention_mask) -> torch.Tensor:
@@ -105,11 +111,11 @@ class CTCLIP(nn.Module):
         img_lat, vq_out = self.encode_image(video, vq_state)
         vq = (None, None, None) if vq_out is None else (vq_out.commit_loss, vq_out.counts,
                                                         vq_out.sums)
-        with full_precision(text_lat.device):
-            t, i = text_lat.float(), img_lat.float()
-            if not return_loss:
-                score = (t * i.expand_as(t)).sum(-1) * temp
-                return CLIPOutput(None, score, text_lat, img_lat, *vq)
-            sim = torch.matmul(t, i.t()) * temp
-            loss = infonce_loss(sim, decoupled=self.cfg.decoupled_contrastive_learning)
+        # fp32 similarity from the compute-dtype latents (preferred_element_type)
+        t, i = text_lat.float(), img_lat.float()
+        if not return_loss:
+            score = (t * i.expand_as(t)).sum(-1) * temp
+            return CLIPOutput(None, score, text_lat, img_lat, *vq)
+        sim = torch.matmul(t, i.t()) * temp
+        loss = infonce_loss(sim, decoupled=self.cfg.decoupled_contrastive_learning)
         return CLIPOutput(loss, sim, text_lat, img_lat, *vq)

@@ -11,6 +11,7 @@ from torch import nn
 
 from ctpa_torch.core.config import CTViTConfig
 from ctpa_torch.models.attention import ContinuousPositionBias, Transformer
+from ctpa_torch.models.layers import AffineLayerNorm, compute_dtype
 from ctpa_torch.ops.patchify import patchify_project
 from ctpa_torch.ops.vq import VQOutput, VQState, vq_encode
 
@@ -34,12 +35,12 @@ class PatchEmbed3D(nn.Module):
         self.norm_in_bias = nn.Parameter(torch.zeros(pd, **fk))
         self.proj_kernel = nn.Parameter(torch.zeros(pd, dim, **fk))
         self.proj_bias = nn.Parameter(torch.zeros(dim, **fk))
-        self.norm_out = nn.LayerNorm(dim, eps=eps, **fk)
+        self.norm_out = AffineLayerNorm(dim, eps=eps, **fk)
 
     def forward(self, video: torch.Tensor) -> torch.Tensor:
         c = self.cfg
         pt, p = c.temporal_patch_size, c.patch_size
-        dtype = self.proj_kernel.dtype
+        dtype = compute_dtype(self, self.proj_kernel)
         g_in, b_in, kernel = self.norm_in_scale, self.norm_in_bias, self.proj_kernel
         shift = (b_in @ kernel) + self.proj_bias
         if c.pallas_patchify and c.channels == 1:
@@ -53,7 +54,7 @@ class PatchEmbed3D(nn.Module):
         mean = xf.mean(-1, keepdim=True)
         var = xf.var(-1, unbiased=False, keepdim=True)
         xhat = ((xf - mean) * torch.rsqrt(var + self.eps)).to(dtype)
-        y = (xhat * g_in) @ kernel
+        y = (xhat * g_in.to(dtype)) @ kernel.to(dtype)
         return self.norm_out(y + shift.to(y.dtype))
 
 
@@ -62,7 +63,9 @@ class CTViT(nn.Module):
     (b, c, T, H, W) and tokens (b, t, h, w, d), quantized when a VQ state is
     given and ``cfg.use_vq`` (straight-through in the backward).  ``remat``
     recomputes each transformer block in the backward.  Training keeps
-    ``cfg.pallas_patchify`` off: the patchify kernel is forward-only."""
+    ``cfg.pallas_patchify`` off: the patchify kernel is forward-only.
+    ``dtype`` is the parameters' dtype; the compute dtype (ctpa's module
+    ``dtype``) is set with ``models.layers.set_compute_dtype``."""
 
     def __init__(self, cfg: CTViTConfig, device="cuda", dtype=torch.float32,
                  remat: bool = False):

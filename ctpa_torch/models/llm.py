@@ -1,0 +1,328 @@
+"""Decoder-only LLM at llama-2 / Meditron-7B geometry with a KV cache (port of
+``ctpa/models/llm.py``, the float-weight path).
+
+Parameter names follow ctpa's flax tree (``embed_tokens``,
+``layers.i.self_attn.q_proj.base``, ``input_layernorm``, ``mlp.gate_proj``,
+``lm_head``), so ``ctpa_torch.convert`` carries its weights.  Parameters
+are cast to the compute dtype at use, as ctpa's modules cast to their
+``dtype``; attention scores and the softmax are fp32.
+
+The KV cache is head-major, (L, b, kvh, m, hd), as ctpa's.  Unlike ctpa's
+functional updates, each layer writes its new rows into the cache buffers
+**in place**: the ``KVCache`` a forward returns holds the same k/v (and
+scale) tensors as the one it was given, with new offsets and validity.
+Single-token steps with ``flash_decode`` run the decode-attention kernel
+(``ops/decode_attention.py``); everything else runs the dense grouped-query
+attention.  Nothing in a forward reads a device value back to the host.
+
+Not ported (the model raises): quantized weights (``weight_quant``,
+``quant_ffn_kernel``, ``quant_act``), the int4 KV cache, int8 attention
+dots, and flash prefill (no-cache forwards of at least ``flash_min_len``
+tokens with ``flash_prefill``), which belongs to report training.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ctpa_torch.core.config import LLMConfig, LoRAConfig
+from ctpa_torch.models.layers import Dense, compute_dtype
+from ctpa_torch.models.lora import LoRADense
+from ctpa_torch.ops.decode_attention import decode_attention
+from ctpa_torch.ops.rotary import apply_rope, rope_frequencies
+
+
+def check_ported(cfg: LLMConfig) -> None:
+    """Raise on configuration values whose paths the port does not have."""
+    unported = [name for name, on in (
+        ("weight_quant", cfg.weight_quant is not None), ("quant_ffn_kernel", cfg.quant_ffn_kernel),
+        ("quant_act", cfg.quant_act), ("kv_quant='int4'", cfg.kv_quant == "int4"),
+        ("kv_int8_dots", cfg.kv_int8_dots)) if on]
+    # settings that act only on the quantized-weight and int4-cache paths:
+    # a value other than the default would be ignored, so it is refused
+    default = LLMConfig()
+    unported += [name for name in ("quant_impl", "quant_fused", "kv_quant_group",
+                                   "kv_scale_dtype")
+                 if getattr(cfg, name) != getattr(default, name)]
+    if unported:
+        raise NotImplementedError(f"LLMConfig {unported} are not ported yet")
+    if cfg.kv_quant not in (None, "int8"):
+        raise ValueError(f"unknown kv_quant {cfg.kv_quant!r}")
+
+
+class RMSNorm(nn.Module):
+    """fp32 statistics and weight; the output in x's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, device=None, dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+
+    def forward(self, x):
+        xf = x.float()
+        y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + self.eps)
+        return (y * self.weight.float()).to(x.dtype)
+
+
+class KVCache(NamedTuple):
+    """Static-shape KV cache, head-major: k, v (L, b, kvh, m, hd).
+
+    ``write_offset`` (b,) is each sequence's next free slot; ``true_len``
+    (b,) counts its real tokens and gives the RoPE positions; ``valid`` (b,
+    m) marks the slots that hold a real token's key and value.  The int8
+    cache stores int8 rows with per-(kv head, slot) fp32 absmax scales
+    ``k_scale``, ``v_scale`` (L, b, kvh, m).  A forward writes k, v and the
+    scales in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    write_offset: torch.Tensor
+    true_len: torch.Tensor
+    valid: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @classmethod
+    def create(cls, cfg: LLMConfig, batch: int, max_len: Optional[int] = None,
+               dtype=torch.bfloat16, device="cuda") -> "KVCache":
+        max_len = max_len or cfg.max_seq_len
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+        quant = cfg.kv_quant == "int8"
+        store = torch.int8 if quant else dtype
+        scales = (lambda: torch.zeros(shape[:-1], device=device)) if quant else (lambda: None)
+        return cls(k=torch.zeros(shape, dtype=store, device=device),
+                   v=torch.zeros(shape, dtype=store, device=device),
+                   write_offset=torch.zeros(batch, dtype=torch.int32, device=device),
+                   true_len=torch.zeros(batch, dtype=torch.int32, device=device),
+                   valid=torch.zeros(batch, max_len, dtype=torch.bool, device=device),
+                   k_scale=scales(), v_scale=scales())
+
+
+def _write(cache: torch.Tensor, layer: int, new: torch.Tensor, index: torch.Tensor) -> None:
+    """Write ``new`` (b, kvh, n[, hd]) into slots ``index + [0, n)`` (mod m)
+    of layer ``layer`` of ``cache`` (L, b, kvh, m[, hd]), in place.  A 0-d
+    ``index`` is one slot shared by every sequence; a (b,) index is one per
+    sequence."""
+    plane = cache[layer]
+    m, n = plane.shape[2], new.shape[2]
+    steps = torch.arange(n, device=new.device)
+    if index.ndim == 0:
+        plane.index_copy_(2, (index + steps) % m, new)
+    else:
+        slots = (index[:, None] + steps[None]) % m                         # (b, n)
+        rows = torch.arange(plane.shape[0], device=new.device)[:, None]
+        plane[rows, :, slots] = new.movedim(2, 1)
+
+
+def _quant_rows(rows: torch.Tensor):
+    """Symmetric absmax int8 per (kv head, token) over head_dim: (int8 rows,
+    fp32 scales)."""
+    rf = rows.float()
+    scale = torch.clamp(rf.abs().amax(-1) / 127.0, min=1e-12)
+    return torch.clamp(torch.round(rf / scale[..., None]), -127, 127).to(torch.int8), scale
+
+
+def _lora_args(lora: Optional[LoRAConfig], name: str) -> dict:
+    if lora is not None and name in lora.target_projections:
+        return {"rank": lora.rank, "alpha": lora.alpha}
+    return {"rank": 0}
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, cfg: LLMConfig, lora: Optional[LoRAConfig] = None, layer_idx: int = 0,
+                 device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        self.cfg, self.layer_idx = cfg, layer_idx
+        h, kvh, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size
+        for name, out in (("q_proj", h * hd), ("k_proj", kvh * hd), ("v_proj", kvh * hd)):
+            setattr(self, name, LoRADense(d, out, **_lora_args(lora, name), **fk))
+        self.o_proj = LoRADense(h * hd, d, **_lora_args(lora, "o_proj"), **fk)
+
+    def forward(self, x, positions, rope, kv_write_index=None, cache_k=None, cache_v=None,
+                attn_mask=None, key_mask=None):
+        """x (b, n, d); ``rope`` the (cos, sin) tables.  With a cache,
+        ``cache_k``/``cache_v`` are (buffer, scale or None) pairs of the FULL
+        stacked cache: this layer writes its n new rows at
+        ``kv_write_index`` and attends its own plane.  ``attn_mask`` is
+        (b, 1, n, m) or (b, 1, 1, m), True = attend; ``key_mask`` (b, m) is
+        the validity the decode kernel takes."""
+        c = self.cfg
+        h, kvh, hd = c.num_heads, c.num_kv_heads, c.head_dim
+        b, n, _ = x.shape
+        cos, sin = rope
+        q = apply_rope(self.q_proj(x).reshape(b, n, h, hd), cos, sin, positions)
+        k = apply_rope(self.k_proj(x).reshape(b, n, kvh, hd), cos, sin, positions)
+        v = self.v_proj(x).reshape(b, n, kvh, hd)
+        dt = q.dtype
+        k_sc = v_sc = None
+        if cache_k is not None:
+            (ck, ksc), (cv, vsc) = cache_k, cache_v
+            k_hm, v_hm = k.transpose(1, 2), v.transpose(1, 2)               # (b, kvh, n, hd)
+            if ksc is not None:
+                (k8, k_rows), (v8, v_rows) = _quant_rows(k_hm), _quant_rows(v_hm)
+                for buf, new in ((ck, k8), (cv, v8), (ksc, k_rows), (vsc, v_rows)):
+                    _write(buf, self.layer_idx, new, kv_write_index)
+            else:
+                _write(ck, self.layer_idx, k_hm.to(ck.dtype), kv_write_index)
+                _write(cv, self.layer_idx, v_hm.to(cv.dtype), kv_write_index)
+            if n == 1 and key_mask is not None and c.flash_decode:
+                out = decode_attention(q[:, 0], ck, cv, key_mask, self.layer_idx,
+                                       k_scale=ksc, v_scale=vsc, scale=1.0 / math.sqrt(hd))
+                return self.o_proj(out.reshape(b, 1, h * hd).to(x.dtype))
+            if ksc is not None:
+                k_sc, v_sc = ksc[self.layer_idx], vsc[self.layer_idx]        # (b, kvh, m)
+            k_full, v_full = ck[self.layer_idx].to(dt), cv[self.layer_idx].to(dt)
+        else:
+            k_full, v_full = k.transpose(1, 2), v.transpose(1, 2)
+        # grouped-query attention against the un-repeated K/V: q head
+        # g * rep + r attends kv head g; fp32 scores (preferred_element_type)
+        qg = q.reshape(b, n, kvh, h // kvh, hd)
+        sim = torch.einsum("bngrd,bgmd->bgrnm", qg.float(), k_full.float()) / math.sqrt(hd)
+        if k_sc is not None:
+            sim = sim * k_sc[:, :, None, None, :]
+        if attn_mask is not None:
+            sim = sim.masked_fill(~attn_mask[:, :, None], torch.finfo(torch.float32).min)
+        attn = torch.softmax(sim, dim=-1)
+        if v_sc is not None:
+            attn = attn * v_sc[:, :, None, None, :]
+        out = torch.einsum("bgrnm,bgmd->bngrd", attn.to(v_full.dtype), v_full)
+        return self.o_proj(out.reshape(b, n, h * hd))
+
+
+class LlamaMLP(nn.Module):
+    """SwiGLU: down(silu(gate(x)) * up(x))."""
+
+    def __init__(self, cfg: LLMConfig, device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        d, i = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = Dense(d, i, bias=False, **fk)
+        self.up_proj = Dense(d, i, bias=False, **fk)
+        self.down_proj = Dense(i, d, bias=False, **fk)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaBlock(nn.Module):
+    """Pre-norm residual block."""
+
+    def __init__(self, cfg: LLMConfig, lora: Optional[LoRAConfig] = None, layer_idx: int = 0,
+                 device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **fk)
+        self.self_attn = LlamaAttention(cfg, lora, layer_idx, **fk)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **fk)
+        self.mlp = LlamaMLP(cfg, **fk)
+
+    def forward(self, x, positions, rope, kv_write_index=None, cache_k=None, cache_v=None,
+                attn_mask=None, key_mask=None):
+        x = x + self.self_attn(self.input_layernorm(x), positions, rope, kv_write_index,
+                               cache_k, cache_v, attn_mask, key_mask)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class LlamaModel(nn.Module):
+    """Embeddings, blocks and the final norm.  forward -> (hidden, new cache
+    or None): a full-sequence forward without a cache, a prefill with one,
+    or a single-token decode step (n == 1 with a cache)."""
+
+    def __init__(self, cfg: LLMConfig, lora: Optional[LoRAConfig] = None, device=None,
+                 dtype=None):
+        super().__init__()
+        check_ported(cfg)
+        fk = dict(device=device, dtype=dtype)
+        self.cfg = cfg
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **fk)
+        self.layers = nn.ModuleList([LlamaBlock(cfg, lora, i, **fk)
+                                     for i in range(cfg.num_layers)])
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **fk)
+
+    def forward(self, input_ids=None, attention_mask=None, cache: Optional[KVCache] = None,
+                positions=None, inputs_embeds=None, shared_kv_offset: bool = False):
+        """``attention_mask`` (b, n): 1 = real token.  Positions default to
+        ``cache.true_len + [0, n)`` (pads get positions past the real length;
+        they are never attended).  ``shared_kv_offset`` promises that every
+        sequence's ``cache.write_offset`` is the same (lockstep decode of
+        right-padded prompts): the rows are then written at one shared slot."""
+        c = self.cfg
+        weight = self.embed_tokens.weight
+        dt = compute_dtype(self, weight)
+        if inputs_embeds is None:
+            b, n = input_ids.shape
+            x = F.embedding(input_ids, weight).to(dt)
+        else:
+            b, n = inputs_embeds.shape[:2]
+            x = inputs_embeds.to(dt)
+        dev = x.device
+        steps = torch.arange(n, device=dev)
+        if positions is None:
+            positions = (cache.true_len[:, None] + steps[None] if cache is not None
+                         else steps[None].expand(b, n))
+        key_mask = write_idx = ck = cv = None
+        if cache is not None:
+            m = cache.k.shape[3]
+            real = (attention_mask.bool() if attention_mask is not None
+                    else torch.ones(b, n, dtype=torch.bool, device=dev))
+            write_slots = (cache.write_offset[:, None] + steps[None]) % m          # (b, n)
+            slot = torch.arange(m, device=dev)
+            newly = ((slot[None, None] == write_slots[:, :, None]) & real[:, :, None]).any(1)
+            valid_now = cache.valid | newly
+            if n == 1:
+                # an append-only cache: causality is validity
+                mask = valid_now[:, None, None, :]
+                key_mask = valid_now if c.flash_decode else None
+            else:
+                mask = ((slot[None, None, None] <= write_slots[:, None, :, None])
+                        & valid_now[:, None, None, :])
+            write_idx = cache.write_offset[0] if shared_kv_offset else cache.write_offset
+            ck, cv = (cache.k, cache.k_scale), (cache.v, cache.v_scale)
+        elif c.flash_prefill and n >= c.flash_min_len:
+            raise NotImplementedError("flash_prefill (the causal, key-masked flash kernel for "
+                                      "no-cache forwards) is not ported yet")
+        else:
+            mask = steps[None, None, None, :] <= steps[None, None, :, None]
+            if attention_mask is not None:
+                mask = mask & (attention_mask[:, None, None, :] > 0)
+        rope = rope_frequencies(c.head_dim, c.max_seq_len, c.rope_theta, device=dev)
+        for layer in self.layers:
+            x = layer(x, positions, rope, write_idx, ck, cv, mask, key_mask)
+        x = self.norm(x)
+        if cache is None:
+            return x, None
+        return x, cache._replace(write_offset=cache.write_offset + n,
+                                 true_len=cache.true_len + real.sum(-1).to(torch.int32),
+                                 valid=valid_now)
+
+
+class LlamaForCausalLM(nn.Module):
+    """The trunk and the lm_head.  ``dtype`` is the parameters' dtype; the
+    compute dtype (ctpa's ``dtype``) is set with ``set_compute_dtype``."""
+
+    def __init__(self, cfg: LLMConfig, lora: Optional[LoRAConfig] = None, device="cuda",
+                 dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        self.model = LlamaModel(cfg, lora, device=device, dtype=dtype)
+        if not cfg.tie_embeddings:
+            self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, bias=False, device=device,
+                                 dtype=dtype)
+
+    def apply_lm_head(self, hidden):
+        if self.cfg.tie_embeddings:
+            raise NotImplementedError("tied embeddings not needed for Meditron/llama-2")
+        return self.lm_head(hidden)
+
+    def forward(self, input_ids=None, attention_mask=None, cache: Optional[KVCache] = None,
+                positions=None, inputs_embeds=None, shared_kv_offset: bool = False):
+        """-> (logits, hidden, new cache or None)."""
+        hidden, new_cache = self.model(input_ids, attention_mask, cache, positions,
+                                       inputs_embeds, shared_kv_offset)
+        return self.apply_lm_head(hidden), hidden, new_cache

@@ -9,8 +9,6 @@ import torch
 import torch.nn.functional as F
 from einops import rearrange
 
-from ctpa_torch.core.precision import full_precision
-
 
 def l2norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     return x * torch.rsqrt(torch.sum(x * x, dim=dim, keepdim=True) + eps)
@@ -34,8 +32,7 @@ def cosine_attention(
     learned scales, the similarity is multiplied by ``scale`` and the bias
     (zero over the null columns) is added before the fp32 softmax.
 
-    Causal mode (ALiBi plus the triangular mask) belongs to the report
-    generator's slice and is not ported yet."""
+    Causal mode (ALiBi plus the triangular mask) is not ported yet."""
     if causal:
         raise NotImplementedError("causal cosine attention (ALiBi) is not ported yet")
     b, h, n, d = q.shape
@@ -47,22 +44,21 @@ def cosine_attention(
         k = torch.cat([nk, k], dim=2)
         v = torch.cat([nv, v], dim=2)
 
-    with full_precision(q.device):     # fp32 scores, as ctpa's preferred_element_type
-        q = l2norm(q) * q_scale.float()
-        k = l2norm(k) * k_scale.float()
-        sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    q = l2norm(q) * q_scale.float()
+    k = l2norm(k) * k_scale.float()
+    sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
 
-        if bias is not None:
-            if n_null:
-                bias = F.pad(bias, (n_null, 0))
-            sim = sim + (bias[None] if bias.ndim == 3 else bias).float()
-        if mask is not None:
-            keep = mask.bool()
-            if n_null:
-                keep = F.pad(keep, (n_null, 0), value=True)
-            sim = sim.masked_fill(~keep[:, None, None, :], torch.finfo(sim.dtype).min)
+    if bias is not None:
+        if n_null:
+            bias = F.pad(bias, (n_null, 0))
+        sim = sim + (bias[None] if bias.ndim == 3 else bias).float()
+    if mask is not None:
+        keep = mask.bool()
+        if n_null:
+            keep = F.pad(keep, (n_null, 0), value=True)
+        sim = sim.masked_fill(~keep[:, None, None, :], torch.finfo(sim.dtype).min)
 
-        attn = torch.softmax(sim, dim=-1).to(v.dtype)
+    attn = torch.softmax(sim, dim=-1).to(v.dtype)
     return torch.matmul(attn, v)
 
 

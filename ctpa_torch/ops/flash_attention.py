@@ -19,8 +19,8 @@ shift, as in ctpa).
 Ported: bias in its three broadcast forms (the per-item ``(b, h, n, m)``
 bias gets its gradient from the same kernels, with no batch sum), ``scale``,
 ``logit_bound`` (flat softmax), the logsumexp output, fp32 accumulation,
-bf16 and fp32 inputs.  ``causal``, ``q_offset`` and ``kv_mask`` come with the
-report-generation slice; until then they raise.
+bf16 and fp32 inputs.  ``causal``, ``q_offset`` and ``kv_mask`` come with
+report training (LLM forwards without a cache); until then they raise.
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ import math
 
 import torch
 
-from ctpa_torch.core.precision import full_precision
 from ctpa_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -121,18 +120,17 @@ def flash_attention_plain(q, k, v, bias=None, scale: float | None = None,
     """The forward kernel's function in plain PyTorch: fp32 scores and sums;
     with ``return_lse`` also the fp32 (b, h, n) row logsumexp."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
-    with full_precision(q.device):
-        s = _scores(q, k, bias, scale)
-        if logit_bound is None:
-            shift = s.amax(-1, keepdim=True)
-        else:
-            shift = torch.as_tensor(logit_bound, dtype=torch.float32, device=s.device)
-        p = torch.exp(s - shift)
-        denom = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
-        out = (torch.matmul(p, v.to(torch.float32)) / denom).to(q.dtype)
-        if not return_lse:
-            return out
-        return out, (shift + torch.log(denom)).squeeze(-1)
+    s = _scores(q, k, bias, scale)
+    if logit_bound is None:
+        shift = s.amax(-1, keepdim=True)
+    else:
+        shift = torch.as_tensor(logit_bound, dtype=torch.float32, device=s.device)
+    p = torch.exp(s - shift)
+    denom = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    out = (torch.matmul(p, v.to(torch.float32)) / denom).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, (shift + torch.log(denom)).squeeze(-1)
 
 
 def _sum_bias(ds, bias):
@@ -158,22 +156,19 @@ def flash_attention_bwd_delta_plain(out, do):
 
 
 def flash_attention_bwd_dq_plain(q, k, v, bias, lse, delta, do, scale: float):
-    with full_precision(q.device):
-        _, ds = _probs_and_ds(q, k, v, bias, lse, delta, do, scale)
-        return (torch.matmul(ds, k.to(torch.float32)) * scale).to(q.dtype)
+    _, ds = _probs_and_ds(q, k, v, bias, lse, delta, do, scale)
+    return (torch.matmul(ds, k.to(torch.float32)) * scale).to(q.dtype)
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, bias, lse, delta, do, scale: float):
-    with full_precision(q.device):
-        p, ds = _probs_and_ds(q, k, v, bias, lse, delta, do, scale)
-        dk = torch.matmul(ds.transpose(-1, -2), q.to(torch.float32)) * scale
-        dv = torch.matmul(p.transpose(-1, -2), do.to(torch.float32))
-        return dk.to(k.dtype), dv.to(v.dtype)
+    p, ds = _probs_and_ds(q, k, v, bias, lse, delta, do, scale)
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(torch.float32)) * scale
+    dv = torch.matmul(p.transpose(-1, -2), do.to(torch.float32))
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_bwd_dbias_plain(q, k, v, bias, lse, delta, do, scale: float):
-    with full_precision(q.device):
-        return _sum_bias(_probs_and_ds(q, k, v, bias, lse, delta, do, scale)[1], bias)
+    return _sum_bias(_probs_and_ds(q, k, v, bias, lse, delta, do, scale)[1], bias)
 
 
 def flash_attention_bwd_plain(q, k, v, bias, out, lse, do, scale: float):

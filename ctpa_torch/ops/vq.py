@@ -2,7 +2,7 @@
 encode with its straight-through estimator and the EMA codebook update.  The
 codebook state is explicit, as in ctpa; the decode lookup belongs to the
 generative slice.  The (n, d) x (d, K) nearest-code search is one
-``torch.matmul``, in fp32 also under a bf16 autocast, as ctpa computes it."""
+``torch.matmul`` in fp32 whatever the input's dtype, as ctpa computes it."""
 
 from __future__ import annotations
 
@@ -10,7 +10,6 @@ from typing import NamedTuple
 
 import torch
 
-from ctpa_torch.core.precision import full_precision
 from ctpa_torch.ops.attention_ops import l2norm
 
 
@@ -43,11 +42,6 @@ def vq_encode(state: VQState, x: torch.Tensor, mask: torch.Tensor | None = None)
 
     ``mask`` (...,) bool: True = real token.  Masked tokens still get indices
     but add nothing to counts, sums or the commit loss."""
-    with full_precision(x.device):
-        return _vq_encode(state, x, mask)
-
-
-def _vq_encode(state: VQState, x: torch.Tensor, mask: torch.Tensor | None) -> VQOutput:
     shape = x.shape
     d = shape[-1]
     flat = x.reshape(-1, d).to(torch.float32)

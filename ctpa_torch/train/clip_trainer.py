@@ -1,11 +1,12 @@
 """Contrastive CLIP trainer (port of ``ctpa/train/clip_trainer.py``) on one
 device.
 
-One step: forward of both towers under the precision policy, bidirectional
-InfoNCE (plus the weighted VQ commitment loss when asked), backward, gradient
-clipping and AdamW (``train/optim.py``), then the VQ EMA codebook update.
-ctpa compiles this into one XLA program; the port runs it eagerly and
-updates the parameters and moments in place.  Data parallelism (``mesh``,
+One step: forward of both towers in the policy's compute dtype,
+bidirectional InfoNCE (plus the weighted VQ commitment loss when asked),
+backward, gradient clipping and AdamW (``train/optim.py``), then the VQ EMA
+codebook update.  ctpa compiles this into one XLA program; the port runs it
+eagerly, updates the parameters and moments in place, and reads nothing back
+to the host: the metrics stay device tensors.  Data parallelism (``mesh``,
 ``contrastive_loss_sharded``), the MLM and visual-SSL losses wait for later
 slices and raise.
 """
@@ -23,6 +24,7 @@ from ctpa_torch.core.checkpoint import CheckpointManager
 from ctpa_torch.core.config import OptimizerConfig, TrainConfig
 from ctpa_torch.core.precision import Policy, policy as precision_policy
 from ctpa_torch.models.ctclip import CTCLIP
+from ctpa_torch.models.layers import set_compute_dtype
 from ctpa_torch.ops.vq import ema_update
 from ctpa_torch.train.metrics import MetricsTracker
 from ctpa_torch.train.optim import Optimizer, get_optimizer, global_norm
@@ -39,25 +41,27 @@ def make_clip_train_step(model: CTCLIP, tx: Optimizer, vq_decay: float = 0.99,
     and optimizer; their parameters and moments are updated in place, the
     returned state carries the new VQ state and step.  Metrics are 0-d
     tensors: loss, grad_norm (of the unclipped gradients), temperature
-    (before the update) and vq_commit."""
+    (before the update) and vq_commit.  The model computes in the policy's
+    compute dtype from here on (``policy("bf16")``: ctpa's
+    ``CTCLIP(dtype=jnp.bfloat16)``; ``policy("fp32")``: its fp32 modules).
+    The global norm is computed once and serves the metric and the clip."""
     if use_mlm or use_visual_ssl:
         raise NotImplementedError("the MLM and visual-SSL losses are not ported yet")
     policy = policy or Policy()
+    set_compute_dtype(model, policy.compute_dtype)
 
     def train_step(state: CLIPTrainState, batch: dict):
-        device = model.temperature.device
         model.zero_grad(set_to_none=True)
-        with policy.autocast(device):
-            out = model(batch["input_ids"], batch["attention_mask"],
-                        policy.cast_to_compute(batch["video"]), state.vq_state, return_loss=True)
+        out = model(batch["input_ids"], batch["attention_mask"],
+                    policy.cast_to_compute(batch["video"]), state.vq_state, return_loss=True)
         loss = out.loss
         if out.vq_commit_loss is not None and commit_weight > 0:
             loss = loss + commit_weight * out.vq_commit_loss
         loss.backward()
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads),
+        norm = global_norm([p.grad for p in model.parameters() if p.grad is not None])
+        metrics = {"loss": loss.detach(), "grad_norm": norm,
                    "temperature": torch.exp(model.temperature.detach())}
-        tx.step(state.step)
+        tx.step(state.step, grad_norm=norm)
         vq_state = state.vq_state
         if vq_state is not None and out.vq_counts is not None:
             vq_state = ema_update(vq_state, out.vq_counts, out.vq_sums, decay=vq_decay)

@@ -4,8 +4,9 @@ ctpa chains optax's ``clip_by_global_norm`` and ``adamw`` with a schedule.
 The port keeps optax's conventions on ``torch.optim.AdamW``:
 
 * two parameter groups: weight decay on parameters with ndim >= 2 only;
-* the global gradient norm is clipped before the update, as optax computes
-  it (``g / norm * max_norm`` when the norm reaches ``max_norm``);
+* the gradients are clipped by their global norm before the update, as
+  optax's ``clip_by_global_norm`` does: scaled by ``max_norm / norm`` when
+  the norm reaches ``max_norm``, selected on the device (no host sync);
 * the learning rate of an update is the schedule read at the number of
   updates made before it, so step 0 of ``cosine_warmup_restarts`` has lr 0;
 * decoupled weight decay is scaled by the learning rate, as in optax's
@@ -111,6 +112,12 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor optax's ``clip_by_global_norm`` applies: 1 below
+    ``max_norm``, ``max_norm / norm`` from it on; a device tensor."""
+    return torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+
+
 class Optimizer:
     """Gradient clipping, the scheduled learning rate and AdamW over the
     trainable parameters of a model (optax's ``chain(clip_by_global_norm,
@@ -126,6 +133,9 @@ class Optimizer:
         wd = 0.0 if cfg.name == "adam" or cfg.weight_decay == 0 else cfg.weight_decay
         named = [(n, p) for n, p in model.named_parameters()
                  if trainable is None or trainable[n]]
+        # whether some parameter is frozen: then the clip's norm covers the
+        # trainable gradients only, as optax's multi_transform computes it
+        self.masked = len(named) < len(list(model.parameters()))
         groups = [{"params": [p for n, p in named if decay[n]], "weight_decay": wd},
                   {"params": [p for n, p in named if not decay[n]], "weight_decay": 0.0}]
         self.opt = torch.optim.AdamW([g for g in groups if g["params"]], lr=self.schedule(0),
@@ -136,17 +146,20 @@ class Optimizer:
         return [p for group in self.opt.param_groups for p in group["params"]]
 
     @torch.no_grad()
-    def step(self, count: int) -> None:
-        """One update at schedule step ``count`` (updates made before it)."""
+    def step(self, count: int, grad_norm: torch.Tensor | None = None) -> None:
+        """One update at schedule step ``count`` (updates made before it).
+        ``grad_norm``: the global norm of every gradient of the model, where
+        the caller has it already.  It is the clip's norm unless some
+        parameter is frozen: then the clip's norm covers the trainable
+        gradients only and is computed here."""
         params = self.params
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if self.cfg.grad_clip_norm and self.cfg.grad_clip_norm > 0:
-            norm = global_norm([p.grad for p in params])
-            if norm >= self.cfg.grad_clip_norm:
-                for p in params:
-                    p.grad.div_(norm.to(p.grad.dtype)).mul_(self.cfg.grad_clip_norm)
+            grads = [p.grad for p in params]
+            norm = global_norm(grads) if grad_norm is None or self.masked else grad_norm
+            torch._foreach_mul_(grads, clip_scale(norm, self.cfg.grad_clip_norm))
         lr = self.schedule(count)
         for group in self.opt.param_groups:
             group["lr"] = lr

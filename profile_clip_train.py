@@ -4,7 +4,7 @@
     python3 profile_clip_train.py            # from the root of a checkout
 
 Builds the training model as ``chip_smoke.py`` does (shipped geometry, fp32
-parameters, bf16 autocast, block remat, seeded random weights, 2 synthetic
+parameters, bf16 compute, block remat, seeded random weights, 2 synthetic
 volumes and 512-token reports), once with the flash kernels on the spatial
 fold and once on its plain attention.  The kernels are built first.  For
 each path it takes 2 steps to warm up, times 3 more (host clock, each

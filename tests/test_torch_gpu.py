@@ -18,8 +18,8 @@ import torch
 
 from ctpa_torch.core.config import CTViTConfig
 from ctpa_torch.core.init import random_init_
-from ctpa_torch.core.precision import Policy
 from ctpa_torch.models.ctvit import CTViT
+from ctpa_torch.models.layers import set_compute_dtype
 from ctpa_torch.ops.attention_ops import l2norm
 from ctpa_torch.ops.flash_attention import (
     LAUNCHES,
@@ -188,14 +188,16 @@ def is_spatial_fold_param(name: str) -> bool:
 
 
 def test_ctvit_training_gradients_kernel_path_vs_plain_path(cuda):
-    """fp32 parameters, bf16 autocast, remat on: the spatial fold's gradients
+    """fp32 parameters, bf16 compute, remat on: the spatial fold's gradients
     through K2-with-lse and K3 point the same way as through the plain
     attention (bf16 rounds at other places on the two paths)."""
     cfg = CTViTConfig(dim=128, codebook_size=64, image_size=48, patch_size=8,
                       temporal_size=16, temporal_patch_size=4, spatial_depth=2,
                       temporal_depth=1, dim_head=32, heads=4)
-    plain = random_init_(CTViT(cfg, device="cuda", remat=True), cuda)
-    fast = CTViT(dataclasses.replace(cfg, flash_axial=True), device="cuda", remat=True)
+    bf16 = torch.bfloat16
+    plain = set_compute_dtype(random_init_(CTViT(cfg, device="cuda", remat=True), cuda), bf16)
+    fast = set_compute_dtype(CTViT(dataclasses.replace(cfg, flash_axial=True), device="cuda",
+                                   remat=True), bf16)
     fast.load_state_dict(plain.state_dict())
     video = torch.rand(2, 1, cfg.temporal_size, cfg.image_size, cfg.image_size,
                        generator=cuda, device="cuda") * 2 - 1
@@ -205,8 +207,7 @@ def test_ctvit_training_gradients_kernel_path_vs_plain_path(cuda):
     grads = []
     before = dict(LAUNCHES)
     for model in (fast, plain):
-        with Policy().autocast("cuda"):
-            tokens, _ = model(video.to(torch.bfloat16))
+        tokens, _ = model(video.to(bf16))
         (tokens.float() * target).sum().backward()
         grads.append({n: p.grad.float() for n, p in model.named_parameters()
                       if is_spatial_fold_param(n)})
@@ -215,3 +216,96 @@ def test_ctvit_training_gradients_kernel_path_vs_plain_path(cuda):
     for name, g in grads[0].items():
         cos = torch.nn.functional.cosine_similarity(g.flatten(), grads[1][name].flatten(), dim=0)
         assert cos >= 0.99, (name, cos.item())
+
+
+# ------------------------------------------------------- K8: decode attention
+
+def _decode(gen, q_dtype, cache_dtype, hd, rep, m, b=3, kvh=4, L=3):
+    """A cache with holes, a ragged tail and one empty row."""
+    h = kvh * rep
+    q = torch.randn(b, h, hd, generator=gen, device="cuda").to(q_dtype)
+    shape = (L, b, kvh, m, hd)
+    ks = vs = None
+    if cache_dtype == torch.int8:
+        ck, cv = (torch.randint(-127, 128, shape, generator=gen, device="cuda").to(torch.int8)
+                  for _ in range(2))
+        ks, vs = (0.001 + 0.02 * torch.rand(shape[:4], generator=gen, device="cuda")
+                  for _ in range(2))
+    else:
+        ck, cv = (torch.randn(shape, generator=gen, device="cuda").to(cache_dtype)
+                  for _ in range(2))
+    valid = torch.rand(b, m, generator=gen, device="cuda") > 0.3
+    valid[0, m // 2:] = False
+    valid[-1] = False
+    return q, ck, cv, valid, ks, vs
+
+
+@pytest.mark.parametrize("types", [(torch.bfloat16, torch.bfloat16),
+                                   (torch.float32, torch.float32),
+                                   (torch.bfloat16, torch.int8), (torch.float32, torch.int8)])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("m", [37, 608])
+def test_decode_attention_kernel_matches_plain(cuda, types, hd, rep, m):
+    from ctpa_torch.ops import decode_attention as da
+
+    q, ck, cv, valid, ks, vs = _decode(cuda, *types, hd, rep, m)
+    before = da.LAUNCHES["decode_attention"]
+    got = da.decode_attention(q, ck, cv, valid, 1, ks, vs, scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES["decode_attention"] == before + 1
+    ref = da.decode_attention_plain(q, ck, cv, valid, 1, ks, vs, scale=hd ** -0.5)
+    tol = TOL[types[0]]
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    assert not got[-1].any()                                  # the empty row
+
+
+def test_decode_attention_kernel_refuses_what_it_does_not_take(cuda):
+    from ctpa_torch.ops import decode_attention as da
+
+    q, ck, cv, valid, _, _ = _decode(cuda, torch.bfloat16, torch.float32, 32, 1, 40)
+    with pytest.raises(TypeError):
+        da.decode_attention(q, ck, cv, valid, 0)              # bf16 q on an fp32 cache
+    q, ck, cv, valid, _, _ = _decode(cuda, torch.float32, torch.float32, 48, 1, 40)
+    with pytest.raises(ValueError):
+        da.decode_attention(q, ck, cv, valid, 0)              # head dim 48
+    q, ck, cv, valid, _, _ = _decode(cuda, torch.float32, torch.float32, 32, 1, 40)
+    with pytest.raises(ValueError):
+        da.decode_attention(q, ck.transpose(3, 4).contiguous().transpose(3, 4), cv, valid, 0)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_report_generator_kernel_path_matches_plain_path(cuda, kv_quant):
+    """A small report generator in bf16, as chip_smoke.py's report phases at
+    Meditron width: every decode step launches the kernel once per layer,
+    the kernel path teacher-forced on its own tokens gives them back, and
+    the dense path's fused logits on the same tokens agree with it.  At two
+    layers bf16 noise stays small: every step's max |diff| within 5e-2 of
+    its max |logit|, top-1 agreement >= 0.8."""
+    import chip_smoke as cs
+    from ctpa_torch.core.config import LLMConfig, ReportGenConfig
+    from ctpa_torch.models.report_generator import CTReportGenerator
+    from ctpa_torch.ops import decode_attention as da
+
+    llm = LLMConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4, num_kv_heads=2,
+                    intermediate_size=512, max_seq_len=128, kv_quant=kv_quant, flash_decode=True)
+    vit = CTViTConfig(dim=128, codebook_size=64, image_size=48, patch_size=8, temporal_size=16,
+                      temporal_patch_size=4, spatial_depth=1, temporal_depth=1, dim_head=32,
+                      heads=4, pallas_patchify=True)
+    bf16 = torch.bfloat16
+    model = random_init_(CTReportGenerator(llm, vit, ReportGenConfig(vision_dim=64),
+                                           device="cuda", dtype=bf16), cuda).eval()
+    video = (torch.rand(2, 1, 16, 48, 48, generator=cuda, device="cuda") * 2 - 1).to(bf16)
+    ids = torch.randint(1, 512, (2, 9), generator=cuda, device="cuda")
+    mask = torch.ones_like(ids)
+    mask[1, 6:] = 0
+    inputs = (video, ids * mask, mask)
+    before = da.LAUNCHES["decode_attention"]
+    with torch.inference_mode():
+        tokens = model.generate(*inputs, 8, -1, greedy=True).tokens
+        assert da.LAUNCHES["decode_attention"] - before == llm.num_layers * 7
+        kernel = cs.teacher_forced_logits(model, *inputs, tokens)
+        plain = cs.teacher_forced_logits(cs.twin(model, flash_decode=False), *inputs, tokens)
+    assert torch.equal(kernel.argmax(-1), tokens)
+    rel, _, top1 = cs.logit_distance(kernel, plain)
+    assert rel <= 5e-2 and top1 >= 0.8, (rel, top1)

@@ -23,6 +23,10 @@ class Block:
 sys.meta_path.insert(0, Block())
 import ctpa_torch
 names = ["ctpa_torch"] + [m.name for m in pkgutil.walk_packages(ctpa_torch.__path__, "ctpa_torch.")]
+report = ["ctpa_torch.ops.decode_attention", "ctpa_torch.ops.rotary", "ctpa_torch.ops.sampling",
+          "ctpa_torch.models.lora", "ctpa_torch.models.llm", "ctpa_torch.models.report_generator"]
+missing = sorted(set(report) - set(names))
+assert not missing, missing
 for name in names:
     importlib.import_module(name)
 for script in ("chip_smoke", "profile_zeroshot", "profile_clip_train"):
@@ -45,7 +49,7 @@ def test_port_imports_without_jax_or_ctpa():
 def test_port_sources_avoid_torch_extensions_and_library_attention():
     py = list((ROOT / "ctpa_torch").rglob("*.py"))
     cu = list((ROOT / "ctpa_torch" / "csrc").glob("*.cu"))
-    assert len(cu) == 3
+    assert len(cu) == 4
     banned_py = ("import torch.utils.cpp_extension", "from torch.utils.cpp_extension",
                  "cpp_extension.load", "torch.compile(", "scaled_dot_product_attention(")
     for path in py:

@@ -44,6 +44,7 @@ from ctpa_torch.core.checkpoint import CheckpointManager
 from ctpa_torch.core.precision import Policy, policy
 from ctpa_torch.models.ctclip import CTCLIP, infonce_loss
 from ctpa_torch.models.ctvit import PatchEmbed3D
+from ctpa_torch.models.layers import Dense
 from ctpa_torch.ops import preprocess as tpre
 from ctpa_torch.ops.attention_ops import l2norm
 from ctpa_torch.ops.flash_attention import (
@@ -251,11 +252,12 @@ def test_precision_policy():
     out = Policy().cast_to_compute(tree)
     assert out["x"].dtype == torch.bfloat16 and out["ids"].dtype == torch.long
     assert out["n"][0].dtype == torch.bfloat16
-    x = torch.ones(2, 2)
-    with policy("fp32").autocast("cpu"):
-        assert (x @ x).dtype == torch.float32
-    with Policy().autocast("cpu"):
-        assert (x @ x).dtype == torch.bfloat16
+    # the step computes in the policy's dtype: it sets the model's compute dtype
+    model = torch.nn.Sequential(Dense(2, 2))
+    make_clip_train_step(model, None, policy=policy("bf16"))
+    assert model[0](torch.ones(1, 2)).dtype == torch.bfloat16
+    make_clip_train_step(model, None, policy=policy("fp32"))
+    assert model[0](torch.ones(1, 2)).dtype == torch.float32
 
 
 def test_preprocess_batch_matches_ctpa():
@@ -518,3 +520,160 @@ def test_trainer_steps_saves_and_resumes(clip_pair, tmp_path):
     before = model.to_visual_latent.weight.detach().clone()
     frozen.train_step()
     torch.testing.assert_close(model.to_visual_latent.weight, before, atol=0, rtol=0)
+
+
+# ------------------------------------------------------- precision modes and the clip
+
+# bf16 mode against ctpa's CTCLIP(dtype=jnp.bfloat16), plain attention on
+# both sides.  bf16 rounds at other places in the two frameworks (XLA keeps
+# some fused intermediates in fp32), so the bounds are bf16 ones: loss 5e-3
+# abs, the fp32 similarity 5e-2 abs, latent cosine >= 0.999, and every
+# first-step gradient tensor cosine >= 0.995 except those that are zero in
+# exact arithmetic (attention key biases and the CPB's per-head bias, which
+# softmax ignores; in bf16 they are pure rounding noise).
+BF16_LOSS_ATOL, BF16_SIM_ATOL, BF16_LATENT_COS, BF16_GRAD_COS = 5e-3, 5e-2, 0.999, 0.995
+SOFTMAX_INVARIANT = ("attention_self.key.bias", "spatial_rel_pos_bias.to_heads.bias")
+
+
+def _cos(a, b):
+    a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-30))
+
+
+def test_bf16_mode_matches_ctpa_bf16_ctclip(clip_pair):
+    jm0, params, vq = clip_pair
+    jm = JCLIP(jm0.cfg, jm0.vit_cfg, jm0.bert_cfg, dtype=jnp.bfloat16)
+    batch = _batch(12)
+
+    def loss(p, vq_state, b):
+        out = jm.apply(p, b["input_ids"], b["attention_mask"],
+                       JPolicy().cast_to_compute(b["video"]), vq_state, return_loss=True)
+        return out.loss, out
+
+    (_, ref), jgrad = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        {"params": params}, JVQState(*map(jnp.asarray, vq)), jax.tree.map(jnp.asarray, batch))
+    jgrad = flax_to_state_dict(jax.tree.map(lambda x: np.asarray(x, np.float32),
+                                            jgrad["params"]))
+    model = _port(params, flash=False, remat=False)
+    tx = toptim.get_optimizer(tc.OptimizerConfig(lr=LR), model)
+    state = CLIPTrainState.create(model, tx, vq_state_from_numpy(vq, device="cpu"))
+    outs = {}
+    hooks = [m.register_forward_hook(lambda m, i, o, key=key: outs.setdefault(key, o))
+             for key, m in (("peg", model.visual_transformer.enc_spatial_transformer.pegs[0]),
+                            ("gamma_ln", model.visual_transformer.enc_spatial_transformer.norm_out),
+                            ("affine_ln", model.text_transformer.embeddings.LayerNorm),
+                            ("block", model.visual_transformer.enc_temporal_transformer.blocks[0]),
+                            ("bert_layer", model.text_transformer.layers[0]),
+                            ("ctclip", model))]
+    _, m = make_clip_train_step(model, tx, policy=policy("bf16"))(state, _tbatch(batch))
+    for h in hooks:
+        h.remove()
+    for key in ("peg", "gamma_ln", "affine_ln", "block", "bert_layer"):
+        assert outs[key].dtype == torch.bfloat16, key
+    assert model.visual_transformer.enc_spatial_transformer.pegs[0].kernel.dtype == torch.float32
+    got = outs["ctclip"]
+    assert got.sim.dtype == torch.float32 and got.text_latents.dtype == torch.bfloat16
+    close(m["loss"], ref.loss, BF16_LOSS_ATOL)
+    close(got.sim, ref.sim, BF16_SIM_ATOL)
+    for key in ("text_latents", "image_latents"):
+        for g, r in zip(getattr(got, key).float(), np.asarray(getattr(ref, key), np.float32)):
+            assert _cos(g.detach(), r) >= BF16_LATENT_COS, key
+    unclip = max(float(m["grad_norm"]) / tc.OptimizerConfig().grad_clip_norm, 1.0)
+    for name, p in model.named_parameters():
+        if not name.endswith(SOFTMAX_INVARIANT):
+            assert _cos(p.grad * unclip, jgrad[name]) >= BF16_GRAD_COS, name
+
+
+def test_fp32_mode_computes_in_fp32(clip_pair):
+    _, params, vq = clip_pair
+    model = _port(params, flash=False, remat=False)
+    tx = toptim.get_optimizer(tc.OptimizerConfig(lr=LR), model)
+    step = make_clip_train_step(model, tx, policy=policy("fp32"))
+    seen = []
+    hook = model.visual_transformer.enc_spatial_transformer.pegs[0].register_forward_hook(
+        lambda m, i, o: seen.append(o.dtype))
+    step(CLIPTrainState.create(model, tx, vq_state_from_numpy(vq, device="cpu")),
+         _tbatch(_batch(12)))
+    hook.remove()
+    assert seen == [torch.float32]
+
+
+@pytest.mark.parametrize("scale", [1e-2, 10.0])
+def test_clip_scale_matches_optax(scale):
+    """Below and above the threshold: the clipped gradients to 1e-6."""
+    rng = np.random.default_rng(15)
+    grads = {k: (scale * rng.normal(size=s)).astype(np.float32)
+             for k, s in {"w": (6, 5), "b": (5,), "t": ()}.items()}
+    clip = tc.OptimizerConfig().grad_clip_norm
+    tx = optax.clip_by_global_norm(clip)
+    ref, _ = tx.update(jax.tree.map(jnp.asarray, grads), tx.init(grads))
+    tgrads = [_t(grads[k]) for k in grads]
+    norm = toptim.global_norm(tgrads)
+    close(norm, optax.global_norm(jax.tree.map(jnp.asarray, grads)), 0, 1e-6)
+    factor = toptim.clip_scale(norm, clip)
+    assert torch.is_tensor(factor) and (float(factor) == 1.0) == (scale < 1)
+    for key, g in zip(grads, tgrads):
+        close(g * factor, ref[key], 1e-6)
+
+
+@pytest.mark.parametrize("frozen", [False, True])
+def test_optimizer_clips_by_the_trainable_norm(frozen):
+    """The caller's whole-model norm is the clip's norm unless a parameter
+    is frozen; then the clip uses the trainable gradients' own norm, as
+    optax's multi_transform does.  Gradients above the threshold; the clip
+    scales ``p.grad`` in place, so the clipped gradients are read there."""
+    torch.manual_seed(3)
+    clip = tc.OptimizerConfig().grad_clip_norm
+    model = torch.nn.Sequential(torch.nn.Linear(5, 4), torch.nn.Linear(4, 3))
+    trainable = {n: not (frozen and n.startswith("1.")) for n, _ in model.named_parameters()}
+    grads = [10.0 * torch.randn_like(p) for p in model.parameters()]
+    for p, g in zip(model.parameters(), grads):
+        p.grad = g.clone()
+    tx = toptim.get_optimizer(tc.OptimizerConfig(lr=LR), model, trainable=trainable)
+    tx.step(0, grad_norm=toptim.global_norm(grads))
+    kept = [g for (n, _), g in zip(model.named_parameters(), grads) if trainable[n]]
+    factor = toptim.clip_scale(toptim.global_norm(kept), clip)
+    assert float(factor) < 1
+    for (n, p), g in zip(model.named_parameters(), grads):
+        torch.testing.assert_close(p.grad, g * factor if trainable[n] else g, atol=1e-6, rtol=0)
+
+
+_SYNCS = ("__bool__", "item", "__float__", "__int__", "tolist")
+
+
+def test_train_step_makes_no_host_sync(clip_pair, monkeypatch):
+    """No bool(), if, .item() or float() on a tensor inside the step.  The
+    one exception is Adam's step counter, which PyTorch keeps on the host
+    (a CPU tensor also beside CUDA parameters) and reads with .item()."""
+    _, params, vq = clip_pair
+    model = _port(params)
+    tx = toptim.get_optimizer(tc.OptimizerConfig(lr=LR), model)
+    step = make_clip_train_step(model, tx, policy=policy("bf16"))
+    state = CLIPTrainState.create(model, tx, vq_state_from_numpy(vq, device="cpu"))
+    state, _ = step(state, _tbatch(_batch(12)))          # creates Adam's state
+    counters = {id(s["step"]) for s in tx.opt.state.values()}
+    calls = []
+
+    def guard(name):
+        original = getattr(torch.Tensor, name)
+
+        def patched(self, *args, **kwargs):
+            if id(self) not in counters:
+                calls.append(name)
+                raise AssertionError(f"host sync: Tensor.{name} in train_step")
+            return original(self, *args, **kwargs)
+        return patched
+
+    batch = _tbatch(_batch(13))
+    for name in _SYNCS:
+        monkeypatch.setattr(torch.Tensor, name, guard(name))
+    norms = []
+    real_norm = toptim.global_norm
+    monkeypatch.setattr("ctpa_torch.train.clip_trainer.global_norm",
+                        lambda g: norms.append(1) or real_norm(g))
+    monkeypatch.setattr(toptim, "global_norm", lambda g: norms.append(1) or real_norm(g))
+    state, m = step(state, batch)
+    monkeypatch.undo()
+    assert not calls and state.step == 2
+    assert len(norms) == 1                               # one global norm a step
+    assert np.isfinite(float(m["loss"]))
