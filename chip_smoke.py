@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's zero-shot serving and contrastive training
-paths once on one CUDA card.
+"""Drive the PyTorch/CUDA port's zero-shot serving, contrastive training,
+report generation and report training paths once on one CUDA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -56,7 +56,33 @@ Phases, each printing its seconds:
                      fp32 reference as the plain path's, and agree with the
                      plain path's on the top-1 token; the kernel path with a
                      planted fault (the prompt's holes ignored, or the wrong
-                     layer's planes read) must fail these gates.
+                     layer's planes read) must fail these gates;
+ 12. report-train-kernels — K2's masked forms (causal, q_offset, kv_mask with
+                     inner holes, rows with no valid key) and K3's masked
+                     passes against their plain versions: at report
+                     training's shape (b 2, h 32, n = m = 512, head dim 128,
+                     bf16, causal, real lengths 512/384) and with the three
+                     bias forms at head dims 32, 64 and 128; timed beside
+                     scaled_dot_product_attention with the same mask, with
+                     bounds counted over the tiles the kernels visit and the
+                     real keys;
+ 13. report-train  — a LoRA fine-tune (rank 16, alpha 32 on q, k, v, o) of
+                     the report phase's model as the report CLI runs it with
+                     --flash-prefill: Meditron-7B width, batch 2 x 512 tokens
+                     (real lengths 512/384), one inference-path volume per
+                     sample; the frozen bf16 base is shared, the trainable
+                     tensors and their AdamW moments are fp32.  3 partitioned
+                     steps, then ReportTrainer.train_epoch over 2 batches;
+                     prints step times, peak memory, loss, grad norm and the
+                     launches per step (32 of each kernel); then traces two
+                     more steps with torch.profiler and prints the second's
+                     device time by kind of kernel and by kernel;
+ 14. report-train-plain — the first step from the same state with
+                     flash_prefill off (the dense masked attention): loss and
+                     per-tensor gradient cosines gated; then the kernel path
+                     with a planted fault (q_offset = 1, or causal off) must
+                     fail the same gates; and the kernel and dense paths from
+                     two more seeded states and batches must pass them.
 
 The line before the last is nvidia-smi's "name, power.limit"; the one before
 that a JSON object with one entry per kernel.  The last line is
@@ -66,11 +92,13 @@ not 0.  Nothing of JAX or of the ctpa package is imported.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import itertools
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -139,6 +167,26 @@ INT8_NEW_TOKENS = 16
 REPORT_TOP1_MIN = 0.8
 REPORT_FP32_RATIO = 1.25
 REPORT_FP32_TOP1_SLACK = 0.03
+
+# report training: the report CLI's run with --flash-prefill (batch 2, every
+# sample padded to --max-length 512), real lengths 512 and 384
+TRAIN_LENS = (512, 384)
+REPORT_TRAIN_STEPS = 3           # partitioned steps, then one epoch of:
+REPORT_EPOCH_BATCHES = 2
+# the masked kernels' checks at smaller shapes: (b, h, n, m), n and m ragged
+# against the 64-row tiles
+MASKED_SHAPE = (2, 8, 320, 352)
+# report-train-plain, kernel path vs dense path, first step from one state,
+# both bf16: the loss, and the cosine of each LoRA and head gradient.  Read
+# on the H100 (PERF.md): the sound path, from the first state and from
+# REPORT_TRAIN_SOUND_SEEDS further states and batches, |diff| 8.7e-4 to
+# 2.7e-3 and min cosine 0.9892 to 0.9896; the planted faults |diff| 1.3e-2
+# and 1.4e-2, min cosine 0.17 and -0.07.  Each limit lies between the two.
+REPORT_TRAIN_LOSS_ATOL = 5e-3
+REPORT_TRAIN_GRAD_MIN_COS = 0.9
+REPORT_TRAIN_SOUND_SEEDS = (20, 21)
+REPORT_TRAIN_KERNELS = ("flash_attention_fwd_lse_d128", "flash_attention_bwd_delta",
+                        "flash_attention_bwd_dq_d128", "flash_attention_bwd_dkv_d128")
 
 
 @contextlib.contextmanager
@@ -1024,6 +1072,553 @@ def report_plain(model, inputs, tokens) -> None:
                                  f"({kind})")
 
 
+
+def visited_tiles(kv_mask, causal: bool, q_offset: int, n: int, m: int, block: int = 64):
+    """(forward and dQ, dK/dV) counts of the (64 query rows, 64 keys) tiles
+    the head-dim-128 kernels compute for one head, summed over the batch:
+    they skip the tiles past the causal diagonal and those with no real key."""
+    fwd = dkv = 0
+    for row in kv_mask.tolist():
+        live = [any(row[j:j + block]) for j in range(0, m, block)]
+        for r0 in range(0, n, block):
+            end = max(0, min(m, r0 + block + q_offset)) if causal else m
+            fwd += sum(live[: (end + block - 1) // block])
+        for c, ok in enumerate(live):
+            first = max(0, c * block - q_offset) // block * block if causal else 0
+            dkv += len(range(first, n, block)) if ok else 0
+    return fwd, dkv
+
+
+def masked_case(gen, dev, shape, d, dtype, form, bias_form):
+    """Inputs and masks of one masked form: "holes" puts a hole at key 0 (so
+    with causal row 0 has no valid key) and others inside the sequence."""
+    import torch
+
+    from ctpa_torch.ops import flash_attention as fa
+
+    b, h, n, m = shape
+    q, k = (torch.randn(b, h, x, d, generator=gen, device=dev).to(dtype) for x in (n, m))
+    v = torch.randn(b, h, m, d, generator=gen, device=dev).to(dtype)
+    do = torch.randn(b, h, n, d, generator=gen, device=dev).to(dtype)
+    bias_shape = {"h": (h, n, m), "1": (1, n, m), "bh": (b, h, n, m), None: None}[bias_form]
+    bias = None if bias_shape is None else \
+        (0.5 * torch.randn(bias_shape, generator=gen, device=dev)).to(dtype)
+    kv = None
+    if "holes" in form:
+        kv = torch.rand(b, m, generator=gen, device=dev) > 0.2
+        kv[:, 0] = False
+        kv[-1, m // 3: m // 2] = False
+    qo = int(form.split("q_offset ")[1].split()[0]) if "q_offset" in form else None
+    masks = fa.make_masks(form.startswith("causal"), kv, qo, b, m, dev)
+    return q, k, v, bias, do, masks
+
+
+def check_masked(tag, q, k, v, bias, do, masks, scale) -> dict:
+    """Each masked kernel against its plain version; their max abs errors."""
+    import torch
+
+    from ctpa_torch.ops import flash_attention as fa
+
+    bf16 = q.dtype == torch.bfloat16
+    atol, rtol = (BF16_ATOL, BF16_RTOL) if bf16 else (FP32_ATOL, FP32_RTOL)
+    out, lse = fa._forward(q, k, v, bias, scale, None, True, masks)
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, bias, scale, return_lse=True,
+                                                masks=masks)
+    e = {"fwd": compare(f"fwd_lse out {tag}", out, ref_out, atol, rtol),
+         "lse": compare(f"fwd_lse lse {tag}", lse, ref_lse, LSE_ATOL, LSE_RTOL)}
+    e["fwd"] = max(e["fwd"], compare(f"fwd {tag}", fa._forward(q, k, v, bias, scale, None,
+                                                               False, masks)[0],
+                                     ref_out, atol, rtol))
+    delta = fa.flash_attention_bwd_delta(out, do)
+    e["delta"] = compare(f"bwd_delta {tag}", delta, fa.flash_attention_bwd_delta_plain(out, do),
+                         FP32_ATOL, FP32_RTOL)
+    args = (q, k, v, bias, lse, delta, do, scale, masks)
+    e["dq"] = compare(f"bwd_dq {tag}", fa.flash_attention_bwd_dq(*args),
+                      fa.flash_attention_bwd_dq_plain(*args), atol, rtol)
+    (dk, dv), (rdk, rdv) = fa.flash_attention_bwd_dkv(*args), fa.flash_attention_bwd_dkv_plain(*args)
+    e["dkv"] = max(compare(f"bwd_dkv dk {tag}", dk, rdk, atol, rtol),
+                   compare(f"bwd_dkv dv {tag}", dv, rdv, atol, rtol))
+    if bias is not None and q.shape[-1] < 128:
+        e["dbias"] = compare(f"bwd_dbias {tag}", fa.flash_attention_bwd_dbias(*args),
+                             fa.flash_attention_bwd_dbias_plain(*args), atol, rtol)
+    return e
+
+
+def check_report_train_kernels(dev) -> dict:
+    """Phase 12: the masked forms of K2 and K3 against their plain versions,
+    then the head-dim-128 kernels timed at report training's shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from ctpa_torch.core.config import LLMConfig
+    from ctpa_torch.ops import flash_attention as fa
+
+    cfg = LLMConfig()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bf16 = torch.bfloat16
+    b, h, n, d = len(TRAIN_LENS), cfg.num_heads, max(TRAIN_LENS), cfg.head_dim
+    scale = d ** -0.5
+    pad = torch.arange(n, device=dev)[None] < torch.tensor(TRAIN_LENS, device=dev)[:, None]
+    main = fa.make_masks(True, pad, None, b, n, dev)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf16)
+
+    q, k, v, do = randn(b, h, n, d), randn(b, h, n, d), randn(b, h, n, d), randn(b, h, n, d)
+    errs = check_masked(f"d128 training shape {(b, h, n, d)} causal lengths {TRAIN_LENS}",
+                        q, k, v, None, do, main, scale)
+    # q_offset 1 puts the last causal key of a block of 64 rows on the first
+    # key of a tile: an off-by-one in the tile skips shows there
+    forms = ("causal", "causal q_offset 1", "causal q_offset 5", "causal q_offset -3", "holes",
+             "causal holes", "causal q_offset 7 holes")
+    for d_ in (32, 64, 128):
+        for dtype in ((bf16, torch.float32) if d_ < 128 else (bf16,)):
+            for form in forms:
+                for bias_form in (None, "h", "1", "bh"):
+                    if bias_form not in (None, "h") and form not in ("causal holes",):
+                        continue
+                    case = masked_case(gen, dev, MASKED_SHAPE, d_, dtype, form, bias_form)
+                    check_masked(f"d{d_} {str(dtype)[6:]} {form} bias {bias_form}", *case,
+                                 d_ ** -0.5)
+
+    # timed at the training shape
+    out, lse = fa._forward(q, k, v, None, scale, None, True, main)
+    delta = fa.flash_attention_bwd_delta(out, do)
+    args = (q, k, v, None, lse, delta, do, scale, main)
+    timed = {
+        "flash_attention_fwd_lse_d128": (
+            lambda: fa._forward(q, k, v, None, scale, None, True, main),
+            lambda: fa.flash_attention_plain(q, k, v, None, scale, return_lse=True,
+                                             masks=main)),
+        "flash_attention_bwd_delta": (lambda: fa.flash_attention_bwd_delta(out, do),
+                                      lambda: fa.flash_attention_bwd_delta_plain(out, do)),
+        "flash_attention_bwd_dq_d128": (lambda: fa.flash_attention_bwd_dq(*args),
+                                        lambda: fa.flash_attention_bwd_dq_plain(*args)),
+        "flash_attention_bwd_dkv_d128": (lambda: fa.flash_attention_bwd_dkv(*args),
+                                         lambda: fa.flash_attention_bwd_dkv_plain(*args)),
+    }
+    # yardsticks, never called by the port: the same boolean mask, and
+    # is_causal without the key mask as the library's floor
+    allowed = (torch.arange(n, device=dev)[None] <= torch.arange(n, device=dev)[:, None])[None]
+    attn_mask = (allowed & pad[:, None, :])[:, None]             # (b, 1, n, m)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_fwd_bwd(**kw):
+        o = F.scaled_dot_product_attention(*leaves, scale=scale, **kw)
+        torch.autograd.grad(o, leaves, grad_outputs=do)
+
+    lib = {"fwd": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                                                  scale=scale)),
+           "fwd_bwd": cuda_ms(lambda: sdpa_fwd_bwd(attn_mask=attn_mask)),
+           "causal fwd": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                         scale=scale)),
+           "causal fwd_bwd": cuda_ms(lambda: sdpa_fwd_bwd(is_causal=True))}
+    print(f"  scaled_dot_product_attention, boolean mask: forward {lib['fwd']:.4f} ms, "
+          f"forward+backward {lib['fwd_bwd']:.4f} ms (kernels: "
+          f"{sdpa_backend(lambda: sdpa_fwd_bwd(attn_mask=attn_mask))}); is_causal without the "
+          f"key mask: forward {lib['causal fwd']:.4f} ms, forward+backward "
+          f"{lib['causal fwd_bwd']:.4f} ms (kernels: "
+          f"{sdpa_backend(lambda: sdpa_fwd_bwd(is_causal=True))})")
+
+    fwd_tiles, dkv_tiles = visited_tiles(pad, True, 0, n, n)
+    tile = 2.0 * 64 * 64 * d * h                     # one product over one tile, every head
+    qkv = b * h * n * d * 2                           # one of q, out, dO, dq, dk, dv
+    # one of k, v over the real keys only: no result depends on a padded key's
+    live = h * d * 2 * int(pad.sum())
+    rowf = b * h * n * 4
+    work = {"flash_attention_fwd_lse_d128": (2 * qkv + 2 * live + rowf + b * n,
+                                             2 * tile * fwd_tiles),
+            "flash_attention_bwd_delta": (2 * qkv + rowf, 2.0 * b * h * n * d),
+            "flash_attention_bwd_dq_d128": (3 * qkv + 2 * live + 2 * rowf + b * n,
+                                            3 * tile * fwd_tiles),
+            "flash_attention_bwd_dkv_d128": (4 * qkv + 2 * live + 2 * rowf + b * n,
+                                             4 * tile * dkv_tiles)}
+    print(f"  tiles visited per head: forward and dQ {fwd_tiles}, dK/dV {dkv_tiles} of "
+          f"{b * (n // 64) ** 2}")
+    d128 = "ctpa_torch/csrc/flash_attention_d128.cu"
+    sources = {"flash_attention_fwd_lse_d128": (d128, "ctpa/ops/pallas/flash_attention.py:270"),
+               "flash_attention_bwd_delta": ("ctpa_torch/csrc/flash_attention_bwd.cu",
+                                             "ctpa/ops/pallas/flash_attention.py:597"),
+               "flash_attention_bwd_dq_d128": (d128, "ctpa/ops/pallas/flash_attention.py:505"),
+               "flash_attention_bwd_dkv_d128": (d128, "ctpa/ops/pallas/flash_attention.py:451")}
+    err_key = dict(zip(REPORT_TRAIN_KERNELS, ("fwd", "delta", "dq", "dkv")))
+    rows = {}
+    for name in REPORT_TRAIN_KERNELS:
+        kernel_fn, plain_fn = timed[name]
+        ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
+        b_ms, b_by = bound_ms(*work[name])
+        lib_ms = lib["fwd"] if name == "flash_attention_fwd_lse_d128" else None
+        source, replaces = sources[name]
+        row = name + ("_d128" if name == "flash_attention_bwd_delta" else "")
+        err = errs[err_key[name]]
+        rows[row] = dict(name=row, route="cuda", source=source, replaces=replaces,
+                         max_abs_err=max(err, errs["lse"]) if err_key[name] == "fwd" else err,
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms)
+        print(f"  {row}: {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms * 1e3:.1f} us "
+              f"({b_by}: {work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.2f} GFLOP)  "
+              f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    k3 = sum(rows[r]["ms"] for r in ("flash_attention_bwd_delta_d128",
+                                     "flash_attention_bwd_dq_d128",
+                                     "flash_attention_bwd_dkv_d128"))
+    print(f"  K2-lse + K3 at head dim 128: {rows['flash_attention_fwd_lse_d128']['ms'] + k3:.4f} "
+          f"ms; scaled_dot_product_attention forward+backward {lib['fwd_bwd']:.4f} ms")
+
+    # the masked forms at head dim 64 (the FMA kernels), timed for PERF.md,
+    # with bounds over what the masks leave: k and v of the real keys, the
+    # bias cells some batch item reads, the products over the valid cells
+    d64, scale64 = 64, 64 ** -0.5
+    q, k, v, bias, do, masks = masked_case(gen, dev, (b, h, n, n), d64, bf16, "causal holes", "h")
+    out, lse = fa._forward(q, k, v, bias, scale64, None, True, masks)
+    delta = fa.flash_attention_bwd_delta(out, do)
+    args = (q, k, v, bias, lse, delta, do, scale64, masks)
+    valid = fa._valid(masks, n, n, dev)                         # (b, 1, n, m)
+    cells = h * int(valid.sum())
+    qkv, live = b * h * n * d64 * 2, h * d64 * 2 * int(masks.kv_mask.sum())
+    bias_read = h * int(valid.any(0).sum()) * 2
+    work64 = {"fwd_lse": (2 * qkv + 2 * live + bias_read + rowf + b * n, 4 * d64 * cells),
+              "bwd_dq": (3 * qkv + 2 * live + bias_read + 2 * rowf + b * n, 6 * d64 * cells),
+              "bwd_dkv": (4 * qkv + 2 * live + bias_read + 2 * rowf + b * n, 8 * d64 * cells),
+              "bwd_dbias": (2 * qkv + 2 * live + bias_read + h * n * n * 2 + 2 * rowf + b * n,
+                            4 * d64 * cells)}
+    for label, kernel_fn, plain_fn in (
+            ("fwd_lse", lambda: fa._forward(q, k, v, bias, scale64, None, True, masks),
+             lambda: fa.flash_attention_plain(q, k, v, bias, scale64, return_lse=True,
+                                              masks=masks)),
+            ("bwd_dq", lambda: fa.flash_attention_bwd_dq(*args),
+             lambda: fa.flash_attention_bwd_dq_plain(*args)),
+            ("bwd_dkv", lambda: fa.flash_attention_bwd_dkv(*args),
+             lambda: fa.flash_attention_bwd_dkv_plain(*args)),
+            ("bwd_dbias", lambda: fa.flash_attention_bwd_dbias(*args),
+             lambda: fa.flash_attention_bwd_dbias_plain(*args))):
+        b_ms, b_by = bound_ms(*work64[label])
+        print(f"  masked flash_attention_{label} at head dim 64 ({b}, {h}, {n}, 64) bf16, "
+              f"causal with holes, bias (h, n, m): {cuda_ms(kernel_fn):.4f} ms  plain "
+              f"{cuda_ms(plain_fn):.4f} ms  bound {b_ms * 1e3:.1f} us ({b_by}: "
+              f"{work64[label][0] / 1e6:.1f} MB, {work64[label][1] / 1e9:.2f} GFLOP)")
+    # yardstick: the bias and the masks as one additive float mask
+    lib_mask = bias[None].float().masked_fill(~valid, float("-inf")).to(bf16)
+    leaves64 = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa64_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves64, attn_mask=lib_mask, scale=scale64)
+        torch.autograd.grad(o, leaves64, grad_outputs=do)
+
+    fwd64 = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask,
+                                                           scale=scale64))
+    print(f"  scaled_dot_product_attention at head dim 64, bias and masks as one float mask: "
+          f"forward {fwd64:.4f} ms, forward+backward {cuda_ms(sdpa64_fwd_bwd):.4f} ms")
+    return rows
+
+
+def report_train_shell(model, flash_prefill: bool):
+    """The report phase's CTReportGenerator as the report CLI trains it with
+    --flash-prefill, on the meta device: LoRAConfig() (rank 16, alpha 32 on
+    q, k, v, o), CTViTConfig() without the patchify kernel (the CLI's)."""
+    from ctpa_torch.core.config import LoRAConfig, ReportGenConfig
+    from ctpa_torch.models.report_generator import CTReportGenerator
+
+    lora = LoRAConfig()
+    return CTReportGenerator(dataclasses.replace(model.llm_cfg, flash_prefill=flash_prefill,
+                                                 flash_decode=False),
+                             dataclasses.replace(model.vit_cfg, pallas_patchify=False),
+                             ReportGenConfig(lora=lora), lora=lora, device="meta")
+
+
+def report_train_start(model, dev, seed: int = SEED + 8) -> dict:
+    """fp32 starting values of the trainable tensors: the cross-attention
+    copied from the base, LoRA A ~ N(0, 1/rank) (ctpa's initializer) and B ~
+    N(0, 2e-3) (ctpa starts B at zero, which makes A's first gradient exactly
+    zero and the gradient comparison empty), drawn from ``seed``."""
+    import torch
+
+    from ctpa_torch.train.report_trainer import trainable_labels
+
+    shell = report_train_shell(model, True)
+    labels = trainable_labels(shell)
+    base = model.state_dict()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    start = {}
+    for name, p in shell.named_parameters():
+        if labels[name] == "frozen":
+            continue
+        if name in base:
+            start[name] = base[name].float().clone()
+        else:
+            std = 1.0 / shell.gen_cfg.lora.rank if name.endswith("lora_a") else 2e-3
+            start[name] = std * torch.randn(p.shape, generator=gen, device=dev)
+    return start
+
+
+def report_train_model(model, start: dict, flash_prefill: bool = True):
+    """A report-training model on the report phase's bf16 tensors (shared, not
+    copied: the card holds one 13.5 GB base) with fp32 copies of ``start`` as
+    its trainable tensors, computing in bf16 (ctpa's CLI model dtype).  ctpa
+    keeps the frozen base in fp32 and casts it to bf16 at every use; storing
+    it in bf16 rounds it once, which gives the same bf16 operands.  The
+    trainable tensors and their AdamW moments stay fp32, as ctpa's."""
+    import torch
+
+    from ctpa_torch.models.layers import set_compute_dtype
+
+    out = report_train_shell(model, flash_prefill)
+    state = dict(model.state_dict())
+    state.update({k: v.clone() for k, v in start.items()})
+    out.load_state_dict(state, assign=True)
+    return set_compute_dtype(out, torch.bfloat16)
+
+
+def report_train_batches(vit_cfg, llm_cfg, dev, count: int, seed: int = SEED + 9) -> list:
+    """``count`` batches of 2 samples: one inference-path volume each (the
+    report phase's shape), token ids right-padded to 512 with real lengths
+    512 and 384, drawn from ``seed``."""
+    import torch
+
+    from ctpa_torch.core.config import PreprocessConfig
+    from ctpa_torch.ops.preprocess import preprocess_volume_inference
+
+    grid = (vit_cfg.temporal_size, vit_cfg.image_size, vit_cfg.image_size)
+    cfg = dataclasses.replace(PreprocessConfig.inference(), target_shape=grid)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = max(TRAIN_LENS)
+    mask = (torch.arange(n, device=dev)[None] < torch.tensor(TRAIN_LENS, device=dev)[:, None])
+    batches = []
+    for _ in range(count):
+        video = torch.stack([preprocess_volume_inference(
+            torch.rand(INFER_SHAPE, generator=gen, device=dev) * 2 - 1, cfg, device=dev)
+            for _ in TRAIN_LENS])
+        ids = torch.randint(1, llm_cfg.vocab_size, (len(TRAIN_LENS), n), generator=gen,
+                            device=dev)
+        batches.append({"video": video, "input_ids": ids * mask,
+                        "attention_mask": mask.long()})
+    return batches
+
+
+def trainable_grads(model) -> dict:
+    """The LoRA and head gradients after a step (clipped in place by it)."""
+    return {n: p.grad.detach().float().clone() for n, p in model.named_parameters()
+            if p.requires_grad}
+
+
+# kinds of kernel in a traced step, by the first pattern found in the name
+# (lower case)
+KERNEL_KINDS = (("flash (hand kernels)", ("d128_kernel", "flash_bwd_delta")),
+                ("GEMM", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
+                ("softmax", ("softmax",)),
+                ("reduction", ("reduce",)),
+                ("elementwise and copies", ("elementwise", "copy", "cat", "fill", "index")))
+
+
+def traced_step(step, state, batch) -> None:
+    """Two more steps under ``torch.profiler`` (the first absorbs its
+    start-up); prints the second's wall time, its kernels' summed device time,
+    the device-busy share (their ratio: one stream), and the device time by
+    kind of kernel and by kernel, largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    per_kernel = collections.defaultdict(lambda: [0.0, 0])
+    for ev in prof.events():
+        # user annotations (the optimizer's step range) overlap the kernels
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(ev, "is_user_annotation", False):
+            per_kernel[ev.name][0] += ev.time_range.elapsed_us() / 1e3
+            per_kernel[ev.name][1] += 1
+    print(f"  traced step: wall {wall_ms:.3f} ms")
+    if not per_kernel:
+        print("  device time: not measured (the trace holds no CUDA kernels)")
+        return
+    device_ms = sum(ms for ms, _ in per_kernel.values())
+    print(f"  device time {device_ms:.3f} ms in {sum(n for _, n in per_kernel.values())} "
+          f"launches; device busy {100 * device_ms / wall_ms:.1f}% of the step")
+    per_kind = collections.defaultdict(lambda: [0.0, 0])
+    for name, (ms, n) in per_kernel.items():
+        kind = next((k for k, pats in KERNEL_KINDS if any(p in name.lower() for p in pats)),
+                    "other")
+        per_kind[kind][0] += ms
+        per_kind[kind][1] += n
+    for label, table, top in (("kind", per_kind, None), ("kernel", per_kernel, 15)):
+        print(f"    device ms  launches  share  {label}")
+        for name, (ms, n) in sorted(table.items(), key=lambda kv: -kv[1][0])[:top]:
+            print(f"    {ms:9.3f} {n:9d} {100 * ms / device_ms:5.1f}%  {name[:100]}")
+
+
+def report_train(dev, rows: dict, model):
+    """Phase 13: the LoRA fine-tune on the kernel path.  Returns the trainable
+    tensors' start, the first step's loss and gradients, and its batch."""
+    import torch
+
+    from ctpa_torch.core.config import TrainConfig
+    from ctpa_torch.ops.flash_attention import LAUNCHES
+    from ctpa_torch.train.report_trainer import ReportTrainer, make_partitioned_report_step
+    from ctpa_torch.train.train_state import SimpleTrainState
+
+    start = report_train_start(model, dev)
+    twin = report_train_model(model, start)
+    total = REPORT_TRAIN_STEPS + REPORT_EPOCH_BATCHES
+    step, tx = make_partitioned_report_step(twin, twin.gen_cfg, total_steps=total)
+    batches = report_train_batches(model.vit_cfg, model.llm_cfg, dev, total)
+    n_train = sum(p.numel() for p in tx.params)
+    print(f"  CTReportGenerator with LoRA: {sum(p.numel() for p in twin.parameters()) / 1e9:.3f} "
+          f"B parameters, {n_train / 1e6:.2f} M trainable (fp32; {len(tx.params)} tensors); "
+          f"batch {tuple(batches[0]['input_ids'].shape)}, video "
+          f"{tuple(batches[0]['video'].shape)}")
+    layers = model.llm_cfg.num_layers
+    expect = dict.fromkeys(LAUNCHES, 0)
+    for name in REPORT_TRAIN_KERNELS:
+        expect[name] = layers
+    state = SimpleTrainState.create(twin, tx)
+    torch.cuda.synchronize()
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    walls, first = [], None
+    for i in range(REPORT_TRAIN_STEPS):
+        before = dict(LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        launched = {key: LAUNCHES[key] - before[key] for key in LAUNCHES}
+        print(f"  step {i}: wall {walls[-1] * 1e3:.1f} ms  loss {loss:.6f}  grad norm "
+              f"{norm:.6f}  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        print("    launches " + " ".join(f"{k.removeprefix('flash_attention_')} {v}"
+                                         for k, v in launched.items() if v))
+        if not math.isfinite(loss) or not norm > 0:
+            raise AssertionError(f"step {i}: loss {loss}, grad norm {norm}")
+        if launched != expect:
+            raise AssertionError(f"step {i}: launches {launched}, expected {expect}")
+        if i == 0:
+            first = (loss, trainable_grads(twin))
+    ckpt_dir = "build/chip_smoke/report_checkpoints"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    trainer = ReportTrainer(twin, state, tx, cfg=TrainConfig(
+        results_dir="build/chip_smoke/report_results", checkpoint_dir=ckpt_dir), step_fn=step)
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    res = trainer.train_epoch(iter(batches[REPORT_TRAIN_STEPS:]), epoch=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trainer.close()
+    launched = {key: LAUNCHES[key] - before[key] for key in LAUNCHES}
+    saved = trainer.ckpt.all_steps()
+    print(f"  ReportTrainer.train_epoch over {REPORT_EPOCH_BATCHES} batches: {wall * 1e3:.1f} ms "
+          f"(checkpoint write included), mean loss {res['mean_loss']:.6f}, best-by-loss "
+          f"checkpoint at step {saved}")
+    if trainer.state.step != total or saved != [total] or not math.isfinite(res["mean_loss"]) \
+            or launched != {k: v * REPORT_EPOCH_BATCHES for k, v in expect.items()}:
+        raise AssertionError(f"train_epoch: step {trainer.state.step}, checkpoints {saved}, "
+                             f"mean loss {res['mean_loss']}, launches {launched}")
+    traced_step(step, trainer.state, batches[0])
+    rest = sorted(walls[1:])
+    print(f"  step time: first {walls[0] * 1e3:.1f} ms, then median "
+          f"{rest[len(rest) // 2] * 1e3:.1f} ms (min {rest[0] * 1e3:.1f}, max "
+          f"{rest[-1] * 1e3:.1f}, {len(rest)} steps)")
+    print(f"  main path ({total + 2} steps): " + " ".join(f"{k} {LAUNCHES[k]}"
+                                                         for k in REPORT_TRAIN_KERNELS))
+    for name in REPORT_TRAIN_KERNELS:
+        row = name + ("_d128" if name == "flash_attention_bwd_delta" else "")
+        rows[row]["launches"] = LAUNCHES[name]
+        if LAUNCHES[name] == 0:
+            raise AssertionError(f"{name} never launched on the report training path")
+    del trainer, state, twin, tx, step
+    return start, first, batches[0]
+
+
+@contextlib.contextmanager
+def planted_flash_fault(kind: str):
+    """The flash-prefill path with a deliberate fault in what it hands the
+    kernels: "q_offset 1" (each query sees the next token too) or "causal
+    off" (every query sees every real key)."""
+    from ctpa_torch.models import llm
+
+    kernel = llm.flash_attention
+
+    def faulty(*args, **kw):
+        if kind == "q_offset 1":
+            kw["q_offset"] = 1
+        else:
+            kw["causal"] = False
+        return kernel(*args, **kw)
+
+    llm.flash_attention = faulty
+    try:
+        yield
+    finally:
+        llm.flash_attention = kernel
+
+
+def report_train_gate(label: str, loss, grads, ref_loss, ref_grads) -> bool:
+    """Print the loss difference and the worst gradient cosine of a first
+    step against the dense path's, and whether they pass the gates.  The
+    cross-attention's q and k get exactly zero gradients on both paths (a
+    softmax over one key): those must stay zero, the rest are held by
+    cosine."""
+    import torch
+
+    zero = [n for n, g in ref_grads.items() if not g.any()]
+    cos = {n: torch.nn.functional.cosine_similarity(g.flatten(), ref_grads[n].flatten(),
+                                                    dim=0).item()
+           for n, g in grads.items() if n not in zero}
+    worst = min(cos, key=cos.get)
+    head = [c for n, c in cos.items() if "cross_attention" in n]
+    ok = (abs(loss - ref_loss) <= REPORT_TRAIN_LOSS_ATOL and cos[worst] >= REPORT_TRAIN_GRAD_MIN_COS
+          and not any(grads[n].any() for n in zero))
+    print(f"    {label}: loss {loss:.6f} vs {ref_loss:.6f}, |diff| {abs(loss - ref_loss):.3e} "
+          f"(<= {REPORT_TRAIN_LOSS_ATOL}); gradient cosine min {cos[worst]:.6f} "
+          f"(>= {REPORT_TRAIN_GRAD_MIN_COS}; {worst}), median "
+          f"{sorted(cos.values())[len(cos) // 2]:.6f}, head min {min(head):.6f} over "
+          f"{len(cos)} tensors, {len(zero)} zero on both: {'pass' if ok else 'FAIL'}")
+    return ok
+
+
+def report_train_plain(dev, model, start, first, batch) -> None:
+    """Phase 14: the first step from the same state on the dense path, then
+    the kernel path with each of two planted faults, which the gates must
+    reject; then the kernel and dense paths from further seeded states and
+    batches, which the gates must pass."""
+    import torch
+
+    from ctpa_torch.ops.flash_attention import LAUNCHES
+    from ctpa_torch.train.report_trainer import make_partitioned_report_step
+    from ctpa_torch.train.train_state import SimpleTrainState
+
+    def first_step(flash_prefill: bool, start, batch):
+        twin = report_train_model(model, start, flash_prefill)
+        step, tx = make_partitioned_report_step(twin, twin.gen_cfg, total_steps=1)
+        _, m = step(SimpleTrainState.create(twin, tx), batch)
+        torch.cuda.synchronize()
+        return float(m["loss"]), trainable_grads(twin)
+
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    ref_loss, ref_grads = first_step(False, start, batch)
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"the dense path launched flash kernels: {LAUNCHES}")
+    if not report_train_gate("kernel path", *first, ref_loss, ref_grads):
+        raise AssertionError("report training: the kernel path and the dense path disagree")
+    for kind in ("q_offset 1", "causal off"):
+        with planted_flash_fault(kind):
+            faulty = first_step(True, start, batch)
+        if report_train_gate(f"planted fault: {kind}", *faulty, ref_loss, ref_grads):
+            raise AssertionError(f"the gates do not see a planted flash fault ({kind})")
+    for seed in REPORT_TRAIN_SOUND_SEEDS:
+        start = report_train_start(model, dev, seed=SEED + seed)
+        batch = report_train_batches(model.vit_cfg, model.llm_cfg, dev, 1, seed=SEED + seed)[0]
+        if not report_train_gate(f"kernel path, seed {SEED + seed}",
+                                 *first_step(True, start, batch),
+                                 *first_step(False, start, batch)):
+            raise AssertionError(f"report training: the kernel path and the dense path "
+                                 f"disagree from seed {SEED + seed}")
+
+
 def main() -> int:
     import torch
 
@@ -1109,14 +1704,27 @@ def main() -> int:
         model, inputs, tokens = report(dev, rows)
     with phase("report-plain"):
         report_plain(model, inputs, tokens)
-    del model, inputs
+    del inputs, tokens
+    torch.cuda.empty_cache()
+
+    with phase("report-train-kernels"):
+        rows.update(check_report_train_kernels(dev))
+    torch.cuda.empty_cache()
+    with phase("report-train"):
+        start, first, batch = report_train(dev, rows, model)
+    torch.cuda.empty_cache()
+    with phase("report-train-plain"):
+        report_train_plain(dev, model, start, first, batch)
+    del model, start, first, batch
     torch.cuda.empty_cache()
 
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{key: rows[k][key] for key in order}
                for k in ("patchify_project", "flash_attention_fwd") + TRAIN_KERNELS
-               + ("decode_attention",)]
+               + ("decode_attention", "flash_attention_fwd_lse_d128",
+                  "flash_attention_bwd_delta_d128", "flash_attention_bwd_dq_d128",
+                  "flash_attention_bwd_dkv_d128")]
     for row in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(row[key]):

@@ -16,7 +16,9 @@ module.  The layout rules:
   ``layers_i`` (the LLM), ``mlp_i`` become the entries of the ModuleLists
   ``pegs``, ``blocks``, ``layers``, ``layers``, ``mlp``;
 * the LLM's RMSNorm ``weight`` and LoRA's (in, r) ``lora_a`` and (r, out)
-  ``lora_b`` keep their names and layout.
+  ``lora_b`` keep their names and layout, so a report generator's tree
+  with trained adapters, its ``cross_attention`` and the vision
+  ``proj``/``norm`` converts whole (``tests/test_torch_report_train.py``).
 
 Conversion is strict: an unused flax leaf, a missing torch entry or a shape
 mismatch raises.  It imports no JAX: leaves are anything ``numpy.asarray``

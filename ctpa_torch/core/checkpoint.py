@@ -3,12 +3,13 @@
 ctpa keeps a step-indexed orbax store; the port keeps the methods the
 CLIP trainer uses on ``torch.save``/``torch.load``: one ``<step>/state.pt``
 per step under the directory, the newest ``max_to_keep`` kept.  Writes are
-synchronous, so ``wait`` and ``close`` have nothing to do.  The JSON
-metadata beside a step waits for the report trainer's slice.
+synchronous, so ``wait`` and ``close`` have nothing to do.  A step may
+carry JSON metadata (``metadata.json`` beside its state), as ctpa's.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 from typing import Any, Optional
@@ -16,6 +17,7 @@ from typing import Any, Optional
 import torch
 
 _STATE = "state.pt"
+_METADATA = "metadata.json"
 
 
 class CheckpointManager:
@@ -27,9 +29,11 @@ class CheckpointManager:
     def _dir(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
 
-    def save(self, step: int, state: Any, force: bool = False) -> None:
-        """Write ``state`` (anything ``torch.save`` takes) as step ``step``;
-        an existing step is overwritten only with ``force``."""
+    def save(self, step: int, state: Any, metadata: Optional[dict] = None,
+             force: bool = False) -> None:
+        """Write ``state`` (anything ``torch.save`` takes) as step ``step``,
+        with ``metadata`` as JSON beside it; an existing step is overwritten
+        only with ``force``."""
         path = self._dir(step)
         if os.path.exists(path) and not force:
             raise FileExistsError(f"checkpoint step {step} exists in {self.directory}")
@@ -37,6 +41,9 @@ class CheckpointManager:
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         torch.save(state, os.path.join(tmp, _STATE))
+        if metadata is not None:
+            with open(os.path.join(tmp, _METADATA), "w") as f:
+                json.dump(metadata, f)
         shutil.rmtree(path, ignore_errors=True)
         os.replace(tmp, path)
         for old in self.all_steps()[:-self.max_to_keep]:
@@ -50,6 +57,16 @@ class CheckpointManager:
             return None
         return torch.load(os.path.join(self._dir(step), _STATE), map_location=map_location,
                           weights_only=False)
+
+    def restore_metadata(self, step: Optional[int] = None) -> Optional[dict]:
+        """The JSON metadata saved beside ``step`` (the latest by default), or
+        None when there is none."""
+        step = self.latest_step() if step is None else step
+        path = None if step is None else os.path.join(self._dir(step), _METADATA)
+        if path is None or not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return json.load(f)
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()

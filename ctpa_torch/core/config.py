@@ -182,7 +182,7 @@ class LLMConfig:
     rms_norm_eps: float = 1e-5
     tie_embeddings: bool = False
     # no-cache forwards of at least flash_min_len tokens through the flash
-    # kernel with causal + key masks (report training; not ported yet)
+    # kernel with causal + key masks (report training)
     flash_prefill: bool = False
     flash_min_len: int = 512
     # quantized serving weights: None | "int8" (not ported yet)

@@ -17,14 +17,17 @@
 // not carried over.
 //
 // with an optional additive bias shaped (h, n, m), (1, n, m) or (b, h, n, m)
-// (given to the kernel as two strides), non-causal, fp32 accumulation and
-// bf16 or fp32 inputs.  With a logit bound B (a device scalar that bounds
-// every logit from above, as cosine attention guarantees) the kernel skips
-// the running max and accumulates exp(s - B) directly ("flat softmax");
-// without it, it keeps the usual online-softmax running max.  The TPU's
-// layout tricks (spare-lane denominator and bound, d padded to 128,
-// power-of-two scale folding) are not carried over: they exist for the
-// TPU's (8, 128) tiling.
+// (given to the kernel as two strides), fp32 accumulation and bf16 or fp32
+// inputs, and ctpa's masks, `causal` with `q_offset` and `kv_mask`, with
+// their treatment of a row with no valid key (flash_masks.cuh).  Key tiles
+// past the block's last query position (causal) or with no real key
+// (kv_mask) are skipped whole, as ctpa skips them.  With a logit bound B
+// (a device scalar that bounds every logit from above, as cosine attention
+// guarantees) the kernel skips the running max and accumulates exp(s - B)
+// directly ("flat softmax"); without it, it keeps the usual online-softmax
+// running max.  The TPU's layout tricks (spare-lane denominator and bound,
+// d padded to 128, power-of-two scale folding) are not carried over: they
+// exist for the TPU's (8, 128) tiling.
 //
 // Bound on the H100 at the shipped shape ((24, 8, 576, 32) bf16, bias
 // (8, 576, 576)): q, k, v and out are 7.1 MB each and the bias 5.3 MB, 33.6
@@ -41,34 +44,34 @@
 // of 32 that it stages in shared memory as fp32, together with the matching
 // 64 x 32 bias tile, so every global read is coalesced and the
 // (n, m) score matrix never reaches device memory.  n = 576 = 9 * 64, and a
-// ragged edge on either axis is masked.
+// ragged edge on either axis is masked.  Head dim 128 has its own kernel on
+// the tensor cores (flash_attention_d128.cu): a 128-float row per thread
+// would spill here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_masks.cuh"
+
 namespace {
+
+using namespace flash;
 
 constexpr int kBQ = 64;  // query rows per block, one per thread
 constexpr int kBK = 32;  // keys per tile
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// grid (b * h, ceil(n / kBQ)); block kBQ.
-template <typename T, int D>
+// grid (b * h, ceil(n / kBQ)); block kBQ.  The masks are compiled in only
+// where a launch has one (kMasked): the unmasked paths keep their registers.
+template <typename T, int D, bool kMasked>
 __global__ void __launch_bounds__(kBQ)
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const T* __restrict__ bias,
-                           const float* __restrict__ bound, T* __restrict__ out,
+                           const float* __restrict__ bound,
+                           const unsigned char* __restrict__ kv_mask,
+                           const int* __restrict__ q_offset, T* __restrict__ out,
                            float* __restrict__ lse, int heads, int n, int m, int bias_stride_b,
-                           int bias_stride_h, float scale) {
+                           int bias_stride_h, int causal, float scale) {
   const int bh = blockIdx.x;
   const int b = bh / heads;
   const int hd = bh - b * heads;
@@ -83,10 +86,15 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* bg = bias == nullptr
                     ? nullptr
                     : bias + (long long)b * bias_stride_b + (long long)hd * bias_stride_h;
+  const unsigned char* kvg = kMasked ? key_row(kv_mask, b, m) : nullptr;
+  const int qoff = kMasked ? query_offset(q_offset) : 0;
+  const int qpos = row + qoff;
+  const int m_end = causal_key_end(kMasked && causal, row0, kBQ, qoff, m);
 
   __shared__ __align__(16) float k_s[kBK][D];
   __shared__ __align__(16) float v_s[kBK][D];
   __shared__ float b_s[kBQ][kBK + 1];
+  __shared__ unsigned char kv_s[kBK];
 
   float qr[D];
   float acc[D];
@@ -99,9 +107,15 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float shift_flat = flat ? *bound : 0.f;
   float m_run = -INFINITY;
   float l = 0.f;
+  bool seen = false;   // some valid key so far
 
-  for (int j0 = 0; j0 < m; j0 += kBK) {
+  for (int j0 = 0; j0 < m_end; j0 += kBK) {
     const int jn = min(kBK, m - j0);
+    if (kMasked && kvg != nullptr) {
+      if (tid < kBK) kv_s[tid] = tid < jn ? kvg[j0 + tid] : 0;
+      // a tile with no real key adds nothing to any row
+      if (!__syncthreads_or(tid < kBK && kv_s[tid])) continue;
+    }
     for (int e = tid; e < kBK * D; e += kBQ) {
       const int j = e / D;
       const int d = e - j * D;
@@ -124,6 +138,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
+    // -inf marks a masked cell
     float s[kBK];
     float tile_max = -INFINITY;
 #pragma unroll
@@ -136,24 +151,33 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       float sj = dot * scale;
       if (bg != nullptr) sj += b_s[tid][j];
-      sj = j < jn ? sj : -INFINITY;
+      const bool ok = j < jn && (!kMasked || cell_ok(causal, j0 + j, qpos,
+                                                     kvg == nullptr || kv_s[j]));
+      sj = ok ? sj : -INFINITY;
       s[j] = sj;
       tile_max = fmaxf(tile_max, sj);
     }
+    seen = seen || tile_max != -INFINITY;
 
     float shift = shift_flat;
     if (!flat) {
       const float m_new = fmaxf(m_run, tile_max);
-      const float alpha = expf(m_run - m_new);   // 0 on the first tile
-      l *= alpha;
+      // unmasked, every tile holds a valid key: m_new is finite and the
+      // first alpha is exp(-inf) = 0
+      if (!kMasked || m_new != -INFINITY) {
+        const float alpha = kMasked && m_run == -INFINITY ? 0.f : expf(m_run - m_new);
+        l *= alpha;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= alpha;
-      m_run = m_new;
-      shift = m_new;
+        for (int d = 0; d < D; ++d) acc[d] *= alpha;
+        m_run = m_new;
+      }
+      shift = m_run;
     }
 #pragma unroll
     for (int j = 0; j < kBK; ++j) {
-      const float p = expf(s[j] - shift);   // masked keys give exp(-inf) = 0
+      // masked keys give exp(-inf) = 0, but a row with no valid key yet has
+      // shift -inf too
+      const float p = kMasked && s[j] == -INFINITY ? 0.f : expf(s[j] - shift);
       l += p;
 #pragma unroll
       for (int d = 0; d < D; d += 4) {
@@ -168,39 +192,65 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (live) {
-    const float lc = fmaxf(l, 1e-30f);
-    const float inv = 1.f / lc;
     T* o = out + (long long)(bh * (long long)n + row) * D;
+    if (!kMasked || seen) {
+      const float lc = fmaxf(l, 1e-30f);
+      const float inv = 1.f / lc;
 #pragma unroll
-    for (int d = 0; d < D; ++d) o[d] = from_float<T>(acc[d] * inv);
-    if (lse != nullptr) lse[(long long)bh * n + row] = (flat ? shift_flat : m_run) + logf(lc);
+      for (int d = 0; d < D; ++d) o[d] = from_float<T>(acc[d] * inv);
+      if (lse != nullptr) lse[(long long)bh * n + row] = (flat ? shift_flat : m_run) + logf(lc);
+    } else {
+      for (int d = 0; d < D; ++d) o[d] = from_float<T>(mean_over_keys(vg, m, D, d));
+      if (lse != nullptr) lse[(long long)bh * n + row] = kNegInf;
+    }
   }
 }
 
+struct FwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* bias;
+  const void* bound;
+  const void* kv_mask;
+  const void* q_offset;
+  void* out;
+  void* lse;
+  int batch, heads, n, m, bias_stride_b, bias_stride_h, causal;
+  float scale;
+};
+
+template <typename T, int D, bool kMasked>
+void launch_masked(const FwdArgs& a, cudaStream_t st) {
+  const dim3 grid(a.batch * a.heads, (a.n + kBQ - 1) / kBQ);
+  flash_attention_fwd_kernel<T, D, kMasked><<<grid, kBQ, 0, st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.bias), static_cast<const float*>(a.bound),
+      static_cast<const unsigned char*>(a.kv_mask), static_cast<const int*>(a.q_offset),
+      static_cast<T*>(a.out), static_cast<float*>(a.lse), a.heads, a.n, a.m, a.bias_stride_b,
+      a.bias_stride_h, a.causal, a.scale);
+}
+
 template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, const void* bias, const void* bound,
-            void* out, void* lse, int batch, int heads, int n, int m, int bias_stride_b,
-            int bias_stride_h, float scale, cudaStream_t st) {
-  const dim3 grid(batch * heads, (n + kBQ - 1) / kBQ);
-  flash_attention_fwd_kernel<T, D><<<grid, kBQ, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(bias), static_cast<const float*>(bound), static_cast<T*>(out),
-      static_cast<float*>(lse), heads, n, m, bias_stride_b, bias_stride_h, scale);
+void launch(const FwdArgs& a, cudaStream_t st) {
+  if (a.causal || a.kv_mask != nullptr) {
+    launch_masked<T, D, true>(a, st);
+  } else {
+    launch_masked<T, D, false>(a, st);
+  }
 }
 
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, const void* bias, const void* bound,
-             void* out, void* lse, int batch, int heads, int n, int m, int d,
-             int bias_stride_b, int bias_stride_h, float scale, cudaStream_t st) {
+int launch_d(const FwdArgs& a, int d, cudaStream_t st) {
   switch (d) {
     case 16:
-      launch<T, 16>(q, k, v, bias, bound, out, lse, batch, heads, n, m, bias_stride_b, bias_stride_h, scale, st);
+      launch<T, 16>(a, st);
       return 0;
     case 32:
-      launch<T, 32>(q, k, v, bias, bound, out, lse, batch, heads, n, m, bias_stride_b, bias_stride_h, scale, st);
+      launch<T, 32>(a, st);
       return 0;
     case 64:
-      launch<T, 64>(q, k, v, bias, bound, out, lse, batch, heads, n, m, bias_stride_b, bias_stride_h, scale, st);
+      launch<T, 64>(a, st);
       return 0;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -208,14 +258,13 @@ int launch_d(const void* q, const void* k, const void* v, const void* bias, cons
 }
 
 int launch_any(const void* q, const void* k, const void* v, const void* bias, const void* bound,
-               void* out, void* lse, int batch, int heads, int n, int m, int d,
-               int bias_stride_b, int bias_stride_h, float scale, int is_bf16, void* stream) {
+               const void* kv_mask, const void* q_offset, void* out, void* lse, int batch,
+               int heads, int n, int m, int d, int bias_stride_b, int bias_stride_h, int causal,
+               float scale, int is_bf16, void* stream) {
+  const FwdArgs a{q, k, v, bias, bound, kv_mask, q_offset, out, lse, batch, heads, n, m,
+                  bias_stride_b, bias_stride_h, causal, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rc = is_bf16
-                     ? launch_d<__nv_bfloat16>(q, k, v, bias, bound, out, lse, batch, heads, n, m,
-                                               d, bias_stride_b, bias_stride_h, scale, st)
-                     : launch_d<float>(q, k, v, bias, bound, out, lse, batch, heads, n, m, d,
-                                       bias_stride_b, bias_stride_h, scale, st);
+  const int rc = is_bf16 ? launch_d<__nv_bfloat16>(a, d, st) : launch_d<float>(a, d, st);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
@@ -223,23 +272,27 @@ int launch_any(const void* q, const void* k, const void* v, const void* bias, co
 }  // namespace
 
 // Both launch on `stream` and return cudaGetLastError() (0 when the launch
-// was accepted).  `bias` and `bound` may be null.  The caller has checked:
-// d in {16, 32, 64}, contiguous buffers, bias strides in elements.
+// was accepted).  `bias`, `bound`, `kv_mask` ((b, m) bytes, nonzero = real
+// key) and `q_offset` (one int32) may be null.  The caller has checked: d in
+// {16, 32, 64}, contiguous buffers, bias strides in elements.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
-                                          const void* bias, const void* bound, void* out,
+                                          const void* bias, const void* bound,
+                                          const void* kv_mask, const void* q_offset, void* out,
                                           int batch, int heads, int n, int m, int d,
-                                          int bias_stride_b, int bias_stride_h, float scale,
-                                          int is_bf16, void* stream) {
-  return launch_any(q, k, v, bias, bound, out, nullptr, batch, heads, n, m, d, bias_stride_b,
-                    bias_stride_h, scale, is_bf16, stream);
+                                          int bias_stride_b, int bias_stride_h, int causal,
+                                          float scale, int is_bf16, void* stream) {
+  return launch_any(q, k, v, bias, bound, kv_mask, q_offset, out, nullptr, batch, heads, n, m,
+                    d, bias_stride_b, bias_stride_h, causal, scale, is_bf16, stream);
 }
 
 // The same with the fp32 (b, h, n) row logsumexp written to `lse`.
 extern "C" int flash_attention_fwd_lse_launch(const void* q, const void* k, const void* v,
-                                              const void* bias, const void* bound, void* out,
-                                              void* lse, int batch, int heads, int n, int m,
-                                              int d, int bias_stride_b, int bias_stride_h,
-                                              float scale, int is_bf16, void* stream) {
-  return launch_any(q, k, v, bias, bound, out, lse, batch, heads, n, m, d, bias_stride_b,
-                    bias_stride_h, scale, is_bf16, stream);
+                                              const void* bias, const void* bound,
+                                              const void* kv_mask, const void* q_offset,
+                                              void* out, void* lse, int batch, int heads, int n,
+                                              int m, int d, int bias_stride_b,
+                                              int bias_stride_h, int causal, float scale,
+                                              int is_bf16, void* stream) {
+  return launch_any(q, k, v, bias, bound, kv_mask, q_offset, out, lse, batch, heads, n, m, d,
+                    bias_stride_b, bias_stride_h, causal, scale, is_bf16, stream);
 }

@@ -17,8 +17,14 @@
 //              (without the scale: the bias adds to the post-scale logits)
 //
 // Sums are fp32; dq, dk, dv and dbias are written in the input dtype (bf16 or
-// fp32).  The logit bound of the forward's flat softmax plays no part here:
-// lse is the true logsumexp, whatever the shift the forward used.
+// fp32).  ctpa's masks (`causal` with `q_offset`, `kv_mask`;
+// flash_masks.cuh) zero p and ds on masked cells, and tiles they mask
+// whole are skipped: dQ and d(bias) stop at the block's last causal key,
+// dK/dV starts its query walk at the first query row that sees the block's
+// first key.  The dK/dV pass adds the 1/m share of the rows with no valid
+// key to every dv row, once per block.  The logit bound of the forward's
+// flat softmax plays no part here: lse is the true logsumexp, whatever the
+// shift the forward used.
 //
 // Bound on the H100 at the shipped training shape (b*h = 48*8 at batch 2,
 // n = m = 576, d = 32, bf16, bias (8, 576, 576)): the whole backward reads q,
@@ -47,25 +53,22 @@
 //     (1, n, m), one for (b, h, n, m)), so the sum over items is
 //     deterministic.
 // At d = 64 the dK/dV pass holds 256 values per thread and spills; the
-// shipped geometry has d = 32.
+// shipped geometry has d = 32.  Head dim 128 (the LLM's) has its own
+// kernels on the tensor cores (flash_attention_d128.cu); the delta pre-pass
+// here serves it too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_masks.cuh"
+
 namespace {
+
+using namespace flash;
 
 constexpr int kRows = 64;  // rows (or key columns) a block owns, one per thread
 constexpr int kTile = 32;  // rows of the walked axis staged per step
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // a . b over D fp32 values; `a` lies in shared memory (a broadcast read) and
 // is 16-byte aligned, `b` in registers
@@ -86,6 +89,8 @@ struct BwdArgs {
   const void* k;
   const void* v;
   const void* bias;
+  const unsigned char* kv_mask;   // (b, m), nonzero = real key; may be null
+  const int* q_offset;            // one int32 (causal only); may be null
   const void* out;
   const void* dout;
   const float* lse;
@@ -97,6 +102,7 @@ struct BwdArgs {
   int batch, heads, n, m;
   int bias_stride_b, bias_stride_h;   // per batch item, per head (elements)
   int items, item_stride;             // d(bias): items per slab, their stride in b*h
+  int causal;
   float scale;
 };
 
@@ -115,14 +121,17 @@ flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   delta[r] = acc;
 }
 
-// grid (b*h, ceil(n / kRows)); block kRows.  Thread i owns query row i.
-template <typename T, int D>
+// grid (b*h, ceil(n / kRows)); block kRows.  Thread i owns query row i.  The
+// masks are compiled in only where a launch has one (kMasked), here and in
+// the passes below: the unmasked paths keep their registers.
+template <typename T, int D, bool kMasked>
 __global__ void __launch_bounds__(kRows)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ bias, const float* __restrict__ lse,
+                    const T* __restrict__ bias, const unsigned char* __restrict__ kv_mask,
+                    const int* __restrict__ q_offset, const float* __restrict__ lse,
                     const float* __restrict__ delta, const T* __restrict__ dout,
                     T* __restrict__ dq, int heads, int n, int m, int bias_stride_b,
-                    int bias_stride_h, float scale) {
+                    int bias_stride_h, int causal, float scale) {
   const int bh = blockIdx.x;
   const int b = bh / heads;
   const int hd = bh - b * heads;
@@ -136,10 +145,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const T* bg = bias == nullptr
                     ? nullptr
                     : bias + (long long)b * bias_stride_b + (long long)hd * bias_stride_h;
+  const unsigned char* kvg = kMasked ? key_row(kv_mask, b, m) : nullptr;
+  const int qoff = kMasked ? query_offset(q_offset) : 0;
+  const int qpos = row + qoff;
+  const int m_end = causal_key_end(kMasked && causal, row0, kRows, qoff, m);
 
   __shared__ __align__(16) float k_s[kTile][D];
   __shared__ __align__(16) float v_s[kTile][D];
   __shared__ float b_s[kRows][kTile + 1];
+  __shared__ unsigned char kv_s[kTile];
 
   float qr[D], dor[D], acc[D];
   const long long base = ((long long)bh * n + row) * D;
@@ -152,8 +166,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const float lse_r = live ? lse[(long long)bh * n + row] : 0.f;
   const float delta_r = live ? delta[(long long)bh * n + row] : 0.f;
 
-  for (int j0 = 0; j0 < m; j0 += kTile) {
+  for (int j0 = 0; j0 < m_end; j0 += kTile) {
     const int jn = min(kTile, m - j0);
+    if (kMasked && kvg != nullptr) {
+      if (tid < kTile) kv_s[tid] = tid < jn ? kvg[j0 + tid] : 0;
+      if (!__syncthreads_or(tid < kTile && kv_s[tid])) continue;
+    }
     for (int e = tid; e < kTile * D; e += kRows) {
       const int j = e / D;
       const int d = e - j * D;
@@ -175,7 +193,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int j = 0; j < kTile; ++j) {
       float s = dot_shared<D>(k_s[j], qr) * scale;
       if (bg != nullptr) s += b_s[tid][j];
-      const float p = j < jn ? expf(s - lse_r) : 0.f;
+      const bool ok = j < jn && (!kMasked || cell_ok(causal, j0 + j, qpos,
+                                                     kvg == nullptr || kv_s[j]));
+      const float p = ok ? expf(s - lse_r) : 0.f;
       const float ds = p * (dot_shared<D>(v_s[j], dor) - delta_r);
 #pragma unroll
       for (int d = 0; d < D; d += 4) {
@@ -196,13 +216,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 // grid (b*h, ceil(m / kRows)); block kRows.  Thread j owns key row j.
-template <typename T, int D>
+template <typename T, int D, bool kMasked>
 __global__ void __launch_bounds__(kRows)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ bias, const float* __restrict__ lse,
+                     const T* __restrict__ bias, const unsigned char* __restrict__ kv_mask,
+                     const int* __restrict__ q_offset, const float* __restrict__ lse,
                      const float* __restrict__ delta, const T* __restrict__ dout,
                      T* __restrict__ dk, T* __restrict__ dv, int heads, int n, int m,
-                     int bias_stride_b, int bias_stride_h, float scale) {
+                     int bias_stride_b, int bias_stride_h, int causal, float scale) {
   const int bh = blockIdx.x;
   const int b = bh / heads;
   const int hd = bh - b * heads;
@@ -218,6 +239,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const T* bg = bias == nullptr
                     ? nullptr
                     : bias + (long long)b * bias_stride_b + (long long)hd * bias_stride_h;
+  const unsigned char* kvg = kMasked ? key_row(kv_mask, b, m) : nullptr;
+  const int qoff = kMasked ? query_offset(q_offset) : 0;
+  const bool key_ok = live && (kvg == nullptr || kvg[col]);
 
   __shared__ __align__(16) float q_s[kTile][D];
   __shared__ __align__(16) float do_s[kTile][D];
@@ -235,7 +259,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     dv_acc[d] = 0.f;
   }
 
-  for (int i0 = 0; i0 < n; i0 += kTile) {
+  const int first = first_query_row(kMasked && causal, col0, qoff);
+  // a block whose keys are all masked out gets no p and no ds
+  const bool any_key = kvg == nullptr ? true : __syncthreads_or(key_ok);
+  const int i_begin = any_key ? first / kTile * kTile : n;
+  for (int i0 = i_begin; i0 < n; i0 += kTile) {
     const int in_rows = min(kTile, n - i0);
     for (int e = tid; e < kTile * D; e += kRows) {
       const int i = e / D;
@@ -264,7 +292,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int i = 0; i < kTile; ++i) {
       float s = dot_shared<D>(q_s[i], kr) * scale;
       if (bg != nullptr) s += b_s[i][tid];
-      const float p = i < in_rows ? expf(s - lse_s[i]) : 0.f;
+      const bool ok = i < in_rows && (!kMasked || cell_ok(causal, col, i0 + i + qoff, key_ok));
+      const float p = ok ? expf(s - lse_s[i]) : 0.f;
       const float ds = p * (dot_shared<D>(do_s[i], vr) - delta_s[i]);
 #pragma unroll
       for (int d = 0; d < D; d += 4) {
@@ -283,6 +312,17 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     __syncthreads();
   }
 
+  // rows with no valid key spread their dO over all m keys (weights 1/m)
+  if (kMasked) {
+    __shared__ float e_s[D];
+    if (__syncthreads_or(some_empty_row(lg, n, tid, kRows))) {
+      if (tid < D) e_s[tid] = empty_rows_dout_share(lg, dog, n, m, D, tid);
+      __syncthreads();
+#pragma unroll
+      for (int d = 0; d < D; ++d) dv_acc[d] += e_s[d];
+    }
+  }
+
   if (live) {
 #pragma unroll
     for (int d = 0; d < D; ++d) {
@@ -295,13 +335,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 // grid (bias slabs, ceil(n / kTile), ceil(m / kRows)); block kRows.  Thread j
 // owns key column j of a kTile x kRows tile of one slab; the block loops over
 // the `items` batch items g = slab + t * item_stride that share the slab.
-template <typename T, int D>
+template <typename T, int D, bool kMasked>
 __global__ void __launch_bounds__(kRows)
 flash_bwd_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ bias,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       const T* __restrict__ dout, T* __restrict__ dbias, int n, int m,
-                       int items, int item_stride, float scale) {
+                       const unsigned char* __restrict__ kv_mask,
+                       const int* __restrict__ q_offset, const float* __restrict__ lse,
+                       const float* __restrict__ delta, const T* __restrict__ dout,
+                       T* __restrict__ dbias, int heads, int n, int m, int items,
+                       int item_stride, int causal, float scale) {
   const int slab = blockIdx.x;
   const int row0 = blockIdx.y * kTile;
   const int col0 = blockIdx.z * kRows;
@@ -310,6 +352,7 @@ flash_bwd_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool live = col < m;
   const int in_rows = min(kTile, n - row0);
   const T* bg = bias + (long long)slab * n * m;
+  const int qoff = kMasked ? query_offset(q_offset) : 0;
 
   __shared__ __align__(16) float q_s[kTile][D];
   __shared__ __align__(16) float do_s[kTile][D];
@@ -317,18 +360,24 @@ flash_bwd_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ float delta_s[kTile];
   __shared__ float b_s[kTile][kRows];
 
-  for (int e = tid; e < kTile * kRows; e += kRows) {
-    const int i = e / kRows;
-    const int j = e - i * kRows;
-    b_s[i][j] = (i < in_rows && col0 + j < m) ? to_float(bg[(long long)(row0 + i) * m + col0 + j])
-                                             : 0.f;
-  }
   float acc[kTile];
 #pragma unroll
   for (int i = 0; i < kTile; ++i) acc[i] = 0.f;
 
-  for (int t = 0; t < items; ++t) {
+  // causal: a tile wholly above the diagonal has ds = 0 everywhere
+  const bool run = !kMasked || !causal || col0 <= row0 + kTile - 1 + qoff;
+  if (run) {
+    for (int e = tid; e < kTile * kRows; e += kRows) {
+      const int i = e / kRows;
+      const int j = e - i * kRows;
+      b_s[i][j] = (i < in_rows && col0 + j < m)
+                      ? to_float(bg[(long long)(row0 + i) * m + col0 + j])
+                      : 0.f;
+    }
+  }
+  for (int t = 0; run && t < items; ++t) {
     const long long g = slab + (long long)t * item_stride;
+    const bool key_ok = !kMasked || kv_mask == nullptr || (live && kv_mask[(g / heads) * m + col]);
     float kr[D], vr[D];
     const long long kbase = (g * m + col) * D;
 #pragma unroll
@@ -353,7 +402,8 @@ flash_bwd_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kTile; ++i) {
       const float s = dot_shared<D>(q_s[i], kr) * scale + b_s[i][tid];
-      const float p = expf(s - lse_s[i]);
+      const bool ok = !kMasked || cell_ok(causal, col, row0 + i + qoff, key_ok);
+      const float p = ok ? expf(s - lse_s[i]) : 0.f;
       acc[i] += p * (dot_shared<D>(do_s[i], vr) - delta_s[i]);
     }
     __syncthreads();
@@ -370,6 +420,8 @@ flash_bwd_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+inline bool masked(const BwdArgs& a) { return a.causal || a.kv_mask != nullptr; }
+
 struct DeltaLaunch {
   template <typename T, int D>
   static void run(const BwdArgs& a, cudaStream_t st) {
@@ -382,21 +434,24 @@ struct DeltaLaunch {
 struct DqLaunch {
   template <typename T, int D>
   static void run(const BwdArgs& a, cudaStream_t st) {
-    flash_bwd_dq_kernel<T, D><<<dim3(a.batch * a.heads, cdiv(a.n, kRows)), kRows, 0, st>>>(
+    auto kernel = masked(a) ? flash_bwd_dq_kernel<T, D, true> : flash_bwd_dq_kernel<T, D, false>;
+    kernel<<<dim3(a.batch * a.heads, cdiv(a.n, kRows)), kRows, 0, st>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.bias), a.lse, a.delta, static_cast<const T*>(a.dout),
-        static_cast<T*>(a.dq), a.heads, a.n, a.m, a.bias_stride_b, a.bias_stride_h, a.scale);
+        static_cast<const T*>(a.bias), a.kv_mask, a.q_offset, a.lse, a.delta,
+        static_cast<const T*>(a.dout), static_cast<T*>(a.dq), a.heads, a.n, a.m,
+        a.bias_stride_b, a.bias_stride_h, a.causal, a.scale);
   }
 };
 
 struct DkvLaunch {
   template <typename T, int D>
   static void run(const BwdArgs& a, cudaStream_t st) {
-    flash_bwd_dkv_kernel<T, D><<<dim3(a.batch * a.heads, cdiv(a.m, kRows)), kRows, 0, st>>>(
+    auto kernel = masked(a) ? flash_bwd_dkv_kernel<T, D, true> : flash_bwd_dkv_kernel<T, D, false>;
+    kernel<<<dim3(a.batch * a.heads, cdiv(a.m, kRows)), kRows, 0, st>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.bias), a.lse, a.delta, static_cast<const T*>(a.dout),
-        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.heads, a.n, a.m, a.bias_stride_b,
-        a.bias_stride_h, a.scale);
+        static_cast<const T*>(a.bias), a.kv_mask, a.q_offset, a.lse, a.delta,
+        static_cast<const T*>(a.dout), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.heads,
+        a.n, a.m, a.bias_stride_b, a.bias_stride_h, a.causal, a.scale);
   }
 };
 
@@ -405,11 +460,13 @@ struct DbiasLaunch {
   static void run(const BwdArgs& a, cudaStream_t st) {
     // slabs: the leading extent of the bias, b*h items in all
     const int slabs = a.batch * a.heads / a.items;
-    flash_bwd_dbias_kernel<T, D>
-        <<<dim3(slabs, cdiv(a.n, kTile), cdiv(a.m, kRows)), kRows, 0, st>>>(
+    auto kernel = masked(a) ? flash_bwd_dbias_kernel<T, D, true>
+                            : flash_bwd_dbias_kernel<T, D, false>;
+    kernel<<<dim3(slabs, cdiv(a.n, kTile), cdiv(a.m, kRows)), kRows, 0, st>>>(
             static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-            static_cast<const T*>(a.bias), a.lse, a.delta, static_cast<const T*>(a.dout),
-            static_cast<T*>(a.dbias), a.n, a.m, a.items, a.item_stride, a.scale);
+            static_cast<const T*>(a.bias), a.kv_mask, a.q_offset, a.lse, a.delta,
+            static_cast<const T*>(a.dout), static_cast<T*>(a.dbias), a.heads, a.n, a.m,
+            a.items, a.item_stride, a.causal, a.scale);
   }
 };
 
@@ -432,12 +489,36 @@ int dispatch(const BwdArgs& a, int d, int is_bf16, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+BwdArgs pass_args(const void* q, const void* k, const void* v, const void* bias,
+                  const void* kv_mask, const void* q_offset, const void* lse, void* delta,
+                  const void* dout, int batch, int heads, int n, int m, int causal,
+                  float scale) {
+  BwdArgs a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.bias = bias;
+  a.kv_mask = static_cast<const unsigned char*>(kv_mask);
+  a.q_offset = static_cast<const int*>(q_offset);
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<float*>(delta);
+  a.dout = dout;
+  a.batch = batch;
+  a.heads = heads;
+  a.n = n;
+  a.m = m;
+  a.causal = causal;
+  a.scale = scale;
+  return a;
+}
+
 }  // namespace
 
 // Each launches on `stream` and returns cudaGetLastError() (0 when the launch
-// was accepted).  The caller has checked: d in {16, 32, 64}, one dtype for q,
-// k, v, O, dO and the bias, contiguous buffers, bias strides in elements,
-// fp32 lse and delta of (b, h, n).
+// was accepted).  The caller has checked: d in {16, 32, 64} (the delta
+// pre-pass also 128), one dtype for q, k, v, O, dO and the bias, contiguous
+// buffers, bias strides in elements, fp32 lse and delta of (b, h, n).
+// `bias`, `kv_mask` ((b, m) bytes) and `q_offset` (one int32) may be null.
 
 // delta = rowsum(dO * O) into the fp32 (b, h, n) buffer `delta`.
 extern "C" int flash_attention_bwd_delta_launch(const void* out, const void* dout, void* delta,
@@ -450,59 +531,44 @@ extern "C" int flash_attention_bwd_delta_launch(const void* out, const void* dou
   a.batch = batch;
   a.heads = heads;
   a.n = n;
+  if (d == 128) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    is_bf16 ? DeltaLaunch::run<__nv_bfloat16, 128>(a, st) : DeltaLaunch::run<float, 128>(a, st);
+    return static_cast<int>(cudaGetLastError());
+  }
   return dispatch<DeltaLaunch>(a, d, is_bf16, stream);
 }
 
-// dq; `bias` may be null.
+// dq.
 extern "C" int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
-                                             const void* bias, const void* lse, void* delta,
-                                             const void* dout, void* dq,
-                                             int batch, int heads, int n, int m, int d,
-                                             int bias_stride_b, int bias_stride_h, float scale,
+                                             const void* bias, const void* kv_mask,
+                                             const void* q_offset, const void* lse, void* delta,
+                                             const void* dout, void* dq, int batch, int heads,
+                                             int n, int m, int d, int bias_stride_b,
+                                             int bias_stride_h, int causal, float scale,
                                              int is_bf16, void* stream) {
-  BwdArgs a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.bias = bias;
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<float*>(delta);
-  a.dout = dout;
+  BwdArgs a = pass_args(q, k, v, bias, kv_mask, q_offset, lse, delta, dout, batch, heads, n, m,
+                        causal, scale);
   a.dq = dq;
-  a.batch = batch;
-  a.heads = heads;
-  a.n = n;
-  a.m = m;
   a.bias_stride_b = bias_stride_b;
   a.bias_stride_h = bias_stride_h;
-  a.scale = scale;
   return dispatch<DqLaunch>(a, d, is_bf16, stream);
 }
 
-// dk and dv; `bias` may be null.
+// dk and dv.
 extern "C" int flash_attention_bwd_dkv_launch(const void* q, const void* k, const void* v,
-                                              const void* bias, const void* lse, void* delta,
-                                              const void* dout, void* dk,
-                                              void* dv, int batch, int heads, int n, int m,
-                                              int d, int bias_stride_b, int bias_stride_h,
-                                              float scale, int is_bf16, void* stream) {
-  BwdArgs a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.bias = bias;
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<float*>(delta);
-  a.dout = dout;
+                                              const void* bias, const void* kv_mask,
+                                              const void* q_offset, const void* lse, void* delta,
+                                              const void* dout, void* dk, void* dv, int batch,
+                                              int heads, int n, int m, int d, int bias_stride_b,
+                                              int bias_stride_h, int causal, float scale,
+                                              int is_bf16, void* stream) {
+  BwdArgs a = pass_args(q, k, v, bias, kv_mask, q_offset, lse, delta, dout, batch, heads, n, m,
+                        causal, scale);
   a.dk = dk;
   a.dv = dv;
-  a.batch = batch;
-  a.heads = heads;
-  a.n = n;
-  a.m = m;
   a.bias_stride_b = bias_stride_b;
   a.bias_stride_h = bias_stride_h;
-  a.scale = scale;
   return dispatch<DkvLaunch>(a, d, is_bf16, stream);
 }
 
@@ -511,25 +577,16 @@ extern "C" int flash_attention_bwd_dkv_launch(const void* q, const void* k, cons
 // items = b, item_stride = h; (1, n, m) items = b*h, item_stride = 1;
 // (b, h, n, m) items = 1.
 extern "C" int flash_attention_bwd_dbias_launch(const void* q, const void* k, const void* v,
-                                                const void* bias, const void* lse, void* delta,
-                                                const void* dout, void* dbias, int batch, int heads, int n, int m,
-                                                int d, int items, int item_stride, float scale,
-                                                int is_bf16, void* stream) {
-  BwdArgs a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.bias = bias;
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<float*>(delta);
-  a.dout = dout;
+                                                const void* bias, const void* kv_mask,
+                                                const void* q_offset, const void* lse,
+                                                void* delta, const void* dout, void* dbias,
+                                                int batch, int heads, int n, int m, int d,
+                                                int items, int item_stride, int causal,
+                                                float scale, int is_bf16, void* stream) {
+  BwdArgs a = pass_args(q, k, v, bias, kv_mask, q_offset, lse, delta, dout, batch, heads, n, m,
+                        causal, scale);
   a.dbias = dbias;
-  a.batch = batch;
-  a.heads = heads;
-  a.n = n;
-  a.m = m;
   a.items = items;
   a.item_stride = item_stride;
-  a.scale = scale;
   return dispatch<DbiasLaunch>(a, d, is_bf16, stream);
 }

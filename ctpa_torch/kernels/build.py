@@ -1,9 +1,9 @@
 """The one build step for the hand-written CUDA kernels.
 
-Every ``*.cu`` under ``ctpa_torch/csrc/`` is compiled for ``sm_90a`` by its
-own ``nvcc`` process, all started together, and the objects are linked into
-one shared library with a plain C interface, which is loaded with
-``ctypes``.  No source includes PyTorch's headers: a build through
+Every ``*.cu`` under ``ctpa_torch/csrc/`` (which may include the ``*.cuh``
+headers beside it) is compiled for ``sm_90a`` by its own ``nvcc`` process,
+all started together, and the objects are linked into one shared library
+with a plain C interface, which is loaded with ``ctypes``.  No source includes PyTorch's headers: a build through
 ``torch.utils.cpp_extension`` spends minutes in the compiler, this one
 seconds.  The build runs once per process, at the first kernel launch, into
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
@@ -31,12 +31,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (ctypes would otherwise pass a Python int as a 32-bit int and cut it)
 SIGNATURES = {
     "patchify_project_launch": (_P,) * 5 + (_I,) * 7 + (_F, _P),
-    "flash_attention_fwd_launch": (_P,) * 6 + (_I,) * 7 + (_F, _I, _P),
-    "flash_attention_fwd_lse_launch": (_P,) * 7 + (_I,) * 7 + (_F, _I, _P),
+    "flash_attention_fwd_launch": (_P,) * 8 + (_I,) * 8 + (_F, _I, _P),
+    "flash_attention_fwd_lse_launch": (_P,) * 9 + (_I,) * 8 + (_F, _I, _P),
     "flash_attention_bwd_delta_launch": (_P,) * 3 + (_I,) * 5 + (_P,),
-    "flash_attention_bwd_dq_launch": (_P,) * 8 + (_I,) * 7 + (_F, _I, _P),
-    "flash_attention_bwd_dkv_launch": (_P,) * 9 + (_I,) * 7 + (_F, _I, _P),
-    "flash_attention_bwd_dbias_launch": (_P,) * 8 + (_I,) * 7 + (_F, _I, _P),
+    "flash_attention_bwd_dq_launch": (_P,) * 10 + (_I,) * 8 + (_F, _I, _P),
+    "flash_attention_bwd_dkv_launch": (_P,) * 11 + (_I,) * 8 + (_F, _I, _P),
+    "flash_attention_bwd_dbias_launch": (_P,) * 10 + (_I,) * 8 + (_F, _I, _P),
+    "flash_attention_fwd_d128_launch": (_P,) * 8 + (_I,) * 8 + (_F, _I, _P),
+    "flash_attention_fwd_lse_d128_launch": (_P,) * 9 + (_I,) * 8 + (_F, _I, _P),
+    "flash_attention_bwd_dq_d128_launch": (_P,) * 10 + (_I,) * 8 + (_F, _I, _P),
+    "flash_attention_bwd_dkv_d128_launch": (_P,) * 11 + (_I,) * 8 + (_F, _I, _P),
     "decode_attention_launch": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
 }
 

@@ -12,13 +12,15 @@ functional updates, each layer writes its new rows into the cache buffers
 **in place**: the ``KVCache`` a forward returns holds the same k/v (and
 scale) tensors as the one it was given, with new offsets and validity.
 Single-token steps with ``flash_decode`` run the decode-attention kernel
-(``ops/decode_attention.py``); everything else runs the dense grouped-query
+(``ops/decode_attention.py``); no-cache forwards of at least
+``flash_min_len`` tokens with ``flash_prefill`` (report training) run the
+flash kernel, causal with the attention mask as its key mask
+(``ops/flash_attention.py``); everything else runs the dense grouped-query
 attention.  Nothing in a forward reads a device value back to the host.
 
 Not ported (the model raises): quantized weights (``weight_quant``,
-``quant_ffn_kernel``, ``quant_act``), the int4 KV cache, int8 attention
-dots, and flash prefill (no-cache forwards of at least ``flash_min_len``
-tokens with ``flash_prefill``), which belongs to report training.
+``quant_ffn_kernel``, ``quant_act``), the int4 KV cache and int8 attention
+dots.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ctpa_torch.core.config import LLMConfig, LoRAConfig
 from ctpa_torch.models.layers import Dense, compute_dtype
 from ctpa_torch.models.lora import LoRADense
 from ctpa_torch.ops.decode_attention import decode_attention
+from ctpa_torch.ops.flash_attention import flash_attention
 from ctpa_torch.ops.rotary import apply_rope, rope_frequencies
 
 
@@ -145,13 +148,14 @@ class LlamaAttention(nn.Module):
         self.o_proj = LoRADense(h * hd, d, **_lora_args(lora, "o_proj"), **fk)
 
     def forward(self, x, positions, rope, kv_write_index=None, cache_k=None, cache_v=None,
-                attn_mask=None, key_mask=None):
+                attn_mask=None, key_mask=None, flash: bool = False):
         """x (b, n, d); ``rope`` the (cos, sin) tables.  With a cache,
         ``cache_k``/``cache_v`` are (buffer, scale or None) pairs of the FULL
         stacked cache: this layer writes its n new rows at
         ``kv_write_index`` and attends its own plane.  ``attn_mask`` is
         (b, 1, n, m) or (b, 1, 1, m), True = attend; ``key_mask`` (b, m) is
-        the validity the decode kernel takes."""
+        the validity the decode kernel takes, and with ``flash`` (no cache)
+        the flash kernel's key mask."""
         c = self.cfg
         h, kvh, hd = c.num_heads, c.num_kv_heads, c.head_dim
         b, n, _ = x.shape
@@ -180,6 +184,17 @@ class LlamaAttention(nn.Module):
             k_full, v_full = ck[self.layer_idx].to(dt), cv[self.layer_idx].to(dt)
         else:
             k_full, v_full = k.transpose(1, 2), v.transpose(1, 2)
+            if flash:
+                # the kernel wants as many kv heads as q heads: q head g * rep
+                # + r attends kv head g, as jnp.repeat(kv, rep, axis=1)
+                rep = h // kvh
+                if rep > 1:
+                    k_full = k_full.repeat_interleave(rep, dim=1)
+                    v_full = v_full.repeat_interleave(rep, dim=1)
+                out = flash_attention(q.transpose(1, 2).contiguous(), k_full.contiguous(),
+                                      v_full.contiguous(), causal=True, kv_mask=key_mask,
+                                      scale=1.0 / math.sqrt(hd))
+                return self.o_proj(out.transpose(1, 2).reshape(b, n, h * hd).to(x.dtype))
         # grouped-query attention against the un-repeated K/V: q head
         # g * rep + r attends kv head g; fp32 scores (preferred_element_type)
         qg = q.reshape(b, n, kvh, h // kvh, hd)
@@ -223,9 +238,9 @@ class LlamaBlock(nn.Module):
         self.mlp = LlamaMLP(cfg, **fk)
 
     def forward(self, x, positions, rope, kv_write_index=None, cache_k=None, cache_v=None,
-                attn_mask=None, key_mask=None):
+                attn_mask=None, key_mask=None, flash: bool = False):
         x = x + self.self_attn(self.input_layernorm(x), positions, rope, kv_write_index,
-                               cache_k, cache_v, attn_mask, key_mask)
+                               cache_k, cache_v, attn_mask, key_mask, flash)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -267,6 +282,7 @@ class LlamaModel(nn.Module):
             positions = (cache.true_len[:, None] + steps[None] if cache is not None
                          else steps[None].expand(b, n))
         key_mask = write_idx = ck = cv = None
+        flash = False
         if cache is not None:
             m = cache.k.shape[3]
             real = (attention_mask.bool() if attention_mask is not None
@@ -285,15 +301,17 @@ class LlamaModel(nn.Module):
             write_idx = cache.write_offset[0] if shared_kv_offset else cache.write_offset
             ck, cv = (cache.k, cache.k_scale), (cache.v, cache.v_scale)
         elif c.flash_prefill and n >= c.flash_min_len:
-            raise NotImplementedError("flash_prefill (the causal, key-masked flash kernel for "
-                                      "no-cache forwards) is not ported yet")
+            # the flash kernel masks causally and by key itself: no (b, 1, n,
+            # n) mask is built
+            flash, mask = True, None
+            key_mask = attention_mask > 0 if attention_mask is not None else None
         else:
             mask = steps[None, None, None, :] <= steps[None, None, :, None]
             if attention_mask is not None:
                 mask = mask & (attention_mask[:, None, None, :] > 0)
         rope = rope_frequencies(c.head_dim, c.max_seq_len, c.rope_theta, device=dev)
         for layer in self.layers:
-            x = layer(x, positions, rope, write_idx, ck, cv, mask, key_mask)
+            x = layer(x, positions, rope, write_idx, ck, cv, mask, key_mask, flash)
         x = self.norm(x)
         if cache is None:
             return x, None

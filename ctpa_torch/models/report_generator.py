@@ -1,7 +1,11 @@
 """Report generation: a CTViT vision feature conditioning the LLM through one
 cross-attention layer, decoded with the KV cache (port of
 ``ctpa/models/report_generator.py``: the vision feature extractor, the
-cross-attention, the training forward and ``generate``).
+cross-attention, the training forward and its losses, and ``generate``).
+
+``loss`` and ``loss_from_vision`` are ctpa's shifted-label cross-entropy:
+position i predicts token i + 1, pads (and, with ``label_mask``, the
+prompt) are masked out, the log-softmax is fp32.
 
 ``generate`` prefills the right-padded prompts once, then runs one cached
 single-token step per new token; it stops when every sequence has emitted
@@ -129,6 +133,31 @@ class CTReportGenerator(nn.Module):
 
     def _fused_logits(self, hidden, vision):
         return self.llm.apply_lm_head(self.cross_attention(hidden, vision))
+
+    def loss(self, video, input_ids, attention_mask, label_mask=None):
+        """The shifted-label cross-entropy of the training forward."""
+        return self._ce(self(video, input_ids, attention_mask), input_ids, attention_mask,
+                        label_mask)
+
+    def loss_from_vision(self, vision, input_ids, attention_mask, label_mask=None):
+        """The same loss over precomputed (b, vision_dim) vision features, so a
+        fine-tune with a frozen vision trunk runs the trunk once, outside the
+        training step."""
+        hidden, _ = self.llm.model(input_ids, attention_mask)
+        return self._ce(self._fused_logits(hidden, vision), input_ids, attention_mask,
+                        label_mask)
+
+    @staticmethod
+    def _ce(logits, input_ids, attention_mask, label_mask=None):
+        """Mean negative log-likelihood of tokens 1.. under the logits of
+        positions ..n-2, over the positions the masks keep."""
+        targets = input_ids[:, 1:].long()
+        mask = attention_mask[:, 1:].float()
+        if label_mask is not None:
+            mask = mask * label_mask[:, 1:].float()
+        logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+        nll = -logp.gather(-1, targets[..., None])[..., 0]
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
     @torch.no_grad()
     def generate(self, video, input_ids, attention_mask, max_new_tokens: int, eos_token_id: int,

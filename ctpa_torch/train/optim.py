@@ -3,7 +3,10 @@
 ctpa chains optax's ``clip_by_global_norm`` and ``adamw`` with a schedule.
 The port keeps optax's conventions on ``torch.optim.AdamW``:
 
-* two parameter groups: weight decay on parameters with ndim >= 2 only;
+* ``get_optimizer`` (the CLIP trainer's): two parameter groups, weight
+  decay on parameters with ndim >= 2 only; the report trainer's optimizer
+  (``train/report_trainer.py``) has two groups with their own schedules
+  and decay on every parameter;
 * the gradients are clipped by their global norm before the update, as
   optax's ``clip_by_global_norm`` does: scaled by ``max_norm / norm`` when
   the norm reaches ``max_norm``, selected on the device (no host sync);
@@ -119,27 +122,25 @@ def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
 
 
 class Optimizer:
-    """Gradient clipping, the scheduled learning rate and AdamW over the
-    trainable parameters of a model (optax's ``chain(clip_by_global_norm,
-    adamw)``).  ``step(count)`` reads the gradients in ``p.grad``."""
+    """Gradient clipping, scheduled learning rates and AdamW (optax's
+    ``chain(clip_by_global_norm, adamw)``, or with several groups
+    ``chain(clip_by_global_norm, multi_transform({group: adamw}))``).
+    ``groups`` holds (parameters, schedule, weight decay) triples; one
+    global norm over every group's gradients is clipped.  ``masked`` says
+    that the caller's ``grad_norm`` covers gradients the clip must not see
+    (parameters that have a gradient but are frozen), so the clip's norm is
+    computed here.  ``step(count)`` reads the gradients in ``p.grad``."""
 
-    def __init__(self, cfg: OptimizerConfig, model: nn.Module,
-                 trainable: dict[str, bool] | None = None):
-        if cfg.name not in ("adam", "adamw"):
-            raise ValueError(f"unknown optimizer {cfg.name!r}")
-        self.cfg = cfg
-        self.schedule = build_schedule(cfg)
-        decay = weight_decay_mask(model)
-        wd = 0.0 if cfg.name == "adam" or cfg.weight_decay == 0 else cfg.weight_decay
-        named = [(n, p) for n, p in model.named_parameters()
-                 if trainable is None or trainable[n]]
-        # whether some parameter is frozen: then the clip's norm covers the
-        # trainable gradients only, as optax's multi_transform computes it
-        self.masked = len(named) < len(list(model.parameters()))
-        groups = [{"params": [p for n, p in named if decay[n]], "weight_decay": wd},
-                  {"params": [p for n, p in named if not decay[n]], "weight_decay": 0.0}]
-        self.opt = torch.optim.AdamW([g for g in groups if g["params"]], lr=self.schedule(0),
-                                     betas=cfg.betas, eps=cfg.eps)
+    def __init__(self, groups: list[tuple[list[torch.Tensor], Schedule, float]],
+                 betas=(0.9, 0.999), eps: float = 1e-8, grad_clip_norm: float | None = None,
+                 masked: bool = False):
+        groups = [g for g in groups if g[0]]
+        self.schedules = [schedule for _, schedule, _ in groups]
+        self.grad_clip_norm = grad_clip_norm
+        self.masked = masked
+        self.opt = torch.optim.AdamW(
+            [{"params": params, "weight_decay": wd, "lr": schedule(0)}
+             for params, schedule, wd in groups], betas=betas, eps=eps)
 
     @property
     def params(self) -> list[torch.Tensor]:
@@ -148,21 +149,18 @@ class Optimizer:
     @torch.no_grad()
     def step(self, count: int, grad_norm: torch.Tensor | None = None) -> None:
         """One update at schedule step ``count`` (updates made before it).
-        ``grad_norm``: the global norm of every gradient of the model, where
-        the caller has it already.  It is the clip's norm unless some
-        parameter is frozen: then the clip's norm covers the trainable
-        gradients only and is computed here."""
+        ``grad_norm``: the global norm of the gradients, where the caller
+        has it already; it is the clip's norm unless ``masked``."""
         params = self.params
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        if self.cfg.grad_clip_norm and self.cfg.grad_clip_norm > 0:
+        if self.grad_clip_norm and self.grad_clip_norm > 0:
             grads = [p.grad for p in params]
             norm = global_norm(grads) if grad_norm is None or self.masked else grad_norm
-            torch._foreach_mul_(grads, clip_scale(norm, self.cfg.grad_clip_norm))
-        lr = self.schedule(count)
-        for group in self.opt.param_groups:
-            group["lr"] = lr
+            torch._foreach_mul_(grads, clip_scale(norm, self.grad_clip_norm))
+        for group, schedule in zip(self.opt.param_groups, self.schedules):
+            group["lr"] = schedule(count)
         self.opt.step()
 
     def state_dict(self) -> dict:
@@ -174,7 +172,18 @@ class Optimizer:
 
 def get_optimizer(cfg: OptimizerConfig, model: nn.Module,
                   trainable: dict[str, bool] | None = None) -> Optimizer:
-    """The optimizer of ``cfg`` over ``model``'s parameters; with
-    ``trainable`` (name -> bool) only the True ones are updated, the others
-    stay frozen (optax's ``multi_transform`` with ``set_to_zero``)."""
-    return Optimizer(cfg, model, trainable)
+    """The optimizer of ``cfg`` over ``model``'s parameters, weight decay on
+    those with ndim >= 2; with ``trainable`` (name -> bool) only the True
+    ones are updated, the others stay frozen (optax's ``multi_transform``
+    with ``set_to_zero``), and the clip's norm covers the trainable
+    gradients only."""
+    if cfg.name not in ("adam", "adamw"):
+        raise ValueError(f"unknown optimizer {cfg.name!r}")
+    schedule = build_schedule(cfg)
+    decay = weight_decay_mask(model)
+    wd = 0.0 if cfg.name == "adam" or cfg.weight_decay == 0 else cfg.weight_decay
+    named = [(n, p) for n, p in model.named_parameters() if trainable is None or trainable[n]]
+    groups = [([p for n, p in named if decay[n]], schedule, wd),
+              ([p for n, p in named if not decay[n]], schedule, 0.0)]
+    return Optimizer(groups, betas=cfg.betas, eps=cfg.eps, grad_clip_norm=cfg.grad_clip_norm,
+                     masked=len(named) < len(list(model.parameters())))

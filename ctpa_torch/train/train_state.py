@@ -1,9 +1,9 @@
-"""The CLIP train state (port of ``ctpa/train/train_state.py``).
+"""The train states (port of ``ctpa/train/train_state.py``).
 
 ctpa threads an immutable pytree (params, opt_state, vq_state, step) through
 a jitted step.  In the port the parameters live in the model and the AdamW
 moments in the optimizer, and the step updates both in place; the state
-names them beside the VQ codebook state and the step count, so one
+names them beside the VQ codebook state (CLIP) and the step count, so one
 ``state_dict()`` holds everything a checkpoint needs.
 """
 
@@ -42,4 +42,42 @@ class CLIPTrainState:
         vq = state["vq_state"]
         self.vq_state = None if vq is None else VQState(
             **{k: torch.as_tensor(v, device=device) for k, v in vq.items()})
+        self.step = int(state["step"])
+
+
+@dataclass
+class SimpleTrainState:
+    """The report trainer's state: model, optimizer and step count.  Its
+    ``state_dict`` holds the parameters the optimizer updates, not the
+    frozen base: a LoRA fine-tune of a 7B model would otherwise write 13.5
+    GB of unchanged weights per checkpoint (ctpa writes them); a restore
+    loads into a model built on the same base."""
+
+    model: nn.Module
+    optimizer: Optimizer
+    step: int = 0
+
+    @classmethod
+    def create(cls, model: nn.Module, tx: Optimizer):
+        return cls(model=model, optimizer=tx, step=0)
+
+    def _trained(self) -> dict[str, torch.Tensor]:
+        ids = {id(p) for p in self.optimizer.params}
+        return {n: p for n, p in self.model.named_parameters() if id(p) in ids}
+
+    def state_dict(self) -> dict:
+        return {"params": {n: p.detach() for n, p in self._trained().items()},
+                "opt_state": self.optimizer.state_dict(), "step": self.step}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore in place; the saved parameters must be exactly those the
+        optimizer updates."""
+        own = self._trained()
+        if set(state["params"]) != set(own):
+            raise KeyError(f"checkpoint parameters {sorted(set(state['params']) ^ set(own))} "
+                           "differ from the trained ones")
+        for name, value in state["params"].items():
+            own[name].copy_(value)
+        self.optimizer.load_state_dict(state["opt_state"])
         self.step = int(state["step"])

@@ -21,6 +21,7 @@ from ctpa_torch.core.init import random_init_
 from ctpa_torch.models.ctvit import CTViT
 from ctpa_torch.models.layers import set_compute_dtype
 from ctpa_torch.ops.attention_ops import l2norm
+from ctpa_torch.ops import flash_attention as fa
 from ctpa_torch.ops.flash_attention import (
     LAUNCHES,
     flash_attention,
@@ -133,10 +134,10 @@ def test_flash_lse_and_backward_kernels_match_plain(cuda, dtype, bias_form, boun
     got = flash_attention_bwd(q, k, v, bias, out, lse, do, 8.0)
     torch.cuda.synchronize()
     launched = {key: LAUNCHES[key] - before[key] for key in LAUNCHES}
-    assert launched == {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 1,
-                        "flash_attention_bwd_delta": 1, "flash_attention_bwd_dq": 1,
-                        "flash_attention_bwd_dkv": 1,
-                        "flash_attention_bwd_dbias": int(bias is not None)}
+    assert launched == dict(dict.fromkeys(LAUNCHES, 0), flash_attention_fwd_lse=1,
+                            flash_attention_bwd_delta=1, flash_attention_bwd_dq=1,
+                            flash_attention_bwd_dkv=1,
+                            flash_attention_bwd_dbias=int(bias is not None))
     ref_out, ref_lse = flash_attention_plain(q, k, v, bias, 8.0, bound, return_lse=True)
     tol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=tol)
@@ -175,6 +176,115 @@ def test_flash_autograd_on_the_card(cuda, dtype):
         ref = torch.autograd.grad(ref_out, plain_leaves, grad_outputs=do)
         for g, r in zip(got, ref):
             torch.testing.assert_close(g, r, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+# ------------------------------------- K2 and K3: the masked forms, head dim 128
+
+# q_offset 1 puts the last causal key of a block of 64 rows on the first key
+# of a tile: an off-by-one in the tile skips shows there
+MASK_FORMS = ("causal", "causal q_offset 1", "causal q_offset 7", "causal q_offset -5",
+              "kv holes", "causal kv holes", "kv dead row")
+
+
+def _masked(gen, dtype, d, form, bias_form, b=2, h=3, n=100, m=90):
+    """Inputs ragged against every tile and masks of one form: kv holes put
+    a hole at key 0 (so causal row 0 has no valid key) and inside the
+    sequence; "kv dead row" masks every key of batch item 1."""
+    q, k, v, bias, _, do = _attn(gen, dtype, bias_form, False, d, b=b, h=h, n=n, m=m)
+    q, k = q * 4, k * 4                                   # logits of order 1
+    kv = qo = None
+    if "holes" in form:
+        kv = torch.rand(b, m, generator=gen, device="cuda") > 0.25
+        kv[:, 0] = False
+        kv[1, m - 17:] = False
+    if "dead" in form:
+        kv = torch.ones(b, m, dtype=torch.bool, device="cuda")
+        kv[1] = False
+    if "q_offset" in form:
+        qo = torch.tensor(int(form.split()[-1]), dtype=torch.int32, device="cuda")
+    masks = fa.make_masks(form.startswith("causal"), kv, qo, b, m, "cuda")
+    return q, k, v, bias, do, masks
+
+
+MASKED_CASES = [(dt, form, bias_form, d) for d in (16, 32, 64, 128)
+                for dt in ((torch.bfloat16, torch.float32) if d < 128 else (torch.bfloat16,))
+                for form in MASK_FORMS for bias_form in (None, "h", "1", "bh")]
+
+
+@pytest.mark.parametrize("dtype, form, bias_form, d", MASKED_CASES)
+def test_flash_masked_kernels_match_plain(cuda, dtype, form, bias_form, d):
+    """Every masked form of K2 (with and without the logsumexp) and of the K3
+    passes against the plain versions; d(bias) has no kernel at d = 128."""
+    q, k, v, bias, do, masks = _masked(cuda, dtype, d, form, bias_form)
+    scale = d ** -0.5
+    before = dict(LAUNCHES)
+    out, lse = fa._forward(q, k, v, bias, scale, None, True, masks)
+    out2, _ = fa._forward(q, k, v, bias, scale, None, False, masks)
+    delta = fa.flash_attention_bwd_delta(out, do)
+    args = (q, k, v, bias, lse, delta, do, scale, masks)
+    dq = fa.flash_attention_bwd_dq(*args)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    dbias = fa.flash_attention_bwd_dbias(*args) if bias is not None and d < 128 else None
+    torch.cuda.synchronize()
+    suffix = "_d128" if d == 128 else ""
+    launched = {key: LAUNCHES[key] - before[key] for key in LAUNCHES}
+    assert launched == dict(dict.fromkeys(LAUNCHES, 0), **{
+        "flash_attention_fwd" + suffix: 1, "flash_attention_fwd_lse" + suffix: 1,
+        "flash_attention_bwd_delta": 1, "flash_attention_bwd_dq" + suffix: 1,
+        "flash_attention_bwd_dkv" + suffix: 1,
+        "flash_attention_bwd_dbias": int(dbias is not None)})
+    tol = TOL[dtype]
+    ref_out, ref_lse = flash_attention_plain(q, k, v, bias, scale, return_lse=True, masks=masks)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(out2, out, atol=0, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    refs = {"dq": fa.flash_attention_bwd_dq_plain(*args),
+            "dkv": fa.flash_attention_bwd_dkv_plain(*args)}
+    for name, g, r in (("dq", dq, refs["dq"]), ("dk", dk, refs["dkv"][0]),
+                       ("dv", dv, refs["dkv"][1])):
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol, msg=name)
+    if dbias is not None:
+        torch.testing.assert_close(dbias.float(), fa.flash_attention_bwd_dbias_plain(*args).float(),
+                                   atol=tol, rtol=tol)
+
+
+def test_flash_d128_training_shape_autograd(cuda):
+    """Report training's attention (causal, right padding 512/384) at b 2,
+    h 4, n 512, d 128 through torch.autograd: one K2-lse and one each of the
+    K3 passes, against autograd through the plain forward in fp32 from the
+    same bf16 inputs."""
+    b, h, n, d = 2, 4, 512, 128
+    q, k, v, _, _, do = _attn(cuda, torch.bfloat16, None, False, d, b=b, h=h, n=n, m=n)
+    q, k = q * 4, k * 4
+    kv = torch.arange(n, device="cuda")[None] < torch.tensor([[n], [384]], device="cuda")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(LAUNCHES)
+    out = flash_attention(*leaves, causal=True, kv_mask=kv, scale=d ** -0.5)
+    got = torch.autograd.grad(out, leaves, grad_outputs=do)
+    torch.cuda.synchronize()
+    launched = {key: LAUNCHES[key] - before[key] for key in LAUNCHES}
+    assert launched == dict(dict.fromkeys(LAUNCHES, 0), flash_attention_fwd_lse_d128=1,
+                            flash_attention_bwd_delta=1, flash_attention_bwd_dq_d128=1,
+                            flash_attention_bwd_dkv_d128=1)
+    ref_leaves = [t.float().clone().requires_grad_() for t in (q, k, v)]
+    ref_out = flash_attention_plain(*ref_leaves, None, d ** -0.5,
+                                    masks=fa.make_masks(True, kv, None, b, n, "cuda"))
+    ref = torch.autograd.grad(ref_out, ref_leaves, grad_outputs=do.float())
+    torch.testing.assert_close(out.float(), ref_out, atol=2e-2, rtol=2e-2)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.float(), r, atol=2e-2, rtol=2e-2)
+
+
+def test_flash_d128_refuses_what_it_does_not_take(cuda):
+    q, k, v, bias, _, _ = _attn(cuda, torch.float32, "h", False, 128, n=64, m=64)
+    with pytest.raises(TypeError):
+        flash_attention(q, k, v)                              # fp32 at head dim 128
+    qb, kb, vb, bb = (t.to(torch.bfloat16) for t in (q, k, v, bias))
+    with pytest.raises(NotImplementedError):                  # d(bias) at head dim 128
+        flash_attention(qb, kb, vb, bias=bb.requires_grad_())
+    with pytest.raises(ValueError):                           # rows off 16-byte boundaries
+        b, h, n, d = qb.shape
+        flash_attention(qb.flatten()[4:4 + b * h * (n - 1) * d].view(b, h, n - 1, d), kb, vb)
 
 
 def is_spatial_fold_param(name: str) -> bool:
@@ -309,3 +419,56 @@ def test_report_generator_kernel_path_matches_plain_path(cuda, kv_quant):
     assert torch.equal(kernel.argmax(-1), tokens)
     rel, _, top1 = cs.logit_distance(kernel, plain)
     assert rel <= 5e-2 and top1 >= 0.8, (rel, top1)
+
+
+def test_report_lora_step_kernel_path_vs_plain_path(cuda):
+    """One partitioned LoRA step of a small report generator (fp32
+    parameters, bf16 compute, head dim 128, GQA rep 2, sequences 64/40
+    right-padded to 64) with flash_prefill against the dense path from the
+    same state: one forward (with the logsumexp) and one each of the K3
+    passes per layer, the losses within 2e-2 and every LoRA and head
+    gradient with cosine >= 0.99 (bf16 rounds at other places)."""
+    from ctpa_torch.core.config import LLMConfig, LoRAConfig, ReportGenConfig
+    from ctpa_torch.models.report_generator import CTReportGenerator
+    from ctpa_torch.train.report_trainer import make_partitioned_report_step, trainable_labels
+    from ctpa_torch.train.train_state import SimpleTrainState
+
+    vit = CTViTConfig(dim=128, codebook_size=64, image_size=48, patch_size=8, temporal_size=16,
+                      temporal_patch_size=4, spatial_depth=1, temporal_depth=1, dim_head=32,
+                      heads=4)
+    lora = LoRAConfig(rank=4, alpha=8.0)
+    gen = ReportGenConfig(vision_dim=64, lora=lora)
+    video = torch.rand(2, 1, 16, 48, 48, generator=cuda, device="cuda") * 2 - 1
+    ids = torch.randint(1, 512, (2, 64), generator=cuda, device="cuda")
+    mask = (torch.arange(64, device="cuda")[None] < torch.tensor([[64], [40]], device="cuda"))
+    batch = {"video": video, "input_ids": ids * mask, "attention_mask": mask.long()}
+    models = []
+    for flash in (True, False):
+        llm = LLMConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=2,
+                        num_kv_heads=1, intermediate_size=512, max_seq_len=128,
+                        flash_prefill=flash, flash_min_len=16)
+        models.append(set_compute_dtype(CTReportGenerator(llm, vit, gen, lora=lora,
+                                                          device="cuda"), torch.bfloat16))
+    random_init_(models[0], cuda)
+    models[1].load_state_dict(models[0].state_dict())
+    grads, losses = [], []
+    before = dict(LAUNCHES)
+    for model in models:
+        step, tx = make_partitioned_report_step(model, gen, total_steps=4)
+        _, m = step(SimpleTrainState.create(model, tx), batch)
+        if not grads:
+            torch.cuda.synchronize()
+            launched = {key: LAUNCHES[key] - before[key] for key in LAUNCHES}
+            assert launched == dict(dict.fromkeys(LAUNCHES, 0), flash_attention_fwd_lse_d128=2,
+                                    flash_attention_bwd_delta=2, flash_attention_bwd_dq_d128=2,
+                                    flash_attention_bwd_dkv_d128=2)
+        labels = trainable_labels(model)
+        losses.append(float(m["loss"]))
+        # the step clips in place; both paths' norms are close, compare directions
+        grads.append({n: p.grad.float() for n, p in model.named_parameters()
+                      if labels[n] != "frozen" and p.grad.abs().max() > 0})
+    assert abs(losses[0] - losses[1]) <= 2e-2, losses
+    assert grads[0].keys() == grads[1].keys() and len(grads[0]) > 16
+    for name, g in grads[0].items():
+        cos = torch.nn.functional.cosine_similarity(g.flatten(), grads[1][name].flatten(), dim=0)
+        assert cos >= 0.99, (name, cos.item())

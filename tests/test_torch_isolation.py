@@ -24,7 +24,9 @@ sys.meta_path.insert(0, Block())
 import ctpa_torch
 names = ["ctpa_torch"] + [m.name for m in pkgutil.walk_packages(ctpa_torch.__path__, "ctpa_torch.")]
 report = ["ctpa_torch.ops.decode_attention", "ctpa_torch.ops.rotary", "ctpa_torch.ops.sampling",
-          "ctpa_torch.models.lora", "ctpa_torch.models.llm", "ctpa_torch.models.report_generator"]
+          "ctpa_torch.models.lora", "ctpa_torch.models.llm", "ctpa_torch.models.report_generator",
+          "ctpa_torch.ops.flash_attention", "ctpa_torch.train.report_trainer",
+          "ctpa_torch.train.train_state", "ctpa_torch.core.checkpoint"]
 missing = sorted(set(report) - set(names))
 assert not missing, missing
 for name in names:
@@ -49,11 +51,15 @@ def test_port_imports_without_jax_or_ctpa():
 def test_port_sources_avoid_torch_extensions_and_library_attention():
     py = list((ROOT / "ctpa_torch").rglob("*.py"))
     cu = list((ROOT / "ctpa_torch" / "csrc").glob("*.cu"))
-    assert len(cu) == 4
+    assert sorted(p.name for p in cu) == ["decode_attention.cu", "flash_attention.cu",
+                                          "flash_attention_bwd.cu", "flash_attention_d128.cu",
+                                          "patchify.cu"]
+    headers = list((ROOT / "ctpa_torch" / "csrc").glob("*.cuh"))
+    assert [p.name for p in headers] == ["flash_masks.cuh"]
     banned_py = ("import torch.utils.cpp_extension", "from torch.utils.cpp_extension",
                  "cpp_extension.load", "torch.compile(", "scaled_dot_product_attention(")
     for path in py:
         text = path.read_text()
         assert not [b for b in banned_py if b in text], path
-    for path in cu:
+    for path in cu + headers:
         assert "#include <torch/" not in path.read_text(), path

@@ -295,10 +295,17 @@ def _k2_args(**over):
     (dict(bias=torch.randn(3, 8, 8)), ValueError),                       # bias is not (h, n, m)
     (dict(bias=torch.randn(3, 8, 9, dtype=torch.bfloat16)), TypeError),  # bias dtype
     (dict(bias=torch.randn(3, 9, 8).transpose(1, 2)), ValueError),       # not contiguous
-    (dict(causal=True), NotImplementedError),
-    (dict(q_offset=3), NotImplementedError),
-    (dict(kv_mask=torch.ones(2, 9)), NotImplementedError),
-    (dict(kv_mask=torch.ones(2, 9), return_lse=True), NotImplementedError),  # lse ported, mask not
+    # the masked forms are ported (tests/test_torch_report_train.py); these
+    # four refusals keep the ids of the cases they replaced
+    pytest.param(dict(causal=True, kv_mask=torch.ones(2, 8)), ValueError,   # kv_mask not (b, m)
+                 id="bad7-NotImplementedError"),
+    pytest.param(dict(causal=True, q_offset=torch.tensor([3, 4])), ValueError,  # not a scalar
+                 id="bad8-NotImplementedError"),
+    pytest.param(dict(q=torch.randn(2, 3, 8, 96), k=torch.randn(2, 3, 9, 96),
+                      v=torch.randn(2, 3, 9, 96), kv_mask=torch.ones(2, 9)), ValueError,
+                 id="bad9-NotImplementedError"),                          # head dim 96
+    pytest.param(dict(kv_mask=torch.ones(3, 9), return_lse=True), ValueError,  # kv_mask not (b, m)
+                 id="bad10-NotImplementedError"),
     (dict(q=torch.randn(2, 3, 8, 16, device="meta")), ValueError),       # mixed devices
 ])
 def test_flash_wrapper_rejects_bad_input(bad, err):

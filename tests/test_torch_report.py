@@ -303,10 +303,11 @@ def test_llm_raises_on_unported_paths():
                  dict(kv_scale_dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             tllm.LlamaForCausalLM(dataclasses.replace(TLLM, **over), device="cpu")
+    # flash_prefill is ported (tests/test_torch_report_train.py): taken, both
+    # at and below flash_min_len
     model = tllm.LlamaForCausalLM(dataclasses.replace(TLLM, flash_prefill=True, flash_min_len=4),
                                   device="cpu")
-    with pytest.raises(NotImplementedError):
-        model(torch.ones(1, 4, dtype=torch.long))
+    model(torch.ones(1, 4, dtype=torch.long))
     model(torch.ones(1, 3, dtype=torch.long))                # below flash_min_len: dense
 
 
