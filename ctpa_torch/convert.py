@@ -8,6 +8,10 @@ module.  The layout rules:
   ``Linear`` stores (out, in), so it is transposed into ``weight``;
 * ``embedding`` becomes ``weight``; a flax ``LayerNorm`` ``scale`` becomes
   ``weight``;
+* a quantized projection (``quantize_tree``'s leaves) keeps ctpa's names
+  and layout: ``kernel_q`` (in, out) int8 or (in/2, out) packed int4,
+  ``scale_g`` (in/group, out), and a ``scale`` beside a ``kernel_q`` (the
+  int8 per-column scale) stays ``scale``;
 * every other leaf keeps its name and layout: ``gamma``, ``q_scale``,
   ``k_scale``, the PEG's (3, 3, 3, 1, c) ``kernel``, ``PatchEmbed3D``'s
   ``norm_in_scale``/``norm_in_bias``/``proj_kernel``/``proj_bias``, the fused
@@ -21,8 +25,9 @@ module.  The layout rules:
   ``proj``/``norm`` converts whole (``tests/test_torch_report_train.py``).
 
 Conversion is strict: an unused flax leaf, a missing torch entry or a shape
-mismatch raises.  It imports no JAX: leaves are anything ``numpy.asarray``
-takes.
+mismatch raises.  Integer leaves are copied as they are; float leaves go
+through fp32 to the parameter's dtype.  It imports no JAX: leaves are
+anything ``numpy.asarray`` takes.
 """
 
 from __future__ import annotations
@@ -48,7 +53,9 @@ def _flatten(tree, prefix=()):
             yield prefix + (key,), np.asarray(val)
 
 
-def _torch_key(path: tuple[str, ...], value: np.ndarray) -> tuple[str, np.ndarray]:
+def _torch_key(path: tuple[str, ...], value: np.ndarray,
+               quantized: bool) -> tuple[str, np.ndarray]:
+    """``quantized``: the leaf sits beside a ``kernel_q``."""
     *mods, leaf = path
     parts = []
     for mod in mods:
@@ -56,7 +63,7 @@ def _torch_key(path: tuple[str, ...], value: np.ndarray) -> tuple[str, np.ndarra
         parts += [_LIST_NAMES[m.group(1)], m.group(2)] if m else [mod]
     if leaf == "kernel" and value.ndim == 2:
         leaf, value = "weight", value.T
-    elif leaf in ("embedding", "scale"):
+    elif leaf == "embedding" or (leaf == "scale" and not quantized):
         leaf = "weight"
     return ".".join(parts + [leaf]), value
 
@@ -64,8 +71,10 @@ def _torch_key(path: tuple[str, ...], value: np.ndarray) -> tuple[str, np.ndarra
 def flax_to_state_dict(params: dict) -> dict[str, np.ndarray]:
     """Rename and re-lay-out a flax param tree; values stay numpy."""
     out = {}
-    for path, value in _flatten(params):
-        key, value = _torch_key(path, value)
+    leaves = list(_flatten(params))
+    quantized = {path[:-1] for path, _ in leaves if path[-1] == "kernel_q"}
+    for path, value in leaves:
+        key, value = _torch_key(path, value, path[:-1] in quantized)
         if key in out:
             raise KeyError(f"two flax leaves map to {key}")
         out[key] = value
@@ -86,8 +95,14 @@ def load_flax_params(module: nn.Module, params: dict) -> nn.Module:
         value = converted[key]
         if tuple(value.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: flax shape {value.shape} != torch shape {tuple(ref.shape)}")
-        state[key] = torch.from_numpy(np.array(value, np.float32)).to(
-            device=ref.device, dtype=ref.dtype)
+        if np.issubdtype(value.dtype, np.integer):
+            exact = torch.from_numpy(np.array(value))
+            if exact.dtype != ref.dtype:
+                raise TypeError(f"{key}: flax {value.dtype} into torch {ref.dtype}")
+            state[key] = exact.to(device=ref.device)
+        else:
+            state[key] = torch.from_numpy(np.array(value, np.float32)).to(
+                device=ref.device, dtype=ref.dtype)
     module.load_state_dict(state, strict=True)
     return module
 

@@ -42,6 +42,8 @@ SIGNATURES = {
     "flash_attention_bwd_dq_d128_launch": (_P,) * 10 + (_I,) * 8 + (_F, _I, _P),
     "flash_attention_bwd_dkv_d128_launch": (_P,) * 11 + (_I,) * 8 + (_F, _I, _P),
     "decode_attention_launch": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
+    "int4_matmul_launch": (_P,) * 6 + (_I,) * 7 + (_P,),
+    "int4_ffn_launch": (_P,) * 10 + (_I,) * 8 + (_P,),
 }
 
 

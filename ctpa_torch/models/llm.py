@@ -18,9 +18,17 @@ flash kernel, causal with the attention mask as its key mask
 (``ops/flash_attention.py``); everything else runs the dense grouped-query
 attention.  Nothing in a forward reads a device value back to the host.
 
-Not ported (the model raises): quantized weights (``weight_quant``,
-``quant_ffn_kernel``, ``quant_act``), the int4 KV cache and int8 attention
-dots.
+Quantized serving weights (``weight_quant="int4"``, ctpa's ``Int4Dense``
+and its callers): each targeted projection is an ``Int4Dense`` holding
+ctpa's ``kernel_q`` (in/2, out) and ``scale_g`` (in/group, out) as
+buffers, run by ``ops/quant.py:int4_matmul`` (kernel K5); ``quant_fused``
+gives the fused ``qkv_proj`` and ``gateup_proj``, ``quant_ffn_kernel`` runs
+the whole SwiGLU FFN through ``int4_ffn`` (kernel K7), ``quant_act`` is
+w4a8, and ``quant_impl="xla"`` takes ctpa's plain composition instead of the
+kernels.  The trees come from ``ops/quant.py:quantize_tree``.
+
+Not ported (the model raises): int8 weights (``weight_quant="int8"``), the
+int4 KV cache and int8 attention dots.
 """
 
 from __future__ import annotations
@@ -37,25 +45,73 @@ from ctpa_torch.models.layers import Dense, compute_dtype
 from ctpa_torch.models.lora import LoRADense
 from ctpa_torch.ops.decode_attention import decode_attention
 from ctpa_torch.ops.flash_attention import flash_attention
+from ctpa_torch.ops.quant import GROUP, _int4_group, int4_ffn, int4_matmul
 from ctpa_torch.ops.rotary import apply_rope, rope_frequencies
 
 
 def check_ported(cfg: LLMConfig) -> None:
     """Raise on configuration values whose paths the port does not have."""
+    if cfg.weight_quant not in (None, "int8", "int4"):
+        raise ValueError(f"unknown weight_quant {cfg.weight_quant!r}")
+    if cfg.quant_impl not in ("pallas", "xla"):
+        raise ValueError(f"unknown quant_impl {cfg.quant_impl!r}")
     unported = [name for name, on in (
-        ("weight_quant", cfg.weight_quant is not None), ("quant_ffn_kernel", cfg.quant_ffn_kernel),
-        ("quant_act", cfg.quant_act), ("kv_quant='int4'", cfg.kv_quant == "int4"),
-        ("kv_int8_dots", cfg.kv_int8_dots)) if on]
+        ("weight_quant='int8'", cfg.weight_quant == "int8"),
+        ("kv_quant='int4'", cfg.kv_quant == "int4"), ("kv_int8_dots", cfg.kv_int8_dots)) if on]
     # settings that act only on the quantized-weight and int4-cache paths:
-    # a value other than the default would be ignored, so it is refused
+    # where those are off, a value other than the default would be ignored,
+    # so it is refused
     default = LLMConfig()
-    unported += [name for name in ("quant_impl", "quant_fused", "kv_quant_group",
-                                   "kv_scale_dtype")
-                 if getattr(cfg, name) != getattr(default, name)]
+    ignored = ["kv_quant_group", "kv_scale_dtype"]
+    if cfg.weight_quant is None:
+        ignored += ["quant_impl", "quant_fused", "quant_ffn_kernel", "quant_act"]
+    unported += [name for name in ignored if getattr(cfg, name) != getattr(default, name)]
     if unported:
-        raise NotImplementedError(f"LLMConfig {unported} are not ported yet")
+        raise NotImplementedError(f"LLMConfig {unported} are not ported yet, or act only "
+                                  "with settings that are off")
     if cfg.kv_quant not in (None, "int8"):
         raise ValueError(f"unknown kv_quant {cfg.kv_quant!r}")
+
+
+class Int4Dense(nn.Module):
+    """An int4 serving projection (ctpa's ``Int4Dense``): ``kernel_q`` (in/2,
+    out) packed int8 and ``scale_g`` (in/group, out) fp32 buffers, as
+    ``quantize_tree(bits=4)`` writes them.  x is cast to the compute dtype
+    (``dtype``, or the module's ``compute_dtype`` when set) first.  The
+    buffers also feed the fused FFN (``LlamaMLP``)."""
+
+    def __init__(self, in_features: int, features: int, cfg: LLMConfig, device=None,
+                 dtype=None):
+        super().__init__()
+        self.group = _int4_group(in_features, GROUP)
+        self.impl, self.act_quant = cfg.quant_impl, cfg.quant_act
+        self.dtype = dtype or torch.get_default_dtype()
+        self.register_buffer("kernel_q", torch.zeros(in_features // 2, features,
+                                                     dtype=torch.int8, device=device))
+        self.register_buffer("scale_g", torch.ones(in_features // self.group, features,
+                                                   device=device))
+
+    def act_dtype(self) -> torch.dtype:
+        return getattr(self, "compute_dtype", None) or self.dtype
+
+    def forward(self, x):
+        return int4_matmul(x.to(self.act_dtype()), self.kernel_q, self.scale_g, self.group,
+                           self.impl, self.act_quant)
+
+
+def _proj(cfg: LLMConfig, in_features: int, features: int, fk: dict,
+          lora: Optional[LoRAConfig] = None, lora_name: Optional[str] = None) -> nn.Module:
+    """Projection factory (ctpa's ``_proj``): int4 when ``cfg.weight_quant``
+    is set (a LoRA overlay on it raises: merge the adapters first), a
+    ``LoRADense`` where the caller names a LoRA slot, else a ``Dense``."""
+    if cfg.weight_quant is not None:
+        if lora is not None and lora_name in (lora.target_projections or ()):
+            raise ValueError("LoRA overlays are not supported with quantized weights "
+                             "(merge adapters first)")
+        return Int4Dense(in_features, features, cfg, **fk)
+    if lora_name is not None:
+        return LoRADense(in_features, features, **_lora_args(lora, lora_name), **fk)
+    return Dense(in_features, features, bias=False, **fk)
 
 
 class RMSNorm(nn.Module):
@@ -143,9 +199,24 @@ class LlamaAttention(nn.Module):
         fk = dict(device=device, dtype=dtype)
         self.cfg, self.layer_idx = cfg, layer_idx
         h, kvh, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size
-        for name, out in (("q_proj", h * hd), ("k_proj", kvh * hd), ("v_proj", kvh * hd)):
-            setattr(self, name, LoRADense(d, out, **_lora_args(lora, name), **fk))
-        self.o_proj = LoRADense(h * hd, d, **_lora_args(lora, "o_proj"), **fk)
+        # quantize_tree(fuse=True)'s layout: one projection for q, k and v
+        self.fused = cfg.weight_quant is not None and cfg.quant_fused
+        if self.fused:
+            if lora is not None and {"q_proj", "k_proj", "v_proj"} & set(
+                    lora.target_projections or ()):
+                raise ValueError("LoRA overlays are not supported with quantized weights "
+                                 "(merge adapters first)")
+            self.qkv_proj = Int4Dense(d, (h + 2 * kvh) * hd, cfg, **fk)
+        else:
+            for name, out in (("q_proj", h * hd), ("k_proj", kvh * hd), ("v_proj", kvh * hd)):
+                setattr(self, name, _proj(cfg, d, out, fk, lora, name))
+        self.o_proj = _proj(cfg, h * hd, d, fk, lora, "o_proj")
+
+    def _qkv(self, x):
+        if not self.fused:
+            return self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        h, kvh, hd = self.cfg.num_heads, self.cfg.num_kv_heads, self.cfg.head_dim
+        return self.qkv_proj(x).split((h * hd, kvh * hd, kvh * hd), dim=-1)
 
     def forward(self, x, positions, rope, kv_write_index=None, cache_k=None, cache_v=None,
                 attn_mask=None, key_mask=None, flash: bool = False):
@@ -160,9 +231,10 @@ class LlamaAttention(nn.Module):
         h, kvh, hd = c.num_heads, c.num_kv_heads, c.head_dim
         b, n, _ = x.shape
         cos, sin = rope
-        q = apply_rope(self.q_proj(x).reshape(b, n, h, hd), cos, sin, positions)
-        k = apply_rope(self.k_proj(x).reshape(b, n, kvh, hd), cos, sin, positions)
-        v = self.v_proj(x).reshape(b, n, kvh, hd)
+        q, k, v = self._qkv(x)
+        q = apply_rope(q.reshape(b, n, h, hd), cos, sin, positions)
+        k = apply_rope(k.reshape(b, n, kvh, hd), cos, sin, positions)
+        v = v.reshape(b, n, kvh, hd)
         dt = q.dtype
         k_sc = v_sc = None
         if cache_k is not None:
@@ -211,18 +283,36 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    """SwiGLU: down(silu(gate(x)) * up(x))."""
+    """SwiGLU: down(silu(gate(x)) * up(x)).  With int4 weights: the fused
+    ``gateup_proj`` (``quant_fused``), or the whole FFN in one ``int4_ffn``
+    call on the three projections' buffers (``quant_ffn_kernel``)."""
 
     def __init__(self, cfg: LLMConfig, device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
+        self.cfg = cfg
         d, i = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = Dense(d, i, bias=False, **fk)
-        self.up_proj = Dense(d, i, bias=False, **fk)
-        self.down_proj = Dense(i, d, bias=False, **fk)
+        quant = cfg.weight_quant is not None
+        self.ffn_kernel = quant and cfg.quant_ffn_kernel
+        self.fused = quant and cfg.quant_fused and not self.ffn_kernel
+        if self.fused:
+            self.gateup_proj = Int4Dense(d, 2 * i, cfg, **fk)
+        else:
+            self.gate_proj = _proj(cfg, d, i, fk)
+            self.up_proj = _proj(cfg, d, i, fk)
+        self.down_proj = _proj(cfg, i, d, fk)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.ffn_kernel:
+            g, u, dn = self.gate_proj, self.up_proj, self.down_proj
+            return int4_ffn(x.to(g.act_dtype()), g.kernel_q, g.scale_g, u.kernel_q, u.scale_g,
+                            dn.kernel_q, dn.scale_g, group=GROUP, impl=self.cfg.quant_impl,
+                            act_quant=self.cfg.quant_act)
+        if self.fused:
+            gate, up = self.gateup_proj(x).chunk(2, dim=-1)
+        else:
+            gate, up = self.gate_proj(x), self.up_proj(x)
+        return self.down_proj(F.silu(gate) * up)
 
 
 class LlamaBlock(nn.Module):
@@ -330,8 +420,8 @@ class LlamaForCausalLM(nn.Module):
         self.cfg = cfg
         self.model = LlamaModel(cfg, lora, device=device, dtype=dtype)
         if not cfg.tie_embeddings:
-            self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, bias=False, device=device,
-                                 dtype=dtype)
+            self.lm_head = _proj(cfg, cfg.hidden_size, cfg.vocab_size,
+                                 dict(device=device, dtype=dtype))
 
     def apply_lm_head(self, hidden):
         if self.cfg.tie_embeddings:

@@ -122,6 +122,11 @@ class CTReportGenerator(nn.Module):
         self.vision_feature_extractor = VisionFeatureExtractor(vit_cfg, gen_cfg.vision_dim, **fk)
         self.cross_attention = CrossAttentionLayer(llm_cfg.hidden_size, gen_cfg.vision_dim, **fk)
 
+    def cache_dtype(self) -> torch.dtype:
+        """The trunk's activation dtype, which the float KV cache keeps (an
+        int4 lm_head has no float weight to take it from)."""
+        return compute_dtype(self.llm.model, self.llm.model.embed_tokens.weight)
+
     def extract_vision(self, video: torch.Tensor) -> torch.Tensor:
         return self.vision_feature_extractor(video)
 
@@ -172,7 +177,7 @@ class CTReportGenerator(nn.Module):
         dev = input_ids.device
         vision = self.extract_vision(video)
         cache = KVCache.create(self.llm_cfg, b, max_len=n + max_new_tokens,
-                               dtype=compute_dtype(self, self.llm.lm_head.weight), device=dev)
+                               dtype=self.cache_dtype(), device=dev)
         # right-padded prompts prefill slots [0, n) together, so every
         # sequence writes at one shared slot from here on
         hidden, cache = self.llm.model(input_ids, attention_mask, cache, shared_kv_offset=True)

@@ -1,0 +1,478 @@
+"""int4 quantized serving weights (port of ``ctpa/ops/quant.py``): the host
+quantizers, the int4 projection (kernel K5) and the fused int4 SwiGLU FFN
+(kernel K7), and ``quantize_tree`` on a ``state_dict``.
+
+Layouts are ctpa's.  An int8 weight is ``kernel_q`` (in, out) int8 with a
+per-output-channel ``scale`` (out,).  An int4 weight is ``kernel_q`` (in/2,
+out) int8 with ``scale_g`` (in/group, out) fp32: byte j of group g holds row
+g*G + j in its low nibble and row g*G + G/2 + j in its high nibble, signed
+nibbles in [-7, 7].  Rounding is half-to-even (``torch.round``, as
+``jnp.round``) on the quotient ``x / s``, so the packed bytes equal ctpa's
+bit for bit.
+
+K5 replaces ``ctpa/ops/quant.py:int4_matmul`` (``_q4_kernel`` and, with
+``act_quant``, ``_q4_kernel_a8``) and K7 replaces ``int4_ffn``
+(``_ffn_kernel_q4``, ``_ffn_kernel_q4_a8``).  The CUDA kernels are
+``ctpa_torch/csrc/int4_matmul.cu`` and ``ctpa_torch/csrc/int4_ffn.cu``
+(their headers state the bounds they face on the H100).  With
+``impl="pallas"`` the wrappers launch them for CUDA tensors and take the
+plain versions (``int4_matmul_plain``, ``int4_ffn_plain``), which compute
+what the kernels compute, only for CPU tensors.  ``impl="xla"`` is ctpa's
+explicit plain composition (its ``impl="xla"`` branches), on any device:
+
+* w4 (weight-only): the kernels round the dequantized weight to the
+  activation dtype and sum in fp32; ctpa's xla branch dequantizes in fp32.
+* w4a8 (``act_quant``): per-token int8 activations (``quantize_act_int8``),
+  one exact int8 x int8 dot per scale group, scaled by the group's fp32
+  scale row and summed in fp32, times the row scale at the end.  The FFN
+  kernel requantizes h = silu(g) u per row per j-block of ``ffn_block_j``
+  columns (256 at Meditron-7B); ctpa's xla branch per full row.
+
+The int dots run as fp32 products where torch has no integer matmul (the
+card): int8 x int4 products and their sums over a group of at most 128
+stay below 2^24, so they are exact in fp32 in any order.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ctpa_torch.kernels import build
+
+GROUP = 128
+_KERNEL_GROUPS = (32, 64, 128)
+_BJ_MAX = 256
+# the FFN kernel's fp32 per-j-block partial sums are kept below this many
+# bytes by splitting the rows into chunks (one kernel pair per chunk)
+FFN_PARTIAL_BYTES = 1 << 30
+
+# launches of each CUDA kernel form, under the name chip_smoke.py reports it
+# by; a wrapper adds one where it launches, and nowhere else.  A K5 call
+# whose contraction is split, and every K7 row chunk, also launches the
+# fixed-order reduction of its fp32 partials (``int4_common.cuh``:
+# ``reduce_partials_kernel``), counted under "int4_reduce"
+LAUNCHES = dict.fromkeys(("int4_matmul", "int4_matmul_a8", "int4_ffn", "int4_ffn_a8",
+                          "int4_reduce"), 0)
+
+
+# ------------------------------------------------------------------ host side
+
+def quantize_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(in, out) float weights -> (int8 (in, out), fp32 per-column scale (out,))."""
+    wf = w.float()
+    scale = torch.clamp(wf.abs().amax(0) / 127.0, min=1e-12)
+    return torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8), scale
+
+
+def dequantize_int8(w8: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16):
+    return (w8.float() * scale).to(dtype)
+
+
+def _int4_group(d_in: int, group: int) -> int:
+    """Largest group <= ``group`` that divides d_in (halving), as ctpa's."""
+    g = min(group, d_in)
+    while g > 2 and d_in % g != 0:
+        g //= 2
+    if d_in % g or g % 2:
+        raise ValueError(f"no even int4 group divides {d_in} (group {group})")
+    return g
+
+
+def quantize_int4(w: torch.Tensor, group: int = GROUP) -> tuple[torch.Tensor, torch.Tensor]:
+    """(in, out) float weights -> (packed int8 (in/2, out), fp32 group scales
+    (in/group, out)): symmetric absmax per (input group, output column),
+    values in [-7, 7], the two halves of each group paired in a byte."""
+    d_in, d_out = w.shape
+    g = _int4_group(d_in, group)
+    wf = w.float().reshape(d_in // g, g, d_out)
+    s = torch.clamp(wf.abs().amax(1) / 7.0, min=1e-12)
+    q = torch.clamp(torch.round(wf / s[:, None, :]), -7, 7).to(torch.int32)
+    lo, hi = q[:, : g // 2], q[:, g // 2:]
+    packed = ((lo & 0xF) | ((hi & 0xF) << 4)).to(torch.uint8).view(torch.int8)
+    return packed.reshape(d_in // 2, d_out), s
+
+
+def _unpack_int4(packed: torch.Tensor, group: int) -> torch.Tensor:
+    """(in/2, out) packed -> (n_groups, group, out) int8 in natural row order."""
+    p = packed.reshape(-1, group // 2, packed.shape[-1]).to(torch.int32)   # sign-extended
+    lo = torch.bitwise_right_shift(torch.bitwise_left_shift(p, 28), 28)
+    hi = torch.bitwise_right_shift(p, 4)
+    return torch.cat([lo, hi], dim=1).to(torch.int8)
+
+
+def dequantize_int4(packed: torch.Tensor, scale: torch.Tensor, group: int = GROUP,
+                    dtype=torch.bfloat16) -> torch.Tensor:
+    d_in = packed.shape[0] * 2
+    g = _int4_group(d_in, group)
+    w = _unpack_int4(packed, g).float() * scale[:, None, :]
+    return w.reshape(d_in, -1).to(dtype)
+
+
+def quantize_act_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8: (..., in) -> (int8 (..., in), fp32 (..., 1))."""
+    xf = x.float()
+    sx = torch.clamp(xf.abs().amax(-1, keepdim=True) / 127.0, min=1e-12)
+    return torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8), sx
+
+
+def _rup(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def ffn_block_j(inter: int, group_i: int) -> int:
+    """The FFN's j-block width, ctpa's rule (``int4_ffn`` at its block_j of
+    256): whole down-scale groups, at most 256, or the whole padded width
+    when a partial block would not be a multiple of 128.  It fixes the
+    columns each w4a8 requantization of h takes its row scale over."""
+    block_j = max(group_i, (min(_BJ_MAX, _rup(inter, group_i)) // group_i) * group_i)
+    j_pad = _rup(inter, block_j)
+    if j_pad != block_j and block_j % 128 != 0:
+        block_j = j_pad
+    return block_j
+
+
+def _group_dot(x8: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor, group: int):
+    """sum_g (x8_g . q_g) * scale_g over the scale groups, in group order:
+    (m, in) int8 against packed (in/2, out) -> (m, out) fp32."""
+    q = _unpack_int4(w4, group).float()
+    acc = torch.zeros(x8.shape[0], w4.shape[1], device=x8.device)
+    for gi in range(q.shape[0]):
+        part = x8[:, gi * group:(gi + 1) * group].float() @ q[gi]
+        acc = acc + part * scale[gi]
+    return acc
+
+
+# ------------------------------------------------------------------ K5
+
+def _check_matmul(x, w4, scale, group):
+    if w4.dtype != torch.int8 or w4.ndim != 2 or scale.ndim != 2:
+        raise ValueError(f"w4 must be packed int8 (in/2, out), got {w4.dtype} {tuple(w4.shape)}")
+    d_in = x.shape[-1]
+    if w4.shape[0] * 2 != d_in:
+        raise ValueError(f"x's last dim {d_in} does not match packed w4 {tuple(w4.shape)}")
+    g = _int4_group(d_in, group)
+    if tuple(scale.shape) != (d_in // g, w4.shape[1]) or scale.dtype != torch.float32:
+        raise ValueError(f"scale must be fp32 {(d_in // g, w4.shape[1])}, got "
+                         f"{scale.dtype} {tuple(scale.shape)}")
+    if len({x.device, w4.device, scale.device}) != 1:
+        raise ValueError("all inputs must be on one device")
+    return g
+
+
+def int4_matmul_plain(x, w4, scale, group: int = GROUP, act_quant: bool = False):
+    """The kernel's function in plain PyTorch: w4 dequantizes in fp32 and rounds
+    to x's dtype, then fp32 sums; w4a8 as the module docstring says."""
+    *lead, d_in = x.shape
+    g = _int4_group(d_in, group)
+    xm = x.reshape(-1, d_in)
+    if act_quant:
+        x8, sx = quantize_act_int8(xm)
+        y = _group_dot(x8, w4, scale, g) * sx
+    else:
+        w = dequantize_int4(w4, scale, g, torch.float32).to(x.dtype)
+        y = xm.float() @ w.float()
+    return y.to(x.dtype).reshape(*lead, w4.shape[1])
+
+
+def _int4_matmul_xla(x, w4, scale, group: int, act_quant: bool):
+    """ctpa's impl="xla" branch: the exact w4a8 einsum, or an fp32
+    dequantized product for weight-only."""
+    *lead, d_in = x.shape
+    if act_quant:
+        x8, sx = quantize_act_int8(x)
+        q = _unpack_int4(w4, group).float()                          # (n_g, G, out)
+        xg = x8.reshape(-1, d_in // group, group).float()
+        part = torch.einsum("mng,ngo->nmo", xg, q)                   # exact integers
+        y = (part * scale[:, None, :]).sum(0) * sx.reshape(-1, 1)
+        return y.to(x.dtype).reshape(*lead, w4.shape[1])
+    w = dequantize_int4(w4, scale, group, torch.float32)
+    return (x.float() @ w).to(x.dtype)
+
+
+def _device(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _sm_count(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and on a 16-byte boundary (the kernels load 16 bytes at once)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _kernel_limits(x, g: int) -> None:
+    if g not in _KERNEL_GROUPS:
+        raise ValueError(f"int4 kernels: scale group {g} not in {_KERNEL_GROUPS}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"int4 kernels take bf16 activations, got {x.dtype}")
+
+
+def _matmul_rows_tile(m: int) -> int:
+    return 16 if m <= 16 else 64
+
+
+def matmul_splits(m: int, d_in: int, d_out: int, group: int, sms: int) -> tuple[int, int]:
+    """(splits of the contraction, scale groups per split): enough blocks for
+    two per SM when the output tiles alone are fewer (decode)."""
+    tiles = math.ceil(d_out / 64) * math.ceil(m / _matmul_rows_tile(m))
+    n_g = d_in // group
+    splits = min(n_g, max(1, math.ceil(2 * sms / tiles)))
+    per = math.ceil(n_g / splits)
+    return math.ceil(n_g / per), per
+
+
+def _int4_matmul_kernel(x, w4, scale, g: int, act_quant: bool):
+    *lead, d_in = x.shape
+    d_out = w4.shape[1]
+    _kernel_limits(x, g)
+    xm = _aligned(x.reshape(-1, d_in))
+    m = xm.shape[0]
+    w4, scale = _aligned(w4), _aligned(scale)
+    sx = None
+    if act_quant:
+        xm, sx = quantize_act_int8(xm)
+        xm, sx = _aligned(xm), sx.reshape(-1).contiguous()
+    out = torch.empty(m, d_out, dtype=x.dtype, device=x.device)
+    splits, per = matmul_splits(m, d_in, d_out, g, _sm_count(x))
+    work = (torch.empty(splits, m, d_out, device=x.device) if splits > 1 else None)
+    rc = build.library().lib.int4_matmul_launch(
+        xm.data_ptr(), sx.data_ptr() if act_quant else None, w4.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), work.data_ptr() if work is not None else None, m, d_in, d_out, g, per,
+        splits, int(act_quant), _stream(x))
+    name = "int4_matmul_a8" if act_quant else "int4_matmul"
+    build.check_launch(rc, name)
+    LAUNCHES[name] += 1
+    LAUNCHES["int4_reduce"] += splits > 1
+    return out.reshape(*lead, d_out)
+
+
+def int4_matmul(x, w4, scale, group: int = GROUP, impl: str = "pallas",
+                act_quant: bool = False) -> torch.Tensor:
+    """(..., in) x against packed int4 (in/2, out) weights with (in/group, out)
+    fp32 group scales -> (..., out) in x's dtype.  ``act_quant`` is w4a8."""
+    g = _check_matmul(x, w4, scale, group)
+    if impl == "xla":
+        return _int4_matmul_xla(x, w4, scale, g, act_quant)
+    if impl != "pallas":
+        raise ValueError(f"unknown impl {impl!r}")
+    if _device(x) == "cpu":
+        return int4_matmul_plain(x, w4, scale, g, act_quant)
+    return _int4_matmul_kernel(x, w4, scale, g, act_quant)
+
+
+# ------------------------------------------------------------------ K7
+
+def _check_ffn(x, wg4, sg, wu4, su, wd4, sd, group):
+    hidden, inter = x.shape[-1], sg.shape[1]
+    g_h, g_i = _int4_group(hidden, group), _int4_group(inter, group)
+    shapes = {"wg4": (wg4, (hidden // 2, inter), torch.int8),
+              "wu4": (wu4, (hidden // 2, inter), torch.int8),
+              "wd4": (wd4, (inter // 2, hidden), torch.int8),
+              "sg": (sg, (hidden // g_h, inter), torch.float32),
+              "su": (su, (hidden // g_h, inter), torch.float32),
+              "sd": (sd, (inter // g_i, hidden), torch.float32)}
+    for name, (t, shape, dtype) in shapes.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != x.device:
+            raise ValueError("all inputs must be on one device")
+    return g_h, g_i
+
+
+def int4_ffn_plain(x, wg4, sg, wu4, su, wd4, sd, group: int = GROUP,
+                   act_quant: bool = False):
+    """The kernel's function in plain PyTorch: down(silu(x Wg) * (x Wu)).  w4:
+    weights rounded to x's dtype, g and u fp32, h rounded to x's dtype; w4a8:
+    h requantized per row per ``ffn_block_j`` columns, the down product per
+    scale group and j-block, scaled, summed over the j-blocks in order."""
+    *lead, hidden = x.shape
+    inter = sg.shape[1]
+    g_h, g_i = _int4_group(hidden, group), _int4_group(inter, group)
+    dt = x.dtype
+    xm = x.reshape(-1, hidden)
+    if not act_quant:
+        wg, wu, wd = (dequantize_int4(w, s, gg, torch.float32).to(dt).float()
+                      for w, s, gg in ((wg4, sg, g_h), (wu4, su, g_h), (wd4, sd, g_i)))
+        xf = xm.float()
+        g, u = xf @ wg, xf @ wu
+        h = (g * torch.sigmoid(g) * u).to(dt)
+        return (h.float() @ wd).to(dt).reshape(*lead, hidden)
+    x8, sx = quantize_act_int8(xm)
+    g = _group_dot(x8, wg4, sg, g_h) * sx
+    u = _group_dot(x8, wu4, su, g_h) * sx
+    h = g * torch.sigmoid(g) * u
+    bj = ffn_block_j(inter, g_i)
+    n_j = _rup(inter, bj) // bj
+    qd = _unpack_int4(wd4, g_i).float()                               # (inter/g_i, g_i, hidden)
+    acc = torch.zeros(xm.shape[0], hidden, device=x.device)
+    for j in range(n_j):
+        hj = h[:, j * bj:(j + 1) * bj]                                # the pad columns are 0
+        sh = torch.clamp(hj.abs().amax(-1, keepdim=True) / 127.0, min=1e-12)
+        h8 = torch.clamp(torch.round(hj / sh), -127, 127)
+        down = torch.zeros_like(acc)
+        for gj in range(hj.shape[1] // g_i):
+            gi = j * bj // g_i + gj
+            part = h8[:, gj * g_i:(gj + 1) * g_i] @ qd[gi]
+            down = down + part * sd[gi]
+        acc = acc + down * sh
+    return acc.to(dt).reshape(*lead, hidden)
+
+
+def _int4_ffn_xla(x, wg4, sg, wu4, su, wd4, sd, g_h: int, g_i: int, act_quant: bool):
+    """ctpa's impl="xla" branch: the w4a8 matmul composition (h requantized
+    per full row), or fp32 dequantized products."""
+    if act_quant:
+        g = _int4_matmul_xla(x, wg4, sg, g_h, True)
+        u = _int4_matmul_xla(x, wu4, su, g_h, True)
+        h = (torch.nn.functional.silu(g.float()) * u.float()).to(x.dtype)
+        return _int4_matmul_xla(h, wd4, sd, g_i, True)
+    xf = x.float()
+    h = (torch.nn.functional.silu(xf @ dequantize_int4(wg4, sg, g_h, torch.float32))
+         * (xf @ dequantize_int4(wu4, su, g_h, torch.float32)))
+    return (h @ dequantize_int4(wd4, sd, g_i, torch.float32)).to(x.dtype)
+
+
+def ffn_row_chunk(m: int, n_j: int, hidden: int) -> int:
+    """Rows per kernel pair, so the (n_j, rows, hidden) fp32 partials stay
+    under ``FFN_PARTIAL_BYTES``; a multiple of the kernel's row tile."""
+    tile = _matmul_rows_tile(m)
+    rows = max(tile, FFN_PARTIAL_BYTES // (n_j * hidden * 4) // tile * tile)
+    return min(rows, _rup(m, tile))
+
+
+def _int4_ffn_kernel(x, wg4, sg, wu4, su, wd4, sd, g_h: int, g_i: int, act_quant: bool):
+    *lead, hidden = x.shape
+    inter = sg.shape[1]
+    _kernel_limits(x, g_h)
+    _kernel_limits(x, g_i)
+    bj = ffn_block_j(inter, g_i)
+    n_j = _rup(inter, bj) // bj
+    xm = _aligned(x.reshape(-1, hidden))
+    m = xm.shape[0]
+    ws = [_aligned(t) for t in (wg4, sg, wu4, su, wd4, sd)]
+    sx = None
+    if act_quant:
+        xm, sx = quantize_act_int8(xm)
+        xm, sx = _aligned(xm), sx.reshape(-1).contiguous()
+    out = torch.empty(m, hidden, dtype=x.dtype, device=x.device)
+    rows = ffn_row_chunk(m, n_j, hidden)
+    partial = torch.empty(n_j, rows, hidden, device=x.device)
+    lib, stream = build.library().lib, _stream(x)
+    name = "int4_ffn_a8" if act_quant else "int4_ffn"
+    for r0 in range(0, m, rows):
+        n = min(rows, m - r0)
+        rc = lib.int4_ffn_launch(
+            xm[r0:].data_ptr(), sx[r0:].data_ptr() if act_quant else None,
+            *(t.data_ptr() for t in ws), out[r0:].data_ptr(), partial.data_ptr(), n, rows,
+            hidden, inter, g_h, g_i, bj, int(act_quant), stream)
+        build.check_launch(rc, name)
+        LAUNCHES[name] += 1
+        LAUNCHES["int4_reduce"] += 1
+    return out.reshape(*lead, hidden)
+
+
+def int4_ffn(x, wg4, sg, wu4, su, wd4, sd, group: int = GROUP, impl: str = "pallas",
+             act_quant: bool = False) -> torch.Tensor:
+    """down(silu(x Wg) * (x Wu)) with packed int4 gate/up (hidden/2, inter)
+    and down (inter/2, hidden) weights and their group scales -> (...,
+    hidden) in x's dtype: on the card one kernel launch (and its reduction)
+    per row chunk (``ffn_row_chunk``): one chunk at decode, two for a 4 x
+    512-token prefill at Meditron-7B width."""
+    g_h, g_i = _check_ffn(x, wg4, sg, wu4, su, wd4, sd, group)
+    if impl == "xla":
+        return _int4_ffn_xla(x, wg4, sg, wu4, su, wd4, sd, g_h, g_i, act_quant)
+    if impl != "pallas":
+        raise ValueError(f"unknown impl {impl!r}")
+    if _device(x) == "cpu":
+        return int4_ffn_plain(x, wg4, sg, wu4, su, wd4, sd, group, act_quant)
+    return _int4_ffn_kernel(x, wg4, sg, wu4, su, wd4, sd, g_h, g_i, act_quant)
+
+
+# ------------------------------------------------------------------ quantize_tree
+
+QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj",
+                 "lm_head")
+
+
+def quantize_tree(state: dict, *, targets: tuple[str, ...] = QUANT_TARGETS, fuse: bool = True,
+                  ffn_kernel: bool = False, lora=None, bits: int = 8,
+                  group: int = GROUP) -> dict:
+    """A ``state_dict`` for quantized serving (ctpa's ``quantize_tree`` on the
+    port's names): every 2-D ``weight`` under a targeted projection becomes
+    {``kernel_q``, ``scale``} (bits 8) or {``kernel_q``, ``scale_g``} (bits
+    4) in ctpa's (in, out) layout; a LoRA projection's ``<proj>.base``
+    level collapses into ``<proj>``.  Trained LoRA adapters are merged first
+    (``models/lora.py:merge_lora_scaled``, which needs ``lora``, the
+    training LoRAConfig) and dropped.  ``fuse`` concatenates q/k/v into
+    ``qkv_proj`` and, unless ``ffn_kernel`` (which keeps gate/up/down
+    apart for the fused FFN), gate/up into ``gateup_proj``, along the
+    output columns."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    from ctpa_torch.models.lora import is_lora, merge_lora_scaled
+
+    def quant(w_in_out):
+        if bits == 4:
+            w4, s = quantize_int4(w_in_out, group)
+            return {"kernel_q": w4, "scale_g": s}
+        w8, s = quantize_int8(w_in_out)
+        return {"kernel_q": w8, "scale": s}
+
+    has_lora = any(is_lora(k) for k in state)
+    if has_lora:
+        if lora is None:
+            raise ValueError("state contains LoRA adapters (lora_a/lora_b); pass the training "
+                             "LoRAConfig so the deltas are merged before quantization "
+                             "(quantize_tree(..., lora=cfg))")
+        state = merge_lora_scaled(state, lora.alpha, lora.rank)
+    fuse_groups = {"qkv_proj": ("q_proj", "k_proj", "v_proj")}
+    if not ffn_kernel:
+        fuse_groups["gateup_proj"] = ("gate_proj", "up_proj")
+    fused_members = {m for g in fuse_groups.values() for m in g} if fuse else set()
+    out: dict = {}
+    pending: dict = {}                     # parent prefix -> {projection: (in, out) weight}
+    for key, value in state.items():
+        parts = key.split(".")
+        if has_lora and is_lora(key):
+            continue
+        if parts[-1] == "weight" and value.ndim == 2 and any(t in parts for t in targets):
+            base = parts[:-1]
+            if base[-1] == "base":
+                base = base[:-1]
+            proj, parent = base[-1], ".".join(base[:-1])
+            if proj in fused_members:
+                pending.setdefault(parent, {})[proj] = value.T
+                continue
+            for leaf, q in quant(value.T).items():
+                out[".".join(base + [leaf])] = q
+        else:
+            out[key] = value
+    for parent, weights in pending.items():
+        consumed = set()
+        for fused, members in fuse_groups.items():
+            if not any(m in weights for m in members):
+                continue
+            missing = [m for m in members if m not in weights]
+            if missing:
+                raise ValueError(f"fuse group {fused} incomplete under {parent}: missing "
+                                 f"{missing} (pass fuse=False or include all group members "
+                                 "in targets)")
+            w = torch.cat([weights[m] for m in members], dim=1)
+            for leaf, q in quant(w).items():
+                out[f"{parent}.{fused}.{leaf}"] = q
+            consumed.update(members)
+        leftover = set(weights) - consumed
+        if leftover:
+            raise AssertionError(f"unconsumed fused members {leftover}")
+    return out

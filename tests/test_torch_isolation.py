@@ -1,6 +1,7 @@
-"""The port stands alone: ctpa_torch, chip_smoke.py and the profile scripts
-import neither JAX, flax nor anything of ctpa, build no kernel through
-PyTorch's C++ extension machinery, and call no library attention."""
+"""The port stands alone: ctpa_torch (its cli too), chip_smoke.py and the
+profile scripts import neither JAX, flax nor anything of ctpa, build no
+kernel through PyTorch's C++ extension machinery, and call no library
+attention or int4 matmul."""
 
 import os
 import subprocess
@@ -26,7 +27,8 @@ names = ["ctpa_torch"] + [m.name for m in pkgutil.walk_packages(ctpa_torch.__pat
 report = ["ctpa_torch.ops.decode_attention", "ctpa_torch.ops.rotary", "ctpa_torch.ops.sampling",
           "ctpa_torch.models.lora", "ctpa_torch.models.llm", "ctpa_torch.models.report_generator",
           "ctpa_torch.ops.flash_attention", "ctpa_torch.train.report_trainer",
-          "ctpa_torch.train.train_state", "ctpa_torch.core.checkpoint"]
+          "ctpa_torch.train.train_state", "ctpa_torch.core.checkpoint", "ctpa_torch.ops.quant",
+          "ctpa_torch.cli", "ctpa_torch.cli.export_serving"]
 missing = sorted(set(report) - set(names))
 assert not missing, missing
 for name in names:
@@ -53,11 +55,12 @@ def test_port_sources_avoid_torch_extensions_and_library_attention():
     cu = list((ROOT / "ctpa_torch" / "csrc").glob("*.cu"))
     assert sorted(p.name for p in cu) == ["decode_attention.cu", "flash_attention.cu",
                                           "flash_attention_bwd.cu", "flash_attention_d128.cu",
-                                          "patchify.cu"]
+                                          "int4_ffn.cu", "int4_matmul.cu", "patchify.cu"]
     headers = list((ROOT / "ctpa_torch" / "csrc").glob("*.cuh"))
-    assert [p.name for p in headers] == ["flash_masks.cuh"]
+    assert sorted(p.name for p in headers) == ["flash_masks.cuh", "int4_common.cuh"]
     banned_py = ("import torch.utils.cpp_extension", "from torch.utils.cpp_extension",
-                 "cpp_extension.load", "torch.compile(", "scaled_dot_product_attention(")
+                 "cpp_extension.load", "torch.compile(", "scaled_dot_product_attention(",
+                 "_weight_int4pack_mm(")
     for path in py:
         text = path.read_text()
         assert not [b for b in banned_py if b in text], path

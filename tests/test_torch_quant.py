@@ -1,0 +1,521 @@
+"""The port's int4 quantized serving slice against ctpa's, on the CPU.
+
+The same numpy-seeded inputs and weights go through ctpa's function and the
+port's.  On the CPU the K5 and K7 wrappers take their plain versions; ctpa's
+Pallas kernels run in interpret mode (``pltpu.force_tpu_interpret_mode``, as
+``tests/test_quant.py`` runs them) with synchronous CPU dispatch (set in a
+module fixture).  The CUDA kernels are held against the same plain versions
+on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+
+Tolerances, fp32 on both sides:
+  * the host quantizers (int8, int4, per-token int8): bit for bit;
+  * ``quantize_tree`` without LoRA: bit for bit (the same fp32 weights);
+    with a LoRA merge, ctpa's and the port's A @ B round differently in
+    fp32, so a packed nibble may differ by one level where a value sits on
+    a rounding boundary: at most 0.5% of the nibbles, by one level, and the
+    scales within 1e-6 relative;
+  * K5 and K7, plain and xla forms, against ctpa's: 1e-4 abs + 1e-4 rel of
+    outputs of order 10 (the same products summed in another order; in the
+    w4a8 FFN the order can also move h across a rounding boundary of its
+    int8 grid, one level of one element, which stays far inside this);
+  * the tiny LLM's logits over a prefill and 2 cached steps: 2e-4 abs + rel
+    (ctpa's own KV-cache tests' bound) weight-only.  With w4a8 a one-ulp
+    difference in an activation (ctpa's and the port's RoPE round
+    differently, so the int8 KV cache's scales differ by an ulp) moves a
+    value that sits on a rounding boundary of its row's int8 grid by one
+    level, which moves that row's logits by about 1% of the largest (read:
+    0.051 of 5.2): held to 2% of the largest logit, with the same argmax in
+    every row.  The greedy generator: the same tokens;
+  * the serving bundle: identical logits to the in-memory model.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from ctpa.core import config as jc
+from ctpa.models import llm as jllm
+from ctpa.models import report_generator as jrg
+from ctpa.ops import quant as jq
+from ctpa_torch.cli import export_serving
+from ctpa_torch.convert import flax_to_state_dict, load_flax_params
+from ctpa_torch.core import config as tc
+from ctpa_torch.core.checkpoint import CheckpointManager
+from ctpa_torch.models import llm as tllm
+from ctpa_torch.models.report_generator import CTReportGenerator
+from ctpa_torch.ops import quant as tq
+
+torch.set_num_threads(1)
+KEY = jax.random.key(0)
+OP_TOL = 1e-4
+LLM_TOL = 2e-4
+A8_LOGIT_REL = 0.02
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _sync_dispatch():
+    """ctpa's interpreted Pallas kernels deadlock under asynchronous CPU
+    dispatch (tests/conftest.py); this module turns it off while it runs."""
+    before = jax.config.values["jax_cpu_enable_async_dispatch"]
+    jax.config.update("jax_cpu_enable_async_dispatch", False)
+    yield
+    jax.config.update("jax_cpu_enable_async_dispatch", before)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def close(got, ref, atol, rtol=0.0):
+    got = got.detach().numpy() if torch.is_tensor(got) else np.asarray(got)
+    np.testing.assert_allclose(got, np.asarray(ref), atol=atol, rtol=rtol)
+
+
+def _normal(seed, *shape, scale=1.0):
+    return (scale * np.random.default_rng(seed).normal(size=shape)).astype(np.float32)
+
+
+def init_shapes(module, *args, **kw):
+    return jax.eval_shape(lambda: module.init(KEY, *args, **kw))["params"]
+
+
+def np_params(tree, seed, scale=0.2):
+    """Numpy draws for a flax param tree: gains near 1, matrices at ``scale``,
+    other vectors near 0."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name, shape = str(path[-1].key), np.shape(leaf)
+        if name in ("scale", "weight"):
+            val = 1 + 0.1 * rng.normal(size=shape)
+        elif len(shape) >= 2:
+            val = scale * rng.normal(size=shape)
+        else:
+            val = 0.1 * rng.normal(size=shape)
+        return jnp.asarray(val, jnp.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, tree)
+
+
+def to_numpy(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+# ------------------------------------------------------- host quantizers
+
+@pytest.mark.parametrize("shape,group", [((512, 384), 128), ((192, 40), 128), ((384, 200), 64)])
+def test_host_quantizers_match_ctpa_bit_for_bit(shape, group):
+    w = _normal(1, *shape, scale=0.05)
+    w[3, :5] = 0.0                                      # a column of zeros in a group
+    jw4, js = jq.quantize_int4(jnp.asarray(w), group)
+    tw4, ts = tq.quantize_int4(_t(w), group)
+    assert tw4.dtype == torch.int8 and np.array_equal(tw4.numpy(), np.asarray(jw4))
+    assert np.array_equal(ts.numpy(), np.asarray(js))
+    g = tq._int4_group(shape[0], group)
+    assert g == jq._int4_group(shape[0], group)
+    assert np.array_equal(tq._unpack_int4(tw4, g).numpy(), np.asarray(jq._unpack_int4(jw4, g)))
+    assert np.array_equal(tq.dequantize_int4(tw4, ts, g, torch.float32).numpy(),
+                          np.asarray(jq.dequantize_int4(jw4, js, g, jnp.float32)))
+    jw8, js8 = jq.quantize_int8(jnp.asarray(w))
+    tw8, ts8 = tq.quantize_int8(_t(w))
+    assert np.array_equal(tw8.numpy(), np.asarray(jw8)) and np.array_equal(ts8.numpy(),
+                                                                            np.asarray(js8))
+    assert np.array_equal(tq.dequantize_int8(tw8, ts8, torch.float32).numpy(),
+                          np.asarray(jq.dequantize_int8(jw8, js8, jnp.float32)))
+    x = _normal(2, 7, shape[0])
+    x[1] = 0.0                                          # an all-zero row: the 1e-12 floor
+    jx8, jsx = jq.quantize_act_int8(jnp.asarray(x))
+    tx8, tsx = tq.quantize_act_int8(_t(x))
+    assert np.array_equal(tx8.numpy(), np.asarray(jx8)) and np.array_equal(tsx.numpy(),
+                                                                            np.asarray(jsx))
+
+
+def test_int4_group_and_block_rules():
+    for d_in, group in ((4096, 128), (11008, 128), (64, 128), (96, 128), (192, 128), (40, 32)):
+        assert tq._int4_group(d_in, group) == jq._int4_group(d_in, group)
+    with pytest.raises(ValueError):
+        tq._int4_group(7, 128)
+    # ctpa's j-block rule (int4_ffn :812-817), written out
+    for inter, g_i, want in ((11008, 128, 256), (384, 128, 256), (128, 128, 128),
+                             (96, 32, 96), (320, 64, 256), (192, 64, 192)):
+        assert tq.ffn_block_j(inter, g_i) == want
+
+
+# ------------------------------------------------------- K5
+
+K5_CASES = [  # (m, in, out, pallas block_in, block_out): tests/test_quant.py's shapes
+    (5, 384, 200, 128, 128),      # three in-blocks, ragged out
+    (8, 512, 384, 256, 128),      # two in-blocks of two groups
+    (3, 64, 48, 2048, 512),       # the group clamps to 64, one block
+    (4, 256, 300, 256, 128),      # ragged out over three out-blocks
+]
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("case", K5_CASES)
+def test_int4_matmul_matches_ctpa(case, act_quant):
+    m, d_in, d_out, block_in, block_out = case
+    x = _normal(3, m, d_in)
+    jw4, js = jq.quantize_int4(jnp.asarray(_normal(4, d_in, d_out, scale=0.1)))
+    with pltpu.force_tpu_interpret_mode():
+        ref = jq.int4_matmul(jnp.asarray(x), jw4, js, impl="pallas", act_quant=act_quant,
+                             block_in=block_in, block_out=block_out)
+    ref_xla = jq.int4_matmul(jnp.asarray(x), jw4, js, impl="xla", act_quant=act_quant)
+    w4, s = _t(jw4), _t(js)
+    before = dict(tq.LAUNCHES)
+    got = tq.int4_matmul(_t(x), w4, s, act_quant=act_quant)
+    assert tq.LAUNCHES == before                       # the CPU takes the plain version
+    close(got, ref, OP_TOL, OP_TOL)
+    close(tq.int4_matmul_plain(_t(x), w4, s, act_quant=act_quant), ref, OP_TOL, OP_TOL)
+    close(tq.int4_matmul(_t(x), w4, s, impl="xla", act_quant=act_quant), ref_xla, OP_TOL,
+          OP_TOL)
+
+
+def test_int4_matmul_rounds_weights_to_the_activation_dtype():
+    """The kernel's weight-only form rounds the dequantized weight to x's dtype
+    (ctpa's ``_q4_kernel``); ctpa's xla branch keeps it fp32."""
+    x = _t(_normal(5, 4, 256)).to(torch.bfloat16)
+    w4, s = tq.quantize_int4(_t(_normal(6, 256, 64, scale=0.1)))
+    w = tq.dequantize_int4(w4, s, 128, torch.float32)
+    want = (x.float() @ w.to(torch.bfloat16).float()).to(torch.bfloat16)
+    assert torch.equal(tq.int4_matmul(x, w4, s), want)
+    assert torch.equal(tq.int4_matmul(x, w4, s, impl="xla"), (x.float() @ w).to(torch.bfloat16))
+
+
+def test_int4_wrappers_check_inputs():
+    x = torch.zeros(2, 256)
+    w4, s = tq.quantize_int4(torch.zeros(256, 64))
+    with pytest.raises(ValueError):
+        tq.int4_matmul(x[:, :128], w4, s)                 # in does not match
+    with pytest.raises(ValueError):
+        tq.int4_matmul(x, w4, s[:1])                      # wrong scale shape
+    with pytest.raises(ValueError):
+        tq.int4_matmul(x, w4.float(), s)                  # not packed int8
+    with pytest.raises(ValueError):
+        tq.int4_matmul(x, w4, s, impl="triton")
+    with pytest.raises(ValueError):
+        tq.int4_ffn(x, w4, s, w4, s, w4, s)               # down must be (inter/2, hidden)
+
+
+# ------------------------------------------------------- K7
+
+K7_CASES = [  # (m, hidden, inter): tests/test_quant.py:470-575
+    (4, 64, 384),        # groups 64 / 128, the last j-block padded (384 -> 512)
+    (5, 256, 384),       # n_gh = 2 hidden groups, n_gj = 2 down groups a block
+    (8, 64, 384),
+]
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("case", K7_CASES)
+def test_int4_ffn_matches_ctpa(case, act_quant):
+    m, hidden, inter = case
+    x = _normal(7, m, hidden)
+    jw = []
+    for seed, shape in ((8, (hidden, inter)), (9, (hidden, inter)), (10, (inter, hidden))):
+        jw += list(jq.quantize_int4(jnp.asarray(_normal(seed, *shape, scale=0.1))))
+    with pltpu.force_tpu_interpret_mode():
+        ref = jq.int4_ffn(jnp.asarray(x), *jw, impl="pallas", block_j=256,
+                          act_quant=act_quant)
+    ref_xla = jq.int4_ffn(jnp.asarray(x), *jw, impl="xla", act_quant=act_quant)
+    tw = [_t(a) for a in jw]
+    before = dict(tq.LAUNCHES)
+    got = tq.int4_ffn(_t(x), *tw, act_quant=act_quant)
+    assert tq.LAUNCHES == before
+    close(got, ref, OP_TOL, OP_TOL)
+    close(tq.int4_ffn(_t(x), *tw, impl="xla", act_quant=act_quant), ref_xla, OP_TOL, OP_TOL)
+
+
+def test_int4_ffn_w4a8_requantizes_per_j_block():
+    """The kernel form's h scale is taken over each 256-column j-block, ctpa's
+    xla branch over the full row: with one block of h much larger than the
+    rest the two differ, and the port's plain version follows the kernel."""
+    hidden, inter, m = 64, 512, 3
+    x = _normal(11, m, hidden)
+    wg, wu, wd = (_normal(12, hidden, inter, scale=0.1), _normal(13, hidden, inter, scale=0.1),
+                  _normal(14, inter, hidden, scale=0.1))
+    wu[:, 256:] *= 50.0                                 # the second j-block's h is 50x larger
+    jw = []
+    for w in (wg, wu, wd):
+        jw += list(jq.quantize_int4(jnp.asarray(w)))
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jq.int4_ffn(jnp.asarray(x), *jw, impl="pallas", act_quant=True))
+    got = tq.int4_ffn(_t(x), *map(_t, jw), act_quant=True)
+    xla = tq.int4_ffn(_t(x), *map(_t, jw), impl="xla", act_quant=True)
+    close(got, ref, OP_TOL, OP_TOL)
+    assert (got - xla).abs().max() > 100 * OP_TOL * (1 + np.abs(ref).max())
+
+
+# ------------------------------------------------------- quantize_tree and convert
+
+JLLM = jc.LLMConfig.tiny()
+TLLM = tc.LLMConfig.tiny()
+LORA = jc.LoRAConfig(rank=4, alpha=8.0)
+
+
+def _tiny_params(lora=None, seed=20):
+    model = jllm.LlamaForCausalLM(JLLM, lora=lora)
+    return np_params(init_shapes(model, jnp.ones((1, 4), jnp.int32)), seed)
+
+
+def _flat(tree):
+    return {k: np.array(v) for k, v in flax_to_state_dict(to_numpy(tree)).items()}
+
+
+@pytest.mark.parametrize("bits,fuse,ffn_kernel", [(4, True, False), (4, True, True),
+                                                  (4, False, False), (8, True, False),
+                                                  (8, False, True)])
+def test_quantize_tree_matches_ctpa(bits, fuse, ffn_kernel):
+    params = _tiny_params()
+    ref = _flat(jq.quantize_tree({"params": params}, bits=bits, fuse=fuse,
+                                 ffn_kernel=ffn_kernel)["params"])
+    state = {k: torch.from_numpy(v) for k, v in _flat(params).items()}
+    got = tq.quantize_tree(state, bits=bits, fuse=fuse, ffn_kernel=ffn_kernel)
+    assert set(got) == set(ref)
+    for key, value in got.items():
+        assert value.dtype == torch.from_numpy(ref[key]).dtype, key
+        assert np.array_equal(value.numpy(), ref[key]), key
+    # the converted ctpa tree keeps ctpa's names and layouts
+    leaf = "scale_g" if bits == 4 else "scale"
+    assert ("model.layers.0.self_attn.qkv_proj." + leaf in ref) == fuse
+    assert ("model.layers.0.mlp.gateup_proj.kernel_q" in ref) == (fuse and not ffn_kernel)
+    assert ref["lm_head.kernel_q"].shape == ((32, 512) if bits == 4 else (64, 512))
+    assert ref["lm_head.kernel_q"].dtype == np.int8
+    assert "model.norm.weight" in ref and "model.embed_tokens.weight" in ref
+
+
+def test_quantize_tree_merges_lora_like_ctpa():
+    """The trained adapters are merged (models/lora.py:merge_lora_scaled), the
+    ``base`` level collapses and the adapters are dropped.  ctpa's and the
+    port's A @ B round differently in fp32, so a packed nibble may sit one
+    level apart where a value lies on a rounding boundary."""
+    params = _tiny_params(LORA, seed=21)
+    ref = _flat(jq.quantize_tree({"params": params}, bits=4, lora=LORA)["params"])
+    state = {k: torch.from_numpy(v) for k, v in _flat(params).items()}
+    assert any(".base.weight" in k for k in state) and any("lora_a" in k for k in state)
+    got = tq.quantize_tree(state, bits=4, lora=tc.LoRAConfig(rank=4, alpha=8.0))
+    assert set(got) == set(ref) and not any("lora" in k or ".base." in k for k in got)
+    for key, value in got.items():
+        if key.endswith("kernel_q"):
+            g = tq._int4_group(value.shape[0] * 2, 128)
+            q_got, q_ref = tq._unpack_int4(value, g), tq._unpack_int4(_t(ref[key]), g)
+            diff = (q_got.int() - q_ref.int()).abs()
+            assert diff.max() <= 1 and (diff > 0).float().mean() <= 5e-3, key
+        elif key.endswith("scale_g"):
+            close(value, ref[key], 0.0, 1e-6)
+        else:
+            assert np.array_equal(value.numpy(), ref[key]), key
+
+
+def test_quantize_tree_raises_like_ctpa():
+    lora_state = {k: torch.from_numpy(v) for k, v in _flat(_tiny_params(LORA, 22)).items()}
+    with pytest.raises(ValueError):
+        jq.quantize_tree({"params": _tiny_params(LORA, 22)})
+    with pytest.raises(ValueError):                     # adapters without their config
+        tq.quantize_tree(lora_state, bits=4)
+    state = {k: torch.from_numpy(v) for k, v in _flat(_tiny_params()).items()}
+    with pytest.raises(ValueError):
+        jq.quantize_tree({"params": _tiny_params()}, targets=("q_proj", "o_proj"))
+    with pytest.raises(ValueError):                     # an incomplete fuse group
+        tq.quantize_tree(state, targets=("q_proj", "o_proj"))
+    with pytest.raises(ValueError):
+        tq.quantize_tree(state, bits=3)
+    # without fuse, a partial target list is fine
+    out = tq.quantize_tree(state, targets=("q_proj", "o_proj"), fuse=False, bits=4)
+    assert "model.layers.0.self_attn.q_proj.kernel_q" in out
+    assert "model.layers.0.self_attn.k_proj.base.weight" in out
+
+
+def test_convert_carries_quantized_trees_exactly():
+    """A ctpa int4 tree loads into the port's int4 model with its int8 payloads
+    copied exactly (no float round trip) and its scales as they are; an int8
+    tree's ``scale`` beside ``kernel_q`` stays ``scale``."""
+    qtree = jq.quantize_tree({"params": _tiny_params()}, bits=4)["params"]
+    model = load_flax_params(
+        tllm.LlamaForCausalLM(dataclasses.replace(TLLM, weight_quant="int4"), device="cpu"),
+        to_numpy(qtree))
+    state = model.state_dict()
+    kq = np.asarray(qtree["model"]["layers_1"]["self_attn"]["qkv_proj"]["kernel_q"])
+    assert state["model.layers.1.self_attn.qkv_proj.kernel_q"].dtype == torch.int8
+    assert np.array_equal(state["model.layers.1.self_attn.qkv_proj.kernel_q"].numpy(), kq)
+    assert np.array_equal(state["lm_head.scale_g"].numpy(),
+                          np.asarray(qtree["lm_head"]["scale_g"]))
+    int8 = flax_to_state_dict(to_numpy(jq.quantize_tree({"params": _tiny_params()})["params"]))
+    assert "model.layers.0.self_attn.o_proj.scale" in int8
+    assert "model.layers.0.self_attn.o_proj.weight" not in int8
+    assert int8["lm_head.kernel_q"].dtype == np.int8 and int8["lm_head.scale"].shape == (512,)
+
+
+# ------------------------------------------------------- the quantized LLM
+
+@pytest.fixture(scope="module")
+def float_llm_params():
+    return _tiny_params(seed=23)
+
+
+def _prompts():
+    rng = np.random.default_rng(24)
+    ids = rng.integers(1, JLLM.vocab_size, size=(2, 5))
+    mask = np.array([[1, 1, 1, 1, 1], [1, 1, 1, 0, 0]])
+    return ids * mask, mask
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("ffn_kernel", [False, True])
+@pytest.mark.parametrize("act_quant", [False, True])
+def test_int4_llm_prefill_and_cached_decode_match_ctpa(float_llm_params, act_quant, ffn_kernel,
+                                                       impl):
+    over = dict(weight_quant="int4", quant_act=act_quant, quant_ffn_kernel=ffn_kernel,
+                quant_impl=impl, kv_quant="int8", flash_decode=True)
+    jcfg, tcfg = dataclasses.replace(JLLM, **over), dataclasses.replace(TLLM, **over)
+    qtree = jq.quantize_tree({"params": float_llm_params}, bits=4, ffn_kernel=ffn_kernel)
+    japply = jax.jit(jllm.LlamaForCausalLM(jcfg).apply, static_argnames="shared_kv_offset")
+    tm = load_flax_params(tllm.LlamaForCausalLM(tcfg, device="cpu"),
+                          to_numpy(qtree["params"]))
+    assert isinstance(tm.lm_head, tllm.Int4Dense) and tm.model.layers[0].self_attn.fused
+    ids, mask = _prompts()
+    jcache = jllm.KVCache.create(jcfg, 2, max_len=9, dtype=jnp.float32)
+    tcache = tllm.KVCache.create(tcfg, 2, max_len=9, dtype=torch.float32, device="cpu")
+
+    def check(got, ref):
+        if not act_quant:
+            return close(got, ref, LLM_TOL, LLM_TOL)
+        got, ref = got.numpy(), np.asarray(ref)
+        assert np.abs(got - ref).max() <= A8_LOGIT_REL * np.abs(ref).max()
+        assert np.array_equal(got.argmax(-1), ref.argmax(-1))
+
+    with pltpu.force_tpu_interpret_mode(), torch.no_grad():
+        ref, _, jcache = japply(qtree, jnp.asarray(ids), jnp.asarray(mask), jcache,
+                                shared_kv_offset=True)
+        got, _, tcache = tm(_t(ids), _t(mask), tcache, shared_kv_offset=True)
+        check(got, ref)
+        step = np.argmax(np.asarray(ref)[np.arange(2), mask.sum(-1) - 1], -1)
+        for _ in range(2):
+            ref, _, jcache = japply(qtree, jnp.asarray(step[:, None]), None, jcache,
+                                    shared_kv_offset=True)
+            got, _, tcache = tm(_t(step[:, None]), None, tcache, shared_kv_offset=True)
+            check(got, ref)
+            step = np.argmax(np.asarray(ref)[:, 0], -1)
+
+
+def test_int4_llm_unfused_layout_matches_ctpa(float_llm_params):
+    over = dict(weight_quant="int4", quant_fused=False, quant_impl="xla")
+    qtree = jq.quantize_tree({"params": float_llm_params}, bits=4, fuse=False)
+    tm = load_flax_params(tllm.LlamaForCausalLM(dataclasses.replace(TLLM, **over), device="cpu"),
+                          to_numpy(qtree["params"]))
+    ids, mask = _prompts()
+    ref, _, _ = jllm.LlamaForCausalLM(dataclasses.replace(JLLM, **over)).apply(
+        qtree, jnp.asarray(ids), jnp.asarray(mask))
+    with torch.no_grad():
+        got, _, _ = tm(_t(ids), _t(mask))
+    close(got, ref, LLM_TOL, LLM_TOL)
+
+
+def test_quantized_settings_are_accepted_or_refused():
+    for over in (dict(weight_quant="int4"), dict(weight_quant="int4", quant_act=True),
+                 dict(weight_quant="int4", quant_ffn_kernel=True, quant_impl="xla"),
+                 dict(weight_quant="int4", quant_fused=False, kv_quant="int8")):
+        tllm.LlamaForCausalLM(dataclasses.replace(TLLM, **over), device="cpu")
+    for over in (dict(weight_quant="int8"), dict(weight_quant="int4", kv_quant="int4"),
+                 dict(weight_quant="int4", kv_int8_dots=True),
+                 dict(weight_quant="int4", kv_quant_group=16)):
+        with pytest.raises(NotImplementedError):
+            tllm.LlamaForCausalLM(dataclasses.replace(TLLM, **over), device="cpu")
+    for over in (dict(weight_quant="int2"), dict(weight_quant="int4", quant_impl="triton")):
+        with pytest.raises(ValueError):
+            tllm.LlamaForCausalLM(dataclasses.replace(TLLM, **over), device="cpu")
+    with pytest.raises(ValueError):                     # LoRA on quantized weights
+        tllm.LlamaForCausalLM(dataclasses.replace(TLLM, weight_quant="int4"),
+                              lora=tc.LoRAConfig(rank=4), device="cpu")
+
+
+# ------------------------------------------------------- generate and the bundle
+
+JVIT = jc.CTViTConfig.tiny()
+TVIT = tc.CTViTConfig.tiny()
+GEN = jc.ReportGenConfig(vision_dim=24)
+TGEN = tc.ReportGenConfig(vision_dim=24)
+QUANT = dict(weight_quant="int4", quant_ffn_kernel=True, kv_quant="int8", flash_decode=True)
+
+
+def _video(seed, b=2):
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-1, 1, size=(b, 1, TVIT.temporal_size, TVIT.image_size,
+                                    TVIT.image_size)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def generator_params():
+    ids, mask = _prompts()
+    jm = jrg.CTReportGenerator(JLLM, JVIT, GEN)
+    return np_params(init_shapes(jm, jnp.asarray(_video(25)), jnp.asarray(ids),
+                                 jnp.asarray(mask)), 26)
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+def test_int4_generate_matches_ctpa(generator_params, act_quant):
+    over = dict(QUANT, quant_act=act_quant)
+    qtree = jq.quantize_tree({"params": generator_params}, bits=4, ffn_kernel=True)
+    jm = jrg.CTReportGenerator(dataclasses.replace(JLLM, **over), JVIT, GEN)
+    tm = load_flax_params(CTReportGenerator(dataclasses.replace(TLLM, **over), TVIT, TGEN,
+                                            device="cpu"), to_numpy(qtree["params"]))
+    ids, mask = _prompts()
+    video = _video(27)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jm.apply(qtree, jnp.asarray(video), jnp.asarray(ids), jnp.asarray(mask), 4, -1, 0,
+                       greedy=True, method=jrg.CTReportGenerator.generate)
+    got = tm.generate(_t(video), _t(ids), _t(mask), 4, -1, 0, greedy=True)
+    assert tm.cache_dtype() == torch.float32
+    assert np.array_equal(got.tokens.numpy(), np.asarray(ref.tokens))
+    assert np.array_equal(got.lengths.numpy(), np.asarray(ref.lengths))
+
+
+def test_serving_bundle_round_trip(generator_params, tmp_path):
+    """A LoRA fine-tune's checkpoint (trained tensors only) and its base go
+    through export_serving.main; the loaded bundle gives the logits of the
+    model quantized in memory, and a directory that is not a bundle is
+    refused."""
+    lora = tc.LoRAConfig(rank=4, alpha=8.0)
+    model = load_flax_params(CTReportGenerator(TLLM, TVIT, TGEN, device="cpu"),
+                             to_numpy(generator_params))
+    base_path = tmp_path / "base.pt"
+    torch.save(model.state_dict(), base_path)
+    trained = CTReportGenerator(TLLM, TVIT, TGEN, lora=lora, device="cpu")
+    trained.load_state_dict(model.state_dict(), strict=False)
+    rng = np.random.default_rng(28)
+    params = {n: torch.from_numpy(rng.normal(scale=0.05, size=tuple(p.shape)).astype(np.float32))
+              for n, p in trained.named_parameters() if "lora_" in n or "cross_attention" in n}
+    CheckpointManager(str(tmp_path / "ckpt")).save(3, {"params": params, "step": 3})
+    out = tmp_path / "bundle"
+    argv = ["--checkpoint-dir", str(tmp_path / "ckpt"), "--base", str(base_path), "--out",
+            str(out), "--quant", "int4", "--ffn-kernel", "--act-quant", "--kv-quant", "int8",
+            "--flash-decode", "--lora-rank", "4", "--lora-alpha", "8", "--device", "cpu"]
+    assert export_serving.main(argv) == 0
+    loaded, meta = export_serving.load_serving_bundle(
+        str(out), llm_cfg=TLLM, vit_cfg=TVIT, gen_cfg=TGEN, dtype=torch.float32, device="cpu")
+    assert meta["kind"] == "ctpa-serving-bundle" and meta["source_step"] == 3
+    assert meta["lora_merged"] == {"rank": 4, "alpha": 8.0}
+    assert loaded.llm_cfg.quant_act and loaded.llm_cfg.quant_ffn_kernel
+    assert loaded.llm_cfg.kv_quant == "int8" and loaded.llm_cfg.flash_decode
+    # the same merge and quantization in memory
+    full = dict(model.state_dict())
+    full.update(params)
+    cfg = dataclasses.replace(TLLM, **QUANT, quant_act=True)
+    ref = CTReportGenerator(cfg, TVIT, TGEN, device="cpu")
+    ref.load_state_dict(tq.quantize_tree(full, bits=4, ffn_kernel=True, lora=lora))
+    ids, mask = _prompts()
+    video = _t(_video(29))
+    with torch.no_grad():
+        assert torch.equal(loaded(video, _t(ids), _t(mask)), ref(video, _t(ids), _t(mask)))
+    got = loaded.generate(video, _t(ids), _t(mask), 4, -1, 0, greedy=True)
+    assert torch.equal(got.tokens, ref.generate(video, _t(ids), _t(mask), 4, -1, 0,
+                                                greedy=True).tokens)
+    for not_bundle in (tmp_path / "ckpt", tmp_path / "missing"):
+        with pytest.raises(ValueError):
+            export_serving.load_serving_bundle(str(not_bundle), llm_cfg=TLLM, vit_cfg=TVIT,
+                                               gen_cfg=TGEN, device="cpu")
