@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's zero-shot serving, contrastive training,
-report generation, report training and int4 report serving paths once on
-one CUDA card.
+report generation, report training and int4 and int8 report serving paths
+once on one CUDA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -106,6 +106,23 @@ Phases, each printing its seconds:
                      tokens, against gates of report-plain's shape; the kernel
                      path fed tampered inputs (nibble halves swapped, scale_g
                      rolled by one group) must fail them.
+ 18. quant8-kernels — the int8 projection (K4) and the fused int8 FFN (K6),
+                     weight-only and w8a8, against their plain versions at
+                     Meditron-7B's shapes (K4 also at the unfused FFN's
+                     gateup and down shapes): decode at batch 4 and 32,
+                     prefill of 4 x 512 tokens, a ragged case, the batch-32
+                     prefill untimed; timed as in phase 15, K4 beside
+                     torch._int_mm (w8a8) and torch._weight_int8pack_mm (w8);
+ 19. quant8-report — the same base and checkpoint through export_serving
+                     (--quant int8 --ffn-kernel --kv-quant int8
+                     --flash-decode, then with --act-quant) and
+                     load_serving_bundle, after the int4 models are freed;
+                     generate as in phase 16 (w8 and w8a8 at batch 4, w8a8
+                     at batch 32), exactly 65 K4 and 32 K6 launches per
+                     prefill and per decode step, 32 K8 per decode step;
+ 20. quant8-plain  — phase 17's gates for the int8 tiers; the planted faults
+                     roll the per-column scales by one or shift the
+                     contraction by one row.
 
 The line before the last is nvidia-smi's "name, power.limit"; the one before
 that a JSON object with one entry per kernel.  The last line is
@@ -1748,6 +1765,18 @@ def a8_atol_needed(got, ref) -> float:
     return need / max(ref.abs().max().item(), 1e-30)
 
 
+def quant_check(errs: dict, name: str, a8: bool, label: str, got, ref) -> None:
+    """A quantized kernel form against its plain version: bf16's bound, or
+    with int8 activations QUANT_A8_ATOL max|p| + QUANT_A8_RTOL |p| (and the
+    atol it needed printed); the largest error kept in ``errs``."""
+    tol = (BF16_ATOL, BF16_RTOL)
+    if a8:
+        print(f"    {name} {label}: atol needed beside rtol 2^-7, as a share of max|p|: "
+              f"{a8_atol_needed(got, ref):.3e}")
+        tol = (QUANT_A8_ATOL * ref.float().abs().max().item(), QUANT_A8_RTOL)
+    errs[name] = max(errs[name], compare(f"{name} {label}", got, ref, *tol))
+
+
 def check_quant_kernels(dev) -> dict:
     """Phase 15: the four K5 and K7 forms against their plain versions at the
     shapes int4 serving gives them at Meditron-7B width (decode at batch 4
@@ -1780,12 +1809,7 @@ def check_quant_kernels(dev) -> dict:
     bf16 = torch.bfloat16
 
     def check(name, a8, label, got, ref):
-        tol = (BF16_ATOL, BF16_RTOL)
-        if a8:
-            print(f"    {name} {label}: atol needed beside rtol 2^-7, as a share of max|p|: "
-                  f"{a8_atol_needed(got, ref):.3e}")
-            tol = (QUANT_A8_ATOL * ref.float().abs().max().item(), QUANT_A8_RTOL)
-        errs[name] = max(errs[name], compare(f"{name} {label}", got, ref, *tol))
+        quant_check(errs, name, a8, label, got, ref)
 
     for label, d_in, d_out, timed, checked in matmuls:
         weights = _quant_copies(gen, dev, d_in, d_out)
@@ -1859,10 +1883,11 @@ def check_quant_kernels(dev) -> dict:
 
 
 def check_a8_bound_sees_j_blocks(per_row: dict) -> None:
-    """The w4a8 bound must refuse ctpa's xla FFN (h requantized per full row)
-    at every shape it was tried: else it cannot tell the j-block rule."""
+    """The bound of the int8-activation forms must refuse an FFN that
+    requantizes h per full row at every shape it was tried: else it cannot
+    tell the j-block rule."""
     if not per_row or min(per_row.values()) <= QUANT_A8_ATOL:
-        raise AssertionError(f"the w4a8 bound (atol {QUANT_A8_ATOL}) passes per-row "
+        raise AssertionError(f"the int8-activation bound (atol {QUANT_A8_ATOL}) passes per-row "
                              f"requantization: atol needed {per_row}")
 
 
@@ -1888,43 +1913,206 @@ def quant_launches() -> dict:
     return {**quant.LAUNCHES, "decode_attention": da.LAUNCHES["decode_attention"]}
 
 
-def int4_launches(cfg, rows: int, head_rows: int, sms: int) -> dict:
-    """The int4 kernels' launches in one forward of the quantized LLM over
-    ``rows`` token rows with the lm_head on ``head_rows``: per layer one K5
-    launch each for qkv_proj and o_proj and one K7 launch per row chunk
-    (``ops/quant.py:ffn_row_chunk``), one K5 launch for the lm_head, and one
-    reduction for each K5 call whose contraction is split (``matmul_splits``
-    on ``sms`` SMs) and for each K7 chunk."""
+# ------------------------------------------------------------------ int8 serving
+
+QUANT8_FORMS = (("int8_matmul", False, "ctpa/ops/quant.py:180", "ctpa_torch/csrc/int8_matmul.cu"),
+                ("int8_matmul_a8", True, "ctpa/ops/quant.py:201", "ctpa_torch/csrc/int8_matmul.cu"),
+                ("int8_ffn", False, "ctpa/ops/quant.py:455", "ctpa_torch/csrc/int8_ffn.cu"),
+                ("int8_ffn_a8", True, "ctpa/ops/quant.py:485", "ctpa_torch/csrc/int8_ffn.cu"))
+
+
+def _int8_copies(gen, dev, shapes) -> list:
+    """Seeded int8 weights and their per-column scales, [w8, s, ...] for each
+    (in, out) of ``shapes``: enough copies to pass 150 MB, so timed launches
+    that cycle over them read from memory, not from the 50 MB L2 cache."""
+    import torch
+
+    from ctpa_torch.ops.quant import quantize_int8
+
+    copies = min(32, max(2, math.ceil(150e6 / sum(a * b for a, b in shapes))))
+    return [[t for a, b in shapes
+             for t in quantize_int8(0.02 * torch.randn(a, b, generator=gen, device=dev))]
+            for _ in range(copies)]
+
+
+def int8_yardstick(a8: bool, weights: list, x):
+    """One PyTorch call beside K4, never called by the port, cycling over
+    ``weights``: for w8a8 ``torch._int_mm`` on the per-token int8 x (padded
+    to 32 rows: it takes m > 16) -> int32 sums without the scaling; for w8
+    ``torch._weight_int8pack_mm`` (x, the (out, in) weight, bf16 scales)
+    where the card's PyTorch has a CUDA kernel for it.  -> (callable or None,
+    a note for the log)."""
+    import torch
+
+    from ctpa_torch.ops.quant import quantize_act_int8
+
+    if a8:
+        x8 = quantize_act_int8(x)[0]
+        x8 = torch.cat([x8, x8.new_zeros(max(0, 32 - x8.shape[0]), x8.shape[1])])
+        calls = [lambda w=w: torch._int_mm(x8, w) for w, _ in weights]
+        name = "_int_mm, int32 unscaled"
+    else:
+        packed = [(w.T.contiguous(), s.to(torch.bfloat16)) for w, s in weights]
+        calls = [lambda w=w, s=s: torch._weight_int8pack_mm(x, w, s) for w, s in packed]
+        name = "_weight_int8pack_mm"
+    try:
+        calls[0]()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        return None, f"none ({name} raised on torch {torch.__version__}: {str(exc)[:80]})"
+    it = itertools.cycle(calls)
+    return (lambda: next(it)()), name
+
+
+def check_quant8_kernels(dev) -> dict:
+    """Phase 18: the four K4 and K6 forms against their plain versions at the
+    shapes int8 serving gives them at Meditron-7B width (decode at batch 4
+    and 32, prefill of 4 x 512 tokens, a ragged case; K4 also at the gateup
+    and down shapes of the unfused FFN), then timed beside the plain version,
+    the bound and, for K4, ``int8_yardstick``; the batch-32 prefill (32 x 512
+    rows, K6 in several row chunks) checked untimed.  The w8a8 forms are held
+    to QUANT_A8_ATOL max|p| + QUANT_A8_RTOL |p|, which the FFN with h
+    requantized per full row must fail."""
+    import torch
+
+    from ctpa_torch.core.config import LLMConfig
+    from ctpa_torch.ops import quant
+
+    cfg = LLMConfig()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    d, i, vocab = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    prefill = len(PROMPT_LENS) * max(PROMPT_LENS)
+    prefill_b32 = QUANT_B32 * max(PROMPT_LENS)
+    decode = len(PROMPT_LENS)
+    timed = (decode, QUANT_B32, prefill)
+    # (label, in, out, timed row counts, checked-only row counts)
+    matmuls = (("qkv_proj", d, qkv, timed, (prefill_b32,)),
+               ("o_proj", d, d, timed, (prefill_b32,)),
+               ("lm_head", d, vocab, timed, ()),
+               ("gateup_proj", d, 2 * i, timed, ()),
+               ("down_proj", i, d, timed, ()),
+               ("ragged", d, 1000, (5,), ()))
+    errs = collections.defaultdict(float)
+    table = {}
+    bf16 = torch.bfloat16
+    for label, d_in, d_out, rows_timed, rows_checked in matmuls:
+        weights = [tuple(c) for c in _int8_copies(gen, dev, ((d_in, d_out),))]
+        for m in rows_timed + rows_checked:
+            x = torch.randn(m, d_in, generator=gen, device=dev).to(bf16)
+            for name, a8, _, _ in QUANT8_FORMS[:2]:
+                w8, s = weights[0]
+                quant_check(errs, name, a8, f"{label} m {m}",
+                            quant.int8_matmul(x, w8, s, act_quant=a8),
+                            quant.int8_matmul_plain(x, w8, s, act_quant=a8))
+                if m not in rows_timed:
+                    continue
+                it = itertools.cycle(weights)
+                ms = cuda_ms(lambda: quant.int8_matmul(x, *next(it), act_quant=a8),
+                             iters=2 * len(weights))
+                plain_ms = cuda_ms(lambda: quant.int8_matmul_plain(x, *next(it), act_quant=a8),
+                                   iters=3, warmup=1)
+                nbytes = m * d_in * 2 + d_in * d_out + d_out * 4 + m * d_out * 2
+                b_ms, b_by = bound_ms(nbytes, 2.0 * m * d_in * d_out,
+                                      PEAK_INT8_OPS if a8 else PEAK_BF16_FLOPS)
+                library, note = int8_yardstick(a8, weights, x)
+                lib_ms = None
+                if library is not None:
+                    lib_ms = cuda_ms(library, iters=2 * len(weights))
+                    note = f"{lib_ms:.4f} ms ({note})"
+                table[name, label, m] = (ms, plain_ms, b_ms, b_by, lib_ms)
+                print(f"    {name} {label} (m {m}, {d_in} -> {d_out}): {ms:.4f} ms  plain "
+                      f"{plain_ms:.4f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  library {note}")
+        del weights
+    ffn = _int8_copies(gen, dev, ((d, i), (d, i), (i, d)))
+    per_row = {}
+    for m in (decode, QUANT_B32, prefill, 5, prefill_b32):
+        x = torch.randn(m, d, generator=gen, device=dev).to(bf16)
+        for name, a8, _, _ in QUANT8_FORMS[2:]:
+            plain = quant.int8_ffn_plain(x, *ffn[0], act_quant=a8)
+            quant_check(errs, name, a8, f"m {m}", quant.int8_ffn(x, *ffn[0], act_quant=a8), plain)
+            if a8 and m in (decode, prefill):
+                per_row[m] = a8_atol_needed(
+                    quant.int8_ffn_plain(x, *ffn[0], act_quant=True, block_j=i), plain)
+                print(f"    the FFN with h requantized per full row against it: atol needed "
+                      f"{per_row[m]:.3e} of max|p| (must pass {QUANT_A8_ATOL})")
+            if m == prefill_b32:
+                continue
+            it = itertools.cycle(ffn)
+            ms = cuda_ms(lambda: quant.int8_ffn(x, *next(it), act_quant=a8), iters=2 * len(ffn))
+            plain_ms = cuda_ms(lambda: quant.int8_ffn_plain(x, *next(it), act_quant=a8), iters=3,
+                               warmup=1)
+            nbytes = m * d * 2 * 2 + 3 * d * i + 2 * i * 4 + d * 4
+            b_ms, b_by = bound_ms(nbytes, 6.0 * m * d * i, PEAK_INT8_OPS if a8 else PEAK_BF16_FLOPS)
+            table[name, "ffn", m] = (ms, plain_ms, b_ms, b_by, None)
+            print(f"    {name} (m {m}, {d} -> {i} -> {d}): {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                  f"bound {b_ms * 1e3:.2f} us ({b_by})  library none")
+    del ffn
+    check_a8_bound_sees_j_blocks(per_row)
+    # the kernels' table rows: the decode step at batch 4, the main path's
+    # most frequent call (the fused qkv_proj for K4)
+    rows = {}
+    for name, _, replaces, source in QUANT8_FORMS:
+        ms, plain_ms, b_ms, b_by, lib_ms = table[name, "ffn" if "ffn" in name else "qkv_proj",
+                                                 decode]
+        rows[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
+                          max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib_ms)
+    return rows
+
+
+def quant_kernel_names(cfg) -> tuple[str, str, str]:
+    """The launch keys of a quantized LLM's projection kernel, FFN kernel and
+    reduction: K4 / K6 for int8 weights, K5 / K7 for int4, "_a8" with
+    quant_act."""
+    bits = "int8" if cfg.weight_quant == "int8" else "int4"
+    a8 = "_a8" if cfg.quant_act else ""
+    return f"{bits}_matmul{a8}", f"{bits}_ffn{a8}", f"{bits}_reduce"
+
+
+def quant_kernel_launches(cfg, rows: int, head_rows: int, sms: int) -> dict:
+    """The quantized kernels' launches in one forward of a quantized LLM
+    (fused qkv, the fused FFN) over ``rows`` token rows with the lm_head on
+    ``head_rows``: per layer one projection launch (K4 or K5) each for
+    qkv_proj and o_proj and one FFN launch (K6 or K7) per row chunk
+    (``ops/quant.py:ffn_row_chunk``), one projection launch for the lm_head,
+    and one reduction for each projection whose contraction is split
+    (``int8_matmul_splits`` / ``matmul_splits`` on ``sms`` SMs) and for each
+    FFN chunk."""
     from ctpa_torch.ops import quant
 
     d, i, layers = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
     attn = cfg.num_heads * cfg.head_dim
-    g_h, g_i = quant._int4_group(d, quant.GROUP), quant._int4_group(i, quant.GROUP)
-    g_o = quant._int4_group(attn, quant.GROUP)
-    n_j = -(-i // quant.ffn_block_j(i, g_i))
+    if cfg.weight_quant == "int8":
+        n_j = -(-i // quant.INT8_BLOCK_J)
+
+        def split(m, d_in, d_out):
+            return int(quant.int8_matmul_splits(m, d_in, d_out, sms)[0] > 1)
+    else:
+        n_j = -(-i // quant.ffn_block_j(i, quant._int4_group(i, quant.GROUP)))
+
+        def split(m, d_in, d_out):
+            g = quant._int4_group(d_in, quant.GROUP)
+            return int(quant.matmul_splits(m, d_in, d_out, g, sms)[0] > 1)
     chunks = -(-rows // quant.ffn_row_chunk(rows, n_j, d))
-
-    def split(m, d_in, d_out, g):
-        return int(quant.matmul_splits(m, d_in, d_out, g, sms)[0] > 1)
-
-    k5, k7 = (("int4_matmul_a8", "int4_ffn_a8") if cfg.quant_act else ("int4_matmul", "int4_ffn"))
-    reduce = (layers * (split(rows, d, qkv, g_h) + split(rows, attn, d, g_o) + chunks)
-              + split(head_rows, d, cfg.vocab_size, g_h))
-    return {k5: 2 * layers + 1, k7: layers * chunks, "int4_reduce": reduce}
+    mm, ffn, reduce = quant_kernel_names(cfg)
+    reductions = (layers * (split(rows, d, qkv) + split(rows, attn, d) + chunks)
+                  + split(head_rows, d, cfg.vocab_size))
+    return {mm: 2 * layers + 1, ffn: layers * chunks, reduce: reductions}
 
 
 def quant_generate(model, video, ids, mask, new_tokens: int, label: str) -> tuple:
     """One timed generate on a quantized model; checks the launches of every
-    prefill and decode step exactly (``int4_launches``).  -> (tokens,
-    launches by kernel, the vision feature generate computed)."""
+    prefill and decode step exactly (``quant_kernel_launches``).  ->
+    (tokens, launches by kernel, the vision feature generate computed)."""
     import torch
 
     from ctpa_torch.ops import quant
 
     cfg = model.llm_cfg
     layers = cfg.num_layers
-    k5, k7 = (("int4_matmul_a8", "int4_ffn_a8") if cfg.quant_act else ("int4_matmul", "int4_ffn"))
+    mm, ffn, reduce = quant_kernel_names(cfg)
     with torch.inference_mode():
         model.generate(video[:1], ids[:1, :8], mask[:1, :8], 2, -1, greedy=True)   # warm-up
         torch.cuda.synchronize()
@@ -1953,8 +2141,8 @@ def quant_generate(model, video, ids, mask, new_tokens: int, label: str) -> tupl
     # the intervals: vision, prefill (with the lm_head on the last prompt
     # tokens), then one per decode step
     sms = quant._sm_count(ids)
-    want_prefill = {**int4_launches(cfg, b * n, b, sms), "decode_attention": 0}
-    want_step = {**int4_launches(cfg, b, b, sms), "decode_attention": layers}
+    want_prefill = {**quant_kernel_launches(cfg, b * n, b, sms), "decode_attention": 0}
+    want_step = {**quant_kernel_launches(cfg, b, b, sms), "decode_attention": layers}
     for j, got in enumerate(per_step[1:]):
         want = want_prefill if j == 0 else want_step
         got = {k: v for k, v in got.items() if v}
@@ -1964,15 +2152,14 @@ def quant_generate(model, video, ids, mask, new_tokens: int, label: str) -> tupl
     if any(per_step[0].values()):
         raise AssertionError(f"{label}: the vision extractor launched {per_step[0]}")
     total = {k: counts[-1][k] - counts[0][k] for k in counts[0]}
-    print(f"    launches: {k5} {total[k5]}, {k7} {total[k7]}, int4_reduce "
-          f"{total['int4_reduce']}, decode_attention {total['decode_attention']} (per prefill "
-          f"{want_prefill[k5]} / {want_prefill[k7]} / {want_prefill['int4_reduce']}, per decode "
-          f"step {want_step[k5]} / {want_step[k7]} / {want_step['int4_reduce']} / {layers}, "
-          f"exactly)")
+    print(f"    launches: {mm} {total[mm]}, {ffn} {total[ffn]}, {reduce} {total[reduce]}, "
+          f"decode_attention {total['decode_attention']} (per prefill {want_prefill[mm]} / "
+          f"{want_prefill[ffn]} / {want_prefill[reduce]}, per decode step {want_step[mm]} / "
+          f"{want_step[ffn]} / {want_step[reduce]} / {layers}, exactly)")
     if tokens.shape != (b, new_tokens) or not ((tokens >= 0) & (tokens < model.llm_cfg.vocab_size)
                                                ).all() or not (res.lengths == new_tokens).all():
         raise AssertionError(f"{label}: tokens {tuple(tokens.shape)}, lengths {res.lengths}")
-    if not all(total[k] for k in (k5, k7, "decode_attention")):
+    if not all(total[k] for k in (mm, ffn, "decode_attention")):
         raise AssertionError(f"{label}: a kernel of the path never launched: {total}")
     return tokens, total, vision[0]
 
@@ -1980,20 +2167,33 @@ def quant_generate(model, video, ids, mask, new_tokens: int, label: str) -> tupl
 FUSED_MEMBERS = {"qkv_proj": ("q_proj", "k_proj", "v_proj"), "gateup_proj": ("gate_proj", "up_proj")}
 
 
-def merge_reading(w4, scale, w, delta) -> tuple[float, float]:
-    """One int4 projection (packed (in/2, out), scales (in/group, out))
-    against its source: the base ``w`` and the LoRA ``delta`` (both (in,
-    out) fp32, delta None where no adapter was merged).  -> (the error's norm
-    over the norm int4 rounding alone gives, the departure from w projected
-    on delta, nan without one)."""
+def dequantized_projection(kernel_q, scale) -> tuple:
+    """A bundle projection dequantized in fp32, (in, out), and the norm its
+    rounding alone gives (each element off by a uniform share of its step,
+    step^2 / 12): int8 with a per-column ``scale`` (out,), or packed int4
+    with group scales (in/group, out)."""
     import torch
 
-    from ctpa_torch.ops.quant import GROUP, _int4_group, dequantize_int4
+    from ctpa_torch.ops.quant import GROUP, dequantize_int4, dequantize_int8
 
-    g = _int4_group(w.shape[0], GROUP)
-    deq = dequantize_int4(w4, scale, GROUP, torch.float32)
-    merged = w if delta is None else w + delta
-    rounding = math.sqrt(g * scale.double().square().sum().item() / 12)
+    if scale.ndim == 1:
+        deq = dequantize_int8(kernel_q, scale, torch.float32)
+        per_step = kernel_q.shape[0]
+    else:
+        deq = dequantize_int4(kernel_q, scale, GROUP, torch.float32)
+        per_step = deq.shape[0] // scale.shape[0]
+    return deq, math.sqrt(per_step * scale.double().square().sum().item() / 12)
+
+
+def merge_reading(deq, rounding: float, w, delta, dtype) -> tuple[float, float]:
+    """One dequantized projection ``deq`` against its source: the base ``w``
+    and the LoRA ``delta`` (both (in, out) fp32, delta None where no adapter
+    was merged), merged in the base's ``dtype`` (the export adds the delta
+    to the base weight in its own dtype: bf16 here, whose rounding is 3% of
+    int8's).  -> (the error's norm over ``rounding``, the norm that
+    quantization alone gives; the departure from w projected on delta, nan
+    without one)."""
+    merged = w if delta is None else (w + delta).to(dtype).float()
     ratio = (deq - merged).double().norm().item() / rounding
     coef = math.nan
     if delta is not None:
@@ -2006,21 +2206,25 @@ def merge_ok(ratio: float, coef: float) -> bool:
 
 
 def check_bundle_source(qmodel, base: dict, trained: dict, lora_scale: float) -> None:
-    """Every int4 projection of the bundle against W + (alpha / rank) (A B)
-    taken from the bf16 base and the trained tensors (``merge_reading``,
+    """Every quantized projection of the bundle against W + (alpha / rank) (A
+    B) taken from the bf16 base and the trained tensors (``merge_reading``,
     gated by ``merge_ok``); then the first merged projection re-quantized
     from its base with the delta left out, added twice and with its first
     square block transposed, each of which the gate must refuse."""
     import torch
 
-    from ctpa_torch.ops.quant import quantize_int4
+    from ctpa_torch.ops.quant import quantize_int4, quantize_int8
 
     def source(key):
         return (trained[key] if key in trained else base[key]).float()
 
+    bits = qmodel.llm_cfg.weight_quant
+    quantize = quantize_int8 if bits == "int8" else quantize_int4
+    leaf = "scale" if bits == "int8" else "scale_g"
     src = qmodel.state_dict()
+    dtype = next(v.dtype for k, v in base.items() if k.endswith("base.weight"))
     readings, planted_on = {}, None
-    for key, w4 in src.items():
+    for key, wq in src.items():
         if not key.endswith(".kernel_q"):
             continue
         parent, proj = key[:-len(".kernel_q")].rsplit(".", 1)
@@ -2035,11 +2239,12 @@ def check_bundle_source(qmodel, base: dict, trained: dict, lora_scale: float) ->
             delta = None
         elif planted_on is None and w.shape[1] >= w.shape[0]:
             planted_on = (key, w, delta)
-        readings[key] = merge_reading(w4, src[key[:-len("kernel_q")] + "scale_g"], w, delta)
+        readings[key] = merge_reading(
+            *dequantized_projection(wq, src[key[:-len("kernel_q")] + leaf]), w, delta, dtype)
     ratios = [r for r, _ in readings.values()]
     coefs = [c for _, c in readings.values() if not math.isnan(c)]
     print(f"  bundle vs its source, {len(readings)} projections ({len(coefs)} with a merged LoRA "
-          f"delta): error / int4 rounding {min(ratios):.4f}-{max(ratios):.4f} (<= "
+          f"delta): error / {bits} rounding {min(ratios):.4f}-{max(ratios):.4f} (<= "
           f"{QUANT_MERGE_ERR_MAX}); delta coefficient {min(coefs):.4f}-{max(coefs):.4f} "
           f"(1 +- {QUANT_MERGE_COEF})")
     bad = {k: v for k, v in readings.items() if not merge_ok(*v)}
@@ -2050,25 +2255,18 @@ def check_bundle_source(qmodel, base: dict, trained: dict, lora_scale: float) ->
     for kind, wrong in (("delta left out", w), ("delta merged twice", w + 2 * delta),
                         ("delta's first square block transposed",
                          w + torch.cat([delta[:, :d_in].T, delta[:, d_in:]], 1))):
-        reading = merge_reading(*quantize_int4(wrong), w, delta)
-        print(f"    planted on {key}, {kind}: error / int4 rounding {reading[0]:.4f}, delta "
+        reading = merge_reading(*dequantized_projection(*quantize(wrong)), w, delta, dtype)
+        print(f"    planted on {key}, {kind}: error / {bits} rounding {reading[0]:.4f}, delta "
               f"coefficient {reading[1]:.4f}")
         if merge_ok(*reading):
             raise AssertionError(f"the bundle check does not see a planted merge fault ({kind})")
 
 
-def quant_report(dev, rows: dict, model, inputs) -> tuple:
-    """Phase 16: the report-train phase's checkpoint and the report phase's
-    bf16 base through ctpa_torch.cli.export_serving into two int4 bundles
-    (fused FFN, int8 KV cache, flash_decode; the second with --act-quant),
-    each loaded with load_serving_bundle and run through generate: weight-only
-    and w4a8 at batch 4 x 512 tokens, then w4a8 at batch 32 (the report
-    phase's volumes and prompts repeated), 96 greedy tokens each."""
+def save_base(model) -> str:
+    """The report phase's bf16 model written with torch.save: the base both
+    quantized tiers export from (the port's checkpoints hold only the
+    trained tensors)."""
     import torch
-
-    from ctpa_torch.cli import export_serving
-    from ctpa_torch.core.checkpoint import CheckpointManager
-    from ctpa_torch.ops import quant
 
     shutil.rmtree(QUANT_DIR, ignore_errors=True)
     os.makedirs(QUANT_DIR)
@@ -2078,13 +2276,33 @@ def quant_report(dev, rows: dict, model, inputs) -> tuple:
     print(f"  the report phase's bf16 base: {os.path.getsize(base) / 1e9:.2f} GB written in "
           f"{time.perf_counter() - t0:.1f} s; {shutil.disk_usage(QUANT_DIR).free / 1e9:.0f} GB "
           f"free there")
+    return base
+
+
+def quant_report(dev, rows: dict, model, inputs, base: str, bits: int) -> tuple:
+    """Phases 16 (``bits`` 4) and 19 (8): the report-train phase's checkpoint
+    and the report phase's bf16 base (``base``) through
+    ctpa_torch.cli.export_serving into two bundles (fused FFN, int8 KV cache,
+    flash_decode; the second with --act-quant), each loaded with
+    load_serving_bundle (its directory deleted once loaded; the second
+    model then shares the first's tensors, which must be equal) and run
+    through generate: weight-only and with int8 activations at batch 4 x 512
+    tokens, then with int8 activations at batch 32 (the report phase's
+    volumes and prompts repeated), 96 greedy tokens each."""
+    import torch
+
+    from ctpa_torch.cli import export_serving
+    from ctpa_torch.core.checkpoint import CheckpointManager
+    from ctpa_torch.ops import quant
+
+    tiers = (f"w{bits}", f"w{bits}a8")
     models = {}
-    for label, extra in (("w4", []), ("w4a8", ["--act-quant"])):
+    for label, extra in zip(tiers, ([], ["--act-quant"])):
         out = os.path.join(QUANT_DIR, f"bundle_{label}")
         t0 = time.perf_counter()
         rc = export_serving.main(["--checkpoint-dir", REPORT_CKPT_DIR, "--base", base, "--out",
-                                  out, "--quant", "int4", "--ffn-kernel", "--kv-quant", "int8",
-                                  "--flash-decode", "--device", dev, *extra])
+                                  out, "--quant", f"int{bits}", "--ffn-kernel", "--kv-quant",
+                                  "int8", "--flash-decode", "--device", dev, *extra])
         torch.cuda.synchronize()
         if rc != 0:
             raise AssertionError(f"export_serving exited {rc}")
@@ -2093,27 +2311,34 @@ def quant_report(dev, rows: dict, model, inputs) -> tuple:
         qmodel, meta = export_serving.load_serving_bundle(out, vit_cfg=model.vit_cfg,
                                                           gen_cfg=model.gen_cfg, device=dev)
         torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
         size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(out) for f in fs)
-        qbytes = sum(t.numel() * t.element_size() for n, t in qmodel.state_dict().items()
-                     if n.endswith(("kernel_q", "scale_g")))
+        shutil.rmtree(out)
+        state = qmodel.state_dict()
+        qbytes = sum(t.numel() * t.element_size() for n, t in state.items()
+                     if n.rsplit(".", 1)[0] + ".kernel_q" in state
+                     and n.endswith((".kernel_q", ".scale", ".scale_g")))
+        del state              # it would keep the second bundle's tensors once shared
         print(f"  bundle {label}: exported in {export_s:.1f} s, {size / 1e9:.2f} GB on disk "
-              f"({qbytes / 1e9:.2f} GB of int4 projections and scales), loaded in "
-              f"{time.perf_counter() - t0:.1f} s; metadata {meta}")
+              f"({qbytes / 1e9:.2f} GB of int{bits} projections and scales), loaded in "
+              f"{load_s:.1f} s; metadata {meta}")
         if meta["lora_merged"] is None or not qmodel.llm_cfg.quant_ffn_kernel or \
-                qmodel.llm_cfg.quant_act != (label == "w4a8"):
+                qmodel.llm_cfg.quant_act != (label == tiers[1]) or \
+                meta["weight_quant"] != f"int{bits}":
             raise AssertionError(f"bundle {label}: metadata {meta}, config {qmodel.llm_cfg}")
         models[label] = qmodel
-    os.remove(base)
     trained = CheckpointManager(REPORT_CKPT_DIR).restore(
         map_location=model.llm.model.embed_tokens.weight.device)["params"]
     lora = meta["lora_merged"]
     with torch.no_grad():
-        check_bundle_source(models["w4"], model.state_dict(), trained,
+        check_bundle_source(models[tiers[0]], model.state_dict(), trained,
                             lora["alpha"] / lora["rank"])
-    w4a8 = models["w4a8"].state_dict()
-    if not all(torch.equal(t, w4a8[k]) for k, t in models["w4"].state_dict().items()):
+    first, second = (models[t].state_dict() for t in tiers)
+    if not all(torch.equal(t, second[k]) for k, t in first.items()):
         raise AssertionError("the two bundles' tensors differ")
-    del trained, w4a8
+    models[tiers[1]].load_state_dict(first, assign=True)
+    del trained, first, second
+    torch.cuda.empty_cache()
     video, ids, mask = inputs
     tokens, vision, launched = {}, {}, collections.Counter()
     for label, qmodel in models.items():
@@ -2121,39 +2346,38 @@ def quant_report(dev, rows: dict, model, inputs) -> tuple:
             qmodel, video, ids, mask, QUANT_NEW_TOKENS, f"{label} batch {ids.shape[0]}")
         launched.update(total)
     rep = QUANT_B32 // ids.shape[0]
-    _, total, _ = quant_generate(models["w4a8"], video.repeat(rep, 1, 1, 1, 1),
+    _, total, _ = quant_generate(models[tiers[1]], video.repeat(rep, 1, 1, 1, 1),
                                  ids.repeat(rep, 1), mask.repeat(rep, 1), QUANT_NEW_TOKENS,
-                                 f"w4a8 batch {QUANT_B32}")
+                                 f"{tiers[1]} batch {QUANT_B32}")
     launched.update(total)
-    for name, _, _, _ in QUANT_FORMS:
+    for name, _, _, _ in (QUANT_FORMS if bits == 4 else QUANT8_FORMS):
         rows[name]["launches"] = launched[name]
-    print("  main path launches: " + ", ".join(f"{k} {launched[k]}" for k in quant.LAUNCHES))
-    same = (tokens["w4"] == tokens["w4a8"]).float().mean().item()
-    print(f"  w4a8 tokens equal to weight-only's on {same:.1%} of positions")
+    print("  main path launches: " + ", ".join(f"{k} {launched[k]}" for k in quant.LAUNCHES
+                                               if k.startswith(f"int{bits}_")))
+    same = (tokens[tiers[0]] == tokens[tiers[1]]).float().mean().item()
+    print(f"  {tiers[1]} tokens equal to weight-only's on {same:.1%} of positions")
     return models, tokens, vision
 
 
 def dequantized_fp32(qmodel):
     """A float CTReportGenerator in fp32 (no kernels, fp32 KV cache) whose
-    projections are the bundle's int4 weights dequantized in fp32: the
-    reference both int4 paths approximate."""
-    import torch
-
+    projections are the bundle's int8 or int4 weights dequantized in fp32:
+    the reference both paths of a tier approximate."""
     from ctpa_torch.models.report_generator import CTReportGenerator
-    from ctpa_torch.ops.quant import GROUP, dequantize_int4
 
     c = qmodel.llm_cfg
     qkv = (c.num_heads * c.head_dim, c.num_kv_heads * c.head_dim, c.num_kv_heads * c.head_dim)
     src = qmodel.state_dict()
+    leaf = "scale" if c.weight_quant == "int8" else "scale_g"
     state = {}
     for key, value in src.items():
-        if key.endswith("scale_g"):
-            continue
-        if not key.endswith("kernel_q"):
+        prefix = key.rsplit(".", 1)[0] + "."
+        if prefix + "kernel_q" not in src:
             state[key] = value.float()
             continue
-        prefix = key[:-len("kernel_q")]
-        w = dequantize_int4(value, src[prefix + "scale_g"], GROUP, torch.float32).T
+        if not key.endswith("kernel_q"):
+            continue
+        w = dequantized_projection(value, src[prefix + leaf])[0].T
         if prefix.endswith("qkv_proj."):
             parent = prefix[:-len("qkv_proj.")]
             for name, part in zip(("q_proj", "k_proj", "v_proj"), w.split(qkv)):
@@ -2168,6 +2392,37 @@ def dequantized_fp32(qmodel):
                             qmodel.gen_cfg, device="meta")
     out.load_state_dict(state, assign=True)
     return out.eval()
+
+
+@contextlib.contextmanager
+def planted_quant8_fault(kind: str):
+    """The int8 kernels fed tampered inputs: "scale rolled" (each output
+    column takes its neighbour's scale) or "contraction shifted" (the
+    weights' rows rolled by one, so each input meets its neighbour's row)."""
+    import torch
+
+    from ctpa_torch.models import llm
+
+    matmul, ffn = llm.int8_matmul, llm.int8_ffn
+
+    def weight(w8):
+        return torch.roll(w8, 1, dims=0) if kind == "contraction shifted" else w8
+
+    def scale(s):
+        return torch.roll(s, 1, dims=0) if kind == "scale rolled" else s
+
+    def faulty_matmul(x, w8, s, *args, **kw):
+        return matmul(x, weight(w8), scale(s), *args, **kw)
+
+    def faulty_ffn(x, wg, sg, wu, su, wd, sd, *args, **kw):
+        return ffn(x, weight(wg), scale(sg), weight(wu), scale(su), weight(wd), scale(sd),
+                   *args, **kw)
+
+    llm.int8_matmul, llm.int8_ffn = faulty_matmul, faulty_ffn
+    try:
+        yield
+    finally:
+        llm.int8_matmul, llm.int8_ffn = matmul, ffn
 
 
 @contextlib.contextmanager
@@ -2207,18 +2462,23 @@ def planted_quant_fault(kind: str):
         llm.int4_matmul, llm.int4_ffn = matmul, ffn
 
 
-def quant_plain(model, qmodels: dict, inputs, tokens: dict, vision: dict) -> None:
-    """Phase 17: each int4 tier's kernel path, the same bundle with
-    quant_impl="xla" (ctpa's plain composition) and an fp32 reference of the
-    same dequantized weights, teacher-forced on the kernel path's tokens,
-    against the gates; then the kernel path fed each of two planted faults,
-    which the gates must reject.  Prints, ungated, the top-1 agreement with
-    the bf16 model the bundle was made from (its LoRA adapters unmerged).
+QUANT_FAULTS = {"int4": (planted_quant_fault, ("nibble halves swapped", "scale_g rolled")),
+                "int8": (planted_quant8_fault, ("scale rolled", "contraction shifted"))}
 
-    The two int4 paths take the vision feature generate computed
+
+def quant_plain(model, qmodels: dict, inputs, tokens: dict, vision: dict) -> None:
+    """Phases 17 (int4) and 20 (int8): each tier's kernel path, the same
+    bundle with quant_impl="xla" (ctpa's plain composition) and an fp32
+    reference of the same dequantized weights, teacher-forced on the kernel
+    path's tokens, against the gates; then the kernel path fed each of two
+    planted faults (``QUANT_FAULTS``), which the gates must reject.  Prints,
+    ungated, the top-1 agreement with the bf16 model the bundle was made
+    from (its LoRA adapters unmerged).
+
+    The kernel and xla paths take the vision feature generate computed
     (``vision``): the patchify kernel sums its per-patch statistics with
     shared-memory atomics, so a second extraction can differ in the last
-    bits, and in w4a8 the lm_head's int8 activation grid turns such a
+    bits, and with int8 activations the lm_head's int8 grid turns such a
     difference into whole levels, which can move a near-tie's argmax.  The
     fp32 reference and the bf16 model extract their own."""
     import torch
@@ -2229,7 +2489,9 @@ def quant_plain(model, qmodels: dict, inputs, tokens: dict, vision: dict) -> Non
     trained = CheckpointManager(REPORT_CKPT_DIR).restore(
         map_location=model.llm.model.embed_tokens.weight.device)["params"]
     bf16_lora = report_train_model(model, trained, flash_prefill=False).eval()
-    reference = dequantized_fp32(qmodels["w4"])
+    bits = next(iter(qmodels.values())).llm_cfg.weight_quant
+    planted, kinds = QUANT_FAULTS[bits]
+    reference = dequantized_fp32(next(iter(qmodels.values())))
     for label, qmodel in qmodels.items():
         with torch.inference_mode():
             again = qmodel.extract_vision(inputs[0])
@@ -2240,12 +2502,12 @@ def quant_plain(model, qmodels: dict, inputs, tokens: dict, vision: dict) -> Non
             plain = teacher_forced_logits(twin(qmodel, quant_impl="xla"), *inputs, tokens[label],
                                           vision[label])
             if quant.LAUNCHES != before:
-                raise AssertionError("the xla path launched an int4 kernel")
+                raise AssertionError(f"the xla path launched a {bits} kernel")
             fp32 = teacher_forced_logits(reference, *inputs, tokens[label])
             bf16 = teacher_forced_logits(bf16_lora, *inputs, tokens[label])
             faults = {}
-            for kind in ("nibble halves swapped", "scale_g rolled"):
-                with planted_quant_fault(kind):
+            for kind in kinds:
+                with planted(kind):
                     faults[kind] = teacher_forced_logits(qmodel, *inputs, tokens[label],
                                                          vision[label])
         if not all(torch.isfinite(x).all() for x in (kernel, plain, fp32)):
@@ -2260,11 +2522,11 @@ def quant_plain(model, qmodels: dict, inputs, tokens: dict, vision: dict) -> Non
         print(f"    {'xla vs fp32':<30} {p_f[0]:.4f}  {p_f[1]:.5f}  {p_f[2]:.4f}")
         gate = dict(ratio=QUANT_FP32_RATIO, slack=QUANT_FP32_TOP1_SLACK, top1_min=QUANT_TOP1_MIN)
         if not report_gate(f"{label} kernel", kernel, plain, fp32, p_f, **gate):
-            raise AssertionError(f"{label}: the int4 kernel path is farther from the fp32 "
+            raise AssertionError(f"{label}: the {bits} kernel path is farther from the fp32 "
                                  "reference than the xla path")
         for kind, got in faults.items():
             if report_gate(f"{label} planted fault: {kind}", got, plain, fp32, p_f, **gate):
-                raise AssertionError(f"the gates do not see a planted int4 fault ({kind})")
+                raise AssertionError(f"the gates do not see a planted {bits} fault ({kind})")
         rel, mean, top1 = logit_distance(kernel, bf16)
         print(f"    {label} kernel vs the bf16 model (LoRA unmerged), not gated: {rel:.4f}  "
               f"{mean:.5f}  top-1 {top1:.4f}")
@@ -2378,8 +2640,22 @@ def main() -> int:
     with phase("quant-report"):
         # the report phase's volumes and prompts again, from their seed
         inputs = report_inputs(model.vit_cfg, model.llm_cfg, dev)
-        qmodels, qtokens, qvision = quant_report(dev, rows, model, inputs)
+        base = save_base(model)
+        qmodels, qtokens, qvision = quant_report(dev, rows, model, inputs, base, 4)
     with phase("quant-plain"):
+        quant_plain(model, qmodels, inputs, qtokens, qvision)
+    # the int4 models go before the int8 ones load
+    del qmodels, qtokens, qvision
+    torch.cuda.empty_cache()
+
+    with phase("quant8-kernels"):
+        with torch.inference_mode():
+            rows.update(check_quant8_kernels(dev))
+    torch.cuda.empty_cache()
+    with phase("quant8-report"):
+        qmodels, qtokens, qvision = quant_report(dev, rows, model, inputs, base, 8)
+        os.remove(base)
+    with phase("quant8-plain"):
         quant_plain(model, qmodels, inputs, qtokens, qvision)
     shutil.rmtree(QUANT_DIR, ignore_errors=True)
     del model, inputs, qmodels, qtokens, qvision
@@ -2391,7 +2667,8 @@ def main() -> int:
                for k in ("patchify_project", "flash_attention_fwd") + TRAIN_KERNELS
                + ("decode_attention", "flash_attention_fwd_lse_d128",
                   "flash_attention_bwd_delta_d128", "flash_attention_bwd_dq_d128",
-                  "flash_attention_bwd_dkv_d128") + tuple(f[0] for f in QUANT_FORMS)]
+                  "flash_attention_bwd_dkv_d128")
+               + tuple(f[0] for f in QUANT_FORMS + QUANT8_FORMS)]
     for row in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(row[key]):

@@ -185,15 +185,15 @@ class LLMConfig:
     # kernel with causal + key masks (report training)
     flash_prefill: bool = False
     flash_min_len: int = 512
-    # quantized serving weights: None | "int8" (not ported yet)
+    # quantized serving weights: None | "int8" | "int4"
     weight_quant: Optional[str] = None
     # quant_impl, quant_fused, kv_quant_group and kv_scale_dtype act only on
     # the quantized-weight and int4-cache paths: the port accepts their
     # defaults and refuses any other value
     quant_impl: str = "pallas"           # "pallas" | "xla"
     quant_fused: bool = True
-    quant_ffn_kernel: bool = False       # the fused quantized SwiGLU (not ported yet)
-    quant_act: bool = False              # w8a8 activations (not ported yet)
+    quant_ffn_kernel: bool = False       # the fused quantized SwiGLU
+    quant_act: bool = False              # w8a8 / w4a8 activations
     # quantized KV cache: None | "int8" (per-(kv-head, token) absmax scales)
     # | "int4" (not ported yet)
     kv_quant: Optional[str] = None

@@ -1,6 +1,7 @@
-// Helpers shared by the int4 kernels (int4_matmul.cu, int4_ffn.cu): the
-// nibble unpack of ctpa's quantize_int4 layout, 16-byte loads with a ragged
-// edge, and the fixed-order reduction of fp32 partial sums.
+// Helpers shared by the quantized kernels: the nibble unpack of ctpa's
+// quantize_int4 layout (int4_matmul.cu, int4_ffn.cu), and for the int8
+// kernels too (int8_matmul.cu, int8_ffn.cu) 16-byte loads with a ragged edge
+// and the fixed-order reduction of partial sums.
 //
 // Packed layout (ctpa/ops/quant.py:quantize_int4): the weight is (in/2, out)
 // bytes; byte j of scale group g (group size G) holds row g*G + j in its low
@@ -65,6 +66,22 @@ __device__ __forceinline__ void store_dequant(__nv_bfloat16* dst, const uint4& v
   reinterpret_cast<uint4*>(dst)[1] = make_uint4(p[4], p[5], p[6], p[7]);
 }
 
+// 16 int8 values of v (bytes in order) as bf16, exact, stored at dst
+// (16-byte aligned)
+__device__ __forceinline__ void store_int8_as_bf16(__nv_bfloat16* dst, const uint4& v) {
+  uint32_t p[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int q0 = static_cast<int8_t>(byte_of(v, 2 * i));
+    const int q1 = static_cast<int8_t>(byte_of(v, 2 * i + 1));
+    __nv_bfloat162 two = __halves2bfloat162(__float2bfloat16_rn(static_cast<float>(q0)),
+                                            __float2bfloat16_rn(static_cast<float>(q1)));
+    p[i] = *reinterpret_cast<uint32_t*>(&two);
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(p[0], p[1], p[2], p[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(p[4], p[5], p[6], p[7]);
+}
+
 // 16 signed nibbles of v (low or high halves of its bytes) as 16 int8 values
 __device__ __forceinline__ uint4 unpack16(const uint4& v, bool high) {
   uint32_t w[4] = {0u, 0u, 0u, 0u};
@@ -77,10 +94,14 @@ __device__ __forceinline__ uint4 unpack16(const uint4& v, bool high) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// out[r, c] = bf16((sum over s of part[s, r, c], in order s = 0, 1, ...) * rowscale[r])
-// for r < m, c < n; part is (splits, ld_rows, n) fp32; rowscale may be null.
-__global__ void reduce_partials_kernel(const float* __restrict__ part, int splits, int ld_rows,
+// out[r, c] = bf16((sum over s of part[s, r, c], in order s = 0, 1, ...)
+//                 * rowscale[r] * colscale[c]) for r < m, c < n; part is
+// (splits, ld_rows, n) of T: fp32 partial sums, or exact int32 ones (int8
+// activations), whose sum stays exact; rowscale and colscale may be null.
+template <typename T>
+__global__ void reduce_partials_kernel(const T* __restrict__ part, int splits, int ld_rows,
                                        const float* __restrict__ rowscale,
+                                       const float* __restrict__ colscale,
                                        __nv_bfloat16* __restrict__ out, int m, int n) {
   const long long total = static_cast<long long>(m) * n;
   const long long split_stride = static_cast<long long>(ld_rows) * n;
@@ -88,23 +109,26 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part, int split
        e += static_cast<long long>(gridDim.x) * blockDim.x) {
     const int r = static_cast<int>(e / n);
     const int c = static_cast<int>(e - static_cast<long long>(r) * n);
-    float acc = 0.f;
+    T sum = 0;
     for (int s = 0; s < splits; ++s)
-      acc = __fadd_rn(acc, part[s * split_stride + static_cast<long long>(r) * n + c]);
+      sum += part[s * split_stride + static_cast<long long>(r) * n + c];
+    float acc = static_cast<float>(sum);
     if (rowscale != nullptr) acc = __fmul_rn(acc, rowscale[r]);
+    if (colscale != nullptr) acc = __fmul_rn(acc, colscale[c]);
     out[e] = __float2bfloat16_rn(acc);
   }
 }
 
-inline cudaError_t reduce_partials(const float* part, int splits, int ld_rows,
-                                   const float* rowscale, __nv_bfloat16* out, int m, int n,
-                                   cudaStream_t stream) {
+template <typename T>
+cudaError_t reduce_partials(const T* part, int splits, int ld_rows, const float* rowscale,
+                            const float* colscale, __nv_bfloat16* out, int m, int n,
+                            cudaStream_t stream) {
   const long long total = static_cast<long long>(m) * n;
   const int threads = 256;
   const long long want = (total + threads - 1) / threads;
   const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  reduce_partials_kernel<<<blocks, threads, 0, stream>>>(part, splits, ld_rows, rowscale, out,
-                                                         m, n);
+  reduce_partials_kernel<T><<<blocks, threads, 0, stream>>>(part, splits, ld_rows, rowscale,
+                                                            colscale, out, m, n);
   return cudaGetLastError();
 }
 

@@ -556,6 +556,6 @@ extern "C" int int4_ffn_launch(const void* x, const void* sx, const void* wg, co
                                   : launch_rows<64>(a, n_j, act_quant != 0, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(q4::reduce_partials(static_cast<const float*>(partial), n_j, ld_rows,
-                                                nullptr, static_cast<__nv_bfloat16*>(out), m,
-                                                hidden, s));
+                                                nullptr, nullptr, static_cast<__nv_bfloat16*>(out),
+                                                m, hidden, s));
 }

@@ -277,5 +277,6 @@ extern "C" int int4_matmul_launch(const void* x, const void* sx, const void* w4,
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return static_cast<int>(q4::reduce_partials(part, splits, m,
                                                 a8 ? static_cast<const float*>(sx) : nullptr,
-                                                static_cast<__nv_bfloat16*>(out), m, n, s));
+                                                nullptr, static_cast<__nv_bfloat16*>(out), m, n,
+                                                s));
 }

@@ -44,6 +44,8 @@ SIGNATURES = {
     "decode_attention_launch": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
     "int4_matmul_launch": (_P,) * 6 + (_I,) * 7 + (_P,),
     "int4_ffn_launch": (_P,) * 10 + (_I,) * 8 + (_P,),
+    "int8_matmul_launch": (_P,) * 6 + (_I,) * 6 + (_P,),
+    "int8_ffn_launch": (_P,) * 10 + (_I,) * 5 + (_P,),
 }
 
 

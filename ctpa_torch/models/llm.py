@@ -18,17 +18,19 @@ flash kernel, causal with the attention mask as its key mask
 (``ops/flash_attention.py``); everything else runs the dense grouped-query
 attention.  Nothing in a forward reads a device value back to the host.
 
-Quantized serving weights (``weight_quant="int4"``, ctpa's ``Int4Dense``
-and its callers): each targeted projection is an ``Int4Dense`` holding
-ctpa's ``kernel_q`` (in/2, out) and ``scale_g`` (in/group, out) as
-buffers, run by ``ops/quant.py:int4_matmul`` (kernel K5); ``quant_fused``
+Quantized serving weights (``weight_quant``, ctpa's ``Int8Dense``,
+``Int4Dense`` and their callers): each targeted projection is an
+``Int8Dense`` holding ctpa's ``kernel_q`` (in, out) int8 and ``scale``
+(out,) as buffers, run by ``ops/quant.py:int8_matmul`` (kernel K4), or an
+``Int4Dense`` holding ``kernel_q`` (in/2, out) and ``scale_g`` (in/group,
+out), run by ``int4_matmul`` (kernel K5), the lm_head too; ``quant_fused``
 gives the fused ``qkv_proj`` and ``gateup_proj``, ``quant_ffn_kernel`` runs
-the whole SwiGLU FFN through ``int4_ffn`` (kernel K7), ``quant_act`` is
-w4a8, and ``quant_impl="xla"`` takes ctpa's plain composition instead of the
-kernels.  The trees come from ``ops/quant.py:quantize_tree``.
+the whole SwiGLU FFN through ``int8_ffn`` (kernel K6) or ``int4_ffn``
+(kernel K7), ``quant_act`` is w8a8 / w4a8, and ``quant_impl="xla"`` takes
+ctpa's plain composition instead of the kernels.  The trees come from
+``ops/quant.py:quantize_tree``.
 
-Not ported (the model raises): int8 weights (``weight_quant="int8"``), the
-int4 KV cache and int8 attention dots.
+Not ported (the model raises): the int4 KV cache and int8 attention dots.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ from ctpa_torch.models.layers import Dense, compute_dtype
 from ctpa_torch.models.lora import LoRADense
 from ctpa_torch.ops.decode_attention import decode_attention
 from ctpa_torch.ops.flash_attention import flash_attention
-from ctpa_torch.ops.quant import GROUP, _int4_group, int4_ffn, int4_matmul
+from ctpa_torch.ops.quant import (GROUP, _int4_group, int4_ffn, int4_matmul, int8_ffn,
+                                  int8_matmul)
 from ctpa_torch.ops.rotary import apply_rope, rope_frequencies
 
 
@@ -56,7 +59,6 @@ def check_ported(cfg: LLMConfig) -> None:
     if cfg.quant_impl not in ("pallas", "xla"):
         raise ValueError(f"unknown quant_impl {cfg.quant_impl!r}")
     unported = [name for name, on in (
-        ("weight_quant='int8'", cfg.weight_quant == "int8"),
         ("kv_quant='int4'", cfg.kv_quant == "int4"), ("kv_int8_dots", cfg.kv_int8_dots)) if on]
     # settings that act only on the quantized-weight and int4-cache paths:
     # where those are off, a value other than the default would be ignored,
@@ -73,42 +75,73 @@ def check_ported(cfg: LLMConfig) -> None:
         raise ValueError(f"unknown kv_quant {cfg.kv_quant!r}")
 
 
-class Int4Dense(nn.Module):
-    """An int4 serving projection (ctpa's ``Int4Dense``): ``kernel_q`` (in/2,
-    out) packed int8 and ``scale_g`` (in/group, out) fp32 buffers, as
-    ``quantize_tree(bits=4)`` writes them.  x is cast to the compute dtype
-    (``dtype``, or the module's ``compute_dtype`` when set) first.  The
-    buffers also feed the fused FFN (``LlamaMLP``)."""
+class _QuantDense(nn.Module):
+    """A quantized serving projection's settings: x is cast to the compute
+    dtype (``dtype``, or the module's ``compute_dtype`` when set) first."""
+
+    def __init__(self, cfg: LLMConfig, dtype=None):
+        super().__init__()
+        self.impl, self.act_quant = cfg.quant_impl, cfg.quant_act
+        self.dtype = dtype or torch.get_default_dtype()
+
+    def act_dtype(self) -> torch.dtype:
+        return getattr(self, "compute_dtype", None) or self.dtype
+
+
+class Int8Dense(_QuantDense):
+    """An int8 serving projection (ctpa's ``Int8Dense``): ``kernel_q`` (in,
+    out) int8 and ``scale`` (out,) fp32 buffers, as ``quantize_tree(bits=8)``
+    writes them.  The buffers also feed the fused FFN (``LlamaMLP``)."""
 
     def __init__(self, in_features: int, features: int, cfg: LLMConfig, device=None,
                  dtype=None):
-        super().__init__()
+        super().__init__(cfg, dtype)
+        self.register_buffer("kernel_q", torch.zeros(in_features, features, dtype=torch.int8,
+                                                     device=device))
+        self.register_buffer("scale", torch.ones(features, device=device))
+
+    def forward(self, x):
+        return int8_matmul(x.to(self.act_dtype()), self.kernel_q, self.scale, self.impl,
+                           self.act_quant)
+
+
+class Int4Dense(_QuantDense):
+    """An int4 serving projection (ctpa's ``Int4Dense``): ``kernel_q`` (in/2,
+    out) packed int8 and ``scale_g`` (in/group, out) fp32 buffers, as
+    ``quantize_tree(bits=4)`` writes them.  The buffers also feed the fused
+    FFN (``LlamaMLP``)."""
+
+    def __init__(self, in_features: int, features: int, cfg: LLMConfig, device=None,
+                 dtype=None):
+        super().__init__(cfg, dtype)
         self.group = _int4_group(in_features, GROUP)
-        self.impl, self.act_quant = cfg.quant_impl, cfg.quant_act
-        self.dtype = dtype or torch.get_default_dtype()
         self.register_buffer("kernel_q", torch.zeros(in_features // 2, features,
                                                      dtype=torch.int8, device=device))
         self.register_buffer("scale_g", torch.ones(in_features // self.group, features,
                                                    device=device))
-
-    def act_dtype(self) -> torch.dtype:
-        return getattr(self, "compute_dtype", None) or self.dtype
 
     def forward(self, x):
         return int4_matmul(x.to(self.act_dtype()), self.kernel_q, self.scale_g, self.group,
                            self.impl, self.act_quant)
 
 
+def _quant_dense(cfg: LLMConfig, in_features: int, features: int, fk: dict) -> _QuantDense:
+    """The serving projection for ``cfg.weight_quant`` (ctpa's ``_quant_dense``)."""
+    cls = Int4Dense if cfg.weight_quant == "int4" else Int8Dense
+    return cls(in_features, features, cfg, **fk)
+
+
 def _proj(cfg: LLMConfig, in_features: int, features: int, fk: dict,
           lora: Optional[LoRAConfig] = None, lora_name: Optional[str] = None) -> nn.Module:
-    """Projection factory (ctpa's ``_proj``): int4 when ``cfg.weight_quant``
-    is set (a LoRA overlay on it raises: merge the adapters first), a
-    ``LoRADense`` where the caller names a LoRA slot, else a ``Dense``."""
+    """Projection factory (ctpa's ``_proj``): int8 or int4 when
+    ``cfg.weight_quant`` is set (a LoRA overlay on it raises: merge the
+    adapters first), a ``LoRADense`` where the caller names a LoRA slot, else
+    a ``Dense``."""
     if cfg.weight_quant is not None:
         if lora is not None and lora_name in (lora.target_projections or ()):
             raise ValueError("LoRA overlays are not supported with quantized weights "
                              "(merge adapters first)")
-        return Int4Dense(in_features, features, cfg, **fk)
+        return _quant_dense(cfg, in_features, features, fk)
     if lora_name is not None:
         return LoRADense(in_features, features, **_lora_args(lora, lora_name), **fk)
     return Dense(in_features, features, bias=False, **fk)
@@ -206,7 +239,7 @@ class LlamaAttention(nn.Module):
                     lora.target_projections or ()):
                 raise ValueError("LoRA overlays are not supported with quantized weights "
                                  "(merge adapters first)")
-            self.qkv_proj = Int4Dense(d, (h + 2 * kvh) * hd, cfg, **fk)
+            self.qkv_proj = _quant_dense(cfg, d, (h + 2 * kvh) * hd, fk)
         else:
             for name, out in (("q_proj", h * hd), ("k_proj", kvh * hd), ("v_proj", kvh * hd)):
                 setattr(self, name, _proj(cfg, d, out, fk, lora, name))
@@ -283,9 +316,10 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    """SwiGLU: down(silu(gate(x)) * up(x)).  With int4 weights: the fused
-    ``gateup_proj`` (``quant_fused``), or the whole FFN in one ``int4_ffn``
-    call on the three projections' buffers (``quant_ffn_kernel``)."""
+    """SwiGLU: down(silu(gate(x)) * up(x)).  With quantized weights: the
+    fused ``gateup_proj`` (``quant_fused``), or the whole FFN in one
+    ``int8_ffn`` or ``int4_ffn`` call on the three projections' buffers
+    (``quant_ffn_kernel``)."""
 
     def __init__(self, cfg: LLMConfig, device=None, dtype=None):
         super().__init__()
@@ -296,7 +330,7 @@ class LlamaMLP(nn.Module):
         self.ffn_kernel = quant and cfg.quant_ffn_kernel
         self.fused = quant and cfg.quant_fused and not self.ffn_kernel
         if self.fused:
-            self.gateup_proj = Int4Dense(d, 2 * i, cfg, **fk)
+            self.gateup_proj = _quant_dense(cfg, d, 2 * i, fk)
         else:
             self.gate_proj = _proj(cfg, d, i, fk)
             self.up_proj = _proj(cfg, d, i, fk)
@@ -304,10 +338,14 @@ class LlamaMLP(nn.Module):
 
     def forward(self, x):
         if self.ffn_kernel:
+            c = self.cfg
             g, u, dn = self.gate_proj, self.up_proj, self.down_proj
-            return int4_ffn(x.to(g.act_dtype()), g.kernel_q, g.scale_g, u.kernel_q, u.scale_g,
-                            dn.kernel_q, dn.scale_g, group=GROUP, impl=self.cfg.quant_impl,
-                            act_quant=self.cfg.quant_act)
+            x = x.to(g.act_dtype())
+            if c.weight_quant == "int8":
+                return int8_ffn(x, g.kernel_q, g.scale, u.kernel_q, u.scale, dn.kernel_q,
+                                dn.scale, impl=c.quant_impl, act_quant=c.quant_act)
+            return int4_ffn(x, g.kernel_q, g.scale_g, u.kernel_q, u.scale_g, dn.kernel_q,
+                            dn.scale_g, group=GROUP, impl=c.quant_impl, act_quant=c.quant_act)
         if self.fused:
             gate, up = self.gateup_proj(x).chunk(2, dim=-1)
         else:

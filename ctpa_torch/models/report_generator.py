@@ -123,8 +123,8 @@ class CTReportGenerator(nn.Module):
         self.cross_attention = CrossAttentionLayer(llm_cfg.hidden_size, gen_cfg.vision_dim, **fk)
 
     def cache_dtype(self) -> torch.dtype:
-        """The trunk's activation dtype, which the float KV cache keeps (an
-        int4 lm_head has no float weight to take it from)."""
+        """The trunk's activation dtype, which the float KV cache keeps (a
+        quantized lm_head has no float weight to take it from)."""
         return compute_dtype(self.llm.model, self.llm.model.embed_tokens.weight)
 
     def extract_vision(self, video: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""int4 quantized serving weights (port of ``ctpa/ops/quant.py``): the host
-quantizers, the int4 projection (kernel K5) and the fused int4 SwiGLU FFN
+"""Quantized serving weights (port of ``ctpa/ops/quant.py``): the host
+quantizers, the int8 projection (kernel K4), the fused int8 SwiGLU FFN
+(kernel K6), the int4 projection (kernel K5), the fused int4 SwiGLU FFN
 (kernel K7), and ``quantize_tree`` on a ``state_dict``.
 
 Layouts are ctpa's.  An int8 weight is ``kernel_q`` (in, out) int8 with a
@@ -10,27 +11,40 @@ nibbles in [-7, 7].  Rounding is half-to-even (``torch.round``, as
 ``jnp.round``) on the quotient ``x / s``, so the packed bytes equal ctpa's
 bit for bit.
 
-K5 replaces ``ctpa/ops/quant.py:int4_matmul`` (``_q4_kernel`` and, with
-``act_quant``, ``_q4_kernel_a8``) and K7 replaces ``int4_ffn``
-(``_ffn_kernel_q4``, ``_ffn_kernel_q4_a8``).  The CUDA kernels are
-``ctpa_torch/csrc/int4_matmul.cu`` and ``ctpa_torch/csrc/int4_ffn.cu``
-(their headers state the bounds they face on the H100).  With
-``impl="pallas"`` the wrappers launch them for CUDA tensors and take the
-plain versions (``int4_matmul_plain``, ``int4_ffn_plain``), which compute
+K4 replaces ``ctpa/ops/quant.py:int8_matmul`` (``_q_kernel`` and, with
+``act_quant``, ``_q_kernel_a8``), K6 ``int8_ffn`` (``_ffn_kernel``,
+``_ffn_kernel_a8``), K5 ``int4_matmul`` (``_q4_kernel``, ``_q4_kernel_a8``)
+and K7 ``int4_ffn`` (``_ffn_kernel_q4``, ``_ffn_kernel_q4_a8``).  The CUDA
+kernels are ``ctpa_torch/csrc/int8_matmul.cu``, ``int8_ffn.cu``,
+``int4_matmul.cu`` and ``int4_ffn.cu`` (their headers state the bounds they
+face on the H100).  With ``impl="pallas"`` the wrappers launch them for CUDA
+tensors and take the plain versions (``int8_matmul_plain``,
+``int8_ffn_plain``, ``int4_matmul_plain``, ``int4_ffn_plain``), which compute
 what the kernels compute, only for CPU tensors.  ``impl="xla"`` is ctpa's
 explicit plain composition (its ``impl="xla"`` branches), on any device:
 
-* w4 (weight-only): the kernels round the dequantized weight to the
+* w8 (weight-only int8): the int8 weight is exact in the activation dtype;
+  fp32 sums, the per-column scale after them.  ctpa's kernel and its xla
+  branch compute the same function, so ``impl="xla"`` is the plain version.
+* w8a8 (``act_quant``): per-token int8 activations (``quantize_act_int8``),
+  one exact int8 x int8 -> int32 dot, times the row scale, times the column
+  scale.  The FFN kernel requantizes h = silu(g) u per row per j-block of
+  ``INT8_BLOCK_J`` (256) columns and scales each j-block's exact down dot
+  by its row scale; ctpa's xla composition (three int8 projections) rounds
+  g, u and h to the activation dtype and requantizes h per full row.
+* w4 (weight-only int4): the kernels round the dequantized weight to the
   activation dtype and sum in fp32; ctpa's xla branch dequantizes in fp32.
-* w4a8 (``act_quant``): per-token int8 activations (``quantize_act_int8``),
-  one exact int8 x int8 dot per scale group, scaled by the group's fp32
-  scale row and summed in fp32, times the row scale at the end.  The FFN
-  kernel requantizes h = silu(g) u per row per j-block of ``ffn_block_j``
-  columns (256 at Meditron-7B); ctpa's xla branch per full row.
+* w4a8 (``act_quant``): per-token int8 activations, one exact int8 x int8
+  dot per scale group, scaled by the group's fp32 scale row and summed in
+  fp32, times the row scale at the end.  The FFN kernel requantizes h per
+  row per j-block of ``ffn_block_j`` columns (256 at Meditron-7B); ctpa's
+  xla branch per full row.
 
-The int dots run as fp32 products where torch has no integer matmul (the
-card): int8 x int4 products and their sums over a group of at most 128
-stay below 2^24, so they are exact in fp32 in any order.
+Where torch has no integer matmul (the card), the int dots run as floating
+products: int8 x int4 products and their sums over a group of at most 128
+stay below 2^24, so they are exact in fp32 in any order; the int8 x int8
+sums over a whole row (up to 11008 x 127^2, past 2^24) run in fp64, which
+holds them exactly (``_int_dot``).
 """
 
 from __future__ import annotations
@@ -49,12 +63,17 @@ _BJ_MAX = 256
 FFN_PARTIAL_BYTES = 1 << 30
 
 # launches of each CUDA kernel form, under the name chip_smoke.py reports it
-# by; a wrapper adds one where it launches, and nowhere else.  A K5 call
-# whose contraction is split, and every K7 row chunk, also launches the
-# fixed-order reduction of its fp32 partials (``int4_common.cuh``:
-# ``reduce_partials_kernel``), counted under "int4_reduce"
+# by; a wrapper adds one where it launches, and nowhere else.  A K4 or K5
+# call whose contraction is split, and every K6 or K7 row chunk, also
+# launches the fixed-order reduction of its partials (``int4_common.cuh``:
+# ``reduce_partials_kernel``), counted under "int8_reduce" or "int4_reduce"
 LAUNCHES = dict.fromkeys(("int4_matmul", "int4_matmul_a8", "int4_ffn", "int4_ffn_a8",
-                          "int4_reduce"), 0)
+                          "int4_reduce", "int8_matmul", "int8_matmul_a8", "int8_ffn",
+                          "int8_ffn_a8", "int8_reduce"), 0)
+# the int8 kernels' contraction chunk (K4 splits its contraction in whole
+# chunks) and K6's j-block (ctpa's int8_ffn block_j)
+INT8_KC = 128
+INT8_BLOCK_J = 256
 
 
 # ------------------------------------------------------------------ host side
@@ -211,11 +230,15 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _bf16_only(x, kind: str) -> None:
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{kind} kernels take bf16 activations, got {x.dtype}")
+
+
 def _kernel_limits(x, g: int) -> None:
     if g not in _KERNEL_GROUPS:
         raise ValueError(f"int4 kernels: scale group {g} not in {_KERNEL_GROUPS}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"int4 kernels take bf16 activations, got {x.dtype}")
+    _bf16_only(x, "int4")
 
 
 def _matmul_rows_tile(m: int) -> int:
@@ -397,6 +420,190 @@ def int4_ffn(x, wg4, sg, wu4, su, wd4, sd, group: int = GROUP, impl: str = "pall
     if _device(x) == "cpu":
         return int4_ffn_plain(x, wg4, sg, wu4, su, wd4, sd, group, act_quant)
     return _int4_ffn_kernel(x, wg4, sg, wu4, su, wd4, sd, g_h, g_i, act_quant)
+
+
+# ------------------------------------------------------------------ K4
+
+def _int_dot(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
+    """The exact integer product of int8 (or integer-valued) matrices (m, k)
+    @ (k, n), rounded once to fp32 as the kernels convert their int32 sums:
+    fp64 holds every such sum exactly (|sum| <= k 127^2 < 2^53), where fp32
+    stops at 2^24 (k 1,040 at full-scale operands)."""
+    return (a8.double() @ b8.double()).float()
+
+
+def _check_matmul8(x, w8, scale):
+    if w8.dtype != torch.int8 or w8.ndim != 2:
+        raise ValueError(f"w8 must be int8 (in, out), got {w8.dtype} {tuple(w8.shape)}")
+    if w8.shape[0] != x.shape[-1]:
+        raise ValueError(f"x's last dim {x.shape[-1]} does not match w8 {tuple(w8.shape)}")
+    if tuple(scale.shape) != (w8.shape[1],) or scale.dtype != torch.float32:
+        raise ValueError(f"scale must be fp32 {(w8.shape[1],)}, got {scale.dtype} "
+                         f"{tuple(scale.shape)}")
+    if len({x.device, w8.device, scale.device}) != 1:
+        raise ValueError("all inputs must be on one device")
+
+
+def int8_matmul_plain(x, w8, scale, act_quant: bool = False):
+    """The kernel's function in plain PyTorch, and ctpa's xla branch: w8 sums
+    x . w8 in fp32 (the int8 weight is exact in x's dtype) and scales the
+    columns after; w8a8 takes the exact int32 dot of the per-token int8 x,
+    times its row scale, times the column scale."""
+    *lead, d_in = x.shape
+    xm = x.reshape(-1, d_in)
+    if act_quant:
+        x8, sx = quantize_act_int8(xm)
+        y = _int_dot(x8, w8) * sx * scale
+    else:
+        y = (xm.float() @ w8.float()) * scale
+    return y.to(x.dtype).reshape(*lead, w8.shape[1])
+
+
+def int8_matmul_splits(m: int, d_in: int, d_out: int, sms: int) -> tuple[int, int]:
+    """(splits of the contraction, ``INT8_KC`` chunks per split): K5's rule
+    (``matmul_splits``) over whole chunks."""
+    return matmul_splits(m, _rup(d_in, INT8_KC), d_out, INT8_KC, sms)
+
+
+def _int8_matmul_kernel(x, w8, scale, act_quant: bool):
+    *lead, d_in = x.shape
+    d_out = w8.shape[1]
+    _bf16_only(x, "int8")
+    xm = _aligned(x.reshape(-1, d_in))
+    m = xm.shape[0]
+    w8, scale = _aligned(w8), _aligned(scale)
+    sx = None
+    if act_quant:
+        xm, sx = quantize_act_int8(xm)
+        xm, sx = _aligned(xm), sx.reshape(-1).contiguous()
+    out = torch.empty(m, d_out, dtype=x.dtype, device=x.device)
+    splits, per = int8_matmul_splits(m, d_in, d_out, _sm_count(x))
+    # the splits' partial sums: exact int32 (w8a8) or fp32 (w8)
+    work = (torch.empty(splits, m, d_out, device=x.device,
+                        dtype=torch.int32 if act_quant else torch.float32)
+            if splits > 1 else None)
+    rc = build.library().lib.int8_matmul_launch(
+        xm.data_ptr(), sx.data_ptr() if act_quant else None, w8.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), work.data_ptr() if work is not None else None, m, d_in, d_out, per,
+        splits, int(act_quant), _stream(x))
+    name = "int8_matmul_a8" if act_quant else "int8_matmul"
+    build.check_launch(rc, name)
+    LAUNCHES[name] += 1
+    LAUNCHES["int8_reduce"] += splits > 1
+    return out.reshape(*lead, d_out)
+
+
+def int8_matmul(x, w8, scale, impl: str = "pallas", act_quant: bool = False) -> torch.Tensor:
+    """(..., in) x against int8 (in, out) weights with an (out,) fp32 scale
+    -> (..., out) in x's dtype.  ``act_quant`` is w8a8."""
+    _check_matmul8(x, w8, scale)
+    if impl not in ("pallas", "xla"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if impl == "xla" or _device(x) == "cpu":
+        return int8_matmul_plain(x, w8, scale, act_quant)
+    return _int8_matmul_kernel(x, w8, scale, act_quant)
+
+
+# ------------------------------------------------------------------ K6
+
+def _check_ffn8(x, wg8, sg, wu8, su, wd8, sd):
+    hidden = x.shape[-1]
+    inter = wg8.shape[-1]
+    shapes = {"wg8": (wg8, (hidden, inter), torch.int8), "wu8": (wu8, (hidden, inter), torch.int8),
+              "wd8": (wd8, (inter, hidden), torch.int8), "sg": (sg, (inter,), torch.float32),
+              "su": (su, (inter,), torch.float32), "sd": (sd, (hidden,), torch.float32)}
+    for name, (t, shape, dtype) in shapes.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != x.device:
+            raise ValueError("all inputs must be on one device")
+
+
+def int8_ffn_plain(x, wg8, sg, wu8, su, wd8, sd, act_quant: bool = False,
+                   block_j: int = INT8_BLOCK_J):
+    """The kernel's function in plain PyTorch (ctpa's ``int8_ffn``):
+    down(silu(x Wg) * (x Wu)).  w8: g and u fp32 with their column scales,
+    h rounded to x's dtype, the down sum in fp32, then its column scale.
+    w8a8: g and u from exact int32 dots, h in fp32, requantized per row per
+    ``block_j`` columns; each j-block's exact down dot times its row scale,
+    summed over the j-blocks in order, then the column scale."""
+    *lead, hidden = x.shape
+    inter = wg8.shape[1]
+    dt = x.dtype
+    xm = x.reshape(-1, hidden)
+    if not act_quant:
+        xf = xm.float()
+        g = (xf @ wg8.float()) * sg
+        u = (xf @ wu8.float()) * su
+        h = (g * torch.sigmoid(g) * u).to(dt)
+        return ((h.float() @ wd8.float()) * sd).to(dt).reshape(*lead, hidden)
+    x8, sx = quantize_act_int8(xm)
+    g = _int_dot(x8, wg8) * sx * sg
+    u = _int_dot(x8, wu8) * sx * su
+    h = g * torch.sigmoid(g) * u
+    acc = torch.zeros(xm.shape[0], hidden, device=x.device)
+    for j0 in range(0, inter, block_j):
+        hj = h[:, j0:j0 + block_j]                     # ctpa's pad columns are 0
+        sh = torch.clamp(hj.abs().amax(-1, keepdim=True) / 127.0, min=1e-12)
+        h8 = torch.clamp(torch.round(hj / sh), -127, 127)
+        acc = acc + _int_dot(h8, wd8[j0:j0 + block_j]) * sh
+    return (acc * sd).to(dt).reshape(*lead, hidden)
+
+
+def _int8_ffn_xla(x, wg8, sg, wu8, su, wd8, sd, act_quant: bool):
+    """ctpa's int8 FFN with ``quant_impl="xla"`` (``LlamaMLP``): three int8
+    projections, silu(gate) * up in x's dtype between them."""
+    gate = int8_matmul_plain(x, wg8, sg, act_quant)
+    up = int8_matmul_plain(x, wu8, su, act_quant)
+    return int8_matmul_plain(torch.nn.functional.silu(gate) * up, wd8, sd, act_quant)
+
+
+def _int8_ffn_kernel(x, wg8, sg, wu8, su, wd8, sd, act_quant: bool):
+    *lead, hidden = x.shape
+    inter = wg8.shape[1]
+    _bf16_only(x, "int8")
+    if hidden % 16:
+        raise ValueError(f"the int8 FFN kernel takes a hidden size that is a multiple of 16, "
+                         f"got {hidden}")
+    n_j = _rup(inter, INT8_BLOCK_J) // INT8_BLOCK_J
+    xm = _aligned(x.reshape(-1, hidden))
+    m = xm.shape[0]
+    ws = [_aligned(t) for t in (wg8, sg, wu8, su, wd8, sd)]
+    sx = None
+    if act_quant:
+        xm, sx = quantize_act_int8(xm)
+        xm, sx = _aligned(xm), sx.reshape(-1).contiguous()
+    out = torch.empty(m, hidden, dtype=x.dtype, device=x.device)
+    rows = ffn_row_chunk(m, n_j, hidden)
+    partial = torch.empty(n_j, rows, hidden, device=x.device)
+    lib, stream = build.library().lib, _stream(x)
+    name = "int8_ffn_a8" if act_quant else "int8_ffn"
+    for r0 in range(0, m, rows):
+        n = min(rows, m - r0)
+        rc = lib.int8_ffn_launch(
+            xm[r0:].data_ptr(), sx[r0:].data_ptr() if act_quant else None,
+            *(t.data_ptr() for t in ws), out[r0:].data_ptr(), partial.data_ptr(), n, rows,
+            hidden, inter, int(act_quant), stream)
+        build.check_launch(rc, name)
+        LAUNCHES[name] += 1
+        LAUNCHES["int8_reduce"] += 1
+    return out.reshape(*lead, hidden)
+
+
+def int8_ffn(x, wg8, sg, wu8, su, wd8, sd, impl: str = "pallas",
+             act_quant: bool = False) -> torch.Tensor:
+    """down(silu(x Wg) * (x Wu)) with int8 gate/up (hidden, inter) and down
+    (inter, hidden) weights and their per-column scales -> (..., hidden) in
+    x's dtype: on the card one kernel launch (and its reduction) per row
+    chunk (``ffn_row_chunk``)."""
+    _check_ffn8(x, wg8, sg, wu8, su, wd8, sd)
+    if impl == "xla":
+        return _int8_ffn_xla(x, wg8, sg, wu8, su, wd8, sd, act_quant)
+    if impl != "pallas":
+        raise ValueError(f"unknown impl {impl!r}")
+    if _device(x) == "cpu":
+        return int8_ffn_plain(x, wg8, sg, wu8, su, wd8, sd, act_quant)
+    return _int8_ffn_kernel(x, wg8, sg, wu8, su, wd8, sd, act_quant)
 
 
 # ------------------------------------------------------------------ quantize_tree

@@ -572,7 +572,7 @@ def test_int4_report_generator_kernel_path_matches_plain_path(cuda, act_quant):
     step; the kernel path teacher-forced on its tokens gives them back, and
     the same bundle with quant_impl="xla" agrees with it (every step's max
     |diff| within 5e-2 of its max |logit|, top-1 agreement >= 0.8).  The
-    launches, reductions included, are those ``chip_smoke.int4_launches``
+    launches, reductions included, are those ``chip_smoke.quant_kernel_launches``
     derives from the row chunks and contraction splits."""
     import chip_smoke as cs
     from ctpa_torch.core.config import LLMConfig, ReportGenConfig
@@ -602,7 +602,8 @@ def test_int4_report_generator_kernel_path_matches_plain_path(cuda, act_quant):
     inputs = (video, ids * mask, mask)
     k5, k7 = ("int4_matmul_a8", "int4_ffn_a8") if act_quant else ("int4_matmul", "int4_ffn")
     sms = quant._sm_count(ids)
-    prefill, step = cs.int4_launches(cfg, ids.numel(), 2, sms), cs.int4_launches(cfg, 2, 2, sms)
+    prefill = cs.quant_kernel_launches(cfg, ids.numel(), 2, sms)
+    step = cs.quant_kernel_launches(cfg, 2, 2, sms)
     assert prefill[k5] == step[k5] == 2 * base.num_layers + 1
     assert prefill[k7] == step[k7] == base.num_layers
     before = dict(quant.LAUNCHES)
@@ -612,6 +613,162 @@ def test_int4_report_generator_kernel_path_matches_plain_path(cuda, act_quant):
         assert launched == {k5: prefill[k5] + 7 * step[k5], k7: prefill[k7] + 7 * step[k7],
                             "int4_reduce": prefill["int4_reduce"] + 7 * step["int4_reduce"],
                             **{k: 0 for k in quant.LAUNCHES if k not in (k5, k7, "int4_reduce")}}
+        kernel = cs.teacher_forced_logits(model, *inputs, tokens)
+        plain = cs.teacher_forced_logits(cs.twin(model, quant_impl="xla"), *inputs, tokens)
+    assert torch.equal(kernel.argmax(-1), tokens)
+    rel, _, top1 = cs.logit_distance(kernel, plain)
+    assert rel <= 5e-2 and top1 >= 0.8, (rel, top1)
+
+
+# (m, in, out): decode and prefill row counts, ragged rows, columns and
+# contraction (k not a multiple of 16 or of 8), a split contraction, the
+# down projection's 11008
+INT8_MATMUL_SHAPES = [(4, 4096, 4096), (32, 512, 1000), (5, 256, 200), (70, 200, 136),
+                      (17, 513, 33), (300, 1024, 768), (3, 11008, 256), (2, 72, 40)]
+A8_ATOL, A8_RTOL = 1e-3, 2.0 ** -7
+
+
+def _int8_close(got, ref, act_quant):
+    """bf16's bound for w8; with int8 activations one bf16 ulp of |p| plus
+    1e-3 of max|p| (chip_smoke.py's QUANT_A8_* bound)."""
+    if act_quant:
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   atol=A8_ATOL * ref.float().abs().max().item(), rtol=A8_RTOL)
+    else:
+        tol = TOL[torch.bfloat16]
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("shape", INT8_MATMUL_SHAPES)
+def test_int8_matmul_kernel_matches_plain(cuda, shape, act_quant):
+    """K4 against its plain version in bf16: both sum the same exact products
+    in fp32 and scale the columns after (w8), or take the same exact int32
+    sums times the same scales (w8a8), and round to bf16."""
+    from ctpa_torch.ops import quant
+
+    m, d_in, d_out = shape
+    w8, s = quant.quantize_int8(0.05 * torch.randn(d_in, d_out, generator=cuda, device="cuda"))
+    x = torch.randn(m, d_in, generator=cuda, device="cuda").to(torch.bfloat16)
+    name = "int8_matmul_a8" if act_quant else "int8_matmul"
+    splits = quant.int8_matmul_splits(m, d_in, d_out, quant._sm_count(x))[0]
+    before = dict(quant.LAUNCHES)
+    got = quant.int8_matmul(x, w8, s, act_quant=act_quant)
+    torch.cuda.synchronize()
+    assert quant.LAUNCHES[name] == before[name] + 1
+    assert quant.LAUNCHES["int8_reduce"] == before["int8_reduce"] + (splits > 1)
+    _int8_close(got, quant.int8_matmul_plain(x, w8, s, act_quant=act_quant), act_quant)
+
+
+# (m, hidden, inter): decode and prefill rows; a padded last j-block (384,
+# 300), a j-block narrower than 128 (inter 64), inter not a multiple of 16
+INT8_FFN_SHAPES = [(4, 1024, 2048), (40, 256, 384), (5, 192, 300), (20, 64, 64),
+                   (130, 512, 768)]
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("shape", INT8_FFN_SHAPES)
+def test_int8_ffn_kernel_matches_plain(cuda, shape, act_quant):
+    """K6 against its plain version; the w8a8 form requantizes h per row per
+    256-column j-block in both, and a different fp32 summation order can
+    flip one level of h's int8 grid, inside the bound."""
+    from ctpa_torch.ops import quant
+
+    m, hidden, inter = shape
+    ws = []
+    for a, b in ((hidden, inter), (hidden, inter), (inter, hidden)):
+        ws += list(quant.quantize_int8(0.05 * torch.randn(a, b, generator=cuda, device="cuda")))
+    x = torch.randn(m, hidden, generator=cuda, device="cuda").to(torch.bfloat16)
+    name = "int8_ffn_a8" if act_quant else "int8_ffn"
+    before = dict(quant.LAUNCHES)
+    got = quant.int8_ffn(x, *ws, act_quant=act_quant)
+    torch.cuda.synchronize()
+    assert quant.LAUNCHES[name] == before[name] + 1
+    assert quant.LAUNCHES["int8_reduce"] == before["int8_reduce"] + 1
+    _int8_close(got, quant.int8_ffn_plain(x, *ws, act_quant=act_quant), act_quant)
+
+
+def test_int8_ffn_kernel_chunks_rows(cuda, monkeypatch):
+    """Rows cut into chunks when the fp32 partials would pass the cap: the
+    same result as one chunk, one K6 launch and one reduction per chunk."""
+    from ctpa_torch.ops import quant
+
+    ws = []
+    for a, b in ((256, 512), (256, 512), (512, 256)):
+        ws += list(quant.quantize_int8(0.05 * torch.randn(a, b, generator=cuda, device="cuda")))
+    x = torch.randn(200, 256, generator=cuda, device="cuda").to(torch.bfloat16)
+    for act_quant in (False, True):
+        name = "int8_ffn_a8" if act_quant else "int8_ffn"
+        whole = quant.int8_ffn(x, *ws, act_quant=act_quant)
+        monkeypatch.setattr(quant, "FFN_PARTIAL_BYTES", 2 * 64 * 256 * 4)
+        assert quant.ffn_row_chunk(200, 2, 256) == 64
+        before = dict(quant.LAUNCHES)
+        chunked = quant.int8_ffn(x, *ws, act_quant=act_quant)
+        assert quant.LAUNCHES[name] - before[name] == 4
+        assert quant.LAUNCHES["int8_reduce"] - before["int8_reduce"] == 4
+        monkeypatch.undo()
+        assert torch.equal(whole, chunked)
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(cuda):
+    from ctpa_torch.ops import quant
+
+    w8, s = quant.quantize_int8(torch.randn(128, 64, device="cuda"))
+    with pytest.raises(TypeError):
+        quant.int8_matmul(torch.randn(2, 128, device="cuda"), w8, s)   # fp32 activations
+    ws = []
+    for a, b in ((40, 64), (40, 64), (64, 40)):
+        ws += list(quant.quantize_int8(torch.randn(a, b, device="cuda")))
+    with pytest.raises(ValueError):                                    # hidden 40
+        quant.int8_ffn(torch.randn(2, 40, device="cuda").to(torch.bfloat16), *ws)
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+def test_int8_report_generator_kernel_path_matches_plain_path(cuda, act_quant):
+    """A small int8 report generator (fused qkv, the fused FFN, int8 KV cache,
+    flash_decode) in bf16: the launches of K4, K6 and their reductions per
+    prefill and per decode step are those ``chip_smoke.quant_kernel_launches``
+    derives; the kernel path teacher-forced on its tokens gives them back,
+    and the same bundle with quant_impl="xla" agrees with it (every step's
+    max |diff| within 5e-2 of its max |logit|, top-1 agreement >= 0.8)."""
+    import chip_smoke as cs
+    from ctpa_torch.core.config import LLMConfig, ReportGenConfig
+    from ctpa_torch.models.layers import set_compute_dtype
+    from ctpa_torch.models.report_generator import CTReportGenerator
+    from ctpa_torch.ops import quant
+
+    base = LLMConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4, num_kv_heads=2,
+                     intermediate_size=688, max_seq_len=128)
+    vit = CTViTConfig(dim=128, codebook_size=64, image_size=48, patch_size=8, temporal_size=16,
+                      temporal_patch_size=4, spatial_depth=1, temporal_depth=1, dim_head=32,
+                      heads=4)
+    gen_cfg = ReportGenConfig(vision_dim=64)
+    bf16 = torch.bfloat16
+    float_model = random_init_(CTReportGenerator(base, vit, gen_cfg, device="cuda", dtype=bf16),
+                               cuda)
+    state = quant.quantize_tree(float_model.state_dict(), bits=8, ffn_kernel=True)
+    cfg = dataclasses.replace(base, weight_quant="int8", quant_ffn_kernel=True,
+                              quant_act=act_quant, kv_quant="int8", flash_decode=True)
+    model = CTReportGenerator(cfg, vit, gen_cfg, device="meta", dtype=bf16)
+    model.load_state_dict(state, assign=True)
+    model = set_compute_dtype(model, bf16).eval()
+    video = (torch.rand(2, 1, 16, 48, 48, generator=cuda, device="cuda") * 2 - 1).to(bf16)
+    ids = torch.randint(1, 512, (2, 9), generator=cuda, device="cuda")
+    mask = torch.ones_like(ids)
+    mask[1, 6:] = 0
+    inputs = (video, ids * mask, mask)
+    mm, ffn, reduce = cs.quant_kernel_names(cfg)
+    sms = quant._sm_count(ids)
+    prefill = cs.quant_kernel_launches(cfg, ids.numel(), 2, sms)
+    step = cs.quant_kernel_launches(cfg, 2, 2, sms)
+    assert prefill[mm] == step[mm] == 2 * base.num_layers + 1
+    assert prefill[ffn] == step[ffn] == base.num_layers
+    before = dict(quant.LAUNCHES)
+    with torch.inference_mode():
+        tokens = model.generate(*inputs, 8, -1, greedy=True).tokens
+        launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
+        assert launched == {**{k: 0 for k in quant.LAUNCHES},
+                            **{k: prefill[k] + 7 * step[k] for k in (mm, ffn, reduce)}}
         kernel = cs.teacher_forced_logits(model, *inputs, tokens)
         plain = cs.teacher_forced_logits(cs.twin(model, quant_impl="xla"), *inputs, tokens)
     assert torch.equal(kernel.argmax(-1), tokens)

@@ -1,7 +1,7 @@
 """The port stands alone: ctpa_torch (its cli too), chip_smoke.py and the
 profile scripts import neither JAX, flax nor anything of ctpa, build no
 kernel through PyTorch's C++ extension machinery, and call no library
-attention or int4 matmul."""
+attention or quantized matmul."""
 
 import os
 import subprocess
@@ -55,12 +55,13 @@ def test_port_sources_avoid_torch_extensions_and_library_attention():
     cu = list((ROOT / "ctpa_torch" / "csrc").glob("*.cu"))
     assert sorted(p.name for p in cu) == ["decode_attention.cu", "flash_attention.cu",
                                           "flash_attention_bwd.cu", "flash_attention_d128.cu",
-                                          "int4_ffn.cu", "int4_matmul.cu", "patchify.cu"]
+                                          "int4_ffn.cu", "int4_matmul.cu", "int8_ffn.cu",
+                                          "int8_matmul.cu", "patchify.cu"]
     headers = list((ROOT / "ctpa_torch" / "csrc").glob("*.cuh"))
     assert sorted(p.name for p in headers) == ["flash_masks.cuh", "int4_common.cuh"]
     banned_py = ("import torch.utils.cpp_extension", "from torch.utils.cpp_extension",
                  "cpp_extension.load", "torch.compile(", "scaled_dot_product_attention(",
-                 "_weight_int4pack_mm(")
+                 "_weight_int4pack_mm(", "_weight_int8pack_mm(", "_int_mm(")
     for path in py:
         text = path.read_text()
         assert not [b for b in banned_py if b in text], path

@@ -296,13 +296,16 @@ def test_llm_prefill_and_cached_decode_match_ctpa(llm_params, kv_quant, flash_de
 
 
 def test_llm_raises_on_unported_paths():
-    for over in (dict(weight_quant="int8"), dict(kv_quant="int4"), dict(kv_int8_dots=True),
+    for over in (dict(kv_quant="int4"), dict(kv_int8_dots=True),
                  dict(quant_act=True), dict(quant_ffn_kernel=True),
                  # these act only on the paths above, so a non-default is refused
                  dict(quant_impl="xla"), dict(quant_fused=False), dict(kv_quant_group=16),
                  dict(kv_scale_dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             tllm.LlamaForCausalLM(dataclasses.replace(TLLM, **over), device="cpu")
+    # int8 weights are ported (tests/test_torch_quant_int8.py)
+    assert isinstance(tllm.LlamaForCausalLM(dataclasses.replace(TLLM, weight_quant="int8"),
+                                            device="cpu").lm_head, tllm.Int8Dense)
     # flash_prefill is ported (tests/test_torch_report_train.py): taken, both
     # at and below flash_min_len
     model = tllm.LlamaForCausalLM(dataclasses.replace(TLLM, flash_prefill=True, flash_min_len=4),
