@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's zero-shot serving, contrastive training,
-report generation, report training and int4 and int8 report serving paths
-once on one CUDA card.
+"""Drive the PyTorch/CUDA port's zero-shot serving, raw-volume encode
+(bench_torch.py's program), contrastive training, report generation, report
+training and int4 and int8 report serving paths once on one CUDA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -22,27 +22,42 @@ Phases, each printing its seconds:
                      18 probabilities, its kernel launches and peak memory;
   5. plain         — the same requests through the model's plain paths (no
                      hand kernel), with the differences bounded;
-  6. train-kernels — K2 with its logsumexp and the four K3 backward passes
+  6. raw-kernels   — the fused resample-patchify kernel (K9) against its
+                     plain version at the shipped raw (x2 (240, 480, 512))
+                     and at a bucketed raw (width 640, 600 real columns),
+                     then timed (x2 cycled past the L2 cache) beside its
+                     plain version and the shipped front end for the same
+                     work (torch stage 3, window, mask, bf16 cast, K1);
+  7. raw-serving   — bench_torch.pipeline, the headline raw-volume program
+                     (preprocess, CTViT, VQ, temporal mean, latent,
+                     l2norm), on the serving model: a shipped raw through
+                     each front end, K1 and K9, with its time a volume,
+                     launches (one K9 and no K1 a volume on the K9 path)
+                     and peak memory; then the plain phase's gates against
+                     the unfused plain path for both front ends and between
+                     them; two planted K9 faults (taps shifted by one
+                     source column, window left out) must fail them;
+  8. train-kernels — K2 with its logsumexp and the four K3 backward passes
                      against their plain versions at the training shapes
                      (batch 2), bf16 and fp32, three bias forms and a ragged
                      n; timed as in phase 3, beside the forward and backward
                      of scaled_dot_product_attention as a yardstick;
-  7. training      — CTCLIP at the shipped geometry with fp32 parameters,
+  9. training      — CTCLIP at the shipped geometry with fp32 parameters,
                      bf16 compute and block remat takes 4 AdamW steps
                      through CTClipTrainer on 2 preprocessed synthetic
                      volumes and 512-token reports; each step prints its
                      wall time, loss, grad norm, temperature, peak memory
                      and kernel launches;
-  8. train-plain   — the first step again from the same state with
+ 10. train-plain   — the first step again from the same state with
                      flash_axial off (no hand kernel), the loss and the
                      spatial fold's gradients bounded against the kernel
                      path's;
-  9. report-kernels — the decode-attention kernel (K8) against its plain
+ 11. report-kernels — the decode-attention kernel (K8) against its plain
                      version at the decode shape of Meditron-7B (batch 4, a
                      608-slot cache), bf16 and int8 caches, a GQA case and
                      a cache with holes; timed as in phase 3 beside
                      scaled_dot_product_attention (float cache);
- 10. report        — CTReportGenerator at Meditron-7B width (LLMConfig()),
+ 12. report        — CTReportGenerator at Meditron-7B width (LLMConfig()),
                      the shipped CTViT with pallas_patchify, bf16 weights
                      built on the card from a seed, flash_decode: 4
                      inference-path volumes and 4 prompts right-padded to
@@ -50,7 +65,7 @@ Phases, each printing its seconds:
                      prefill and decode-step times, tokens/s, peak memory
                      and the launches (4 K1, 32 x 95 K8), then decodes 16
                      tokens with the int8 KV cache;
- 11. report-plain  — the same weights with flash_decode off, and the same
+ 13. report-plain  — the same weights with flash_decode off, and the same
                      weights in fp32 with flash_decode off, teacher-forced
                      on the kernel path's tokens (which it must give back):
                      the kernel path's fused logits must be as close to the
@@ -58,7 +73,7 @@ Phases, each printing its seconds:
                      plain path's on the top-1 token; the kernel path with a
                      planted fault (the prompt's holes ignored, or the wrong
                      layer's planes read) must fail these gates;
- 12. report-train-kernels — K2's masked forms (causal, q_offset, kv_mask with
+ 14. report-train-kernels — K2's masked forms (causal, q_offset, kv_mask with
                      inner holes, rows with no valid key) and K3's masked
                      passes against their plain versions: at report
                      training's shape (b 2, h 32, n = m = 512, head dim 128,
@@ -67,7 +82,7 @@ Phases, each printing its seconds:
                      scaled_dot_product_attention with the same mask, with
                      bounds counted over the tiles the kernels visit and the
                      real keys;
- 13. report-train  — a LoRA fine-tune (rank 16, alpha 32 on q, k, v, o) of
+ 15. report-train  — a LoRA fine-tune (rank 16, alpha 32 on q, k, v, o) of
                      the report phase's model as the report CLI runs it with
                      --flash-prefill: Meditron-7B width, batch 2 x 512 tokens
                      (real lengths 512/384), one inference-path volume per
@@ -78,20 +93,19 @@ Phases, each printing its seconds:
                      launches per step (32 of each kernel); then traces two
                      more steps with torch.profiler and prints the second's
                      device time by kind of kernel and by kernel;
- 14. report-train-plain — the first step from the same state with
+ 16. report-train-plain — the first step from the same state with
                      flash_prefill off (the dense masked attention): loss and
                      per-tensor gradient cosines gated; then the kernel path
                      with a planted fault (q_offset = 1, or causal off) must
                      fail the same gates; and the kernel and dense paths from
                      two more seeded states and batches must pass them.
-
- 15. quant-kernels — the int4 projection (K5) and the fused int4 FFN (K7),
+ 17. quant-kernels — the int4 projection (K5) and the fused int4 FFN (K7),
                      weight-only and w4a8, against their plain versions at
                      Meditron-7B's shapes: decode at batch 4 and 32, prefill
                      of 4 x 512 tokens, a ragged case; timed as in phase 3
                      (weights cycled past the L2 cache), K5 weight-only beside
                      torch._weight_int4pack_mm;
- 16. quant-report  — the report-train phase's checkpoint and the report
+ 18. quant-report  — the report-train phase's checkpoint and the report
                      phase's bf16 base through ctpa_torch.cli.export_serving
                      (--quant int4 --ffn-kernel --kv-quant int8
                      --flash-decode, then with --act-quant) and
@@ -100,27 +114,27 @@ Phases, each printing its seconds:
                      batch 32: prefill and decode-step times, tokens/s, peak
                      memory, and exactly 65 K5 and 32 K7 launches per
                      prefill and per decode step, 32 K8 per decode step;
- 17. quant-plain   — each tier's kernel path, the same bundle with
+ 19. quant-plain   — each tier's kernel path, the same bundle with
                      quant_impl="xla" and an fp32 reference of the same
                      dequantized weights, teacher-forced on the kernel path's
                      tokens, against gates of report-plain's shape; the kernel
                      path fed tampered inputs (nibble halves swapped, scale_g
                      rolled by one group) must fail them.
- 18. quant8-kernels — the int8 projection (K4) and the fused int8 FFN (K6),
+ 20. quant8-kernels — the int8 projection (K4) and the fused int8 FFN (K6),
                      weight-only and w8a8, against their plain versions at
                      Meditron-7B's shapes (K4 also at the unfused FFN's
                      gateup and down shapes): decode at batch 4 and 32,
                      prefill of 4 x 512 tokens, a ragged case, the batch-32
-                     prefill untimed; timed as in phase 15, K4 beside
+                     prefill untimed; timed as in phase 17, K4 beside
                      torch._int_mm (w8a8) and torch._weight_int8pack_mm (w8);
- 19. quant8-report — the same base and checkpoint through export_serving
+ 21. quant8-report — the same base and checkpoint through export_serving
                      (--quant int8 --ffn-kernel --kv-quant int8
                      --flash-decode, then with --act-quant) and
                      load_serving_bundle, after the int4 models are freed;
-                     generate as in phase 16 (w8 and w8a8 at batch 4, w8a8
+                     generate as in phase 18 (w8 and w8a8 at batch 4, w8a8
                      at batch 32), exactly 65 K4 and 32 K6 launches per
                      prefill and per decode step, 32 K8 per decode step;
- 20. quant8-plain  — phase 17's gates for the int8 tiers; the planted faults
+ 22. quant8-plain  — phase 19's gates for the int8 tiers; the planted faults
                      roll the per-column scales by one or shift the
                      contraction by one row.
 
@@ -140,6 +154,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -172,6 +187,17 @@ VQ_LATENT_MIN_COS = 0.8
 # the logsumexp is fp32 in both dtypes and sums the same fp32 terms in
 # another order
 LSE_ATOL, LSE_RTOL = 1e-4, 1e-4
+# NVIDIA H100 SXM data-sheet fp32 rate outside the tensor cores (K9's
+# two-tap stage 3 runs there, beside the projection)
+PEAK_FP32_FLOPS = 67e12
+
+# the raw-volume encode path (bench_torch.py): K9 at the shipped raw and at a
+# bucketed raw whose array is end-padded past its true extents (width 640,
+# 600 real columns); raw-serving times this many volumes per front end
+BUCKET_RAW_SHAPE = (160, 512, 640)
+BUCKET_TRUE_SHAPE = (150, 500, 600)
+BUCKET_SPACING = (2.0, 0.8, 0.7)
+RAW_SAMPLES = 7
 
 # training: batch 2 (the reference fine-tune's), 512-token reports, 4 steps
 TRAIN_BATCH = 2
@@ -512,6 +538,211 @@ def compare_serving(model, plain, kernel_res, plain_res):
             raise AssertionError(f"request {i}: kernel path and plain path disagree")
 
 
+def k9_operands(gen, dev, raw_shape, true_shape, spacing):
+    """A seeded raw (true extents filled, the rest of the bucket zero) through
+    stages 1-2 of the train-path preprocess, x2 in bf16."""
+    import torch
+
+    from ctpa_torch.core.config import PreprocessConfig
+    from ctpa_torch.ops.preprocess import preprocess_stage12
+
+    raw = torch.zeros(raw_shape, device=dev)
+    real = true_shape or raw_shape
+    raw[tuple(slice(0, n) for n in real)] = torch.randint(-24, 3000, real, generator=gen,
+                                                          device=dev).to(torch.float32)
+    return preprocess_stage12(raw, 1.0, -1024.0, spacing, PreprocessConfig.train(),
+                              src_shape=true_shape, dtype=torch.bfloat16)
+
+
+def check_raw_kernels(dev) -> dict:
+    """Phase 6: K9 against its plain version at the shipped raw and
+    at a bucketed raw, then timed (x2 cycled past the L2 cache) beside its
+    plain version and the shipped front end for the same work (the torch
+    stage 3 in fp32, window, mask, bf16 cast and K1)."""
+    import torch
+
+    from ctpa_torch.core.config import CTViTConfig
+    from ctpa_torch.ops import resample_patchify as rp
+    from ctpa_torch.ops.patchify import patchify_project
+    from ctpa_torch.ops.preprocess import resample_stage3
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    bf16 = torch.bfloat16
+    cfg = CTViTConfig()
+    pt, p, dim, pd = cfg.temporal_patch_size, cfg.patch_size, cfg.dim, cfg.patch_dim
+    g = (1 + 0.1 * torch.randn(pd, generator=gen, device=dev)).to(bf16)
+    K = (0.02 * torch.randn(pd, dim, generator=gen, device=dev)).to(bf16)
+    for label, raw_shape, true_shape, spacing in (
+            ("shipped", RAW_SHAPE, None, RAW_SPACING),
+            ("bucketed", BUCKET_RAW_SHAPE, BUCKET_TRUE_SHAPE, BUCKET_SPACING)):
+        ops = k9_operands(gen, dev, raw_shape, true_shape, spacing)
+        args = (*ops[:5], g, K, pt, p, p)
+        kw = dict(window=ops.window, pad_value=ops.pad_value)
+        got = rp.resample3_patchify_project(*args, **kw)
+        ref = rp.resample3_patchify_project_plain(*args, **kw)
+        err = compare(f"resample3_patchify_project bf16, {label} raw {raw_shape}"
+                      f"{'' if true_shape is None else f' (true {true_shape})'}, x2 "
+                      f"{tuple(ops.x2.shape)}", got, ref, BF16_ATOL, BF16_RTOL)
+        if label == "shipped":
+            shipped, k9_err = ops, err
+            # ctpa's rounding: a constant patch gets rsig * (sum(g*K) - sum(bf16(g*K)))
+            pad = ~ops.vd.reshape(-1, pt).any(1)
+            if pad.any() and not pad.all():
+                print(f"    fully padded temporal rows {pad.nonzero().flatten().tolist()}: "
+                      f"max |token| kernel {got[pad].float().abs().max().item():.4f}, plain "
+                      f"{ref[pad].float().abs().max().item():.4f}; elsewhere plain "
+                      f"{ref[~pad].float().abs().max().item():.4f}")
+    ops = shipped
+    kw = dict(window=ops.window, pad_value=ops.pad_value)
+    x2s = itertools.cycle([ops.x2, ops.x2.clone()])     # 118 MB each, past the 50 MB L2
+
+    def front_end(x2):
+        video = resample_stage3(x2, *ops[1:]).to(bf16)
+        return patchify_project(video, g, K, pt, p, p, out_dtype=bf16)
+
+    ms = cuda_ms(lambda: rp.resample3_patchify_project(next(x2s), *ops[1:5], g, K, pt, p, p, **kw))
+    plain_ms = cuda_ms(lambda: rp.resample3_patchify_project_plain(next(x2s), *ops[1:5], g, K, pt,
+                                                                   p, p, **kw))
+    front_ms = cuda_ms(lambda: front_end(next(x2s)))
+    taps_ms = cuda_ms(lambda: bool(rp.stage3_taps(ops.wwp)[2]))
+    D, H, ws = ops.x2.shape
+    W = ops.wwp.shape[0]
+    t, h, w = D // pt, H // p, W // p
+    nbytes = (D * H * ws * 2 + W * ws * 4 + D + H + W + pd * 2 + pd * dim * 2
+              + t * h * w * dim * 2)
+    flops = 2.0 * t * h * w * pd * dim
+    b_ms, b_by = bound_ms(nbytes, flops)
+    print(f"  resample3_patchify_project: {ms:.4f} ms  plain {plain_ms:.4f} ms  shipped front "
+          f"end (torch stage 3, window, mask, cast, K1) {front_ms:.4f} ms  taps with their host "
+          f"sync {taps_ms:.4f} ms  library none")
+    taps_flops = 4.0 * D * H * W
+    print(f"    bound {b_ms * 1e3:.1f} us ({b_by}): {nbytes / 1e6:.1f} MB "
+          f"({nbytes / PEAK_BYTES * 1e6:.1f} us), projection {flops / 1e9:.1f} GFLOP bf16 "
+          f"({flops / PEAK_BF16_FLOPS * 1e6:.1f} us); two-tap stage 3 {taps_flops / 1e9:.3f} "
+          f"GFLOP fp32 ({taps_flops / PEAK_FP32_FLOPS * 1e6:.1f} us, beside it); a dense stage 3 "
+          f"would add {2.0 * D * H * W * ws / 1e9:.1f} GFLOP")
+    return {"resample3_patchify_project": dict(
+        name="resample3_patchify_project", route="cuda",
+        source="ctpa_torch/csrc/resample_patchify.cu",
+        replaces="ctpa/ops/pallas/resample_patchify.py:114", max_abs_err=k9_err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)}
+
+
+def encode_launches() -> tuple[int, int, int]:
+    """(K9, K1, K2 forward) launch counts."""
+    from ctpa_torch.ops.flash_attention import LAUNCHES
+    from ctpa_torch.ops.patchify import patchify_project
+    from ctpa_torch.ops.resample_patchify import resample3_patchify_project
+
+    return (resample3_patchify_project.launches, patchify_project.launches,
+            LAUNCHES["flash_attention_fwd"])
+
+
+@contextlib.contextmanager
+def planted_k9_fault(kind: str):
+    """The K9 front end with a deliberate fault in what it hands the kernel:
+    "taps shifted" (every stage-3 tap reads the next source column) or
+    "window left out" (the HU window is not applied)."""
+    from ctpa_torch.models import ctvit
+    from ctpa_torch.ops import resample_patchify as rp
+
+    taps, kernel = rp.stage3_taps, ctvit.resample3_patchify_project
+
+    def shifted(wwp):
+        i, w, too_many = taps(wwp)
+        return (i + 1).clamp(max=wwp.shape[1] - 1), w, too_many
+
+    def no_window(*args, **kw):
+        return kernel(*args, **dict(kw, window=None))
+
+    if kind == "taps shifted":
+        rp.stage3_taps = shifted
+    else:
+        ctvit.resample3_patchify_project = no_window
+    try:
+        yield
+    finally:
+        rp.stage3_taps, ctvit.resample3_patchify_project = taps, kernel
+
+
+def raw_serving(model, plain, vq, clf, dev, rows: dict) -> None:
+    """Phase 7: bench_torch.pipeline on the serving model's vision
+    tower and latent projection, a shipped raw through each front end
+    (RAW_SAMPLES timed volumes, launches counted); then the gates of the
+    plain phase against the unfused plain path, for the K9 path, the K1 path
+    and K9 against K1; two planted K9 faults must fail them."""
+    import torch
+
+    from bench_torch import RAW_SHAPE as BENCH_RAW, SPACING, pipeline
+    from ctpa_torch.ops.flash_attention import LAUNCHES
+    from ctpa_torch.ops.patchify import patchify_project
+    from ctpa_torch.ops.resample_patchify import resample3_patchify_project
+
+    def tower(m):
+        return m.visual_transformer, m.to_visual_latent.weight.t()
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    raw = torch.randint(-24, 3000, BENCH_RAW, generator=gen, device=dev).to(torch.float32)
+    expect = {"resample_patchify": (1, 0, model.visual_transformer.cfg.spatial_depth),
+              "patchify": (0, 1, model.visual_transformer.cfg.spatial_depth)}
+    for front_end in ("resample_patchify", "patchify"):
+        pipeline(*tower(model), vq, raw, front_end, SPACING)          # warm-up
+        samples = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resample3_patchify_project.launches = patchify_project.launches = 0
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+        for i in range(RAW_SAMPLES):
+            r = raw + 1e-3 * (i + 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            latent = pipeline(*tower(model), vq, r, front_end, SPACING)
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        launches = encode_launches()
+        peak = torch.cuda.max_memory_allocated()
+        if front_end == "resample_patchify":
+            rows["resample3_patchify_project"]["launches"] = launches[0]
+        ms = sorted(samples)
+        print(f"  {front_end}: {statistics.median(ms):.3f} ms a volume (median of {len(ms)}; "
+              f"{ms[0]:.3f}-{ms[-1]:.3f})  launches K9 {launches[0]} K1 {launches[1]} flash "
+              f"{launches[2]}  peak memory {peak / 2**30:.2f} GiB")
+        if launches != tuple(n * RAW_SAMPLES for n in expect[front_end]):
+            raise AssertionError(f"{front_end}: launches (K9, K1, flash) {launches}, expected "
+                                 f"{expect[front_end]} a volume")
+        if latent.shape != (model.cfg.dim_latent,) or not torch.isfinite(latent).all():
+            raise AssertionError(f"{front_end}: latent {tuple(latent.shape)} not finite")
+
+    def readings(m, front_end):
+        lat = pipeline(*tower(m), vq, raw, front_end, SPACING).float()
+        pre = pipeline(*tower(m), None, raw, front_end, SPACING).float()
+        return lat, pre, clf.score(lat[None])[0].float()
+
+    def gate(label, got, ref) -> bool:
+        dp = (got[2] - ref[2]).abs().max().item()
+        cos_vq = torch.nn.functional.cosine_similarity(got[0], ref[0], dim=0).item()
+        cos_pre = torch.nn.functional.cosine_similarity(got[1], ref[1], dim=0).item()
+        print(f"  {label}: max |prob diff| {dp:.3e} (<= {PROB_ATOL})  latent cos {cos_vq:.6f} "
+              f"(>= {VQ_LATENT_MIN_COS})  un-quantized latent cos {cos_pre:.6f} "
+              f"(>= {PREVQ_LATENT_MIN_COS})")
+        return dp <= PROB_ATOL and cos_vq >= VQ_LATENT_MIN_COS and cos_pre >= PREVQ_LATENT_MIN_COS
+
+    unfused = readings(plain, "patchify")
+    k9, k1 = readings(model, "resample_patchify"), readings(model, "patchify")
+    print("    probabilities (K9 path) " + " ".join(f"{x:.4f}" for x in k9[2].tolist()))
+    passed = [gate("K9 path vs unfused plain path", k9, unfused),
+              gate("K1 path vs unfused plain path", k1, unfused),
+              gate("K9 path vs K1 path", k9, k1)]
+    if not all(passed):
+        raise AssertionError("raw-serving: a front end disagrees with the unfused plain path")
+    for kind in ("taps shifted", "window left out"):
+        with planted_k9_fault(kind):
+            if gate(f"planted fault ({kind}) vs unfused plain path",
+                    readings(model, "resample_patchify"), unfused):
+                raise AssertionError(f"raw-serving: the planted K9 fault ({kind}) passes the gates")
+
+
 TRAIN_KERNELS = ("flash_attention_fwd_lse", "flash_attention_bwd_delta", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "flash_attention_bwd_dbias")
 ATTN_FAMILY = ("fmha", "flash", "attention", "attn", "cudnn", "sdp")
@@ -533,7 +764,7 @@ def sdpa_backend(fn) -> str:
 
 
 def check_train_kernels(dev) -> dict:
-    """Phase 6: K2 with its logsumexp and the four K3 passes against their
+    """Phase 8: K2 with its logsumexp and the four K3 passes against their
     plain versions at the training shapes, then timed (bf16, CPB-shaped
     bias (h, n, m), flat softmax: the spatial fold's case)."""
     import torch
@@ -722,7 +953,7 @@ def make_train_batch(model, dev) -> dict:
 
 
 def train(dev, rows: dict):
-    """Phase 7: 4 steps through CTClipTrainer.  Returns the first step's loss,
+    """Phase 9: 4 steps through CTClipTrainer.  Returns the first step's loss,
     its spatial-fold gradients, the initial parameters and VQ state, and the
     batch."""
     import torch
@@ -792,7 +1023,7 @@ def train(dev, rows: dict):
 
 
 def train_plain(dev, first, start, batch) -> None:
-    """Phase 8: the first step from the same state with flash_axial off."""
+    """Phase 10: the first step from the same state with flash_axial off."""
     import torch
 
     from ctpa_torch.core.config import OptimizerConfig
@@ -858,7 +1089,7 @@ def prompt_validity(dev, m: int):
 
 
 def check_report_kernels(dev) -> dict:
-    """Phase 9: K8 against its plain version at the decode shape, then timed
+    """Phase 11: K8 against its plain version at the decode shape, then timed
     (cycling over the 32 layers, so each launch reads planes that are not in
     the L2 cache, as on the decode path)."""
     import torch
@@ -979,7 +1210,7 @@ def step_timer(model):
 
 
 def report(dev, rows: dict):
-    """Phase 10: CTReportGenerator at Meditron-7B width on the kernel path."""
+    """Phase 12: CTReportGenerator at Meditron-7B width on the kernel path."""
     import torch
 
     from ctpa_torch.core.config import CTViTConfig, LLMConfig, ReportGenConfig
@@ -1136,7 +1367,7 @@ def planted_fault(kind: str, n_prompt: int):
 
 
 def report_plain(model, inputs, tokens) -> None:
-    """Phase 11: the kernel path, the plain path and the fp32 plain path
+    """Phase 13: the kernel path, the plain path and the fp32 plain path
     teacher-forced on the kernel path's tokens; then the kernel path with
     each of two planted faults, which the gates must reject."""
     import torch
@@ -1247,7 +1478,7 @@ def check_masked(tag, q, k, v, bias, do, masks, scale) -> dict:
 
 
 def check_report_train_kernels(dev) -> dict:
-    """Phase 12: the masked forms of K2 and K3 against their plain versions,
+    """Phase 14: the masked forms of K2 and K3 against their plain versions,
     then the head-dim-128 kernels timed at report training's shape."""
     import torch
     import torch.nn.functional as F
@@ -1552,7 +1783,7 @@ def traced_step(step, state, batch) -> None:
 
 
 def report_train(dev, rows: dict, model):
-    """Phase 13: the LoRA fine-tune on the kernel path.  Returns the trainable
+    """Phase 15: the LoRA fine-tune on the kernel path.  Returns the trainable
     tensors' start, the first step's loss and gradients, and its batch."""
     import torch
 
@@ -1682,7 +1913,7 @@ def report_train_gate(label: str, loss, grads, ref_loss, ref_grads) -> bool:
 
 
 def report_train_plain(dev, model, start, first, batch) -> None:
-    """Phase 14: the first step from the same state on the dense path, then
+    """Phase 16: the first step from the same state on the dense path, then
     the kernel path with each of two planted faults, which the gates must
     reject; then the kernel and dense paths from further seeded states and
     batches, which the gates must pass."""
@@ -1778,7 +2009,7 @@ def quant_check(errs: dict, name: str, a8: bool, label: str, got, ref) -> None:
 
 
 def check_quant_kernels(dev) -> dict:
-    """Phase 15: the four K5 and K7 forms against their plain versions at the
+    """Phase 17: the four K5 and K7 forms against their plain versions at the
     shapes int4 serving gives them at Meditron-7B width (decode at batch 4
     and 32, prefill of 4 x 512 tokens, and a ragged case), then timed beside
     the plain version, the bound and, for K5 w4, torch._weight_int4pack_mm;
@@ -1965,7 +2196,7 @@ def int8_yardstick(a8: bool, weights: list, x):
 
 
 def check_quant8_kernels(dev) -> dict:
-    """Phase 18: the four K4 and K6 forms against their plain versions at the
+    """Phase 20: the four K4 and K6 forms against their plain versions at the
     shapes int8 serving gives them at Meditron-7B width (decode at batch 4
     and 32, prefill of 4 x 512 tokens, a ragged case; K4 also at the gateup
     and down shapes of the unfused FFN), then timed beside the plain version,
@@ -2596,7 +2827,12 @@ def main() -> int:
             plain.load_state_dict(model.state_dict())
             plain_res = serve(plain, vq, clf, requests, dev, dtype, expect_launches=(0, 0))
             compare_serving(model, plain, kernel_res, plain_res)
-        del model, plain, clf, kernel_res, plain_res, requests
+        del kernel_res, plain_res, requests
+        with phase("raw-kernels"):
+            rows.update(check_raw_kernels(dev))
+        with phase("raw-serving"):
+            raw_serving(model, plain, vq, clf, dev, rows)
+        del model, plain, clf
     torch.cuda.empty_cache()
 
     # training runs outside inference_mode
@@ -2664,7 +2900,8 @@ def main() -> int:
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{key: rows[k][key] for key in order}
-               for k in ("patchify_project", "flash_attention_fwd") + TRAIN_KERNELS
+               for k in ("patchify_project", "flash_attention_fwd", "resample3_patchify_project")
+               + TRAIN_KERNELS
                + ("decode_attention", "flash_attention_fwd_lse_d128",
                   "flash_attention_bwd_delta_d128", "flash_attention_bwd_dq_d128",
                   "flash_attention_bwd_dkv_d128")

@@ -31,86 +31,39 @@
 // come from the same staging pass: each thread loads one patch's p2-run of
 // an image row in one burst of independent loads, so a chunk costs one
 // memory round trip, not p2.  The variance is m2 - mu^2 in fp32, clamped at
-// 0 before rsqrt.
+// 0 before rsqrt.  The block's projection and epilogue are patch_project.cuh,
+// which K9 (resample_patchify.cu) shares; this file stages the patches.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "patch_project.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace patch_project;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kSlabs = 2;                 // slab rows (hi, hi+1) per block
-constexpr int kM = 48;                    // patch rows per block: 3 tiles of 16
-constexpr int kBN = kWarps * 16;          // output columns per block, 16 per warp
-constexpr int kKC = 80;                   // features per chunk (a multiple of 16)
-constexpr int kMaxP2 = 32;                // longest patch run a thread loads at once
-constexpr int kLdA = kKC + 8;             // bf16 row strides of the smem tiles
-constexpr int kLdB = kBN + 8;
-constexpr int kLdC = kBN + 4;             // fp32
-
-// one shared buffer, used in turn for the A/B chunks and the fp32 output tile
-constexpr int kTileBytes = (kM * kLdA + kKC * kLdB) * 2;
-constexpr int kOutBytes = kM * kLdC * 4;
-constexpr int kSmemBytes = kTileBytes > kOutBytes ? kTileBytes : kOutBytes;
-
-// grid (dim / kBN, ceil(h / kSlabs), t); block kThreads.
+// grid grid_of(t, h, dim); block kThreads.
 __global__ void __launch_bounds__(kThreads)
 patchify_project_kernel(const __nv_bfloat16* __restrict__ vol, const float* __restrict__ g,
                         const __nv_bfloat16* __restrict__ kmat, const float* __restrict__ v2,
                         __nv_bfloat16* __restrict__ out, int H, int W, int pt, int p1, int p2,
                         int dim, float eps) {
-  const int w = W / p2;
-  const int h = H / p1;
-  const int n0 = blockIdx.x * kBN;
-  const int h0 = blockIdx.y * kSlabs;
-  const int ti = blockIdx.z;
+  const Tile tile = tile_of(H / p1, W / p2, pt * p1, p2);
+  const int w = tile.w;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int rows = pt * p1;
-  const int pd = rows * p2;
-  const int slabs = min(kSlabs, h - h0);
-
   __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  __shared__ float sum_s[kM];   // per-patch sums of x and x^2 over the features
-  __shared__ float sq_s[kM];
-  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [kM][kLdA]
-  __nv_bfloat16* b_s = a_s + kM * kLdA;                         // [kKC][kLdB]
-  float* c_s = reinterpret_cast<float*>(smem);                  // [kM][kLdC]
 
   // slab s, row r is image row (ti * pt + r / p1, (h0 + s) * p1 + r % p1)
   auto row_ptr = [&](int s, int r) -> const __nv_bfloat16* {
-    const long long frame = (long long)ti * pt + r / p1;
-    const long long y = (long long)(h0 + s) * p1 + r % p1;
+    const long long frame = (long long)tile.ti * pt + r / p1;
+    const long long y = (long long)(tile.h0 + s) * p1 + r % p1;
     return vol + (frame * H + y) * W;
   };
-
-  // patch rows past slabs * w stay zero for the whole loop
-  for (int e = tid; e < kM * kLdA; e += kThreads) a_s[e] = __float2bfloat16(0.f);
-  for (int e = tid; e < kM; e += kThreads) {
-    sum_s[e] = 0.f;
-    sq_s[e] = 0.f;
-  }
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kM / 16];
-#pragma unroll
-  for (int i = 0; i < kM / 16; ++i) wmma::fill_fragment(acc[i], 0.f);
-
-  const int rows_per_chunk = kKC / p2;
-  for (int r0 = 0; r0 < rows; r0 += rows_per_chunk) {
-    const int nr = min(rows_per_chunk, rows - r0);
-    const int kc = nr * p2;
-    const int kc16 = (kc + 15) / 16 * 16;
-    // A chunk: nr whole image rows of each slab, scaled by g and rounded to
-    // bf16; one task is one patch's p2-run of one row, and adds its sums of
-    // x and x^2 to the patch's statistics
-    for (int e = tid; e < slabs * w * nr; e += kThreads) {
-      const int m = e % (slabs * w);          // patch row in the block: s * w + wi
-      const int rr = e / (slabs * w);
+  // A chunk: nr whole image rows of each slab, scaled by g and rounded to
+  // bf16; one task is one patch's p2-run of one row, and adds its sums of
+  // x and x^2 to the patch's statistics
+  auto stage = [&](int r0, int nr, __nv_bfloat16* a_s, float* sum_s, float* sq_s) {
+    for (int e = tid; e < tile.slabs * w * nr; e += kThreads) {
+      const int m = e % (tile.slabs * w);     // patch row in the block: s * w + wi
+      const int rr = e / (tile.slabs * w);
       const int s = m / w;
       const __nv_bfloat16* src = row_ptr(s, r0 + rr) + (m - s * w) * p2;
       const float* gr = g + (r0 + rr) * p2;
@@ -129,50 +82,8 @@ patchify_project_kernel(const __nv_bfloat16* __restrict__ vol, const float* __re
       atomicAdd(&sum_s[m], sum);
       atomicAdd(&sq_s[m], sq);
     }
-    // B chunk: K rows [r0 * p2, r0 * p2 + kc), columns [n0, n0 + kBN), 8 at a time
-    for (int e = tid; e < kc * (kBN / 8); e += kThreads) {
-      const int kk = e / (kBN / 8);
-      const int nn = (e - kk * (kBN / 8)) * 8;
-      *reinterpret_cast<uint4*>(&b_s[kk * kLdB + nn]) =
-          *reinterpret_cast<const uint4*>(&kmat[(long long)(r0 * p2 + kk) * dim + n0 + nn]);
-    }
-    // a ragged last chunk: zero the features up to the next multiple of 16
-    for (int e = tid; e < (kc16 - kc) * kM; e += kThreads) {
-      const int m = e / (kc16 - kc);
-      a_s[m * kLdA + kc + (e - m * (kc16 - kc))] = __float2bfloat16(0.f);
-    }
-    for (int e = tid; e < (kc16 - kc) * kBN; e += kThreads) {
-      b_s[(kc + e / kBN) * kLdB + e % kBN] = __float2bfloat16(0.f);
-    }
-    __syncthreads();
-    for (int k0 = 0; k0 < kc16; k0 += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-      wmma::load_matrix_sync(bf, b_s + k0 * kLdB + warp * 16, kLdB);
-#pragma unroll
-      for (int i = 0; i < kM / 16; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, a_s + i * 16 * kLdA + k0, kLdA);
-        wmma::mma_sync(acc[i], af, bf, acc[i]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // epilogue through shared memory: fold the LayerNorm and store bf16
-#pragma unroll
-  for (int i = 0; i < kM / 16; ++i)
-    wmma::store_matrix_sync(c_s + i * 16 * kLdC + warp * 16, acc[i], kLdC, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < slabs * w * kBN; e += kThreads) {
-    const int m = e / kBN;
-    const int nn = e - m * kBN;
-    const int s = m / w;
-    const int wi = m - s * w;
-    const float mu = sum_s[m] / pd;
-    const float rs = rsqrtf(fmaxf(sq_s[m] / pd - mu * mu, 0.f) + eps);
-    const float val = rs * c_s[m * kLdC + nn] - mu * rs * v2[n0 + nn];
-    out[(((long long)ti * h + h0 + s) * w + wi) * dim + n0 + nn] = __float2bfloat16(val);
-  }
+  };
+  project<true>(tile, stage, smem, kmat, v2, out, dim, eps);
 }
 
 }  // namespace
@@ -185,9 +96,8 @@ extern "C" int patchify_project_launch(const void* vol, const void* g, const voi
                                        const void* v2, void* out, int T, int H, int W,
                                        int pt, int p1, int p2, int dim, float eps,
                                        void* stream) {
-  const int h = H / p1;
-  const dim3 grid(dim / kBN, (h + kSlabs - 1) / kSlabs, T / pt);
-  patchify_project_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  patchify_project_kernel<<<grid_of(T / pt, H / p1, dim), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(vol), static_cast<const float*>(g),
       static_cast<const __nv_bfloat16*>(kmat), static_cast<const float*>(v2),
       static_cast<__nv_bfloat16*>(out), H, W, pt, p1, p2, dim, eps);

@@ -31,6 +31,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (ctypes would otherwise pass a Python int as a 32-bit int and cut it)
 SIGNATURES = {
     "patchify_project_launch": (_P,) * 5 + (_I,) * 7 + (_F, _P),
+    "resample3_patchify_project_launch": (_P,) * 9 + (_I,) * 9 + (_F,) * 6 + (_P,),
     "flash_attention_fwd_launch": (_P,) * 8 + (_I,) * 8 + (_F, _I, _P),
     "flash_attention_fwd_lse_launch": (_P,) * 9 + (_I,) * 8 + (_F, _I, _P),
     "flash_attention_bwd_delta_launch": (_P,) * 3 + (_I,) * 5 + (_P,),

@@ -13,6 +13,8 @@ from ctpa_torch.core.config import CTViTConfig
 from ctpa_torch.models.attention import ContinuousPositionBias, Transformer
 from ctpa_torch.models.layers import AffineLayerNorm, compute_dtype
 from ctpa_torch.ops.patchify import patchify_project
+from ctpa_torch.ops.preprocess import Stage3Operands
+from ctpa_torch.ops.resample_patchify import resample3_patchify_project
 from ctpa_torch.ops.vq import VQOutput, VQState, vq_encode
 
 
@@ -23,7 +25,9 @@ class PatchEmbed3D(nn.Module):
     ``norm_in_bias`` (patch_dim,), ``proj_kernel`` (patch_dim, dim),
     ``proj_bias`` (dim,).  With ``cfg.pallas_patchify`` (one channel) the
     fused patchify kernel computes the LN-folded projection; otherwise the
-    patch layout is formed explicitly."""
+    patch layout is formed explicitly.  ``forward_stage3`` embeds a raw
+    volume's stage-1/2 operands through the fused resample-patchify kernel
+    (K9) instead, with the same parameters."""
 
     def __init__(self, cfg: CTViTConfig, eps: float = 1e-5, device=None, dtype=None):
         super().__init__()
@@ -55,6 +59,23 @@ class PatchEmbed3D(nn.Module):
         var = xf.var(-1, unbiased=False, keepdim=True)
         xhat = ((xf - mean) * torch.rsqrt(var + self.eps)).to(dtype)
         y = (xhat * g_in.to(dtype)) @ kernel.to(dtype)
+        return self.norm_out(y + shift.to(y.dtype))
+
+    def forward_stage3(self, ops: Stage3Operands) -> torch.Tensor:
+        """One volume's ``ops/preprocess.py:preprocess_stage12`` operands, ``x2``
+        in the compute dtype -> (1, t, h, w, d): the stage-3 resample, window
+        and pad mask fused into the patch embed (K9)."""
+        c = self.cfg
+        if c.channels != 1:
+            raise ValueError(f"the fused resample front end takes one channel, not {c.channels}")
+        pt, p = c.temporal_patch_size, c.patch_size
+        dtype = compute_dtype(self, self.proj_kernel)
+        kernel = self.proj_kernel
+        shift = (self.norm_in_bias @ kernel) + self.proj_bias
+        y = resample3_patchify_project(ops.x2, ops.wwp, ops.vd, ops.vh, ops.vw,
+                                       self.norm_in_scale, kernel, pt, p, p, eps=self.eps,
+                                       window=ops.window, pad_value=ops.pad_value,
+                                       out_dtype=dtype)[None]
         return self.norm_out(y + shift.to(y.dtype))
 
 
@@ -109,7 +130,18 @@ class CTViT(nn.Module):
 
     def forward(self, video: torch.Tensor, vq_state: VQState | None = None,
                 frame_mask: torch.Tensor | None = None):
-        tokens = self.encode_tokens(self.patch_embed(video))
+        return self.quantize(self.encode_tokens(self.patch_embed(video)), vq_state, frame_mask)
+
+    def forward_stage3(self, ops: Stage3Operands, vq_state: VQState | None = None):
+        """``forward`` for one raw volume from its stage-1/2 operands
+        (``ops/preprocess.py:preprocess_stage12``) through the fused
+        resample-patchify front end (K9); the caller chooses this path."""
+        return self.quantize(self.encode_tokens(self.patch_embed.forward_stage3(ops)), vq_state)
+
+    def quantize(self, tokens: torch.Tensor, vq_state: VQState | None,
+                 frame_mask: torch.Tensor | None = None):
+        """The VQ bottleneck on encoded tokens (b, t, h, w, d), where a state
+        is given and ``cfg.use_vq``."""
         if vq_state is None or not self.cfg.use_vq:
             return tokens, None
         b, t, h, w, d = tokens.shape

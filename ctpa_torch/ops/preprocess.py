@@ -4,11 +4,16 @@ center crop/pad — in PyTorch (port of ``ctpa/ops/preprocess.py``).
 Trilinear interpolation is separable: each axis is resampled by a dense
 ``(target, source)`` interpolation matrix with at most two non-zeros per row,
 and the crop/pad offset is folded into the matrix rows, so the resampled
-volume is never formed.  The resample is three matrix contractions.  No
-hand-written kernel is involved; ``torch.einsum`` runs them.
+volume is never formed.  The resample is three matrix contractions, which
+``torch.einsum`` runs.  ``preprocess_stage12`` stops after the depth and
+height contractions and returns what the fused stage-3 kernel (K9,
+``ops/resample_patchify.py``) reads; ``resample_stage3`` finishes the
+volume from the same operands, so the two paths share one construction.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -29,8 +34,11 @@ def hu_window(x: torch.Tensor, cfg: PreprocessConfig) -> torch.Tensor:
 
 
 def _resampled_len(extent: int, spacing: float, target_spacing: float) -> int:
-    """floor(extent * spacing / target_spacing) in float32, as ctpa computes it."""
-    ratio = np.float32(spacing) / np.float32(target_spacing)
+    """floor(extent * spacing / target_spacing) in float32, as ctpa's jitted
+    preprocess computes it: XLA turns the division by the constant target
+    spacing into a product with its fp32 reciprocal, which decides the
+    length where extent * ratio lands within an ulp of an integer."""
+    ratio = np.float32(spacing) * (np.float32(1.0) / np.float32(target_spacing))
     return int(np.float32(extent) * ratio)
 
 
@@ -62,10 +70,26 @@ def _interp_matrix(source: int, n: int, target: int, *, pad_mask_out: bool = Tru
     return w.to(torch.float32), valid
 
 
-def resample_crop_pad(volume: torch.Tensor, spacing, cfg: PreprocessConfig, *,
-                      apply_window: bool = True, src_shape=None) -> torch.Tensor:
-    """Resample (d, h, w) to ``cfg.target_spacing`` and center crop/pad to
-    ``cfg.target_shape``; out-of-extent voxels get ``cfg.pad_value``.
+class Stage3Operands(NamedTuple):
+    """The stage-1/2 intermediate and what the width resample (stage 3) needs;
+    ``resample_stage3(*ops)`` finishes the volume."""
+
+    x2: torch.Tensor                # (D, H, ws): depth and height resampled, width the raw's
+    wwp: torch.Tensor               # (W, ws) fp32 width interp matrix, crop/pad folded in
+    vd: torch.Tensor                # (D,) bool: rows inside the resampled extent
+    vh: torch.Tensor                # (H,) bool
+    vw: torch.Tensor                # (W,) bool
+    window: tuple | None            # (hu_min, hu_max, hu_shift, hu_scale); None: not applied
+    pad_value: float
+
+
+def resample_stage12(volume: torch.Tensor, spacing, cfg: PreprocessConfig, *,
+                     apply_window: bool = True, src_shape=None,
+                     dtype=torch.float32) -> Stage3Operands:
+    """Resample (d, h, w) in depth and height to ``cfg.target_spacing`` with
+    the center crop/pad folded in; the width's matrix and the window are
+    returned for stage 3.  The contractions run in fp32; ``x2`` is then cast
+    to ``dtype`` (the compute dtype of the fused kernel's path).
 
     ``spacing`` is the source voxel spacing (z, y, x) in mm; ``src_shape``
     the true extents when ``volume`` is end-padded to a shape bucket."""
@@ -86,12 +110,32 @@ def resample_crop_pad(volume: torch.Tensor, spacing, cfg: PreprocessConfig, *,
 
     x = volume.to(torch.float32)
     x = torch.einsum("Dd,dhw->Dhw", wd, x)
-    x = torch.einsum("Hh,Dhw->DHw", wh, x)
-    x = torch.einsum("Ww,DHw->DHW", ww, x)
-    if apply_window:
-        x = hu_window(x, cfg)
+    # (H, h) @ (D, h, w): the product comes out contiguous, as the kernel reads x2
+    x = torch.matmul(wh, x)
+    window = (cfg.hu_min, cfg.hu_max, cfg.hu_shift, cfg.hu_scale) if apply_window else None
+    return Stage3Operands(x.to(dtype), ww, vd, vh, vw, window, cfg.pad_value)
+
+
+def resample_stage3(x2, wwp, vd, vh, vw, window, pad_value) -> torch.Tensor:
+    """Stage 3 in fp32 (the width contraction of ``x2`` as it is, against
+    fp32 ``wwp``), then the window and the pad mask -> (D, H, W) fp32."""
+    x = torch.einsum("Ww,DHw->DHW", wwp, x2.to(torch.float32))
+    if window is not None:
+        lo, hi, shift, scale = window
+        x = (torch.clamp(x, lo, hi) + shift) / scale
     valid = vd[:, None, None] & vh[None, :, None] & vw[None, None, :]
-    return torch.where(valid, x, torch.full_like(x, cfg.pad_value))
+    return torch.where(valid, x, torch.full_like(x, pad_value))
+
+
+def resample_crop_pad(volume: torch.Tensor, spacing, cfg: PreprocessConfig, *,
+                      apply_window: bool = True, src_shape=None) -> torch.Tensor:
+    """Resample (d, h, w) to ``cfg.target_spacing`` and center crop/pad to
+    ``cfg.target_shape``; out-of-extent voxels get ``cfg.pad_value``.
+
+    ``spacing`` is the source voxel spacing (z, y, x) in mm; ``src_shape``
+    the true extents when ``volume`` is end-padded to a shape bucket."""
+    return resample_stage3(*resample_stage12(volume, spacing, cfg, apply_window=apply_window,
+                                             src_shape=src_shape))
 
 
 def crop_or_pad(volume: torch.Tensor, target_shape: tuple[int, int, int],
@@ -117,6 +161,25 @@ def _as_tensor(x, device) -> torch.Tensor:
     return x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x), device=device)
 
 
+def preprocess_stage12(raw, slope, intercept, spacing,
+                       cfg: PreprocessConfig = PreprocessConfig.train(),
+                       window_first: bool = False, src_shape=None, dtype=torch.float32,
+                       device="cuda") -> Stage3Operands:
+    """``preprocess_volume`` up to the width resample: the operands of the
+    fused stage-3 kernel (K9), ``x2`` in ``dtype``.
+
+    ``window_first=True`` is the offline order (rescale -> window ->
+    resample, and ``window`` None); the default is the online order (rescale
+    -> resample -> window).  A raw array that is not a tensor yet is placed
+    on ``device``."""
+    raw = _as_tensor(raw, device)
+    x = hu_rescale(raw.to(torch.float32), slope, intercept)
+    if window_first:
+        return resample_stage12(hu_window(x, cfg), spacing, cfg, apply_window=False,
+                                src_shape=src_shape, dtype=dtype)
+    return resample_stage12(x, spacing, cfg, apply_window=True, src_shape=src_shape, dtype=dtype)
+
+
 def preprocess_volume(raw, slope, intercept, spacing,
                       cfg: PreprocessConfig = PreprocessConfig.train(),
                       window_first: bool = False, src_shape=None,
@@ -126,14 +189,8 @@ def preprocess_volume(raw, slope, intercept, spacing,
     ``window_first=True`` is the offline order (rescale -> window ->
     resample); the default is the online order (rescale -> resample ->
     window).  A raw array that is not a tensor yet is placed on ``device``."""
-    raw = _as_tensor(raw, device)
-    x = hu_rescale(raw.to(torch.float32), slope, intercept)
-    if window_first:
-        x = resample_crop_pad(hu_window(x, cfg), spacing, cfg, apply_window=False,
-                              src_shape=src_shape)
-    else:
-        x = resample_crop_pad(x, spacing, cfg, apply_window=True, src_shape=src_shape)
-    return x[None]
+    return resample_stage3(*preprocess_stage12(raw, slope, intercept, spacing, cfg, window_first,
+                                               src_shape, device=device))[None]
 
 
 def preprocess_volume_inference(vol, cfg: PreprocessConfig = PreprocessConfig.inference(),

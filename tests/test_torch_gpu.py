@@ -16,7 +16,7 @@ import dataclasses
 import pytest
 import torch
 
-from ctpa_torch.core.config import CTViTConfig
+from ctpa_torch.core.config import CTViTConfig, PreprocessConfig
 from ctpa_torch.core.init import random_init_
 from ctpa_torch.models.ctvit import CTViT
 from ctpa_torch.models.layers import set_compute_dtype
@@ -30,6 +30,8 @@ from ctpa_torch.ops.flash_attention import (
     flash_attention_plain,
 )
 from ctpa_torch.ops.patchify import patchify_project, patchify_project_plain
+from ctpa_torch.ops import resample_patchify as rp
+from ctpa_torch.ops.preprocess import preprocess_stage12, resample_stage3
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -64,6 +66,94 @@ def test_patchify_kernel_refuses_fp32(cuda):
     with pytest.raises(TypeError):
         patchify_project(vol, torch.ones(256, device="cuda"), torch.zeros(256, 128, device="cuda"),
                          4, 8, 8, out_dtype=torch.float32)
+
+
+# raw shape, true extents or None, spacing, (D, H, W) target, pt, p, dim, window_first
+K9_CASES = {
+    "shipped": ((160, 512, 512), None, (2.0, 0.75, 0.75), (240, 480, 480), 10, 20, 512, False),
+    "bucketed": ((160, 512, 640), (150, 500, 600), (2.0, 0.8, 0.7), (240, 480, 480), 10, 20, 512,
+                 False),
+    "tiny": ((12, 40, 36), None, (2.0, 0.75, 0.6), (16, 32, 32), 4, 8, 128, False),
+    "tiny window_first": ((12, 40, 36), None, (2.0, 0.75, 0.6), (16, 32, 32), 4, 8, 128, True),
+    "odd ws, ragged chunk": ((12, 40, 37), None, (2.0, 0.75, 0.6), (16, 48, 48), 4, 12, 256,
+                             False),
+    "padded patches": ((6, 40, 28), None, (1.5, 0.75, 0.75), (16, 32, 32), 4, 8, 128, False),
+    "wide raw, over 48 KB of shared memory": ((12, 40, 1200), None, (2.0, 0.75, 0.02),
+                                              (16, 32, 32), 4, 8, 128, False),
+    "odd patch run, odd h": ((12, 40, 36), None, (2.0, 0.75, 0.6), (16, 35, 35), 4, 5, 128,
+                             False),
+}
+
+
+def _k9_operands(gen, case):
+    raw_shape, true, spacing, target, pt, p, dim, window_first = K9_CASES[case]
+    raw = torch.zeros(raw_shape, device="cuda")
+    real = true or raw_shape
+    raw[tuple(slice(0, n) for n in real)] = torch.randint(-24, 3000, real, generator=gen,
+                                                          device="cuda").float()
+    ops = preprocess_stage12(raw, 1.0, -1024.0, spacing, PreprocessConfig(target_shape=target),
+                             window_first, true, dtype=torch.bfloat16)
+    g = 1 + 0.1 * torch.randn(pt * p * p, generator=gen, device="cuda")
+    K = 0.02 * torch.randn(pt * p * p, dim, generator=gen, device="cuda")
+    return ops, g, K, pt, p
+
+
+@pytest.mark.parametrize("case", list(K9_CASES))
+def test_resample_patchify_kernel_matches_plain(cuda, case):
+    ops, g, K, pt, p = _k9_operands(cuda, case)
+    args = (*ops[:5], g, K, pt, p, p)
+    kw = dict(window=ops.window, pad_value=ops.pad_value)
+    before = (rp.resample3_patchify_project.launches, patchify_project.launches)
+    got = rp.resample3_patchify_project(*args, **kw)
+    torch.cuda.synchronize()
+    assert (rp.resample3_patchify_project.launches, patchify_project.launches) == (
+        before[0] + 1, before[1])
+    ref = rp.resample3_patchify_project_plain(*args, **kw)
+    torch.testing.assert_close(got.float(), ref.float(), atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+
+
+def test_resample_patchify_kernel_refuses_what_it_does_not_take(cuda):
+    ops, g, K, pt, p = _k9_operands(cuda, "tiny")
+    kw = dict(window=ops.window, pad_value=ops.pad_value)
+    with pytest.raises(TypeError):                       # fp32 x2
+        rp.resample3_patchify_project(ops.x2.float(), *ops[1:5], g, K, pt, p, p, **kw)
+    with pytest.raises(TypeError):                       # fp32 output
+        rp.resample3_patchify_project(*ops[:5], g, K, pt, p, p, out_dtype=torch.float32, **kw)
+    with pytest.raises(ValueError):                      # dim % 128
+        rp.resample3_patchify_project(*ops[:5], g, K[:, :64], pt, p, p, **kw)
+    wwp = ops.wwp.clone()
+    wwp[3, :3] = 0.25
+    with pytest.raises(ValueError, match="more than two"):
+        rp.resample3_patchify_project(ops.x2, wwp, *ops[2:5], g, K, pt, p, p, **kw)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        rp.resample3_patchify_project(*ops[:5], g.requires_grad_(), K, pt, p, p, **kw)
+
+
+def test_ctvit_fused_resample_front_end_matches_plain_path(cuda):
+    """CTViT from a raw's stage-1/2 operands through K9 against the plain
+    model on the resampled volume, bf16, at a small geometry: they differ by
+    bf16 rounding at other places (x2 rounded before stage 3, the LN-folded
+    patch embed), so tokens after the final LayerNorm agree to 5e-2."""
+    cfg = CTViTConfig(dim=128, codebook_size=64, image_size=48, patch_size=8,
+                      temporal_size=16, temporal_patch_size=4, spatial_depth=2,
+                      temporal_depth=1, dim_head=32, heads=4)
+    bf16 = torch.bfloat16
+    plain = random_init_(CTViT(cfg, device="cuda", dtype=bf16), cuda).eval()
+    fast = CTViT(dataclasses.replace(cfg, pallas_patchify=True, flash_axial=True),
+                 device="cuda", dtype=bf16).eval()
+    fast.load_state_dict(plain.state_dict())
+    raw = torch.randint(-24, 3000, (12, 60, 52), generator=cuda, device="cuda").float()
+    pre = PreprocessConfig(target_shape=(16, 48, 48))
+    ops = preprocess_stage12(raw, 1.0, -1024.0, (2.0, 0.75, 0.6), pre, dtype=bf16)
+    k9, k1, k2 = (rp.resample3_patchify_project.launches, patchify_project.launches,
+                  LAUNCHES["flash_attention_fwd"])
+    with torch.no_grad():
+        got, _ = fast.forward_stage3(ops)
+        ref, _ = plain(resample_stage3(*ops)[None, None].to(bf16))
+    assert (rp.resample3_patchify_project.launches - k9, patchify_project.launches - k1,
+            LAUNCHES["flash_attention_fwd"] - k2) == (1, 0, cfg.spatial_depth)
+    torch.testing.assert_close(got.float(), ref.float(), atol=5e-2, rtol=5e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -1,7 +1,7 @@
-"""The port stands alone: ctpa_torch (its cli too), chip_smoke.py and the
-profile scripts import neither JAX, flax nor anything of ctpa, build no
-kernel through PyTorch's C++ extension machinery, and call no library
-attention or quantized matmul."""
+"""The port stands alone: ctpa_torch (its cli too), chip_smoke.py,
+bench_torch.py and the profile scripts import neither JAX, flax nor
+anything of ctpa, build no kernel through PyTorch's C++ extension
+machinery, and call no library attention or quantized matmul."""
 
 import os
 import subprocess
@@ -28,12 +28,13 @@ report = ["ctpa_torch.ops.decode_attention", "ctpa_torch.ops.rotary", "ctpa_torc
           "ctpa_torch.models.lora", "ctpa_torch.models.llm", "ctpa_torch.models.report_generator",
           "ctpa_torch.ops.flash_attention", "ctpa_torch.train.report_trainer",
           "ctpa_torch.train.train_state", "ctpa_torch.core.checkpoint", "ctpa_torch.ops.quant",
-          "ctpa_torch.cli", "ctpa_torch.cli.export_serving"]
+          "ctpa_torch.cli", "ctpa_torch.cli.export_serving", "ctpa_torch.ops.resample_patchify"]
 missing = sorted(set(report) - set(names))
 assert not missing, missing
 for name in names:
     importlib.import_module(name)
-for script in ("chip_smoke", "profile_zeroshot", "profile_clip_train"):
+for script in ("chip_smoke", "bench_torch", "profile_zeroshot", "profile_clip_train",
+               "profile_resample_patchify"):
     spec = importlib.util.spec_from_file_location(script, script + ".py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -51,14 +52,16 @@ def test_port_imports_without_jax_or_ctpa():
 
 
 def test_port_sources_avoid_torch_extensions_and_library_attention():
-    py = list((ROOT / "ctpa_torch").rglob("*.py"))
+    py = list((ROOT / "ctpa_torch").rglob("*.py")) + [ROOT / "bench_torch.py"]
     cu = list((ROOT / "ctpa_torch" / "csrc").glob("*.cu"))
     assert sorted(p.name for p in cu) == ["decode_attention.cu", "flash_attention.cu",
                                           "flash_attention_bwd.cu", "flash_attention_d128.cu",
                                           "int4_ffn.cu", "int4_matmul.cu", "int8_ffn.cu",
-                                          "int8_matmul.cu", "patchify.cu"]
+                                          "int8_matmul.cu", "patchify.cu",
+                                          "resample_patchify.cu"]
     headers = list((ROOT / "ctpa_torch" / "csrc").glob("*.cuh"))
-    assert sorted(p.name for p in headers) == ["flash_masks.cuh", "int4_common.cuh"]
+    assert sorted(p.name for p in headers) == ["flash_masks.cuh", "int4_common.cuh",
+                                               "patch_project.cuh"]
     banned_py = ("import torch.utils.cpp_extension", "from torch.utils.cpp_extension",
                  "cpp_extension.load", "torch.compile(", "scaled_dot_product_attention(",
                  "_weight_int4pack_mm(", "_weight_int8pack_mm(", "_int_mm(")
