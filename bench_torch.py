@@ -26,8 +26,17 @@ makes them: every parameter normal(0, 0.02), the latent projection
 normal(0, 0.002).  A sample is one volume, timed on the host clock between
 two ``torch.cuda.synchronize()``; the raw is perturbed before each sample,
 outside the timed region.  ``compile_first_s`` is the first call's wall
-time, the kernels' nvcc build included.  Prints ONE JSON line on stdout;
-diagnostics go to stderr.  Without a CUDA card it exits 1.
+time, the kernels' nvcc build included.  Prints ONE JSON line on stdout,
+with ``bench.py``'s keys in ``bench.py``'s order and then ``front_end`` and
+``device``; diagnostics go to stderr.  Without a CUDA card it exits 1.
+
+``vs_baseline`` is the rate times ``bench.py``'s pinned CPU reference
+(``CPU_REF_S_PER_VOLUME`` = 11.6 s a volume); ``vs_baseline_live_cpu_leg``
+divides it by this run's own CPU reference, ``bench_cpu_reference``: the
+same workload as ``bench.py``'s (a torch trilinear resample and the
+factorized encoder at the reference's token geometry, plain torch on the
+CPU), its attention written out as softmax(q k^T / sqrt(d)) v.  A failure
+of that leg raises.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import statistics
 import sys
 import time
@@ -57,6 +67,9 @@ TEXT_LEN = 512
 DIM_LATENT = 512
 SAMPLES = 15
 SEED = 0
+# bench.py's pinned CPU-reference seconds a volume, the denominator of
+# vs_baseline (bench.py explains its origin)
+CPU_REF_S_PER_VOLUME = 11.6
 
 
 def log(*a):
@@ -139,6 +152,103 @@ def spread(label: str, samples: list[float]) -> float:
     return med / 1e3
 
 
+def bench_cpu_reference(iters: int = 2) -> float:
+    """Volumes/s of ``bench.py``'s reference workload on the CPU: torch
+    trilinear resample (the offline + online prep cost) + factorized
+    transformer encode at the reference's token geometry, one warm-up
+    volume, then the mean of ``iters``."""
+    import torch.nn.functional as F
+
+    torch.manual_seed(0)
+    dim, heads, depth_s, depth_t = 512, 8, 4, 4
+    t_tok, hw = 24, 576
+
+    raw = torch.randint(-24, 3000, RAW_SHAPE, dtype=torch.int16).float()
+
+    patch_proj = torch.nn.Linear(4000, dim)
+    qkv = [torch.nn.Linear(dim, dim * 3) for _ in range(depth_s + depth_t)]
+    proj = [torch.nn.Linear(dim, dim) for _ in range(depth_s + depth_t)]
+    ff1 = [torch.nn.Linear(dim, dim * 4) for _ in range(depth_s + depth_t)]
+    ff2 = [torch.nn.Linear(dim * 4, dim) for _ in range(depth_s + depth_t)]
+    final = torch.nn.Linear(24 * 24 * dim, dim)
+
+    def mha(x, i):
+        b, n, d = x.shape
+        q, k, v = qkv[i](x).chunk(3, dim=-1)
+        q = q.view(b, n, heads, -1).transpose(1, 2)
+        k = k.view(b, n, heads, -1).transpose(1, 2)
+        v = v.view(b, n, heads, -1).transpose(1, 2)
+        o = torch.softmax(q @ k.transpose(-1, -2) * q.shape[-1] ** -0.5, dim=-1) @ v
+        o = o.transpose(1, 2).reshape(b, n, d)
+        x = x + proj[i](o)
+        return x + ff2[i](F.gelu(ff1[i](x)))
+
+    def one_volume():
+        with torch.no_grad():
+            # resample to target spacing then crop/pad (reference order)
+            scale = [SPACING[i] / t for i, t in enumerate((1.5, 0.75, 0.75))]
+            new = [int(RAW_SHAPE[i] * scale[i]) for i in range(3)]
+            x = F.interpolate(raw[None, None], size=new, mode="trilinear",
+                              align_corners=False)[0, 0]
+            x = x.clamp(-1000, 1000) / 1000
+            # center crop/pad to (240, 480, 480)
+            tgt = (240, 480, 480)
+            pads, slices = [], []
+            for a in range(3):
+                s = x.shape[a]
+                if s > tgt[a]:
+                    st = (s - tgt[a]) // 2
+                    slices.append(slice(st, st + tgt[a]))
+                    pads.append((0, 0))
+                else:
+                    slices.append(slice(None))
+                    before = (tgt[a] - s) // 2
+                    pads.append((before, tgt[a] - s - before))
+            x = x[slices[0], slices[1], slices[2]]
+            flat_pads = [p for pair in reversed(pads) for p in pair]
+            x = F.pad(x, flat_pads, value=-1.0)
+            # patch embed (24, 24, 24, 4000) -> tokens
+            x = x.view(24, 10, 24, 20, 24, 20).permute(0, 2, 4, 1, 3, 5).reshape(
+                24, 24, 24, 4000)
+            tok = patch_proj(x)                         # (t, h, w, d)
+            # spatial: (t, hw, d); temporal: (hw, t, d)
+            s = tok.view(t_tok, hw, dim)
+            for i in range(depth_s):
+                s = mha(s, i)
+            tmp = s.view(t_tok, hw, dim).permute(1, 0, 2)
+            for i in range(depth_t):
+                tmp = mha(tmp, depth_s + i)
+            pooled = tmp.permute(1, 0, 2).mean(dim=0).reshape(1, -1)
+            return final(pooled)
+
+    one_volume()                       # warm up threads/allocs
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        one_volume()
+    dt = (time.perf_counter() - t0) / iters
+    log(f"cpu reference steady-state: {dt * 1000:.0f} ms/volume")
+    return 1.0 / dt
+
+
+def result_line(per_volume: float, per_pair: float, compile_first_s: float, front_end: str,
+                device: str, cpu_vps: float) -> dict:
+    """The JSON line: ``bench.py``'s keys in its order, then the port's."""
+    if not (math.isfinite(cpu_vps) and cpu_vps > 0):
+        raise ValueError(f"the CPU reference leg gave {cpu_vps} volumes/s")
+    vps = 1.0 / per_volume
+    return {
+        "metric": "preproc_encode_volumes_per_sec_per_chip",
+        "value": vps,
+        "unit": "volumes/sec",
+        "vs_baseline": vps * CPU_REF_S_PER_VOLUME,
+        "vs_baseline_live_cpu_leg": vps / cpu_vps,
+        "clip_pairs_per_sec_incl_text": 1.0 / per_pair,
+        "compile_first_s": compile_first_s,
+        "front_end": front_end,
+        "device": device,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--front-end", choices=FRONT_ENDS, default="patchify")
@@ -175,15 +285,8 @@ def main(argv=None) -> int:
         for _ in range(2):
             pair(raw)
         per_pair = spread("clip pair", time_samples(pair, raw, SAMPLES))
-    print(json.dumps({
-        "metric": "preproc_encode_volumes_per_sec_per_chip",
-        "value": 1.0 / per_volume,
-        "unit": "volumes/sec",
-        "clip_pairs_per_sec_incl_text": 1.0 / per_pair,
-        "compile_first_s": compile_first_s,
-        "front_end": args.front_end,
-        "device": kind,
-    }))
+    print(json.dumps(result_line(per_volume, per_pair, compile_first_s, args.front_end, kind,
+                                 bench_cpu_reference())))
     return 0
 
 

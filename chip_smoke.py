@@ -11,8 +11,10 @@ Phases, each printing its seconds:
                      each kernel's registers, shared memory and spills from
                      -Xptxas -v;
   3. kernels       — K1 and the K2 forward against their plain PyTorch
-                     versions at the shapes the serving path gives them,
-                     then timed with CUDA events beside the plain version, a
+                     versions at the shapes the serving path gives them
+                     (K2 also at head dims 16 and 64),
+                     called twice on one input (the bits must repeat), then
+                     timed with CUDA events beside the plain version, a
                      one-call PyTorch yardstick where one exists, and the
                      card's bound for the same work;
   4. serving       — CTCLIP at the shipped geometry in bf16 with seeded
@@ -25,9 +27,10 @@ Phases, each printing its seconds:
   6. raw-kernels   — the fused resample-patchify kernel (K9) against its
                      plain version at the shipped raw (x2 (240, 480, 512))
                      and at a bucketed raw (width 640, 600 real columns),
-                     then timed (x2 cycled past the L2 cache) beside its
-                     plain version and the shipped front end for the same
-                     work (torch stage 3, window, mask, bf16 cast, K1);
+                     each called twice (the bits must repeat), then timed
+                     (x2 cycled past the L2 cache) beside its plain version
+                     and the shipped front end for the same work (torch
+                     stage 3, window, mask, bf16 cast, K1);
   7. raw-serving   — bench_torch.pipeline, the headline raw-volume program
                      (preprocess, CTViT, VQ, temporal mean, latent,
                      l2norm), on the serving model: a shipped raw through
@@ -359,6 +362,21 @@ def compare(name: str, got, ref, atol: float, rtol: float) -> float:
     return max_abs
 
 
+def repeatable(name: str, fn) -> None:
+    """Two calls of ``fn`` must give the same bits (a tensor or a tuple of
+    tensors); raises otherwise."""
+    import torch
+
+    first, second = fn(), fn()
+    if not isinstance(first, tuple):
+        first, second = (first,), (second,)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(first, second))
+    print(f"  {name}: two calls on one input {'bitwise equal' if same else f'differ by {diff}'}")
+    if not same:
+        raise AssertionError(f"{name}: two calls on one input differ (max |diff| {diff})")
+
+
 def check_kernels(dev) -> dict:
     """Phase 3: K1 and K2 against their plain versions and timed."""
     import torch
@@ -385,6 +403,8 @@ def check_kernels(dev) -> dict:
                      patchify_project(v_, g_, K_, pt, p, p, out_dtype=bf16),
                      patchify_project_plain(v_, g_, K_, pt, p, p, out_dtype=bf16),
                      BF16_ATOL, BF16_RTOL)
+    repeatable("patchify_project bf16",
+               lambda: patchify_project(v_, g_, K_, pt, p, p, out_dtype=bf16))
     ms = cuda_ms(lambda: patchify_project(v_, g_, K_, pt, p, p, out_dtype=bf16))
     plain_ms = cuda_ms(lambda: patchify_project_plain(v_, g_, K_, pt, p, p, out_dtype=bf16))
     t, h, w = T // pt, H // p, W // p
@@ -417,8 +437,25 @@ def check_kernels(dev) -> dict:
                           flash_attention_plain(q_, k_, v_, bb, scale, lb), atol, rtol)
             if dtype == bf16 and label == cases[0][0]:
                 k2_err = err
+    # the other head dims the kernel takes, every case, at 4 of the 24 slabs
+    for d_ in (16, 64):
+        qd = l2norm(torch.randn(4, heads, n, d_, generator=gen, device=dev))
+        kd = l2norm(torch.randn(4, heads, n, d_, generator=gen, device=dev))
+        vd = torch.randn(4, heads, n, d_, generator=gen, device=dev)
+        for dtype, atol, rtol in ((bf16, BF16_ATOL, BF16_RTOL),
+                                  (torch.float32, FP32_ATOL, FP32_RTOL)):
+            for label, bb, with_bound in cases:
+                q_, k_, v_ = qd.to(dtype), kd.to(dtype), vd.to(dtype)
+                if bb is not None:
+                    bb = (bb[:4] if bb.ndim == 4 else bb).to(dtype).contiguous()
+                lb = (scale + bb.max().float()) if with_bound and bb is not None else None
+                compare(f"flash_attention {dtype} d {d_} {label}",
+                        flash_attention(q_, k_, v_, bias=bb, scale=scale, logit_bound=lb),
+                        flash_attention_plain(q_, k_, v_, bb, scale, lb), atol, rtol)
     q_, k_, v_, bb = q.to(bf16), k.to(bf16), v.to(bf16), bias.to(bf16)
     lb = scale + bb.max().float()
+    repeatable("flash_attention bf16 bias (h,n,m), bound",
+               lambda: flash_attention(q_, k_, v_, bias=bb, scale=scale, logit_bound=lb))
     ms = cuda_ms(lambda: flash_attention(q_, k_, v_, bias=bb, scale=scale, logit_bound=lb))
     plain_ms = cuda_ms(lambda: flash_attention_plain(q_, k_, v_, bb, scale, lb))
     # yardstick only, never called by the port
@@ -583,6 +620,8 @@ def check_raw_kernels(dev) -> dict:
         err = compare(f"resample3_patchify_project bf16, {label} raw {raw_shape}"
                       f"{'' if true_shape is None else f' (true {true_shape})'}, x2 "
                       f"{tuple(ops.x2.shape)}", got, ref, BF16_ATOL, BF16_RTOL)
+        repeatable(f"resample3_patchify_project bf16, {label} raw",
+                   lambda: rp.resample3_patchify_project(*args, **kw))
         if label == "shipped":
             shipped, k9_err = ops, err
             # ctpa's rounding: a constant patch gets rsig * (sum(g*K) - sum(bf16(g*K)))
@@ -1504,7 +1543,7 @@ def check_report_train_kernels(dev) -> dict:
     # key of a tile: an off-by-one in the tile skips shows there
     forms = ("causal", "causal q_offset 1", "causal q_offset 5", "causal q_offset -3", "holes",
              "causal holes", "causal q_offset 7 holes")
-    for d_ in (32, 64, 128):
+    for d_ in (16, 32, 64, 128):
         for dtype in ((bf16, torch.float32) if d_ < 128 else (bf16,)):
             for form in forms:
                 for bias_form in (None, "h", "1", "bh"):
@@ -1597,9 +1636,11 @@ def check_report_train_kernels(dev) -> dict:
     print(f"  K2-lse + K3 at head dim 128: {rows['flash_attention_fwd_lse_d128']['ms'] + k3:.4f} "
           f"ms; scaled_dot_product_attention forward+backward {lib['fwd_bwd']:.4f} ms")
 
-    # the masked forms at head dim 64 (the FMA kernels), timed for PERF.md,
-    # with bounds over what the masks leave: k and v of the real keys, the
-    # bias cells some batch item reads, the products over the valid cells
+    # the masked forms at head dim 64 (K2 on the tensor cores, K3 on the FMA
+    # units), timed for PERF.md, with bounds over what the masks leave: k
+    # and v of the real keys, the bias cells some batch item reads, the
+    # products over the valid cells.  K2 and its yardstick take tens of
+    # microseconds: 200 calls each, so the card's clocks have settled
     d64, scale64 = 64, 64 ** -0.5
     q, k, v, bias, do, masks = masked_case(gen, dev, (b, h, n, n), d64, bf16, "causal holes", "h")
     out, lse = fa._forward(q, k, v, bias, scale64, None, True, masks)
@@ -1625,8 +1666,9 @@ def check_report_train_kernels(dev) -> dict:
             ("bwd_dbias", lambda: fa.flash_attention_bwd_dbias(*args),
              lambda: fa.flash_attention_bwd_dbias_plain(*args))):
         b_ms, b_by = bound_ms(*work64[label])
+        iters = 200 if label == "fwd_lse" else 20
         print(f"  masked flash_attention_{label} at head dim 64 ({b}, {h}, {n}, 64) bf16, "
-              f"causal with holes, bias (h, n, m): {cuda_ms(kernel_fn):.4f} ms  plain "
+              f"causal with holes, bias (h, n, m): {cuda_ms(kernel_fn, iters):.4f} ms  plain "
               f"{cuda_ms(plain_fn):.4f} ms  bound {b_ms * 1e3:.1f} us ({b_by}: "
               f"{work64[label][0] / 1e6:.1f} MB, {work64[label][1] / 1e9:.2f} GFLOP)")
     # yardstick: the bias and the masks as one additive float mask
@@ -1638,7 +1680,7 @@ def check_report_train_kernels(dev) -> dict:
         torch.autograd.grad(o, leaves64, grad_outputs=do)
 
     fwd64 = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask,
-                                                           scale=scale64))
+                                                           scale=scale64), 200)
     print(f"  scaled_dot_product_attention at head dim 64, bias and masks as one float mask: "
           f"forward {fwd64:.4f} ms, forward+backward {cuda_ms(sdpa64_fwd_bwd):.4f} ms")
     return rows

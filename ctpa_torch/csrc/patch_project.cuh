@@ -17,7 +17,11 @@
 //   out[p, n] = rsig[p] * acc[p, n] - mu[p] * rsig[p] * v2[n]
 //
 // in bf16, pre-bias and pre-norm_out, with mu and rsig from the fp32 sums of
-// x and x^2 that the stage added per patch.
+// x and x^2 over each patch's features.  The stage leaves one partial sum
+// per (patch, slab row) of the chunk in shared memory, and one thread per
+// patch adds them in row order, chunk after chunk: the sums, and so the
+// output, are the same bits on every run (float atomics would add them in
+// the order the threads arrive).
 
 #pragma once
 
@@ -36,6 +40,7 @@ constexpr int kM = 48;                    // patch rows per block: 3 tiles of 16
 constexpr int kBN = kWarps * 16;          // output columns per block, 16 per warp
 constexpr int kKC = 80;                   // features per chunk (a multiple of 16)
 constexpr int kMaxP2 = 32;                // longest patch run a thread handles at once
+constexpr int kChunkRows = 16;            // most slab rows in one chunk (p2 < 5 only)
 constexpr int kLdA = kKC + 8;             // bf16 row strides of the smem tiles
 constexpr int kLdB = kBN + 8;
 constexpr int kLdC = kBN + 4;             // fp32
@@ -44,6 +49,11 @@ constexpr int kLdC = kBN + 4;             // fp32
 constexpr int kTileBytes = (kM * kLdA + kKC * kLdB) * 2;
 constexpr int kOutBytes = kM * kLdC * 4;
 constexpr int kSmemBytes = kTileBytes > kOutBytes ? kTileBytes : kOutBytes;
+
+// slab rows per chunk
+__host__ __device__ inline int chunk_rows(int p2) {
+  return kKC / p2 < kChunkRows ? kKC / p2 : kChunkRows;
+}
 
 // This block's place in the grid (dim / kBN, ceil(h / kSlabs), t).
 struct Tile {
@@ -61,12 +71,13 @@ inline dim3 grid_of(int t, int h, int dim) {
   return dim3(dim / kBN, (h + kSlabs - 1) / kSlabs, t);
 }
 
-// Run the block.  `stage(r0, nr, a_s, sum_s, sq_s)` is called by every
-// thread for each chunk of slab rows [r0, r0 + nr): it writes patch m's
-// features (r0 + rr) * p2 + c at a_s[m * kLdA + rr * p2 + c] for m <
-// slabs * w, and adds each patch's sums of x and x^2 to sum_s[m] and
-// sq_s[m]; it may call __syncthreads.  `smem` holds kSmemBytes, aligned to
-// 128 bytes.  kClampVariance clamps m2 - mu^2 at 0 before the rsqrt.
+// Run the block.  `stage(r0, nr, a_s, part_s)` is called by every thread
+// for each chunk of slab rows [r0, r0 + nr): it writes patch m's features
+// (r0 + rr) * p2 + c at a_s[m * kLdA + rr * p2 + c] for m < slabs * w, and
+// patch m's sums of x and x^2 over the row's p2 features at
+// part_s[rr * kM + m]; it may call __syncthreads.  `smem` holds
+// kSmemBytes, aligned to 128 bytes.  kClampVariance clamps m2 - mu^2 at 0
+// before the rsqrt.
 template <bool kClampVariance, class Stage>
 __device__ __forceinline__ void project(const Tile& tile, Stage&& stage, unsigned char* smem,
                                         const __nv_bfloat16* __restrict__ kmat,
@@ -79,6 +90,7 @@ __device__ __forceinline__ void project(const Tile& tile, Stage&& stage, unsigne
 
   __shared__ float sum_s[kM];   // per-patch sums of x and x^2 over the features
   __shared__ float sq_s[kM];
+  __shared__ float2 part_s[kChunkRows * kM];   // the chunk's per-(row, patch) sums
   __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [kM][kLdA]
   __nv_bfloat16* b_s = a_s + kM * kLdA;                         // [kKC][kLdB]
   float* c_s = reinterpret_cast<float*>(smem);                  // [kM][kLdC]
@@ -95,12 +107,12 @@ __device__ __forceinline__ void project(const Tile& tile, Stage&& stage, unsigne
 #pragma unroll
   for (int i = 0; i < kM / 16; ++i) wmma::fill_fragment(acc[i], 0.f);
 
-  const int rows_per_chunk = kKC / p2;
+  const int rows_per_chunk = chunk_rows(p2);
   for (int r0 = 0; r0 < rows; r0 += rows_per_chunk) {
     const int nr = min(rows_per_chunk, rows - r0);
     const int kc = nr * p2;
     const int kc16 = (kc + 15) / 16 * 16;
-    stage(r0, nr, a_s, sum_s, sq_s);
+    stage(r0, nr, a_s, part_s);
     // B chunk: kmat rows [r0 * p2, r0 * p2 + kc), columns [n0, n0 + kBN), 8 at a time
     for (int e = tid; e < kc * (kBN / 8); e += kThreads) {
       const int kk = e / (kBN / 8);
@@ -117,6 +129,18 @@ __device__ __forceinline__ void project(const Tile& tile, Stage&& stage, unsigne
       b_s[(kc + e / kBN) * kLdB + e % kBN] = __float2bfloat16(0.f);
     }
     __syncthreads();
+    // thread m < slabs * w adds patch m's partial sums in row order
+    // (part_s is rewritten only after the barrier below)
+    if (tid < tile.slabs * w) {
+      float sum = 0.f, sq = 0.f;
+      for (int rr = 0; rr < nr; ++rr) {
+        const float2 part = part_s[rr * kM + tid];
+        sum += part.x;
+        sq += part.y;
+      }
+      sum_s[tid] += sum;
+      sq_s[tid] += sq;
+    }
     for (int k0 = 0; k0 < kc16; k0 += 16) {
       wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
       wmma::load_matrix_sync(bf, b_s + k0 * kLdB + warp * 16, kLdB);

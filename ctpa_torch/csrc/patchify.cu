@@ -30,7 +30,8 @@
 // slabs per block halves how often K is read.  The LayerNorm statistics
 // come from the same staging pass: each thread loads one patch's p2-run of
 // an image row in one burst of independent loads, so a chunk costs one
-// memory round trip, not p2.  The variance is m2 - mu^2 in fp32, clamped at
+// memory round trip, not p2, and leaves the run's sums as a (patch, row)
+// partial that the projection adds in a fixed order.  The variance is m2 - mu^2 in fp32, clamped at
 // 0 before rsqrt.  The block's projection and epilogue are patch_project.cuh,
 // which K9 (resample_patchify.cu) shares; this file stages the patches.
 
@@ -58,9 +59,9 @@ patchify_project_kernel(const __nv_bfloat16* __restrict__ vol, const float* __re
     return vol + (frame * H + y) * W;
   };
   // A chunk: nr whole image rows of each slab, scaled by g and rounded to
-  // bf16; one task is one patch's p2-run of one row, and adds its sums of
-  // x and x^2 to the patch's statistics
-  auto stage = [&](int r0, int nr, __nv_bfloat16* a_s, float* sum_s, float* sq_s) {
+  // bf16; one task is one patch's p2-run of one row, and leaves its sums of
+  // x and x^2 as the (patch, row) partial
+  auto stage = [&](int r0, int nr, __nv_bfloat16* a_s, float2* part_s) {
     for (int e = tid; e < tile.slabs * w * nr; e += kThreads) {
       const int m = e % (tile.slabs * w);     // patch row in the block: s * w + wi
       const int rr = e / (tile.slabs * w);
@@ -79,8 +80,7 @@ patchify_project_kernel(const __nv_bfloat16* __restrict__ vol, const float* __re
           a_s[m * kLdA + rr * p2 + c] = __float2bfloat16(x[c] * gr[c]);
         }
       }
-      atomicAdd(&sum_s[m], sum);
-      atomicAdd(&sq_s[m], sq);
+      part_s[rr * kM + m] = make_float2(sum, sq);
     }
   };
   project<true>(tile, stage, smem, kmat, v2, out, dim, eps);

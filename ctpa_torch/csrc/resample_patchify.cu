@@ -37,8 +37,9 @@
 // differs: for each chunk of slab rows the block copies the matching x2 rows
 // (contiguous over ws, 16 bytes a thread) into shared memory, then one
 // thread per (patch, row) forms its p2 output columns two at a time from
-// the two taps, windows and masks them, adds them to the patch's
-// statistics and stores them rounded to bf16 in the (patch, feature) tile.
+// the two taps, windows and masks them, leaves their sums as the (patch,
+// row) partial of the statistics (added in a fixed order by the projection)
+// and stores them rounded to bf16 in the (patch, feature) tile.
 // Stage 3 thus costs a few fp32 operations per voxel instead of a second
 // product.  The staging is laid out for shared memory's 32 banks: a warp's
 // lanes take the rows of a patch first (four rows of eight patches), the
@@ -59,12 +60,12 @@ namespace {
 using namespace patch_project;
 
 // Dynamic shared memory: the projection's tiles, the taps (i0, i1, w0, w1,
-// 16 bytes a column), the chunk's x2 rows (kSlabs * (kKC / p2) rows of
+// 16 bytes a column), the chunk's x2 rows (kSlabs * chunk_rows(p2) rows of
 // ws + kRowPad bf16), the column mask vw.
 constexpr int kRowPad = 16;   // keeps rows 16-byte aligned, moves them 8 banks on
 __host__ __device__ inline size_t rows_offset(int W) { return kSmemBytes + 16 * (size_t)W; }
 __host__ __device__ inline size_t vw_offset(int W, int ws, int p2) {
-  return rows_offset(W) + (size_t)kSlabs * (kKC / p2) * (ws + kRowPad) * 2;
+  return rows_offset(W) + (size_t)kSlabs * chunk_rows(p2) * (ws + kRowPad) * 2;
 }
 inline size_t smem_bytes(int W, int ws, int p2) { return vw_offset(W, ws, p2) + W; }
 
@@ -114,7 +115,7 @@ resample3_patchify_project_kernel(const __nv_bfloat16* __restrict__ x2,
     if (has_window) y = (fminf(fmaxf(y, lo), hi) + shift) * inv_scale;
     return row_ok && vw_s[k] ? y : pad_value;
   };
-  auto stage = [&](int r0, int nr, __nv_bfloat16* a_s, float* sum_s, float* sq_s) {
+  auto stage = [&](int r0, int nr, __nv_bfloat16* a_s, float2* part_s) {
     // the chunk's x2 rows: slab s, chunk row rr at x_s[(s * nr + rr) * ld_x]
     const int n_rows = tile.slabs * nr;
     if (vec) {
@@ -168,8 +169,7 @@ resample3_patchify_project_kernel(const __nv_bfloat16* __restrict__ x2,
           }
         }
       }
-      atomicAdd(&sum_s[m], sum);
-      atomicAdd(&sq_s[m], sq);
+      part_s[rr * kM + m] = make_float2(sum, sq);
     }
   };
   project<false>(tile, stage, dsmem, kmat, v2, out, dim, eps);

@@ -61,6 +61,21 @@ def test_patchify_kernel_matches_plain(cuda, shape):
     torch.testing.assert_close(got.float(), ref.float(), atol=TOL[bf16], rtol=TOL[bf16])
 
 
+@pytest.mark.parametrize("shape", [(240, 480, 480, 10, 20, 512), (12, 36, 48, 4, 12, 256)])
+def test_patchify_kernel_is_deterministic(cuda, shape):
+    """Two calls on one volume give the same bits: the per-patch LayerNorm
+    sums are added in a fixed order (the shipped shape and a ragged one)."""
+    T, H, W, pt, p, dim = shape
+    bf16 = torch.bfloat16
+    vol = (torch.rand(T, H, W, generator=cuda, device="cuda") * 2 - 1).to(bf16)
+    g = (1 + 0.1 * torch.randn(pt * p * p, generator=cuda, device="cuda")).to(bf16)
+    K = (0.02 * torch.randn(pt * p * p, dim, generator=cuda, device="cuda")).to(bf16)
+    first = patchify_project(vol, g, K, pt, p, p, out_dtype=bf16)
+    second = patchify_project(vol, g, K, pt, p, p, out_dtype=bf16)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_patchify_kernel_refuses_fp32(cuda):
     vol = torch.zeros(16, 48, 48, device="cuda")
     with pytest.raises(TypeError):
@@ -111,6 +126,17 @@ def test_resample_patchify_kernel_matches_plain(cuda, case):
     ref = rp.resample3_patchify_project_plain(*args, **kw)
     torch.testing.assert_close(got.float(), ref.float(), atol=TOL[torch.bfloat16],
                                rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("case", ["shipped", "odd ws, ragged chunk"])
+def test_resample_patchify_kernel_is_deterministic(cuda, case):
+    ops, g, K, pt, p = _k9_operands(cuda, case)
+    args = (*ops[:5], g, K, pt, p, p)
+    kw = dict(window=ops.window, pad_value=ops.pad_value)
+    first = rp.resample3_patchify_project(*args, **kw)
+    second = rp.resample3_patchify_project(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_resample_patchify_kernel_refuses_what_it_does_not_take(cuda):
@@ -336,6 +362,74 @@ def test_flash_masked_kernels_match_plain(cuda, dtype, form, bias_form, d):
     if dbias is not None:
         torch.testing.assert_close(dbias.float(), fa.flash_attention_bwd_dbias_plain(*args).float(),
                                    atol=tol, rtol=tol)
+
+
+# (n, m): neither a multiple of 16 nor of 64; m % 8 == 0 (the bias rows
+# arrive by 16-byte copies, the last key tile part-filled); m < 16
+EDGE_SHAPES = [(77, 141), (130, 136), (9, 250), (64, 13)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("form", ["none", "causal q_offset 1", "causal kv holes"])
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_flash_bf16_kernel_edge_shapes(cuda, d, shape, form, offset):
+    """The bf16 tensor-core forward at ragged n and m with a bias (h, n, m),
+    with and without the logsumexp; offset 1 puts q, k and v one element off
+    a 16-byte boundary, so every row takes the element copies."""
+    n, m = shape
+    q, k, v, bias, do, masks = _masked(cuda, torch.bfloat16, d, form, "h", n=n, m=m)
+    if form == "none":
+        masks = fa.NO_MASKS
+    if offset:
+        q, k, v = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape) for t in (q, k, v))
+        assert q.data_ptr() % 16
+    scale = d ** -0.5
+    before = LAUNCHES["flash_attention_fwd"], LAUNCHES["flash_attention_fwd_lse"]
+    out, lse = fa._forward(q, k, v, bias, scale, None, True, masks)
+    out2, _ = fa._forward(q, k, v, bias, scale, None, False, masks)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["flash_attention_fwd"], LAUNCHES["flash_attention_fwd_lse"]) == (
+        before[0] + 1, before[1] + 1)
+    ref_out, ref_lse = flash_attention_plain(q, k, v, bias, scale, return_lse=True, masks=masks)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(out2, out, atol=0, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_flash_bf16_kernel_skips_a_dead_key_tile_inside_live_rows(cuda, d, causal):
+    """Keys 64..127 (a whole key tile) masked, every other key real: the
+    tile is skipped, the rows keep the keys on both sides of it."""
+    b, h, n, m = 2, 3, 150, 200
+    q, k, v, bias, do, _ = _masked(cuda, torch.bfloat16, d, "none", "bh", b=b, h=h, n=n, m=m)
+    kv = torch.ones(b, m, dtype=torch.bool, device="cuda")
+    kv[:, 64:128] = False
+    masks = fa.make_masks(causal, kv, None, b, m, "cuda")
+    out, lse = fa._forward(q, k, v, bias, d ** -0.5, None, True, masks)
+    ref_out, ref_lse = flash_attention_plain(q, k, v, bias, d ** -0.5, return_lse=True,
+                                             masks=masks)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("form", ["none", "causal kv holes"])
+def test_flash_bf16_kernel_is_deterministic(cuda, form):
+    """At the serving shape (bias rows by 16-byte copies) and a ragged masked
+    one, two calls give the same bits."""
+    if form == "none":
+        q, k, v, bias, bound, _ = _attn(cuda, torch.bfloat16, "h", True, 32, b=24, h=8, n=576,
+                                        m=576)
+        masks = fa.NO_MASKS
+    else:
+        q, k, v, bias, _, masks = _masked(cuda, torch.bfloat16, 64, form, "h")
+        bound = None
+    runs = [fa._forward(q, k, v, bias, 8.0, bound, True, masks) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
 
 
 def test_flash_d128_training_shape_autograd(cuda):

@@ -29,7 +29,10 @@ Tolerances, each with its reason:
   (K9's): 1e-3 for that raw.
 """
 
+import ast
 import dataclasses
+import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -370,3 +373,32 @@ def test_bench_exits_nonzero_without_a_card(capsys):
     assert not torch.cuda.is_available()
     assert bench_torch.main([]) == 1
     assert capsys.readouterr().out == ""
+
+
+def _bench_py():
+    """bench.py's result keys, in the order its main() prints them, and its
+    pinned CPU-reference seconds, read from its source (it imports ctpa)."""
+    tree = ast.parse((Path(__file__).resolve().parents[1] / "bench.py").read_text())
+    main = next(f for f in tree.body if isinstance(f, ast.FunctionDef) and f.name == "main")
+    line = next(node for node in ast.walk(main) if isinstance(node, ast.Dict))
+    ref = next(node.value.value for node in tree.body if isinstance(node, ast.Assign)
+               and [t.id for t in node.targets] == ["CPU_REF_S_PER_VOLUME"])
+    return [k.value for k in line.keys], ref
+
+
+def test_bench_line_has_bench_py_keys_in_order():
+    keys, cpu_ref_s = _bench_py()
+    assert keys[:5] == ["metric", "value", "unit", "vs_baseline", "vs_baseline_live_cpu_leg"]
+    assert bench_torch.CPU_REF_S_PER_VOLUME == cpu_ref_s
+    line = bench_torch.result_line(0.025, 0.03125, 50.0, "resample_patchify", "card", 0.5)
+    assert list(line) == keys + ["front_end", "device"]
+    assert line["value"] == 40.0 and line["clip_pairs_per_sec_incl_text"] == 32.0
+    assert line["vs_baseline"] == pytest.approx(40.0 * cpu_ref_s, rel=1e-12)
+    assert line["vs_baseline_live_cpu_leg"] == pytest.approx(80.0, rel=1e-12)
+    assert json.loads(json.dumps(line)) == line
+
+
+@pytest.mark.parametrize("cpu_vps", [float("nan"), 0.0, -1.0, float("inf")])
+def test_bench_line_refuses_a_failed_cpu_leg(cpu_vps):
+    with pytest.raises(ValueError, match="CPU reference"):
+        bench_torch.result_line(0.025, 0.03125, 50.0, "patchify", "card", cpu_vps)
