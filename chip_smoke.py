@@ -341,6 +341,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time per call of the CUDA kernels ``fn`` launches, from a
+    profiler trace: the kernels' own time, without the host's dispatch
+    between calls (which ``cuda_ms`` includes when it exceeds them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters
+
+
 def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -802,6 +820,16 @@ def sdpa_backend(fn) -> str:
     return "; ".join(n[:90] for n in names) or "not seen"
 
 
+def sdpa_backward(forward, leaves, do):
+    """The backward alone of one library attention call, as a function:
+    ``torch.autograd.grad`` of its retained graph (``forward()``'s output)
+    into ``leaves``.  K3's yardstick, never called by the port."""
+    import torch
+
+    o = forward()
+    return lambda: torch.autograd.grad(o, leaves, grad_outputs=do, retain_graph=True)
+
+
 def check_train_kernels(dev) -> dict:
     """Phase 8: K2 with its logsumexp and the four K3 passes against their
     plain versions at the training shapes, then timed (bf16, CPB-shaped
@@ -883,8 +911,10 @@ def check_train_kernels(dev) -> dict:
         "flash_attention_bwd_dbias": (lambda: fa.flash_attention_bwd_dbias(*args),
                                       lambda: fa.flash_attention_bwd_dbias_plain(*args)),
     }
-    # yardsticks, never called by the port: the library forward, and its
-    # forward plus backward with a bias that requires grad
+    for name in TRAIN_KERNELS[1:]:
+        repeatable(f"{name} bf16 bias (h,n,m)", timed[name][0])
+    # yardsticks, never called by the port: the library forward, its forward
+    # plus backward with a bias that requires grad, and that backward alone
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias[None])]
 
     def sdpa_fwd_bwd():
@@ -894,9 +924,14 @@ def check_train_kernels(dev) -> dict:
     lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
                                                                 scale=scale))
     lib_fwd_bwd_ms = cuda_ms(sdpa_fwd_bwd)
+    lib_bwd = sdpa_backward(
+        lambda: F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=scale),
+        leaves, do)
+    lib_bwd_ms = cuda_ms(lib_bwd)
     backend = sdpa_backend(sdpa_fwd_bwd)
     print(f"  scaled_dot_product_attention forward {lib_fwd_ms:.4f} ms, forward+backward "
-          f"{lib_fwd_bwd_ms:.4f} ms (bias requires grad); its kernels: {backend}")
+          f"{lib_fwd_bwd_ms:.4f} ms, backward alone {lib_bwd_ms:.4f} ms (device "
+          f"{device_ms(lib_bwd):.4f}; bias requires grad); its kernels: {backend}")
 
     # bytes each function must move and the operations it does (bf16 = 2 bytes)
     qkv = b * heads * n * d * 2                       # one of q, k, v, out, dO, dq, ...
@@ -926,19 +961,20 @@ def check_train_kernels(dev) -> dict:
         kernel_fn, plain_fn = timed[name]
         ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
         b_ms, b_by = bound_ms(*work[name])
-        lib_ms = lib_fwd_ms if name == "flash_attention_fwd_lse" else None
+        lib_ms = lib_fwd_ms if name == "flash_attention_fwd_lse" else lib_bwd_ms
         source, replaces = sources[name]
         rows[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
                           max_abs_err=max(errs[err_key[name]], errs["lse"])
                           if name == "flash_attention_fwd_lse" else errs[err_key[name]],
                           ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                           library_ms=lib_ms)
-        print(f"  {name}: {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms * 1e3:.1f} us "
+        print(f"  {name}: {ms:.4f} ms (device {device_ms(kernel_fn):.4f})  plain "
+              f"{plain_ms:.4f} ms  bound {b_ms * 1e3:.1f} us "
               f"({b_by}: {work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.2f} GFLOP)  "
               f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
     k3 = sum(rows[name]["ms"] for name in TRAIN_KERNELS[1:])
     print(f"  K3 in all (delta + dq + dkv + dbias): {k3:.4f} ms; scaled_dot_product_attention "
-          f"forward+backward {lib_fwd_bwd_ms:.4f} ms")
+          f"backward {lib_bwd_ms:.4f} ms, forward+backward {lib_fwd_bwd_ms:.4f} ms")
     return rows
 
 
@@ -1279,7 +1315,10 @@ def report(dev, rows: dict):
         patchify_project.launches = 0
         da.LAUNCHES["decode_attention"] = 0
         mark()
-        res = model.generate(video, ids, mask, NEW_TOKENS, eos_token_id=-1, greedy=True)
+        # no EOS and no pad id: a slot left unfilled reads -1, and a
+        # generated id 0 counts as a token
+        res = model.generate(video, ids, mask, NEW_TOKENS, eos_token_id=-1, pad_token_id=-1,
+                             greedy=True)
         mark()
         torch.cuda.synchronize()
         handle.remove()
@@ -1310,7 +1349,8 @@ def report(dev, rows: dict):
         da.LAUNCHES["decode_attention"] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res8 = int8.generate(video, ids, mask, INT8_NEW_TOKENS, eos_token_id=-1, greedy=True)
+        res8 = int8.generate(video, ids, mask, INT8_NEW_TOKENS, eos_token_id=-1,
+                             pad_token_id=-1, greedy=True)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k8_int8 = da.LAUNCHES["decode_attention"]
@@ -1579,13 +1619,17 @@ def check_report_train_kernels(dev) -> dict:
         o = F.scaled_dot_product_attention(*leaves, scale=scale, **kw)
         torch.autograd.grad(o, leaves, grad_outputs=do)
 
+    lib_bwd = sdpa_backward(lambda: F.scaled_dot_product_attention(
+        *leaves, attn_mask=attn_mask, scale=scale), leaves, do)
     lib = {"fwd": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
                                                                   scale=scale)),
            "fwd_bwd": cuda_ms(lambda: sdpa_fwd_bwd(attn_mask=attn_mask)),
            "causal fwd": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                                          scale=scale)),
-           "causal fwd_bwd": cuda_ms(lambda: sdpa_fwd_bwd(is_causal=True))}
+           "causal fwd_bwd": cuda_ms(lambda: sdpa_fwd_bwd(is_causal=True)),
+           "bwd": cuda_ms(lib_bwd)}
     print(f"  scaled_dot_product_attention, boolean mask: forward {lib['fwd']:.4f} ms, "
+          f"backward alone {lib['bwd']:.4f} ms (device {device_ms(lib_bwd):.4f}), "
           f"forward+backward {lib['fwd_bwd']:.4f} ms (kernels: "
           f"{sdpa_backend(lambda: sdpa_fwd_bwd(attn_mask=attn_mask))}); is_causal without the "
           f"key mask: forward {lib['causal fwd']:.4f} ms, forward+backward "
@@ -1619,7 +1663,7 @@ def check_report_train_kernels(dev) -> dict:
         kernel_fn, plain_fn = timed[name]
         ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
         b_ms, b_by = bound_ms(*work[name])
-        lib_ms = lib["fwd"] if name == "flash_attention_fwd_lse_d128" else None
+        lib_ms = lib["fwd"] if name == "flash_attention_fwd_lse_d128" else lib["bwd"]
         source, replaces = sources[name]
         row = name + ("_d128" if name == "flash_attention_bwd_delta" else "")
         err = errs[err_key[name]]
@@ -1627,20 +1671,22 @@ def check_report_train_kernels(dev) -> dict:
                          max_abs_err=max(err, errs["lse"]) if err_key[name] == "fwd" else err,
                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms)
-        print(f"  {row}: {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms * 1e3:.1f} us "
+        print(f"  {row}: {ms:.4f} ms (device {device_ms(kernel_fn):.4f})  plain "
+              f"{plain_ms:.4f} ms  bound {b_ms * 1e3:.1f} us "
               f"({b_by}: {work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.2f} GFLOP)  "
               f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
     k3 = sum(rows[r]["ms"] for r in ("flash_attention_bwd_delta_d128",
                                      "flash_attention_bwd_dq_d128",
                                      "flash_attention_bwd_dkv_d128"))
     print(f"  K2-lse + K3 at head dim 128: {rows['flash_attention_fwd_lse_d128']['ms'] + k3:.4f} "
-          f"ms; scaled_dot_product_attention forward+backward {lib['fwd_bwd']:.4f} ms")
+          f"ms (K3 {k3:.4f}); scaled_dot_product_attention backward {lib['bwd']:.4f} ms, "
+          f"forward+backward {lib['fwd_bwd']:.4f} ms")
 
-    # the masked forms at head dim 64 (K2 on the tensor cores, K3 on the FMA
-    # units), timed for PERF.md, with bounds over what the masks leave: k
-    # and v of the real keys, the bias cells some batch item reads, the
-    # products over the valid cells.  K2 and its yardstick take tens of
-    # microseconds: 200 calls each, so the card's clocks have settled
+    # the masked forms at head dim 64 (K2 and K3 on the tensor cores), timed
+    # for PERF.md, with bounds over what the masks leave: k and v of the real
+    # keys, the bias cells some batch item reads, the products over the valid
+    # cells.  The kernels and K2's yardstick take tens of microseconds: 200
+    # calls each, so the card's clocks have settled
     d64, scale64 = 64, 64 ** -0.5
     q, k, v, bias, do, masks = masked_case(gen, dev, (b, h, n, n), d64, bf16, "causal holes", "h")
     out, lse = fa._forward(q, k, v, bias, scale64, None, True, masks)
@@ -1666,12 +1712,18 @@ def check_report_train_kernels(dev) -> dict:
             ("bwd_dbias", lambda: fa.flash_attention_bwd_dbias(*args),
              lambda: fa.flash_attention_bwd_dbias_plain(*args))):
         b_ms, b_by = bound_ms(*work64[label])
-        iters = 200 if label == "fwd_lse" else 20
         print(f"  masked flash_attention_{label} at head dim 64 ({b}, {h}, {n}, 64) bf16, "
-              f"causal with holes, bias (h, n, m): {cuda_ms(kernel_fn, iters):.4f} ms  plain "
+              f"causal with holes, bias (h, n, m): {cuda_ms(kernel_fn, 200):.4f} ms (device "
+              f"{device_ms(kernel_fn):.4f})  plain "
               f"{cuda_ms(plain_fn):.4f} ms  bound {b_ms * 1e3:.1f} us ({b_by}: "
               f"{work64[label][0] / 1e6:.1f} MB, {work64[label][1] / 1e9:.2f} GFLOP)")
-    # yardstick: the bias and the masks as one additive float mask
+    repeatable("masked flash_attention_bwd_delta d64",
+               lambda: fa.flash_attention_bwd_delta(out, do))
+    for label in ("dq", "dkv", "dbias"):
+        fn = getattr(fa, f"flash_attention_bwd_{label}")
+        repeatable(f"masked flash_attention_bwd_{label} d64", lambda: fn(*args))
+    # yardstick: the bias and the masks as one additive float mask, which
+    # does not require grad (with the -inf cells, its gradient is not d(bias))
     lib_mask = bias[None].float().masked_fill(~valid, float("-inf")).to(bf16)
     leaves64 = [t.detach().clone().requires_grad_() for t in (q, k, v)]
 
@@ -1681,8 +1733,12 @@ def check_report_train_kernels(dev) -> dict:
 
     fwd64 = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask,
                                                            scale=scale64), 200)
+    bwd64 = sdpa_backward(lambda: F.scaled_dot_product_attention(
+        *leaves64, attn_mask=lib_mask, scale=scale64), leaves64, do)
     print(f"  scaled_dot_product_attention at head dim 64, bias and masks as one float mask: "
-          f"forward {fwd64:.4f} ms, forward+backward {cuda_ms(sdpa64_fwd_bwd):.4f} ms")
+          f"forward {fwd64:.4f} ms, backward alone {cuda_ms(bwd64, 200):.4f} ms (device "
+          f"{device_ms(bwd64):.4f}; no d(bias)), "
+          f"forward+backward {cuda_ms(sdpa64_fwd_bwd):.4f} ms")
     return rows
 
 
@@ -2396,7 +2452,9 @@ def quant_generate(model, video, ids, mask, new_tokens: int, label: str) -> tupl
         keep = model.vision_feature_extractor.register_forward_hook(
             lambda _m, _i, out: vision.append(out))
         mark()
-        res = model.generate(video, ids, mask, new_tokens, eos_token_id=-1, greedy=True)
+        # no EOS and no pad id, as in the report phase
+        res = model.generate(video, ids, mask, new_tokens, eos_token_id=-1, pad_token_id=-1,
+                             greedy=True)
         mark()
         counts.append(quant_launches())
         torch.cuda.synchronize()

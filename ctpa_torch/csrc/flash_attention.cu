@@ -48,10 +48,10 @@
 // rounded to bf16, are P's A fragments as they lie (no trip through
 // shared memory), and O = P V accumulates in fp32 registers (D / 2 floats
 // a lane).  K, V and the 64 x 64 bias tile arrive as bf16 by cp.async into
-// a two-stage ring, so the next tile's copies overlap this tile's products;
-// ldmatrix (.trans for V) reads the fragments, from rows padded by 8
-// elements so its eight row addresses fall on distinct banks.  The
-// exponentials run in log2 units on ex2.approx; with the bound and no mask
+// a two-stage ring (flash_tiles.cuh, shared with the backward), so the next
+// tile's copies overlap this tile's products; ldmatrix (.trans for V) reads
+// the fragments, from rows padded by 8 elements so its eight row addresses
+// fall on distinct banks.  The exponentials run in log2 units on ex2.approx; with the bound and no mask
 // the shift folds into the scale's multiply-add and no row max is taken.
 // kv_mask flags are read a tile ahead, so skipping a dead tile costs no
 // wait on device memory; causal blocks run the last query tiles (the
@@ -80,6 +80,7 @@
 #include <stdint.h>
 
 #include "flash_masks.cuh"
+#include "flash_tiles.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -236,15 +237,16 @@ flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict_
 
 // ---------------------------------------------------------------- bf16: mma.sync
 
-using bf16 = __nv_bfloat16;
-using warp_mma::cp_async16;
+using bf16 = flash_tiles::bf16;
+using flash_tiles::kLdBias;
+using flash_tiles::kPad;
+using flash_tiles::kThreads;
+using flash_tiles::next_live_tile;
+using flash_tiles::stage_bias;
+using flash_tiles::stage_rows;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kMmaBQ = 16 * kWarps;   // query rows per block, 16 a warp
-constexpr int kMmaBK = 64;            // keys per tile
-constexpr int kPad = 8;               // bf16 padding of every staged row
-constexpr int kLdBias = kMmaBK + kPad;
+constexpr int kMmaBQ = flash_tiles::kTile;   // query rows per block, 16 a warp
+constexpr int kMmaBK = flash_tiles::kTile;   // keys per tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -278,62 +280,6 @@ struct MmaSmem {
 };
 
 extern __shared__ __align__(16) unsigned char smem_mma[];
-
-// Rows [0, kMmaBK) of a (., D) bf16 matrix at src into dst (row stride
-// D + kPad); rows >= `rows` are zero.  With `vec` by 16-byte cp.async.
-template <int D>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int rows, bool vec) {
-  constexpr int kLd = D + kPad;
-  if (vec) {
-    constexpr int kChunks = D / 8;
-    for (int e = threadIdx.x; e < kMmaBK * kChunks; e += kThreads) {
-      const int r = e / kChunks;
-      const int c = (e - r * kChunks) * 8;
-      const bool ok = r < rows;
-      cp_async16(dst + r * kLd + c, ok ? src + (long long)r * D + c : src, ok ? 16 : 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < kMmaBK * D; e += kThreads) {
-      const int r = e / D;
-      const int c = e - r * D;
-      dst[r * kLd + c] = r < rows ? src[(long long)r * D + c] : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// The (kMmaBQ, kMmaBK) bias tile at src (row stride m) into dst (row stride
-// kLdBias); cells past `rows` or `cols` are zero.  `vec` needs m % 8 == 0
-// (so cols is a multiple of 8 too) and a 16-byte aligned src.
-__device__ __forceinline__ void stage_bias(bf16* dst, const bf16* src, int rows, int cols, int m,
-                                           bool vec) {
-  if (vec) {
-    constexpr int kChunks = kMmaBK / 8;
-    for (int e = threadIdx.x; e < kMmaBQ * kChunks; e += kThreads) {
-      const int r = e / kChunks;
-      const int c = (e - r * kChunks) * 8;
-      const bool ok = r < rows && c < cols;
-      cp_async16(dst + r * kLdBias + c, ok ? src + (long long)r * m + c : src, ok ? 16 : 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < kMmaBQ * kMmaBK; e += kThreads) {
-      const int r = e / kMmaBK;
-      const int c = e - r * kMmaBK;
-      dst[r * kLdBias + c] =
-          r < rows && c < cols ? src[(long long)r * m + c] : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// kv_mask: the first key tile at or after j0 that holds a real key, or
-// m_end; block-uniform (every thread must call it).
-__device__ __forceinline__ int next_live_tile(int j0, int m_end, int m,
-                                              const unsigned char* kvg) {
-  for (; j0 < m_end; j0 += kMmaBK) {
-    const int j = j0 + threadIdx.x;
-    if (__syncthreads_or(threadIdx.x < kMmaBK && j < m && kvg[j])) break;
-  }
-  return j0;
-}
 
 // The mean of v over all m keys, columns 2 lane and 2 lane + 1 (lanes with
 // 2 lane >= D return 0): what a query row with no valid key gets.  The warp

@@ -1,6 +1,7 @@
 // Warp-level tensor-core, shared-memory and asynchronous-copy primitives
 // (inline PTX, sm_80 and later), for the kernels that hold their matrix
-// tiles in registers (flash_attention.cu's bf16 forward).
+// tiles in registers (the bf16 forward and backward of flash attention,
+// flash_attention.cu and flash_attention_bwd.cu).
 //
 // mma_bf16_16816 is `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`:
 // D (16 x 8, fp32) = A (16 x 16, bf16) . B (16 x 8, bf16) + C, the operands
@@ -81,6 +82,16 @@ __device__ __forceinline__ float exp2_approx(float x) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(dst), "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes (`cp.async.ca`: the 4- and 8-byte forms go through L1), zero
+// filled with src_bytes 0: one fp32 value of a row vector
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :
                : "r"(dst), "l"(gmem), "r"(src_bytes)
                : "memory");

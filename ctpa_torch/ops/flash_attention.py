@@ -3,12 +3,12 @@
 Replaces the TPU kernel ``ctpa/ops/pallas/flash_attention.py:flash_attention``
 (forward, ``_flash_call``) and its custom-VJP backward (``_flash_bwd``).  The
 CUDA kernels are ``ctpa_torch/csrc/flash_attention.cu`` (forward, optionally
-with the row logsumexp: bf16 on the tensor cores by ``mma.sync``, fp32 on
-the FMA units) and ``ctpa_torch/csrc/flash_attention_bwd.cu`` (the delta
-pre-pass, dQ, dK/dV and d(bias), on the FMA units) for head dims 16, 32 and
-64, and ``ctpa_torch/csrc/flash_attention_d128.cu`` (forward, dQ, dK/dV) for
-head dim 128 on the tensor cores; each file's header states the bound it
-faces on the H100 and what its design does about it.  The
+with the row logsumexp) and ``ctpa_torch/csrc/flash_attention_bwd.cu`` (the
+delta pre-pass, dQ, dK/dV and d(bias); every pass deterministic), bf16 on
+the tensor cores by ``mma.sync`` and fp32 on the FMA units, for head dims
+16, 32 and 64, and ``ctpa_torch/csrc/flash_attention_d128.cu`` (forward,
+dQ, dK/dV) for head dim 128 on the tensor cores; each file's header states
+the bound it faces on the H100 and what its design does about it.  The
 wrappers launch them for CUDA tensors and take the plain PyTorch versions
 (``flash_attention_plain``, ``flash_attention_bwd_plain`` and one ``*_plain``
 per backward pass) only for CPU tensors.

@@ -11,9 +11,9 @@ each path it takes 2 steps to warm up, times 3 more (host clock, each
 ending in ``torch.cuda.synchronize()``), then traces two steps with
 ``torch.profiler`` (the first absorbs the profiler's own start-up) and
 prints the second's wall time, the summed device time of its kernels, the
-device-busy share (their ratio; the kernels run on one stream) and the
-device time by kernel, largest first.  Where the trace holds no device time
-it says "not measured".
+device-busy share (their ratio; the kernels run on one stream), the
+device time by kernel, largest first, and the port's flash kernels (K2, K3)
+summed.  Where the trace holds no device time it says "not measured".
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import time
 from collections import defaultdict
 
 WARMUP, TIMED = 2, 3
+HAND_FLASH = "(anonymous namespace)::flash_"   # the port's K2 and K3 kernels
 
 
 def run(flash_axial: bool) -> None:
@@ -82,6 +83,12 @@ def run(flash_axial: bool) -> None:
           f"kernel launches; device busy {100 * device_ms / wall_ms:.1f}% of the step")
     print("device ms   launches  share  kernel")
     for name, (ms, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:30]:
+        print(f"{ms:9.3f} {n:9d} {100 * ms / device_ms:5.1f}%  {name[:110]}")
+    # the port's own flash kernels (K2, K3), whatever their rank
+    hand = {name: v for name, v in per_kernel.items() if HAND_FLASH in name}
+    print(f"hand-written flash kernels: {sum(ms for ms, _ in hand.values()):.3f} ms in "
+          f"{sum(n for _, n in hand.values())} launches")
+    for name, (ms, n) in sorted(hand.items(), key=lambda kv: -kv[1][0]):
         print(f"{ms:9.3f} {n:9d} {100 * ms / device_ms:5.1f}%  {name[:110]}")
 
 

@@ -432,6 +432,99 @@ def test_flash_bf16_kernel_is_deterministic(cuda, form):
     assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
 
 
+# ----------------------------------- K3: the bf16 backward on the tensor cores
+
+def _odd(t):
+    """t one element off a 16-byte boundary: every row takes the element copies."""
+    return torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+
+
+def _bwd_vs_plain(q, k, v, bias, do, masks, scale, odd=False):
+    """The forward by K2, then the four K3 passes against the plain backward
+    on the same output and logsumexp; with ``odd`` q, k, v, dO and O sit off
+    16-byte boundaries.  Checks one launch of each pass."""
+    if odd:
+        q, k, v, do = (_odd(t) for t in (q, k, v, do))
+        assert q.data_ptr() % 16 and do.data_ptr() % 16
+    out, lse = fa._forward(q, k, v, bias, scale, None, True, masks)
+    if odd:
+        out = _odd(out)
+    before = dict(LAUNCHES)
+    got = flash_attention_bwd(q, k, v, bias, out, lse, do, scale, masks=masks)
+    torch.cuda.synchronize()
+    launched = {key: LAUNCHES[key] - before[key] for key in LAUNCHES}
+    assert launched == dict(dict.fromkeys(LAUNCHES, 0), flash_attention_bwd_delta=1,
+                            flash_attention_bwd_dq=1, flash_attention_bwd_dkv=1,
+                            flash_attention_bwd_dbias=int(bias is not None))
+    ref = flash_attention_bwd_plain(q, k, v, bias, out, lse, do, scale, masks=masks)
+    tol = TOL[torch.bfloat16]
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        if r is None:
+            assert g is None
+            continue
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol, msg=name)
+
+
+# (n, m): not multiples of 16 or of 64 (13, 77, 141, 577), n < 16, m < 16,
+# m % 8 == 0 (the bias rows by 16-byte copies, the last tile part-filled)
+BWD_EDGE_SHAPES = [(13, 77), (77, 141), (130, 136), (577, 577), (64, 13)]
+# (mask form, bias form): every bias form; q_offset 1 puts a block's last
+# causal key on a tile's first key; kv holes mask key 0, so with causal
+# row 0 has no valid key; kv dead row masks every key of batch item 1
+BWD_EDGE_FORMS = [("none", "h"), ("none", "1"), ("none", None), ("causal q_offset 1", "bh"),
+                  ("causal kv holes", "h"), ("kv dead row", "1")]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("form, bias_form", BWD_EDGE_FORMS)
+@pytest.mark.parametrize("shape", BWD_EDGE_SHAPES)
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_flash_bwd_bf16_kernels_edge_shapes(cuda, d, shape, form, bias_form, offset):
+    """The bf16 tensor-core backward at ragged n and m, with each bias form
+    and mask form, at aligned and odd offsets."""
+    n, m = shape
+    q, k, v, bias, do, masks = _masked(cuda, torch.bfloat16, d, form, bias_form, n=n, m=m)
+    if form == "none":
+        masks = fa.NO_MASKS
+    _bwd_vs_plain(q, k, v, bias, do, masks, d ** -0.5, odd=bool(offset))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_flash_bwd_bf16_kernels_skip_a_dead_key_tile_inside_live_rows(cuda, d, causal):
+    """Keys 64..127 (a whole key tile, and a whole dK/dV block) masked,
+    every other key real: dQ and d(bias) skip the tile, its dk rows are zero
+    and its dv rows hold only the empty rows' share."""
+    b, h, n, m = 2, 3, 150, 200
+    q, k, v, bias, do, _ = _masked(cuda, torch.bfloat16, d, "none", "bh", b=b, h=h, n=n, m=m)
+    kv = torch.ones(b, m, dtype=torch.bool, device="cuda")
+    kv[:, 64:128] = False
+    _bwd_vs_plain(q, k, v, bias, do, fa.make_masks(causal, kv, None, b, m, "cuda"), d ** -0.5)
+
+
+@pytest.mark.parametrize("form", ["none", "causal kv holes"])
+def test_flash_bwd_kernels_are_deterministic(cuda, form):
+    """At the CLIP training shape (bias (h, n, m)) and a ragged masked one,
+    two calls of each K3 pass give the same bits: no pass adds with atomics."""
+    if form == "none":
+        q, k, v, bias, _, do = _attn(cuda, torch.bfloat16, "h", False, 32, b=48, h=8, n=576,
+                                     m=576)
+        masks, scale = fa.NO_MASKS, 8.0
+    else:
+        q, k, v, bias, do, masks = _masked(cuda, torch.bfloat16, 64, form, "h")
+        scale = 64 ** -0.5
+    out, lse = fa._forward(q, k, v, bias, scale, None, True, masks)
+    delta = fa.flash_attention_bwd_delta(out, do)
+    args = (q, k, v, bias, lse, delta, do, scale, masks)
+    for fn in (lambda: (fa.flash_attention_bwd_delta(out, do),),
+               lambda: (fa.flash_attention_bwd_dq(*args),),
+               lambda: fa.flash_attention_bwd_dkv(*args),
+               lambda: (fa.flash_attention_bwd_dbias(*args),)):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
 def test_flash_d128_training_shape_autograd(cuda):
     """Report training's attention (causal, right padding 512/384) at b 2,
     h 4, n 512, d 128 through torch.autograd: one K2-lse and one each of the
