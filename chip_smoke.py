@@ -342,21 +342,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def device_ms(fn, iters: int = 20) -> float:
-    """Mean device time per call of the CUDA kernels ``fn`` launches, from a
-    profiler trace: the kernels' own time, without the host's dispatch
-    between calls (which ``cuda_ms`` includes when it exceeds them)."""
+    """Mean device time per call of the CUDA kernels ``fn`` launches, without
+    the host's dispatch between calls (which ``cuda_ms`` includes when it
+    exceeds them): the calls are queued behind a spin kernel of about 50 ms,
+    so the card runs them back to back, and CUDA events time them.  (A
+    profiler trace of such short windows lost kernel events at times, and
+    read 0 or too little.)"""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / iters
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
@@ -1651,12 +1654,14 @@ def check_report_train_kernels(dev) -> dict:
                                              4 * tile * dkv_tiles)}
     print(f"  tiles visited per head: forward and dQ {fwd_tiles}, dK/dV {dkv_tiles} of "
           f"{b * (n // 64) ** 2}")
-    d128 = "ctpa_torch/csrc/flash_attention_d128.cu"
+    d128, bwd = "ctpa_torch/csrc/flash_attention_d128.cu", "ctpa_torch/csrc/flash_attention_bwd.cu"
     sources = {"flash_attention_fwd_lse_d128": (d128, "ctpa/ops/pallas/flash_attention.py:270"),
-               "flash_attention_bwd_delta": ("ctpa_torch/csrc/flash_attention_bwd.cu",
-                                             "ctpa/ops/pallas/flash_attention.py:597"),
-               "flash_attention_bwd_dq_d128": (d128, "ctpa/ops/pallas/flash_attention.py:505"),
-               "flash_attention_bwd_dkv_d128": (d128, "ctpa/ops/pallas/flash_attention.py:451")}
+               "flash_attention_bwd_delta": (bwd, "ctpa/ops/pallas/flash_attention.py:597"),
+               "flash_attention_bwd_dq_d128": (bwd, "ctpa/ops/pallas/flash_attention.py:505"),
+               "flash_attention_bwd_dkv_d128": (bwd, "ctpa/ops/pallas/flash_attention.py:451")}
+    for label in ("dq", "dkv"):
+        fn = getattr(fa, f"flash_attention_bwd_{label}")
+        repeatable(f"flash_attention_bwd_{label}_d128 at the training shape", lambda: fn(*args))
     err_key = dict(zip(REPORT_TRAIN_KERNELS, ("fwd", "delta", "dq", "dkv")))
     rows = {}
     for name in REPORT_TRAIN_KERNELS:
@@ -1833,7 +1838,7 @@ def trainable_grads(model) -> dict:
 
 # kinds of kernel in a traced step, by the first pattern found in the name
 # (lower case)
-KERNEL_KINDS = (("flash (hand kernels)", ("d128_kernel", "flash_bwd_delta")),
+KERNEL_KINDS = (("flash (hand kernels)", ("d128_kernel", "flash_bwd_delta", "_mma_kernel")),
                 ("GEMM", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
                 ("softmax", ("softmax",)),
                 ("reduction", ("reduce",)),
@@ -2129,7 +2134,9 @@ def check_quant_kernels(dev) -> dict:
     # (label, in, out, timed row counts, checked-only row counts); generate's
     # lm_head sees one row a sequence, a full forward (training, scoring)
     # every prompt row
-    matmuls = (("qkv_proj", d, qkv, (decode, QUANT_B32, prefill), (prefill_b32,)),
+    # the decode kernel's last row count and the tiled kernel's first: checked
+    edge = quant.STREAM_MAX_ROWS
+    matmuls = (("qkv_proj", d, qkv, (decode, QUANT_B32, prefill), (prefill_b32, edge, edge + 1)),
                ("o_proj", d, d, (decode, QUANT_B32, prefill), (prefill_b32,)),
                ("lm_head", d, vocab, (decode, QUANT_B32, prefill), ()),
                ("ragged", d, 1000, (5,), ()))
@@ -2152,27 +2159,37 @@ def check_quant_kernels(dev) -> dict:
                       quant.int4_matmul_plain(x, w4, s, act_quant=a8))
                 if m not in timed:
                     continue
+                if m <= QUANT_B32:
+                    repeatable(f"{name} {label} m {m}",
+                               lambda: quant.int4_matmul(x, w4, s, act_quant=a8))
                 it = itertools.cycle(weights)
-                ms = cuda_ms(lambda: quant.int4_matmul(x, *next(it), act_quant=a8),
-                             iters=2 * len(weights))
+                fn = lambda: quant.int4_matmul(x, *next(it), act_quant=a8)  # noqa: E731
+                ms, dev_ms = cuda_ms(fn, iters=2 * len(weights)), device_ms(fn, 2 * len(weights))
                 plain_ms = cuda_ms(lambda: quant.int4_matmul_plain(x, *next(it), act_quant=a8),
                                    iters=3, warmup=1)
                 nbytes = m * d_in * 2 + d_in // 2 * d_out + n_g * d_out * 4 + m * d_out * 2
                 b_ms, b_by = bound_ms(nbytes, 2.0 * m * d_in * d_out,
                                       PEAK_INT8_OPS if a8 else PEAK_BF16_FLOPS)
-                lib_ms = None
+                lib_ms = lib_dev = None
                 if not a8:
                     lib_it = itertools.cycle(library)
-                    lib_ms = cuda_ms(lambda: next(lib_it)(x), iters=2 * len(weights))
+                    lib_fn = lambda: next(lib_it)(x)  # noqa: E731
+                    lib_ms, lib_dev = (cuda_ms(lib_fn, iters=2 * len(weights)),
+                                       device_ms(lib_fn, 2 * len(weights)))
                     diff = (library[0](x).float() - quant.int4_matmul(x, w4, s).float()).abs()
-                    lib_note = (f"{lib_ms:.4f} ms (_weight_int4pack_mm; max |diff| to the "
-                                f"kernel {diff.max().item():.3e})")
+                    lib_note = (f"{lib_ms:.4f} ms, device {lib_dev:.4f} (_weight_int4pack_mm; "
+                                f"max |diff| to the kernel {diff.max().item():.3e})")
                 else:
                     lib_note = "none"
                 table[name, label, m] = (ms, plain_ms, b_ms, b_by, lib_ms)
-                print(f"    {name} {label} (m {m}, {d_in} -> {d_out}): {ms:.4f} ms  plain "
-                      f"{plain_ms:.4f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  library {lib_note}")
+                print(f"    {name} {label} (m {m}, {d_in} -> {d_out}, "
+                      f"{quant.int4_matmul_plan_on(x, d_out, quant.GROUP, a8)}):"
+                      f" {ms:.4f} ms (device {dev_ms:.4f})  plain {plain_ms:.4f} ms  bound "
+                      f"{b_ms * 1e3:.2f} us ({b_by})  library {lib_note}")
+        if label in ("qkv_proj", "o_proj"):
+            stream_or_tiled(weights, d_in, quant.GROUP)
         del weights, library
+    rows_act = check_act_quant(gen, dev, d, (decode, QUANT_B32, prefill))
     ffn = _ffn_copies(gen, dev, d, i)
     n_gh, n_gi = d // quant.GROUP, i // quant.GROUP
     per_row = {}
@@ -2189,14 +2206,15 @@ def check_quant_kernels(dev) -> dict:
             if m == prefill_b32:
                 continue
             it = itertools.cycle(ffn)
-            ms = cuda_ms(lambda: quant.int4_ffn(x, *next(it), act_quant=a8), iters=2 * len(ffn))
+            fn = lambda: quant.int4_ffn(x, *next(it), act_quant=a8)  # noqa: E731
+            ms, dev_ms = cuda_ms(fn, iters=2 * len(ffn)), device_ms(fn, 2 * len(ffn))
             plain_ms = cuda_ms(lambda: quant.int4_ffn_plain(x, *next(it), act_quant=a8), iters=3,
                                warmup=1)
             nbytes = (m * d * 2 * 2 + 3 * d * i // 2 + 2 * n_gh * i * 4 + n_gi * d * 4)
             b_ms, b_by = bound_ms(nbytes, 6.0 * m * d * i, PEAK_INT8_OPS if a8 else PEAK_BF16_FLOPS)
             table[name, "ffn", m] = (ms, plain_ms, b_ms, b_by, None)
-            print(f"    {name} (m {m}, {d} -> {i} -> {d}): {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                  f"bound {b_ms * 1e3:.2f} us ({b_by})  library none")
+            print(f"    {name} (m {m}, {d} -> {i} -> {d}): {ms:.4f} ms (device {dev_ms:.4f})  "
+                  f"plain {plain_ms:.4f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  library none")
     del ffn
     check_a8_bound_sees_j_blocks(per_row)
     # the kernels' table rows: the decode step at batch 4, the main path's
@@ -2208,7 +2226,72 @@ def check_quant_kernels(dev) -> dict:
         rows[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
                           max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                           bound_by=b_by, library_ms=lib_ms)
+    rows.update(rows_act)
     return rows
+
+
+def stream_or_tiled(weights, d_in: int, group: int) -> None:
+    """K5's two kernels at the row counts around the decode threshold, each
+    forced by ``quant.STREAM_MAX_ROWS`` (the streaming kernel takes at most
+    32 rows): the card times behind the threshold."""
+    import torch
+
+    from ctpa_torch.ops import quant
+
+    keep = quant.STREAM_MAX_ROWS
+    gen = torch.Generator(device=weights[0][0].device).manual_seed(SEED + 12)
+    try:
+        for m in (4, 16, 32):
+            x = torch.randn(m, d_in, generator=gen, device=weights[0][0].device).to(torch.bfloat16)
+            for a8 in (False, True):
+                times = {}
+                for kind, limit in (("stream", 32), ("tiled", 0)):
+                    quant.STREAM_MAX_ROWS = limit
+                    it = itertools.cycle(weights)
+                    fn = lambda: quant.int4_matmul(x, *next(it), act_quant=a8)  # noqa: E731
+                    times[kind] = (cuda_ms(fn, iters=2 * len(weights)),
+                                   device_ms(fn, 2 * len(weights)))
+                print(f"    threshold: m {m} {d_in} -> {weights[0][0].shape[1]} "
+                      f"{'w4a8' if a8 else 'w4'}: " + ", ".join(
+                          f"{k} {ms:.4f} ms (device {dv:.4f})" for k, (ms, dv) in times.items()))
+    finally:
+        quant.STREAM_MAX_ROWS = keep
+
+
+def check_act_quant(gen, dev, d: int, row_counts) -> dict:
+    """w4a8's activation quantization (one launch) bit for bit against
+    ``quantize_act_int8`` at each row count, repeatable, and timed at the
+    first (decode at batch 4) beside the plain version; no single library
+    call computes it."""
+    import torch
+
+    from ctpa_torch.ops import quant
+
+    for m in row_counts:
+        x = torch.randn(m, d, generator=gen, device=dev).to(torch.bfloat16)
+        got, ref = quant._quantize_act_kernel(x), quant.quantize_act_int8(x)
+        same = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1].reshape(-1))
+        print(f"  int4_act_quant m {m}: x8 and sx {'bitwise equal' if same else 'differ'} to "
+              f"quantize_act_int8 (x8 off at {int((got[0] != ref[0]).sum())} places, sx at "
+              f"{int((got[1] != ref[1].reshape(-1)).sum())})")
+        if not same:
+            raise AssertionError(f"int4_act_quant m {m}: not quantize_act_int8's bits")
+        repeatable(f"int4_act_quant m {m}", lambda: quant._quantize_act_kernel(x))
+    x = torch.randn(row_counts[0], d, generator=gen, device=dev).to(torch.bfloat16)
+    fn = lambda: quant._quantize_act_kernel(x)  # noqa: E731
+    ms, dev_ms = cuda_ms(fn, 200), device_ms(fn, 200)
+    plain_fn = lambda: quant.quantize_act_int8(x)  # noqa: E731
+    plain_ms, plain_dev = cuda_ms(plain_fn, 200), device_ms(plain_fn, 200)
+    m = row_counts[0]
+    b_ms, b_by = bound_ms(m * d * 2 + m * d + m * 4, 4.0 * m * d)
+    print(f"  int4_act_quant (m {m}, {d}): {ms:.4f} ms (device {dev_ms:.4f})  plain "
+          f"quantize_act_int8 {plain_ms:.4f} ms (device {plain_dev:.4f})  bound "
+          f"{b_ms * 1e3:.3f} us ({b_by})  library none")
+    return {"int4_act_quant": dict(
+        name="int4_act_quant", route="cuda", source="ctpa_torch/csrc/int4_matmul.cu",
+        replaces="ctpa/ops/quant.py:164 (quantize_act_int8, XLA before _q4_kernel_a8 at :722)",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)}
 
 
 def check_a8_bound_sees_j_blocks(per_row: dict) -> None:
@@ -2337,8 +2420,8 @@ def check_quant8_kernels(dev) -> dict:
                 if m not in rows_timed:
                     continue
                 it = itertools.cycle(weights)
-                ms = cuda_ms(lambda: quant.int8_matmul(x, *next(it), act_quant=a8),
-                             iters=2 * len(weights))
+                fn = lambda: quant.int8_matmul(x, *next(it), act_quant=a8)  # noqa: E731
+                ms, dev_ms = cuda_ms(fn, iters=2 * len(weights)), device_ms(fn, 2 * len(weights))
                 plain_ms = cuda_ms(lambda: quant.int8_matmul_plain(x, *next(it), act_quant=a8),
                                    iters=3, warmup=1)
                 nbytes = m * d_in * 2 + d_in * d_out + d_out * 4 + m * d_out * 2
@@ -2348,10 +2431,12 @@ def check_quant8_kernels(dev) -> dict:
                 lib_ms = None
                 if library is not None:
                     lib_ms = cuda_ms(library, iters=2 * len(weights))
-                    note = f"{lib_ms:.4f} ms ({note})"
+                    note = (f"{lib_ms:.4f} ms, device {device_ms(library, 2 * len(weights)):.4f} "
+                            f"({note})")
                 table[name, label, m] = (ms, plain_ms, b_ms, b_by, lib_ms)
-                print(f"    {name} {label} (m {m}, {d_in} -> {d_out}): {ms:.4f} ms  plain "
-                      f"{plain_ms:.4f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  library {note}")
+                print(f"    {name} {label} (m {m}, {d_in} -> {d_out}): {ms:.4f} ms (device "
+                      f"{dev_ms:.4f})  plain {plain_ms:.4f} ms  bound {b_ms * 1e3:.2f} us "
+                      f"({b_by})  library {note}")
         del weights
     ffn = _int8_copies(gen, dev, ((d, i), (d, i), (i, d)))
     per_row = {}
@@ -2368,14 +2453,15 @@ def check_quant8_kernels(dev) -> dict:
             if m == prefill_b32:
                 continue
             it = itertools.cycle(ffn)
-            ms = cuda_ms(lambda: quant.int8_ffn(x, *next(it), act_quant=a8), iters=2 * len(ffn))
+            fn = lambda: quant.int8_ffn(x, *next(it), act_quant=a8)  # noqa: E731
+            ms, dev_ms = cuda_ms(fn, iters=2 * len(ffn)), device_ms(fn, 2 * len(ffn))
             plain_ms = cuda_ms(lambda: quant.int8_ffn_plain(x, *next(it), act_quant=a8), iters=3,
                                warmup=1)
             nbytes = m * d * 2 * 2 + 3 * d * i + 2 * i * 4 + d * 4
             b_ms, b_by = bound_ms(nbytes, 6.0 * m * d * i, PEAK_INT8_OPS if a8 else PEAK_BF16_FLOPS)
             table[name, "ffn", m] = (ms, plain_ms, b_ms, b_by, None)
-            print(f"    {name} (m {m}, {d} -> {i} -> {d}): {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                  f"bound {b_ms * 1e3:.2f} us ({b_by})  library none")
+            print(f"    {name} (m {m}, {d} -> {i} -> {d}): {ms:.4f} ms (device {dev_ms:.4f})  "
+                  f"plain {plain_ms:.4f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  library none")
     del ffn
     check_a8_bound_sees_j_blocks(per_row)
     # the kernels' table rows: the decode step at batch 4, the main path's
@@ -2405,9 +2491,10 @@ def quant_kernel_launches(cfg, rows: int, head_rows: int, sms: int) -> dict:
     ``head_rows``: per layer one projection launch (K4 or K5) each for
     qkv_proj and o_proj and one FFN launch (K6 or K7) per row chunk
     (``ops/quant.py:ffn_row_chunk``), one projection launch for the lm_head,
-    and one reduction for each projection whose contraction is split
-    (``int8_matmul_splits`` / ``matmul_splits`` on ``sms`` SMs) and for each
-    FFN chunk."""
+    one reduction for each FFN chunk and for each K4 or prefill K5 call
+    whose contraction is split (``int8_matmul_splits`` / ``int4_matmul_plan``
+    on ``sms`` SMs; K5 at decode adds its splits in its own launch), and
+    for w4a8 one activation quantization per K5 call."""
     from ctpa_torch.ops import quant
 
     d, i, layers = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
@@ -2416,19 +2503,24 @@ def quant_kernel_launches(cfg, rows: int, head_rows: int, sms: int) -> dict:
     if cfg.weight_quant == "int8":
         n_j = -(-i // quant.INT8_BLOCK_J)
 
-        def split(m, d_in, d_out):
-            return int(quant.int8_matmul_splits(m, d_in, d_out, sms)[0] > 1)
+        def projection(m, d_in, d_out):
+            return {"int8_reduce": int(quant.int8_matmul_splits(m, d_in, d_out, sms)[0] > 1)}
     else:
         n_j = -(-i // quant.ffn_block_j(i, quant._int4_group(i, quant.GROUP)))
 
-        def split(m, d_in, d_out):
+        def projection(m, d_in, d_out):
             g = quant._int4_group(d_in, quant.GROUP)
-            return int(quant.matmul_splits(m, d_in, d_out, g, sms)[0] > 1)
+            return quant.int4_matmul_launches(m, d_in, d_out, g, sms, cfg.quant_act)
     chunks = -(-rows // quant.ffn_row_chunk(rows, n_j, d))
     mm, ffn, reduce = quant_kernel_names(cfg)
-    reductions = (layers * (split(rows, d, qkv) + split(rows, attn, d) + chunks)
-                  + split(head_rows, d, cfg.vocab_size))
-    return {mm: 2 * layers + 1, ffn: layers * chunks, reduce: reductions}
+    launches = collections.Counter({mm: 2 * layers + 1, ffn: layers * chunks,
+                                    reduce: layers * chunks})
+    for m, d_in, d_out, times in ((rows, d, qkv, layers), (rows, attn, d, layers),
+                                  (head_rows, d, cfg.vocab_size, 1)):
+        for key, count in projection(m, d_in, d_out).items():
+            if key != mm:
+                launches[key] += count * times
+    return dict(launches)
 
 
 def quant_generate(model, video, ids, mask, new_tokens: int, label: str) -> tuple:
@@ -2483,10 +2575,12 @@ def quant_generate(model, video, ids, mask, new_tokens: int, label: str) -> tupl
     if any(per_step[0].values()):
         raise AssertionError(f"{label}: the vision extractor launched {per_step[0]}")
     total = {k: counts[-1][k] - counts[0][k] for k in counts[0]}
+    act = "int4_act_quant"
     print(f"    launches: {mm} {total[mm]}, {ffn} {total[ffn]}, {reduce} {total[reduce]}, "
-          f"decode_attention {total['decode_attention']} (per prefill {want_prefill[mm]} / "
-          f"{want_prefill[ffn]} / {want_prefill[reduce]}, per decode step {want_step[mm]} / "
-          f"{want_step[ffn]} / {want_step[reduce]} / {layers}, exactly)")
+          f"{act} {total[act]}, decode_attention {total['decode_attention']} (per prefill "
+          f"{want_prefill[mm]} / {want_prefill[ffn]} / {want_prefill[reduce]} / "
+          f"{want_prefill.get(act, 0)}, per decode step {want_step[mm]} / {want_step[ffn]} / "
+          f"{want_step[reduce]} / {want_step.get(act, 0)} / {layers}, exactly)")
     if tokens.shape != (b, new_tokens) or not ((tokens >= 0) & (tokens < model.llm_cfg.vocab_size)
                                                ).all() or not (res.lengths == new_tokens).all():
         raise AssertionError(f"{label}: tokens {tuple(tokens.shape)}, lengths {res.lengths}")
@@ -2683,6 +2777,8 @@ def quant_report(dev, rows: dict, model, inputs, base: str, bits: int) -> tuple:
     launched.update(total)
     for name, _, _, _ in (QUANT_FORMS if bits == 4 else QUANT8_FORMS):
         rows[name]["launches"] = launched[name]
+    if bits == 4:
+        rows["int4_act_quant"]["launches"] = launched["int4_act_quant"]
     print("  main path launches: " + ", ".join(f"{k} {launched[k]}" for k in quant.LAUNCHES
                                                if k.startswith(f"int{bits}_")))
     same = (tokens[tiers[0]] == tokens[tiers[1]]).float().mean().item()
@@ -3005,7 +3101,8 @@ def main() -> int:
                + ("decode_attention", "flash_attention_fwd_lse_d128",
                   "flash_attention_bwd_delta_d128", "flash_attention_bwd_dq_d128",
                   "flash_attention_bwd_dkv_d128")
-               + tuple(f[0] for f in QUANT_FORMS + QUANT8_FORMS)]
+               + tuple(f[0] for f in QUANT_FORMS) + ("int4_act_quant",)
+               + tuple(f[0] for f in QUANT8_FORMS)]
     for row in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(row[key]):

@@ -26,6 +26,13 @@
 // flat softmax plays no part here: lse is the true logsumexp, whatever the
 // shift the forward used.
 //
+// At head dim 128 (the LLM's: report training's flash prefill, b 2, h 32,
+// n = m = 512, causal with right padding, 896 of 1024 keys real) dQ and
+// dK/dV are bound by the bytes: q, dO, k and v over the real keys, lse and
+// delta read and their gradients written, 40.1 MB (dQ) and 48.5 MB (dK/dV),
+// 12.0 and 14.5 us at 3.35 TB/s (chip_smoke.py computes these bounds from
+// the run's mask); their products over the visited tiles are smaller.
+//
 // Bound on the H100 at the shipped training shape (b*h = 48*8 at batch 2,
 // n = m = 576, d = 32, bf16, bias (8, 576, 576)): the whole backward reads q,
 // k, v, O, dO (5 x 14.2 MB), lse (0.9 MB) and the bias (5.3 MB) and writes dq,
@@ -69,6 +76,13 @@
 //     the ring.
 // The exponentials run in log2 units on ex2.approx.  A masked or ragged
 // cell gets p = 0 by a select (never exp of a huge argument times 0).
+// Head dim 128 runs the same dQ and dK/dV kernels at D = 128 (one 64-row
+// tile is 17 KB with its padding, six of them 104 KB: two blocks an SM
+// without a bias, one with): a warp's 16 x 128 dQ, or dK and dV,
+// accumulators take 64 or 128 registers a lane, so the A operands (Q and
+// dO, or K and V) are not held for the walk but read from the block's
+// shared tiles by ldmatrix at every k-step (mma_abt_rows), as
+// FlashAttention-2 does at this head dim.  d(bias) has no kernel at d 128.
 //
 // fp32 design (the FMA kernels; no main path runs fp32 on the card, and it
 // keeps the 1e-4 gate that TF32 tensor cores would not meet): one thread a
@@ -77,8 +91,8 @@
 // delta and the 32 x 64 bias tile in shared memory.  dQ: 64 query rows, as
 // the forward.  d(bias): a block owns a 32 x 64 tile of one slab, one key
 // column a thread, and loops over the batch items that broadcast the slab.
-// Head dim 128 (the LLM's) has its own kernels (flash_attention_d128.cu);
-// the delta pre-pass here serves it too.
+// Head dim 128's forward (K2) lives in flash_attention_d128.cu; the delta
+// pre-pass and the dQ and dK/dV passes here serve that head dim too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -528,6 +542,30 @@ __device__ __forceinline__ void mma_abt(float (&c)[2][4], const uint32_t (&a)[D 
   }
 }
 
+// the same with A's fragments read from the warp's 16 rows at `a_rows` in
+// shared memory at each k-step (head dim 128: the registers cannot hold
+// them for the whole walk beside the 16 x 128 accumulators)
+template <int D>
+__device__ __forceinline__ void mma_abt_rows(float (&c)[2][4], const bf16* a_rows,
+                                             const bf16* rows) {
+  const int lane = threadIdx.x & 31;
+  const bf16* pa = a_rows + (lane & 15) * (D + kPad) + 8 * (lane >> 4);
+  const bf16* p = rows + (8 * (lane >> 4) + (lane & 7)) * (D + kPad) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4], f[4];
+    warp_mma::ldsm_x4(a, pa + 16 * kk);
+    warp_mma::ldsm_x4(f, p + 16 * kk);
+    warp_mma::mma_bf16_16816(c[0], a, f[0], f[1]);
+    warp_mma::mma_bf16_16816(c[1], a, f[2], f[3]);
+  }
+}
+
+// whether a kernel holds its A operands (Q and dO, or K and V) in registers
+// for its whole walk: up to head dim 64; at 128 they are read per k-step
+template <int D>
+constexpr bool kHoldA = D <= 64;
+
 // o (16 x D) += A B: A the sum of N 16 x 16 fragments, B the 16 rows x D
 // at `rows` in shared memory, read transposed (matrices: rows 0-7, 8-15
 // times the column blocks i, i + 1)
@@ -689,9 +727,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(const BwdArg
   warp_mma::cp_async_wait<0>();
   __syncthreads();
 
-  uint32_t qf[D / 16][4], dof[D / 16][4];
-  load_a<D>(qf, q_s + warp * 16 * kLd);
-  load_a<D>(dof, do_s + warp * 16 * kLd);
+  constexpr int kA = kHoldA<D> ? D / 16 : 1;
+  uint32_t qf[kA][4], dof[kA][4];
+  const bf16* q_w = q_s + warp * 16 * kLd;
+  const bf16* do_w = do_s + warp * 16 * kLd;
+  if constexpr (kHoldA<D>) {
+    load_a<D>(qf, q_w);
+    load_a<D>(dof, do_w);
+  }
 
   // this lane's two rows: g and g + 8 of the warp's 16 (r = 0, 1)
   const int qi0 = row0 + warp * 16 + g;
@@ -740,8 +783,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(const BwdArg
     for (int c = 0; c < kBlk / 16; ++c) {
       if (16 * c >= jn) break;
       float s[2][4] = {}, dp[2][4] = {};
-      mma_abt<D>(s, qf, kt + 16 * c * kLd);
-      mma_abt<D>(dp, dof, vt + 16 * c * kLd);
+      if constexpr (kHoldA<D>) {
+        mma_abt<D>(s, qf, kt + 16 * c * kLd);
+        mma_abt<D>(dp, dof, vt + 16 * c * kLd);
+      } else {
+        mma_abt_rows<D>(s, q_w, kt + 16 * c * kLd);
+        mma_abt_rows<D>(dp, do_w, vt + 16 * c * kLd);
+      }
       // s becomes ds = p (dp - delta), p = exp2(s scale log2e + bias log2e - lse log2e)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -885,9 +933,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_mma_kernel(const BwdAr
   warp_mma::cp_async_wait<0>();
   __syncthreads();
 
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a<D>(kf, k_s + warp * 16 * kLd);
-  load_a<D>(vf, v_s + warp * 16 * kLd);
+  constexpr int kA = kHoldA<D> ? D / 16 : 1;
+  uint32_t kf[kA][4], vf[kA][4];
+  const bf16* k_w = k_s + warp * 16 * kLd;
+  const bf16* v_w = v_s + warp * 16 * kLd;
+  if constexpr (kHoldA<D>) {
+    load_a<D>(kf, k_w);
+    load_a<D>(vf, v_w);
+  }
   const float scale2 = a.scale * kLog2e;
   float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
@@ -913,8 +966,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_mma_kernel(const BwdAr
       if (i0 + 16 * c >= n) break;
       // the transposed tile: rows are this warp's keys, columns 16 queries
       float st[2][4] = {}, dpt[2][4] = {};
-      mma_abt<D>(st, kf, qt + 16 * c * kLd);
-      mma_abt<D>(dpt, vf, dt + 16 * c * kLd);
+      if constexpr (kHoldA<D>) {
+        mma_abt<D>(st, kf, qt + 16 * c * kLd);
+        mma_abt<D>(dpt, vf, dt + 16 * c * kLd);
+      } else {
+        mma_abt_rows<D>(st, k_w, qt + 16 * c * kLd);
+        mma_abt_rows<D>(dpt, v_w, dt + 16 * c * kLd);
+      }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int qc = 16 * c + 8 * j + 2 * t;   // tile row of the query of h = 0
@@ -1286,7 +1344,7 @@ BwdArgs pass_args(const void* q, const void* k, const void* v, const void* bias,
 
 // Each launches on `stream` and returns cudaGetLastError() (0 when the launch
 // was accepted).  The caller has checked: d in {16, 32, 64} (the delta
-// pre-pass also 128), one dtype for q, k, v, O, dO and the bias, contiguous
+// pre-pass also 128; the _d128 launchers 128 only), one dtype for q, k, v, O, dO and the bias, contiguous
 // buffers, bias strides in elements, fp32 lse and delta of (b, h, n).
 // `bias`, `kv_mask` ((b, m) bytes) and `q_offset` (one int32) may be null.
 
@@ -1352,6 +1410,46 @@ extern "C" int flash_attention_bwd_dkv_launch(const void* q, const void* k, cons
   a.bias_stride_b = bias_stride_b;
   a.bias_stride_h = bias_stride_h;
   return dispatch<DkvLaunch>(a, d, is_bf16, stream);
+}
+
+// dq and dk, dv at head dim 128: the bf16 mma.sync kernels at D = 128
+// (the caller has checked bf16 and 16-byte aligned buffers); d(bias) and
+// fp32 have no kernel at this head dim.
+extern "C" int flash_attention_bwd_dq_d128_launch(const void* q, const void* k, const void* v,
+                                                  const void* bias, const void* kv_mask,
+                                                  const void* q_offset, const void* lse,
+                                                  void* delta, const void* dout, void* dq,
+                                                  int batch, int heads, int n, int m, int d,
+                                                  int bias_stride_b, int bias_stride_h,
+                                                  int causal, float scale, int is_bf16,
+                                                  void* stream) {
+  if (d != 128 || !is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a = pass_args(q, k, v, bias, kv_mask, q_offset, lse, delta, dout, batch, heads, n, m,
+                        causal, scale);
+  a.dq = dq;
+  a.bias_stride_b = bias_stride_b;
+  a.bias_stride_h = bias_stride_h;
+  const int rc = DqLaunch::bf16<128>(a, static_cast<cudaStream_t>(stream));
+  return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int flash_attention_bwd_dkv_d128_launch(const void* q, const void* k, const void* v,
+                                                   const void* bias, const void* kv_mask,
+                                                   const void* q_offset, const void* lse,
+                                                   void* delta, const void* dout, void* dk,
+                                                   void* dv, int batch, int heads, int n, int m,
+                                                   int d, int bias_stride_b, int bias_stride_h,
+                                                   int causal, float scale, int is_bf16,
+                                                   void* stream) {
+  if (d != 128 || !is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a = pass_args(q, k, v, bias, kv_mask, q_offset, lse, delta, dout, batch, heads, n, m,
+                        causal, scale);
+  a.dk = dk;
+  a.dv = dv;
+  a.bias_stride_b = bias_stride_b;
+  a.bias_stride_h = bias_stride_h;
+  const int rc = DkvLaunch::bf16<128>(a, static_cast<cudaStream_t>(stream));
+  return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }
 
 // d(bias) of a contiguous bias whose b*h / items slabs of (n, m) are each

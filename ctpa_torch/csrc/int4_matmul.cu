@@ -10,9 +10,9 @@
 //   w4:   w = bf16(q * scale[g, col]) in fp32 then rounded to bf16 (ctpa
 //         rounds the dequantized tile to the activation dtype), y = x . w
 //         with fp32 sums, out in bf16; no scale at the flush.
-//   w4a8: x8, sx per row from ctpa's quantize_act_int8 (computed by the
-//         caller in plain PyTorch, outside the kernel, as ctpa computes it
-//         outside its Pallas kernel); per scale group one exact
+//   w4a8: x8, sx per row from ctpa's quantize_act_int8 (ctpa computes it
+//         outside its Pallas kernel; here one launch of its own before the
+//         projection); per scale group one exact
 //         int8 x int8 -> int32 dot, times the group's fp32 scale row, summed
 //         over the groups in fp32; the sum times sx[row] at the flush.
 //
@@ -24,20 +24,52 @@
 // rows for 4 x 512 tokens) is bound by the operations: qkv_proj is 206 GFLOP,
 // 0.21 ms in bf16 and 0.10 ms in int8.
 //
-// Design (simple and right first): a block owns BM x 64 outputs (BM = 16 for
-// m <= 16, else 64) and walks its scale groups one at a time: it stages the
-// x tile, unpacks the group's packed rows (16 bytes a load, each byte giving
-// rows j and j + G/2) into shared memory, and runs the products on the
-// tensor cores: WMMA bf16 16x16x16 with fp32 accumulators for w4, WMMA
-// s8 x s8 -> s32 16x16x16 for w4a8, whose int32 tile goes through shared
-// memory to be scaled per column into fp32 sums each thread owns.  The int8
-// tiles sit in shared memory as 16x16 slabs of 256 bytes, so every fragment
-// address is 32-byte aligned.  At decode the output tiles alone are too few
-// for 132 SMs (64 for o_proj), so the contraction is split across blocks
-// (blockIdx.z) until there are two blocks per SM; the splits write fp32
-// partial sums that a second kernel adds in a fixed order, so the result is
-// deterministic.  Loads are not overlapped with the products (no cp.async,
-// TMA or wgmma yet): that is the next step for speed.
+// Two kernels; ops/quant.py:int4_matmul_plan picks one by m.
+//
+// Decode (m <= 32), `int4_matmul_stream_kernel`: weight streaming on
+// mma.sync.  A block owns 128 output columns (128 contiguous bytes of every
+// packed row, 32 columns a warp) and walks its share of the scale groups;
+// the contraction is split across blocks until they fill what the card
+// holds at once (ops/quant.py asks the kernel's occupancy), at least four
+// groups a split.  Each group's packed rows, its scale row and x's rows
+// over the group arrive by 16-byte cp.async into a ring of four stages, so
+// three groups (about 30 KB at m = 4) are in flight while one is
+// multiplied, with one barrier a group.  w4 runs 8 warps, two sets of 4
+// that take alternate k-steps of each group (their fp32 sums added in that
+// order at the end): its dequantization is the longest part of a k-step.  The weights are the A operand (16 output columns x k,
+// the tokens the 8-wide N side, so m = 4 wastes half an N tile), and a lane
+// builds its A registers from 4-byte reads of the packed rows, never a
+// dequantized tile in shared memory:
+//   w4:   m16n8k16 bf16.  A byte holds rows j and j + G/2 of one column, so
+//         the kernel takes that pair as the two k of one bf16 register and
+//         reads x in the same order (a permutation of k inside a group
+//         leaves every group dot the same; it changes only w4's fp32 sum
+//         order).  Each nibble becomes q exactly as (2^23 + q + 8) - (2^23 +
+//         8), is multiplied by the column's scale in fp32 and rounded to
+//         bf16, as ctpa rounds its dequantized tile.
+//   w4a8: m16n8k32 s8.  Four int8 k of a register are (j, j + 1, j + G/2,
+//         j + 1 + G/2) of one column, built from two packed rows by byte
+//         permutes with each nibble as 16 q in its byte's high half; the
+//         int32 group dot (16 times the exact one) times a sixteenth of the
+//         group's scale, in registers, is the exact dot times the scale,
+//         rounded once; the groups are summed in order.
+// With a split contraction each block writes its fp32 sums to a work
+// buffer; the last block of a column strip to finish (a per-strip counter,
+// which that block resets) adds the splits in split order and writes out:
+// one launch, no float atomics, the same bits on every call.  w4a8's x is
+// quantized first by `quantize_act_int8_kernel`, one launch with
+// quantize_act_int8's bits.
+//
+// Prefill, `int4_matmul_w4_kernel` / `int4_matmul_a8_kernel` (simple and
+// right first): a block owns BM x 64 outputs (BM = 16 for m <= 16, else 64)
+// and walks its scale groups one at a time: it stages the x tile, unpacks
+// the group's packed rows (16 bytes a load) into shared memory, and runs
+// WMMA bf16 16x16x16 with fp32 accumulators for w4, WMMA s8 x s8 -> s32 for
+// w4a8, whose int32 tile goes through shared memory to be scaled per
+// column.  The int8 tiles sit in shared memory as 16x16 slabs of 256 bytes,
+// so every fragment address is 32-byte aligned.  A split contraction writes
+// fp32 partials that a second kernel adds in a fixed order
+// (int4_common.cuh).  Loads are not overlapped with the products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,6 +77,7 @@
 #include <stdint.h>
 
 #include "int4_common.cuh"
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -253,9 +286,507 @@ cudaError_t launch_rows(const void* x, const void* sx, const void* w4, const voi
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ decode: streaming
+
+constexpr int kSWarps = 4;
+constexpr int kSThreads = 32 * kSWarps;
+constexpr int kSBN = 32 * kSWarps;   // output columns of a block: 128 bytes of each packed row
+constexpr int kStages = 4;           // ring depth, one scale group a stage
+// w4 splits each group's k-steps between two sets of 4 warps (8 warps a
+// block): its dequantization is the longest part of a k-step, and the
+// second set doubles the warps that hide its latency; w4a8 keeps 4 warps
+// (its exact int32 group dot would need the halves' sums before scaling)
+constexpr int kW4Halves = 2;
+
+// One ring stage: the group's G/2 packed rows of the block's 128 columns,
+// their 128 scales, and x's NT * 8 rows (rows >= m zero) over the group's G
+// columns.  The row strides spread a warp's reads over the 32 banks: a w4
+// k-step reads packed rows 8s + t (t = lane % 4), an a8 one rows 16s + 2t,
+// 32 bytes each, and a token step reads 8 rows of x at 8 (w4) or 4 bytes a
+// row apart.
+template <int G, int NT, bool A8>
+struct StreamSmem {
+  static constexpr int kLdW = kSBN + (A8 ? 16 : 32);
+  static constexpr int kXBytes = A8 ? 1 : 2;
+  static constexpr int kLdX = G * kXBytes + 16;
+  static constexpr int kW = G / 2 * kLdW;
+  static constexpr int kS = kSBN * 4;
+  static constexpr int kStage = kW + kS + NT * 8 * kLdX;
+  static constexpr int kBytes = kStages * kStage;
+  static_assert(kW % 16 == 0 && kStage % 16 == 0, "16-byte aligned copies");
+};
+
+extern __shared__ __align__(16) unsigned char smem_stream[];
+
+// The bf16 A register of packed byte `byte` of a word: lo and hi hold the
+// word's low and high nibbles, each as q + 8 in its own byte (nibbles(),
+// below); a byte permute puts one under the exponent of 2^23, so the float
+// 2^23 + (q + 8) minus 2^23 + 8 is q exactly.  (q_lo * s, q_hi * s), each
+// product in fp32 rounded to bf16, as ctpa rounds its dequantized tile.
+__device__ __forceinline__ uint32_t dequant_pair(uint32_t lo, uint32_t hi, int byte, float s) {
+  const uint32_t sel = 0x7650u | static_cast<uint32_t>(byte);   // (byte, 0, 0, 0x4B)
+  const float ql = __uint_as_float(__byte_perm(lo, 0x4B000000u, sel)) - 8388616.f;
+  const float qh = __uint_as_float(__byte_perm(hi, 0x4B000000u, sel)) - 8388616.f;
+  return warp_mma::pack_bf16(__fmul_rn(ql, s), __fmul_rn(qh, s));
+}
+
+// a packed word's low and high nibbles as q + 8, one to a byte
+__device__ __forceinline__ void nibbles(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x88888888u;
+  lo = u & 0x0F0F0F0Fu;
+  hi = (u >> 4) & 0x0F0F0F0Fu;
+}
+
+// The s8 A registers of the four columns of two packed rows' words w0
+// (row 2p) and w1 (row 2p + 1): col[c] = (lo of w0, lo of w1, hi of w0, hi
+// of w1) of byte c, each nibble as 16 q in the byte's high half (so the
+// product is 16 times the dot, exactly).
+__device__ __forceinline__ void int8_columns(uint32_t (&col)[4], uint32_t w0, uint32_t w1) {
+  const uint32_t l0 = (w0 << 4) & 0xF0F0F0F0u, h0 = w0 & 0xF0F0F0F0u;
+  const uint32_t l1 = (w1 << 4) & 0xF0F0F0F0u, h1 = w1 & 0xF0F0F0F0u;
+  const uint32_t x01 = __byte_perm(l0, h0, 0x5140), y01 = __byte_perm(l1, h1, 0x5140);
+  const uint32_t x23 = __byte_perm(l0, h0, 0x7362), y23 = __byte_perm(l1, h1, 0x7362);
+  col[0] = __byte_perm(x01, y01, 0x5140);
+  col[1] = __byte_perm(x01, y01, 0x7362);
+  col[2] = __byte_perm(x23, y23, 0x5140);
+  col[3] = __byte_perm(x23, y23, 0x7362);
+}
+
+// an int32 of magnitude below 2^22 as fp32, exactly, without the slow
+// conversion unit: 1.5 * 2^23 + v is exact in fp32
+__device__ __forceinline__ float exact_float(int v) {
+  return __int_as_float(v + 0x4B400000) - 12582912.f;
+}
+
+__device__ __forceinline__ uint32_t ld_u16(const unsigned char* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+
+// grid (ceil(n / kSBN), splits); block kSThreads; dynamic shared memory
+// StreamSmem::kBytes.  Block (x, z) owns columns [128 x, 128 x + 128) and
+// scale groups [z per, min(k / G, (z + 1) per)).  Warp w owns 32 columns;
+// lane (g, t) = (lane / 4, lane % 4) reads 4 bytes of a packed row at
+// columns 32 w + 4 g .. + 3, and the A rows of its two 16-column mma tiles
+// i are those columns: row g of tile i is column 4g + 2i, row g + 8 column
+// 4g + 2i + 1.  The k order inside a group is permuted, for W and x alike:
+// w4 takes k-pair (j, j + G/2), one byte, as the two k of a bf16 register;
+// a8 takes (j, j + 1, j + G/2, j + 1 + G/2) for even j.  With splits > 1
+// each block writes its fp32 sums to work (splits, m, n) and the last block
+// of a column strip (a per-strip counter, reset by that block) adds the
+// splits in order and writes out.
+template <int G, int NT, bool A8, int KH>
+__global__ void __launch_bounds__(kSThreads * KH)
+int4_matmul_stream_kernel(const void* __restrict__ xv, const float* __restrict__ sx,
+                          const int8_t* __restrict__ w4, const float* __restrict__ scale,
+                          __nv_bfloat16* __restrict__ out, float* __restrict__ work,
+                          unsigned int* __restrict__ counters, int m, int k, int n, int per) {
+  using Smem = StreamSmem<G, NT, A8>;
+  static_assert(KH == 1 || (KH == 2 && !A8), "w4 alone splits a group's k-steps");
+  constexpr int kThreads = kSThreads * KH;
+  const int tid = threadIdx.x;
+  const int warp = (tid >> 5) & (kSWarps - 1);   // the warp's 32 columns
+  const int kh = tid >> 7;                       // its half of each group's k-steps
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n0 = blockIdx.x * kSBN;
+  const int splits = gridDim.y;
+  const int g0 = blockIdx.y * per;
+  const int cnt = min(k / G, g0 + per) - g0;
+  const bool vec = n % 16 == 0;
+  const unsigned char* xb = static_cast<const unsigned char*>(xv);
+
+  // the copies of scale group grp into ring slot `slot`
+  auto fetch = [&](int slot, int grp) {
+    unsigned char* st = smem_stream + slot * Smem::kStage;
+    const int8_t* wsrc = w4 + static_cast<long long>(grp) * (G / 2) * n + n0;
+    const float* ssrc = scale + static_cast<long long>(grp) * n + n0;
+    float* s_dst = reinterpret_cast<float*>(st + Smem::kW);
+    if (vec) {
+      for (int e = tid; e < G / 2 * (kSBN / 16); e += kThreads) {
+        const int r = e / (kSBN / 16);
+        const int c = (e - r * (kSBN / 16)) * 16;
+        const bool ok = n0 + c < n;
+        warp_mma::cp_async16(st + r * Smem::kLdW + c, ok ? wsrc + static_cast<long long>(r) * n + c
+                                                         : wsrc, ok ? 16 : 0);
+      }
+      if (tid < kSBN / 4) {
+        const bool ok = n0 + 4 * tid < n;
+        warp_mma::cp_async16(s_dst + 4 * tid, ok ? ssrc + 4 * tid : ssrc, ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < G / 2 * kSBN; e += kThreads) {
+        const int r = e / kSBN;
+        const int c = e - r * kSBN;
+        st[r * Smem::kLdW + c] =
+            n0 + c < n ? static_cast<unsigned char>(wsrc[static_cast<long long>(r) * n + c]) : 0;
+      }
+      for (int c = tid; c < kSBN; c += kThreads) s_dst[c] = n0 + c < n ? ssrc[c] : 0.f;
+    }
+    constexpr int kChunks = G * Smem::kXBytes / 16;
+    const unsigned char* xsrc = xb + static_cast<long long>(grp) * G * Smem::kXBytes;
+    for (int e = tid; e < NT * 8 * kChunks; e += kThreads) {
+      const int r = e / kChunks;
+      const int c = (e - r * kChunks) * 16;
+      const bool ok = r < m;
+      warp_mma::cp_async16(st + Smem::kW + Smem::kS + r * Smem::kLdX + c,
+                           ok ? xsrc + static_cast<long long>(r) * k * Smem::kXBytes + c : xsrc,
+                           ok ? 16 : 0);
+    }
+  };
+
+  // acc[i][nt]: tile i (columns 4g + 2i, 4g + 2i + 1), tokens 8 nt + 2t, + 1
+  float acc[2][NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < cnt) fetch(s, g0 + s);
+    warp_mma::cp_async_commit();
+  }
+  for (int it = 0; it < cnt; ++it) {
+    warp_mma::cp_async_wait<kStages - 2>();   // group g0 + it is in
+    __syncthreads();                          // and every warp is done with slot it - 1
+    if (it + kStages - 1 < cnt) fetch((it + kStages - 1) % kStages, g0 + it + kStages - 1);
+    warp_mma::cp_async_commit();
+
+    const unsigned char* st = smem_stream + (it % kStages) * Smem::kStage;
+    const unsigned char* wl = st + 32 * warp + 4 * g;
+    const float4 sc4 = *reinterpret_cast<const float4*>(st + Smem::kW + (32 * warp + 4 * g) * 4);
+    const float sc[4] = {sc4.x, sc4.y, sc4.z, sc4.w};
+    const unsigned char* xs = st + Smem::kW + Smem::kS + g * Smem::kLdX;
+    if constexpr (!A8) {
+#pragma unroll
+      for (int s2 = 0; s2 < G / 16 / KH; ++s2) {
+        const int s = s2 * KH + kh;
+        const int r0 = 8 * s + t;   // packed rows r0 and r0 + 4: k pairs t and t + 4
+        uint32_t l0, h0, l1, h1;
+        nibbles(*reinterpret_cast<const uint32_t*>(wl + r0 * Smem::kLdW), l0, h0);
+        nibbles(*reinterpret_cast<const uint32_t*>(wl + (r0 + 4) * Smem::kLdW), l1, h1);
+        uint32_t a[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          a[i][0] = dequant_pair(l0, h0, 2 * i, sc[2 * i]);
+          a[i][1] = dequant_pair(l0, h0, 2 * i + 1, sc[2 * i + 1]);
+          a[i][2] = dequant_pair(l1, h1, 2 * i, sc[2 * i]);
+          a[i][3] = dequant_pair(l1, h1, 2 * i + 1, sc[2 * i + 1]);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const unsigned char* xr = xs + 8 * j * Smem::kLdX;
+          const uint32_t b0 = ld_u16(xr + 2 * r0) | ld_u16(xr + 2 * (r0 + G / 2)) << 16;
+          const uint32_t b1 = ld_u16(xr + 2 * (r0 + 4)) | ld_u16(xr + 2 * (r0 + 4 + G / 2)) << 16;
+          warp_mma::mma_bf16_16816(acc[0][j], a[0], b0, b1);
+          warp_mma::mma_bf16_16816(acc[1][j], a[1], b0, b1);
+        }
+      }
+    } else {
+      int ci[2][NT][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) ci[i][j][0] = ci[i][j][1] = ci[i][j][2] = ci[i][j][3] = 0;
+#pragma unroll
+      for (int s = 0; s < G / 32; ++s) {
+        const int r0 = 16 * s + 2 * t;   // packed rows r0, r0 + 1 and r0 + 8, r0 + 9
+        uint32_t lo[4], hi[4];
+        int8_columns(lo, *reinterpret_cast<const uint32_t*>(wl + r0 * Smem::kLdW),
+                     *reinterpret_cast<const uint32_t*>(wl + (r0 + 1) * Smem::kLdW));
+        int8_columns(hi, *reinterpret_cast<const uint32_t*>(wl + (r0 + 8) * Smem::kLdW),
+                     *reinterpret_cast<const uint32_t*>(wl + (r0 + 9) * Smem::kLdW));
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const unsigned char* xr = xs + 8 * j * Smem::kLdX;
+          const uint32_t b0 = ld_u16(xr + r0) | ld_u16(xr + r0 + G / 2) << 16;
+          const uint32_t b1 = ld_u16(xr + r0 + 8) | ld_u16(xr + r0 + 8 + G / 2) << 16;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const uint32_t a[4] = {lo[2 * i], lo[2 * i + 1], hi[2 * i], hi[2 * i + 1]};
+            warp_mma::mma_s8_16832(ci[i][j], a, b0, b1);
+          }
+        }
+      }
+      // the group's exact dot times its scale: 16 times the dot times a
+      // sixteenth of the scale is the same real number, rounded once
+      const float sc16[4] = {sc[0] * 0.0625f, sc[1] * 0.0625f, sc[2] * 0.0625f, sc[3] * 0.0625f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][j][e] = __fadd_rn(acc[i][j][e], __fmul_rn(exact_float(ci[i][j][e]),
+                                                             sc16[2 * i + (e >> 1)]));
+    }
+  }
+
+  // w4 with KH = 2: the second half's sums through shared memory, added to
+  // the first half's in that order
+  if constexpr (KH == 2) {
+    __syncthreads();   // every warp is done with the ring
+    float* other = reinterpret_cast<float*>(smem_stream) + (warp * 32 + lane) * (8 * NT);
+    if (kh == 1) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) other[(i * NT + j) * 4 + e] = acc[i][j][e];
+    }
+    __syncthreads();
+    if (kh == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += other[(i * NT + j) * 4 + e];
+    }
+  }
+
+  // this lane's outputs: column 4g + c (c = 2i + e / 2) of the warp's 32,
+  // token 8 nt + 2t + e % 2 (the first half's warps write them)
+  const int col0 = n0 + 32 * warp + 4 * g;
+  const bool vec4 = n % 4 == 0;
+  if (splits == 1) {
+    if (kh != 0) return;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int tok = 8 * j + 2 * t + h;
+        if (tok >= m || col0 >= n) continue;
+        const float mul = A8 ? sx[tok] : 1.f;
+        float v[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[c] = acc[c >> 1][j][2 * (c & 1) + h];
+        if (A8) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) v[c] = __fmul_rn(v[c], mul);
+        }
+        __nv_bfloat16* o = out + static_cast<long long>(tok) * n + col0;
+        if (vec4) {
+          *reinterpret_cast<uint2*>(o) =
+              make_uint2(warp_mma::pack_bf16(v[0], v[1]), warp_mma::pack_bf16(v[2], v[3]));
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (col0 + c < n) o[c] = __float2bfloat16_rn(v[c]);
+        }
+      }
+    return;
+  }
+
+  float* part = work + static_cast<long long>(blockIdx.y) * m * n;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int tok = 8 * j + 2 * t + h;
+      if (kh != 0 || tok >= m || col0 >= n) continue;
+      float* p = part + static_cast<long long>(tok) * n + col0;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (col0 + c < n) p[c] = acc[c >> 1][j][2 * (c & 1) + h];
+    }
+  // the last block of the strip to finish adds the splits in order
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counters + blockIdx.x, 1u) == static_cast<unsigned>(splits - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int e = tid; e < m * kSBN; e += kThreads) {
+    const int tok = e / kSBN;
+    const int col = n0 + e - tok * kSBN;
+    if (col >= n) continue;
+    float sum = 0.f;
+    for (int z = 0; z < splits; ++z)
+      sum += __ldcg(work + (static_cast<long long>(z) * m + tok) * n + col);
+    if (A8) sum = __fmul_rn(sum, sx[tok]);
+    out[static_cast<long long>(tok) * n + col] = __float2bfloat16_rn(sum);
+  }
+  if (tid == 0) counters[blockIdx.x] = 0u;
+}
+
+template <int G, int NT, bool A8, int KH>
+cudaError_t launch_stream(const void* x, const float* sx, const int8_t* w4, const float* scale,
+                          __nv_bfloat16* out, float* work, unsigned int* counters, int m, int k,
+                          int n, int per, int splits, cudaStream_t stream) {
+  auto kernel = int4_matmul_stream_kernel<G, NT, A8, KH>;
+  constexpr int smem = StreamSmem<G, NT, A8>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kSBN - 1) / kSBN, splits);
+  kernel<<<grid, kSThreads * KH, smem, stream>>>(x, sx, w4, scale, out, work, counters, m, k, n,
+                                                 per);
+  return cudaGetLastError();
+}
+
+template <int G, int NT, bool A8, int KH>
+int stream_residency() {
+  auto kernel = int4_matmul_stream_kernel<G, NT, A8, KH>;
+  constexpr int smem = StreamSmem<G, NT, A8>::kBytes;
+  int blocks = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kSThreads * KH, smem) !=
+          cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return blocks;
+}
+
+template <int G, bool A8, int KH>
+int rows_residency(int m) {
+  return m <= 8 ? stream_residency<G, 1, A8, KH>()
+       : m <= 16 ? stream_residency<G, 2, A8, KH>() : stream_residency<G, 4, A8, KH>();
+}
+
+template <int G, bool A8, int KH>
+cudaError_t stream_rows(const void* x, const float* sx, const int8_t* w4, const float* scale,
+                        __nv_bfloat16* out, float* work, unsigned int* counters, int m, int k,
+                        int n, int per, int splits, cudaStream_t stream) {
+  if (m <= 8)
+    return launch_stream<G, 1, A8, KH>(x, sx, w4, scale, out, work, counters, m, k, n, per,
+                                       splits, stream);
+  if (m <= 16)
+    return launch_stream<G, 2, A8, KH>(x, sx, w4, scale, out, work, counters, m, k, n, per,
+                                       splits, stream);
+  return launch_stream<G, 4, A8, KH>(x, sx, w4, scale, out, work, counters, m, k, n, per, splits,
+                                     stream);
+}
+
+template <bool A8, int KH>
+cudaError_t stream_groups(const void* x, const float* sx, const int8_t* w4, const float* scale,
+                          __nv_bfloat16* out, float* work, unsigned int* counters, int m, int k,
+                          int n, int group, int per, int splits, cudaStream_t stream) {
+  switch (group) {
+    case 32:
+      return stream_rows<32, A8, KH>(x, sx, w4, scale, out, work, counters, m, k, n, per, splits,
+                                     stream);
+    case 64:
+      return stream_rows<64, A8, KH>(x, sx, w4, scale, out, work, counters, m, k, n, per, splits,
+                                     stream);
+    default:
+      return stream_rows<128, A8, KH>(x, sx, w4, scale, out, work, counters, m, k, n, per, splits,
+                                      stream);
+  }
+}
+
+// ------------------------------------------------------------ w4a8: x to int8
+
+constexpr int kQThreads = 256;
+
+// One block a row: amax of |x|, sx = max(amax * (1/127), 1e-12), x8 =
+// clamp(rint(x / sx), -127, 127), as quantize_act_int8 computes them on the
+// card (PyTorch divides by a Python scalar as a product with its fp32
+// reciprocal, and by a tensor exactly).  k % 8 == 0, x 16-byte aligned.
+__global__ void __launch_bounds__(kQThreads)
+quantize_act_int8_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ x8,
+                         float* __restrict__ sx, int k) {
+  __shared__ float red[kQThreads / 32];
+  const __nv_bfloat16* xr = x + static_cast<long long>(blockIdx.x) * k;
+  float amax = 0.f;
+  for (int c = threadIdx.x * 8; c < k; c += kQThreads * 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      amax = fmaxf(amax, fmaxf(fabsf(__uint_as_float(w[i] << 16)),
+                               fabsf(__uint_as_float(w[i] & 0xffff0000u))));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
+  __syncthreads();
+  amax = red[0];
+#pragma unroll
+  for (int i = 1; i < kQThreads / 32; ++i) amax = fmaxf(amax, red[i]);
+  const float s = fmaxf(__fmul_rn(amax, 1.0f / 127.0f), 1e-12f);
+  if (threadIdx.x == 0) sx[blockIdx.x] = s;
+  int8_t* qr = x8 + static_cast<long long>(blockIdx.x) * k;
+  for (int c = threadIdx.x * 8; c < k; c += kQThreads * 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    uint32_t q[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float f = __uint_as_float(i % 2 ? w[i / 2] & 0xffff0000u : w[i / 2] << 16);
+      const float r = fminf(fmaxf(rintf(__fdiv_rn(f, s)), -127.f), 127.f);
+      q[i / 4] |= (static_cast<uint32_t>(static_cast<int>(r)) & 0xFFu) << (8 * (i % 4));
+    }
+    *reinterpret_cast<uint2*>(qr + c) = make_uint2(q[0], q[1]);
+  }
+}
+
 }  // namespace
 
-// Launches on `stream`; returns the first CUDA error (0 when every launch was
+// The decode kernel (m <= 32): launches on `stream` and returns the CUDA
+// error of the launch (0 when it was accepted).  x is bf16 (w4) or int8
+// with sx (w4a8), (m, k) row-major, 16-byte aligned; w4 (k/2, n) int8 and
+// scale (k/group, n) fp32, 16-byte aligned; out (m, n) bf16.  With splits >
+// 1: work (splits, m, n) fp32 and counters, one unsigned int per column
+// strip of 128 (ceil(n / 128)), zero on entry and left zero; the calls
+// sharing a counter buffer run one after another (one stream).
+extern "C" int int4_matmul_stream_launch(const void* x, const void* sx, const void* w4,
+                                         const void* scale, void* out, void* work, void* counters,
+                                         int m, int k, int n, int group, int per, int splits,
+                                         int act_quant, void* stream) {
+  if (group != 32 && group != 64 && group != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (m <= 0 || m > 32 || n <= 0 || k % group != 0 || per <= 0 || splits < 1 ||
+      (splits - 1) * per >= k / group || (splits > 1 && (work == nullptr || counters == nullptr)) ||
+      (act_quant && sx == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* w = static_cast<const int8_t*>(w4);
+  const float* sc = static_cast<const float*>(scale);
+  const float* rows = static_cast<const float*>(sx);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  float* part = splits > 1 ? static_cast<float*>(work) : nullptr;
+  unsigned int* cnt = static_cast<unsigned int*>(counters);
+  const cudaError_t err =
+      act_quant ? stream_groups<true, 1>(x, rows, w, sc, o, part, cnt, m, k, n, group, per,
+                                         splits, s)
+                : stream_groups<false, kW4Halves>(x, rows, w, sc, o, part, cnt, m, k, n, group,
+                                                  per, splits, s);
+  return static_cast<int>(err);
+}
+
+// The decode kernel's resident blocks per SM for m rows, a scale group and
+// w4 or w4a8 (the card's occupancy for its registers, threads and shared
+// memory), or -1 on a CUDA error.
+extern "C" int int4_matmul_stream_residency(int m, int group, int act_quant) {
+  if (m <= 0 || m > 32) return -1;
+  switch (group) {
+    case 32:
+      return act_quant ? rows_residency<32, true, 1>(m) : rows_residency<32, false, kW4Halves>(m);
+    case 64:
+      return act_quant ? rows_residency<64, true, 1>(m) : rows_residency<64, false, kW4Halves>(m);
+    case 128:
+      return act_quant ? rows_residency<128, true, 1>(m)
+                       : rows_residency<128, false, kW4Halves>(m);
+    default:
+      return -1;
+  }
+}
+
+// w4a8's activations: x (m, k) bf16 -> x8 (m, k) int8 and sx (m,) fp32, one
+// launch; k % 8 == 0 and x 16-byte aligned.
+extern "C" int int4_act_quant_launch(const void* x, void* x8, void* sx, int m, int k,
+                                     void* stream) {
+  if (m <= 0 || k <= 0 || k % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  quantize_act_int8_kernel<<<m, kQThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(x8), static_cast<float*>(sx), k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tiled kernel (prefill).  Launches on `stream`; returns the first CUDA error (0 when every launch was
 // accepted).  x is bf16 (w4) or int8 with sx (w4a8), (m, k) row-major; w4
 // (k/2, n) int8; scale (k/group, n) fp32; out (m, n) bf16; work (splits, m,
 // n) fp32 when splits > 1.  The caller has checked the shapes and dtypes,

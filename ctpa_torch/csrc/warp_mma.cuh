@@ -1,7 +1,8 @@
 // Warp-level tensor-core, shared-memory and asynchronous-copy primitives
 // (inline PTX, sm_80 and later), for the kernels that hold their matrix
 // tiles in registers (the bf16 forward and backward of flash attention,
-// flash_attention.cu and flash_attention_bwd.cu).
+// flash_attention.cu and flash_attention_bwd.cu; the int4 projection at
+// decode, int4_matmul.cu).
 //
 // mma_bf16_16816 is `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`:
 // D (16 x 8, fp32) = A (16 x 16, bf16) . B (16 x 8, bf16) + C, the operands
@@ -54,6 +55,23 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += A . B on int8: `mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32`,
+// D (16 x 8, int32) = A (16 x 32, s8) . B (32 x 8, s8) + C, four int8 values
+// to a register, the lowest k in the low byte:
+//
+//   A: a[0] = A[g][4t .. 4t+3]        a[1] = A[g+8][4t .. 4t+3]
+//      a[2] = A[g][4t+16 .. 4t+19]    a[3] = A[g+8][4t+16 .. 4t+19]
+//   B: b[0] = B[4t .. 4t+3][g]        b[1] = B[4t+16 .. 4t+19][g]
+//   C, D as for mma_bf16_16816.
+__device__ __forceinline__ void mma_s8_16832(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

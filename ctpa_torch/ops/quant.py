@@ -49,6 +49,7 @@ holds them exactly (``_int_dot``).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -63,13 +64,25 @@ _BJ_MAX = 256
 FFN_PARTIAL_BYTES = 1 << 30
 
 # launches of each CUDA kernel form, under the name chip_smoke.py reports it
-# by; a wrapper adds one where it launches, and nowhere else.  A K4 or K5
-# call whose contraction is split, and every K6 or K7 row chunk, also
-# launches the fixed-order reduction of its partials (``int4_common.cuh``:
-# ``reduce_partials_kernel``), counted under "int8_reduce" or "int4_reduce"
+# by; a wrapper adds one where it launches, and nowhere else.  A K4 call or a
+# prefill K5 call whose contraction is split, and every K6 or K7 row chunk,
+# also launches the fixed-order reduction of its partials
+# (``int4_common.cuh``: ``reduce_partials_kernel``), counted under
+# "int8_reduce" or "int4_reduce"; K5 at decode adds its split partials inside
+# its own launch.  A w4a8 K5 call first quantizes x in one launch
+# ("int4_act_quant")
 LAUNCHES = dict.fromkeys(("int4_matmul", "int4_matmul_a8", "int4_ffn", "int4_ffn_a8",
-                          "int4_reduce", "int8_matmul", "int8_matmul_a8", "int8_ffn",
-                          "int8_ffn_a8", "int8_reduce"), 0)
+                          "int4_reduce", "int4_act_quant", "int8_matmul", "int8_matmul_a8",
+                          "int8_ffn", "int8_ffn_a8", "int8_reduce"), 0)
+# K5 takes its weight-streaming kernel for at most this many rows (decode at
+# batch 4 and 32) and its tiled kernel above (prefill); the streaming
+# kernel's blocks own STREAM_COLUMNS output columns, and its contraction is
+# split until the blocks fill what the card holds at once (its residency
+# for the kernel's registers and shared memory, queried once per form),
+# keeping at least STREAM_MIN_GROUPS scale groups a split
+STREAM_MAX_ROWS = 32
+STREAM_COLUMNS = 128
+STREAM_MIN_GROUPS = 4
 # the int8 kernels' contraction chunk (K4 splits its contraction in whole
 # chunks) and K6's j-block (ctpa's int8_ffn block_j)
 INT8_KC = 128
@@ -221,7 +234,12 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _sm_count(t: torch.Tensor) -> int:
-    return torch.cuda.get_device_properties(t.device).multi_processor_count
+    return _sms(t.device.index if t.device.index is not None else torch.cuda.current_device())
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -255,6 +273,96 @@ def matmul_splits(m: int, d_in: int, d_out: int, group: int, sms: int) -> tuple[
     return math.ceil(n_g / per), per
 
 
+def stream_splits(d_in: int, d_out: int, group: int, sms: int,
+                  resident: int) -> tuple[int, int]:
+    """(splits, scale groups per split) of the decode kernel: as many blocks
+    as ``resident`` a SM holds on every SM, in whole splits of at least
+    STREAM_MIN_GROUPS groups, when its column strips alone are fewer."""
+    strips = math.ceil(d_out / STREAM_COLUMNS)
+    n_g = d_in // group
+    splits = max(1, min(n_g // STREAM_MIN_GROUPS, resident * sms // strips))
+    per = math.ceil(n_g / splits)
+    return math.ceil(n_g / per), per
+
+
+def int4_matmul_plan(m: int, d_in: int, d_out: int, group: int, sms: int,
+                     resident: int = 2) -> tuple[str, int, int]:
+    """(kernel, splits, scale groups per split) of a K5 call on m rows: the
+    weight-streaming kernel ("stream") up to STREAM_MAX_ROWS rows, adding its
+    splits in its own launch (``resident``: its blocks an SM holds); else the
+    tiled kernel ("tiled"), whose split contraction takes a second launch."""
+    if m <= STREAM_MAX_ROWS:
+        return ("stream", *stream_splits(d_in, d_out, group, sms, resident))
+    return ("tiled", *matmul_splits(m, d_in, d_out, group, sms))
+
+
+_RESIDENCY: dict = {}
+
+
+def _stream_residency(x: torch.Tensor, m: int, group: int, act_quant: bool) -> int:
+    """Blocks of the decode kernel the card holds on one SM (its occupancy,
+    queried once per row tier, group and form)."""
+    key = (x.device, 1 if m <= 8 else 2 if m <= 16 else 4, group, act_quant)
+    if key not in _RESIDENCY:
+        blocks = build.library().lib.int4_matmul_stream_residency(m, group, int(act_quant))
+        if blocks < 1:
+            raise RuntimeError(f"int4_matmul_stream: occupancy query failed ({blocks})")
+        _RESIDENCY[key] = blocks
+    return _RESIDENCY[key]
+
+
+def int4_matmul_launches(m: int, d_in: int, d_out: int, group: int, sms: int,
+                         act_quant: bool) -> dict:
+    """The launches of one K5 call on m rows, under ``LAUNCHES``' names."""
+    kernel, splits, _ = int4_matmul_plan(m, d_in, d_out, group, sms)
+    return {"int4_matmul_a8" if act_quant else "int4_matmul": 1,
+            "int4_reduce": int(kernel == "tiled" and splits > 1),
+            "int4_act_quant": int(act_quant)}
+
+
+# the decode kernel's per-strip counters, zero between calls (each call
+# leaves them zero), and its split partials: one buffer each per device,
+# grown as needed, shared by calls that run one after another on a stream
+_COUNTERS: dict = {}
+_PARTIALS: dict = {}
+
+
+def _strip_counters(device, strips: int) -> torch.Tensor:
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < strips:
+        buf = torch.zeros(max(strips, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
+def _stream_partials(device, numel: int) -> torch.Tensor:
+    buf = _PARTIALS.get(device)
+    if buf is None or buf.numel() < numel:
+        buf = torch.empty(numel, device=device)
+        _PARTIALS[device] = buf
+    return buf
+
+
+def int4_matmul_plan_on(xm: torch.Tensor, d_out: int, group: int,
+                        act_quant: bool) -> tuple[str, int, int]:
+    """``int4_matmul_plan`` of a K5 call on the (m, in) rows xm on its card."""
+    m, d_in = xm.shape
+    resident = _stream_residency(xm, m, group, act_quant) if m <= STREAM_MAX_ROWS else 0
+    return int4_matmul_plan(m, d_in, d_out, group, _sm_count(xm), resident)
+
+
+def _quantize_act_kernel(xm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_act_int8`` of bf16 (m, k) x in one launch, bit for bit."""
+    m, d_in = xm.shape
+    x8 = torch.empty(m, d_in, dtype=torch.int8, device=xm.device)
+    sx = torch.empty(m, dtype=torch.float32, device=xm.device)
+    rc = build.library().lib.int4_act_quant_launch(xm.data_ptr(), x8.data_ptr(), sx.data_ptr(),
+                                                   m, d_in, _stream(xm))
+    build.check_launch(rc, "int4_act_quant")
+    LAUNCHES["int4_act_quant"] += 1
+    return x8, sx
+
+
 def _int4_matmul_kernel(x, w4, scale, g: int, act_quant: bool):
     *lead, d_in = x.shape
     d_out = w4.shape[1]
@@ -264,19 +372,27 @@ def _int4_matmul_kernel(x, w4, scale, g: int, act_quant: bool):
     w4, scale = _aligned(w4), _aligned(scale)
     sx = None
     if act_quant:
-        xm, sx = quantize_act_int8(xm)
-        xm, sx = _aligned(xm), sx.reshape(-1).contiguous()
+        xm, sx = _quantize_act_kernel(xm)
     out = torch.empty(m, d_out, dtype=x.dtype, device=x.device)
-    splits, per = matmul_splits(m, d_in, d_out, g, _sm_count(x))
-    work = (torch.empty(splits, m, d_out, device=x.device) if splits > 1 else None)
-    rc = build.library().lib.int4_matmul_launch(
-        xm.data_ptr(), sx.data_ptr() if act_quant else None, w4.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), work.data_ptr() if work is not None else None, m, d_in, d_out, g, per,
-        splits, int(act_quant), _stream(x))
+    kernel, splits, per = int4_matmul_plan_on(xm, d_out, g, act_quant)
+    ptrs = (xm.data_ptr(), sx.data_ptr() if act_quant else None, w4.data_ptr(),
+            scale.data_ptr(), out.data_ptr())
+    lib = build.library().lib
+    if kernel == "stream":
+        work = counters = None
+        if splits > 1:
+            work = _stream_partials(x.device, splits * m * d_out).data_ptr()
+            counters = _strip_counters(x.device, math.ceil(d_out / STREAM_COLUMNS)).data_ptr()
+        rc = lib.int4_matmul_stream_launch(*ptrs, work, counters, m, d_in, d_out, g, per, splits,
+                                           int(act_quant), _stream(x))
+    else:
+        work = torch.empty(splits, m, d_out, device=x.device) if splits > 1 else None
+        rc = lib.int4_matmul_launch(*ptrs, work.data_ptr() if work is not None else None, m,
+                                    d_in, d_out, g, per, splits, int(act_quant), _stream(x))
     name = "int4_matmul_a8" if act_quant else "int4_matmul"
     build.check_launch(rc, name)
     LAUNCHES[name] += 1
-    LAUNCHES["int4_reduce"] += splits > 1
+    LAUNCHES["int4_reduce"] += kernel == "tiled" and splits > 1
     return out.reshape(*lead, d_out)
 
 

@@ -564,6 +564,67 @@ def test_flash_d128_refuses_what_it_does_not_take(cuda):
         flash_attention(qb.flatten()[4:4 + b * h * (n - 1) * d].view(b, h, n - 1, d), kb, vb)
 
 
+# (n, m, mask form, bias form) at head dim 128: ragged n and m; q_offset 1
+# (a block's last causal key on a tile's first key); kv holes with causal
+# (row 0 has no valid key); keys 64..127 dead inside live rows (a whole key
+# tile and dK/dV block); a batch item with no real key; each bias form
+D128_BWD_CASES = [(77, 141, "causal q_offset 1", None), (130, 200, "causal kv holes", "h"),
+                  (150, 200, "dead key tile", "bh"), (64, 13, "kv dead row", None),
+                  (200, 150, "causal q_offset 1", "1")]
+
+
+@pytest.mark.parametrize("n, m, form, bias_form", D128_BWD_CASES)
+def test_flash_d128_backward_ragged_masked_autograd(cuda, n, m, form, bias_form):
+    """K3 at head dim 128 (the bf16 mma.sync kernels at D = 128) through
+    torch.autograd at ragged shapes, each mask form and a bias (which takes
+    no gradient there), against the plain backward on the kernel forward's
+    output and logsumexp (2e-2 abs + rel)."""
+    b, d = 2, 128
+    scale = d ** -0.5
+    q, k, v, bias, do, masks = _masked(cuda, torch.bfloat16, d,
+                                       "none" if form == "dead key tile" else form, bias_form,
+                                       n=n, m=m)
+    if form == "dead key tile":
+        kv = torch.ones(b, m, dtype=torch.bool, device="cuda")
+        kv[:, 64:128] = False
+        masks = fa.make_masks(False, kv, None, b, m, "cuda")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(LAUNCHES)
+    out, lse = fa._FlashAttentionFn.apply(*leaves, bias, scale, None, masks)
+    got = torch.autograd.grad(out, leaves, grad_outputs=do)
+    torch.cuda.synchronize()
+    launched = {key: LAUNCHES[key] - before[key] for key in LAUNCHES}
+    assert launched == dict(dict.fromkeys(LAUNCHES, 0), flash_attention_fwd_lse_d128=1,
+                            flash_attention_bwd_delta=1, flash_attention_bwd_dq_d128=1,
+                            flash_attention_bwd_dkv_d128=1)
+    ref = flash_attention_bwd_plain(q, k, v, bias, out.detach(), lse, do, scale, masks=masks)
+    tol = TOL[torch.bfloat16]
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol, msg=name)
+
+
+@pytest.mark.parametrize("form", ["causal padded", "kv holes, bias"])
+def test_flash_d128_backward_is_deterministic(cuda, form):
+    """dQ and dK/dV at head dim 128, called twice, give the same bits: every
+    sum runs inside one block in a fixed order."""
+    d, scale = 128, 128 ** -0.5
+    if form == "causal padded":
+        b, h, n = 2, 4, 512
+        q, k, v, bias, _, do = _attn(cuda, torch.bfloat16, None, False, d, b=b, h=h, n=n, m=n)
+        kv = torch.arange(n, device="cuda")[None] < torch.tensor([[n], [384]], device="cuda")
+        masks = fa.make_masks(True, kv, None, b, n, "cuda")
+    else:
+        q, k, v, bias, do, masks = _masked(cuda, torch.bfloat16, d, "causal kv holes", "h")
+    out, lse = fa._forward(q, k, v, bias, scale, None, True, masks)
+    delta = fa.flash_attention_bwd_delta(out, do)
+    args = (q, k, v, bias, lse, delta, do, scale, masks)
+    for fn in (lambda: (fa.flash_attention_bwd_dq(*args),),
+               lambda: fa.flash_attention_bwd_dkv(*args)):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
 def is_spatial_fold_param(name: str) -> bool:
     """The attention projections and scales of the spatial fold and the CPB
     MLP, whose gradients pass through the flash kernels.  The CPB's
@@ -778,6 +839,74 @@ def test_int4_matmul_kernel_matches_plain(cuda, shape, act_quant):
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
 
 
+# (m, in, out) around K5's decode kernel: 1, 3, 4, 17, 31 and 32 rows take
+# it, 33 the tiled kernel; groups of 128, 64 (in 192) and 32 (in 160); a
+# ragged width (1000, 520); 11 groups (in 1408), whose splits cannot all be
+# equal
+INT4_DECODE_SHAPES = [(1, 4096, 4096), (3, 160, 1000), (4, 1408, 4096), (4, 4096, 12288),
+                      (17, 192, 1000), (31, 192, 4096), (32, 4096, 1000), (32, 160, 520),
+                      (33, 4096, 4096)]
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("shape", INT4_DECODE_SHAPES)
+def test_int4_matmul_decode_kernel_matches_plain(cuda, shape, act_quant):
+    """K5 around the decode/prefill threshold against its plain version: w4
+    in bf16's bound (2e-2 abs + rel), w4a8 in one bf16 ulp of |p| plus 1e-3
+    of max|p| (its group dots are exact, the split partials change the fp32
+    order of the group sum).  One launch (and the activation quantization
+    for w4a8); the split decode kernel adds its partials itself."""
+    from ctpa_torch.ops import quant
+
+    m, d_in, d_out = shape
+    w4, s = quant.quantize_int4(0.05 * torch.randn(d_in, d_out, generator=cuda, device="cuda"))
+    x = torch.randn(m, d_in, generator=cuda, device="cuda").to(torch.bfloat16)
+    g = quant._int4_group(d_in, quant.GROUP)
+    kernel, splits, per = quant.int4_matmul_plan_on(x, d_out, g, act_quant)
+    assert kernel == ("stream" if m <= 32 else "tiled")
+    assert (splits - 1) * per < d_in // g <= splits * per
+    before = dict(quant.LAUNCHES)
+    got = quant.int4_matmul(x, w4, s, act_quant=act_quant)
+    torch.cuda.synchronize()
+    launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
+    want = quant.int4_matmul_launches(m, d_in, d_out, g, quant._sm_count(x), act_quant)
+    assert launched == dict(dict.fromkeys(quant.LAUNCHES, 0), **want)
+    _int8_close(got, quant.int4_matmul_plain(x, w4, s, act_quant=act_quant), act_quant)
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("m", [4, 32])
+def test_int4_matmul_decode_kernel_is_deterministic(cuda, m, act_quant):
+    """The split decode kernel at the fused qkv_proj's width, called twice,
+    gives the same bits: the last block of a strip adds the splits in order."""
+    from ctpa_torch.ops import quant
+
+    w4, s = quant.quantize_int4(0.05 * torch.randn(4096, 12288, generator=cuda, device="cuda"))
+    x = torch.randn(m, 4096, generator=cuda, device="cuda").to(torch.bfloat16)
+    assert quant.int4_matmul_plan_on(x, 12288, 128, act_quant)[1] > 1
+    first = quant.int4_matmul(x, w4, s, act_quant=act_quant)
+    second = quant.int4_matmul(x, w4, s, act_quant=act_quant)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("shape", [(1, 4096), (4, 4096), (32, 160), (2048, 4096), (3, 11008)])
+def test_int4_act_quant_kernel_gives_quantize_act_int8_bits(cuda, shape):
+    """w4a8's one-launch activation quantization equals quantize_act_int8 on
+    the card bit for bit: x8 and the row scales."""
+    from ctpa_torch.ops import quant
+
+    x = (3 * torch.randn(*shape, generator=cuda, device="cuda")).to(torch.bfloat16)
+    x[0, :7] = 0                                     # a row with zeros
+    before = quant.LAUNCHES["int4_act_quant"]
+    x8, sx = quant._quantize_act_kernel(x)
+    torch.cuda.synchronize()
+    assert quant.LAUNCHES["int4_act_quant"] == before + 1
+    ref8, ref_s = quant.quantize_act_int8(x)
+    assert torch.equal(x8, ref8)
+    assert torch.equal(sx, ref_s.reshape(-1))
+
+
 # (m, hidden, inter): decode and prefill rows; a padded last j-block (384),
 # groups of 64 (hidden 192, inter 320) and 32 (hidden 160), a j-block
 # narrower than 128 (inter 64)
@@ -849,7 +978,8 @@ def test_int4_report_generator_kernel_path_matches_plain_path(cuda, act_quant):
     step; the kernel path teacher-forced on its tokens gives them back, and
     the same bundle with quant_impl="xla" agrees with it (every step's max
     |diff| within 5e-2 of its max |logit|, top-1 agreement >= 0.8).  The
-    launches, reductions included, are those ``chip_smoke.quant_kernel_launches``
+    launches, reductions and w4a8's activation quantization included, are those
+    ``chip_smoke.quant_kernel_launches``
     derives from the row chunks and contraction splits."""
     import chip_smoke as cs
     from ctpa_torch.core.config import LLMConfig, ReportGenConfig
@@ -887,9 +1017,8 @@ def test_int4_report_generator_kernel_path_matches_plain_path(cuda, act_quant):
     with torch.inference_mode():
         tokens = model.generate(*inputs, 8, -1, greedy=True).tokens
         launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
-        assert launched == {k5: prefill[k5] + 7 * step[k5], k7: prefill[k7] + 7 * step[k7],
-                            "int4_reduce": prefill["int4_reduce"] + 7 * step["int4_reduce"],
-                            **{k: 0 for k in quant.LAUNCHES if k not in (k5, k7, "int4_reduce")}}
+        assert launched == {k: prefill.get(k, 0) + 7 * step.get(k, 0) for k in quant.LAUNCHES}
+        assert launched["int4_act_quant"] == (launched[k5] if act_quant else 0)
         kernel = cs.teacher_forced_logits(model, *inputs, tokens)
         plain = cs.teacher_forced_logits(cs.twin(model, quant_impl="xla"), *inputs, tokens)
     assert torch.equal(kernel.argmax(-1), tokens)

@@ -146,6 +146,36 @@ def test_int4_group_and_block_rules():
         assert tq.ffn_block_j(inter, g_i) == want
 
 
+# (m, in, out, sms, resident, want): Meditron-7B's qkv_proj, o_proj and
+# lm_head on 132 SMs at decode (batch 4 and 32: the streaming kernel, as
+# many blocks as the SMs hold at once, in whole splits, added in its own
+# launch), at the threshold's far side (33 rows) and at prefill (the tiled
+# kernel, one reduction launch when its contraction splits)
+K5_PLANS = [(4, 4096, 12288, 132, 4, ("stream", 5, 7)), (32, 4096, 12288, 132, 2, ("stream", 2, 16)),
+            (4, 4096, 4096, 132, 4, ("stream", 8, 4)), (1, 4096, 32000, 132, 3, ("stream", 1, 32)),
+            (33, 4096, 4096, 132, 4, ("tiled", 5, 7)), (2048, 4096, 12288, 132, 4, ("tiled", 1, 32)),
+            (4, 1408, 4096, 132, 2, ("stream", 2, 6)), (4, 4096, 200000, 132, 4, ("stream", 1, 32))]
+
+
+@pytest.mark.parametrize("m, d_in, d_out, sms, resident, want", K5_PLANS)
+def test_int4_matmul_plan_takes_the_kernel_by_rows(m, d_in, d_out, sms, resident, want):
+    """K5's dispatch: up to ``STREAM_MAX_ROWS`` rows the streaming kernel,
+    whose splits cost no launch; above, the tiled kernel, whose split
+    contraction adds a reduction launch.  Every split holds groups, the last
+    one possibly fewer; w4a8 adds one activation-quantization launch."""
+    g = tq._int4_group(d_in, tq.GROUP)
+    plan = tq.int4_matmul_plan(m, d_in, d_out, g, sms, resident)
+    assert plan == want
+    kernel, splits, per = plan
+    assert (kernel == "stream") == (m <= tq.STREAM_MAX_ROWS)
+    assert (splits - 1) * per < d_in // g <= splits * per
+    for act_quant in (False, True):
+        assert tq.int4_matmul_launches(m, d_in, d_out, g, sms, act_quant) == {
+            "int4_matmul_a8" if act_quant else "int4_matmul": 1,
+            "int4_reduce": int(kernel == "tiled" and splits > 1),
+            "int4_act_quant": int(act_quant)}
+
+
 # ------------------------------------------------------- K5
 
 K5_CASES = [  # (m, in, out, pallas block_in, block_out): tests/test_quant.py's shapes
