@@ -82,9 +82,10 @@ Phases, each printing its seconds:
                      training's shape (b 2, h 32, n = m = 512, head dim 128,
                      bf16, causal, real lengths 512/384) and with the three
                      bias forms at head dims 32, 64 and 128; timed beside
-                     scaled_dot_product_attention with the same mask, with
-                     bounds counted over the tiles the kernels visit and the
-                     real keys;
+                     scaled_dot_product_attention with the same mask (call
+                     and device time), with bounds counted over the tiles
+                     the kernels visit and the real keys; K2-lse and K3 at
+                     head dim 128 called twice for bits;
  15. report-train  — a LoRA fine-tune (rank 16, alpha 32 on q, k, v, o) of
                      the report phase's model as the report CLI runs it with
                      --flash-prefill: Meditron-7B width, batch 2 x 512 tokens
@@ -116,7 +117,8 @@ Phases, each printing its seconds:
                      96 greedy tokens, weight-only and w4a8, then w4a8 at
                      batch 32: prefill and decode-step times, tokens/s, peak
                      memory, and exactly 65 K5 and 32 K7 launches per
-                     prefill and per decode step, 32 K8 per decode step;
+                     prefill and per decode step (w4a8: 97 activation
+                     quantizations), 32 K8 per decode step;
  19. quant-plain   — each tier's kernel path, the same bundle with
                      quant_impl="xla" and an fp32 reference of the same
                      dequantized weights, teacher-forced on the kernel path's
@@ -130,13 +132,20 @@ Phases, each printing its seconds:
                      prefill of 4 x 512 tokens, a ragged case, the batch-32
                      prefill untimed; timed as in phase 17, K4 beside
                      torch._int_mm (w8a8) and torch._weight_int8pack_mm (w8);
+                     K6's decode kernels called twice for bits at batch 4
+                     and 32, and built a second time with a planted fault
+                     (K6_FAULT, compiled in the background since the build
+                     phase), which the K6 gate must refuse;
  21. quant8-report — the same base and checkpoint through export_serving
                      (--quant int8 --ffn-kernel --kv-quant int8
                      --flash-decode, then with --act-quant) and
                      load_serving_bundle, after the int4 models are freed;
                      generate as in phase 18 (w8 and w8a8 at batch 4, w8a8
-                     at batch 32), exactly 65 K4 and 32 K6 launches per
-                     prefill and per decode step, 32 K8 per decode step;
+                     at batch 32), exactly 65 K4 launches and K6's (64 at
+                     up to 32 rows: two decode kernels a layer; else one
+                     kernel and one reduction a row chunk) per prefill and
+                     per decode step (w8a8: 97 activation quantizations at
+                     batch 4), 32 K8 per decode step;
  22. quant8-plain  — phase 19's gates for the int8 tiers; the planted faults
                      roll the per-column scales by one or shift the
                      contraction by one row.
@@ -149,6 +158,7 @@ not 0.  Nothing of JAX or of the ctpa package is imported.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import dataclasses
@@ -1624,14 +1634,16 @@ def check_report_train_kernels(dev) -> dict:
 
     lib_bwd = sdpa_backward(lambda: F.scaled_dot_product_attention(
         *leaves, attn_mask=attn_mask, scale=scale), leaves, do)
-    lib = {"fwd": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
-                                                                  scale=scale)),
+    lib_fwd = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,  # noqa: E731
+                                                     scale=scale)
+    lib = {"fwd": cuda_ms(lib_fwd), "fwd device": device_ms(lib_fwd),
            "fwd_bwd": cuda_ms(lambda: sdpa_fwd_bwd(attn_mask=attn_mask)),
            "causal fwd": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                                          scale=scale)),
            "causal fwd_bwd": cuda_ms(lambda: sdpa_fwd_bwd(is_causal=True)),
            "bwd": cuda_ms(lib_bwd)}
-    print(f"  scaled_dot_product_attention, boolean mask: forward {lib['fwd']:.4f} ms, "
+    print(f"  scaled_dot_product_attention, boolean mask: forward {lib['fwd']:.4f} ms (device "
+          f"{lib['fwd device']:.4f}), "
           f"backward alone {lib['bwd']:.4f} ms (device {device_ms(lib_bwd):.4f}), "
           f"forward+backward {lib['fwd_bwd']:.4f} ms (kernels: "
           f"{sdpa_backend(lambda: sdpa_fwd_bwd(attn_mask=attn_mask))}); is_causal without the "
@@ -1654,11 +1666,13 @@ def check_report_train_kernels(dev) -> dict:
                                              4 * tile * dkv_tiles)}
     print(f"  tiles visited per head: forward and dQ {fwd_tiles}, dK/dV {dkv_tiles} of "
           f"{b * (n // 64) ** 2}")
-    d128, bwd = "ctpa_torch/csrc/flash_attention_d128.cu", "ctpa_torch/csrc/flash_attention_bwd.cu"
-    sources = {"flash_attention_fwd_lse_d128": (d128, "ctpa/ops/pallas/flash_attention.py:270"),
+    fwd, bwd = "ctpa_torch/csrc/flash_attention.cu", "ctpa_torch/csrc/flash_attention_bwd.cu"
+    sources = {"flash_attention_fwd_lse_d128": (fwd, "ctpa/ops/pallas/flash_attention.py:270"),
                "flash_attention_bwd_delta": (bwd, "ctpa/ops/pallas/flash_attention.py:597"),
                "flash_attention_bwd_dq_d128": (bwd, "ctpa/ops/pallas/flash_attention.py:505"),
                "flash_attention_bwd_dkv_d128": (bwd, "ctpa/ops/pallas/flash_attention.py:451")}
+    repeatable("flash_attention_fwd_lse_d128 at the training shape",
+               timed["flash_attention_fwd_lse_d128"][0])
     for label in ("dq", "dkv"):
         fn = getattr(fa, f"flash_attention_bwd_{label}")
         repeatable(f"flash_attention_bwd_{label}_d128 at the training shape", lambda: fn(*args))
@@ -1838,7 +1852,7 @@ def trainable_grads(model) -> dict:
 
 # kinds of kernel in a traced step, by the first pattern found in the name
 # (lower case)
-KERNEL_KINDS = (("flash (hand kernels)", ("d128_kernel", "flash_bwd_delta", "_mma_kernel")),
+KERNEL_KINDS = (("flash (hand kernels)", ("flash_bwd_delta", "_mma_kernel")),
                 ("GEMM", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
                 ("softmax", ("softmax",)),
                 ("reduction", ("reduce",)),
@@ -2376,7 +2390,65 @@ def int8_yardstick(a8: bool, weights: list, x):
     return (lambda: next(it)()), name
 
 
-def check_quant8_kernels(dev) -> dict:
+# A planted fault in K6's decode kernels: the w8a8 requantization of h
+# takes its row maximum over 128 of a j-block's 256 columns, so the other
+# half's larger values clip; the K6 gate must refuse it.  Built from the
+# source by its own nvcc, started before the phases that run first
+K6_FAULT = ("      for (int w = 1; w < kGuWarps; ++w) mx = fmaxf(mx, red[w]);",
+            "      for (int w = 1; w < kGuWarps / 2; ++w) mx = fmaxf(mx, red[w]);")
+
+
+def start_k6_fault_build():
+    """int8_ffn.cu with ``K6_FAULT`` planted, compiled into a library of its
+    own in the background: (the nvcc process, the library's path)."""
+    from ctpa_torch.kernels import build
+
+    src = (build.CSRC_DIR / "int8_ffn.cu").read_text()
+    if K6_FAULT[0] not in src:
+        raise AssertionError("K6_FAULT: the requantization's row maximum is not in int8_ffn.cu")
+    out = build.BUILD_DIR / f"k6_fault.{os.getpid()}"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "int8_ffn.cu").write_text(src.replace(*K6_FAULT))
+    so = out / "libk6_fault.so"
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(build.CSRC_DIR), "-o", str(so),
+           str(out / "int8_ffn.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())   # a run that fails early
+    return proc, so
+
+
+@contextlib.contextmanager
+def planted_k6_fault(fault_build):
+    """K6's decode kernels taken from the faulty library while the block
+    runs (every other kernel from the real one)."""
+    import ctypes
+
+    from ctpa_torch.kernels import build
+
+    proc, so = fault_build
+    log = proc.communicate()[0]
+    if proc.returncode:
+        raise RuntimeError(f"the K6 fault library failed to build:\n{log}")
+    faulty = ctypes.CDLL(str(so))
+    shutil.rmtree(so.parent, ignore_errors=True)
+    for name in ("int8_ffn_stream_launch", "int8_ffn_stream_clusters"):
+        getattr(faulty, name).argtypes = list(build.SIGNATURES[name])
+        getattr(faulty, name).restype = ctypes.c_int
+    real = build.library()
+
+    class Mixed:
+        def __getattr__(self, name):
+            return getattr(faulty if name.startswith("int8_ffn_stream") else real.lib, name)
+
+    keep = build.library
+    build.library = lambda: build.KernelLibrary(Mixed(), real.ptxas_log, real.seconds)
+    try:
+        yield
+    finally:
+        build.library = keep
+
+
+def check_quant8_kernels(dev, k6_fault=None) -> dict:
     """Phase 20: the four K4 and K6 forms against their plain versions at the
     shapes int8 serving gives them at Meditron-7B width (decode at batch 4
     and 32, prefill of 4 x 512 tokens, a ragged case; K4 also at the gateup
@@ -2384,7 +2456,9 @@ def check_quant8_kernels(dev) -> dict:
     the bound and, for K4, ``int8_yardstick``; the batch-32 prefill (32 x 512
     rows, K6 in several row chunks) checked untimed.  The w8a8 forms are held
     to QUANT_A8_ATOL max|p| + QUANT_A8_RTOL |p|, which the FFN with h
-    requantized per full row must fail."""
+    requantized per full row must fail.  K6's decode kernels (batch 4 and
+    32) are called twice for bits; with ``k6_fault`` (``start_k6_fault_build``)
+    the faulty build must fail the w8a8 FFN's bound."""
     import torch
 
     from ctpa_torch.core.config import LLMConfig
@@ -2462,6 +2536,25 @@ def check_quant8_kernels(dev) -> dict:
             table[name, "ffn", m] = (ms, plain_ms, b_ms, b_by, None)
             print(f"    {name} (m {m}, {d} -> {i} -> {d}): {ms:.4f} ms (device {dev_ms:.4f})  "
                   f"plain {plain_ms:.4f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  library none")
+    # K6 at decode: two calls give the same bits; the planted fault fails
+    for m in (decode, QUANT_B32):
+        x = torch.randn(m, d, generator=gen, device=dev).to(bf16)
+        for name, a8, _, _ in QUANT8_FORMS[2:]:
+            repeatable(f"{name} decode kernels m {m}",
+                       lambda: quant.int8_ffn(x, *ffn[0], act_quant=a8))
+    if k6_fault is not None:
+        x = torch.randn(decode, d, generator=gen, device=dev).to(bf16)
+        plain = quant.int8_ffn_plain(x, *ffn[0], act_quant=True)
+        with planted_k6_fault(k6_fault):
+            got = quant.int8_ffn(x, *ffn[0], act_quant=True)
+            torch.cuda.synchronize()
+        try:
+            quant_check(collections.defaultdict(float), "int8_ffn_a8", True,
+                        f"m {decode}, planted fault (row max over 128 columns)", got, plain)
+        except AssertionError as exc:
+            print(f"    planted K6 fault refused: {str(exc)[:120]}")
+        else:
+            raise AssertionError("the K6 gate passed the planted requantization fault")
     del ffn
     check_a8_bound_sees_j_blocks(per_row)
     # the kernels' table rows: the decode step at batch 4, the main path's
@@ -2489,38 +2582,44 @@ def quant_kernel_launches(cfg, rows: int, head_rows: int, sms: int) -> dict:
     """The quantized kernels' launches in one forward of a quantized LLM
     (fused qkv, the fused FFN) over ``rows`` token rows with the lm_head on
     ``head_rows``: per layer one projection launch (K4 or K5) each for
-    qkv_proj and o_proj and one FFN launch (K6 or K7) per row chunk
-    (``ops/quant.py:ffn_row_chunk``), one projection launch for the lm_head,
-    one reduction for each FFN chunk and for each K4 or prefill K5 call
-    whose contraction is split (``int8_matmul_splits`` / ``int4_matmul_plan``
-    on ``sms`` SMs; K5 at decode adds its splits in its own launch), and
-    for w4a8 one activation quantization per K5 call."""
+    qkv_proj and o_proj, one projection launch for the lm_head, and per
+    layer the FFN's: K6 two launches at up to 32 rows
+    (``ops/quant.py:int8_ffn_launches``), else K6 or K7 one launch and one
+    reduction per row chunk (``ffn_row_chunk``); one reduction for each K4
+    or prefill K5 call whose contraction is split (``int8_matmul_splits`` /
+    ``int4_matmul_plan`` on ``sms`` SMs; K5 at decode adds its splits in
+    its own launch); with int8 activations one activation quantization per
+    projection and FFN call."""
     from ctpa_torch.ops import quant
 
     d, i, layers = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
     attn = cfg.num_heads * cfg.head_dim
+    a8 = int(cfg.quant_act)
+    mm, ffn_name, reduce = quant_kernel_names(cfg)
+    launches = collections.Counter({mm: 2 * layers + 1})
     if cfg.weight_quant == "int8":
-        n_j = -(-i // quant.INT8_BLOCK_J)
-
         def projection(m, d_in, d_out):
-            return {"int8_reduce": int(quant.int8_matmul_splits(m, d_in, d_out, sms)[0] > 1)}
-    else:
-        n_j = -(-i // quant.ffn_block_j(i, quant._int4_group(i, quant.GROUP)))
+            return {"int8_reduce": int(quant.int8_matmul_splits(m, d_in, d_out, sms)[0] > 1),
+                    "int4_act_quant": a8}
 
+        ffn = quant.int8_ffn_launches(rows, d, i, cfg.quant_act)
+    else:
         def projection(m, d_in, d_out):
             g = quant._int4_group(d_in, quant.GROUP)
             return quant.int4_matmul_launches(m, d_in, d_out, g, sms, cfg.quant_act)
-    chunks = -(-rows // quant.ffn_row_chunk(rows, n_j, d))
-    mm, ffn, reduce = quant_kernel_names(cfg)
-    launches = collections.Counter({mm: 2 * layers + 1, ffn: layers * chunks,
-                                    reduce: layers * chunks})
+
+        n_j = -(-i // quant.ffn_block_j(i, quant._int4_group(i, quant.GROUP)))
+        chunks = -(-rows // quant.ffn_row_chunk(rows, n_j, d))
+        ffn = {ffn_name: chunks, reduce: chunks, "int4_act_quant": a8}
+    for key, count in ffn.items():
+        launches[key] += count * layers
     for m, d_in, d_out, times in ((rows, d, qkv, layers), (rows, attn, d, layers),
                                   (head_rows, d, cfg.vocab_size, 1)):
         for key, count in projection(m, d_in, d_out).items():
             if key != mm:
                 launches[key] += count * times
-    return dict(launches)
+    return {k: v for k, v in launches.items() if v}
 
 
 def quant_generate(model, video, ids, mask, new_tokens: int, label: str) -> tuple:
@@ -2578,9 +2677,9 @@ def quant_generate(model, video, ids, mask, new_tokens: int, label: str) -> tupl
     act = "int4_act_quant"
     print(f"    launches: {mm} {total[mm]}, {ffn} {total[ffn]}, {reduce} {total[reduce]}, "
           f"{act} {total[act]}, decode_attention {total['decode_attention']} (per prefill "
-          f"{want_prefill[mm]} / {want_prefill[ffn]} / {want_prefill[reduce]} / "
+          f"{want_prefill[mm]} / {want_prefill[ffn]} / {want_prefill.get(reduce, 0)} / "
           f"{want_prefill.get(act, 0)}, per decode step {want_step[mm]} / {want_step[ffn]} / "
-          f"{want_step[reduce]} / {want_step.get(act, 0)} / {layers}, exactly)")
+          f"{want_step.get(reduce, 0)} / {want_step.get(act, 0)} / {layers}, exactly)")
     if tokens.shape != (b, new_tokens) or not ((tokens >= 0) & (tokens < model.llm_cfg.vocab_size)
                                                ).all() or not (res.lengths == new_tokens).all():
         raise AssertionError(f"{label}: tokens {tuple(tokens.shape)}, lengths {res.lengths}")
@@ -2777,8 +2876,9 @@ def quant_report(dev, rows: dict, model, inputs, base: str, bits: int) -> tuple:
     launched.update(total)
     for name, _, _, _ in (QUANT_FORMS if bits == 4 else QUANT8_FORMS):
         rows[name]["launches"] = launched[name]
-    if bits == 4:
-        rows["int4_act_quant"]["launches"] = launched["int4_act_quant"]
+    # the activation quantization serves both tiers' int8-activation forms
+    rows["int4_act_quant"]["launches"] = (rows["int4_act_quant"].get("launches", 0)
+                                          + launched["int4_act_quant"])
     print("  main path launches: " + ", ".join(f"{k} {launched[k]}" for k in quant.LAUNCHES
                                                if k.startswith(f"int{bits}_")))
     same = (tokens[tiers[0]] == tokens[tiers[1]]).float().mean().item()
@@ -2985,6 +3085,7 @@ def main() -> int:
               f"cuda {torch.version.cuda}")
 
     with phase("build"):
+        k6_fault = start_k6_fault_build()
         lib = build.library()
         print(f"  nvcc: {lib.seconds:.2f} s")
         for line in lib.ptxas_log.splitlines():
@@ -3082,7 +3183,7 @@ def main() -> int:
 
     with phase("quant8-kernels"):
         with torch.inference_mode():
-            rows.update(check_quant8_kernels(dev))
+            rows.update(check_quant8_kernels(dev, k6_fault))
     torch.cuda.empty_cache()
     with phase("quant8-report"):
         qmodels, qtokens, qvision = quant_report(dev, rows, model, inputs, base, 8)

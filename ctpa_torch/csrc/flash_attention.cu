@@ -36,12 +36,20 @@
 // set the floor, and a kernel near it must also run its products on the
 // tensor cores (on the fp32 FMA units alone they take at least 0.12 ms).
 // At the training shape (48 slabs at batch 2, with the lse) it is 62.8 MB
-// and 16.3 GFLOP, 18.8 us, again set by the bytes.
+// and 16.3 GFLOP, 18.8 us, again set by the bytes.  At head dim 128, report
+// training's shape (b 2, h 32, n = m = 512, causal with right padding, 896
+// of 1024 keys real): q and out (2 x 8.4 MB), k and v over the real keys
+// (2 x 7.3 MB) and the lse, 31.6 MB or 9.4 us; its two products over the
+// tiles it visits (69 of 128 per head) are 4.6 GFLOP, 4.7 us, so the bytes
+// bound it (chip_smoke.py computes the bound from the run's mask).
 //
-// bf16 design (flash_fwd_mma_kernel), FlashAttention-2's shape on
-// mma.sync m16n8k16 (warp_mma.cuh): a block of 4 warps owns 64 query rows,
-// 16 a warp, and walks the keys in tiles of 64.  Each warp keeps its Q as
-// A fragments in registers for the whole walk; S = Q K^T for a tile stays
+// bf16 design (flash_fwd_mma_kernel, head dims 16, 32, 64 and 128),
+// FlashAttention-2's shape on mma.sync m16n8k16 (warp_mma.cuh): a block of
+// 4 warps owns 64 query rows, 16 a warp, and walks the keys in tiles of 64.
+// Up to D = 64 each warp keeps its Q as A fragments in registers for the
+// whole walk; at D = 128, where O alone takes 64 fp32 registers a lane, it
+// reads them from the Q tile in shared memory at every k-step, as K3's
+// D = 128 kernels read theirs.  S = Q K^T for a tile stays
 // in registers (32 floats a lane), where the scale, the bias, the masks
 // and the row max and sum are applied, a row's 64 values spread over the
 // four lanes of a quad (two shuffles reduce them).  The S accumulators,
@@ -71,8 +79,8 @@
 // memory, together with the matching 64 x 32 bias tile, so every global
 // read is coalesced and the (n, m) score matrix never reaches device
 // memory.  No main path runs fp32 on the card; it keeps the 1e-4 gate,
-// which the tensor cores' TF32 would not meet.  Head dim 128 has its own
-// kernel (flash_attention_d128.cu).
+// which the tensor cores' TF32 would not meet.  Head dim 128 runs bf16
+// only (a 128-float accumulator row a thread would spill).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -281,20 +289,24 @@ struct MmaSmem {
 
 extern __shared__ __align__(16) unsigned char smem_mma[];
 
-// The mean of v over all m keys, columns 2 lane and 2 lane + 1 (lanes with
-// 2 lane >= D return 0): what a query row with no valid key gets.  The warp
-// reads v row after row, keys in order.
+// The mean of v over all m keys, columns 2 lane + 64 p and 2 lane + 64 p + 1
+// in mine[p] (lanes whose columns lie past D get 0): what a query row with
+// no valid key gets.  The warp reads v row after row, keys in order.
 template <int D>
-__device__ __forceinline__ float2 mean_v_pair(const bf16* vg, int m) {
-  const int c = 2 * (threadIdx.x & 31);
-  float x = 0.f, y = 0.f;
-  if (c < D) {
-    for (int j = 0; j < m; ++j) {
-      x += __bfloat162float(vg[(long long)j * D + c]);
-      y += __bfloat162float(vg[(long long)j * D + c + 1]);
+__device__ __forceinline__ void mean_v_pairs(float2 (&mine)[(D + 63) / 64], const bf16* vg,
+                                             int m) {
+#pragma unroll
+  for (int p = 0; p < (D + 63) / 64; ++p) {
+    const int c = 64 * p + 2 * (threadIdx.x & 31);
+    float x = 0.f, y = 0.f;
+    if (c < D) {
+      for (int j = 0; j < m; ++j) {
+        x += __bfloat162float(vg[(long long)j * D + c]);
+        y += __bfloat162float(vg[(long long)j * D + c + 1]);
+      }
     }
+    mine[p] = make_float2(x / m, y / m);
   }
-  return make_float2(x / m, y / m);
 }
 
 // grid (batch * heads * ceil(n / kMmaBQ)), batch item fastest, the last
@@ -307,6 +319,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const MmaArgs a
   constexpr int kKSteps = D / 16;   // k-steps of S = Q K^T
   constexpr int kOTiles = D / 8;    // n-tiles of O = P V
   constexpr int kSTiles = kMmaBK / 8;
+  // Q's A fragments stay in registers for the whole walk up to D = 64; at
+  // D = 128 (32 more registers beside O's 64) they are read from the Q tile
+  // at every k-step
+  constexpr bool kHoldQ = D <= 64;
 
   const int n = a.n, m = a.m;
   int id = blockIdx.x;
@@ -368,12 +384,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const MmaArgs a
   warp_mma::cp_async_wait<0>();
   __syncthreads();
 
-  // the warp's 16 rows of Q as A fragments, for the whole walk: ldmatrix's
-  // matrices 0-3 are (rows 0-7, 8-15) x (columns 16kk + 0-7, + 8-15)
-  uint32_t qf[kKSteps][4];
+  // the warp's 16 rows of Q as A fragments: ldmatrix's matrices 0-3 are
+  // (rows 0-7, 8-15) x (columns 16kk + 0-7, + 8-15)
+  const bf16* q_frag = q_s + (warp * 16 + (lane & 15)) * kLd + 8 * (lane >> 4);
+  uint32_t qf[kHoldQ ? kKSteps : 1][4];
+  if constexpr (kHoldQ) {
 #pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk)
-    warp_mma::ldsm_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * kLd + 16 * kk + 8 * (lane >> 4));
+    for (int kk = 0; kk < kKSteps; ++kk) warp_mma::ldsm_x4(qf[kk], q_frag + 16 * kk);
+  }
   // the lane's rows in ldmatrix's addressing of a K tile (matrices: tiles j,
   // j + 1 times the two column halves) and of a V tile (transposed: keys
   // 16kk + 0-7, + 8-15 times the column blocks i, i + 1)
@@ -418,15 +436,30 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const MmaArgs a
     // S = Q K^T in log2 units: tile j holds keys 8j .. 8j + 7
     float s[kSTiles][4];
 #pragma unroll
-    for (int j = 0; j < kSTiles; j += 2) {
+    for (int j = 0; j < kSTiles; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    if constexpr (kHoldQ) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = s[j + 1][e] = 0.f;
+      for (int j = 0; j < kSTiles; j += 2) {
+#pragma unroll
+        for (int kk = 0; kk < kKSteps; ++kk) {
+          uint32_t kf[4];
+          warp_mma::ldsm_x4(kf, kt + (8 * j + k_row) * kLd + 16 * kk + k_col);
+          warp_mma::mma_bf16_16816(s[j], qf[kk], kf[0], kf[1]);
+          warp_mma::mma_bf16_16816(s[j + 1], qf[kk], kf[2], kf[3]);
+        }
+      }
+    } else {
+      // each S tile still sums its k-steps in order
 #pragma unroll
       for (int kk = 0; kk < kKSteps; ++kk) {
-        uint32_t kf[4];
-        warp_mma::ldsm_x4(kf, kt + (8 * j + k_row) * kLd + 16 * kk + k_col);
-        warp_mma::mma_bf16_16816(s[j], qf[kk], kf[0], kf[1]);
-        warp_mma::mma_bf16_16816(s[j + 1], qf[kk], kf[2], kf[3]);
+        warp_mma::ldsm_x4(qf[0], q_frag + 16 * kk);
+#pragma unroll
+        for (int j = 0; j < kSTiles; j += 2) {
+          uint32_t kf[4];
+          warp_mma::ldsm_x4(kf, kt + (8 * j + k_row) * kLd + 16 * kk + k_col);
+          warp_mma::mma_bf16_16816(s[j], qf[0], kf[0], kf[1]);
+          warp_mma::mma_bf16_16816(s[j + 1], qf[0], kf[2], kf[3]);
+        }
       }
     }
     // with the bound the shift is known before the scores: it goes into the
@@ -549,14 +582,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const MmaArgs a
     j0 = j1;
   }
 
-  // a row with no valid key: the mean of v, which the warp computes once
+  // a row with no valid key: the mean of v, which the warp computes once;
+  // O tile i's columns 8i + 2t, + 1 are lane 4 (i % 8) + t's pair i / 8
   float2 mean[kOTiles];
   if (kMasked && __any_sync(0xffffffffu, (!seen[0] && qi0 < n) || (!seen[1] && qi0 + 8 < n))) {
-    const float2 mine = mean_v_pair<D>(vg, m);
+    float2 mine[(D + 63) / 64];
+    mean_v_pairs<D>(mine, vg, m);
 #pragma unroll
     for (int i = 0; i < kOTiles; ++i) {
-      mean[i].x = __shfl_sync(0xffffffffu, mine.x, 4 * i + t);
-      mean[i].y = __shfl_sync(0xffffffffu, mine.y, 4 * i + t);
+      mean[i].x = __shfl_sync(0xffffffffu, mine[i / 8].x, 4 * (i % 8) + t);
+      mean[i].y = __shfl_sync(0xffffffffu, mine[i / 8].y, 4 * (i % 8) + t);
     }
   }
 
@@ -675,13 +710,15 @@ int launch_fp32(const FwdArgs& a, cudaStream_t st) {
   return 0;
 }
 
+// d128: the head-dim-128 launchers (bf16 only); else head dims 16-64
 int launch_any(const void* q, const void* k, const void* v, const void* bias, const void* bound,
                const void* kv_mask, const void* q_offset, void* out, void* lse, int batch,
                int heads, int n, int m, int d, int bias_stride_b, int bias_stride_h, int causal,
-               float scale, int is_bf16, void* stream) {
+               float scale, int is_bf16, void* stream, bool d128) {
   const FwdArgs a{q, k, v, bias, bound, kv_mask, q_offset, out, lse, batch, heads, n, m,
                   bias_stride_b, bias_stride_h, causal, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d128 != (d == 128)) return static_cast<int>(cudaErrorInvalidValue);
   int rc;
   switch (d) {
     case 16:
@@ -693,6 +730,10 @@ int launch_any(const void* q, const void* k, const void* v, const void* bias, co
     case 64:
       rc = is_bf16 ? launch_bf16<64>(a, st) : launch_fp32<64>(a, st);
       break;
+    case 128:
+      if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+      rc = launch_bf16<128>(a, st);
+      break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -702,10 +743,11 @@ int launch_any(const void* q, const void* k, const void* v, const void* bias, co
 
 }  // namespace
 
-// Both launch on `stream` and return cudaGetLastError() (0 when the launch
-// was accepted).  `bias`, `bound`, `kv_mask` ((b, m) bytes, nonzero = real
-// key) and `q_offset` (one int32) may be null.  The caller has checked: d in
-// {16, 32, 64}, contiguous buffers, bias strides in elements.
+// Each launches on `stream` and returns cudaGetLastError() (0 when the
+// launch was accepted).  `bias`, `bound`, `kv_mask` ((b, m) bytes, nonzero =
+// real key) and `q_offset` (one int32) may be null.  The caller has checked:
+// contiguous buffers, bias strides in elements; d in {16, 32, 64} for the
+// first two, d = 128 and bf16 for the `_d128` pair.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                           const void* bias, const void* bound,
                                           const void* kv_mask, const void* q_offset, void* out,
@@ -713,7 +755,7 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const vo
                                           int bias_stride_b, int bias_stride_h, int causal,
                                           float scale, int is_bf16, void* stream) {
   return launch_any(q, k, v, bias, bound, kv_mask, q_offset, out, nullptr, batch, heads, n, m,
-                    d, bias_stride_b, bias_stride_h, causal, scale, is_bf16, stream);
+                    d, bias_stride_b, bias_stride_h, causal, scale, is_bf16, stream, false);
 }
 
 // The same with the fp32 (b, h, n) row logsumexp written to `lse`.
@@ -725,5 +767,27 @@ extern "C" int flash_attention_fwd_lse_launch(const void* q, const void* k, cons
                                               int bias_stride_h, int causal, float scale,
                                               int is_bf16, void* stream) {
   return launch_any(q, k, v, bias, bound, kv_mask, q_offset, out, lse, batch, heads, n, m, d,
-                    bias_stride_b, bias_stride_h, causal, scale, is_bf16, stream);
+                    bias_stride_b, bias_stride_h, causal, scale, is_bf16, stream, false);
+}
+
+extern "C" int flash_attention_fwd_d128_launch(const void* q, const void* k, const void* v,
+                                               const void* bias, const void* bound,
+                                               const void* kv_mask, const void* q_offset,
+                                               void* out, int batch, int heads, int n, int m,
+                                               int d, int bias_stride_b, int bias_stride_h,
+                                               int causal, float scale, int is_bf16,
+                                               void* stream) {
+  return launch_any(q, k, v, bias, bound, kv_mask, q_offset, out, nullptr, batch, heads, n, m,
+                    d, bias_stride_b, bias_stride_h, causal, scale, is_bf16, stream, true);
+}
+
+extern "C" int flash_attention_fwd_lse_d128_launch(const void* q, const void* k, const void* v,
+                                                   const void* bias, const void* bound,
+                                                   const void* kv_mask, const void* q_offset,
+                                                   void* out, void* lse, int batch, int heads,
+                                                   int n, int m, int d, int bias_stride_b,
+                                                   int bias_stride_h, int causal, float scale,
+                                                   int is_bf16, void* stream) {
+  return launch_any(q, k, v, bias, bound, kv_mask, q_offset, out, lse, batch, heads, n, m, d,
+                    bias_stride_b, bias_stride_h, causal, scale, is_bf16, stream, true);
 }

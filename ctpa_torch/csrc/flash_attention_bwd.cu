@@ -91,8 +91,8 @@
 // delta and the 32 x 64 bias tile in shared memory.  dQ: 64 query rows, as
 // the forward.  d(bias): a block owns a 32 x 64 tile of one slab, one key
 // column a thread, and loops over the batch items that broadcast the slab.
-// Head dim 128's forward (K2) lives in flash_attention_d128.cu; the delta
-// pre-pass and the dQ and dK/dV passes here serve that head dim too.
+// The delta pre-pass and the dQ and dK/dV passes here serve head dim 128
+// too, as flash_attention.cu's forward does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

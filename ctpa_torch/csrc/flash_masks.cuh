@@ -1,5 +1,5 @@
 // ctpa's attention masks, shared by the flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu, flash_attention_d128.cu).
+// (flash_attention.cu, flash_attention_bwd.cu).
 //
 // `causal`: query row i sits at position i + q_offset (q_offset a device
 // int32 scalar, 0 when null) and sees the keys up to that position.

@@ -686,20 +686,29 @@ constexpr int kQThreads = 256;
 // One block a row: amax of |x|, sx = max(amax * (1/127), 1e-12), x8 =
 // clamp(rint(x / sx), -127, 127), as quantize_act_int8 computes them on the
 // card (PyTorch divides by a Python scalar as a product with its fp32
-// reciprocal, and by a tensor exactly).  k % 8 == 0, x 16-byte aligned.
+// reciprocal, and by a tensor exactly).  With `vec` (k % 8 == 0, x 16-byte
+// aligned) 16-byte loads, else one element a load.
+__device__ __forceinline__ int8_t act_q8(float f, float s) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(__fdiv_rn(f, s)), -127.f), 127.f));
+}
+
 __global__ void __launch_bounds__(kQThreads)
 quantize_act_int8_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ x8,
-                         float* __restrict__ sx, int k) {
+                         float* __restrict__ sx, int k, int vec) {
   __shared__ float red[kQThreads / 32];
   const __nv_bfloat16* xr = x + static_cast<long long>(blockIdx.x) * k;
   float amax = 0.f;
-  for (int c = threadIdx.x * 8; c < k; c += kQThreads * 8) {
-    const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  if (vec) {
+    for (int c = threadIdx.x * 8; c < k; c += kQThreads * 8) {
+      const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      amax = fmaxf(amax, fmaxf(fabsf(__uint_as_float(w[i] << 16)),
-                               fabsf(__uint_as_float(w[i] & 0xffff0000u))));
+      for (int i = 0; i < 4; ++i)
+        amax = fmaxf(amax, fmaxf(fabsf(__uint_as_float(w[i] << 16)),
+                                 fabsf(__uint_as_float(w[i] & 0xffff0000u))));
+    }
+  } else {
+    for (int c = threadIdx.x; c < k; c += kQThreads) amax = fmaxf(amax, fabsf(__bfloat162float(xr[c])));
   }
 #pragma unroll
   for (int off = 16; off > 0; off /= 2) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
@@ -711,6 +720,10 @@ quantize_act_int8_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict
   const float s = fmaxf(__fmul_rn(amax, 1.0f / 127.0f), 1e-12f);
   if (threadIdx.x == 0) sx[blockIdx.x] = s;
   int8_t* qr = x8 + static_cast<long long>(blockIdx.x) * k;
+  if (!vec) {
+    for (int c = threadIdx.x; c < k; c += kQThreads) qr[c] = act_q8(__bfloat162float(xr[c]), s);
+    return;
+  }
   for (int c = threadIdx.x * 8; c < k; c += kQThreads * 8) {
     const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
@@ -718,8 +731,7 @@ quantize_act_int8_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float f = __uint_as_float(i % 2 ? w[i / 2] & 0xffff0000u : w[i / 2] << 16);
-      const float r = fminf(fmaxf(rintf(__fdiv_rn(f, s)), -127.f), 127.f);
-      q[i / 4] |= (static_cast<uint32_t>(static_cast<int>(r)) & 0xFFu) << (8 * (i % 4));
+      q[i / 4] |= (static_cast<uint32_t>(act_q8(f, s)) & 0xFFu) << (8 * (i % 4));
     }
     *reinterpret_cast<uint2*>(qr + c) = make_uint2(q[0], q[1]);
   }
@@ -776,13 +788,16 @@ extern "C" int int4_matmul_stream_residency(int m, int group, int act_quant) {
   }
 }
 
-// w4a8's activations: x (m, k) bf16 -> x8 (m, k) int8 and sx (m,) fp32, one
-// launch; k % 8 == 0 and x 16-byte aligned.
+// The int8 activations of w4a8 and w8a8 (K5, K7, K4, K6): x (m, k) bf16 ->
+// x8 (m, k) int8 and sx (m,) fp32, one launch; rows contiguous.
 extern "C" int int4_act_quant_launch(const void* x, void* x8, void* sx, int m, int k,
                                      void* stream) {
-  if (m <= 0 || k <= 0 || k % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (m <= 0 || k <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = k % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(x8) % 8 == 0;
   quantize_act_int8_kernel<<<m, kQThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(x8), static_cast<float*>(sx), k);
+      static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(x8), static_cast<float*>(sx), k,
+      vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,7 @@
-// Fused int8 SwiGLU FFN: out = down(silu(x . Wg) * (x . Wu)) in one launch
-// (and a fixed-order reduction), with gate/up (hidden, inter) and down
-// (inter, hidden) stored as int8 with one fp32 scale per output column
-// (ctpa's quantize_int8 layout).
+// Fused int8 SwiGLU FFN: out = down(silu(x . Wg) * (x . Wu)), with gate/up
+// (hidden, inter) and down (inter, hidden) stored as int8 with one fp32
+// scale per output column (ctpa's quantize_int8 layout).  Two designs;
+// ops/quant.py:int8_ffn_plan picks one by the row count m.
 //
 // Replaces the TPU kernels ctpa/ops/quant.py:int8_ffn, `_ffn_kernel`
 // (weight-only, "w8") and `_ffn_kernel_a8` (int8 activations, "w8a8").
@@ -11,42 +11,84 @@
 //   w8:   the int8 weights converted to bf16 (exact); g = (x . Wg) * sg and
 //         u = (x . Wu) * su in fp32, h = silu(g) u rounded to bf16, the
 //         j-block's down product h . Wd in fp32;
-//   w8a8: x8, sx per row (ctpa's quantize_act_int8, computed by the caller
-//         in plain PyTorch as ctpa computes it outside its Pallas kernel);
+//   w8a8: x8, sx per row (ctpa's quantize_act_int8; ctpa computes it
+//         outside its Pallas kernel, the port in one launch of
+//         int4_matmul.cu's quantize_act_int8_kernel, with its bits);
 //         g = float(x8 . Wg) * sx * sg from an exact int32 dot, u alike;
 //         h = silu(g) u in fp32, requantized per row over the j-block's 256
 //         columns (sh = max|h| / 127, h8 = round(h / sh)); the j-block's down
 //         product float(h8 . Wd) * sh from an exact int32 dot.
-//   Both: the j-blocks' down products summed in j order in fp32, as ctpa's
-//   sequential j axis sums them, times sd[col], rounded to bf16.
+//   Both: the j-blocks' down products summed in fp32, as ctpa's sequential
+//   j axis sums them (at decode in the fixed order below), times sd[col],
+//   rounded to bf16.
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16, 1,979 TOPS int8) at
 // Meditron-7B (hidden 4096, inter 11008): a decode step (m = 4 to 32 rows)
-// is bound by the weight bytes, 135.3 MB, 40.4 us; at prefill (m = 2,048)
-// the 554 GFLOP bound it, 0.56 ms in bf16 (w8) and 0.28 ms in int8 (w8a8).
+// is bound by the weight bytes, 135.3 MB, 40.4 us (gate and up 26.9 us,
+// down 13.5); at prefill (m = 2,048) the 554 GFLOP bound it, 0.56 ms in
+// bf16 (w8) and 0.28 ms in int8 (w8a8).
 //
-// Design (K7's, int4_ffn.cu, with whole-row scales).  On the TPU the j grid
-// axis runs in order and carries the down sum in VMEM; on the card blocks run
-// in no order.  So each j-block belongs to a cluster of two blocks (BM rows
-// each: 16 for m <= 16, else 64), grid (2 n_j, rows / BM): each computes g
-// and u for one 128-column half of the j-block over the hidden axis in
-// chunks of 128 on the tensor cores (WMMA bf16 with fp32 accumulators for
-// w8, WMMA s8 x s8 -> s32 for w8a8, the accumulators in the fragments over
-// the whole contraction), keeps its half of h in shared memory and takes the
-// other half from the other block's shared memory (distributed shared
-// memory); for w8a8 the two halves' row maxima meet the same way before h
-// is requantized, so the requantization spans exactly ctpa's 256 columns.
-// Each block then runs the down product for alternate 128-column chunks of
-// the output.  h never leaves the chip.  The blocks write their j-block's
-// fp32 partial (n_j, rows, hidden); a second kernel adds the partials in j
-// order and applies sd (int4_common.cuh), so the result is deterministic.
-// At decode that is 2.8 MB (m = 4); at prefill the caller cuts the rows into
-// chunks whose partials stay under 1 GiB, one kernel pair per chunk
+// Decode (m <= 32): weight streaming on mma.sync, two launches, as K5's
+// decode kernel (int4_matmul.cu) streams its weights.
+//   Gate/up (`int8_ffn_gateup_stream_kernel`, 8 warps): a block owns one
+//   j-block of both gate and up (256 columns, 32 a warp) and a split of the
+//   hidden rows.  Each ring stage holds 32 rows of both weight windows and
+//   x's rows over them, by 16-byte cp.async, four stages deep.  The down
+//   kernel (`int8_ffn_down_stream_kernel`, 8 warps): a block owns 128
+//   output columns and a split of whole j-blocks, the ring stages 64 rows
+//   of Wd and h's rows over them, each set of 4 warps 32 of them (the two
+//   sets' sums added at the end, set 0's plus set 1's): twice the warps
+//   and the bytes in flight of one set, where the cluster limit of 8
+//   splits leaves about 2 blocks an SM.  In both the weights are the A operand
+//   (16 output columns x k) and the tokens the 8-wide N side, so m = 4
+//   pads to 8; a lane reads 4-byte words of 4 weight rows (its 4 columns)
+//   and builds its A registers in registers: w8 converts each int8 to bf16
+//   exactly by a byte permute under 2^23 (m16n8k16); w8a8 transposes the 4
+//   x 4 bytes into 4 k of one column (m16n8k32 s8), the k slots of a
+//   k-step permuted for the weights and x alike.  The row strides put a
+//   k-step's reads on distinct banks.
+//   Sums, in a fixed order and with no atomics: the splits of one j-block
+//   (gate/up) or column strip (down) run as one thread-block cluster, as
+//   many splits (at most 8) as let every cluster run at once (ops/quant.py
+//   asks the card's cluster occupancy).  Each block keeps its split's sums
+//   (fp32, or exact int32 for w8a8's g and u) in its shared memory; then
+//   block z of the cluster finishes rows z, z + splits, ... by reading the
+//   other blocks' sums through distributed shared memory and adding them in
+//   split order, so no partial leaves the chip.  Gate/up then writes h
+//   (bf16, or for w8a8 its int8 form per row over the j-block's 256
+//   columns and sh) to device memory (90 KB or 45 KB at m = 4, read back
+//   from L2); the down kernel adds each j-block's int32 dot times sh in j
+//   order inside a split, the splits in order, times sd.
+//   On the card (NVIDIA H100 80GB HBM3, 700 W; profile_int8_decode.py):
+//   5 gate/up and 8 down splits at Meditron-7B; at m = 4 the gate/up
+//   kernel runs at 0.67-0.72 of its byte bound and the down kernel at
+//   0.47-0.59, 0.063-0.073 ms for the FFN; at m = 32 0.50-0.57 and
+//   0.38-0.41, 0.083-0.092 ms.  A first form that added the splits through
+//   device memory (the last block of each j-block or strip, found by a
+//   counter) took 0.064-0.066 ms at m = 4 and 0.113-0.116 at m = 32.  The
+//   down kernel's splits stop at 8 and 43 j-blocks fill 48 split slots;
+//   its w8 form is the slowest part at m = 4.
+//
+// Prefill (K7's design, int4_ffn.cu, with whole-row scales).  On the TPU
+// the j grid axis runs in order and carries the down sum in VMEM; on the
+// card blocks run in no order.  So each j-block belongs to a cluster of two
+// blocks (BM rows each: 16 for m <= 16, else 64), grid (2 n_j, rows / BM):
+// each computes g and u for one 128-column half of the j-block over the
+// hidden axis in chunks of 128 on the tensor cores (WMMA bf16 with fp32
+// accumulators for w8, WMMA s8 x s8 -> s32 for w8a8, the accumulators in
+// the fragments over the whole contraction), keeps its half of h in shared
+// memory and takes the other half from the other block's shared memory
+// (distributed shared memory); for w8a8 the two halves' row maxima meet the
+// same way before h is requantized, so the requantization spans exactly
+// ctpa's 256 columns.  Each block then runs the down product for alternate
+// 128-column chunks of the output.  h never leaves the chip.  The blocks
+// write their j-block's fp32 partial (n_j, rows, hidden); a second kernel
+// adds the partials in j order and applies sd (int4_common.cuh), so the
+// result is deterministic.  The caller cuts the rows into chunks whose
+// partials stay under 1 GiB, one kernel pair per chunk
 // (ctpa_torch/ops/quant.py:ffn_row_chunk) -- no atomics.  The int8 tiles sit
 // in shared memory as 16x16 slabs of 256 bytes so every fragment address is
-// 32-byte aligned.  At decode 86 blocks run, each reading 1.5 MB of weights:
-// short of 132 SMs, and the loads are not overlapped with the products; both
-// are the next steps for speed.
+// 32-byte aligned.  Its loads are not overlapped with the products.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -56,6 +98,7 @@
 #include <stdint.h>
 
 #include "int4_common.cuh"
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -488,6 +531,565 @@ cudaError_t launch_rows(const Args& a, int n_j, bool a8, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ decode: streaming
+
+constexpr int kSKC = 32;             // contraction rows a warp takes from a ring stage
+constexpr int kSStages = 4;          // ring depth
+constexpr int kGuWarps = 8;          // gate/up: a block owns one j-block, 32 columns a warp
+constexpr int kGuThreads = 32 * kGuWarps;
+constexpr int kDnBN = 128;           // down: a block owns 128 output columns, 32 a warp,
+constexpr int kDnSets = 2;           // in two sets of 4 warps, each taking kSKC of a
+constexpr int kDnThreads = 32 * 4 * kDnSets;   // stage's kDnSets kSKC rows
+constexpr int kDnKC = kDnSets * kSKC;
+constexpr int kJChunks = kBJ / kDnKC;  // ring stages a j-block of the down product
+// the most splits of each kernel: a cluster's portable size; a finishing
+// block loads every split's sum of an output at once, then adds them in
+// split order
+constexpr int kMaxSplits = 8;
+static_assert(kDnThreads == kDnSets * kDnBN, "down threads finish kDnSets rows at once");
+static_assert(kGuWarps * 32 == kBJ, "a gate/up block owns one j-block");
+
+template <bool A8> struct AccOf { using type = float; };
+template <> struct AccOf<true> { using type = int; };
+
+struct StreamArgs {
+  const void* x;          // (m, hidden) bf16 (w8) or int8 with sx (w8a8)
+  const float* sx;        // (m,)
+  const int8_t* wg;       // (hidden, inter)
+  const float* sg;        // (inter,)
+  const int8_t* wu;
+  const float* su;
+  const int8_t* wd;       // (inter, hidden)
+  const float* sd;        // (hidden,)
+  __nv_bfloat16* out;     // (m, hidden)
+  void* h;                // (m, ld_h): bf16 (w8) or int8 (w8a8), 0 past inter
+  float* sh;              // (m, n_j) w8a8 row scales of h per j-block
+  int m, hidden, inter, n_j, ld_h, gu_per, dn_per;
+};
+
+// One ring stage of a weight window (KC rows of `width` bytes at a row
+// stride kLdW) and of NT * 8 token rows (rows >= m zero) over the same KC
+// contraction columns, at a row stride kLdX.  The strides spread a warp's
+// reads over the 32 banks: a k-step reads rows 2t apart (t = lane % 4), 32
+// bytes each, and token rows 8 apart.
+template <int NT, bool A8, int kMats, int kWidth, int KC>
+struct StageOf {
+  static constexpr int kXB = A8 ? 1 : 2;
+  static constexpr int kLdW = kWidth + 16;
+  static constexpr int kLdX = KC * kXB + 16;
+  static constexpr int kW = KC * kLdW;
+  static constexpr int kStage = kMats * kW + NT * 8 * kLdX;
+  static constexpr int kBytes = kSStages * kStage;
+  static_assert(kW % 16 == 0 && kStage % 16 == 0, "16-byte aligned copies");
+};
+
+extern __shared__ __align__(16) unsigned char smem_stream8[];
+
+__device__ __forceinline__ uint32_t ld_u32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t ld_u16(const unsigned char* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+
+// The bf16 pair (byte c of u0, byte c of u1) of two words whose bytes hold
+// int8 q as q + 128 (w ^ 0x80808080): a byte under the exponent of 2^23 is
+// the float 2^23 + q + 128, minus 2^23 + 128 it is q exactly, and the high
+// half of that float is q's exact bf16.
+__device__ __forceinline__ uint32_t s8_pair_bf16(uint32_t u0, uint32_t u1, int c) {
+  const uint32_t sel = 0x7650u | static_cast<uint32_t>(c);
+  const float f0 = __uint_as_float(__byte_perm(u0, 0x4B000000u, sel)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u1, 0x4B000000u, sel)) - 8388736.f;
+  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632u);
+}
+
+// Words r0..r3 of four weight rows, 4 columns each, as 4 column words:
+// col[c] = (byte c of r0, r1, r2, r3), the first row in the low byte.
+__device__ __forceinline__ void columns4(uint32_t (&col)[4], uint32_t r0, uint32_t r1,
+                                         uint32_t r2, uint32_t r3) {
+  const uint32_t x01 = __byte_perm(r0, r1, 0x5140), x23 = __byte_perm(r0, r1, 0x7362);
+  const uint32_t y01 = __byte_perm(r2, r3, 0x5140), y23 = __byte_perm(r2, r3, 0x7362);
+  col[0] = __byte_perm(x01, y01, 0x5410);
+  col[1] = __byte_perm(x01, y01, 0x7632);
+  col[2] = __byte_perm(x23, y23, 0x5410);
+  col[3] = __byte_perm(x23, y23, 0x7632);
+}
+
+// The products of one ring stage: kMats weight windows (the weights the A
+// operand, 16 output columns x k; the tokens the 8-wide N side).  Lane
+// (g, t) reads 4 bytes of a weight row at its columns 4g .. 4g + 3 (wl
+// points there); A row g of tile i is column 4g + 2i, row g + 8 column
+// 4g + 2i + 1.  xs points at token g's staged row.
+//   w8:   m16n8k16 bf16 in natural k order: k pairs (2t, 2t + 1) and
+//         (2t + 8, 2t + 9) of each 16 are rows r0, r0 + 1 and r0 + 8,
+//         r0 + 9, converted exactly (s8_pair_bf16); x's B registers are
+//         the same bf16 pairs of x.
+//   w8a8: m16n8k32 s8; the k slots 4t .. 4t + 3 of each 16 are rows r0,
+//         r0 + 1, r0 + 8, r0 + 9 (columns4), and x8's B registers take the
+//         same four k; a permutation inside a k-step leaves its exact int32
+//         dot unchanged.
+// acc[mat][i][nt]: tile i, tokens 8 nt + 2t, + 1 (C's layout).
+template <int NT, bool A8, int kMats, typename Acc>
+__device__ __forceinline__ void stage_products(Acc (&acc)[kMats][2][NT][4],
+                                               const unsigned char* wl, int mat_stride, int ld_w,
+                                               const unsigned char* xs, int ld_x, int t) {
+  if constexpr (!A8) {
+#pragma unroll
+    for (int k0 = 0; k0 < kSKC; k0 += 16) {
+      const int r0 = k0 + 2 * t;
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        b[nt][0] = ld_u32(xs + 8 * nt * ld_x + 2 * r0);
+        b[nt][1] = ld_u32(xs + 8 * nt * ld_x + 2 * (r0 + 8));
+      }
+#pragma unroll
+      for (int mat = 0; mat < kMats; ++mat) {
+        const unsigned char* w = wl + mat * mat_stride;
+        const uint32_t u0 = ld_u32(w + r0 * ld_w) ^ 0x80808080u;
+        const uint32_t u1 = ld_u32(w + (r0 + 1) * ld_w) ^ 0x80808080u;
+        const uint32_t u2 = ld_u32(w + (r0 + 8) * ld_w) ^ 0x80808080u;
+        const uint32_t u3 = ld_u32(w + (r0 + 9) * ld_w) ^ 0x80808080u;
+        uint32_t a[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          a[i][0] = s8_pair_bf16(u0, u1, 2 * i);
+          a[i][1] = s8_pair_bf16(u0, u1, 2 * i + 1);
+          a[i][2] = s8_pair_bf16(u2, u3, 2 * i);
+          a[i][3] = s8_pair_bf16(u2, u3, 2 * i + 1);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            warp_mma::mma_bf16_16816(acc[mat][i][nt], a[i], b[nt][0], b[nt][1]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k0 = 0; k0 < kSKC; k0 += 32) {
+      const int r0 = k0 + 2 * t;
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const unsigned char* xr = xs + 8 * nt * ld_x;
+        b[nt][0] = ld_u16(xr + r0) | ld_u16(xr + r0 + 8) << 16;
+        b[nt][1] = ld_u16(xr + r0 + 16) | ld_u16(xr + r0 + 24) << 16;
+      }
+#pragma unroll
+      for (int mat = 0; mat < kMats; ++mat) {
+        const unsigned char* w = wl + mat * mat_stride;
+        uint32_t lo[4], hi[4];
+        columns4(lo, ld_u32(w + r0 * ld_w), ld_u32(w + (r0 + 1) * ld_w),
+                 ld_u32(w + (r0 + 8) * ld_w), ld_u32(w + (r0 + 9) * ld_w));
+        columns4(hi, ld_u32(w + (r0 + 16) * ld_w), ld_u32(w + (r0 + 17) * ld_w),
+                 ld_u32(w + (r0 + 24) * ld_w), ld_u32(w + (r0 + 25) * ld_w));
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const uint32_t a[4] = {lo[2 * i], lo[2 * i + 1], hi[2 * i], hi[2 * i + 1]};
+            warp_mma::mma_s8_16832(acc[mat][i][nt], a, b[nt][0], b[nt][1]);
+          }
+      }
+    }
+  }
+}
+
+// Copies KC rows of a weight window (columns [col0, col0 + kWidth) of a
+// (rows, ncols) int8 matrix, starting at row k0) into a stage, rows >=
+// rows or columns >= ncols zero; `vec` (ncols % 16 == 0, 16-byte aligned
+// base) by 16-byte cp.async, else one byte a copy.
+template <int kWidth, int kLdW, int kThreads, int KC>
+__device__ __forceinline__ void stage_weights(unsigned char* dst, const int8_t* w, int k0,
+                                              int rows, int col0, int ncols, bool vec) {
+  const int8_t* src = w + static_cast<long long>(min(k0, rows - 1)) * ncols + col0;
+  const int live = rows - k0;
+  if (vec) {
+    for (int e = threadIdx.x; e < KC * (kWidth / 16); e += kThreads) {
+      const int r = e / (kWidth / 16);
+      const int c = (e - r * (kWidth / 16)) * 16;
+      const bool ok = r < live && col0 + c < ncols;
+      warp_mma::cp_async16(dst + r * kLdW + c, ok ? src + static_cast<long long>(r) * ncols + c
+                                                  : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < KC * kWidth; e += kThreads) {
+      const int r = e / kWidth;
+      const int c = e - r * kWidth;
+      dst[r * kLdW + c] = r < live && col0 + c < ncols
+          ? static_cast<unsigned char>(src[static_cast<long long>(r) * ncols + c]) : 0;
+    }
+  }
+}
+
+// NT * 8 token rows of a (m, ld) matrix of kXB-byte values, columns [k0,
+// k0 + KC), into a stage (rows >= m and columns >= ld zero); ld * kXB % 16
+// == 0.
+template <int NT, int kXB, int kLdX, int kThreads, int KC>
+__device__ __forceinline__ void stage_tokens(unsigned char* dst, const void* x, int m, int ld,
+                                             int k0) {
+  constexpr int kChunks = KC * kXB / 16;
+  const unsigned char* src =
+      static_cast<const unsigned char*>(x) + static_cast<long long>(k0) * kXB;
+  for (int e = threadIdx.x; e < NT * 8 * kChunks; e += kThreads) {
+    const int r = e / kChunks;
+    const int c = (e - r * kChunks) * 16;
+    const bool ok = r < m && k0 + c / kXB < ld;
+    warp_mma::cp_async16(dst + r * kLdX + c,
+                         ok ? src + static_cast<long long>(r) * ld * kXB + c : src, ok ? 16 : 0);
+  }
+}
+
+// grid (n_j, splits) in clusters of (1, splits, 1); block kGuThreads;
+// dynamic shared memory StageOf<NT, A8, 2, kBJ, kSKC>::kBytes.  Block (jb, z)
+// owns j-block jb (inter columns [256 jb, 256 jb + 256)) of both gate and
+// up and the hidden rows of ring stages [z gu_per, (z + 1) gu_per); warp w
+// owns 32 columns.  Its sums stay in its shared memory; once the cluster
+// holds them all, block z finishes the j-block's rows z, z + splits, ...,
+// one column a thread: g and u add the splits' sums in split order (read
+// through distributed shared memory); w8 writes h = bf16(silu(g sg) (u
+// su)); w8a8 h = silu(g) u from g = float(int32 dot) sx sg, then its int8
+// form over the row's 256 columns and the row scale sh.
+template <int NT, bool A8>
+__global__ void __launch_bounds__(kGuThreads, 2) int8_ffn_gateup_stream_kernel(const StreamArgs a) {
+  using S = StageOf<NT, A8, 2, kBJ, kSKC>;
+  using Acc = typename AccOf<A8>::type;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int jb = blockIdx.x;
+  const int j0 = jb * kBJ;
+  const int stages = (a.hidden + kSKC - 1) / kSKC;
+  const int c0 = blockIdx.y * a.gu_per;
+  const int cnt = min(stages, c0 + a.gu_per) - c0;
+  const bool wvec = a.inter % 16 == 0;
+
+  auto fetch = [&](int slot, int ch) {
+    unsigned char* st = smem_stream8 + slot * S::kStage;
+    const int k0 = ch * kSKC;
+    stage_weights<kBJ, S::kLdW, kGuThreads, kSKC>(st, a.wg, k0, a.hidden, j0, a.inter, wvec);
+    stage_weights<kBJ, S::kLdW, kGuThreads, kSKC>(st + S::kW, a.wu, k0, a.hidden, j0, a.inter,
+                                                  wvec);
+    stage_tokens<NT, S::kXB, S::kLdX, kGuThreads, kSKC>(st + 2 * S::kW, a.x, a.m, a.hidden, k0);
+  };
+
+  Acc acc[2][2][NT][4];
+#pragma unroll
+  for (int mat = 0; mat < 2; ++mat)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        acc[mat][i][nt][0] = acc[mat][i][nt][1] = acc[mat][i][nt][2] = acc[mat][i][nt][3] = 0;
+
+#pragma unroll
+  for (int s = 0; s < kSStages - 1; ++s) {
+    if (s < cnt) fetch(s, c0 + s);
+    warp_mma::cp_async_commit();
+  }
+  for (int it = 0; it < cnt; ++it) {
+    warp_mma::cp_async_wait<kSStages - 2>();   // stage c0 + it is in
+    __syncthreads();                           // and every warp is done with slot it - 1
+    if (it + kSStages - 1 < cnt) fetch((it + kSStages - 1) % kSStages, c0 + it + kSStages - 1);
+    warp_mma::cp_async_commit();
+    const unsigned char* st = smem_stream8 + (it % kSStages) * S::kStage;
+    stage_products<NT, A8, 2>(acc, st + 32 * warp + 4 * g, S::kW, S::kLdW,
+                              st + 2 * S::kW + g * S::kLdX, S::kLdX, t);
+  }
+
+  // this block's sums into its shared memory, [mat][tok][256]
+  __syncthreads();   // every warp is done with the ring
+  Acc* part = reinterpret_cast<Acc*>(smem_stream8);
+#pragma unroll
+  for (int mat = 0; mat < 2; ++mat)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tok = 8 * nt + 2 * t + (e & 1);
+          if (tok < a.m)
+            part[(mat * a.m + tok) * kBJ + 32 * warp + 4 * g + 2 * i + (e >> 1)] =
+                acc[mat][i][nt][e];
+        }
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  cluster.sync();
+
+  // rows rank, rank + splits, ...: thread tid its column j0 + tid (0 past
+  // inter)
+  const int col = j0 + tid;
+  const bool in = col < a.inter;
+  const float sg = in ? a.sg[col] : 0.f;
+  const float su = in ? a.su[col] : 0.f;
+  __shared__ float red[kGuWarps];
+  for (int tok = rank; tok < a.m; tok += splits) {
+    Acc gp[kMaxSplits], up[kMaxSplits];
+#pragma unroll
+    for (int z = 0; z < kMaxSplits; ++z) {
+      if (z < splits) {
+        const Acc* peer = cluster.map_shared_rank(part, z);
+        gp[z] = peer[tok * kBJ + tid];
+        up[z] = peer[(a.m + tok) * kBJ + tid];
+      }
+    }
+    Acc gs = 0, us = 0;
+#pragma unroll
+    for (int z = 0; z < kMaxSplits; ++z)
+      if (z < splits) gs += gp[z], us += up[z];
+    float gv, uv;
+    if constexpr (A8) {
+      const float sx = a.sx[tok];
+      gv = __fmul_rn(__fmul_rn(static_cast<float>(gs), sx), sg);
+      uv = __fmul_rn(__fmul_rn(static_cast<float>(us), sx), su);
+    } else {
+      gv = __fmul_rn(gs, sg);
+      uv = __fmul_rn(us, su);
+    }
+    const float h = silu_mul(gv, uv);
+    if constexpr (!A8) {
+      static_cast<__nv_bfloat16*>(a.h)[static_cast<long long>(tok) * a.ld_h + col] =
+          __float2bfloat16_rn(h);
+    } else {
+      // requantize the row over the j-block's 256 columns (pad columns 0)
+      float mx = fabsf(h);
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      if (lane == 0) red[warp] = mx;
+      __syncthreads();
+      mx = red[0];
+#pragma unroll
+      for (int w = 1; w < kGuWarps; ++w) mx = fmaxf(mx, red[w]);
+      const float sh = fmaxf(mx / 127.f, 1e-12f);
+      const int q = min(127, max(-127, __float2int_rn(h / sh)));
+      static_cast<int8_t*>(a.h)[static_cast<long long>(tok) * a.ld_h + col] =
+          static_cast<int8_t>(q);
+      if (tid == 0) a.sh[tok * a.n_j + jb] = sh;
+      __syncthreads();   // red is the next row's
+    }
+  }
+  cluster.sync();   // the other blocks read this block's sums until here
+}
+
+// grid (ceil(hidden / 128), splits) in clusters of (1, splits, 1); block
+// kDnThreads; dynamic shared memory StageOf<NT, A8, 1, kDnBN, kDnKC>::kBytes.
+// Block (x, z) owns output columns [128 x, 128 x + 128) and the j-blocks
+// [z dn_per, (z + 1) dn_per), in order; warp w owns 32 columns, and set s
+// of warps (w / 4) the rows [32 s, 32 s + 32) of each 64-row stage.  w8:
+// h . Wd in fp32 on the tensor cores; w8a8: each j-block's exact int32 dot
+// h8 . Wd over a set's rows times its row scale sh, added in j order in
+// fp32.  The sets' sums are added (set 0's plus set 1's) and stay in the
+// block's shared memory; block z then finishes rows z, z + splits, ...,
+// one column a thread: the splits' sums added in split order (distributed
+// shared memory), times sd.
+template <int NT, bool A8>
+__global__ void __launch_bounds__(kDnThreads, 2) int8_ffn_down_stream_kernel(const StreamArgs a) {
+  using S = StageOf<NT, A8, 1, kDnBN, kDnKC>;
+  using Acc = typename AccOf<A8>::type;
+  const int tid = threadIdx.x;
+  const int warp = (tid >> 5) & 3;   // its 32 columns
+  const int set = tid >> 7;          // its 32 rows of each stage
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n0 = blockIdx.x * kDnBN;
+  const int jb0 = blockIdx.y * a.dn_per;
+  const int c0 = jb0 * kJChunks;
+  const int cnt = (min(a.n_j, jb0 + a.dn_per) - jb0) * kJChunks;
+
+  auto fetch = [&](int slot, int ch) {
+    unsigned char* st = smem_stream8 + slot * S::kStage;
+    const int k0 = ch * kDnKC;
+    stage_weights<kDnBN, S::kLdW, kDnThreads, kDnKC>(st, a.wd, k0, a.inter, n0, a.hidden, true);
+    stage_tokens<NT, S::kXB, S::kLdX, kDnThreads, kDnKC>(st + S::kW, a.h, a.m, a.ld_h, k0);
+  };
+
+  float acc[2][NT][4];   // w8a8: the j-blocks' dots times sh, added in j order
+  Acc ci[1][2][NT][4];   // the products' accumulators (w8a8: one j-block's)
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][nt][e] = ci[0][i][nt][e] = 0;
+
+#pragma unroll
+  for (int s = 0; s < kSStages - 1; ++s) {
+    if (s < cnt) fetch(s, c0 + s);
+    warp_mma::cp_async_commit();
+  }
+  for (int it = 0; it < cnt; ++it) {
+    warp_mma::cp_async_wait<kSStages - 2>();
+    __syncthreads();
+    if (it + kSStages - 1 < cnt) fetch((it + kSStages - 1) % kSStages, c0 + it + kSStages - 1);
+    warp_mma::cp_async_commit();
+    const unsigned char* st = smem_stream8 + (it % kSStages) * S::kStage;
+    stage_products<NT, A8, 1>(ci, st + set * kSKC * S::kLdW + 32 * warp + 4 * g, S::kW, S::kLdW,
+                              st + S::kW + g * S::kLdX + set * kSKC * S::kXB, S::kLdX, t);
+    if constexpr (A8) {
+      if ((it + 1) % kJChunks == 0) {   // the end of j-block jb: its dot times sh, in j order
+        const int jb = (c0 + it) / kJChunks;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int tok = 8 * nt + 2 * t + h;
+            const float sh = tok < a.m ? a.sh[tok * a.n_j + jb] : 0.f;
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const int e = 2 * r + h;
+                acc[i][nt][e] = __fadd_rn(acc[i][nt][e],
+                                          __fmul_rn(static_cast<float>(ci[0][i][nt][e]), sh));
+                ci[0][i][nt][e] = 0;
+              }
+          }
+      }
+    }
+  }
+
+  // set 1's sums through shared memory, added to set 0's; the block's sums
+  // (w8: the products' fp32 accumulators themselves) then in its shared
+  // memory, [tok][128], after set 1's
+  __syncthreads();   // every warp is done with the ring
+  float* other = reinterpret_cast<float*>(smem_stream8) + (warp * 32 + lane) * (8 * NT);
+  float* part = reinterpret_cast<float*>(smem_stream8) + kDnBN * 8 * NT;
+  if (set == 1) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          other[(i * NT + nt) * 4 + e] = A8 ? acc[i][nt][e] : static_cast<float>(ci[0][i][nt][e]);
+  }
+  __syncthreads();
+  if (set == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tok = 8 * nt + 2 * t + (e & 1);
+          if (tok < a.m)
+            part[tok * kDnBN + 32 * warp + 4 * g + 2 * i + (e >> 1)] =
+                (A8 ? acc[i][nt][e] : static_cast<float>(ci[0][i][nt][e])) +
+                other[(i * NT + nt) * 4 + e];
+        }
+  }
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  cluster.sync();
+
+  // rows rank + splits (2 i + tid / 128): thread tid their column n0 + tid % 128
+  const int col = n0 + (tid & (kDnBN - 1));
+  if (col < a.hidden) {
+    const float sd = a.sd[col];
+    for (int tok = rank + splits * (tid / kDnBN); tok < a.m; tok += kDnSets * splits) {
+      float p[kMaxSplits];
+#pragma unroll
+      for (int z = 0; z < kMaxSplits; ++z)
+        if (z < splits) p[z] = cluster.map_shared_rank(part, z)[tok * kDnBN + (tid & (kDnBN - 1))];
+      float sum = 0.f;
+#pragma unroll
+      for (int z = 0; z < kMaxSplits; ++z)
+        if (z < splits) sum += p[z];
+      a.out[static_cast<long long>(tok) * a.hidden + col] =
+          __float2bfloat16_rn(__fmul_rn(sum, sd));
+    }
+  }
+  cluster.sync();   // the other blocks read this block's sums until here
+}
+
+// A launch in clusters of (1, grid.y, 1): the splits of one j-block or
+// column strip share a cluster.
+template <typename K>
+cudaError_t launch_clusters(K kernel, dim3 grid, int threads, int smem, cudaStream_t st,
+                            const StreamArgs& a) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = grid.y;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
+}
+
+template <int NT, bool A8>
+cudaError_t launch_stream(const StreamArgs& a, int gu_splits, int dn_splits, cudaStream_t st) {
+  const cudaError_t err =
+      launch_clusters(int8_ffn_gateup_stream_kernel<NT, A8>, dim3(a.n_j, gu_splits), kGuThreads,
+                      StageOf<NT, A8, 2, kBJ, kSKC>::kBytes, st, a);
+  if (err != cudaSuccess) return err;
+  return launch_clusters(int8_ffn_down_stream_kernel<NT, A8>,
+                         dim3((a.hidden + kDnBN - 1) / kDnBN, dn_splits), kDnThreads,
+                         StageOf<NT, A8, 1, kDnBN, kDnKC>::kBytes, st, a);
+}
+
+// How many clusters of (1, splits, 1) blocks of a kernel the card runs at
+// once, or -1 on a CUDA error.
+template <typename K>
+int active_clusters(K kernel, int threads, int smem, int splits) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = splits;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, splits);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return clusters;
+}
+
+template <int NT, bool A8>
+int stream_clusters(bool down, int splits) {
+  return down ? active_clusters(int8_ffn_down_stream_kernel<NT, A8>, kDnThreads,
+                                StageOf<NT, A8, 1, kDnBN, kDnKC>::kBytes, splits)
+              : active_clusters(int8_ffn_gateup_stream_kernel<NT, A8>, kGuThreads,
+                                StageOf<NT, A8, 2, kBJ, kSKC>::kBytes, splits);
+}
+
+template <bool A8>
+int rows_clusters(int m, bool down, int splits) {
+  return m <= 8 ? stream_clusters<1, A8>(down, splits)
+       : m <= 16 ? stream_clusters<2, A8>(down, splits) : stream_clusters<4, A8>(down, splits);
+}
+
+template <bool A8>
+cudaError_t stream_rows(const StreamArgs& a, int gu_splits, int dn_splits, cudaStream_t st) {
+  return a.m <= 8 ? launch_stream<1, A8>(a, gu_splits, dn_splits, st)
+       : a.m <= 16 ? launch_stream<2, A8>(a, gu_splits, dn_splits, st)
+                   : launch_stream<4, A8>(a, gu_splits, dn_splits, st);
+}
+
 }  // namespace
 
 // Launches the fused kernel and the reduction on `stream` for one chunk of
@@ -517,4 +1119,45 @@ extern "C" int int8_ffn_launch(const void* x, const void* sx, const void* wg, co
   return static_cast<int>(q4::reduce_partials(static_cast<const float*>(partial), n_j, ld_rows,
                                                 nullptr, static_cast<const float*>(sd),
                                                 static_cast<__nv_bfloat16*>(out), m, hidden, s));
+}
+
+// The decode kernels (m <= 32): two launches on `stream`, gate/up then
+// down, each in clusters of its splits; returns the first CUDA error (0
+// when both were accepted).  x is bf16 (w8) or int8 with sx (w8a8), (m,
+// hidden); out (m, hidden) bf16; h (m, ld_h) bf16 or int8 scratch with
+// ld_h = 256 n_j, n_j = ceil(inter / 256); sh (m, n_j) fp32 (w8a8).  The
+// gate/up kernel's splits cut the ceil(hidden / 32) ring stages gu_per at
+// a time, the down kernel's the n_j j-blocks dn_per at a time, at most 8
+// each.  hidden % 16 == 0; every buffer contiguous and 16-byte aligned.
+extern "C" int int8_ffn_stream_launch(const void* x, const void* sx, const void* wg,
+                                      const void* sg, const void* wu, const void* su,
+                                      const void* wd, const void* sd, void* out, void* h, void* sh,
+                                      int m, int hidden, int inter, int gu_per, int gu_splits,
+                                      int dn_per, int dn_splits, int act_quant, void* stream) {
+  const int n_j = (inter + kBJ - 1) / kBJ;
+  const int stages = (hidden + kSKC - 1) / kSKC;
+  if (m <= 0 || m > 32 || hidden <= 0 || hidden % 16 != 0 || inter <= 0 || gu_per <= 0 ||
+      gu_splits < 1 || (gu_splits - 1) * gu_per >= stages || gu_splits * gu_per < stages ||
+      dn_per <= 0 || dn_splits < 1 || (dn_splits - 1) * dn_per >= n_j ||
+      dn_splits * dn_per < n_j || gu_splits > kMaxSplits || dn_splits > kMaxSplits ||
+      (act_quant && (sx == nullptr || sh == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const StreamArgs a{x, static_cast<const float*>(sx), static_cast<const int8_t*>(wg),
+                     static_cast<const float*>(sg), static_cast<const int8_t*>(wu),
+                     static_cast<const float*>(su), static_cast<const int8_t*>(wd),
+                     static_cast<const float*>(sd), static_cast<__nv_bfloat16*>(out), h,
+                     static_cast<float*>(sh), m, hidden, inter, n_j, n_j * kBJ, gu_per, dn_per};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(act_quant ? stream_rows<true>(a, gu_splits, dn_splits, s)
+                                    : stream_rows<false>(a, gu_splits, dn_splits, s));
+}
+
+// How many clusters of `splits` blocks (1 to 8) of the gate/up (down = 0)
+// or the down kernel for m rows, w8 or w8a8, the card runs at once (its
+// occupancy for their registers, threads and shared memory, and how the
+// blocks of a cluster fit its GPCs), or -1 on a CUDA error.
+extern "C" int int8_ffn_stream_clusters(int m, int act_quant, int down, int splits) {
+  if (m <= 0 || m > 32 || splits < 1 || splits > kMaxSplits) return -1;
+  return act_quant ? rows_clusters<true>(m, down != 0, splits)
+                   : rows_clusters<false>(m, down != 0, splits);
 }

@@ -50,6 +50,8 @@ SIGNATURES = {
     "int4_ffn_launch": (_P,) * 10 + (_I,) * 8 + (_P,),
     "int8_matmul_launch": (_P,) * 6 + (_I,) * 6 + (_P,),
     "int8_ffn_launch": (_P,) * 10 + (_I,) * 5 + (_P,),
+    "int8_ffn_stream_launch": (_P,) * 11 + (_I,) * 8 + (_P,),
+    "int8_ffn_stream_clusters": (_I,) * 4,
 }
 
 

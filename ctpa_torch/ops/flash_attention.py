@@ -5,10 +5,9 @@ Replaces the TPU kernel ``ctpa/ops/pallas/flash_attention.py:flash_attention``
 CUDA kernels are ``ctpa_torch/csrc/flash_attention.cu`` (forward, optionally
 with the row logsumexp) and ``ctpa_torch/csrc/flash_attention_bwd.cu`` (the
 delta pre-pass, dQ, dK/dV and d(bias); every pass deterministic), bf16 on
-the tensor cores by ``mma.sync`` and fp32 on the FMA units, for head dims
-16, 32 and 64, and ``ctpa_torch/csrc/flash_attention_d128.cu`` (forward,
-dQ, dK/dV) for head dim 128 on the tensor cores; each file's header states
-the bound it faces on the H100 and what its design does about it.  The
+the tensor cores by ``mma.sync`` for head dims 16, 32, 64 and 128, and
+fp32 on the FMA units for head dims 16, 32 and 64; each file's header
+states the bound it faces on the H100 and what its design does about it.  The
 wrappers launch them for CUDA tensors and take the plain PyTorch versions
 (``flash_attention_plain``, ``flash_attention_bwd_plain`` and one ``*_plain``
 per backward pass) only for CPU tensors.

@@ -65,12 +65,13 @@ FFN_PARTIAL_BYTES = 1 << 30
 
 # launches of each CUDA kernel form, under the name chip_smoke.py reports it
 # by; a wrapper adds one where it launches, and nowhere else.  A K4 call or a
-# prefill K5 call whose contraction is split, and every K6 or K7 row chunk,
-# also launches the fixed-order reduction of its partials
+# prefill K5 call whose contraction is split, and every prefill K6 or K7 row
+# chunk, also launches the fixed-order reduction of its partials
 # (``int4_common.cuh``: ``reduce_partials_kernel``), counted under
 # "int8_reduce" or "int4_reduce"; K5 at decode adds its split partials inside
-# its own launch.  A w4a8 K5 call first quantizes x in one launch
-# ("int4_act_quant")
+# its own launch, and K6 at decode launches twice (gate/up, then down, each
+# adding its own splits in its clusters).  Every int8-activation call (K4, K5, K6, K7) first
+# quantizes x in one launch ("int4_act_quant")
 LAUNCHES = dict.fromkeys(("int4_matmul", "int4_matmul_a8", "int4_ffn", "int4_ffn_a8",
                           "int4_reduce", "int4_act_quant", "int8_matmul", "int8_matmul_a8",
                           "int8_ffn", "int8_ffn_a8", "int8_reduce"), 0)
@@ -87,6 +88,15 @@ STREAM_MIN_GROUPS = 4
 # chunks) and K6's j-block (ctpa's int8_ffn block_j)
 INT8_KC = 128
 INT8_BLOCK_J = 256
+# K6 at up to STREAM_MAX_ROWS rows: the gate/up kernel's blocks own one
+# j-block and walk the hidden rows in ring stages of FFN_STREAM_KC, at least
+# FFN_STREAM_MIN_STAGES a split; the down kernel's blocks own
+# FFN_STREAM_COLUMNS output columns and walk whole j-blocks; the splits of
+# a j-block or strip form one cluster of at most FFN_STREAM_MAX_SPLITS
+FFN_STREAM_KC = 32
+FFN_STREAM_MIN_STAGES = 4
+FFN_STREAM_COLUMNS = 128
+FFN_STREAM_MAX_SPLITS = 8
 
 
 # ------------------------------------------------------------------ host side
@@ -352,7 +362,8 @@ def int4_matmul_plan_on(xm: torch.Tensor, d_out: int, group: int,
 
 
 def _quantize_act_kernel(xm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``quantize_act_int8`` of bf16 (m, k) x in one launch, bit for bit."""
+    """``quantize_act_int8`` of contiguous bf16 (m, k) x in one launch, bit
+    for bit: int8 (m, k) and the fp32 row scales (m,)."""
     m, d_in = xm.shape
     x8 = torch.empty(m, d_in, dtype=torch.int8, device=xm.device)
     sx = torch.empty(m, dtype=torch.float32, device=xm.device)
@@ -502,8 +513,7 @@ def _int4_ffn_kernel(x, wg4, sg, wu4, su, wd4, sd, g_h: int, g_i: int, act_quant
     ws = [_aligned(t) for t in (wg4, sg, wu4, su, wd4, sd)]
     sx = None
     if act_quant:
-        xm, sx = quantize_act_int8(xm)
-        xm, sx = _aligned(xm), sx.reshape(-1).contiguous()
+        xm, sx = _quantize_act_kernel(xm)
     out = torch.empty(m, hidden, dtype=x.dtype, device=x.device)
     rows = ffn_row_chunk(m, n_j, hidden)
     partial = torch.empty(n_j, rows, hidden, device=x.device)
@@ -590,8 +600,7 @@ def _int8_matmul_kernel(x, w8, scale, act_quant: bool):
     w8, scale = _aligned(w8), _aligned(scale)
     sx = None
     if act_quant:
-        xm, sx = quantize_act_int8(xm)
-        xm, sx = _aligned(xm), sx.reshape(-1).contiguous()
+        xm, sx = _quantize_act_kernel(xm)
     out = torch.empty(m, d_out, dtype=x.dtype, device=x.device)
     splits, per = int8_matmul_splits(m, d_in, d_out, _sm_count(x))
     # the splits' partial sums: exact int32 (w8a8) or fp32 (w8)
@@ -674,6 +683,75 @@ def _int8_ffn_xla(x, wg8, sg, wu8, su, wd8, sd, act_quant: bool):
     return int8_matmul_plain(torch.nn.functional.silu(gate) * up, wd8, sd, act_quant)
 
 
+def int8_ffn_stream_splits(hidden: int, inter: int,
+                           clusters: tuple) -> tuple[int, int, int, int]:
+    """(gate/up splits, ring stages per split, down splits, j-blocks per
+    split) of K6's decode kernels.  The splits of one j-block (gate/up) or
+    column strip (down) run as one cluster; ``clusters[k][s - 1]`` is how
+    many clusters of s blocks kernel k (0 gate/up, 1 down) runs at once on
+    the card.  Each kernel takes the most splits, up to FFN_STREAM_MAX_SPLITS
+    (the gate/up kernel's at least FFN_STREAM_MIN_STAGES stages each, the
+    down kernel's whole j-blocks), with which all its clusters run at once."""
+    n_j = _rup(inter, INT8_BLOCK_J) // INT8_BLOCK_J
+    stages = math.ceil(hidden / FFN_STREAM_KC)
+    strips = math.ceil(hidden / FFN_STREAM_COLUMNS)
+
+    def most(kernel: int, cap: int, units: int) -> int:
+        return max([s for s in range(1, min(cap, FFN_STREAM_MAX_SPLITS) + 1)
+                    if clusters[kernel][s - 1] >= units] or [1])
+
+    gu = most(0, stages // FFN_STREAM_MIN_STAGES, n_j)
+    gu_per = math.ceil(stages / gu)
+    dn = most(1, n_j, strips)
+    dn_per = math.ceil(n_j / dn)
+    return math.ceil(stages / gu_per), gu_per, math.ceil(n_j / dn_per), dn_per
+
+
+def int8_ffn_plan(m: int, hidden: int, inter: int, clusters: tuple) -> tuple:
+    """The kernels of a K6 call on m rows: ("stream", gate/up splits, stages
+    per split, down splits, j-blocks per split) up to STREAM_MAX_ROWS rows
+    (``clusters`` as ``int8_ffn_stream_splits`` takes it), else ("tiled",
+    rows per chunk) for the cluster kernel and its reduction, one pair per
+    row chunk."""
+    if m <= STREAM_MAX_ROWS:
+        return ("stream", *int8_ffn_stream_splits(hidden, inter, clusters))
+    n_j = _rup(inter, INT8_BLOCK_J) // INT8_BLOCK_J
+    return ("tiled", ffn_row_chunk(m, n_j, hidden))
+
+
+def int8_ffn_launches(m: int, hidden: int, inter: int, act_quant: bool) -> dict:
+    """The launches of one K6 call on m rows, under ``LAUNCHES``' names: two
+    at decode (gate/up, down), one kernel and one reduction per row chunk
+    above, and the activation quantization for w8a8."""
+    name = "int8_ffn_a8" if act_quant else "int8_ffn"
+    if m <= STREAM_MAX_ROWS:
+        return {name: 2, "int8_reduce": 0, "int4_act_quant": int(act_quant)}
+    chunks = math.ceil(m / ffn_row_chunk(m, _rup(inter, INT8_BLOCK_J) // INT8_BLOCK_J, hidden))
+    return {name: chunks, "int8_reduce": chunks, "int4_act_quant": int(act_quant)}
+
+
+def _ffn_stream_clusters(x: torch.Tensor, m: int, act_quant: bool) -> tuple:
+    """How many clusters of 1 to FFN_STREAM_MAX_SPLITS blocks of K6's
+    gate/up and down decode kernels the card runs at once (queried once per
+    row tier and form)."""
+    key = ("int8_ffn", x.device, 1 if m <= 8 else 2 if m <= 16 else 4, act_quant)
+    if key not in _RESIDENCY:
+        lib = build.library().lib
+        clusters = tuple(tuple(lib.int8_ffn_stream_clusters(m, int(act_quant), down, s)
+                               for s in range(1, FFN_STREAM_MAX_SPLITS + 1)) for down in (0, 1))
+        if min(min(c) for c in clusters) < 0:
+            raise RuntimeError(f"int8_ffn_stream: cluster occupancy query failed ({clusters})")
+        _RESIDENCY[key] = clusters
+    return _RESIDENCY[key]
+
+
+def int8_ffn_plan_on(xm: torch.Tensor, inter: int, act_quant: bool) -> tuple:
+    """``int8_ffn_plan`` of a K6 call on the (m, hidden) rows xm on its card."""
+    m, hidden = xm.shape
+    clusters = _ffn_stream_clusters(xm, m, act_quant) if m <= STREAM_MAX_ROWS else ()
+    return int8_ffn_plan(m, hidden, inter, clusters)
+
+
 def _int8_ffn_kernel(x, wg8, sg, wu8, su, wd8, sd, act_quant: bool):
     *lead, hidden = x.shape
     inter = wg8.shape[1]
@@ -687,13 +765,26 @@ def _int8_ffn_kernel(x, wg8, sg, wu8, su, wd8, sd, act_quant: bool):
     ws = [_aligned(t) for t in (wg8, sg, wu8, su, wd8, sd)]
     sx = None
     if act_quant:
-        xm, sx = quantize_act_int8(xm)
-        xm, sx = _aligned(xm), sx.reshape(-1).contiguous()
+        xm, sx = _quantize_act_kernel(xm)
     out = torch.empty(m, hidden, dtype=x.dtype, device=x.device)
-    rows = ffn_row_chunk(m, n_j, hidden)
-    partial = torch.empty(n_j, rows, hidden, device=x.device)
     lib, stream = build.library().lib, _stream(x)
     name = "int8_ffn_a8" if act_quant else "int8_ffn"
+    plan = int8_ffn_plan_on(xm, inter, act_quant)
+    if plan[0] == "stream":
+        _, gu, gu_per, dn, dn_per = plan
+        ld_h = n_j * INT8_BLOCK_J
+        h = torch.empty(m, ld_h, dtype=torch.int8 if act_quant else torch.bfloat16,
+                        device=x.device)
+        sh = torch.empty(m, n_j, device=x.device) if act_quant else None
+        rc = lib.int8_ffn_stream_launch(
+            xm.data_ptr(), sx.data_ptr() if act_quant else None, *(t.data_ptr() for t in ws),
+            out.data_ptr(), h.data_ptr(), sh.data_ptr() if act_quant else None, m, hidden, inter,
+            gu_per, gu, dn_per, dn, int(act_quant), stream)
+        build.check_launch(rc, name)
+        LAUNCHES[name] += 2
+        return out.reshape(*lead, hidden)
+    rows = plan[1]
+    partial = torch.empty(n_j, rows, hidden, device=x.device)
     for r0 in range(0, m, rows):
         n = min(rows, m - r0)
         rc = lib.int8_ffn_launch(

@@ -603,6 +603,70 @@ def test_flash_d128_backward_ragged_masked_autograd(cuda, n, m, form, bias_form)
         torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol, msg=name)
 
 
+# (n, m, mask form, bias form, logit bound) of K2 at head dim 128: report
+# training's shape (b 2, h 32, causal, lengths 512/384), then the ragged
+# masked forms of the backward's cases, each bias form, the flat softmax
+D128_FWD_CASES = [(512, 512, "training", None, False)] + [
+    (n, m, form, bias_form, False) for n, m, form, bias_form in D128_BWD_CASES] + [
+    (150, 200, "none", "h", True), (100, 90, "causal kv holes", "bh", False)]
+
+
+@pytest.mark.parametrize("n, m, form, bias_form, bounded", D128_FWD_CASES)
+def test_flash_d128_forward_matches_plain(cuda, n, m, form, bias_form, bounded):
+    """K2 at head dim 128 (flash_fwd_mma_kernel at D = 128), with and without
+    the logsumexp, against the plain forward: out within 2e-2 abs + rel, the
+    lse within 1e-4; one launch of each launcher."""
+    b, d = 2, 128
+    scale = d ** -0.5
+    if form == "training":
+        q, k, v, bias, _, _ = _attn(cuda, torch.bfloat16, None, False, d, b=b, h=32, n=n, m=m)
+        q, k = q * 4, k * 4                               # logits of order 1
+        kv = torch.arange(n, device="cuda")[None] < torch.tensor([[512], [384]], device="cuda")
+        masks = fa.make_masks(True, kv, None, b, m, "cuda")
+    elif form == "dead key tile":
+        q, k, v, bias, _, _ = _masked(cuda, torch.bfloat16, d, "none", bias_form, n=n, m=m)
+        kv = torch.ones(b, m, dtype=torch.bool, device="cuda")
+        kv[:, 64:128] = False
+        masks = fa.make_masks(False, kv, None, b, m, "cuda")
+    else:
+        q, k, v, bias, _, masks = _masked(cuda, torch.bfloat16, d, form, bias_form, n=n, m=m)
+        if form == "none":
+            masks = fa.NO_MASKS
+    bound = None
+    if bounded:
+        bound = (fa._scores(q, k, bias, scale).amax() + 0.5).reshape(())
+    before = dict(LAUNCHES)
+    out, lse = fa._forward(q, k, v, bias, scale, bound, True, masks)
+    out2, _ = fa._forward(q, k, v, bias, scale, bound, False, masks)
+    torch.cuda.synchronize()
+    launched = {key: LAUNCHES[key] - before[key] for key in LAUNCHES}
+    assert launched == dict(dict.fromkeys(LAUNCHES, 0), flash_attention_fwd_d128=1,
+                            flash_attention_fwd_lse_d128=1)
+    ref_out, ref_lse = flash_attention_plain(q, k, v, bias, scale, bound, return_lse=True,
+                                             masks=masks)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(out2, out, atol=0, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("form", ["causal padded", "kv holes, bias"])
+def test_flash_d128_forward_is_deterministic(cuda, form):
+    """K2 at head dim 128, called twice, gives the same bits (out and lse)."""
+    d, scale = 128, 128 ** -0.5
+    if form == "causal padded":
+        b, n = 2, 512
+        q, k, v, bias, _, _ = _attn(cuda, torch.bfloat16, None, False, d, b=b, h=32, n=n, m=n)
+        kv = torch.arange(n, device="cuda")[None] < torch.tensor([[n], [384]], device="cuda")
+        masks = fa.make_masks(True, kv, None, b, n, "cuda")
+    else:
+        q, k, v, bias, _, masks = _masked(cuda, torch.bfloat16, d, "causal kv holes", "h")
+    first = fa._forward(q, k, v, bias, scale, None, True, masks)
+    second = fa._forward(q, k, v, bias, scale, None, True, masks)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
 @pytest.mark.parametrize("form", ["causal padded", "kv holes, bias"])
 def test_flash_d128_backward_is_deterministic(cuda, form):
     """dQ and dK/dV at head dim 128, called twice, give the same bits: every
@@ -890,10 +954,13 @@ def test_int4_matmul_decode_kernel_is_deterministic(cuda, m, act_quant):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("shape", [(1, 4096), (4, 4096), (32, 160), (2048, 4096), (3, 11008)])
+# the last, 513 columns (K4's ragged d_in), takes the element loads
+@pytest.mark.parametrize("shape", [(1, 4096), (4, 4096), (32, 160), (2048, 4096), (3, 11008),
+                                   (5, 513)])
 def test_int4_act_quant_kernel_gives_quantize_act_int8_bits(cuda, shape):
-    """w4a8's one-launch activation quantization equals quantize_act_int8 on
-    the card bit for bit: x8 and the row scales."""
+    """The one-launch activation quantization of every int8-activation form
+    equals quantize_act_int8 on the card bit for bit: x8 and the row
+    scales."""
     from ctpa_torch.ops import quant
 
     x = (3 * torch.randn(*shape, generator=cuda, device="cuda")).to(torch.bfloat16)
@@ -1018,7 +1085,7 @@ def test_int4_report_generator_kernel_path_matches_plain_path(cuda, act_quant):
         tokens = model.generate(*inputs, 8, -1, greedy=True).tokens
         launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
         assert launched == {k: prefill.get(k, 0) + 7 * step.get(k, 0) for k in quant.LAUNCHES}
-        assert launched["int4_act_quant"] == (launched[k5] if act_quant else 0)
+        assert launched["int4_act_quant"] == (launched[k5] + launched[k7] if act_quant else 0)
         kernel = cs.teacher_forced_logits(model, *inputs, tokens)
         plain = cs.teacher_forced_logits(cs.twin(model, quant_impl="xla"), *inputs, tokens)
     assert torch.equal(kernel.argmax(-1), tokens)
@@ -1063,6 +1130,7 @@ def test_int8_matmul_kernel_matches_plain(cuda, shape, act_quant):
     torch.cuda.synchronize()
     assert quant.LAUNCHES[name] == before[name] + 1
     assert quant.LAUNCHES["int8_reduce"] == before["int8_reduce"] + (splits > 1)
+    assert quant.LAUNCHES["int4_act_quant"] == before["int4_act_quant"] + act_quant
     _int8_close(got, quant.int8_matmul_plain(x, w8, s, act_quant=act_quant), act_quant)
 
 
@@ -1085,13 +1153,68 @@ def test_int8_ffn_kernel_matches_plain(cuda, shape, act_quant):
     for a, b in ((hidden, inter), (hidden, inter), (inter, hidden)):
         ws += list(quant.quantize_int8(0.05 * torch.randn(a, b, generator=cuda, device="cuda")))
     x = torch.randn(m, hidden, generator=cuda, device="cuda").to(torch.bfloat16)
-    name = "int8_ffn_a8" if act_quant else "int8_ffn"
     before = dict(quant.LAUNCHES)
     got = quant.int8_ffn(x, *ws, act_quant=act_quant)
     torch.cuda.synchronize()
-    assert quant.LAUNCHES[name] == before[name] + 1
-    assert quant.LAUNCHES["int8_reduce"] == before["int8_reduce"] + 1
+    launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
+    want = quant.int8_ffn_launches(m, hidden, inter, act_quant)
+    assert launched == dict(dict.fromkeys(quant.LAUNCHES, 0), **want)
     _int8_close(got, quant.int8_ffn_plain(x, *ws, act_quant=act_quant), act_quant)
+
+
+# (m, hidden, inter) at K6's decode kernels: 1, 4, 5 and 32 rows at
+# Meditron-7B's width (43 whole j-blocks) and at ragged ones: hidden 80
+# (a last ring stage of 16 rows), inter 300 (not a multiple of 16: byte
+# copies, a padded j-block), 1000, and a single narrow j-block (inter 64)
+INT8_FFN_DECODE_SHAPES = [(1, 4096, 11008), (4, 4096, 11008), (5, 4096, 11008),
+                          (32, 4096, 11008), (4, 80, 520), (5, 192, 300), (32, 96, 1000),
+                          (17, 64, 64)]
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("shape", INT8_FFN_DECODE_SHAPES)
+def test_int8_ffn_decode_kernel_matches_plain(cuda, shape, act_quant):
+    """K6's decode kernels (two launches: gate/up with split partials added
+    in order by the last block of each j-block, then down) against the plain
+    version, in K6's bounds; the plan fills the card with whole splits."""
+    from ctpa_torch.ops import quant
+
+    m, hidden, inter = shape
+    ws = []
+    for a, b in ((hidden, inter), (hidden, inter), (inter, hidden)):
+        ws += list(quant.quantize_int8(0.05 * torch.randn(a, b, generator=cuda, device="cuda")))
+    x = torch.randn(m, hidden, generator=cuda, device="cuda").to(torch.bfloat16)
+    kind, gu, gu_per, dn, dn_per = quant.int8_ffn_plan_on(x, inter, act_quant)
+    stages, n_j = -(-hidden // quant.FFN_STREAM_KC), -(-inter // quant.INT8_BLOCK_J)
+    assert kind == "stream"
+    assert (gu - 1) * gu_per < stages <= gu * gu_per and (dn - 1) * dn_per < n_j <= dn * dn_per
+    before = dict(quant.LAUNCHES)
+    got = quant.int8_ffn(x, *ws, act_quant=act_quant)
+    torch.cuda.synchronize()
+    launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
+    name = "int8_ffn_a8" if act_quant else "int8_ffn"
+    assert launched == dict(dict.fromkeys(quant.LAUNCHES, 0), **{name: 2},
+                            int4_act_quant=int(act_quant))
+    _int8_close(got, quant.int8_ffn_plain(x, *ws, act_quant=act_quant), act_quant)
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("m", [4, 32])
+def test_int8_ffn_decode_kernel_is_deterministic(cuda, m, act_quant):
+    """K6 at decode at Meditron-7B's width, called twice, gives the same
+    bits: both kernels add their splits in order, with no float atomics."""
+    from ctpa_torch.ops import quant
+
+    ws = []
+    for a, b in ((4096, 11008), (4096, 11008), (11008, 4096)):
+        ws += list(quant.quantize_int8(0.05 * torch.randn(a, b, generator=cuda, device="cuda")))
+    x = torch.randn(m, 4096, generator=cuda, device="cuda").to(torch.bfloat16)
+    plan = quant.int8_ffn_plan_on(x, 11008, act_quant)
+    assert plan[1] > 1 and plan[3] > 1
+    first = quant.int8_ffn(x, *ws, act_quant=act_quant)
+    second = quant.int8_ffn(x, *ws, act_quant=act_quant)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_int8_ffn_kernel_chunks_rows(cuda, monkeypatch):
@@ -1163,18 +1286,21 @@ def test_int8_report_generator_kernel_path_matches_plain_path(cuda, act_quant):
     mask = torch.ones_like(ids)
     mask[1, 6:] = 0
     inputs = (video, ids * mask, mask)
-    mm, ffn, reduce = cs.quant_kernel_names(cfg)
+    mm, ffn, _ = cs.quant_kernel_names(cfg)
     sms = quant._sm_count(ids)
     prefill = cs.quant_kernel_launches(cfg, ids.numel(), 2, sms)
     step = cs.quant_kernel_launches(cfg, 2, 2, sms)
     assert prefill[mm] == step[mm] == 2 * base.num_layers + 1
-    assert prefill[ffn] == step[ffn] == base.num_layers
+    # 18 prompt rows and 2 decode rows: K6's two decode launches a layer
+    assert prefill[ffn] == step[ffn] == 2 * base.num_layers
     before = dict(quant.LAUNCHES)
     with torch.inference_mode():
         tokens = model.generate(*inputs, 8, -1, greedy=True).tokens
         launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
-        assert launched == {**{k: 0 for k in quant.LAUNCHES},
-                            **{k: prefill[k] + 7 * step[k] for k in (mm, ffn, reduce)}}
+        assert launched == {k: prefill.get(k, 0) + 7 * step.get(k, 0) for k in quant.LAUNCHES}
+        # one activation quantization per K4 and per K6 call with w8a8
+        assert launched["int4_act_quant"] == (
+            launched[mm] + launched[ffn] // 2 if act_quant else 0)
         kernel = cs.teacher_forced_logits(model, *inputs, tokens)
         plain = cs.teacher_forced_logits(cs.twin(model, quant_impl="xla"), *inputs, tokens)
     assert torch.equal(kernel.argmax(-1), tokens)

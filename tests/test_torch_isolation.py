@@ -34,7 +34,7 @@ assert not missing, missing
 for name in names:
     importlib.import_module(name)
 for script in ("chip_smoke", "bench_torch", "profile_zeroshot", "profile_clip_train",
-               "profile_resample_patchify", "profile_int4_decode"):
+               "profile_resample_patchify", "profile_int4_decode", "profile_int8_decode"):
     spec = importlib.util.spec_from_file_location(script, script + ".py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -55,8 +55,7 @@ def test_port_sources_avoid_torch_extensions_and_library_attention():
     py = list((ROOT / "ctpa_torch").rglob("*.py")) + [ROOT / "bench_torch.py"]
     cu = list((ROOT / "ctpa_torch" / "csrc").glob("*.cu"))
     assert sorted(p.name for p in cu) == ["decode_attention.cu", "flash_attention.cu",
-                                          "flash_attention_bwd.cu", "flash_attention_d128.cu",
-                                          "int4_ffn.cu", "int4_matmul.cu", "int8_ffn.cu",
+                                          "flash_attention_bwd.cu", "int4_ffn.cu", "int4_matmul.cu", "int8_ffn.cu",
                                           "int8_matmul.cu", "patchify.cu",
                                           "resample_patchify.cu"]
     headers = list((ROOT / "ctpa_torch" / "csrc").glob("*.cuh"))

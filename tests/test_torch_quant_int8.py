@@ -205,6 +205,7 @@ K6_CASES = [  # (m, hidden, inter, block_j): tests/test_quant.py:215-285 and Med
     (5, 128, 176, 64),     # inter padded to 192 in ctpa, three j-blocks
     (4, 64, 384, 256),     # the kernel's block_j: the last j-block padded (384 -> 512)
     (9, 128, 520, 256),    # three j-blocks, the last 8 columns wide
+    (32, 128, 520, 256),   # the decode kernels' largest row count (batch 32)
 ]
 
 
@@ -230,6 +231,60 @@ def test_int8_ffn_matches_ctpa(case, act_quant):
     up = jq.int8_matmul(jnp.asarray(x), *jw[2:4], impl="xla", act_quant=act_quant)
     ref_xla = jq.int8_matmul(jax.nn.silu(gate) * up, *jw[4:6], impl="xla", act_quant=act_quant)
     close(tq.int8_ffn(_t(x), *tw, impl="xla", act_quant=act_quant), ref_xla, OP_TOL, OP_TOL)
+
+
+# How many clusters of 1-8 blocks (gate/up, down) two example cards run at
+# once: one holding two gate/up blocks an SM, whose GPCs fit 5 clusters of
+# 5 blocks or fewer of 6 (so 42 of 6 fit, short of 43 j-blocks), and one
+# holding one (43 clusters of 3 fit, not of 4); and a card that fits too
+# few even of one block
+CARD_2 = ((264, 132, 88, 66, 52, 42, 36, 32), (528, 264, 176, 132, 104, 88, 72, 64))
+CARD_1 = ((132, 66, 44, 33, 26, 22, 18, 16), (264, 132, 88, 66, 52, 44, 36, 32))
+CARD_0 = ((40, 20, 13, 10, 8, 6, 5, 5), (30, 15, 10, 7, 6, 5, 4, 3))
+# (m, hidden, inter, clusters, want): Meditron-7B's FFN at decode (batch 4
+# and 32: the two streaming kernels, each in the most splits whose clusters
+# all run at once), on each card, past the threshold (33 rows) and at
+# prefill (the cluster kernel and its reduction per row chunk), and at
+# small widths (one split, one j-block)
+K6_PLANS = [(4, 4096, 11008, CARD_2, ("stream", 5, 26, 8, 6)),
+            (32, 4096, 11008, CARD_2, ("stream", 5, 26, 8, 6)),
+            (1, 4096, 11008, CARD_1, ("stream", 3, 43, 8, 6)),
+            (4, 4096, 11008, CARD_0, ("stream", 1, 128, 1, 43)),
+            (33, 4096, 11008, (), ("tiled", 64)),
+            (2048, 4096, 11008, (), ("tiled", 1472)),
+            (4, 64, 64, CARD_2, ("stream", 1, 2, 1, 1)),
+            (32, 80, 520, CARD_2, ("stream", 1, 3, 3, 1))]
+
+
+@pytest.mark.parametrize("m, hidden, inter, clusters, want", K6_PLANS)
+def test_int8_ffn_plan_takes_the_kernel_by_rows(m, hidden, inter, clusters, want):
+    """K6's dispatch: up to ``STREAM_MAX_ROWS`` rows the two streaming
+    kernels (gate/up over splits of the hidden rows, down over splits of
+    the j-blocks; a j-block's or strip's splits form one cluster, which adds
+    them itself: two launches), as many splits as let every cluster run at
+    once; above, the cluster kernel and its reduction per row chunk.  w8a8
+    adds one activation-quantization launch."""
+    plan = tq.int8_ffn_plan(m, hidden, inter, clusters)
+    assert plan == want
+    assert (plan[0] == "stream") == (m <= tq.STREAM_MAX_ROWS)
+    n_j = -(-inter // tq.INT8_BLOCK_J)
+    if plan[0] == "stream":
+        _, gu, gu_per, dn, dn_per = plan
+        stages = -(-hidden // tq.FFN_STREAM_KC)
+        strips = -(-hidden // tq.FFN_STREAM_COLUMNS)
+        assert (gu - 1) * gu_per < stages <= gu * gu_per
+        assert (dn - 1) * dn_per < n_j <= dn * dn_per
+        assert max(gu, dn) <= tq.FFN_STREAM_MAX_SPLITS
+        # every cluster runs at once, unless not even single blocks do
+        assert gu == 1 or clusters[0][gu - 1] >= n_j
+        assert dn == 1 or clusters[1][dn - 1] >= strips
+    else:
+        assert plan[1] == tq.ffn_row_chunk(m, n_j, hidden)
+    for act_quant in (False, True):
+        chunks = 0 if plan[0] == "stream" else -(-m // plan[1])
+        assert tq.int8_ffn_launches(m, hidden, inter, act_quant) == {
+            "int8_ffn_a8" if act_quant else "int8_ffn": 2 if plan[0] == "stream" else chunks,
+            "int8_reduce": chunks, "int4_act_quant": int(act_quant)}
 
 
 def test_int8_ffn_w8a8_requantizes_per_j_block():
