@@ -108,7 +108,12 @@ Phases, each printing its seconds:
                      Meditron-7B's shapes: decode at batch 4 and 32, prefill
                      of 4 x 512 tokens, a ragged case; timed as in phase 3
                      (weights cycled past the L2 cache), K5 weight-only beside
-                     torch._weight_int4pack_mm;
+                     torch._weight_int4pack_mm; the decode kernels of K5 and
+                     K7 called twice for bits and timed beside the tiled
+                     kernels they replace (a threshold table), and K7's
+                     w4a8 gate/up kernel built with a planted fault
+                     (KERNEL_FAULTS, compiled in the background since the
+                     build phase), which the K7 gate must refuse;
  18. quant-report  — the report-train phase's checkpoint and the report
                      phase's bf16 base through ctpa_torch.cli.export_serving
                      (--quant int4 --ffn-kernel --kv-quant int8
@@ -116,9 +121,11 @@ Phases, each printing its seconds:
                      load_serving_bundle; generate at batch 4 x 512 tokens,
                      96 greedy tokens, weight-only and w4a8, then w4a8 at
                      batch 32: prefill and decode-step times, tokens/s, peak
-                     memory, and exactly 65 K5 and 32 K7 launches per
-                     prefill and per decode step (w4a8: 97 activation
-                     quantizations), 32 K8 per decode step;
+                     memory, and exactly 65 K5 launches and K7's (64 at up
+                     to 32 rows: two decode kernels a layer; else one kernel
+                     and one reduction a row chunk) per prefill and per
+                     decode step (w4a8: 97 activation quantizations at batch
+                     4; no reduction at decode), 32 K8 per decode step;
  19. quant-plain   — each tier's kernel path, the same bundle with
                      quant_impl="xla" and an fp32 reference of the same
                      dequantized weights, teacher-forced on the kernel path's
@@ -132,10 +139,11 @@ Phases, each printing its seconds:
                      prefill of 4 x 512 tokens, a ragged case, the batch-32
                      prefill untimed; timed as in phase 17, K4 beside
                      torch._int_mm (w8a8) and torch._weight_int8pack_mm (w8);
-                     K6's decode kernels called twice for bits at batch 4
-                     and 32, and built a second time with a planted fault
-                     (K6_FAULT, compiled in the background since the build
-                     phase), which the K6 gate must refuse;
+                     K4's and K6's decode kernels called twice for bits at
+                     batch 4 and 32 (K4 w8a8 equal to its plain version bit
+                     for bit), K4's timed beside the tiled kernel it
+                     replaces, and each built a second time with a planted
+                     fault (KERNEL_FAULTS), which its gate must refuse;
  21. quant8-report — the same base and checkpoint through export_serving
                      (--quant int8 --ffn-kernel --kv-quant int8
                      --flash-decode, then with --act-quant) and
@@ -145,7 +153,8 @@ Phases, each printing its seconds:
                      up to 32 rows: two decode kernels a layer; else one
                      kernel and one reduction a row chunk) per prefill and
                      per decode step (w8a8: 97 activation quantizations at
-                     batch 4), 32 K8 per decode step;
+                     batch 4; no reduction at decode), 32 K8 per decode
+                     step;
  22. quant8-plain  — phase 19's gates for the int8 tiers; the planted faults
                      roll the per-column scales by one or shift the
                      contraction by one row.
@@ -2132,7 +2141,10 @@ def check_quant_kernels(dev) -> dict:
     the plain version, the bound and, for K5 w4, torch._weight_int4pack_mm;
     the batch-32 prefill (32 x 512 rows, K7 in several row chunks) checked
     untimed.  The w4a8 forms are held to QUANT_A8_ATOL max|p| +
-    QUANT_A8_RTOL |p|, which ctpa's per-row xla FFN must fail."""
+    QUANT_A8_RTOL |p|, which ctpa's per-row xla FFN must fail.  K5's and
+    K7's decode kernels (batch 4 and 32) are called twice for bits and timed
+    beside the tiled kernels they replace; the planted K7 fault
+    (FAULT_BUILDS) must fail its gate."""
     import torch
 
     from ctpa_torch.core.config import LLMConfig
@@ -2201,7 +2213,8 @@ def check_quant_kernels(dev) -> dict:
                       f" {ms:.4f} ms (device {dev_ms:.4f})  plain {plain_ms:.4f} ms  bound "
                       f"{b_ms * 1e3:.2f} us ({b_by})  library {lib_note}")
         if label in ("qkv_proj", "o_proj"):
-            stream_or_tiled(weights, d_in, quant.GROUP)
+            stream_or_tiled("K5", lambda x, w, a8: quant.int4_matmul(x, *w, act_quant=a8),
+                            weights, d_in, (4, 16, 32), ("w4", "w4a8"))
         del weights, library
     rows_act = check_act_quant(gen, dev, d, (decode, QUANT_B32, prefill))
     ffn = _ffn_copies(gen, dev, d, i)
@@ -2227,8 +2240,25 @@ def check_quant_kernels(dev) -> dict:
             nbytes = (m * d * 2 * 2 + 3 * d * i // 2 + 2 * n_gh * i * 4 + n_gi * d * 4)
             b_ms, b_by = bound_ms(nbytes, 6.0 * m * d * i, PEAK_INT8_OPS if a8 else PEAK_BF16_FLOPS)
             table[name, "ffn", m] = (ms, plain_ms, b_ms, b_by, None)
-            print(f"    {name} (m {m}, {d} -> {i} -> {d}): {ms:.4f} ms (device {dev_ms:.4f})  "
-                  f"plain {plain_ms:.4f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  library none")
+            print(f"    {name} (m {m}, {d} -> {i} -> {d}, "
+                  f"{quant.int4_ffn_plan_on(x, i, quant.GROUP, a8)}): {ms:.4f} ms (device "
+                  f"{dev_ms:.4f})  plain {plain_ms:.4f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  "
+                  f"library none")
+    # K7 at decode: two calls give the same bits; the decode kernels beside
+    # the tiled kernel they replace; the planted fault fails the gate
+    for m in (decode, QUANT_B32):
+        x = torch.randn(m, d, generator=gen, device=dev).to(bf16)
+        for name, a8, _, _ in QUANT_FORMS[2:]:
+            repeatable(f"{name} decode kernels m {m}",
+                       lambda: quant.int4_ffn(x, *ffn[0], act_quant=a8))
+    stream_or_tiled("K7", lambda x, w, a8: quant.int4_ffn(x, *w, act_quant=a8), ffn, d,
+                    (decode, QUANT_B32), ("w4", "w4a8"))
+    x = torch.randn(decode, d, generator=gen, device=dev).to(bf16)
+    plain = quant.int4_ffn_plain(x, *ffn[0], act_quant=True)
+    fault_refused("K7", "row max over 128 columns",
+                  lambda: quant.int4_ffn(x, *ffn[0], act_quant=True),
+                  lambda got: quant_check(collections.defaultdict(float), "int4_ffn_a8", True,
+                                          f"m {decode}, planted fault", got, plain))
     del ffn
     check_a8_bound_sees_j_blocks(per_row)
     # the kernels' table rows: the decode step at batch 4, the main path's
@@ -2244,29 +2274,33 @@ def check_quant_kernels(dev) -> dict:
     return rows
 
 
-def stream_or_tiled(weights, d_in: int, group: int) -> None:
-    """K5's two kernels at the row counts around the decode threshold, each
-    forced by ``quant.STREAM_MAX_ROWS`` (the streaming kernel takes at most
-    32 rows): the card times behind the threshold."""
+def stream_or_tiled(kernel: str, call, weights, d_in: int, row_counts, forms) -> None:
+    """A decode kernel (K4, K5 or K7) beside the tiled kernel it replaces,
+    each forced by ``quant.STREAM_MAX_ROWS`` (the decode kernels take at most
+    32 rows; 0 sends every call to the tiled kernel), at each row count:
+    ``call(x, weights[j], a8)`` for the forms (weight-only, int8
+    activations), cycling the weights past the L2 cache.  Above 32 rows the
+    tiled kernel alone."""
     import torch
 
     from ctpa_torch.ops import quant
 
     keep = quant.STREAM_MAX_ROWS
-    gen = torch.Generator(device=weights[0][0].device).manual_seed(SEED + 12)
+    dev = weights[0][0].device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
     try:
-        for m in (4, 16, 32):
-            x = torch.randn(m, d_in, generator=gen, device=weights[0][0].device).to(torch.bfloat16)
-            for a8 in (False, True):
+        for m in row_counts:
+            x = torch.randn(m, d_in, generator=gen, device=dev).to(torch.bfloat16)
+            for form, a8 in zip(forms, (False, True)):
                 times = {}
-                for kind, limit in (("stream", 32), ("tiled", 0)):
+                for kind, limit in (("stream", 32), ("tiled", 0)) if m <= 32 else (("tiled", 32),):
                     quant.STREAM_MAX_ROWS = limit
                     it = itertools.cycle(weights)
-                    fn = lambda: quant.int4_matmul(x, *next(it), act_quant=a8)  # noqa: E731
+                    fn = lambda: call(x, next(it), a8)  # noqa: E731
                     times[kind] = (cuda_ms(fn, iters=2 * len(weights)),
                                    device_ms(fn, 2 * len(weights)))
-                print(f"    threshold: m {m} {d_in} -> {weights[0][0].shape[1]} "
-                      f"{'w4a8' if a8 else 'w4'}: " + ", ".join(
+                print(f"    threshold {kernel}: m {m} {d_in} -> {weights[0][0].shape[1]} "
+                      f"{form}: " + ", ".join(
                           f"{k} {ms:.4f} ms (device {dv:.4f})" for k, (ms, dv) in times.items()))
     finally:
         quant.STREAM_MAX_ROWS = keep
@@ -2390,55 +2424,76 @@ def int8_yardstick(a8: bool, weights: list, x):
     return (lambda: next(it)()), name
 
 
-# A planted fault in K6's decode kernels: the w8a8 requantization of h
-# takes its row maximum over 128 of a j-block's 256 columns, so the other
-# half's larger values clip; the K6 gate must refuse it.  Built from the
-# source by its own nvcc, started before the phases that run first
-K6_FAULT = ("      for (int w = 1; w < kGuWarps; ++w) mx = fmaxf(mx, red[w]);",
-            "      for (int w = 1; w < kGuWarps / 2; ++w) mx = fmaxf(mx, red[w]);")
+# Planted faults in the decode kernels themselves: each source with its
+# fault is compiled into a library of its own in the background from phase
+# build (one nvcc each) and swapped in for one call, which the kernel's gate
+# must refuse.  {kernel: (source, (text, faulty text), entry points)}
+#   K6: the w8a8 requantization of h takes its row maximum over 128 of a
+#       j-block's 256 columns, so the other half's larger values clip;
+#   K7: the same in the w4a8 gate/up kernel;
+#   K4: the cluster's sum leaves one split's sums out.
+KERNEL_FAULTS = {
+    "K6": ("int8_ffn.cu",
+           ("      for (int w = 1; w < kGuWarps; ++w) mx = fmaxf(mx, red[w]);",
+            "      for (int w = 1; w < kGuWarps / 2; ++w) mx = fmaxf(mx, red[w]);"),
+           ("int8_ffn_stream_launch", "int8_ffn_stream_clusters")),
+    "K7": ("int4_ffn.cu",
+           ("      for (int w = 1; w < kBJ / 32; ++w) mx = fmaxf(mx, red[sub][w]);",
+            "      for (int w = 1; w < kBJ / 64; ++w) mx = fmaxf(mx, red[sub][w]);"),
+           ("int4_ffn_stream_launch", "int4_ffn_stream_clusters")),
+    "K4": ("int8_matmul.cu",
+           ("wstream::split_sum(cluster, part, tok * kSBN + cl, splits);",
+            "wstream::split_sum(cluster, part, tok * kSBN + cl, splits - 1);"),
+           ("int8_matmul_stream_launch", "int8_matmul_stream_clusters")),
+}
+# the background builds of KERNEL_FAULTS, started in phase build
+FAULT_BUILDS: dict = {}
 
 
-def start_k6_fault_build():
-    """int8_ffn.cu with ``K6_FAULT`` planted, compiled into a library of its
-    own in the background: (the nvcc process, the library's path)."""
+def start_fault_builds() -> None:
+    """Each KERNEL_FAULTS source with its fault planted, compiled into a
+    library of its own in the background, into FAULT_BUILDS: {kernel: (the
+    nvcc process, the library's path)}."""
     from ctpa_torch.kernels import build
 
-    src = (build.CSRC_DIR / "int8_ffn.cu").read_text()
-    if K6_FAULT[0] not in src:
-        raise AssertionError("K6_FAULT: the requantization's row maximum is not in int8_ffn.cu")
-    out = build.BUILD_DIR / f"k6_fault.{os.getpid()}"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "int8_ffn.cu").write_text(src.replace(*K6_FAULT))
-    so = out / "libk6_fault.so"
-    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(build.CSRC_DIR), "-o", str(so),
-           str(out / "int8_ffn.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    atexit.register(lambda: proc.poll() is None and proc.kill())   # a run that fails early
-    return proc, so
+    for kernel, (source, (text, faulty), _) in KERNEL_FAULTS.items():
+        src = (build.CSRC_DIR / source).read_text()
+        if src.count(text) != 1:
+            raise AssertionError(f"{kernel} fault: {text.strip()!r} is not once in {source}")
+        out = build.BUILD_DIR / f"fault_{kernel}.{os.getpid()}"
+        out.mkdir(parents=True, exist_ok=True)
+        (out / source).write_text(src.replace(text, faulty))
+        so = out / f"lib{kernel}_fault.so"
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(build.CSRC_DIR), "-o",
+               str(so), str(out / source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        atexit.register(lambda p=proc: p.poll() is None and p.kill())   # a run that fails early
+        FAULT_BUILDS[kernel] = (proc, so)
 
 
 @contextlib.contextmanager
-def planted_k6_fault(fault_build):
-    """K6's decode kernels taken from the faulty library while the block
-    runs (every other kernel from the real one)."""
+def planted_kernel_fault(kernel: str):
+    """The kernel's entry points taken from its faulty library while the
+    block runs (every other kernel from the real one)."""
     import ctypes
 
     from ctpa_torch.kernels import build
 
-    proc, so = fault_build
+    proc, so = FAULT_BUILDS[kernel]
     log = proc.communicate()[0]
     if proc.returncode:
-        raise RuntimeError(f"the K6 fault library failed to build:\n{log}")
+        raise RuntimeError(f"the {kernel} fault library failed to build:\n{log}")
     faulty = ctypes.CDLL(str(so))
     shutil.rmtree(so.parent, ignore_errors=True)
-    for name in ("int8_ffn_stream_launch", "int8_ffn_stream_clusters"):
+    names = KERNEL_FAULTS[kernel][2]
+    for name in names:
         getattr(faulty, name).argtypes = list(build.SIGNATURES[name])
         getattr(faulty, name).restype = ctypes.c_int
     real = build.library()
 
     class Mixed:
         def __getattr__(self, name):
-            return getattr(faulty if name.startswith("int8_ffn_stream") else real.lib, name)
+            return getattr(faulty if name in names else real.lib, name)
 
     keep = build.library
     build.library = lambda: build.KernelLibrary(Mixed(), real.ptxas_log, real.seconds)
@@ -2448,7 +2503,23 @@ def planted_k6_fault(fault_build):
         build.library = keep
 
 
-def check_quant8_kernels(dev, k6_fault=None) -> dict:
+def fault_refused(kernel: str, label: str, fn, gate) -> None:
+    """``fn()`` with the kernel's planted fault, then ``gate(got)``, which
+    must raise AssertionError; raises if the gate passes the fault."""
+    import torch
+
+    with planted_kernel_fault(kernel):
+        got = fn()
+        torch.cuda.synchronize()
+    try:
+        gate(got)
+    except AssertionError as exc:
+        print(f"    planted {kernel} fault ({label}) refused: {str(exc)[:120]}")
+    else:
+        raise AssertionError(f"the {kernel} gate passed its planted fault ({label})")
+
+
+def check_quant8_kernels(dev) -> dict:
     """Phase 20: the four K4 and K6 forms against their plain versions at the
     shapes int8 serving gives them at Meditron-7B width (decode at batch 4
     and 32, prefill of 4 x 512 tokens, a ragged case; K4 also at the gateup
@@ -2456,9 +2527,11 @@ def check_quant8_kernels(dev, k6_fault=None) -> dict:
     the bound and, for K4, ``int8_yardstick``; the batch-32 prefill (32 x 512
     rows, K6 in several row chunks) checked untimed.  The w8a8 forms are held
     to QUANT_A8_ATOL max|p| + QUANT_A8_RTOL |p|, which the FFN with h
-    requantized per full row must fail.  K6's decode kernels (batch 4 and
-    32) are called twice for bits; with ``k6_fault`` (``start_k6_fault_build``)
-    the faulty build must fail the w8a8 FFN's bound."""
+    requantized per full row must fail.  K4's and K6's decode kernels (batch 4
+    and 32) are called twice for bits, K4 w8a8 must equal the plain version
+    bit for bit there, and the planted K4 and K6 faults (FAULT_BUILDS) must
+    fail their gates; a threshold table times K4's decode kernel beside the
+    tiled kernel it replaces."""
     import torch
 
     from ctpa_torch.core.config import LLMConfig
@@ -2478,7 +2551,8 @@ def check_quant8_kernels(dev, k6_fault=None) -> dict:
                ("lm_head", d, vocab, timed, ()),
                ("gateup_proj", d, 2 * i, timed, ()),
                ("down_proj", i, d, timed, ()),
-               ("ragged", d, 1000, (5,), ()))
+               ("ragged", d, 1000, (5,), ()),
+               ("ragged in", 513, 1000, (), (5, QUANT_B32)))
     errs = collections.defaultdict(float)
     table = {}
     bf16 = torch.bfloat16
@@ -2488,9 +2562,18 @@ def check_quant8_kernels(dev, k6_fault=None) -> dict:
             x = torch.randn(m, d_in, generator=gen, device=dev).to(bf16)
             for name, a8, _, _ in QUANT8_FORMS[:2]:
                 w8, s = weights[0]
-                quant_check(errs, name, a8, f"{label} m {m}",
-                            quant.int8_matmul(x, w8, s, act_quant=a8),
-                            quant.int8_matmul_plain(x, w8, s, act_quant=a8))
+                got = quant.int8_matmul(x, w8, s, act_quant=a8)
+                ref = quant.int8_matmul_plain(x, w8, s, act_quant=a8)
+                quant_check(errs, name, a8, f"{label} m {m}", got, ref)
+                if m <= quant.STREAM_MAX_ROWS:
+                    # the decode kernel: the same bits twice, and w8a8's
+                    # exact int32 sums scaled as the plain version scales
+                    # them: its bits
+                    repeatable(f"{name} {label} m {m}",
+                               lambda: quant.int8_matmul(x, w8, s, act_quant=a8))
+                    if a8 and not torch.equal(got, ref):
+                        raise AssertionError(f"{name} {label} m {m}: not int8_matmul_plain's "
+                                             f"bits ({int((got != ref).sum())} differ)")
                 if m not in rows_timed:
                     continue
                 it = itertools.cycle(weights)
@@ -2508,9 +2591,21 @@ def check_quant8_kernels(dev, k6_fault=None) -> dict:
                     note = (f"{lib_ms:.4f} ms, device {device_ms(library, 2 * len(weights)):.4f} "
                             f"({note})")
                 table[name, label, m] = (ms, plain_ms, b_ms, b_by, lib_ms)
-                print(f"    {name} {label} (m {m}, {d_in} -> {d_out}): {ms:.4f} ms (device "
+                print(f"    {name} {label} (m {m}, {d_in} -> {d_out}, "
+                      f"{quant.int8_matmul_plan_on(x, d_out, a8)}): {ms:.4f} ms (device "
                       f"{dev_ms:.4f})  plain {plain_ms:.4f} ms  bound {b_ms * 1e3:.2f} us "
                       f"({b_by})  library {note}")
+        if label in ("qkv_proj", "o_proj"):
+            stream_or_tiled("K4", lambda x, w, a8: quant.int8_matmul(x, *w, act_quant=a8),
+                            weights, d_in, (decode, QUANT_B32, QUANT_B32 + 1), ("w8", "w8a8"))
+        if label == "qkv_proj":
+            x = torch.randn(decode, d_in, generator=gen, device=dev).to(bf16)
+            plain = quant.int8_matmul_plain(x, *weights[0])
+            fault_refused("K4", "one split left out",
+                          lambda: quant.int8_matmul(x, *weights[0]),
+                          lambda got: quant_check(collections.defaultdict(float), "int8_matmul",
+                                                  False, f"{label} m {decode}, planted fault",
+                                                  got, plain))
         del weights
     ffn = _int8_copies(gen, dev, ((d, i), (d, i), (i, d)))
     per_row = {}
@@ -2542,19 +2637,12 @@ def check_quant8_kernels(dev, k6_fault=None) -> dict:
         for name, a8, _, _ in QUANT8_FORMS[2:]:
             repeatable(f"{name} decode kernels m {m}",
                        lambda: quant.int8_ffn(x, *ffn[0], act_quant=a8))
-    if k6_fault is not None:
-        x = torch.randn(decode, d, generator=gen, device=dev).to(bf16)
-        plain = quant.int8_ffn_plain(x, *ffn[0], act_quant=True)
-        with planted_k6_fault(k6_fault):
-            got = quant.int8_ffn(x, *ffn[0], act_quant=True)
-            torch.cuda.synchronize()
-        try:
-            quant_check(collections.defaultdict(float), "int8_ffn_a8", True,
-                        f"m {decode}, planted fault (row max over 128 columns)", got, plain)
-        except AssertionError as exc:
-            print(f"    planted K6 fault refused: {str(exc)[:120]}")
-        else:
-            raise AssertionError("the K6 gate passed the planted requantization fault")
+    x = torch.randn(decode, d, generator=gen, device=dev).to(bf16)
+    plain = quant.int8_ffn_plain(x, *ffn[0], act_quant=True)
+    fault_refused("K6", "row max over 128 columns",
+                  lambda: quant.int8_ffn(x, *ffn[0], act_quant=True),
+                  lambda got: quant_check(collections.defaultdict(float), "int8_ffn_a8", True,
+                                          f"m {decode}, planted fault", got, plain))
     del ffn
     check_a8_bound_sees_j_blocks(per_row)
     # the kernels' table rows: the decode step at batch 4, the main path's
@@ -2583,25 +2671,23 @@ def quant_kernel_launches(cfg, rows: int, head_rows: int, sms: int) -> dict:
     (fused qkv, the fused FFN) over ``rows`` token rows with the lm_head on
     ``head_rows``: per layer one projection launch (K4 or K5) each for
     qkv_proj and o_proj, one projection launch for the lm_head, and per
-    layer the FFN's: K6 two launches at up to 32 rows
-    (``ops/quant.py:int8_ffn_launches``), else K6 or K7 one launch and one
-    reduction per row chunk (``ffn_row_chunk``); one reduction for each K4
-    or prefill K5 call whose contraction is split (``int8_matmul_splits`` /
-    ``int4_matmul_plan`` on ``sms`` SMs; K5 at decode adds its splits in
-    its own launch); with int8 activations one activation quantization per
-    projection and FFN call."""
+    layer the FFN's: K6 or K7 two launches at up to 32 rows, else one launch
+    and one reduction per row chunk (``ffn_row_chunk``;
+    ``ops/quant.py:int8_ffn_launches``, ``int4_ffn_launches``); one
+    reduction for each prefill K4 or K5 call whose contraction is split
+    (``int8_matmul_launches`` / ``int4_matmul_launches`` on ``sms`` SMs; at
+    decode both add their splits in their own launch); with int8
+    activations one activation quantization per projection and FFN call."""
     from ctpa_torch.ops import quant
 
     d, i, layers = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
     attn = cfg.num_heads * cfg.head_dim
-    a8 = int(cfg.quant_act)
-    mm, ffn_name, reduce = quant_kernel_names(cfg)
+    mm = quant_kernel_names(cfg)[0]
     launches = collections.Counter({mm: 2 * layers + 1})
     if cfg.weight_quant == "int8":
         def projection(m, d_in, d_out):
-            return {"int8_reduce": int(quant.int8_matmul_splits(m, d_in, d_out, sms)[0] > 1),
-                    "int4_act_quant": a8}
+            return quant.int8_matmul_launches(m, d_in, d_out, sms, cfg.quant_act)
 
         ffn = quant.int8_ffn_launches(rows, d, i, cfg.quant_act)
     else:
@@ -2609,9 +2695,7 @@ def quant_kernel_launches(cfg, rows: int, head_rows: int, sms: int) -> dict:
             g = quant._int4_group(d_in, quant.GROUP)
             return quant.int4_matmul_launches(m, d_in, d_out, g, sms, cfg.quant_act)
 
-        n_j = -(-i // quant.ffn_block_j(i, quant._int4_group(i, quant.GROUP)))
-        chunks = -(-rows // quant.ffn_row_chunk(rows, n_j, d))
-        ffn = {ffn_name: chunks, reduce: chunks, "int4_act_quant": a8}
+        ffn = quant.int4_ffn_launches(rows, d, i, quant.GROUP, cfg.quant_act)
     for key, count in ffn.items():
         launches[key] += count * layers
     for m, d_in, d_out, times in ((rows, d, qkv, layers), (rows, attn, d, layers),
@@ -3085,7 +3169,7 @@ def main() -> int:
               f"cuda {torch.version.cuda}")
 
     with phase("build"):
-        k6_fault = start_k6_fault_build()
+        start_fault_builds()
         lib = build.library()
         print(f"  nvcc: {lib.seconds:.2f} s")
         for line in lib.ptxas_log.splitlines():
@@ -3183,7 +3267,7 @@ def main() -> int:
 
     with phase("quant8-kernels"):
         with torch.inference_mode():
-            rows.update(check_quant8_kernels(dev, k6_fault))
+            rows.update(check_quant8_kernels(dev))
     torch.cuda.empty_cache()
     with phase("quant8-report"):
         qmodels, qtokens, qvision = quant_report(dev, rows, model, inputs, base, 8)

@@ -39,7 +39,7 @@
 // order at the end): its dequantization is the longest part of a k-step.  The weights are the A operand (16 output columns x k,
 // the tokens the 8-wide N side, so m = 4 wastes half an N tile), and a lane
 // builds its A registers from 4-byte reads of the packed rows, never a
-// dequantized tile in shared memory:
+// dequantized tile in shared memory (stream_common.cuh, shared with K7):
 //   w4:   m16n8k16 bf16.  A byte holds rows j and j + G/2 of one column, so
 //         the kernel takes that pair as the two k of one bf16 register and
 //         reads x in the same order (a permutation of k inside a group
@@ -77,6 +77,7 @@
 #include <stdint.h>
 
 #include "int4_common.cuh"
+#include "stream_common.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -318,50 +319,6 @@ struct StreamSmem {
 
 extern __shared__ __align__(16) unsigned char smem_stream[];
 
-// The bf16 A register of packed byte `byte` of a word: lo and hi hold the
-// word's low and high nibbles, each as q + 8 in its own byte (nibbles(),
-// below); a byte permute puts one under the exponent of 2^23, so the float
-// 2^23 + (q + 8) minus 2^23 + 8 is q exactly.  (q_lo * s, q_hi * s), each
-// product in fp32 rounded to bf16, as ctpa rounds its dequantized tile.
-__device__ __forceinline__ uint32_t dequant_pair(uint32_t lo, uint32_t hi, int byte, float s) {
-  const uint32_t sel = 0x7650u | static_cast<uint32_t>(byte);   // (byte, 0, 0, 0x4B)
-  const float ql = __uint_as_float(__byte_perm(lo, 0x4B000000u, sel)) - 8388616.f;
-  const float qh = __uint_as_float(__byte_perm(hi, 0x4B000000u, sel)) - 8388616.f;
-  return warp_mma::pack_bf16(__fmul_rn(ql, s), __fmul_rn(qh, s));
-}
-
-// a packed word's low and high nibbles as q + 8, one to a byte
-__device__ __forceinline__ void nibbles(uint32_t w, uint32_t& lo, uint32_t& hi) {
-  const uint32_t u = w ^ 0x88888888u;
-  lo = u & 0x0F0F0F0Fu;
-  hi = (u >> 4) & 0x0F0F0F0Fu;
-}
-
-// The s8 A registers of the four columns of two packed rows' words w0
-// (row 2p) and w1 (row 2p + 1): col[c] = (lo of w0, lo of w1, hi of w0, hi
-// of w1) of byte c, each nibble as 16 q in the byte's high half (so the
-// product is 16 times the dot, exactly).
-__device__ __forceinline__ void int8_columns(uint32_t (&col)[4], uint32_t w0, uint32_t w1) {
-  const uint32_t l0 = (w0 << 4) & 0xF0F0F0F0u, h0 = w0 & 0xF0F0F0F0u;
-  const uint32_t l1 = (w1 << 4) & 0xF0F0F0F0u, h1 = w1 & 0xF0F0F0F0u;
-  const uint32_t x01 = __byte_perm(l0, h0, 0x5140), y01 = __byte_perm(l1, h1, 0x5140);
-  const uint32_t x23 = __byte_perm(l0, h0, 0x7362), y23 = __byte_perm(l1, h1, 0x7362);
-  col[0] = __byte_perm(x01, y01, 0x5140);
-  col[1] = __byte_perm(x01, y01, 0x7362);
-  col[2] = __byte_perm(x23, y23, 0x5140);
-  col[3] = __byte_perm(x23, y23, 0x7362);
-}
-
-// an int32 of magnitude below 2^22 as fp32, exactly, without the slow
-// conversion unit: 1.5 * 2^23 + v is exact in fp32
-__device__ __forceinline__ float exact_float(int v) {
-  return __int_as_float(v + 0x4B400000) - 12582912.f;
-}
-
-__device__ __forceinline__ uint32_t ld_u16(const unsigned char* p) {
-  return *reinterpret_cast<const uint16_t*>(p);
-}
-
 // grid (ceil(n / kSBN), splits); block kSThreads; dynamic shared memory
 // StreamSmem::kBytes.  Block (x, z) owns columns [128 x, 128 x + 128) and
 // scale groups [z per, min(k / G, (z + 1) per)).  Warp w owns 32 columns;
@@ -457,70 +414,8 @@ int4_matmul_stream_kernel(const void* __restrict__ xv, const float* __restrict__
     const unsigned char* wl = st + 32 * warp + 4 * g;
     const float4 sc4 = *reinterpret_cast<const float4*>(st + Smem::kW + (32 * warp + 4 * g) * 4);
     const float sc[4] = {sc4.x, sc4.y, sc4.z, sc4.w};
-    const unsigned char* xs = st + Smem::kW + Smem::kS + g * Smem::kLdX;
-    if constexpr (!A8) {
-#pragma unroll
-      for (int s2 = 0; s2 < G / 16 / KH; ++s2) {
-        const int s = s2 * KH + kh;
-        const int r0 = 8 * s + t;   // packed rows r0 and r0 + 4: k pairs t and t + 4
-        uint32_t l0, h0, l1, h1;
-        nibbles(*reinterpret_cast<const uint32_t*>(wl + r0 * Smem::kLdW), l0, h0);
-        nibbles(*reinterpret_cast<const uint32_t*>(wl + (r0 + 4) * Smem::kLdW), l1, h1);
-        uint32_t a[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          a[i][0] = dequant_pair(l0, h0, 2 * i, sc[2 * i]);
-          a[i][1] = dequant_pair(l0, h0, 2 * i + 1, sc[2 * i + 1]);
-          a[i][2] = dequant_pair(l1, h1, 2 * i, sc[2 * i]);
-          a[i][3] = dequant_pair(l1, h1, 2 * i + 1, sc[2 * i + 1]);
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const unsigned char* xr = xs + 8 * j * Smem::kLdX;
-          const uint32_t b0 = ld_u16(xr + 2 * r0) | ld_u16(xr + 2 * (r0 + G / 2)) << 16;
-          const uint32_t b1 = ld_u16(xr + 2 * (r0 + 4)) | ld_u16(xr + 2 * (r0 + 4 + G / 2)) << 16;
-          warp_mma::mma_bf16_16816(acc[0][j], a[0], b0, b1);
-          warp_mma::mma_bf16_16816(acc[1][j], a[1], b0, b1);
-        }
-      }
-    } else {
-      int ci[2][NT][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) ci[i][j][0] = ci[i][j][1] = ci[i][j][2] = ci[i][j][3] = 0;
-#pragma unroll
-      for (int s = 0; s < G / 32; ++s) {
-        const int r0 = 16 * s + 2 * t;   // packed rows r0, r0 + 1 and r0 + 8, r0 + 9
-        uint32_t lo[4], hi[4];
-        int8_columns(lo, *reinterpret_cast<const uint32_t*>(wl + r0 * Smem::kLdW),
-                     *reinterpret_cast<const uint32_t*>(wl + (r0 + 1) * Smem::kLdW));
-        int8_columns(hi, *reinterpret_cast<const uint32_t*>(wl + (r0 + 8) * Smem::kLdW),
-                     *reinterpret_cast<const uint32_t*>(wl + (r0 + 9) * Smem::kLdW));
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const unsigned char* xr = xs + 8 * j * Smem::kLdX;
-          const uint32_t b0 = ld_u16(xr + r0) | ld_u16(xr + r0 + G / 2) << 16;
-          const uint32_t b1 = ld_u16(xr + r0 + 8) | ld_u16(xr + r0 + 8 + G / 2) << 16;
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const uint32_t a[4] = {lo[2 * i], lo[2 * i + 1], hi[2 * i], hi[2 * i + 1]};
-            warp_mma::mma_s8_16832(ci[i][j], a, b0, b1);
-          }
-        }
-      }
-      // the group's exact dot times its scale: 16 times the dot times a
-      // sixteenth of the scale is the same real number, rounded once
-      const float sc16[4] = {sc[0] * 0.0625f, sc[1] * 0.0625f, sc[2] * 0.0625f, sc[3] * 0.0625f};
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][j][e] = __fadd_rn(acc[i][j][e], __fmul_rn(exact_float(ci[i][j][e]),
-                                                             sc16[2 * i + (e >> 1)]));
-    }
+    wstream::int4_group_products<G, NT, A8, KH, Smem::kLdW, Smem::kLdX>(
+        acc, wl, sc, st + Smem::kW + Smem::kS + g * Smem::kLdX, t, kh);
   }
 
   // w4 with KH = 2: the second half's sums through shared memory, added to

@@ -47,6 +47,8 @@
 //   x 4 bytes into 4 k of one column (m16n8k32 s8), the k slots of a
 //   k-step permuted for the weights and x alike.  The row strides put a
 //   k-step's reads on distinct banks.
+//   The register building, ring copies and cluster sums are
+//   stream_common.cuh's, shared with K4's decode kernel.
 //   Sums, in a fixed order and with no atomics: the splits of one j-block
 //   (gate/up) or column strip (down) run as one thread-block cluster, as
 //   many splits (at most 8) as let every cluster run at once (ops/quant.py
@@ -98,6 +100,7 @@
 #include <stdint.h>
 
 #include "int4_common.cuh"
+#include "stream_common.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -542,10 +545,7 @@ constexpr int kDnSets = 2;           // in two sets of 4 warps, each taking kSKC
 constexpr int kDnThreads = 32 * 4 * kDnSets;   // stage's kDnSets kSKC rows
 constexpr int kDnKC = kDnSets * kSKC;
 constexpr int kJChunks = kBJ / kDnKC;  // ring stages a j-block of the down product
-// the most splits of each kernel: a cluster's portable size; a finishing
-// block loads every split's sum of an output at once, then adds them in
-// split order
-constexpr int kMaxSplits = 8;
+using wstream::kMaxSplits;   // the most splits of each kernel
 static_assert(kDnThreads == kDnSets * kDnBN, "down threads finish kDnSets rows at once");
 static_assert(kGuWarps * 32 == kBJ, "a gate/up block owns one j-block");
 
@@ -567,180 +567,10 @@ struct StreamArgs {
   int m, hidden, inter, n_j, ld_h, gu_per, dn_per;
 };
 
-// One ring stage of a weight window (KC rows of `width` bytes at a row
-// stride kLdW) and of NT * 8 token rows (rows >= m zero) over the same KC
-// contraction columns, at a row stride kLdX.  The strides spread a warp's
-// reads over the 32 banks: a k-step reads rows 2t apart (t = lane % 4), 32
-// bytes each, and token rows 8 apart.
 template <int NT, bool A8, int kMats, int kWidth, int KC>
-struct StageOf {
-  static constexpr int kXB = A8 ? 1 : 2;
-  static constexpr int kLdW = kWidth + 16;
-  static constexpr int kLdX = KC * kXB + 16;
-  static constexpr int kW = KC * kLdW;
-  static constexpr int kStage = kMats * kW + NT * 8 * kLdX;
-  static constexpr int kBytes = kSStages * kStage;
-  static_assert(kW % 16 == 0 && kStage % 16 == 0, "16-byte aligned copies");
-};
+using StageOf = wstream::Int8Stage<NT, A8, kMats, kWidth, KC, kSStages>;
 
 extern __shared__ __align__(16) unsigned char smem_stream8[];
-
-__device__ __forceinline__ uint32_t ld_u32(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ld_u16(const unsigned char* p) {
-  return *reinterpret_cast<const uint16_t*>(p);
-}
-
-// The bf16 pair (byte c of u0, byte c of u1) of two words whose bytes hold
-// int8 q as q + 128 (w ^ 0x80808080): a byte under the exponent of 2^23 is
-// the float 2^23 + q + 128, minus 2^23 + 128 it is q exactly, and the high
-// half of that float is q's exact bf16.
-__device__ __forceinline__ uint32_t s8_pair_bf16(uint32_t u0, uint32_t u1, int c) {
-  const uint32_t sel = 0x7650u | static_cast<uint32_t>(c);
-  const float f0 = __uint_as_float(__byte_perm(u0, 0x4B000000u, sel)) - 8388736.f;
-  const float f1 = __uint_as_float(__byte_perm(u1, 0x4B000000u, sel)) - 8388736.f;
-  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632u);
-}
-
-// Words r0..r3 of four weight rows, 4 columns each, as 4 column words:
-// col[c] = (byte c of r0, r1, r2, r3), the first row in the low byte.
-__device__ __forceinline__ void columns4(uint32_t (&col)[4], uint32_t r0, uint32_t r1,
-                                         uint32_t r2, uint32_t r3) {
-  const uint32_t x01 = __byte_perm(r0, r1, 0x5140), x23 = __byte_perm(r0, r1, 0x7362);
-  const uint32_t y01 = __byte_perm(r2, r3, 0x5140), y23 = __byte_perm(r2, r3, 0x7362);
-  col[0] = __byte_perm(x01, y01, 0x5410);
-  col[1] = __byte_perm(x01, y01, 0x7632);
-  col[2] = __byte_perm(x23, y23, 0x5410);
-  col[3] = __byte_perm(x23, y23, 0x7632);
-}
-
-// The products of one ring stage: kMats weight windows (the weights the A
-// operand, 16 output columns x k; the tokens the 8-wide N side).  Lane
-// (g, t) reads 4 bytes of a weight row at its columns 4g .. 4g + 3 (wl
-// points there); A row g of tile i is column 4g + 2i, row g + 8 column
-// 4g + 2i + 1.  xs points at token g's staged row.
-//   w8:   m16n8k16 bf16 in natural k order: k pairs (2t, 2t + 1) and
-//         (2t + 8, 2t + 9) of each 16 are rows r0, r0 + 1 and r0 + 8,
-//         r0 + 9, converted exactly (s8_pair_bf16); x's B registers are
-//         the same bf16 pairs of x.
-//   w8a8: m16n8k32 s8; the k slots 4t .. 4t + 3 of each 16 are rows r0,
-//         r0 + 1, r0 + 8, r0 + 9 (columns4), and x8's B registers take the
-//         same four k; a permutation inside a k-step leaves its exact int32
-//         dot unchanged.
-// acc[mat][i][nt]: tile i, tokens 8 nt + 2t, + 1 (C's layout).
-template <int NT, bool A8, int kMats, typename Acc>
-__device__ __forceinline__ void stage_products(Acc (&acc)[kMats][2][NT][4],
-                                               const unsigned char* wl, int mat_stride, int ld_w,
-                                               const unsigned char* xs, int ld_x, int t) {
-  if constexpr (!A8) {
-#pragma unroll
-    for (int k0 = 0; k0 < kSKC; k0 += 16) {
-      const int r0 = k0 + 2 * t;
-      uint32_t b[NT][2];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        b[nt][0] = ld_u32(xs + 8 * nt * ld_x + 2 * r0);
-        b[nt][1] = ld_u32(xs + 8 * nt * ld_x + 2 * (r0 + 8));
-      }
-#pragma unroll
-      for (int mat = 0; mat < kMats; ++mat) {
-        const unsigned char* w = wl + mat * mat_stride;
-        const uint32_t u0 = ld_u32(w + r0 * ld_w) ^ 0x80808080u;
-        const uint32_t u1 = ld_u32(w + (r0 + 1) * ld_w) ^ 0x80808080u;
-        const uint32_t u2 = ld_u32(w + (r0 + 8) * ld_w) ^ 0x80808080u;
-        const uint32_t u3 = ld_u32(w + (r0 + 9) * ld_w) ^ 0x80808080u;
-        uint32_t a[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          a[i][0] = s8_pair_bf16(u0, u1, 2 * i);
-          a[i][1] = s8_pair_bf16(u0, u1, 2 * i + 1);
-          a[i][2] = s8_pair_bf16(u2, u3, 2 * i);
-          a[i][3] = s8_pair_bf16(u2, u3, 2 * i + 1);
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            warp_mma::mma_bf16_16816(acc[mat][i][nt], a[i], b[nt][0], b[nt][1]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int k0 = 0; k0 < kSKC; k0 += 32) {
-      const int r0 = k0 + 2 * t;
-      uint32_t b[NT][2];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const unsigned char* xr = xs + 8 * nt * ld_x;
-        b[nt][0] = ld_u16(xr + r0) | ld_u16(xr + r0 + 8) << 16;
-        b[nt][1] = ld_u16(xr + r0 + 16) | ld_u16(xr + r0 + 24) << 16;
-      }
-#pragma unroll
-      for (int mat = 0; mat < kMats; ++mat) {
-        const unsigned char* w = wl + mat * mat_stride;
-        uint32_t lo[4], hi[4];
-        columns4(lo, ld_u32(w + r0 * ld_w), ld_u32(w + (r0 + 1) * ld_w),
-                 ld_u32(w + (r0 + 8) * ld_w), ld_u32(w + (r0 + 9) * ld_w));
-        columns4(hi, ld_u32(w + (r0 + 16) * ld_w), ld_u32(w + (r0 + 17) * ld_w),
-                 ld_u32(w + (r0 + 24) * ld_w), ld_u32(w + (r0 + 25) * ld_w));
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const uint32_t a[4] = {lo[2 * i], lo[2 * i + 1], hi[2 * i], hi[2 * i + 1]};
-            warp_mma::mma_s8_16832(acc[mat][i][nt], a, b[nt][0], b[nt][1]);
-          }
-      }
-    }
-  }
-}
-
-// Copies KC rows of a weight window (columns [col0, col0 + kWidth) of a
-// (rows, ncols) int8 matrix, starting at row k0) into a stage, rows >=
-// rows or columns >= ncols zero; `vec` (ncols % 16 == 0, 16-byte aligned
-// base) by 16-byte cp.async, else one byte a copy.
-template <int kWidth, int kLdW, int kThreads, int KC>
-__device__ __forceinline__ void stage_weights(unsigned char* dst, const int8_t* w, int k0,
-                                              int rows, int col0, int ncols, bool vec) {
-  const int8_t* src = w + static_cast<long long>(min(k0, rows - 1)) * ncols + col0;
-  const int live = rows - k0;
-  if (vec) {
-    for (int e = threadIdx.x; e < KC * (kWidth / 16); e += kThreads) {
-      const int r = e / (kWidth / 16);
-      const int c = (e - r * (kWidth / 16)) * 16;
-      const bool ok = r < live && col0 + c < ncols;
-      warp_mma::cp_async16(dst + r * kLdW + c, ok ? src + static_cast<long long>(r) * ncols + c
-                                                  : src, ok ? 16 : 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < KC * kWidth; e += kThreads) {
-      const int r = e / kWidth;
-      const int c = e - r * kWidth;
-      dst[r * kLdW + c] = r < live && col0 + c < ncols
-          ? static_cast<unsigned char>(src[static_cast<long long>(r) * ncols + c]) : 0;
-    }
-  }
-}
-
-// NT * 8 token rows of a (m, ld) matrix of kXB-byte values, columns [k0,
-// k0 + KC), into a stage (rows >= m and columns >= ld zero); ld * kXB % 16
-// == 0.
-template <int NT, int kXB, int kLdX, int kThreads, int KC>
-__device__ __forceinline__ void stage_tokens(unsigned char* dst, const void* x, int m, int ld,
-                                             int k0) {
-  constexpr int kChunks = KC * kXB / 16;
-  const unsigned char* src =
-      static_cast<const unsigned char*>(x) + static_cast<long long>(k0) * kXB;
-  for (int e = threadIdx.x; e < NT * 8 * kChunks; e += kThreads) {
-    const int r = e / kChunks;
-    const int c = (e - r * kChunks) * 16;
-    const bool ok = r < m && k0 + c / kXB < ld;
-    warp_mma::cp_async16(dst + r * kLdX + c,
-                         ok ? src + static_cast<long long>(r) * ld * kXB + c : src, ok ? 16 : 0);
-  }
-}
 
 // grid (n_j, splits) in clusters of (1, splits, 1); block kGuThreads;
 // dynamic shared memory StageOf<NT, A8, 2, kBJ, kSKC>::kBytes.  Block (jb, z)
@@ -771,10 +601,12 @@ __global__ void __launch_bounds__(kGuThreads, 2) int8_ffn_gateup_stream_kernel(c
   auto fetch = [&](int slot, int ch) {
     unsigned char* st = smem_stream8 + slot * S::kStage;
     const int k0 = ch * kSKC;
-    stage_weights<kBJ, S::kLdW, kGuThreads, kSKC>(st, a.wg, k0, a.hidden, j0, a.inter, wvec);
-    stage_weights<kBJ, S::kLdW, kGuThreads, kSKC>(st + S::kW, a.wu, k0, a.hidden, j0, a.inter,
-                                                  wvec);
-    stage_tokens<NT, S::kXB, S::kLdX, kGuThreads, kSKC>(st + 2 * S::kW, a.x, a.m, a.hidden, k0);
+    wstream::stage_weights<kBJ, S::kLdW, kGuThreads, kSKC>(st, a.wg, k0, a.hidden, j0, a.inter,
+                                                           wvec);
+    wstream::stage_weights<kBJ, S::kLdW, kGuThreads, kSKC>(st + S::kW, a.wu, k0, a.hidden, j0,
+                                                           a.inter, wvec);
+    wstream::stage_tokens<NT, S::kXB, S::kLdX, kGuThreads, kSKC>(st + 2 * S::kW, a.x, a.m,
+                                                                 a.hidden, k0);
   };
 
   Acc acc[2][2][NT][4];
@@ -797,7 +629,7 @@ __global__ void __launch_bounds__(kGuThreads, 2) int8_ffn_gateup_stream_kernel(c
     if (it + kSStages - 1 < cnt) fetch((it + kSStages - 1) % kSStages, c0 + it + kSStages - 1);
     warp_mma::cp_async_commit();
     const unsigned char* st = smem_stream8 + (it % kSStages) * S::kStage;
-    stage_products<NT, A8, 2>(acc, st + 32 * warp + 4 * g, S::kW, S::kLdW,
+    wstream::int8_stage_products<NT, A8, 2, kSKC>(acc, st + 32 * warp + 4 * g, S::kW, S::kLdW,
                               st + 2 * S::kW + g * S::kLdX, S::kLdX, t);
   }
 
@@ -830,19 +662,8 @@ __global__ void __launch_bounds__(kGuThreads, 2) int8_ffn_gateup_stream_kernel(c
   const float su = in ? a.su[col] : 0.f;
   __shared__ float red[kGuWarps];
   for (int tok = rank; tok < a.m; tok += splits) {
-    Acc gp[kMaxSplits], up[kMaxSplits];
-#pragma unroll
-    for (int z = 0; z < kMaxSplits; ++z) {
-      if (z < splits) {
-        const Acc* peer = cluster.map_shared_rank(part, z);
-        gp[z] = peer[tok * kBJ + tid];
-        up[z] = peer[(a.m + tok) * kBJ + tid];
-      }
-    }
-    Acc gs = 0, us = 0;
-#pragma unroll
-    for (int z = 0; z < kMaxSplits; ++z)
-      if (z < splits) gs += gp[z], us += up[z];
+    const Acc gs = wstream::split_sum(cluster, part, tok * kBJ + tid, splits);
+    const Acc us = wstream::split_sum(cluster, part, (a.m + tok) * kBJ + tid, splits);
     float gv, uv;
     if constexpr (A8) {
       const float sx = a.sx[tok];
@@ -906,8 +727,10 @@ __global__ void __launch_bounds__(kDnThreads, 2) int8_ffn_down_stream_kernel(con
   auto fetch = [&](int slot, int ch) {
     unsigned char* st = smem_stream8 + slot * S::kStage;
     const int k0 = ch * kDnKC;
-    stage_weights<kDnBN, S::kLdW, kDnThreads, kDnKC>(st, a.wd, k0, a.inter, n0, a.hidden, true);
-    stage_tokens<NT, S::kXB, S::kLdX, kDnThreads, kDnKC>(st + S::kW, a.h, a.m, a.ld_h, k0);
+    wstream::stage_weights<kDnBN, S::kLdW, kDnThreads, kDnKC>(st, a.wd, k0, a.inter, n0,
+                                                              a.hidden, true);
+    wstream::stage_tokens<NT, S::kXB, S::kLdX, kDnThreads, kDnKC>(st + S::kW, a.h, a.m, a.ld_h,
+                                                                  k0);
   };
 
   float acc[2][NT][4];   // w8a8: the j-blocks' dots times sh, added in j order
@@ -930,7 +753,8 @@ __global__ void __launch_bounds__(kDnThreads, 2) int8_ffn_down_stream_kernel(con
     if (it + kSStages - 1 < cnt) fetch((it + kSStages - 1) % kSStages, c0 + it + kSStages - 1);
     warp_mma::cp_async_commit();
     const unsigned char* st = smem_stream8 + (it % kSStages) * S::kStage;
-    stage_products<NT, A8, 1>(ci, st + set * kSKC * S::kLdW + 32 * warp + 4 * g, S::kW, S::kLdW,
+    wstream::int8_stage_products<NT, A8, 1, kSKC>(ci, st + set * kSKC * S::kLdW + 32 * warp + 4 * g,
+                                                  S::kW, S::kLdW,
                               st + S::kW + g * S::kLdX + set * kSKC * S::kXB, S::kLdX, t);
     if constexpr (A8) {
       if ((it + 1) % kJChunks == 0) {   // the end of j-block jb: its dot times sh, in j order
@@ -995,14 +819,8 @@ __global__ void __launch_bounds__(kDnThreads, 2) int8_ffn_down_stream_kernel(con
   if (col < a.hidden) {
     const float sd = a.sd[col];
     for (int tok = rank + splits * (tid / kDnBN); tok < a.m; tok += kDnSets * splits) {
-      float p[kMaxSplits];
-#pragma unroll
-      for (int z = 0; z < kMaxSplits; ++z)
-        if (z < splits) p[z] = cluster.map_shared_rank(part, z)[tok * kDnBN + (tid & (kDnBN - 1))];
-      float sum = 0.f;
-#pragma unroll
-      for (int z = 0; z < kMaxSplits; ++z)
-        if (z < splits) sum += p[z];
+      const float sum = wstream::split_sum(cluster, part, tok * kDnBN + (tid & (kDnBN - 1)),
+                                           splits);
       a.out[static_cast<long long>(tok) * a.hidden + col] =
           __float2bfloat16_rn(__fmul_rn(sum, sd));
     }
@@ -1010,71 +828,23 @@ __global__ void __launch_bounds__(kDnThreads, 2) int8_ffn_down_stream_kernel(con
   cluster.sync();   // the other blocks read this block's sums until here
 }
 
-// A launch in clusters of (1, grid.y, 1): the splits of one j-block or
-// column strip share a cluster.
-template <typename K>
-cudaError_t launch_clusters(K kernel, dim3 grid, int threads, int smem, cudaStream_t st,
-                            const StreamArgs& a) {
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = 1;
-  attr.val.clusterDim.y = grid.y;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, a);
-}
-
 template <int NT, bool A8>
 cudaError_t launch_stream(const StreamArgs& a, int gu_splits, int dn_splits, cudaStream_t st) {
   const cudaError_t err =
-      launch_clusters(int8_ffn_gateup_stream_kernel<NT, A8>, dim3(a.n_j, gu_splits), kGuThreads,
-                      StageOf<NT, A8, 2, kBJ, kSKC>::kBytes, st, a);
+      wstream::launch_clusters(int8_ffn_gateup_stream_kernel<NT, A8>, dim3(a.n_j, gu_splits),
+                               kGuThreads, StageOf<NT, A8, 2, kBJ, kSKC>::kBytes, st, a);
   if (err != cudaSuccess) return err;
-  return launch_clusters(int8_ffn_down_stream_kernel<NT, A8>,
-                         dim3((a.hidden + kDnBN - 1) / kDnBN, dn_splits), kDnThreads,
-                         StageOf<NT, A8, 1, kDnBN, kDnKC>::kBytes, st, a);
-}
-
-// How many clusters of (1, splits, 1) blocks of a kernel the card runs at
-// once, or -1 on a CUDA error.
-template <typename K>
-int active_clusters(K kernel, int threads, int smem, int splits) {
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = 1;
-  attr.val.clusterDim.y = splits;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1, splits);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess) {
-    cudaGetLastError();
-    return -1;
-  }
-  return clusters;
+  return wstream::launch_clusters(int8_ffn_down_stream_kernel<NT, A8>,
+                                  dim3((a.hidden + kDnBN - 1) / kDnBN, dn_splits), kDnThreads,
+                                  StageOf<NT, A8, 1, kDnBN, kDnKC>::kBytes, st, a);
 }
 
 template <int NT, bool A8>
 int stream_clusters(bool down, int splits) {
-  return down ? active_clusters(int8_ffn_down_stream_kernel<NT, A8>, kDnThreads,
-                                StageOf<NT, A8, 1, kDnBN, kDnKC>::kBytes, splits)
-              : active_clusters(int8_ffn_gateup_stream_kernel<NT, A8>, kGuThreads,
-                                StageOf<NT, A8, 2, kBJ, kSKC>::kBytes, splits);
+  return down ? wstream::active_clusters(int8_ffn_down_stream_kernel<NT, A8>, kDnThreads,
+                                         StageOf<NT, A8, 1, kDnBN, kDnKC>::kBytes, splits)
+              : wstream::active_clusters(int8_ffn_gateup_stream_kernel<NT, A8>, kGuThreads,
+                                         StageOf<NT, A8, 2, kBJ, kSKC>::kBytes, splits);
 }
 
 template <bool A8>

@@ -64,14 +64,15 @@ _BJ_MAX = 256
 FFN_PARTIAL_BYTES = 1 << 30
 
 # launches of each CUDA kernel form, under the name chip_smoke.py reports it
-# by; a wrapper adds one where it launches, and nowhere else.  A K4 call or a
-# prefill K5 call whose contraction is split, and every prefill K6 or K7 row
+# by; a wrapper adds one where it launches, and nowhere else.  A prefill K4
+# or K5 call whose contraction is split, and every prefill K6 or K7 row
 # chunk, also launches the fixed-order reduction of its partials
 # (``int4_common.cuh``: ``reduce_partials_kernel``), counted under
-# "int8_reduce" or "int4_reduce"; K5 at decode adds its split partials inside
-# its own launch, and K6 at decode launches twice (gate/up, then down, each
-# adding its own splits in its clusters).  Every int8-activation call (K4, K5, K6, K7) first
-# quantizes x in one launch ("int4_act_quant")
+# "int8_reduce" or "int4_reduce"; at decode K4 and K5 add their split
+# partials inside their one launch, and K6 and K7 launch twice (gate/up,
+# then down, each adding its own splits in its clusters).  Every
+# int8-activation call (K4, K5, K6, K7) first quantizes x in one launch
+# ("int4_act_quant")
 LAUNCHES = dict.fromkeys(("int4_matmul", "int4_matmul_a8", "int4_ffn", "int4_ffn_a8",
                           "int4_reduce", "int4_act_quant", "int8_matmul", "int8_matmul_a8",
                           "int8_ffn", "int8_ffn_a8", "int8_reduce"), 0)
@@ -92,11 +93,16 @@ INT8_BLOCK_J = 256
 # j-block and walk the hidden rows in ring stages of FFN_STREAM_KC, at least
 # FFN_STREAM_MIN_STAGES a split; the down kernel's blocks own
 # FFN_STREAM_COLUMNS output columns and walk whole j-blocks; the splits of
-# a j-block or strip form one cluster of at most FFN_STREAM_MAX_SPLITS
+# a j-block or strip form one cluster of at most FFN_STREAM_MAX_SPLITS.  K7
+# at decode does the same with whole scale groups (at least
+# STREAM_MIN_GROUPS a gate/up split) and its ffn_block_j j-blocks, and K4
+# with STREAM_COLUMNS-column strips over ring stages of INT8_STREAM_KC
+# contraction rows, at least FFN_STREAM_MIN_STAGES a split
 FFN_STREAM_KC = 32
 FFN_STREAM_MIN_STAGES = 4
 FFN_STREAM_COLUMNS = 128
 FFN_STREAM_MAX_SPLITS = 8
+INT8_STREAM_KC = 64
 
 
 # ------------------------------------------------------------------ host side
@@ -184,6 +190,32 @@ def _group_dot(x8: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor, group: i
         part = x8[:, gi * group:(gi + 1) * group].float() @ q[gi]
         acc = acc + part * scale[gi]
     return acc
+
+
+def cluster_splits(clusters: tuple, cap: int, units: int) -> int:
+    """The most splits s, up to ``cap`` and FFN_STREAM_MAX_SPLITS, with which
+    ``units`` clusters of s blocks all run at once on the card
+    (``clusters[s - 1]`` is how many it runs at once), else 1."""
+    return max([s for s in range(1, min(cap, FFN_STREAM_MAX_SPLITS) + 1)
+                if clusters[s - 1] >= units] or [1])
+
+
+def _cluster_occupancy(key: tuple, query, kernels: int) -> tuple:
+    """How many clusters of 1 to FFN_STREAM_MAX_SPLITS blocks of each of a
+    form's ``kernels`` decode kernels the card runs at once: ``query(k,
+    splits)``, asked once per ``key``; raises if a query fails."""
+    if key not in _RESIDENCY:
+        clusters = tuple(tuple(query(k, s) for s in range(1, FFN_STREAM_MAX_SPLITS + 1))
+                         for k in range(kernels))
+        if min(min(c) for c in clusters) < 0:
+            raise RuntimeError(f"{key[0]}_stream: cluster occupancy query failed ({clusters})")
+        _RESIDENCY[key] = clusters
+    return _RESIDENCY[key]
+
+
+def _row_tier(m: int) -> int:
+    """The decode kernels' token tiles of 8 rows: 1, 2 or 4."""
+    return 1 if m <= 8 else 2 if m <= 16 else 4
 
 
 # ------------------------------------------------------------------ K5
@@ -312,7 +344,7 @@ _RESIDENCY: dict = {}
 def _stream_residency(x: torch.Tensor, m: int, group: int, act_quant: bool) -> int:
     """Blocks of the decode kernel the card holds on one SM (its occupancy,
     queried once per row tier, group and form)."""
-    key = (x.device, 1 if m <= 8 else 2 if m <= 16 else 4, group, act_quant)
+    key = (x.device, _row_tier(m), group, act_quant)
     if key not in _RESIDENCY:
         blocks = build.library().lib.int4_matmul_stream_residency(m, group, int(act_quant))
         if blocks < 1:
@@ -501,9 +533,66 @@ def ffn_row_chunk(m: int, n_j: int, hidden: int) -> int:
     return min(rows, _rup(m, tile))
 
 
-def _int4_ffn_kernel(x, wg4, sg, wu4, su, wd4, sd, g_h: int, g_i: int, act_quant: bool):
+def int4_ffn_stream_splits(hidden: int, inter: int, group: int,
+                           clusters: tuple) -> tuple[int, int, int, int]:
+    """(gate/up splits, scale groups per split, down splits, j-blocks per
+    split) of K7's decode kernels: ``int8_ffn_stream_splits``' rule over
+    whole hidden scale groups (at least STREAM_MIN_GROUPS a split) and
+    ``ffn_block_j``'s j-blocks; ``clusters[k][s - 1]`` is how many clusters of
+    s blocks kernel k (0 gate/up, 1 down) runs at once on the card."""
+    g_h, g_i = _int4_group(hidden, group), _int4_group(inter, group)
+    bj = ffn_block_j(inter, g_i)
+    n_j = _rup(inter, bj) // bj
+    groups = hidden // g_h
+    gu = cluster_splits(clusters[0], groups // STREAM_MIN_GROUPS, n_j)
+    gu_per = math.ceil(groups / gu)
+    dn = cluster_splits(clusters[1], n_j, math.ceil(hidden / FFN_STREAM_COLUMNS))
+    dn_per = math.ceil(n_j / dn)
+    return math.ceil(groups / gu_per), gu_per, math.ceil(n_j / dn_per), dn_per
+
+
+def int4_ffn_plan(m: int, hidden: int, inter: int, group: int, clusters: tuple) -> tuple:
+    """The kernels of a K7 call on m rows: ("stream", gate/up splits, groups
+    per split, down splits, j-blocks per split) up to STREAM_MAX_ROWS rows
+    (``clusters`` as ``int4_ffn_stream_splits`` takes it), else ("tiled",
+    rows per chunk) for the cluster kernel and its reduction, one pair per
+    row chunk."""
+    if m <= STREAM_MAX_ROWS:
+        return ("stream", *int4_ffn_stream_splits(hidden, inter, group, clusters))
+    bj = ffn_block_j(inter, _int4_group(inter, group))
+    return ("tiled", ffn_row_chunk(m, _rup(inter, bj) // bj, hidden))
+
+
+def int4_ffn_launches(m: int, hidden: int, inter: int, group: int, act_quant: bool) -> dict:
+    """The launches of one K7 call on m rows, under ``LAUNCHES``' names: two
+    at decode (gate/up, down), one kernel and one reduction per row chunk
+    above, and the activation quantization for w4a8."""
+    name = "int4_ffn_a8" if act_quant else "int4_ffn"
+    if m <= STREAM_MAX_ROWS:
+        return {name: 2, "int4_reduce": 0, "int4_act_quant": int(act_quant)}
+    chunks = math.ceil(m / int4_ffn_plan(m, hidden, inter, group, ())[1])
+    return {name: chunks, "int4_reduce": chunks, "int4_act_quant": int(act_quant)}
+
+
+def int4_ffn_plan_on(xm: torch.Tensor, inter: int, group: int, act_quant: bool) -> tuple:
+    """``int4_ffn_plan`` of a K7 call on the (m, hidden) rows xm on its card
+    (the decode kernels' cluster occupancy queried once per row tier, scale
+    groups and form)."""
+    m, hidden = xm.shape
+    clusters = ()
+    if m <= STREAM_MAX_ROWS:
+        g_h, g_i = _int4_group(hidden, group), _int4_group(inter, group)
+        lib = build.library().lib
+        clusters = _cluster_occupancy(
+            ("int4_ffn", xm.device, _row_tier(m), g_h, g_i, act_quant),
+            lambda down, s: lib.int4_ffn_stream_clusters(m, g_h, g_i, int(act_quant), down, s), 2)
+    return int4_ffn_plan(m, hidden, inter, group, clusters)
+
+
+def _int4_ffn_kernel(x, wg4, sg, wu4, su, wd4, sd, group: int, act_quant: bool):
     *lead, hidden = x.shape
     inter = sg.shape[1]
+    g_h, g_i = _int4_group(hidden, group), _int4_group(inter, group)
     _kernel_limits(x, g_h)
     _kernel_limits(x, g_i)
     bj = ffn_block_j(inter, g_i)
@@ -515,10 +604,23 @@ def _int4_ffn_kernel(x, wg4, sg, wu4, su, wd4, sd, g_h: int, g_i: int, act_quant
     if act_quant:
         xm, sx = _quantize_act_kernel(xm)
     out = torch.empty(m, hidden, dtype=x.dtype, device=x.device)
-    rows = ffn_row_chunk(m, n_j, hidden)
-    partial = torch.empty(n_j, rows, hidden, device=x.device)
     lib, stream = build.library().lib, _stream(x)
     name = "int4_ffn_a8" if act_quant else "int4_ffn"
+    plan = int4_ffn_plan_on(xm, inter, group, act_quant)
+    if plan[0] == "stream":
+        _, gu, gu_per, dn, dn_per = plan
+        h = torch.empty(m, n_j * bj, dtype=torch.int8 if act_quant else torch.bfloat16,
+                        device=x.device)
+        sh = torch.empty(m, n_j, device=x.device) if act_quant else None
+        rc = lib.int4_ffn_stream_launch(
+            xm.data_ptr(), sx.data_ptr() if act_quant else None, *(t.data_ptr() for t in ws),
+            out.data_ptr(), h.data_ptr(), sh.data_ptr() if act_quant else None, m, hidden, inter,
+            g_h, g_i, bj, gu_per, gu, dn_per, dn, int(act_quant), stream)
+        build.check_launch(rc, name)
+        LAUNCHES[name] += 2
+        return out.reshape(*lead, hidden)
+    rows = plan[1]
+    partial = torch.empty(n_j, rows, hidden, device=x.device)
     for r0 in range(0, m, rows):
         n = min(rows, m - r0)
         rc = lib.int4_ffn_launch(
@@ -535,9 +637,10 @@ def int4_ffn(x, wg4, sg, wu4, su, wd4, sd, group: int = GROUP, impl: str = "pall
              act_quant: bool = False) -> torch.Tensor:
     """down(silu(x Wg) * (x Wu)) with packed int4 gate/up (hidden/2, inter)
     and down (inter/2, hidden) weights and their group scales -> (...,
-    hidden) in x's dtype: on the card one kernel launch (and its reduction)
-    per row chunk (``ffn_row_chunk``): one chunk at decode, two for a 4 x
-    512-token prefill at Meditron-7B width."""
+    hidden) in x's dtype: on the card two launches at up to STREAM_MAX_ROWS
+    rows (the decode kernels), else one kernel launch and its reduction per
+    row chunk (``ffn_row_chunk``): two chunks for a 4 x 512-token prefill at
+    Meditron-7B width (``int4_ffn_plan``)."""
     g_h, g_i = _check_ffn(x, wg4, sg, wu4, su, wd4, sd, group)
     if impl == "xla":
         return _int4_ffn_xla(x, wg4, sg, wu4, su, wd4, sd, g_h, g_i, act_quant)
@@ -545,7 +648,7 @@ def int4_ffn(x, wg4, sg, wu4, su, wd4, sd, group: int = GROUP, impl: str = "pall
         raise ValueError(f"unknown impl {impl!r}")
     if _device(x) == "cpu":
         return int4_ffn_plain(x, wg4, sg, wu4, su, wd4, sd, group, act_quant)
-    return _int4_ffn_kernel(x, wg4, sg, wu4, su, wd4, sd, g_h, g_i, act_quant)
+    return _int4_ffn_kernel(x, wg4, sg, wu4, su, wd4, sd, group, act_quant)
 
 
 # ------------------------------------------------------------------ K4
@@ -586,9 +689,55 @@ def int8_matmul_plain(x, w8, scale, act_quant: bool = False):
 
 
 def int8_matmul_splits(m: int, d_in: int, d_out: int, sms: int) -> tuple[int, int]:
-    """(splits of the contraction, ``INT8_KC`` chunks per split): K5's rule
-    (``matmul_splits``) over whole chunks."""
+    """(splits of the contraction, ``INT8_KC`` chunks per split) of the
+    tiled kernel: K5's rule (``matmul_splits``) over whole chunks."""
     return matmul_splits(m, _rup(d_in, INT8_KC), d_out, INT8_KC, sms)
+
+
+def int8_matmul_stream_splits(d_in: int, d_out: int, clusters: tuple) -> tuple[int, int]:
+    """(splits, ring stages per split) of K4's decode kernel: its contraction
+    in stages of INT8_STREAM_KC rows, at least FFN_STREAM_MIN_STAGES a split;
+    the splits of a STREAM_COLUMNS-column strip form one cluster, and the
+    kernel takes the most (up to FFN_STREAM_MAX_SPLITS) with which every
+    strip's cluster runs at once (``clusters[s - 1]``: how many clusters of
+    s blocks the card runs at once)."""
+    stages = math.ceil(d_in / INT8_STREAM_KC)
+    splits = cluster_splits(clusters, stages // FFN_STREAM_MIN_STAGES,
+                            math.ceil(d_out / STREAM_COLUMNS))
+    per = math.ceil(stages / splits)
+    return math.ceil(stages / per), per
+
+
+def int8_matmul_plan(m: int, d_in: int, d_out: int, sms: int,
+                     clusters: tuple) -> tuple[str, int, int]:
+    """(kernel, splits, stages or chunks per split) of a K4 call on m rows:
+    the weight-streaming kernel ("stream") up to STREAM_MAX_ROWS rows, adding
+    its splits in its own launch; else the tiled kernel ("tiled"), whose
+    split contraction takes a second launch."""
+    if m <= STREAM_MAX_ROWS:
+        return ("stream", *int8_matmul_stream_splits(d_in, d_out, clusters))
+    return ("tiled", *int8_matmul_splits(m, d_in, d_out, sms))
+
+
+def int8_matmul_launches(m: int, d_in: int, d_out: int, sms: int, act_quant: bool) -> dict:
+    """The launches of one K4 call on m rows, under ``LAUNCHES``' names."""
+    tiled = m > STREAM_MAX_ROWS and int8_matmul_splits(m, d_in, d_out, sms)[0] > 1
+    return {"int8_matmul_a8" if act_quant else "int8_matmul": 1, "int8_reduce": int(tiled),
+            "int4_act_quant": int(act_quant)}
+
+
+def int8_matmul_plan_on(xm: torch.Tensor, d_out: int, act_quant: bool) -> tuple[str, int, int]:
+    """``int8_matmul_plan`` of a K4 call on the (m, in) rows xm on its card
+    (the decode kernel's cluster occupancy queried once per row tier and
+    form)."""
+    m, d_in = xm.shape
+    clusters = ()
+    if m <= STREAM_MAX_ROWS:
+        lib = build.library().lib
+        clusters = _cluster_occupancy(
+            ("int8_matmul", xm.device, _row_tier(m), act_quant),
+            lambda _, s: lib.int8_matmul_stream_clusters(m, int(act_quant), s), 1)[0]
+    return int8_matmul_plan(m, d_in, d_out, _sm_count(xm), clusters)
 
 
 def _int8_matmul_kernel(x, w8, scale, act_quant: bool):
@@ -602,19 +751,24 @@ def _int8_matmul_kernel(x, w8, scale, act_quant: bool):
     if act_quant:
         xm, sx = _quantize_act_kernel(xm)
     out = torch.empty(m, d_out, dtype=x.dtype, device=x.device)
-    splits, per = int8_matmul_splits(m, d_in, d_out, _sm_count(x))
-    # the splits' partial sums: exact int32 (w8a8) or fp32 (w8)
-    work = (torch.empty(splits, m, d_out, device=x.device,
-                        dtype=torch.int32 if act_quant else torch.float32)
-            if splits > 1 else None)
-    rc = build.library().lib.int8_matmul_launch(
-        xm.data_ptr(), sx.data_ptr() if act_quant else None, w8.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), work.data_ptr() if work is not None else None, m, d_in, d_out, per,
-        splits, int(act_quant), _stream(x))
+    kernel, splits, per = int8_matmul_plan_on(xm, d_out, act_quant)
+    ptrs = (xm.data_ptr(), sx.data_ptr() if act_quant else None, w8.data_ptr(),
+            scale.data_ptr(), out.data_ptr())
+    lib = build.library().lib
+    if kernel == "stream":
+        rc = lib.int8_matmul_stream_launch(*ptrs, m, d_in, d_out, per, splits, int(act_quant),
+                                           _stream(x))
+    else:
+        # the splits' partial sums: exact int32 (w8a8) or fp32 (w8)
+        work = (torch.empty(splits, m, d_out, device=x.device,
+                            dtype=torch.int32 if act_quant else torch.float32)
+                if splits > 1 else None)
+        rc = lib.int8_matmul_launch(*ptrs, work.data_ptr() if work is not None else None, m,
+                                    d_in, d_out, per, splits, int(act_quant), _stream(x))
     name = "int8_matmul_a8" if act_quant else "int8_matmul"
     build.check_launch(rc, name)
     LAUNCHES[name] += 1
-    LAUNCHES["int8_reduce"] += splits > 1
+    LAUNCHES["int8_reduce"] += kernel == "tiled" and splits > 1
     return out.reshape(*lead, d_out)
 
 
@@ -695,14 +849,9 @@ def int8_ffn_stream_splits(hidden: int, inter: int,
     n_j = _rup(inter, INT8_BLOCK_J) // INT8_BLOCK_J
     stages = math.ceil(hidden / FFN_STREAM_KC)
     strips = math.ceil(hidden / FFN_STREAM_COLUMNS)
-
-    def most(kernel: int, cap: int, units: int) -> int:
-        return max([s for s in range(1, min(cap, FFN_STREAM_MAX_SPLITS) + 1)
-                    if clusters[kernel][s - 1] >= units] or [1])
-
-    gu = most(0, stages // FFN_STREAM_MIN_STAGES, n_j)
+    gu = cluster_splits(clusters[0], stages // FFN_STREAM_MIN_STAGES, n_j)
     gu_per = math.ceil(stages / gu)
-    dn = most(1, n_j, strips)
+    dn = cluster_splits(clusters[1], n_j, strips)
     dn_per = math.ceil(n_j / dn)
     return math.ceil(stages / gu_per), gu_per, math.ceil(n_j / dn_per), dn_per
 
@@ -730,25 +879,17 @@ def int8_ffn_launches(m: int, hidden: int, inter: int, act_quant: bool) -> dict:
     return {name: chunks, "int8_reduce": chunks, "int4_act_quant": int(act_quant)}
 
 
-def _ffn_stream_clusters(x: torch.Tensor, m: int, act_quant: bool) -> tuple:
-    """How many clusters of 1 to FFN_STREAM_MAX_SPLITS blocks of K6's
-    gate/up and down decode kernels the card runs at once (queried once per
-    row tier and form)."""
-    key = ("int8_ffn", x.device, 1 if m <= 8 else 2 if m <= 16 else 4, act_quant)
-    if key not in _RESIDENCY:
-        lib = build.library().lib
-        clusters = tuple(tuple(lib.int8_ffn_stream_clusters(m, int(act_quant), down, s)
-                               for s in range(1, FFN_STREAM_MAX_SPLITS + 1)) for down in (0, 1))
-        if min(min(c) for c in clusters) < 0:
-            raise RuntimeError(f"int8_ffn_stream: cluster occupancy query failed ({clusters})")
-        _RESIDENCY[key] = clusters
-    return _RESIDENCY[key]
-
-
 def int8_ffn_plan_on(xm: torch.Tensor, inter: int, act_quant: bool) -> tuple:
-    """``int8_ffn_plan`` of a K6 call on the (m, hidden) rows xm on its card."""
+    """``int8_ffn_plan`` of a K6 call on the (m, hidden) rows xm on its card
+    (the decode kernels' cluster occupancy queried once per row tier and
+    form)."""
     m, hidden = xm.shape
-    clusters = _ffn_stream_clusters(xm, m, act_quant) if m <= STREAM_MAX_ROWS else ()
+    clusters = ()
+    if m <= STREAM_MAX_ROWS:
+        lib = build.library().lib
+        clusters = _cluster_occupancy(
+            ("int8_ffn", xm.device, _row_tier(m), act_quant),
+            lambda down, s: lib.int8_ffn_stream_clusters(m, int(act_quant), down, s), 2)
     return int8_ffn_plan(m, hidden, inter, clusters)
 
 

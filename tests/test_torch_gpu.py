@@ -994,14 +994,83 @@ def test_int4_ffn_kernel_matches_plain(cuda, shape, act_quant):
     for a, b in ((hidden, inter), (hidden, inter), (inter, hidden)):
         ws += list(quant.quantize_int4(0.05 * torch.randn(a, b, generator=cuda, device="cuda")))
     x = torch.randn(m, hidden, generator=cuda, device="cuda").to(torch.bfloat16)
-    name = "int4_ffn_a8" if act_quant else "int4_ffn"
-    before = quant.LAUNCHES[name]
+    before = dict(quant.LAUNCHES)
     got = quant.int4_ffn(x, *ws, act_quant=act_quant)
     torch.cuda.synchronize()
-    assert quant.LAUNCHES[name] == before + 1
+    launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
+    want = quant.int4_ffn_launches(m, hidden, inter, quant.GROUP, act_quant)
+    assert launched == dict(dict.fromkeys(quant.LAUNCHES, 0), **want)
     ref = quant.int4_ffn_plain(x, *ws, act_quant=act_quant)
     tol = TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+# (m, hidden, inter) at K7's decode kernels: 1, 4, 5 and 32 rows at
+# Meditron-7B's width (43 whole j-blocks of 256), and INT4_FFN_SHAPES' odd
+# widths at decode rows: a padded last j-block (384), groups of 64 (hidden
+# 192, inter 320), 32 (hidden 160) and a j-block narrower than 128 (inter
+# 64), a hidden size not a multiple of 128 (192, 160), and groups 64 inside
+# a j-block of 192 (inter 192: three down groups a j-block)
+INT4_FFN_DECODE_SHAPES = [(1, 4096, 11008), (4, 4096, 11008), (5, 4096, 11008),
+                          (32, 4096, 11008), (4, 256, 384), (5, 192, 320), (20, 160, 64),
+                          (32, 1024, 2048), (17, 192, 192)]
+
+
+def _int4_ffn_weights(gen, hidden, inter):
+    from ctpa_torch.ops import quant
+
+    ws = []
+    for a, b in ((hidden, inter), (hidden, inter), (inter, hidden)):
+        ws += list(quant.quantize_int4(0.05 * torch.randn(a, b, generator=gen, device="cuda")))
+    return ws
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("shape", INT4_FFN_DECODE_SHAPES)
+def test_int4_ffn_decode_kernel_matches_plain(cuda, shape, act_quant):
+    """K7's decode kernels (two launches: gate/up, its splits added in order
+    in each j-block's cluster, then down, its splits added in each strip's
+    cluster; no reduction) against the plain version: w4 in bf16's bound,
+    w4a8 in one bf16 ulp of |p| plus 1e-3 of max|p| (the group dots are
+    exact; the splits change the fp32 order of the group sums, which can
+    flip one level of h's int8 grid)."""
+    from ctpa_torch.ops import quant
+
+    m, hidden, inter = shape
+    ws = _int4_ffn_weights(cuda, hidden, inter)
+    x = torch.randn(m, hidden, generator=cuda, device="cuda").to(torch.bfloat16)
+    kind, gu, gu_per, dn, dn_per = quant.int4_ffn_plan_on(x, inter, quant.GROUP, act_quant)
+    g_h, g_i = quant._int4_group(hidden, quant.GROUP), quant._int4_group(inter, quant.GROUP)
+    bj = quant.ffn_block_j(inter, g_i)
+    n_j = -(-inter // bj)
+    assert kind == "stream"
+    assert (gu - 1) * gu_per < hidden // g_h <= gu * gu_per
+    assert (dn - 1) * dn_per < n_j <= dn * dn_per
+    before = dict(quant.LAUNCHES)
+    got = quant.int4_ffn(x, *ws, act_quant=act_quant)
+    torch.cuda.synchronize()
+    launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
+    name = "int4_ffn_a8" if act_quant else "int4_ffn"
+    assert launched == dict(dict.fromkeys(quant.LAUNCHES, 0), **{name: 2},
+                            int4_act_quant=int(act_quant))
+    _int8_close(got, quant.int4_ffn_plain(x, *ws, act_quant=act_quant), act_quant)
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("m", [4, 32])
+def test_int4_ffn_decode_kernel_is_deterministic(cuda, m, act_quant):
+    """K7 at decode at Meditron-7B's width, called twice, gives the same
+    bits: both kernels add their splits in order, with no float atomics."""
+    from ctpa_torch.ops import quant
+
+    ws = _int4_ffn_weights(cuda, 4096, 11008)
+    x = torch.randn(m, 4096, generator=cuda, device="cuda").to(torch.bfloat16)
+    plan = quant.int4_ffn_plan_on(x, 11008, quant.GROUP, act_quant)
+    assert plan[1] > 1 and plan[3] > 1
+    first = quant.int4_ffn(x, *ws, act_quant=act_quant)
+    second = quant.int4_ffn(x, *ws, act_quant=act_quant)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_int4_ffn_kernel_chunks_rows(cuda, monkeypatch):
@@ -1079,13 +1148,16 @@ def test_int4_report_generator_kernel_path_matches_plain_path(cuda, act_quant):
     prefill = cs.quant_kernel_launches(cfg, ids.numel(), 2, sms)
     step = cs.quant_kernel_launches(cfg, 2, 2, sms)
     assert prefill[k5] == step[k5] == 2 * base.num_layers + 1
-    assert prefill[k7] == step[k7] == base.num_layers
+    # 18 prompt rows and 2 decode rows: K7's two decode launches a layer
+    assert prefill[k7] == step[k7] == 2 * base.num_layers
     before = dict(quant.LAUNCHES)
     with torch.inference_mode():
         tokens = model.generate(*inputs, 8, -1, greedy=True).tokens
         launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
         assert launched == {k: prefill.get(k, 0) + 7 * step.get(k, 0) for k in quant.LAUNCHES}
-        assert launched["int4_act_quant"] == (launched[k5] + launched[k7] if act_quant else 0)
+        # one activation quantization per K5 and per K7 call with w4a8
+        assert launched["int4_act_quant"] == (
+            launched[k5] + launched[k7] // 2 if act_quant else 0)
         kernel = cs.teacher_forced_logits(model, *inputs, tokens)
         plain = cs.teacher_forced_logits(cs.twin(model, quant_impl="xla"), *inputs, tokens)
     assert torch.equal(kernel.argmax(-1), tokens)
@@ -1123,15 +1195,70 @@ def test_int8_matmul_kernel_matches_plain(cuda, shape, act_quant):
     m, d_in, d_out = shape
     w8, s = quant.quantize_int8(0.05 * torch.randn(d_in, d_out, generator=cuda, device="cuda"))
     x = torch.randn(m, d_in, generator=cuda, device="cuda").to(torch.bfloat16)
-    name = "int8_matmul_a8" if act_quant else "int8_matmul"
-    splits = quant.int8_matmul_splits(m, d_in, d_out, quant._sm_count(x))[0]
     before = dict(quant.LAUNCHES)
     got = quant.int8_matmul(x, w8, s, act_quant=act_quant)
     torch.cuda.synchronize()
-    assert quant.LAUNCHES[name] == before[name] + 1
-    assert quant.LAUNCHES["int8_reduce"] == before["int8_reduce"] + (splits > 1)
-    assert quant.LAUNCHES["int4_act_quant"] == before["int4_act_quant"] + act_quant
+    launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
+    want = quant.int8_matmul_launches(m, d_in, d_out, quant._sm_count(x), act_quant)
+    assert launched == dict(dict.fromkeys(quant.LAUNCHES, 0), **want)
     _int8_close(got, quant.int8_matmul_plain(x, w8, s, act_quant=act_quant), act_quant)
+
+
+# (m, in, out) around K4's decode kernel: 1, 4, 17 and 32 rows take it, 33
+# the tiled kernel; Meditron-7B's qkv_proj (12288), o_proj and lm_head
+# (32000) and the unfused FFN's down projection (11008 -> 4096); a ragged
+# contraction (513: x's element loads, a last ring stage of 1 row), ragged
+# widths (1000: byte copies of the weights; 33), a short contraction (72)
+INT8_DECODE_SHAPES = [(1, 4096, 4096), (4, 4096, 12288), (4, 4096, 32000), (17, 513, 1000),
+                      (32, 4096, 12288), (32, 11008, 4096), (33, 4096, 4096), (5, 513, 33),
+                      (4, 72, 40), (32, 4096, 1000)]
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("shape", INT8_DECODE_SHAPES)
+def test_int8_matmul_decode_kernel_matches_plain(cuda, shape, act_quant):
+    """K4 around the decode/prefill threshold against its plain version: w8
+    in bf16's bound; w8a8 bit for bit at decode (exact int32 sums, scaled in
+    the plain version's order), in the int8 bound above.  One launch (and
+    the activation quantization for w8a8); the decode kernel adds its
+    splits in its clusters."""
+    from ctpa_torch.ops import quant
+
+    m, d_in, d_out = shape
+    w8, s = quant.quantize_int8(0.05 * torch.randn(d_in, d_out, generator=cuda, device="cuda"))
+    x = torch.randn(m, d_in, generator=cuda, device="cuda").to(torch.bfloat16)
+    kernel, splits, per = quant.int8_matmul_plan_on(x, d_out, act_quant)
+    assert kernel == ("stream" if m <= 32 else "tiled")
+    if kernel == "stream":
+        stages = -(-d_in // quant.INT8_STREAM_KC)
+        assert (splits - 1) * per < stages <= splits * per
+    before = dict(quant.LAUNCHES)
+    got = quant.int8_matmul(x, w8, s, act_quant=act_quant)
+    torch.cuda.synchronize()
+    launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
+    want = quant.int8_matmul_launches(m, d_in, d_out, quant._sm_count(x), act_quant)
+    assert launched == dict(dict.fromkeys(quant.LAUNCHES, 0), **want)
+    ref = quant.int8_matmul_plain(x, w8, s, act_quant=act_quant)
+    if act_quant and kernel == "stream":
+        assert torch.equal(got, ref)
+    _int8_close(got, ref, act_quant)
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("m", [4, 32])
+def test_int8_matmul_decode_kernel_is_deterministic(cuda, m, act_quant):
+    """K4's decode kernel at o_proj's width (32 strips, the most splits),
+    called twice, gives the same bits: each strip's cluster adds its splits
+    in order."""
+    from ctpa_torch.ops import quant
+
+    w8, s = quant.quantize_int8(0.05 * torch.randn(4096, 4096, generator=cuda, device="cuda"))
+    x = torch.randn(m, 4096, generator=cuda, device="cuda").to(torch.bfloat16)
+    assert quant.int8_matmul_plan_on(x, 4096, act_quant)[1] > 1
+    first = quant.int8_matmul(x, w8, s, act_quant=act_quant)
+    second = quant.int8_matmul(x, w8, s, act_quant=act_quant)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # (m, hidden, inter): decode and prefill rows; a padded last j-block (384,

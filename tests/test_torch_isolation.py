@@ -61,7 +61,7 @@ def test_port_sources_avoid_torch_extensions_and_library_attention():
     headers = list((ROOT / "ctpa_torch" / "csrc").glob("*.cuh"))
     assert sorted(p.name for p in headers) == ["flash_masks.cuh", "flash_tiles.cuh",
                                                "int4_common.cuh", "patch_project.cuh",
-                                               "warp_mma.cuh"]
+                                               "stream_common.cuh", "warp_mma.cuh"]
     banned_py = ("import torch.utils.cpp_extension", "from torch.utils.cpp_extension",
                  "cpp_extension.load", "torch.compile(", "scaled_dot_product_attention(",
                  "_weight_int4pack_mm(", "_weight_int8pack_mm(", "_int_mm(")

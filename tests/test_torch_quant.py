@@ -238,6 +238,7 @@ K7_CASES = [  # (m, hidden, inter): tests/test_quant.py:470-575
     (4, 64, 384),        # groups 64 / 128, the last j-block padded (384 -> 512)
     (5, 256, 384),       # n_gh = 2 hidden groups, n_gj = 2 down groups a block
     (8, 64, 384),
+    (32, 256, 384),      # the decode kernels' largest row count (batch 32)
 ]
 
 
@@ -259,6 +260,66 @@ def test_int4_ffn_matches_ctpa(case, act_quant):
     assert tq.LAUNCHES == before
     close(got, ref, OP_TOL, OP_TOL)
     close(tq.int4_ffn(_t(x), *tw, impl="xla", act_quant=act_quant), ref_xla, OP_TOL, OP_TOL)
+
+
+# How many clusters of 1-8 blocks (gate/up, down) example cards run at once:
+# K7's gate/up kernel holds one block an SM (43 clusters of 2 fit, not of
+# 3; or, on a roomier card, of 3), its down kernel two (m <= 16: 32
+# clusters of 8 fit) or one (m 32: 32 clusters of 4); and a card that fits
+# too few even of one block
+GU_1 = (132, 66, 39, 30, 22, 17, 15, 15)
+GU_1B = (132, 66, 44, 33, 26, 22, 18, 16)
+DN_2 = (264, 132, 79, 62, 47, 39, 32, 30)
+DN_1 = (132, 66, 39, 33, 22, 17, 15, 15)
+K7_CARD_A, K7_CARD_B, K7_CARD_C = (GU_1, DN_2), (GU_1, DN_1), (GU_1B, (264,) * 8)
+K7_CARD_0 = ((40, 20, 13, 10, 8, 6, 5, 5), (30, 15, 10, 7, 6, 5, 4, 3))
+# (m, hidden, inter, group, clusters, want): Meditron-7B's FFN at decode
+# (batch 4 and 32, group 128 and 64 on the roomier card: the two streaming
+# kernels, each in the most splits whose clusters all run at once, at least
+# STREAM_MIN_GROUPS scale groups a gate/up split), on a card too small, past the threshold
+# (33 rows) and at prefill (the cluster kernel and its reduction per row
+# chunk); and odd widths: one gate/up split of two groups and two j-blocks
+# (inter 384), groups of 32 with a j-block of 64, a j-block of 192
+K7_PLANS = [(4, 4096, 11008, 128, K7_CARD_A, ("stream", 2, 16, 7, 7)),
+            (32, 4096, 11008, 128, K7_CARD_B, ("stream", 2, 16, 4, 11)),
+            (4, 4096, 11008, 64, K7_CARD_C, ("stream", 3, 22, 8, 6)),
+            (1, 4096, 11008, 128, K7_CARD_0, ("stream", 1, 32, 1, 43)),
+            (33, 4096, 11008, 128, (), ("tiled", 64)),
+            (2048, 4096, 11008, 128, (), ("tiled", 1472)),
+            (4, 256, 384, 128, K7_CARD_A, ("stream", 1, 2, 2, 1)),
+            (20, 160, 64, 128, K7_CARD_A, ("stream", 1, 5, 1, 1)),
+            (32, 192, 192, 128, K7_CARD_B, ("stream", 1, 3, 1, 1))]
+
+
+@pytest.mark.parametrize("m, hidden, inter, group, clusters, want", K7_PLANS)
+def test_int4_ffn_plan_takes_the_kernel_by_rows(m, hidden, inter, group, clusters, want):
+    """K7's dispatch: up to ``STREAM_MAX_ROWS`` rows the two streaming
+    kernels (gate/up over splits of the hidden scale groups, down over
+    splits of the j-blocks; a j-block's or strip's splits form one cluster,
+    which adds them itself: two launches), as many splits as let every
+    cluster run at once; above, the cluster kernel and its reduction per
+    row chunk.  w4a8 adds one activation-quantization launch."""
+    plan = tq.int4_ffn_plan(m, hidden, inter, group, clusters)
+    assert plan == want
+    assert (plan[0] == "stream") == (m <= tq.STREAM_MAX_ROWS)
+    g_h, g_i = tq._int4_group(hidden, group), tq._int4_group(inter, group)
+    bj = tq.ffn_block_j(inter, g_i)
+    n_j = -(-inter // bj)
+    if plan[0] == "stream":
+        _, gu, gu_per, dn, dn_per = plan
+        groups, strips = hidden // g_h, -(-hidden // tq.FFN_STREAM_COLUMNS)
+        assert (gu - 1) * gu_per < groups <= gu * gu_per
+        assert (dn - 1) * dn_per < n_j <= dn * dn_per
+        assert max(gu, dn) <= tq.FFN_STREAM_MAX_SPLITS
+        assert gu == 1 or (clusters[0][gu - 1] >= n_j and gu_per >= tq.STREAM_MIN_GROUPS)
+        assert dn == 1 or clusters[1][dn - 1] >= strips
+    else:
+        assert plan[1] == tq.ffn_row_chunk(m, n_j, hidden)
+    for act_quant in (False, True):
+        chunks = 0 if plan[0] == "stream" else -(-m // plan[1])
+        assert tq.int4_ffn_launches(m, hidden, inter, group, act_quant) == {
+            "int4_ffn_a8" if act_quant else "int4_ffn": 2 if plan[0] == "stream" else chunks,
+            "int4_reduce": chunks, "int4_act_quant": int(act_quant)}
 
 
 def test_int4_ffn_w4a8_requantizes_per_j_block():

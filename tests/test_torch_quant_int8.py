@@ -117,6 +117,7 @@ K4_CASES = [  # (m, in, out, pallas block_in, block_out): tests/test_quant.py's 
     (3, 100, 48, 2048, 1024),     # ragged in, one block
     (8, 512, 384, 256, 128),
     (17, 192, 136, 128, 128),     # more rows than one bf16 row tile
+    (32, 384, 300, 128, 128),     # the decode kernel's largest row count (batch 32)
 ]
 
 
@@ -137,6 +138,55 @@ def test_int8_matmul_matches_ctpa(case, act_quant):
     close_mm(got, ref)
     close_mm(tq.int8_matmul_plain(_t(x), w8, s, act_quant=act_quant), ref)
     close_mm(tq.int8_matmul(_t(x), w8, s, impl="xla", act_quant=act_quant), ref_xla)
+
+
+# How many clusters of 1-8 blocks of K4's decode kernel example cards run at
+# once: two blocks an SM (96 strips' clusters of 2 fit, not of 3), one
+# block an SM, and a card that fits too few
+K4_CARD_2 = (264, 132, 88, 66, 52, 44, 36, 32)
+K4_CARD_1 = (132, 66, 44, 33, 26, 22, 18, 16)
+K4_CARD_0 = (40, 20, 13, 10, 8, 6, 5, 5)
+# (m, in, out, sms, clusters, want): Meditron-7B's qkv_proj, o_proj and
+# lm_head at decode (the streaming kernel, as many splits of 64-row stages
+# as let every strip's cluster run at once, added in its own launch), the
+# unfused FFN's down projection at 32 rows on a one-block card, past the
+# threshold (33 rows) and at prefill (the tiled kernel, one reduction launch
+# when its contraction splits); a ragged contraction (513: a last stage of
+# one row) and a contraction too short to split
+K4_PLANS = [(4, 4096, 12288, 132, K4_CARD_2, ("stream", 2, 32)),
+            (4, 4096, 4096, 132, K4_CARD_2, ("stream", 8, 8)),
+            (4, 4096, 32000, 132, K4_CARD_2, ("stream", 1, 64)),
+            (32, 11008, 4096, 132, K4_CARD_1, ("stream", 4, 43)),
+            (33, 4096, 4096, 132, (), ("tiled", 5, 7)),
+            (2048, 4096, 12288, 132, (), ("tiled", 1, 32)),
+            (5, 513, 1000, 132, K4_CARD_2, ("stream", 2, 5)),
+            (2, 72, 40, 132, K4_CARD_0, ("stream", 1, 2))]
+
+
+@pytest.mark.parametrize("m, d_in, d_out, sms, clusters, want", K4_PLANS)
+def test_int8_matmul_plan_takes_the_kernel_by_rows(m, d_in, d_out, sms, clusters, want):
+    """K4's dispatch: up to ``STREAM_MAX_ROWS`` rows the streaming kernel,
+    whose splits (a strip's cluster adds them) cost no launch; above, the
+    tiled kernel, whose split contraction adds a reduction launch.  Every
+    split holds stages or chunks, the last one possibly fewer; w8a8 adds one
+    activation-quantization launch."""
+    plan = tq.int8_matmul_plan(m, d_in, d_out, sms, clusters)
+    assert plan == want
+    kernel, splits, per = plan
+    assert (kernel == "stream") == (m <= tq.STREAM_MAX_ROWS)
+    if kernel == "stream":
+        stages, strips = -(-d_in // tq.INT8_STREAM_KC), -(-d_out // tq.STREAM_COLUMNS)
+        assert (splits - 1) * per < stages <= splits * per
+        assert splits <= tq.FFN_STREAM_MAX_SPLITS
+        assert splits == 1 or (clusters[splits - 1] >= strips
+                               and per >= tq.FFN_STREAM_MIN_STAGES)
+    else:
+        assert (splits, per) == tq.int8_matmul_splits(m, d_in, d_out, sms)
+    for act_quant in (False, True):
+        assert tq.int8_matmul_launches(m, d_in, d_out, sms, act_quant) == {
+            "int8_matmul_a8" if act_quant else "int8_matmul": 1,
+            "int8_reduce": int(kernel == "tiled" and splits > 1),
+            "int4_act_quant": int(act_quant)}
 
 
 def test_int8_matmul_scales_after_the_sum():
