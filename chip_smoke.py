@@ -106,14 +106,20 @@ Phases, each printing its seconds:
  17. quant-kernels — the int4 projection (K5) and the fused int4 FFN (K7),
                      weight-only and w4a8, against their plain versions at
                      Meditron-7B's shapes: decode at batch 4 and 32, prefill
-                     of 4 x 512 tokens, a ragged case; timed as in phase 3
-                     (weights cycled past the L2 cache), K5 weight-only beside
-                     torch._weight_int4pack_mm; the decode kernels of K5 and
-                     K7 called twice for bits and timed beside the tiled
-                     kernels they replace (a threshold table), and K7's
-                     w4a8 gate/up kernel built with a planted fault
-                     (KERNEL_FAULTS, compiled in the background since the
-                     build phase), which the K7 gate must refuse;
+                     of 4 x 512 tokens, a ragged case (K7 also at 33 and 128
+                     rows, the prefill kernels' first row counts, and the
+                     batch-32 prefill of 16,384 rows untimed); timed as in
+                     phase 3 (weights cycled past the L2 cache), K5
+                     weight-only beside torch._weight_int4pack_mm; the decode
+                     kernels of K5 and K7 and K7's prefill kernels (2,048
+                     rows) called twice for bits, the decode kernels timed
+                     beside the kernels above 32 rows forced at decode rows
+                     (a threshold table), and K7 built twice with a planted
+                     fault (KERNEL_FAULTS, compiled in the background since
+                     the build phase: the w4a8 decode gate/up kernel's row
+                     maximum over half a j-block; the w4 prefill gate/up
+                     kernel's last k-step of each half group dropped), which
+                     the K7 gate must refuse;
  18. quant-report  — the report-train phase's checkpoint and the report
                      phase's bf16 base through ctpa_torch.cli.export_serving
                      (--quant int4 --ffn-kernel --kv-quant int8
@@ -121,11 +127,11 @@ Phases, each printing its seconds:
                      load_serving_bundle; generate at batch 4 x 512 tokens,
                      96 greedy tokens, weight-only and w4a8, then w4a8 at
                      batch 32: prefill and decode-step times, tokens/s, peak
-                     memory, and exactly 65 K5 launches and K7's (64 at up
-                     to 32 rows: two decode kernels a layer; else one kernel
-                     and one reduction a row chunk) per prefill and per
+                     memory, and exactly 65 K5 launches and 64 of K7 (two a
+                     layer: the decode kernels at up to 32 rows, else the
+                     prefill kernels; no reduction) per prefill and per
                      decode step (w4a8: 97 activation quantizations at batch
-                     4; no reduction at decode), 32 K8 per decode step;
+                     4), 32 K8 per decode step;
  19. quant-plain   — each tier's kernel path, the same bundle with
                      quant_impl="xla" and an fp32 reference of the same
                      dequantized weights, teacher-forced on the kernel path's
@@ -137,24 +143,27 @@ Phases, each printing its seconds:
                      Meditron-7B's shapes (K4 also at the unfused FFN's
                      gateup and down shapes): decode at batch 4 and 32,
                      prefill of 4 x 512 tokens, a ragged case, the batch-32
-                     prefill untimed; timed as in phase 17, K4 beside
-                     torch._int_mm (w8a8) and torch._weight_int8pack_mm (w8);
-                     K4's and K6's decode kernels called twice for bits at
-                     batch 4 and 32 (K4 w8a8 equal to its plain version bit
-                     for bit), K4's timed beside the tiled kernel it
-                     replaces, and each built a second time with a planted
-                     fault (KERNEL_FAULTS), which its gate must refuse;
+                     prefill untimed (K6 also at 33 and 128 rows); timed as
+                     in phase 17, K4 beside torch._int_mm (w8a8) and
+                     torch._weight_int8pack_mm (w8); K4's and K6's decode
+                     kernels called twice for bits at batch 4 and 32 (K4 w8a8
+                     equal to its plain version bit for bit) and K6's
+                     prefill kernels at 2,048 rows, K4's decode kernel timed
+                     beside the tiled kernel it replaces, and K4 and K6
+                     built again with planted faults (KERNEL_FAULTS; K6's at
+                     decode and in its w8a8 prefill kernel, each a row
+                     maximum over half a j-block), which their gates must
+                     refuse;
  21. quant8-report — the same base and checkpoint through export_serving
                      (--quant int8 --ffn-kernel --kv-quant int8
                      --flash-decode, then with --act-quant) and
                      load_serving_bundle, after the int4 models are freed;
                      generate as in phase 18 (w8 and w8a8 at batch 4, w8a8
-                     at batch 32), exactly 65 K4 launches and K6's (64 at
-                     up to 32 rows: two decode kernels a layer; else one
-                     kernel and one reduction a row chunk) per prefill and
-                     per decode step (w8a8: 97 activation quantizations at
-                     batch 4; no reduction at decode), 32 K8 per decode
-                     step;
+                     at batch 32), exactly 65 K4 launches and 64 of K6 (two
+                     a layer: the decode kernels at up to 32 rows, else the
+                     prefill kernels; no reduction) per prefill and per
+                     decode step (w8a8: 97 activation quantizations at batch
+                     4), 32 K8 per decode step;
  22. quant8-plain  — phase 19's gates for the int8 tiers; the planted faults
                      roll the per-column scales by one or shift the
                      contraction by one row.
@@ -2139,12 +2148,13 @@ def check_quant_kernels(dev) -> dict:
     shapes int4 serving gives them at Meditron-7B width (decode at batch 4
     and 32, prefill of 4 x 512 tokens, and a ragged case), then timed beside
     the plain version, the bound and, for K5 w4, torch._weight_int4pack_mm;
-    the batch-32 prefill (32 x 512 rows, K7 in several row chunks) checked
-    untimed.  The w4a8 forms are held to QUANT_A8_ATOL max|p| +
-    QUANT_A8_RTOL |p|, which ctpa's per-row xla FFN must fail.  K5's and
-    K7's decode kernels (batch 4 and 32) are called twice for bits and timed
-    beside the tiled kernels they replace; the planted K7 fault
-    (FAULT_BUILDS) must fail its gate."""
+    the batch-32 prefill (32 x 512 rows) checked untimed; K7 also timed at
+    33 and 128 rows (the prefill kernels' side of STREAM_MAX_ROWS).  The
+    w4a8 forms are held to QUANT_A8_ATOL max|p| + QUANT_A8_RTOL |p|, which
+    ctpa's per-row xla FFN must fail.  K5's and K7's decode kernels (batch 4
+    and 32) are called twice for bits and timed beside the kernels above
+    32 rows, K7's prefill kernels twice for bits at 2,048 rows; the planted
+    K7 faults (FAULT_BUILDS, one in each design) must fail its gate."""
     import torch
 
     from ctpa_torch.core.config import LLMConfig
@@ -2220,11 +2230,12 @@ def check_quant_kernels(dev) -> dict:
     ffn = _ffn_copies(gen, dev, d, i)
     n_gh, n_gi = d // quant.GROUP, i // quant.GROUP
     per_row = {}
-    for m in (decode, QUANT_B32, prefill, 5, prefill_b32):
+    for m in (decode, QUANT_B32, edge + 1, 128, prefill, 5, prefill_b32):
         x = torch.randn(m, d, generator=gen, device=dev).to(bf16)
         for name, a8, _, _ in QUANT_FORMS[2:]:
             plain = quant.int4_ffn_plain(x, *ffn[0], act_quant=a8)
-            check(name, a8, f"m {m}", quant.int4_ffn(x, *ffn[0], act_quant=a8), plain)
+            quant_check(errs, ffn_key(name, m), a8, f"m {m}",
+                        quant.int4_ffn(x, *ffn[0], act_quant=a8), plain)
             if a8 and m in (decode, prefill):
                 per_row[m] = a8_atol_needed(quant.int4_ffn(x, *ffn[0], impl="xla", act_quant=True),
                                             plain)
@@ -2244,43 +2255,69 @@ def check_quant_kernels(dev) -> dict:
                   f"{quant.int4_ffn_plan_on(x, i, quant.GROUP, a8)}): {ms:.4f} ms (device "
                   f"{dev_ms:.4f})  plain {plain_ms:.4f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  "
                   f"library none")
-    # K7 at decode: two calls give the same bits; the decode kernels beside
-    # the tiled kernel they replace; the planted fault fails the gate
-    for m in (decode, QUANT_B32):
+    # K7: two calls give the same bits (decode and prefill kernels); the
+    # decode kernels beside the prefill kernels forced at decode rows; the
+    # planted faults fail the gate
+    for m in (decode, QUANT_B32, prefill):
         x = torch.randn(m, d, generator=gen, device=dev).to(bf16)
         for name, a8, _, _ in QUANT_FORMS[2:]:
-            repeatable(f"{name} decode kernels m {m}",
+            repeatable(f"{name} {'decode' if m <= edge else 'prefill'} kernels m {m}",
                        lambda: quant.int4_ffn(x, *ffn[0], act_quant=a8))
     stream_or_tiled("K7", lambda x, w, a8: quant.int4_ffn(x, *w, act_quant=a8), ffn, d,
-                    (decode, QUANT_B32), ("w4", "w4a8"))
+                    (decode, QUANT_B32), ("w4", "w4a8"), other="wgmma")
     x = torch.randn(decode, d, generator=gen, device=dev).to(bf16)
     plain = quant.int4_ffn_plain(x, *ffn[0], act_quant=True)
     fault_refused("K7", "row max over 128 columns",
                   lambda: quant.int4_ffn(x, *ffn[0], act_quant=True),
                   lambda got: quant_check(collections.defaultdict(float), "int4_ffn_a8", True,
                                           f"m {decode}, planted fault", got, plain))
+    x = torch.randn(prefill, d, generator=gen, device=dev).to(bf16)
+    plain = quant.int4_ffn_plain(x, *ffn[0])
+    fault_refused("K7 prefill", "last k-step of each half group dropped",
+                  lambda: quant.int4_ffn(x, *ffn[0]),
+                  lambda got: quant_check(collections.defaultdict(float), "int4_ffn", False,
+                                          f"m {prefill}, planted fault", got, plain))
     del ffn
     check_a8_bound_sees_j_blocks(per_row)
-    # the kernels' table rows: the decode step at batch 4, the main path's
-    # most frequent call (the fused qkv_proj for K5)
-    rows = {}
-    for name, _, replaces, source in QUANT_FORMS:
-        ms, plain_ms, b_ms, b_by, lib_ms = table[name, "ffn" if "ffn" in name else "qkv_proj",
-                                                 decode]
-        rows[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
-                          max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=lib_ms)
+    rows = kernel_rows(QUANT_FORMS, table, errs, decode, prefill)
     rows.update(rows_act)
     return rows
 
 
-def stream_or_tiled(kernel: str, call, weights, d_in: int, row_counts, forms) -> None:
-    """A decode kernel (K4, K5 or K7) beside the tiled kernel it replaces,
+def ffn_key(name: str, m: int) -> str:
+    """An FFN form's key in the error tables and the kernels' rows: the
+    prefill kernels (above STREAM_MAX_ROWS rows) apart from the decode
+    kernels."""
+    from ctpa_torch.ops import quant
+
+    return name if m <= quant.STREAM_MAX_ROWS else f"{name}_prefill"
+
+
+def kernel_rows(forms, table, errs, decode: int, prefill: int) -> dict:
+    """The kernels' table rows: the decode step at batch 4, the main path's
+    most frequent call (the fused qkv_proj for K4 and K5), and the FFN's
+    prefill kernels ("<form>_prefill", ffn_wgmma.cuh) at 4 x 512 rows."""
+    rows = {}
+    for name, _, replaces, source in forms:
+        keys = [(name, source, "ffn" if "ffn" in name else "qkv_proj", decode)]
+        if "ffn" in name:
+            keys.append((f"{name}_prefill", "ctpa_torch/csrc/ffn_wgmma.cuh", "ffn", prefill))
+        for key, src, shape, m in keys:
+            ms, plain_ms, b_ms, b_by, lib_ms = table[name, shape, m]
+            rows[key] = dict(name=key, route="cuda", source=src, replaces=replaces,
+                             max_abs_err=errs[key], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib_ms)
+    return rows
+
+
+def stream_or_tiled(kernel: str, call, weights, d_in: int, row_counts, forms,
+                    other: str = "tiled") -> None:
+    """A decode kernel (K4, K5 or K7) beside the kernel that takes more than
+    32 rows (``other``: K4's and K5's tiled kernels, K7's prefill kernels),
     each forced by ``quant.STREAM_MAX_ROWS`` (the decode kernels take at most
-    32 rows; 0 sends every call to the tiled kernel), at each row count:
-    ``call(x, weights[j], a8)`` for the forms (weight-only, int8
-    activations), cycling the weights past the L2 cache.  Above 32 rows the
-    tiled kernel alone."""
+    32 rows; 0 sends every call to the other), at each row count: ``call(x,
+    weights[j], a8)`` for the forms (weight-only, int8 activations), cycling
+    the weights past the L2 cache.  Above 32 rows the other alone."""
     import torch
 
     from ctpa_torch.ops import quant
@@ -2293,7 +2330,7 @@ def stream_or_tiled(kernel: str, call, weights, d_in: int, row_counts, forms) ->
             x = torch.randn(m, d_in, generator=gen, device=dev).to(torch.bfloat16)
             for form, a8 in zip(forms, (False, True)):
                 times = {}
-                for kind, limit in (("stream", 32), ("tiled", 0)) if m <= 32 else (("tiled", 32),):
+                for kind, limit in (("stream", 32), (other, 0)) if m <= 32 else ((other, 32),):
                     quant.STREAM_MAX_ROWS = limit
                     it = itertools.cycle(weights)
                     fn = lambda: call(x, next(it), a8)  # noqa: E731
@@ -2424,27 +2461,40 @@ def int8_yardstick(a8: bool, weights: list, x):
     return (lambda: next(it)()), name
 
 
-# Planted faults in the decode kernels themselves: each source with its
-# fault is compiled into a library of its own in the background from phase
-# build (one nvcc each) and swapped in for one call, which the kernel's gate
-# must refuse.  {kernel: (source, (text, faulty text), entry points)}
-#   K6: the w8a8 requantization of h takes its row maximum over 128 of a
-#       j-block's 256 columns, so the other half's larger values clip;
-#   K7: the same in the w4a8 gate/up kernel;
-#   K4: the cluster's sum leaves one split's sums out.
+# Planted faults in the kernels themselves: each source with its fault (in
+# it or in a header it includes) is compiled into a library of its own in the
+# background from phase build (one nvcc each) and swapped in for one call,
+# which the kernel's gate must refuse.  {fault: (source, the file changed,
+# (text, faulty text), entry points)}
+#   K6: the w8a8 decode requantization of h takes its row maximum over 128 of
+#       a j-block's 256 columns, so the other half's larger values clip;
+#   K7: the same in the w4a8 decode gate/up kernel;
+#   K4: the cluster's sum leaves one split's sums out;
+#   K6 prefill: the w8a8 prefill gate/up kernel's row maximum over one
+#       consumer warpgroup's 128 columns of the j-block (ffn_wgmma.cuh);
+#   K7 prefill: the w4 prefill kernels drop the last k-step of each half of
+#       a scale group (ffn_wgmma.cuh).
 KERNEL_FAULTS = {
-    "K6": ("int8_ffn.cu",
+    "K6": ("int8_ffn.cu", "int8_ffn.cu",
            ("      for (int w = 1; w < kGuWarps; ++w) mx = fmaxf(mx, red[w]);",
             "      for (int w = 1; w < kGuWarps / 2; ++w) mx = fmaxf(mx, red[w]);"),
            ("int8_ffn_stream_launch", "int8_ffn_stream_clusters")),
-    "K7": ("int4_ffn.cu",
+    "K7": ("int4_ffn.cu", "int4_ffn.cu",
            ("      for (int w = 1; w < kBJ / 32; ++w) mx = fmaxf(mx, red[sub][w]);",
             "      for (int w = 1; w < kBJ / 64; ++w) mx = fmaxf(mx, red[sub][w]);"),
            ("int4_ffn_stream_launch", "int4_ffn_stream_clusters")),
-    "K4": ("int8_matmul.cu",
+    "K4": ("int8_matmul.cu", "int8_matmul.cu",
            ("wstream::split_sum(cluster, part, tok * kSBN + cl, splits);",
             "wstream::split_sum(cluster, part, tok * kSBN + cl, splits - 1);"),
            ("int8_matmul_stream_launch", "int8_matmul_stream_clusters")),
+    "K6 prefill": ("int8_ffn.cu", "ffn_wgmma.cuh",
+                   ("      for (int k = 1; k < 8; ++k) m = fmaxf(m, red[k][tl]);",
+                    "      for (int k = 1; k < 4; ++k) m = fmaxf(m, red[k][tl]);"),
+                   ("int8_ffn_prefill_launch",)),
+    "K7 prefill": ("int4_ffn.cu", "ffn_wgmma.cuh",
+                   ("      for (int kk = 0; kk < G / 2; kk += 16) {",
+                    "      for (int kk = 0; kk < G / 2 - 16; kk += 16) {"),
+                   ("int4_ffn_prefill_launch",)),
 }
 # the background builds of KERNEL_FAULTS, started in phase build
 FAULT_BUILDS: dict = {}
@@ -2452,18 +2502,20 @@ FAULT_BUILDS: dict = {}
 
 def start_fault_builds() -> None:
     """Each KERNEL_FAULTS source with its fault planted, compiled into a
-    library of its own in the background, into FAULT_BUILDS: {kernel: (the
-    nvcc process, the library's path)}."""
+    library of its own in the background, into FAULT_BUILDS: {fault: (the
+    nvcc process, the library's path)}.  A changed header sits beside the
+    copied source, where its quoted #include finds it first."""
     from ctpa_torch.kernels import build
 
-    for kernel, (source, (text, faulty), _) in KERNEL_FAULTS.items():
-        src = (build.CSRC_DIR / source).read_text()
+    for kernel, (source, changed, (text, faulty), _) in KERNEL_FAULTS.items():
+        src = (build.CSRC_DIR / changed).read_text()
         if src.count(text) != 1:
-            raise AssertionError(f"{kernel} fault: {text.strip()!r} is not once in {source}")
-        out = build.BUILD_DIR / f"fault_{kernel}.{os.getpid()}"
+            raise AssertionError(f"{kernel} fault: {text.strip()!r} is not once in {changed}")
+        out = build.BUILD_DIR / f"fault_{kernel.replace(' ', '_')}.{os.getpid()}"
         out.mkdir(parents=True, exist_ok=True)
-        (out / source).write_text(src.replace(text, faulty))
-        so = out / f"lib{kernel}_fault.so"
+        shutil.copy(build.CSRC_DIR / source, out / source)
+        (out / changed).write_text(src.replace(text, faulty))
+        so = out / f"lib{kernel.replace(' ', '_')}_fault.so"
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(build.CSRC_DIR), "-o",
                str(so), str(out / source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -2485,7 +2537,7 @@ def planted_kernel_fault(kernel: str):
         raise RuntimeError(f"the {kernel} fault library failed to build:\n{log}")
     faulty = ctypes.CDLL(str(so))
     shutil.rmtree(so.parent, ignore_errors=True)
-    names = KERNEL_FAULTS[kernel][2]
+    names = KERNEL_FAULTS[kernel][3]
     for name in names:
         getattr(faulty, name).argtypes = list(build.SIGNATURES[name])
         getattr(faulty, name).restype = ctypes.c_int
@@ -2525,13 +2577,14 @@ def check_quant8_kernels(dev) -> dict:
     and 32, prefill of 4 x 512 tokens, a ragged case; K4 also at the gateup
     and down shapes of the unfused FFN), then timed beside the plain version,
     the bound and, for K4, ``int8_yardstick``; the batch-32 prefill (32 x 512
-    rows, K6 in several row chunks) checked untimed.  The w8a8 forms are held
-    to QUANT_A8_ATOL max|p| + QUANT_A8_RTOL |p|, which the FFN with h
-    requantized per full row must fail.  K4's and K6's decode kernels (batch 4
-    and 32) are called twice for bits, K4 w8a8 must equal the plain version
-    bit for bit there, and the planted K4 and K6 faults (FAULT_BUILDS) must
-    fail their gates; a threshold table times K4's decode kernel beside the
-    tiled kernel it replaces."""
+    rows) checked untimed; K6 also timed at 33 and 128 rows.  The w8a8 forms
+    are held to QUANT_A8_ATOL max|p| + QUANT_A8_RTOL |p|, which the FFN with
+    h requantized per full row must fail.  K4's and K6's decode kernels
+    (batch 4 and 32) and K6's prefill kernels (2,048 rows) are called twice
+    for bits, K4 w8a8 must equal the plain version bit for bit at decode,
+    and the planted K4 and K6 faults (FAULT_BUILDS) must fail their gates; a
+    threshold table times K4's decode kernel beside the tiled kernel it
+    replaces."""
     import torch
 
     from ctpa_torch.core.config import LLMConfig
@@ -2609,11 +2662,12 @@ def check_quant8_kernels(dev) -> dict:
         del weights
     ffn = _int8_copies(gen, dev, ((d, i), (d, i), (i, d)))
     per_row = {}
-    for m in (decode, QUANT_B32, prefill, 5, prefill_b32):
+    for m in (decode, QUANT_B32, QUANT_B32 + 1, 128, prefill, 5, prefill_b32):
         x = torch.randn(m, d, generator=gen, device=dev).to(bf16)
         for name, a8, _, _ in QUANT8_FORMS[2:]:
             plain = quant.int8_ffn_plain(x, *ffn[0], act_quant=a8)
-            quant_check(errs, name, a8, f"m {m}", quant.int8_ffn(x, *ffn[0], act_quant=a8), plain)
+            quant_check(errs, ffn_key(name, m), a8, f"m {m}",
+                        quant.int8_ffn(x, *ffn[0], act_quant=a8), plain)
             if a8 and m in (decode, prefill):
                 per_row[m] = a8_atol_needed(
                     quant.int8_ffn_plain(x, *ffn[0], act_quant=True, block_j=i), plain)
@@ -2629,13 +2683,15 @@ def check_quant8_kernels(dev) -> dict:
             nbytes = m * d * 2 * 2 + 3 * d * i + 2 * i * 4 + d * 4
             b_ms, b_by = bound_ms(nbytes, 6.0 * m * d * i, PEAK_INT8_OPS if a8 else PEAK_BF16_FLOPS)
             table[name, "ffn", m] = (ms, plain_ms, b_ms, b_by, None)
-            print(f"    {name} (m {m}, {d} -> {i} -> {d}): {ms:.4f} ms (device {dev_ms:.4f})  "
+            print(f"    {name} (m {m}, {d} -> {i} -> {d}, "
+                  f"{quant.int8_ffn_plan_on(x, i, a8)}): {ms:.4f} ms (device {dev_ms:.4f})  "
                   f"plain {plain_ms:.4f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  library none")
-    # K6 at decode: two calls give the same bits; the planted fault fails
-    for m in (decode, QUANT_B32):
+    # K6: two calls give the same bits (decode and prefill kernels); the
+    # planted faults fail the gate
+    for m in (decode, QUANT_B32, prefill):
         x = torch.randn(m, d, generator=gen, device=dev).to(bf16)
         for name, a8, _, _ in QUANT8_FORMS[2:]:
-            repeatable(f"{name} decode kernels m {m}",
+            repeatable(f"{name} {'decode' if m <= QUANT_B32 else 'prefill'} kernels m {m}",
                        lambda: quant.int8_ffn(x, *ffn[0], act_quant=a8))
     x = torch.randn(decode, d, generator=gen, device=dev).to(bf16)
     plain = quant.int8_ffn_plain(x, *ffn[0], act_quant=True)
@@ -2643,18 +2699,15 @@ def check_quant8_kernels(dev) -> dict:
                   lambda: quant.int8_ffn(x, *ffn[0], act_quant=True),
                   lambda got: quant_check(collections.defaultdict(float), "int8_ffn_a8", True,
                                           f"m {decode}, planted fault", got, plain))
+    x = torch.randn(prefill, d, generator=gen, device=dev).to(bf16)
+    plain = quant.int8_ffn_plain(x, *ffn[0], act_quant=True)
+    fault_refused("K6 prefill", "row max over 128 columns",
+                  lambda: quant.int8_ffn(x, *ffn[0], act_quant=True),
+                  lambda got: quant_check(collections.defaultdict(float), "int8_ffn_a8", True,
+                                          f"m {prefill}, planted fault", got, plain))
     del ffn
     check_a8_bound_sees_j_blocks(per_row)
-    # the kernels' table rows: the decode step at batch 4, the main path's
-    # most frequent call (the fused qkv_proj for K4)
-    rows = {}
-    for name, _, replaces, source in QUANT8_FORMS:
-        ms, plain_ms, b_ms, b_by, lib_ms = table[name, "ffn" if "ffn" in name else "qkv_proj",
-                                                 decode]
-        rows[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
-                          max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=lib_ms)
-    return rows
+    return kernel_rows(QUANT8_FORMS, table, errs, decode, prefill)
 
 
 def quant_kernel_names(cfg) -> tuple[str, str, str]:
@@ -2671,9 +2724,8 @@ def quant_kernel_launches(cfg, rows: int, head_rows: int, sms: int) -> dict:
     (fused qkv, the fused FFN) over ``rows`` token rows with the lm_head on
     ``head_rows``: per layer one projection launch (K4 or K5) each for
     qkv_proj and o_proj, one projection launch for the lm_head, and per
-    layer the FFN's: K6 or K7 two launches at up to 32 rows, else one launch
-    and one reduction per row chunk (``ffn_row_chunk``;
-    ``ops/quant.py:int8_ffn_launches``, ``int4_ffn_launches``); one
+    layer the FFN's: K6 or K7 two launches at any row count, no reduction
+    (``ops/quant.py:int8_ffn_launches``, ``int4_ffn_launches``); one
     reduction for each prefill K4 or K5 call whose contraction is split
     (``int8_matmul_launches`` / ``int4_matmul_launches`` on ``sms`` SMs; at
     decode both add their splits in their own launch); with int8
@@ -2709,7 +2761,8 @@ def quant_kernel_launches(cfg, rows: int, head_rows: int, sms: int) -> dict:
 def quant_generate(model, video, ids, mask, new_tokens: int, label: str) -> tuple:
     """One timed generate on a quantized model; checks the launches of every
     prefill and decode step exactly (``quant_kernel_launches``).  ->
-    (tokens, launches by kernel, the vision feature generate computed)."""
+    (tokens, launches by kernel and the prefill's FFN launches under
+    "<ffn>_prefill", the vision feature generate computed)."""
     import torch
 
     from ctpa_torch.ops import quant
@@ -2758,6 +2811,7 @@ def quant_generate(model, video, ids, mask, new_tokens: int, label: str) -> tupl
     if any(per_step[0].values()):
         raise AssertionError(f"{label}: the vision extractor launched {per_step[0]}")
     total = {k: counts[-1][k] - counts[0][k] for k in counts[0]}
+    total[f"{ffn}_prefill"] = per_step[1][ffn]      # the prefill kernels (ffn_wgmma.cuh)
     act = "int4_act_quant"
     print(f"    launches: {mm} {total[mm]}, {ffn} {total[ffn]}, {reduce} {total[reduce]}, "
           f"{act} {total[act]}, decode_attention {total['decode_attention']} (per prefill "
@@ -2767,7 +2821,7 @@ def quant_generate(model, video, ids, mask, new_tokens: int, label: str) -> tupl
     if tokens.shape != (b, new_tokens) or not ((tokens >= 0) & (tokens < model.llm_cfg.vocab_size)
                                                ).all() or not (res.lengths == new_tokens).all():
         raise AssertionError(f"{label}: tokens {tuple(tokens.shape)}, lengths {res.lengths}")
-    if not all(total[k] for k in (mm, ffn, "decode_attention")):
+    if not all(total[k] for k in (mm, ffn, f"{ffn}_prefill", "decode_attention")):
         raise AssertionError(f"{label}: a kernel of the path never launched: {total}")
     return tokens, total, vision[0]
 
@@ -2960,6 +3014,8 @@ def quant_report(dev, rows: dict, model, inputs, base: str, bits: int) -> tuple:
     launched.update(total)
     for name, _, _, _ in (QUANT_FORMS if bits == 4 else QUANT8_FORMS):
         rows[name]["launches"] = launched[name]
+        if "ffn" in name:
+            rows[f"{name}_prefill"]["launches"] = launched[f"{name}_prefill"]
     # the activation quantization serves both tiers' int8-activation forms
     rows["int4_act_quant"]["launches"] = (rows["int4_act_quant"].get("launches", 0)
                                           + launched["int4_act_quant"])
@@ -3287,7 +3343,8 @@ def main() -> int:
                   "flash_attention_bwd_delta_d128", "flash_attention_bwd_dq_d128",
                   "flash_attention_bwd_dkv_d128")
                + tuple(f[0] for f in QUANT_FORMS) + ("int4_act_quant",)
-               + tuple(f[0] for f in QUANT8_FORMS)]
+               + tuple(f[0] for f in QUANT8_FORMS)
+               + tuple(f"{f[0]}_prefill" for f in QUANT_FORMS + QUANT8_FORMS if "ffn" in f[0])]
     for row in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(row[key]):

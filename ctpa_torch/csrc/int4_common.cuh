@@ -1,7 +1,7 @@
-// Helpers shared by the quantized kernels: the nibble unpack of ctpa's
-// quantize_int4 layout (int4_matmul.cu, int4_ffn.cu), and for the int8
-// kernels too (int8_matmul.cu, int8_ffn.cu) 16-byte loads with a ragged edge
-// and the fixed-order reduction of partial sums.
+// Helpers shared by the tiled (prefill) projection kernels: the nibble
+// unpack of ctpa's quantize_int4 layout (int4_matmul.cu), and for the int8
+// kernel too (int8_matmul.cu) 16-byte loads with a ragged edge and the
+// fixed-order reduction of partial sums.
 //
 // Packed layout (ctpa/ops/quant.py:quantize_int4): the weight is (in/2, out)
 // bytes; byte j of scale group g (group size G) holds row g*G + j in its low

@@ -1,7 +1,7 @@
 // Fused int8 SwiGLU FFN: out = down(silu(x . Wg) * (x . Wu)), with gate/up
 // (hidden, inter) and down (inter, hidden) stored as int8 with one fp32
-// scale per output column (ctpa's quantize_int8 layout).  Two designs;
-// ops/quant.py:int8_ffn_plan picks one by the row count m.
+// scale per output column (ctpa's quantize_int8 layout).  Two designs, each
+// two launches; ops/quant.py:int8_ffn_plan picks one by the row count m.
 //
 // Replaces the TPU kernels ctpa/ops/quant.py:int8_ffn, `_ffn_kernel`
 // (weight-only, "w8") and `_ffn_kernel_a8` (int8 activations, "w8a8").
@@ -19,8 +19,8 @@
 //         columns (sh = max|h| / 127, h8 = round(h / sh)); the j-block's down
 //         product float(h8 . Wd) * sh from an exact int32 dot.
 //   Both: the j-blocks' down products summed in fp32, as ctpa's sequential
-//   j axis sums them (at decode in the fixed order below), times sd[col],
-//   rounded to bf16.
+//   j axis sums them (at decode in the fixed order below; at prefill w8 sums
+//   straight through the contraction), times sd[col], rounded to bf16.
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16, 1,979 TOPS int8) at
 // Meditron-7B (hidden 4096, inter 11008): a decode step (m = 4 to 32 rows)
@@ -71,467 +71,43 @@
 //   down kernel's splits stop at 8 and 43 j-blocks fill 48 split slots;
 //   its w8 form is the slowest part at m = 4.
 //
-// Prefill (K7's design, int4_ffn.cu, with whole-row scales).  On the TPU
-// the j grid axis runs in order and carries the down sum in VMEM; on the
-// card blocks run in no order.  So each j-block belongs to a cluster of two
-// blocks (BM rows each: 16 for m <= 16, else 64), grid (2 n_j, rows / BM):
-// each computes g and u for one 128-column half of the j-block over the
-// hidden axis in chunks of 128 on the tensor cores (WMMA bf16 with fp32
-// accumulators for w8, WMMA s8 x s8 -> s32 for w8a8, the accumulators in
-// the fragments over the whole contraction), keeps its half of h in shared
-// memory and takes the other half from the other block's shared memory
-// (distributed shared memory); for w8a8 the two halves' row maxima meet the
-// same way before h is requantized, so the requantization spans exactly
-// ctpa's 256 columns.  Each block then runs the down product for alternate
-// 128-column chunks of the output.  h never leaves the chip.  The blocks
-// write their j-block's fp32 partial (n_j, rows, hidden); a second kernel
-// adds the partials in j order and applies sd (int4_common.cuh), so the
-// result is deterministic.  The caller cuts the rows into chunks whose
-// partials stay under 1 GiB, one kernel pair per chunk
-// (ctpa_torch/ops/quant.py:ffn_row_chunk) -- no atomics.  The int8 tiles sit
-// in shared memory as 16x16 slabs of 256 bytes so every fragment address is
-// 32-byte aligned.  Its loads are not overlapped with the products.
+// Prefill (m > 32): ffn_wgmma.cuh's Hopper kernels, shared with K7.  A
+// gate/up kernel (grid: token tiles of 64 x the 43 j-blocks) computes g and
+// u for one j-block's 256 columns over the whole hidden axis and writes h
+// (bf16, or for w8a8 its int8 form over the j-block's 256 columns and sh)
+// to device memory; a down kernel (grid: token tiles x 256-column strips of
+// the output) takes h . Wd over n_j * 256 rows.  Each is a producer
+// warpgroup whose one thread keeps a ring of shared-memory stages full by
+// TMA (x or h and the weight windows, 128-byte swizzled, under mbarriers)
+// and two consumer warpgroups that build the weights' wgmma A registers from
+// the raw int8 bytes (stream_common.cuh's permutes) and multiply them
+// against the tokens' tile on the tensor cores (wgmma bf16 m64n64k16 with
+// fp32 sums for w8; s8 m64n64k32 with exact int32 sums for w8a8, rings of
+// 64 or 128 contraction rows a stage).  TMA cannot describe gate/up rows of
+// inter bytes when inter % 16 != 0; the producer's threads then copy those
+// windows by plain loads.  On the card (NVIDIA H100 80GB HBM3, 700 W;
+// profile_ffn_prefill.py) at 2,048 rows: 1.35-1.37 ms (w8) and 0.81 ms
+// (w8a8), gate/up at 0.42 / 0.39 of its bound, down at 0.38 / 0.28.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include "int4_common.cuh"
+#include "ffn_wgmma.cuh"
 #include "stream_common.cuh"
 #include "warp_mma.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
-using namespace nvcuda;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kJT = kWarps * 16;     // j columns per block, 16 per warp
-constexpr int kNC = kWarps * 16;     // down output columns per chunk, 16 per warp
-constexpr int kSeg = kJT / 16;       // 16-byte segments per weight row of a tile
-constexpr int kKC = 128;             // hidden chunk of gate/up; j rows of a down chunk
-constexpr int kBJ = 2 * kJT;         // the j-block: ctpa's block_j, 256
-constexpr int kLdX = kKC + 8;        // bf16 row strides
-constexpr int kLdW = kJT + 8;
-constexpr int kLdH = kBJ + 8;
-constexpr int kLdC = kJT + 4;        // fp32 / int32 staging row stride
-static_assert(kNC == kJT, "the down tiles reuse the gate/up tiles' shared memory");
+constexpr int kBJ = 256;             // the j-block: ctpa's block_j
 
 __device__ __forceinline__ float silu_mul(float g, float u) {
   const float sig = 1.f / (1.f + expf(-g));
   return __fmul_rn(__fmul_rn(g, sig), u);
-}
-
-struct Args {
-  const void* x;         // (m, hidden) bf16 (w8) or int8 (w8a8), rows of this chunk
-  const float* sx;       // (m,) w8a8 row scales
-  const int8_t* wg;      // (hidden, inter)
-  const float* sg;       // (inter,)
-  const int8_t* wu;
-  const float* su;
-  const int8_t* wd;      // (inter, hidden)
-  float* partial;        // (n_j, ld_rows, hidden)
-  int m, ld_rows, hidden, inter;
-};
-
-// shared memory of the w8 form, in bytes: x [BM][kLdX], the gate and up
-// tiles [kKC][kLdW] (reused for the fp32 staging of g and u and for the down
-// tiles and their output), h [BM][kLdH] bf16, two scale rows
-template <int BM> struct W8Smem {
-  static constexpr int x = 0;
-  static constexpr int wg = x + BM * kLdX * 2;
-  static constexpr int wu = wg + kKC * kLdW * 2;
-  static constexpr int h = wu + kKC * kLdW * 2;
-  static constexpr int sc = h + BM * kLdH * 2;
-  static constexpr int bytes = sc + 2 * kJT * 4;
-  static_assert(BM * kLdC * 4 <= kKC * kLdW * 2, "staging must fit a weight tile");
-};
-
-template <int BM>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads)
-int8_ffn_w8_kernel(Args a) {
-  using L = W8Smem<BM>;
-  constexpr int kFr = BM / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(smem + L::x);
-  __nv_bfloat16* wg_s = reinterpret_cast<__nv_bfloat16*>(smem + L::wg);
-  __nv_bfloat16* wu_s = reinterpret_cast<__nv_bfloat16*>(smem + L::wu);
-  __nv_bfloat16* h_s = reinterpret_cast<__nv_bfloat16*>(smem + L::h);
-  float* sg_s = reinterpret_cast<float*>(smem + L::sc);
-  float* su_s = sg_s + kJT;
-  float* cg_s = reinterpret_cast<float*>(smem + L::wg);    // staging, after the loop
-  float* cu_s = reinterpret_cast<float*>(smem + L::wu);
-
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
-  const cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int j = blockIdx.x / 2;
-  const int m0 = blockIdx.y * BM;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int j0 = j * kBJ;
-  const int jend = min(j0 + kBJ, a.inter);     // the j-block's real columns [j0, jend)
-  const bool wvec = a.inter % 16 == 0;
-
-  // this block's half of the j-block: columns [p0, p0 + kJT) of it
-  const int p0 = rank * kJT;
-  const int c0 = j0 + p0;
-  if (c0 < jend) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_g[kFr], acc_u[kFr];
-#pragma unroll
-    for (int i = 0; i < kFr; ++i) {
-      wmma::fill_fragment(acc_g[i], 0.f);
-      wmma::fill_fragment(acc_u[i], 0.f);
-    }
-    for (int k0 = 0; k0 < a.hidden; k0 += kKC) {
-      const int kc = min(kKC, a.hidden - k0);   // a multiple of 16
-      const int cpr = kc / 8;
-      for (int e = tid; e < BM * cpr; e += kThreads) {
-        const int r = e / cpr;
-        const int c = (e - r * cpr) * 8;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (m0 + r < a.m)
-          v = *reinterpret_cast<const uint4*>(x + static_cast<long long>(m0 + r) * a.hidden +
-                                              k0 + c);
-        *reinterpret_cast<uint4*>(x_s + r * kLdX + c) = v;
-      }
-      for (int e = tid; e < 2 * kc * kSeg; e += kThreads) {
-        const int mat = e / (kc * kSeg);
-        const int rem = e - mat * kc * kSeg;
-        const int jj = rem / kSeg;
-        const int c = (rem - jj * kSeg) * 16;
-        const int8_t* src = (mat ? a.wu : a.wg) + static_cast<long long>(k0 + jj) * a.inter;
-        q4::store_int8_as_bf16((mat ? wu_s : wg_s) + jj * kLdW + c,
-                               q4::load16(src, c0 + c, a.inter, wvec));
-      }
-      __syncthreads();
-      for (int kk = 0; kk < kc; kk += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bg, bu;
-        wmma::load_matrix_sync(bg, wg_s + kk * kLdW + warp * 16, kLdW);
-        wmma::load_matrix_sync(bu, wu_s + kk * kLdW + warp * 16, kLdW);
-#pragma unroll
-        for (int i = 0; i < kFr; ++i) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-          wmma::load_matrix_sync(af, x_s + i * 16 * kLdX + kk, kLdX);
-          wmma::mma_sync(acc_g[i], af, bg, acc_g[i]);
-          wmma::mma_sync(acc_u[i], af, bu, acc_u[i]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < kFr; ++i) {
-      wmma::store_matrix_sync(cg_s + i * 16 * kLdC + warp * 16, acc_g[i], kLdC,
-                              wmma::mem_row_major);
-      wmma::store_matrix_sync(cu_s + i * 16 * kLdC + warp * 16, acc_u[i], kLdC,
-                              wmma::mem_row_major);
-    }
-    for (int c = tid; c < kJT; c += kThreads) {
-      const bool in = c0 + c < jend;
-      sg_s[c] = in ? a.sg[c0 + c] : 0.f;
-      su_s[c] = in ? a.su[c0 + c] : 0.f;
-    }
-    __syncthreads();
-    for (int e = tid; e < BM * kJT; e += kThreads) {
-      const int r = e / kJT;
-      const int c = e - r * kJT;
-      const float g = __fmul_rn(cg_s[r * kLdC + c], sg_s[c]);
-      const float u = __fmul_rn(cu_s[r * kLdC + c], su_s[c]);
-      h_s[r * kLdH + p0 + c] = __float2bfloat16_rn(silu_mul(g, u));
-    }
-  } else {
-    // a half past the last real column (a narrow last j-block): h is 0
-    for (int e = tid; e < BM * kJT; e += kThreads) {
-      const int r = e / kJT;
-      h_s[r * kLdH + p0 + e - r * kJT] = __float2bfloat16_rn(0.f);
-    }
-  }
-  // the other half of h, from the other block's shared memory
-  cluster.sync();
-  const int q0 = (rank ^ 1) * kJT;
-  const __nv_bfloat16* other = cluster.map_shared_rank(h_s, rank ^ 1);
-  for (int e = tid; e < BM * kJT / 8; e += kThreads) {
-    const int r = e / (kJT / 8);
-    const int c = q0 + (e - r * (kJT / 8)) * 8;
-    *reinterpret_cast<uint4*>(h_s + r * kLdH + c) =
-        *reinterpret_cast<const uint4*>(other + r * kLdH + c);
-  }
-  cluster.sync();
-
-  // down: h (BM, 256) against the j-block's rows of Wd, 128 output columns a
-  // chunk, the two blocks taking alternate chunks
-  __nv_bfloat16* wd_s = wg_s;
-  float* o_s = reinterpret_cast<float*>(smem + L::wu);
-  const int rows = jend - j0;
-  for (int o0 = rank * kNC; o0 < a.hidden; o0 += 2 * kNC) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kFr];
-#pragma unroll
-    for (int i = 0; i < kFr; ++i) wmma::fill_fragment(acc[i], 0.f);
-    for (int q = 0; q < rows; q += kKC) {
-      const int kr = min(kKC, rows - q);
-      const int kr16 = (kr + 15) / 16 * 16;     // rows past kr are 0
-      for (int e = tid; e < kr16 * kSeg; e += kThreads) {
-        const int jj = e / kSeg;
-        const int c = (e - jj * kSeg) * 16;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (jj < kr)
-          v = q4::load16(a.wd + static_cast<long long>(j0 + q + jj) * a.hidden, o0 + c,
-                         a.hidden, true);
-        q4::store_int8_as_bf16(wd_s + jj * kLdW + c, v);
-      }
-      __syncthreads();
-      for (int kk = 0; kk < kr16; kk += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-        wmma::load_matrix_sync(bf, wd_s + kk * kLdW + warp * 16, kLdW);
-#pragma unroll
-        for (int i = 0; i < kFr; ++i) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-          wmma::load_matrix_sync(af, h_s + i * 16 * kLdH + q + kk, kLdH);
-          wmma::mma_sync(acc[i], af, bf, acc[i]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < kFr; ++i)
-      wmma::store_matrix_sync(o_s + i * 16 * kLdC + warp * 16, acc[i], kLdC, wmma::mem_row_major);
-    __syncthreads();
-    for (int e = tid; e < BM * kNC; e += kThreads) {
-      const int r = e / kNC;
-      const int c = e - r * kNC;
-      if (o0 + c < a.hidden)
-        a.partial[(static_cast<long long>(j) * a.ld_rows + m0 + r) * a.hidden + o0 + c] =
-            o_s[r * kLdC + c];
-    }
-    __syncthreads();
-  }
-}
-
-// shared memory of the w8a8 form, in bytes: int8 slabs of x [kKC/16][BM][16]
-// and of the gate and up tiles [kJT/16][kKC][16] (the up tile's region also
-// holds the down tiles), int32 staging of g and u [BM][kLdC] (g's also of
-// the down product), h in fp32 [BM][kBJ], h in int8 slabs [kBJ/16][BM][16],
-// the scale rows, sx, sh and the row maxima of this block's half of h
-template <int BM> struct A8Smem {
-  static constexpr int x = 0;
-  static constexpr int wg = x + BM * kKC;
-  static constexpr int wu = wg + kJT * kKC;
-  static constexpr int ig = wu + kJT * kKC;
-  static constexpr int iu = ig + BM * kLdC * 4;
-  static constexpr int hf = iu + BM * kLdC * 4;
-  static constexpr int h8 = hf + BM * kBJ * 4;
-  static constexpr int sc = h8 + BM * kBJ;
-  static constexpr int bytes = sc + (2 * kJT + 3 * BM) * 4;
-};
-
-template <int BM>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads)
-int8_ffn_a8_kernel(Args a) {
-  using L = A8Smem<BM>;
-  constexpr int kFr = BM / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  int8_t* x_s = reinterpret_cast<int8_t*>(smem + L::x);
-  int8_t* wg_s = reinterpret_cast<int8_t*>(smem + L::wg);
-  int8_t* wu_s = reinterpret_cast<int8_t*>(smem + L::wu);
-  int* ig_s = reinterpret_cast<int*>(smem + L::ig);
-  int* iu_s = reinterpret_cast<int*>(smem + L::iu);
-  float* hf_s = reinterpret_cast<float*>(smem + L::hf);
-  int8_t* h8_s = reinterpret_cast<int8_t*>(smem + L::h8);
-  float* sg_s = reinterpret_cast<float*>(smem + L::sc);
-  float* su_s = sg_s + kJT;
-  float* sx_s = su_s + kJT;
-  float* sh_s = sx_s + BM;
-  float* rmax_s = sh_s + BM;
-
-  const int8_t* x8 = static_cast<const int8_t*>(a.x);
-  const cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int j = blockIdx.x / 2;
-  const int m0 = blockIdx.y * BM;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int j0 = j * kBJ;
-  const int jend = min(j0 + kBJ, a.inter);
-  const bool wvec = a.inter % 16 == 0;
-
-  for (int r = tid; r < BM; r += kThreads) sx_s[r] = m0 + r < a.m ? a.sx[m0 + r] : 0.f;
-
-  // this block's half of the j-block: columns [p0, p0 + kJT) of it
-  const int p0 = rank * kJT;
-  const int c0 = j0 + p0;
-  if (c0 < jend) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, int> fg[kFr], fu[kFr];
-#pragma unroll
-    for (int i = 0; i < kFr; ++i) {
-      wmma::fill_fragment(fg[i], 0);
-      wmma::fill_fragment(fu[i], 0);
-    }
-    for (int k0 = 0; k0 < a.hidden; k0 += kKC) {
-      const int spr = min(kKC, a.hidden - k0) / 16;   // 16-column slabs of this chunk
-      for (int e = tid; e < BM * spr; e += kThreads) {
-        const int r = e / spr;
-        const int kb = e - r * spr;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (m0 + r < a.m)
-          v = *reinterpret_cast<const uint4*>(x8 + static_cast<long long>(m0 + r) * a.hidden +
-                                              k0 + kb * 16);
-        *reinterpret_cast<uint4*>(x_s + (kb * BM + r) * 16) = v;
-      }
-      for (int e = tid; e < 2 * spr * 16 * kSeg; e += kThreads) {
-        const int mat = e / (spr * 16 * kSeg);
-        const int rem = e - mat * spr * 16 * kSeg;
-        const int jj = rem / kSeg;
-        const int cb = rem - jj * kSeg;
-        const int8_t* src = (mat ? a.wu : a.wg) + static_cast<long long>(k0 + jj) * a.inter;
-        *reinterpret_cast<uint4*>((mat ? wu_s : wg_s) + (cb * kKC + jj) * 16) =
-            q4::load16(src, c0 + cb * 16, a.inter, wvec);
-      }
-      __syncthreads();
-      for (int kk = 0; kk < spr; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> bg, bu;
-        wmma::load_matrix_sync(bg, reinterpret_cast<const signed char*>(
-                                       wg_s + (warp * kKC + kk * 16) * 16), 16);
-        wmma::load_matrix_sync(bu, reinterpret_cast<const signed char*>(
-                                       wu_s + (warp * kKC + kk * 16) * 16), 16);
-#pragma unroll
-        for (int i = 0; i < kFr; ++i) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> af;
-          wmma::load_matrix_sync(af, reinterpret_cast<const signed char*>(
-                                         x_s + (kk * BM + i * 16) * 16), 16);
-          wmma::mma_sync(fg[i], af, bg, fg[i]);
-          wmma::mma_sync(fu[i], af, bu, fu[i]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < kFr; ++i) {
-      wmma::store_matrix_sync(ig_s + i * 16 * kLdC + warp * 16, fg[i], kLdC, wmma::mem_row_major);
-      wmma::store_matrix_sync(iu_s + i * 16 * kLdC + warp * 16, fu[i], kLdC, wmma::mem_row_major);
-    }
-    for (int c = tid; c < kJT; c += kThreads) {
-      const bool in = c0 + c < jend;
-      sg_s[c] = in ? a.sg[c0 + c] : 0.f;
-      su_s[c] = in ? a.su[c0 + c] : 0.f;
-    }
-    __syncthreads();
-    for (int e = tid; e < BM * kJT; e += kThreads) {
-      const int r = e / kJT;
-      const int c = e - r * kJT;
-      const float g = __fmul_rn(__fmul_rn(static_cast<float>(ig_s[r * kLdC + c]), sx_s[r]),
-                                sg_s[c]);
-      const float u = __fmul_rn(__fmul_rn(static_cast<float>(iu_s[r * kLdC + c]), sx_s[r]),
-                                su_s[c]);
-      hf_s[r * kBJ + p0 + c] = silu_mul(g, u);
-    }
-  } else {
-    for (int e = tid; e < BM * kJT; e += kThreads) {
-      const int r = e / kJT;
-      hf_s[r * kBJ + p0 + e - r * kJT] = 0.f;
-    }
-  }
-  __syncthreads();
-
-  // requantize h per row over the j-block's 256 columns (the pad columns are
-  // 0): the row maximum of |h| over this block's columns, then over both
-  for (int r = warp; r < BM; r += kWarps) {
-    float mx = 0.f;
-    for (int c = p0 + lane; c < p0 + kJT; c += 32) mx = fmaxf(mx, fabsf(hf_s[r * kBJ + c]));
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    if (lane == 0) rmax_s[r] = mx;
-  }
-  cluster.sync();
-  const float* other_max = cluster.map_shared_rank(rmax_s, rank ^ 1);
-  for (int r = tid; r < BM; r += kThreads)
-    sh_s[r] = fmaxf(fmaxf(rmax_s[r], other_max[r]) / 127.f, 1e-12f);
-  __syncthreads();
-  for (int e = tid; e < BM * kJT; e += kThreads) {
-    const int r = e / kJT;
-    const int c = p0 + e - r * kJT;
-    const int q = min(127, max(-127, __float2int_rn(hf_s[r * kBJ + c] / sh_s[r])));
-    h8_s[((c / 16) * BM + r) * 16 + c % 16] = static_cast<int8_t>(q);
-  }
-  // the other half's int8 h: its kJT / 16 slabs, contiguous
-  cluster.sync();
-  const int q0 = (rank ^ 1) * kJT;
-  const uint4* other = reinterpret_cast<const uint4*>(
-      cluster.map_shared_rank(h8_s, rank ^ 1) + (q0 / 16) * BM * 16);
-  uint4* mine = reinterpret_cast<uint4*>(h8_s + (q0 / 16) * BM * 16);
-  for (int e = tid; e < BM * kJT / 16; e += kThreads) mine[e] = other[e];
-  cluster.sync();
-
-  // down: the j-block's exact int32 dot h8 . Wd, times sh
-  int8_t* wd_s = wu_s;
-  int* id_s = ig_s;
-  const int rows = jend - j0;
-  for (int o0 = rank * kNC; o0 < a.hidden; o0 += 2 * kNC) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, int> fd[kFr];
-#pragma unroll
-    for (int i = 0; i < kFr; ++i) wmma::fill_fragment(fd[i], 0);
-    for (int q = 0; q < rows; q += kKC) {
-      const int kr = min(kKC, rows - q);
-      const int kr16 = (kr + 15) / 16 * 16;     // rows past kr are 0
-      for (int e = tid; e < kr16 * kSeg; e += kThreads) {
-        const int jj = e / kSeg;
-        const int cb = e - jj * kSeg;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (jj < kr)
-          v = q4::load16(a.wd + static_cast<long long>(j0 + q + jj) * a.hidden, o0 + cb * 16,
-                         a.hidden, true);
-        *reinterpret_cast<uint4*>(wd_s + (cb * kKC + jj) * 16) = v;
-      }
-      __syncthreads();
-      for (int kk = 0; kk < kr16 / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> bf;
-        wmma::load_matrix_sync(bf, reinterpret_cast<const signed char*>(
-                                       wd_s + (warp * kKC + kk * 16) * 16), 16);
-#pragma unroll
-        for (int i = 0; i < kFr; ++i) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> af;
-          wmma::load_matrix_sync(af, reinterpret_cast<const signed char*>(
-                                         h8_s + ((q / 16 + kk) * BM + i * 16) * 16), 16);
-          wmma::mma_sync(fd[i], af, bf, fd[i]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < kFr; ++i)
-      wmma::store_matrix_sync(id_s + i * 16 * kLdC + warp * 16, fd[i], kLdC, wmma::mem_row_major);
-    __syncthreads();
-    for (int e = tid; e < BM * kNC; e += kThreads) {
-      const int r = e / kNC;
-      const int c = e - r * kNC;
-      if (o0 + c < a.hidden)
-        a.partial[(static_cast<long long>(j) * a.ld_rows + m0 + r) * a.hidden + o0 + c] =
-            __fmul_rn(static_cast<float>(id_s[r * kLdC + c]), sh_s[r]);
-    }
-    __syncthreads();
-  }
-}
-
-template <int BM>
-cudaError_t launch_rows(const Args& a, int n_j, bool a8, cudaStream_t stream) {
-  const dim3 grid(2 * n_j, (a.m + BM - 1) / BM);       // clusters of two blocks a j-block
-  cudaError_t err;
-  if (a8) {
-    err = cudaFuncSetAttribute(int8_ffn_a8_kernel<BM>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, A8Smem<BM>::bytes);
-    if (err != cudaSuccess) return err;
-    int8_ffn_a8_kernel<BM><<<grid, kThreads, A8Smem<BM>::bytes, stream>>>(a);
-  } else {
-    err = cudaFuncSetAttribute(int8_ffn_w8_kernel<BM>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, W8Smem<BM>::bytes);
-    if (err != cudaSuccess) return err;
-    int8_ffn_w8_kernel<BM><<<grid, kThreads, W8Smem<BM>::bytes, stream>>>(a);
-  }
-  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ decode: streaming
@@ -862,35 +438,6 @@ cudaError_t stream_rows(const StreamArgs& a, int gu_splits, int dn_splits, cudaS
 
 }  // namespace
 
-// Launches the fused kernel and the reduction on `stream` for one chunk of
-// m rows; returns the first CUDA error (0 when both launches were accepted).
-// x is bf16 (w8) or int8 with sx (w8a8), (m, hidden); out (m, hidden) bf16;
-// partial (n_j, ld_rows, hidden) fp32 scratch with ld_rows >= m rounded up
-// to 64 (16 when m <= 16).  hidden is a multiple of 16.  The caller has
-// checked the shapes and dtypes, and that every buffer is contiguous and
-// 16-byte aligned.
-extern "C" int int8_ffn_launch(const void* x, const void* sx, const void* wg, const void* sg,
-                               const void* wu, const void* su, const void* wd, const void* sd,
-                               void* out, void* partial, int m, int ld_rows, int hidden,
-                               int inter, int act_quant, void* stream) {
-  const int tile = m <= 16 ? 16 : 64;
-  if (m <= 0 || hidden <= 0 || hidden % 16 != 0 || inter <= 0 ||
-      ld_rows < (m + tile - 1) / tile * tile || (act_quant && sx == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{x, static_cast<const float*>(sx), static_cast<const int8_t*>(wg),
-               static_cast<const float*>(sg), static_cast<const int8_t*>(wu),
-               static_cast<const float*>(su), static_cast<const int8_t*>(wd),
-               static_cast<float*>(partial), m, ld_rows, hidden, inter};
-  const int n_j = (inter + kBJ - 1) / kBJ;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = m <= 16 ? launch_rows<16>(a, n_j, act_quant != 0, s)
-                                  : launch_rows<64>(a, n_j, act_quant != 0, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(q4::reduce_partials(static_cast<const float*>(partial), n_j, ld_rows,
-                                                nullptr, static_cast<const float*>(sd),
-                                                static_cast<__nv_bfloat16*>(out), m, hidden, s));
-}
-
 // The decode kernels (m <= 32): two launches on `stream`, gate/up then
 // down, each in clusters of its splits; returns the first CUDA error (0
 // when both were accepted).  x is bf16 (w8) or int8 with sx (w8a8), (m,
@@ -930,4 +477,41 @@ extern "C" int int8_ffn_stream_clusters(int m, int act_quant, int down, int spli
   if (m <= 0 || m > 32 || splits < 1 || splits > kMaxSplits) return -1;
   return act_quant ? rows_clusters<true>(m, down != 0, splits)
                    : rows_clusters<false>(m, down != 0, splits);
+}
+
+// The prefill kernels (ffn_wgmma.cuh): two launches on `stream`, gate/up
+// then down; returns the first CUDA error (0 when both were accepted).  x is
+// bf16 (w8) or int8 with sx (w8a8), (m, hidden); out (m, hidden) bf16; h
+// (m, 256 n_j) bf16 or int8 scratch, n_j = ceil(inter / 256); sh (m, n_j)
+// fp32 (w8a8).  hidden % 16 == 0; every buffer contiguous and 16-byte
+// aligned.
+extern "C" int int8_ffn_prefill_launch(const void* x, const void* sx, const void* wg,
+                                       const void* sg, const void* wu, const void* su,
+                                       const void* wd, const void* sd, void* out, void* h,
+                                       void* sh, int m, int hidden, int inter, int act_quant,
+                                       void* stream) {
+  if (m <= 0 || hidden <= 0 || hidden % 16 != 0 || inter <= 0 ||
+      (act_quant && (sx == nullptr || sh == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_j = (inter + kBJ - 1) / kBJ;
+  const ffn_wgmma::Args a{static_cast<const float*>(sx), static_cast<const float*>(sg),
+                          static_cast<const float*>(su), static_cast<const float*>(sd),
+                          static_cast<const int8_t*>(wg), static_cast<const int8_t*>(wu), h,
+                          static_cast<float*>(sh), static_cast<__nv_bfloat16*>(out), m, hidden,
+                          inter, kBJ, n_j, n_j * kBJ, inter % 16 != 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* w_g = static_cast<const int8_t*>(wg);
+  const auto* w_u = static_cast<const int8_t*>(wu);
+  const auto* w_d = static_cast<const int8_t*>(wd);
+  cudaError_t err;
+  if (act_quant) {
+    using F = ffn_wgmma::Form<false, true, 0>;
+    err = ffn_wgmma::launch_gateup<F>(x, w_g, w_u, nullptr, nullptr, a, s);
+    if (err == cudaSuccess) err = ffn_wgmma::launch_down<F>(w_d, nullptr, a, s);
+  } else {
+    using F = ffn_wgmma::Form<false, false, 0>;
+    err = ffn_wgmma::launch_gateup<F>(x, w_g, w_u, nullptr, nullptr, a, s);
+    if (err == cudaSuccess) err = ffn_wgmma::launch_down<F>(w_d, nullptr, a, s);
+  }
+  return static_cast<int>(err);
 }

@@ -59,18 +59,15 @@ from ctpa_torch.kernels import build
 GROUP = 128
 _KERNEL_GROUPS = (32, 64, 128)
 _BJ_MAX = 256
-# the FFN kernel's fp32 per-j-block partial sums are kept below this many
-# bytes by splitting the rows into chunks (one kernel pair per chunk)
-FFN_PARTIAL_BYTES = 1 << 30
 
 # launches of each CUDA kernel form, under the name chip_smoke.py reports it
 # by; a wrapper adds one where it launches, and nowhere else.  A prefill K4
-# or K5 call whose contraction is split, and every prefill K6 or K7 row
-# chunk, also launches the fixed-order reduction of its partials
-# (``int4_common.cuh``: ``reduce_partials_kernel``), counted under
-# "int8_reduce" or "int4_reduce"; at decode K4 and K5 add their split
-# partials inside their one launch, and K6 and K7 launch twice (gate/up,
-# then down, each adding its own splits in its clusters).  Every
+# or K5 call whose contraction is split also launches the fixed-order
+# reduction of its partials (``int4_common.cuh``: ``reduce_partials_kernel``),
+# counted under "int8_reduce" or "int4_reduce"; at decode K4 and K5 add their
+# split partials inside their one launch.  K6 and K7 launch twice at any row
+# count (gate/up, then down; at decode each adds its own splits in its
+# clusters, at prefill no kernel splits its contraction).  Every
 # int8-activation call (K4, K5, K6, K7) first quantizes x in one launch
 # ("int4_act_quant")
 LAUNCHES = dict.fromkeys(("int4_matmul", "int4_matmul_a8", "int4_ffn", "int4_ffn_a8",
@@ -103,6 +100,9 @@ FFN_STREAM_MIN_STAGES = 4
 FFN_STREAM_COLUMNS = 128
 FFN_STREAM_MAX_SPLITS = 8
 INT8_STREAM_KC = 64
+# K6 and K7 above STREAM_MAX_ROWS rows: the down kernel's blocks own
+# PREFILL_COLUMNS output columns (the gate/up kernel's one j-block)
+PREFILL_COLUMNS = 256
 
 
 # ------------------------------------------------------------------ host side
@@ -525,14 +525,6 @@ def _int4_ffn_xla(x, wg4, sg, wu4, su, wd4, sd, g_h: int, g_i: int, act_quant: b
     return (h @ dequantize_int4(wd4, sd, g_i, torch.float32)).to(x.dtype)
 
 
-def ffn_row_chunk(m: int, n_j: int, hidden: int) -> int:
-    """Rows per kernel pair, so the (n_j, rows, hidden) fp32 partials stay
-    under ``FFN_PARTIAL_BYTES``; a multiple of the kernel's row tile."""
-    tile = _matmul_rows_tile(m)
-    rows = max(tile, FFN_PARTIAL_BYTES // (n_j * hidden * 4) // tile * tile)
-    return min(rows, _rup(m, tile))
-
-
 def int4_ffn_stream_splits(hidden: int, inter: int, group: int,
                            clusters: tuple) -> tuple[int, int, int, int]:
     """(gate/up splits, scale groups per split, down splits, j-blocks per
@@ -554,24 +546,21 @@ def int4_ffn_stream_splits(hidden: int, inter: int, group: int,
 def int4_ffn_plan(m: int, hidden: int, inter: int, group: int, clusters: tuple) -> tuple:
     """The kernels of a K7 call on m rows: ("stream", gate/up splits, groups
     per split, down splits, j-blocks per split) up to STREAM_MAX_ROWS rows
-    (``clusters`` as ``int4_ffn_stream_splits`` takes it), else ("tiled",
-    rows per chunk) for the cluster kernel and its reduction, one pair per
-    row chunk."""
+    (``clusters`` as ``int4_ffn_stream_splits`` takes it), else ("wgmma",
+    j-blocks, output strips): the prefill kernels, gate/up over one block
+    column a j-block, down over one a PREFILL_COLUMNS-column strip."""
     if m <= STREAM_MAX_ROWS:
         return ("stream", *int4_ffn_stream_splits(hidden, inter, group, clusters))
     bj = ffn_block_j(inter, _int4_group(inter, group))
-    return ("tiled", ffn_row_chunk(m, _rup(inter, bj) // bj, hidden))
+    return ("wgmma", _rup(inter, bj) // bj, math.ceil(hidden / PREFILL_COLUMNS))
 
 
 def int4_ffn_launches(m: int, hidden: int, inter: int, group: int, act_quant: bool) -> dict:
     """The launches of one K7 call on m rows, under ``LAUNCHES``' names: two
-    at decode (gate/up, down), one kernel and one reduction per row chunk
-    above, and the activation quantization for w4a8."""
+    (gate/up, down) at any row count, no reduction, and the activation
+    quantization for w4a8."""
     name = "int4_ffn_a8" if act_quant else "int4_ffn"
-    if m <= STREAM_MAX_ROWS:
-        return {name: 2, "int4_reduce": 0, "int4_act_quant": int(act_quant)}
-    chunks = math.ceil(m / int4_ffn_plan(m, hidden, inter, group, ())[1])
-    return {name: chunks, "int4_reduce": chunks, "int4_act_quant": int(act_quant)}
+    return {name: 2, "int4_reduce": 0, "int4_act_quant": int(act_quant)}
 
 
 def int4_ffn_plan_on(xm: torch.Tensor, inter: int, group: int, act_quant: bool) -> tuple:
@@ -604,32 +593,25 @@ def _int4_ffn_kernel(x, wg4, sg, wu4, su, wd4, sd, group: int, act_quant: bool):
     if act_quant:
         xm, sx = _quantize_act_kernel(xm)
     out = torch.empty(m, hidden, dtype=x.dtype, device=x.device)
+    # h between the two launches: (m, n_j bj) bf16, or int8 with its row
+    # scales per j-block sh (m, n_j)
+    h = torch.empty(m, n_j * bj, dtype=torch.int8 if act_quant else torch.bfloat16,
+                    device=x.device)
+    sh = torch.empty(m, n_j, device=x.device) if act_quant else None
+    ptrs = (xm.data_ptr(), sx.data_ptr() if act_quant else None, *(t.data_ptr() for t in ws),
+            out.data_ptr(), h.data_ptr(), sh.data_ptr() if act_quant else None)
     lib, stream = build.library().lib, _stream(x)
     name = "int4_ffn_a8" if act_quant else "int4_ffn"
     plan = int4_ffn_plan_on(xm, inter, group, act_quant)
     if plan[0] == "stream":
         _, gu, gu_per, dn, dn_per = plan
-        h = torch.empty(m, n_j * bj, dtype=torch.int8 if act_quant else torch.bfloat16,
-                        device=x.device)
-        sh = torch.empty(m, n_j, device=x.device) if act_quant else None
-        rc = lib.int4_ffn_stream_launch(
-            xm.data_ptr(), sx.data_ptr() if act_quant else None, *(t.data_ptr() for t in ws),
-            out.data_ptr(), h.data_ptr(), sh.data_ptr() if act_quant else None, m, hidden, inter,
-            g_h, g_i, bj, gu_per, gu, dn_per, dn, int(act_quant), stream)
-        build.check_launch(rc, name)
-        LAUNCHES[name] += 2
-        return out.reshape(*lead, hidden)
-    rows = plan[1]
-    partial = torch.empty(n_j, rows, hidden, device=x.device)
-    for r0 in range(0, m, rows):
-        n = min(rows, m - r0)
-        rc = lib.int4_ffn_launch(
-            xm[r0:].data_ptr(), sx[r0:].data_ptr() if act_quant else None,
-            *(t.data_ptr() for t in ws), out[r0:].data_ptr(), partial.data_ptr(), n, rows,
-            hidden, inter, g_h, g_i, bj, int(act_quant), stream)
-        build.check_launch(rc, name)
-        LAUNCHES[name] += 1
-        LAUNCHES["int4_reduce"] += 1
+        rc = lib.int4_ffn_stream_launch(*ptrs, m, hidden, inter, g_h, g_i, bj, gu_per, gu,
+                                        dn_per, dn, int(act_quant), stream)
+    else:
+        rc = lib.int4_ffn_prefill_launch(*ptrs, m, hidden, inter, g_h, g_i, bj, int(act_quant),
+                                         stream)
+    build.check_launch(rc, name)
+    LAUNCHES[name] += 2
     return out.reshape(*lead, hidden)
 
 
@@ -637,10 +619,8 @@ def int4_ffn(x, wg4, sg, wu4, su, wd4, sd, group: int = GROUP, impl: str = "pall
              act_quant: bool = False) -> torch.Tensor:
     """down(silu(x Wg) * (x Wu)) with packed int4 gate/up (hidden/2, inter)
     and down (inter/2, hidden) weights and their group scales -> (...,
-    hidden) in x's dtype: on the card two launches at up to STREAM_MAX_ROWS
-    rows (the decode kernels), else one kernel launch and its reduction per
-    row chunk (``ffn_row_chunk``): two chunks for a 4 x 512-token prefill at
-    Meditron-7B width (``int4_ffn_plan``)."""
+    hidden) in x's dtype: on the card two launches, the decode kernels up to
+    STREAM_MAX_ROWS rows, else the prefill kernels (``int4_ffn_plan``)."""
     g_h, g_i = _check_ffn(x, wg4, sg, wu4, su, wd4, sd, group)
     if impl == "xla":
         return _int4_ffn_xla(x, wg4, sg, wu4, su, wd4, sd, g_h, g_i, act_quant)
@@ -859,24 +839,21 @@ def int8_ffn_stream_splits(hidden: int, inter: int,
 def int8_ffn_plan(m: int, hidden: int, inter: int, clusters: tuple) -> tuple:
     """The kernels of a K6 call on m rows: ("stream", gate/up splits, stages
     per split, down splits, j-blocks per split) up to STREAM_MAX_ROWS rows
-    (``clusters`` as ``int8_ffn_stream_splits`` takes it), else ("tiled",
-    rows per chunk) for the cluster kernel and its reduction, one pair per
-    row chunk."""
+    (``clusters`` as ``int8_ffn_stream_splits`` takes it), else ("wgmma",
+    j-blocks, output strips): the prefill kernels, gate/up over one block
+    column a j-block, down over one a PREFILL_COLUMNS-column strip."""
     if m <= STREAM_MAX_ROWS:
         return ("stream", *int8_ffn_stream_splits(hidden, inter, clusters))
-    n_j = _rup(inter, INT8_BLOCK_J) // INT8_BLOCK_J
-    return ("tiled", ffn_row_chunk(m, n_j, hidden))
+    return ("wgmma", _rup(inter, INT8_BLOCK_J) // INT8_BLOCK_J,
+            math.ceil(hidden / PREFILL_COLUMNS))
 
 
 def int8_ffn_launches(m: int, hidden: int, inter: int, act_quant: bool) -> dict:
     """The launches of one K6 call on m rows, under ``LAUNCHES``' names: two
-    at decode (gate/up, down), one kernel and one reduction per row chunk
-    above, and the activation quantization for w8a8."""
+    (gate/up, down) at any row count, no reduction, and the activation
+    quantization for w8a8."""
     name = "int8_ffn_a8" if act_quant else "int8_ffn"
-    if m <= STREAM_MAX_ROWS:
-        return {name: 2, "int8_reduce": 0, "int4_act_quant": int(act_quant)}
-    chunks = math.ceil(m / ffn_row_chunk(m, _rup(inter, INT8_BLOCK_J) // INT8_BLOCK_J, hidden))
-    return {name: chunks, "int8_reduce": chunks, "int4_act_quant": int(act_quant)}
+    return {name: 2, "int8_reduce": 0, "int4_act_quant": int(act_quant)}
 
 
 def int8_ffn_plan_on(xm: torch.Tensor, inter: int, act_quant: bool) -> tuple:
@@ -908,33 +885,24 @@ def _int8_ffn_kernel(x, wg8, sg, wu8, su, wd8, sd, act_quant: bool):
     if act_quant:
         xm, sx = _quantize_act_kernel(xm)
     out = torch.empty(m, hidden, dtype=x.dtype, device=x.device)
+    # h between the two launches: (m, 256 n_j) bf16, or int8 with its row
+    # scales per j-block sh (m, n_j)
+    h = torch.empty(m, n_j * INT8_BLOCK_J, dtype=torch.int8 if act_quant else torch.bfloat16,
+                    device=x.device)
+    sh = torch.empty(m, n_j, device=x.device) if act_quant else None
+    ptrs = (xm.data_ptr(), sx.data_ptr() if act_quant else None, *(t.data_ptr() for t in ws),
+            out.data_ptr(), h.data_ptr(), sh.data_ptr() if act_quant else None)
     lib, stream = build.library().lib, _stream(x)
     name = "int8_ffn_a8" if act_quant else "int8_ffn"
     plan = int8_ffn_plan_on(xm, inter, act_quant)
     if plan[0] == "stream":
         _, gu, gu_per, dn, dn_per = plan
-        ld_h = n_j * INT8_BLOCK_J
-        h = torch.empty(m, ld_h, dtype=torch.int8 if act_quant else torch.bfloat16,
-                        device=x.device)
-        sh = torch.empty(m, n_j, device=x.device) if act_quant else None
-        rc = lib.int8_ffn_stream_launch(
-            xm.data_ptr(), sx.data_ptr() if act_quant else None, *(t.data_ptr() for t in ws),
-            out.data_ptr(), h.data_ptr(), sh.data_ptr() if act_quant else None, m, hidden, inter,
-            gu_per, gu, dn_per, dn, int(act_quant), stream)
-        build.check_launch(rc, name)
-        LAUNCHES[name] += 2
-        return out.reshape(*lead, hidden)
-    rows = plan[1]
-    partial = torch.empty(n_j, rows, hidden, device=x.device)
-    for r0 in range(0, m, rows):
-        n = min(rows, m - r0)
-        rc = lib.int8_ffn_launch(
-            xm[r0:].data_ptr(), sx[r0:].data_ptr() if act_quant else None,
-            *(t.data_ptr() for t in ws), out[r0:].data_ptr(), partial.data_ptr(), n, rows,
-            hidden, inter, int(act_quant), stream)
-        build.check_launch(rc, name)
-        LAUNCHES[name] += 1
-        LAUNCHES["int8_reduce"] += 1
+        rc = lib.int8_ffn_stream_launch(*ptrs, m, hidden, inter, gu_per, gu, dn_per, dn,
+                                        int(act_quant), stream)
+    else:
+        rc = lib.int8_ffn_prefill_launch(*ptrs, m, hidden, inter, int(act_quant), stream)
+    build.check_launch(rc, name)
+    LAUNCHES[name] += 2
     return out.reshape(*lead, hidden)
 
 
@@ -942,8 +910,8 @@ def int8_ffn(x, wg8, sg, wu8, su, wd8, sd, impl: str = "pallas",
              act_quant: bool = False) -> torch.Tensor:
     """down(silu(x Wg) * (x Wu)) with int8 gate/up (hidden, inter) and down
     (inter, hidden) weights and their per-column scales -> (..., hidden) in
-    x's dtype: on the card one kernel launch (and its reduction) per row
-    chunk (``ffn_row_chunk``)."""
+    x's dtype: on the card two launches, the decode kernels up to
+    STREAM_MAX_ROWS rows, else the prefill kernels (``int8_ffn_plan``)."""
     _check_ffn8(x, wg8, sg, wu8, su, wd8, sd)
     if impl == "xla":
         return _int8_ffn_xla(x, wg8, sg, wu8, su, wd8, sd, act_quant)

@@ -1016,13 +1016,21 @@ INT4_FFN_DECODE_SHAPES = [(1, 4096, 11008), (4, 4096, 11008), (5, 4096, 11008),
                           (32, 1024, 2048), (17, 192, 192)]
 
 
-def _int4_ffn_weights(gen, hidden, inter):
+def _int4_ffn_weights(gen, hidden, inter, scale=0.05):
     from ctpa_torch.ops import quant
 
     ws = []
     for a, b in ((hidden, inter), (hidden, inter), (inter, hidden)):
-        ws += list(quant.quantize_int4(0.05 * torch.randn(a, b, generator=gen, device="cuda")))
+        ws += list(quant.quantize_int4(scale * torch.randn(a, b, generator=gen, device="cuda")))
     return ws
+
+
+def _prefill_scale(hidden):
+    """Weights of 0.02 at Meditron-7B's width (chip_smoke.py's), else 0.05:
+    with 0.05 at hidden 4096 |p| reaches 200, and rounding h to bf16 after
+    tensor-core sums, as any tensor-core kernel of this FFN does, moves
+    outputs near 0 by more than bf16's 2e-2 + 2e-2 |p|."""
+    return 0.02 if hidden >= 1024 else 0.05
 
 
 @pytest.mark.parametrize("act_quant", [False, True])
@@ -1073,26 +1081,35 @@ def test_int4_ffn_decode_kernel_is_deterministic(cuda, m, act_quant):
     assert torch.equal(first, second)
 
 
-def test_int4_ffn_kernel_chunks_rows(cuda, monkeypatch):
-    """Rows cut into chunks when the fp32 partials would pass the cap: the
-    same result as one chunk, one K7 launch and one reduction per chunk."""
+# (m, hidden, inter) at K7's prefill kernels (m > 32): the first row count
+# past the decode kernels, a token tile and a ragged 2,048 + 5 at
+# Meditron-7B's width; a j-block of 64 (inter 64, hidden groups of 32), one
+# of 192 (inter 192: the window's last 64 columns lie past it) and two
+# j-blocks, the last padded (inter 384)
+INT4_FFN_PREFILL_SHAPES = [(33, 4096, 11008), (70, 4096, 11008), (2053, 4096, 11008),
+                           (70, 160, 64), (37, 128, 192), (70, 256, 384)]
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("shape", INT4_FFN_PREFILL_SHAPES)
+def test_int4_ffn_prefill_kernels_match_plain(cuda, shape, act_quant):
+    """K7's prefill kernels (wgmma fed by TMA: gate/up, then down; two
+    launches, no reduction) against the plain version: w4 in bf16's bound,
+    w4a8 in one bf16 ulp of |p| plus 1e-3 of max|p|."""
     from ctpa_torch.ops import quant
 
-    ws = []
-    for a, b in ((256, 512), (256, 512), (512, 256)):
-        ws += list(quant.quantize_int4(0.05 * torch.randn(a, b, generator=cuda, device="cuda")))
-    x = torch.randn(200, 256, generator=cuda, device="cuda").to(torch.bfloat16)
-    for act_quant in (False, True):
-        name = "int4_ffn_a8" if act_quant else "int4_ffn"
-        whole = quant.int4_ffn(x, *ws, act_quant=act_quant)
-        monkeypatch.setattr(quant, "FFN_PARTIAL_BYTES", 2 * 64 * 256 * 4)
-        assert quant.ffn_row_chunk(200, 2, 256) == 64
-        before = dict(quant.LAUNCHES)
-        chunked = quant.int4_ffn(x, *ws, act_quant=act_quant)
-        assert quant.LAUNCHES[name] - before[name] == 4
-        assert quant.LAUNCHES["int4_reduce"] - before["int4_reduce"] == 4
-        monkeypatch.undo()
-        assert torch.equal(whole, chunked)
+    m, hidden, inter = shape
+    ws = _int4_ffn_weights(cuda, hidden, inter, _prefill_scale(hidden))
+    x = torch.randn(m, hidden, generator=cuda, device="cuda").to(torch.bfloat16)
+    assert quant.int4_ffn_plan_on(x, inter, quant.GROUP, act_quant)[0] == "wgmma"
+    before = dict(quant.LAUNCHES)
+    got = quant.int4_ffn(x, *ws, act_quant=act_quant)
+    torch.cuda.synchronize()
+    launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
+    name = "int4_ffn_a8" if act_quant else "int4_ffn"
+    assert launched == dict(dict.fromkeys(quant.LAUNCHES, 0), **{name: 2},
+                            int4_act_quant=int(act_quant))
+    _int8_close(got, quant.int4_ffn_plain(x, *ws, act_quant=act_quant), act_quant)
 
 
 def test_int4_kernels_refuse_what_they_do_not_take(cuda):
@@ -1115,8 +1132,7 @@ def test_int4_report_generator_kernel_path_matches_plain_path(cuda, act_quant):
     the same bundle with quant_impl="xla" agrees with it (every step's max
     |diff| within 5e-2 of its max |logit|, top-1 agreement >= 0.8).  The
     launches, reductions and w4a8's activation quantization included, are those
-    ``chip_smoke.quant_kernel_launches``
-    derives from the row chunks and contraction splits."""
+    ``chip_smoke.quant_kernel_launches`` derives from the contraction splits."""
     import chip_smoke as cs
     from ctpa_torch.core.config import LLMConfig, ReportGenConfig
     from ctpa_torch.models.layers import set_compute_dtype
@@ -1344,26 +1360,56 @@ def test_int8_ffn_decode_kernel_is_deterministic(cuda, m, act_quant):
     assert torch.equal(first, second)
 
 
-def test_int8_ffn_kernel_chunks_rows(cuda, monkeypatch):
-    """Rows cut into chunks when the fp32 partials would pass the cap: the
-    same result as one chunk, one K6 launch and one reduction per chunk."""
+# (m, hidden, inter) at K6's prefill kernels (m > 32): as K7's, and small
+# widths: a last j-block 8 columns wide (inter 520, not a multiple of 16:
+# the producer copies the gate/up rows TMA cannot read), hidden 48 (below
+# one ring stage) with inter 300, two output strips (hidden 320)
+INT8_FFN_PREFILL_SHAPES = [(33, 4096, 11008), (70, 4096, 11008), (2053, 4096, 11008),
+                           (70, 128, 520), (40, 48, 300), (130, 320, 384)]
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("shape", INT8_FFN_PREFILL_SHAPES)
+def test_int8_ffn_prefill_kernels_match_plain(cuda, shape, act_quant):
+    """K6's prefill kernels (wgmma fed by TMA: gate/up, then down; two
+    launches, no reduction) against the plain version, in K6's bounds."""
     from ctpa_torch.ops import quant
 
+    m, hidden, inter = shape
     ws = []
-    for a, b in ((256, 512), (256, 512), (512, 256)):
-        ws += list(quant.quantize_int8(0.05 * torch.randn(a, b, generator=cuda, device="cuda")))
-    x = torch.randn(200, 256, generator=cuda, device="cuda").to(torch.bfloat16)
-    for act_quant in (False, True):
-        name = "int8_ffn_a8" if act_quant else "int8_ffn"
-        whole = quant.int8_ffn(x, *ws, act_quant=act_quant)
-        monkeypatch.setattr(quant, "FFN_PARTIAL_BYTES", 2 * 64 * 256 * 4)
-        assert quant.ffn_row_chunk(200, 2, 256) == 64
-        before = dict(quant.LAUNCHES)
-        chunked = quant.int8_ffn(x, *ws, act_quant=act_quant)
-        assert quant.LAUNCHES[name] - before[name] == 4
-        assert quant.LAUNCHES["int8_reduce"] - before["int8_reduce"] == 4
-        monkeypatch.undo()
-        assert torch.equal(whole, chunked)
+    for a, b in ((hidden, inter), (hidden, inter), (inter, hidden)):
+        ws += list(quant.quantize_int8(_prefill_scale(hidden) *
+                                       torch.randn(a, b, generator=cuda, device="cuda")))
+    x = torch.randn(m, hidden, generator=cuda, device="cuda").to(torch.bfloat16)
+    assert quant.int8_ffn_plan_on(x, inter, act_quant)[0] == "wgmma"
+    before = dict(quant.LAUNCHES)
+    got = quant.int8_ffn(x, *ws, act_quant=act_quant)
+    torch.cuda.synchronize()
+    launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
+    name = "int8_ffn_a8" if act_quant else "int8_ffn"
+    assert launched == dict(dict.fromkeys(quant.LAUNCHES, 0), **{name: 2},
+                            int4_act_quant=int(act_quant))
+    _int8_close(got, quant.int8_ffn_plain(x, *ws, act_quant=act_quant), act_quant)
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_ffn_prefill_kernels_are_deterministic(cuda, bits, act_quant):
+    """K6 and K7 at prefill (2,048 rows at Meditron-7B's width), called
+    twice, give the same bits: each output tile is one block's, with no
+    split of the contraction and no atomics."""
+    from ctpa_torch.ops import quant
+
+    q = quant.quantize_int4 if bits == 4 else quant.quantize_int8
+    ws = []
+    for a, b in ((4096, 11008), (4096, 11008), (11008, 4096)):
+        ws += list(q(0.05 * torch.randn(a, b, generator=cuda, device="cuda")))
+    x = torch.randn(2048, 4096, generator=cuda, device="cuda").to(torch.bfloat16)
+    ffn = quant.int4_ffn if bits == 4 else quant.int8_ffn
+    first = ffn(x, *ws, act_quant=act_quant)
+    second = ffn(x, *ws, act_quant=act_quant)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_int8_kernels_refuse_what_they_do_not_take(cuda):

@@ -239,6 +239,7 @@ K7_CASES = [  # (m, hidden, inter): tests/test_quant.py:470-575
     (5, 256, 384),       # n_gh = 2 hidden groups, n_gj = 2 down groups a block
     (8, 64, 384),
     (32, 256, 384),      # the decode kernels' largest row count (batch 32)
+    (70, 256, 384),      # the prefill kernels: 70 rows, not a multiple of their token tile
 ]
 
 
@@ -277,15 +278,17 @@ K7_CARD_0 = ((40, 20, 13, 10, 8, 6, 5, 5), (30, 15, 10, 7, 6, 5, 4, 3))
 # (batch 4 and 32, group 128 and 64 on the roomier card: the two streaming
 # kernels, each in the most splits whose clusters all run at once, at least
 # STREAM_MIN_GROUPS scale groups a gate/up split), on a card too small, past the threshold
-# (33 rows) and at prefill (the cluster kernel and its reduction per row
-# chunk); and odd widths: one gate/up split of two groups and two j-blocks
-# (inter 384), groups of 32 with a j-block of 64, a j-block of 192
+# (33 rows) and at prefill (4 x 512 and 32 x 512 rows: the two prefill
+# kernels over 43 j-blocks and 16 output strips); and odd widths: one
+# gate/up split of two groups and two j-blocks (inter 384), groups of 32
+# with a j-block of 64, a j-block of 192
 K7_PLANS = [(4, 4096, 11008, 128, K7_CARD_A, ("stream", 2, 16, 7, 7)),
             (32, 4096, 11008, 128, K7_CARD_B, ("stream", 2, 16, 4, 11)),
             (4, 4096, 11008, 64, K7_CARD_C, ("stream", 3, 22, 8, 6)),
             (1, 4096, 11008, 128, K7_CARD_0, ("stream", 1, 32, 1, 43)),
-            (33, 4096, 11008, 128, (), ("tiled", 64)),
-            (2048, 4096, 11008, 128, (), ("tiled", 1472)),
+            (33, 4096, 11008, 128, (), ("wgmma", 43, 16)),
+            (2048, 4096, 11008, 128, (), ("wgmma", 43, 16)),
+            (16384, 4096, 11008, 128, (), ("wgmma", 43, 16)),
             (4, 256, 384, 128, K7_CARD_A, ("stream", 1, 2, 2, 1)),
             (20, 160, 64, 128, K7_CARD_A, ("stream", 1, 5, 1, 1)),
             (32, 192, 192, 128, K7_CARD_B, ("stream", 1, 3, 1, 1))]
@@ -297,8 +300,9 @@ def test_int4_ffn_plan_takes_the_kernel_by_rows(m, hidden, inter, group, cluster
     kernels (gate/up over splits of the hidden scale groups, down over
     splits of the j-blocks; a j-block's or strip's splits form one cluster,
     which adds them itself: two launches), as many splits as let every
-    cluster run at once; above, the cluster kernel and its reduction per
-    row chunk.  w4a8 adds one activation-quantization launch."""
+    cluster run at once; above, the two prefill kernels (gate/up one block
+    column a j-block, down one a 256-column output strip), no reduction.
+    w4a8 adds one activation-quantization launch."""
     plan = tq.int4_ffn_plan(m, hidden, inter, group, clusters)
     assert plan == want
     assert (plan[0] == "stream") == (m <= tq.STREAM_MAX_ROWS)
@@ -314,12 +318,11 @@ def test_int4_ffn_plan_takes_the_kernel_by_rows(m, hidden, inter, group, cluster
         assert gu == 1 or (clusters[0][gu - 1] >= n_j and gu_per >= tq.STREAM_MIN_GROUPS)
         assert dn == 1 or clusters[1][dn - 1] >= strips
     else:
-        assert plan[1] == tq.ffn_row_chunk(m, n_j, hidden)
+        assert plan == ("wgmma", n_j, -(-hidden // tq.PREFILL_COLUMNS))
     for act_quant in (False, True):
-        chunks = 0 if plan[0] == "stream" else -(-m // plan[1])
         assert tq.int4_ffn_launches(m, hidden, inter, group, act_quant) == {
-            "int4_ffn_a8" if act_quant else "int4_ffn": 2 if plan[0] == "stream" else chunks,
-            "int4_reduce": chunks, "int4_act_quant": int(act_quant)}
+            "int4_ffn_a8" if act_quant else "int4_ffn": 2, "int4_reduce": 0,
+            "int4_act_quant": int(act_quant)}
 
 
 def test_int4_ffn_w4a8_requantizes_per_j_block():

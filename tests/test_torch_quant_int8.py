@@ -256,6 +256,7 @@ K6_CASES = [  # (m, hidden, inter, block_j): tests/test_quant.py:215-285 and Med
     (4, 64, 384, 256),     # the kernel's block_j: the last j-block padded (384 -> 512)
     (9, 128, 520, 256),    # three j-blocks, the last 8 columns wide
     (32, 128, 520, 256),   # the decode kernels' largest row count (batch 32)
+    (70, 128, 520, 256),   # the prefill kernels: 70 rows, not a multiple of their token tile
 ]
 
 
@@ -294,14 +295,16 @@ CARD_0 = ((40, 20, 13, 10, 8, 6, 5, 5), (30, 15, 10, 7, 6, 5, 4, 3))
 # (m, hidden, inter, clusters, want): Meditron-7B's FFN at decode (batch 4
 # and 32: the two streaming kernels, each in the most splits whose clusters
 # all run at once), on each card, past the threshold (33 rows) and at
-# prefill (the cluster kernel and its reduction per row chunk), and at
-# small widths (one split, one j-block)
+# prefill (4 x 512 and 32 x 512 rows: the two prefill kernels over 43
+# j-blocks and 16 output strips), and at small widths (one split, one
+# j-block)
 K6_PLANS = [(4, 4096, 11008, CARD_2, ("stream", 5, 26, 8, 6)),
             (32, 4096, 11008, CARD_2, ("stream", 5, 26, 8, 6)),
             (1, 4096, 11008, CARD_1, ("stream", 3, 43, 8, 6)),
             (4, 4096, 11008, CARD_0, ("stream", 1, 128, 1, 43)),
-            (33, 4096, 11008, (), ("tiled", 64)),
-            (2048, 4096, 11008, (), ("tiled", 1472)),
+            (33, 4096, 11008, (), ("wgmma", 43, 16)),
+            (2048, 4096, 11008, (), ("wgmma", 43, 16)),
+            (16384, 4096, 11008, (), ("wgmma", 43, 16)),
             (4, 64, 64, CARD_2, ("stream", 1, 2, 1, 1)),
             (32, 80, 520, CARD_2, ("stream", 1, 3, 3, 1))]
 
@@ -312,8 +315,9 @@ def test_int8_ffn_plan_takes_the_kernel_by_rows(m, hidden, inter, clusters, want
     kernels (gate/up over splits of the hidden rows, down over splits of
     the j-blocks; a j-block's or strip's splits form one cluster, which adds
     them itself: two launches), as many splits as let every cluster run at
-    once; above, the cluster kernel and its reduction per row chunk.  w8a8
-    adds one activation-quantization launch."""
+    once; above, the two prefill kernels (gate/up one block column a
+    j-block, down one a 256-column output strip), no reduction.  w8a8 adds
+    one activation-quantization launch."""
     plan = tq.int8_ffn_plan(m, hidden, inter, clusters)
     assert plan == want
     assert (plan[0] == "stream") == (m <= tq.STREAM_MAX_ROWS)
@@ -329,12 +333,11 @@ def test_int8_ffn_plan_takes_the_kernel_by_rows(m, hidden, inter, clusters, want
         assert gu == 1 or clusters[0][gu - 1] >= n_j
         assert dn == 1 or clusters[1][dn - 1] >= strips
     else:
-        assert plan[1] == tq.ffn_row_chunk(m, n_j, hidden)
+        assert plan == ("wgmma", n_j, -(-hidden // tq.PREFILL_COLUMNS))
     for act_quant in (False, True):
-        chunks = 0 if plan[0] == "stream" else -(-m // plan[1])
         assert tq.int8_ffn_launches(m, hidden, inter, act_quant) == {
-            "int8_ffn_a8" if act_quant else "int8_ffn": 2 if plan[0] == "stream" else chunks,
-            "int8_reduce": chunks, "int4_act_quant": int(act_quant)}
+            "int8_ffn_a8" if act_quant else "int8_ffn": 2, "int8_reduce": 0,
+            "int4_act_quant": int(act_quant)}
 
 
 def test_int8_ffn_w8a8_requantizes_per_j_block():
