@@ -105,21 +105,23 @@ Phases, each printing its seconds:
                      two more seeded states and batches must pass them.
  17. quant-kernels — the int4 projection (K5) and the fused int4 FFN (K7),
                      weight-only and w4a8, against their plain versions at
-                     Meditron-7B's shapes: decode at batch 4 and 32, prefill
-                     of 4 x 512 tokens, a ragged case (K7 also at 33 and 128
-                     rows, the prefill kernels' first row counts, and the
-                     batch-32 prefill of 16,384 rows untimed); timed as in
+                     Meditron-7B's shapes: decode at batch 4 and 32, 33 and
+                     128 rows (the prefill kernels' first row counts),
+                     prefill of 4 x 512 tokens, a ragged case, and the
+                     batch-32 prefill of 16,384 rows untimed; timed as in
                      phase 3 (weights cycled past the L2 cache), K5
-                     weight-only beside torch._weight_int4pack_mm; the decode
-                     kernels of K5 and K7 and K7's prefill kernels (2,048
-                     rows) called twice for bits, the decode kernels timed
-                     beside the kernels above 32 rows forced at decode rows
-                     (a threshold table), and K7 built twice with a planted
-                     fault (KERNEL_FAULTS, compiled in the background since
-                     the build phase: the w4a8 decode gate/up kernel's row
-                     maximum over half a j-block; the w4 prefill gate/up
-                     kernel's last k-step of each half group dropped), which
-                     the K7 gate must refuse;
+                     weight-only beside torch._weight_int4pack_mm and K5's
+                     prefill forms beside dense bf16 torch.matmul; the
+                     decode and prefill kernels of K5 and K7 called twice
+                     for bits, the decode kernels timed beside the prefill
+                     kernels at 4-33 rows (a threshold table), and K5 and K7
+                     built again with planted faults (KERNEL_FAULTS,
+                     compiled in the background since the build phase: K7's
+                     w4a8 decode gate/up kernel's row maximum over half a
+                     j-block; its w4 prefill gate/up kernel's last k-step of
+                     each half group dropped; K5's prefill kernel scaling a
+                     token by its pair's other token's row scale), which the
+                     gates must refuse;
  18. quant-report  — the report-train phase's checkpoint and the report
                      phase's bf16 base through ctpa_torch.cli.export_serving
                      (--quant int4 --ffn-kernel --kv-quant int8
@@ -129,9 +131,10 @@ Phases, each printing its seconds:
                      batch 32: prefill and decode-step times, tokens/s, peak
                      memory, and exactly 65 K5 launches and 64 of K7 (two a
                      layer: the decode kernels at up to 32 rows, else the
-                     prefill kernels; no reduction) per prefill and per
-                     decode step (w4a8: 97 activation quantizations at batch
-                     4), 32 K8 per decode step;
+                     prefill kernels; K5 one launch a call at any row count;
+                     no reduction kernel) per prefill and per decode step
+                     (w4a8: 97 activation quantizations at batch 4), 32 K8
+                     per decode step;
  19. quant-plain   — each tier's kernel path, the same bundle with
                      quant_impl="xla" and an fp32 reference of the same
                      dequantized weights, teacher-forced on the kernel path's
@@ -141,19 +144,21 @@ Phases, each printing its seconds:
  20. quant8-kernels — the int8 projection (K4) and the fused int8 FFN (K6),
                      weight-only and w8a8, against their plain versions at
                      Meditron-7B's shapes (K4 also at the unfused FFN's
-                     gateup and down shapes): decode at batch 4 and 32,
-                     prefill of 4 x 512 tokens, a ragged case, the batch-32
-                     prefill untimed (K6 also at 33 and 128 rows); timed as
-                     in phase 17, K4 beside torch._int_mm (w8a8) and
-                     torch._weight_int8pack_mm (w8); K4's and K6's decode
-                     kernels called twice for bits at batch 4 and 32 (K4 w8a8
-                     equal to its plain version bit for bit) and K6's
-                     prefill kernels at 2,048 rows, K4's decode kernel timed
-                     beside the tiled kernel it replaces, and K4 and K6
-                     built again with planted faults (KERNEL_FAULTS; K6's at
-                     decode and in its w8a8 prefill kernel, each a row
-                     maximum over half a j-block), which their gates must
-                     refuse;
+                     gateup and down shapes): decode at batch 4 and 32, 33
+                     and 128 rows, prefill of 4 x 512 tokens, ragged cases,
+                     the batch-32 prefill untimed; timed as in phase 17, K4
+                     beside torch._int_mm (w8a8), torch._weight_int8pack_mm
+                     (w8; one call at prefill) and at prefill dense bf16
+                     torch.matmul; K4's and K6's decode kernels called twice
+                     for bits at batch 4 and 32 and their prefill kernels at
+                     2,048 rows (K4 w8a8 equal to its plain version bit for
+                     bit at every row count), K4's decode kernel timed
+                     beside its prefill kernel at 4-33 rows, and K4 and K6
+                     built again with planted faults (KERNEL_FAULTS; K4's
+                     split dropped at decode and its prefill kernel's column
+                     scales swapped in pairs; K6's at decode and in its w8a8
+                     prefill kernel, each a row maximum over half a j-block),
+                     which their gates must refuse;
  21. quant8-report — the same base and checkpoint through export_serving
                      (--quant int8 --ffn-kernel --kv-quant int8
                      --flash-decode, then with --act-quant) and
@@ -161,9 +166,10 @@ Phases, each printing its seconds:
                      generate as in phase 18 (w8 and w8a8 at batch 4, w8a8
                      at batch 32), exactly 65 K4 launches and 64 of K6 (two
                      a layer: the decode kernels at up to 32 rows, else the
-                     prefill kernels; no reduction) per prefill and per
-                     decode step (w8a8: 97 activation quantizations at batch
-                     4), 32 K8 per decode step;
+                     prefill kernels; K4 one launch a call; no reduction
+                     kernel) per prefill and per decode step (w8a8: 97
+                     activation quantizations at batch 4), 32 K8 per decode
+                     step;
  22. quant8-plain  — phase 19's gates for the int8 tiers; the planted faults
                      roll the per-column scales by one or shift the
                      contraction by one row.
@@ -2146,15 +2152,16 @@ def quant_check(errs: dict, name: str, a8: bool, label: str, got, ref) -> None:
 def check_quant_kernels(dev) -> dict:
     """Phase 17: the four K5 and K7 forms against their plain versions at the
     shapes int4 serving gives them at Meditron-7B width (decode at batch 4
-    and 32, prefill of 4 x 512 tokens, and a ragged case), then timed beside
-    the plain version, the bound and, for K5 w4, torch._weight_int4pack_mm;
-    the batch-32 prefill (32 x 512 rows) checked untimed; K7 also timed at
-    33 and 128 rows (the prefill kernels' side of STREAM_MAX_ROWS).  The
-    w4a8 forms are held to QUANT_A8_ATOL max|p| + QUANT_A8_RTOL |p|, which
-    ctpa's per-row xla FFN must fail.  K5's and K7's decode kernels (batch 4
-    and 32) are called twice for bits and timed beside the kernels above
-    32 rows, K7's prefill kernels twice for bits at 2,048 rows; the planted
-    K7 faults (FAULT_BUILDS, one in each design) must fail its gate."""
+    and 32, 33 and 128 rows, prefill of 4 x 512 tokens, and a ragged case),
+    then timed beside the plain version, the bound and, for K5 w4,
+    torch._weight_int4pack_mm (K5's prefill forms also beside dense bf16
+    torch.matmul); the batch-32 prefill (32 x 512 rows) checked untimed.
+    The w4a8 forms are held to QUANT_A8_ATOL max|p| + QUANT_A8_RTOL |p|,
+    which ctpa's per-row xla FFN must fail.  K5's and K7's decode kernels
+    (batch 4 and 32) and prefill kernels (2,048 rows) are called twice for
+    bits, and a threshold table times the decode kernels beside the prefill
+    kernels at 4-33 rows; the planted K5 and K7 faults (FAULT_BUILDS, one in
+    each design) must fail their gates."""
     import torch
 
     from ctpa_torch.core.config import LLMConfig
@@ -2170,12 +2177,14 @@ def check_quant_kernels(dev) -> dict:
     # (label, in, out, timed row counts, checked-only row counts); generate's
     # lm_head sees one row a sequence, a full forward (training, scoring)
     # every prompt row
-    # the decode kernel's last row count and the tiled kernel's first: checked
+    # the decode kernel's last row count checked, the prefill kernel's first
+    # timed
     edge = quant.STREAM_MAX_ROWS
-    matmuls = (("qkv_proj", d, qkv, (decode, QUANT_B32, prefill), (prefill_b32, edge, edge + 1)),
-               ("o_proj", d, d, (decode, QUANT_B32, prefill), (prefill_b32,)),
+    rows_timed = (decode, QUANT_B32, edge + 1, 128, prefill)
+    matmuls = (("qkv_proj", d, qkv, rows_timed, (prefill_b32, edge)),
+               ("o_proj", d, d, rows_timed, (prefill_b32,)),
                ("lm_head", d, vocab, (decode, QUANT_B32, prefill), ()),
-               ("ragged", d, 1000, (5,), ()))
+               ("ragged", d, 1000, (5,), (prefill + 5,)))
     errs = collections.defaultdict(float)
     table = {}
     bf16 = torch.bfloat16
@@ -2191,11 +2200,12 @@ def check_quant_kernels(dev) -> dict:
             x = torch.randn(m, d_in, generator=gen, device=dev).to(bf16)
             for name, a8, _, _ in QUANT_FORMS[:2]:
                 w4, s = weights[0]
-                check(name, a8, f"{label} m {m}", quant.int4_matmul(x, w4, s, act_quant=a8),
+                check(kernel_key(name, m), a8, f"{label} m {m}",
+                      quant.int4_matmul(x, w4, s, act_quant=a8),
                       quant.int4_matmul_plain(x, w4, s, act_quant=a8))
                 if m not in timed:
                     continue
-                if m <= QUANT_B32:
+                if m in (decode, QUANT_B32, prefill):
                     repeatable(f"{name} {label} m {m}",
                                lambda: quant.int4_matmul(x, w4, s, act_quant=a8))
                 it = itertools.cycle(weights)
@@ -2217,14 +2227,25 @@ def check_quant_kernels(dev) -> dict:
                                 f"max |diff| to the kernel {diff.max().item():.3e})")
                 else:
                     lib_note = "none"
+                if m > edge:
+                    lib_note += f"; {dense_yardstick(x, weights, quant.dequantize_int4)}"
                 table[name, label, m] = (ms, plain_ms, b_ms, b_by, lib_ms)
                 print(f"    {name} {label} (m {m}, {d_in} -> {d_out}, "
                       f"{quant.int4_matmul_plan_on(x, d_out, quant.GROUP, a8)}):"
                       f" {ms:.4f} ms (device {dev_ms:.4f})  plain {plain_ms:.4f} ms  bound "
                       f"{b_ms * 1e3:.2f} us ({b_by})  library {lib_note}")
         if label in ("qkv_proj", "o_proj"):
-            stream_or_tiled("K5", lambda x, w, a8: quant.int4_matmul(x, *w, act_quant=a8),
-                            weights, d_in, (4, 16, 32), ("w4", "w4a8"))
+            threshold_table("K5", lambda x, w, a8: quant.int4_matmul(x, *w, act_quant=a8),
+                            weights, d_in, (4, 16, 32, 33), ("w4", "w4a8"))
+        if label == "qkv_proj":
+            x = torch.randn(prefill, d_in, generator=gen, device=dev).to(bf16)
+            plain = quant.int4_matmul_plain(x, *weights[0], act_quant=True)
+            fault_refused("K5 prefill", "sx of the pair's other token",
+                          lambda: quant.int4_matmul(x, *weights[0], act_quant=True),
+                          lambda got: quant_check(collections.defaultdict(float),
+                                                  "int4_matmul_a8", True,
+                                                  f"{label} m {prefill}, planted fault", got,
+                                                  plain))
         del weights, library
     rows_act = check_act_quant(gen, dev, d, (decode, QUANT_B32, prefill))
     ffn = _ffn_copies(gen, dev, d, i)
@@ -2234,7 +2255,7 @@ def check_quant_kernels(dev) -> dict:
         x = torch.randn(m, d, generator=gen, device=dev).to(bf16)
         for name, a8, _, _ in QUANT_FORMS[2:]:
             plain = quant.int4_ffn_plain(x, *ffn[0], act_quant=a8)
-            quant_check(errs, ffn_key(name, m), a8, f"m {m}",
+            quant_check(errs, kernel_key(name, m), a8, f"m {m}",
                         quant.int4_ffn(x, *ffn[0], act_quant=a8), plain)
             if a8 and m in (decode, prefill):
                 per_row[m] = a8_atol_needed(quant.int4_ffn(x, *ffn[0], impl="xla", act_quant=True),
@@ -2263,8 +2284,8 @@ def check_quant_kernels(dev) -> dict:
         for name, a8, _, _ in QUANT_FORMS[2:]:
             repeatable(f"{name} {'decode' if m <= edge else 'prefill'} kernels m {m}",
                        lambda: quant.int4_ffn(x, *ffn[0], act_quant=a8))
-    stream_or_tiled("K7", lambda x, w, a8: quant.int4_ffn(x, *w, act_quant=a8), ffn, d,
-                    (decode, QUANT_B32), ("w4", "w4a8"), other="wgmma")
+    threshold_table("K7", lambda x, w, a8: quant.int4_ffn(x, *w, act_quant=a8), ffn, d,
+                    (decode, QUANT_B32), ("w4", "w4a8"))
     x = torch.randn(decode, d, generator=gen, device=dev).to(bf16)
     plain = quant.int4_ffn_plain(x, *ffn[0], act_quant=True)
     fault_refused("K7", "row max over 128 columns",
@@ -2284,24 +2305,27 @@ def check_quant_kernels(dev) -> dict:
     return rows
 
 
-def ffn_key(name: str, m: int) -> str:
-    """An FFN form's key in the error tables and the kernels' rows: the
-    prefill kernels (above STREAM_MAX_ROWS rows) apart from the decode
-    kernels."""
+def kernel_key(name: str, m: int) -> str:
+    """A K4-K7 form's key in the error tables and the kernels' rows, its
+    launch counter's (``ops/quant.py:kernel_name``): the prefill kernels
+    (above STREAM_MAX_ROWS rows) apart from the decode kernels."""
     from ctpa_torch.ops import quant
 
-    return name if m <= quant.STREAM_MAX_ROWS else f"{name}_prefill"
+    return quant.kernel_name(name, m)
+
+
+PREFILL_SOURCE = "ctpa_torch/csrc/prefill_wgmma.cuh"
 
 
 def kernel_rows(forms, table, errs, decode: int, prefill: int) -> dict:
-    """The kernels' table rows: the decode step at batch 4, the main path's
-    most frequent call (the fused qkv_proj for K4 and K5), and the FFN's
-    prefill kernels ("<form>_prefill", ffn_wgmma.cuh) at 4 x 512 rows."""
+    """The kernels' table rows at the main path's most frequent call (the
+    fused qkv_proj for K4 and K5, the FFN for K6 and K7): the decode kernels
+    at batch 4, and the prefill kernels ("<form>_prefill",
+    prefill_wgmma.cuh) at 4 x 512 rows."""
     rows = {}
     for name, _, replaces, source in forms:
-        keys = [(name, source, "ffn" if "ffn" in name else "qkv_proj", decode)]
-        if "ffn" in name:
-            keys.append((f"{name}_prefill", "ctpa_torch/csrc/ffn_wgmma.cuh", "ffn", prefill))
+        shape = "ffn" if "ffn" in name else "qkv_proj"
+        keys = [(name, source, shape, decode), (f"{name}_prefill", PREFILL_SOURCE, shape, prefill)]
         for key, src, shape, m in keys:
             ms, plain_ms, b_ms, b_by, lib_ms = table[name, shape, m]
             rows[key] = dict(name=key, route="cuda", source=src, replaces=replaces,
@@ -2310,14 +2334,13 @@ def kernel_rows(forms, table, errs, decode: int, prefill: int) -> dict:
     return rows
 
 
-def stream_or_tiled(kernel: str, call, weights, d_in: int, row_counts, forms,
-                    other: str = "tiled") -> None:
-    """A decode kernel (K4, K5 or K7) beside the kernel that takes more than
-    32 rows (``other``: K4's and K5's tiled kernels, K7's prefill kernels),
-    each forced by ``quant.STREAM_MAX_ROWS`` (the decode kernels take at most
-    32 rows; 0 sends every call to the other), at each row count: ``call(x,
-    weights[j], a8)`` for the forms (weight-only, int8 activations), cycling
-    the weights past the L2 cache.  Above 32 rows the other alone."""
+def threshold_table(kernel: str, call, weights, d_in: int, row_counts, forms) -> None:
+    """A decode kernel (K4, K5 or K7) beside its prefill kernel at each row
+    count, each forced by ``quant.STREAM_MAX_ROWS`` (0 sends every call to
+    the prefill kernel): ``call(x, weights[j], a8)`` for the forms
+    (weight-only, int8 activations), cycling the weights past the L2 cache.
+    Above 32 rows, which the decode kernels do not take, the decode side is
+    one call on each chunk of 32 rows."""
     import torch
 
     from ctpa_torch.ops import quant
@@ -2328,12 +2351,19 @@ def stream_or_tiled(kernel: str, call, weights, d_in: int, row_counts, forms,
     try:
         for m in row_counts:
             x = torch.randn(m, d_in, generator=gen, device=dev).to(torch.bfloat16)
+            chunks = [x[r:r + keep] for r in range(0, m, keep)]
             for form, a8 in zip(forms, (False, True)):
                 times = {}
-                for kind, limit in (("stream", 32), (other, 0)) if m <= 32 else ((other, 32),):
+                for kind, limit, parts in (("stream", keep, chunks), ("wgmma", 0, [x])):
                     quant.STREAM_MAX_ROWS = limit
                     it = itertools.cycle(weights)
-                    fn = lambda: call(x, next(it), a8)  # noqa: E731
+
+                    def fn():
+                        w = next(it)
+                        for part in parts:
+                            call(part, w, a8)
+
+                    kind = kind if len(parts) == 1 else f"stream ({len(parts)} calls)"
                     times[kind] = (cuda_ms(fn, iters=2 * len(weights)),
                                    device_ms(fn, 2 * len(weights)))
                 print(f"    threshold {kernel}: m {m} {d_in} -> {weights[0][0].shape[1]} "
@@ -2341,6 +2371,29 @@ def stream_or_tiled(kernel: str, call, weights, d_in: int, row_counts, forms,
                           f"{k} {ms:.4f} ms (device {dv:.4f})" for k, (ms, dv) in times.items()))
     finally:
         quant.STREAM_MAX_ROWS = keep
+
+
+def dense_yardstick(x, weights, dequantize) -> str:
+    """Dense bf16 ``torch.matmul`` of x with the first weight dequantized, a
+    yardstick for the prefill kernels (not the same function, and never
+    called by the port): its time, cycling over two copies."""
+    dense = [dequantize(*w) for w in weights[:2]]
+    it = itertools.cycle(dense)
+    fn = lambda: x @ next(it)  # noqa: E731
+    return f"dense bf16 torch.matmul {cuda_ms(fn, iters=4):.4f} ms, device {device_ms(fn, 4):.4f}"
+
+
+def single_ms(fn) -> float:
+    """One call's time by CUDA events (for a yardstick too slow to repeat)."""
+    import torch
+
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e)
 
 
 def check_act_quant(gen, dev, d: int, row_counts) -> dict:
@@ -2471,9 +2524,13 @@ def int8_yardstick(a8: bool, weights: list, x):
 #   K7: the same in the w4a8 decode gate/up kernel;
 #   K4: the cluster's sum leaves one split's sums out;
 #   K6 prefill: the w8a8 prefill gate/up kernel's row maximum over one
-#       consumer warpgroup's 128 columns of the j-block (ffn_wgmma.cuh);
+#       consumer warpgroup's 128 columns of the j-block (prefill_wgmma.cuh);
 #   K7 prefill: the w4 prefill kernels drop the last k-step of each half of
-#       a scale group (ffn_wgmma.cuh).
+#       a scale group (prefill_wgmma.cuh);
+#   K4 prefill: the projection kernel reads each column's scale from its
+#       pair's other column (w8, w8a8; prefill_wgmma.cuh);
+#   K5 prefill: the projection kernel scales each token by its pair's other
+#       token's row scale (w4a8; prefill_wgmma.cuh).
 KERNEL_FAULTS = {
     "K6": ("int8_ffn.cu", "int8_ffn.cu",
            ("      for (int w = 1; w < kGuWarps; ++w) mx = fmaxf(mx, red[w]);",
@@ -2487,14 +2544,22 @@ KERNEL_FAULTS = {
            ("wstream::split_sum(cluster, part, tok * kSBN + cl, splits);",
             "wstream::split_sum(cluster, part, tok * kSBN + cl, splits - 1);"),
            ("int8_matmul_stream_launch", "int8_matmul_stream_clusters")),
-    "K6 prefill": ("int8_ffn.cu", "ffn_wgmma.cuh",
+    "K6 prefill": ("int8_ffn.cu", "prefill_wgmma.cuh",
                    ("      for (int k = 1; k < 8; ++k) m = fmaxf(m, red[k][tl]);",
                     "      for (int k = 1; k < 4; ++k) m = fmaxf(m, red[k][tl]);"),
                    ("int8_ffn_prefill_launch",)),
-    "K7 prefill": ("int4_ffn.cu", "ffn_wgmma.cuh",
+    "K7 prefill": ("int4_ffn.cu", "prefill_wgmma.cuh",
                    ("      for (int kk = 0; kk < G / 2; kk += 16) {",
                     "      for (int kk = 0; kk < G / 2 - 16; kk += 16) {"),
                    ("int4_ffn_prefill_launch",)),
+    "K4 prefill": ("int8_matmul.cu", "prefill_wgmma.cuh",
+                   ("cs[q] = !F::int4 && col + q < a.n ? a.scale[col + q] : 0.f;",
+                    "cs[q] = !F::int4 && col + q < a.n ? a.scale[col + (q ^ 1)] : 0.f;"),
+                   ("int8_matmul_prefill_launch", "int8_matmul_prefill_clusters")),
+    "K5 prefill": ("int4_matmul.cu", "prefill_wgmma.cuh",
+                   ("const float rs = F::a8 ? a.sx[tok] : 1.f;",
+                    "const float rs = F::a8 ? a.sx[tok ^ 1] : 1.f;"),
+                   ("int4_matmul_prefill_launch", "int4_matmul_prefill_clusters")),
 }
 # the background builds of KERNEL_FAULTS, started in phase build
 FAULT_BUILDS: dict = {}
@@ -2574,17 +2639,18 @@ def fault_refused(kernel: str, label: str, fn, gate) -> None:
 def check_quant8_kernels(dev) -> dict:
     """Phase 20: the four K4 and K6 forms against their plain versions at the
     shapes int8 serving gives them at Meditron-7B width (decode at batch 4
-    and 32, prefill of 4 x 512 tokens, a ragged case; K4 also at the gateup
-    and down shapes of the unfused FFN), then timed beside the plain version,
-    the bound and, for K4, ``int8_yardstick``; the batch-32 prefill (32 x 512
-    rows) checked untimed; K6 also timed at 33 and 128 rows.  The w8a8 forms
-    are held to QUANT_A8_ATOL max|p| + QUANT_A8_RTOL |p|, which the FFN with
-    h requantized per full row must fail.  K4's and K6's decode kernels
-    (batch 4 and 32) and K6's prefill kernels (2,048 rows) are called twice
-    for bits, K4 w8a8 must equal the plain version bit for bit at decode,
-    and the planted K4 and K6 faults (FAULT_BUILDS) must fail their gates; a
-    threshold table times K4's decode kernel beside the tiled kernel it
-    replaces."""
+    and 32, 33 and 128 rows, prefill of 4 x 512 tokens, ragged cases; K4
+    also at the gateup and down shapes of the unfused FFN), then timed
+    beside the plain version, the bound and, for K4, ``int8_yardstick`` (the
+    prefill forms also beside dense bf16 torch.matmul); the batch-32
+    prefill (32 x 512 rows) checked untimed.  The w8a8 forms are held to
+    QUANT_A8_ATOL max|p| + QUANT_A8_RTOL |p|, which the FFN with h
+    requantized per full row must fail.  K4's and K6's decode kernels
+    (batch 4 and 32) and prefill kernels (2,048 rows) are called twice for
+    bits, K4 w8a8 must equal the plain version bit for bit at every row
+    count, and the planted K4 and K6 faults (FAULT_BUILDS) must fail their
+    gates; a threshold table times K4's decode kernel beside its prefill
+    kernel at 4-33 rows."""
     import torch
 
     from ctpa_torch.core.config import LLMConfig
@@ -2597,15 +2663,17 @@ def check_quant8_kernels(dev) -> dict:
     prefill = len(PROMPT_LENS) * max(PROMPT_LENS)
     prefill_b32 = QUANT_B32 * max(PROMPT_LENS)
     decode = len(PROMPT_LENS)
+    edge = quant.STREAM_MAX_ROWS
     timed = (decode, QUANT_B32, prefill)
+    timed_edge = (decode, QUANT_B32, edge + 1, 128, prefill)
     # (label, in, out, timed row counts, checked-only row counts)
-    matmuls = (("qkv_proj", d, qkv, timed, (prefill_b32,)),
-               ("o_proj", d, d, timed, (prefill_b32,)),
+    matmuls = (("qkv_proj", d, qkv, timed_edge, (prefill_b32,)),
+               ("o_proj", d, d, timed_edge, (prefill_b32,)),
                ("lm_head", d, vocab, timed, ()),
-               ("gateup_proj", d, 2 * i, timed, ()),
-               ("down_proj", i, d, timed, ()),
-               ("ragged", d, 1000, (5,), ()),
-               ("ragged in", 513, 1000, (), (5, QUANT_B32)))
+               ("gateup_proj", d, 2 * i, timed, (edge + 1, 128)),
+               ("down_proj", i, d, timed, (edge + 1, 128)),
+               ("ragged", d, 1000, (5,), (prefill + 5,)),
+               ("ragged in", 513, 1000, (), (5, QUANT_B32, edge + 1, prefill + 5)))
     errs = collections.defaultdict(float)
     table = {}
     bf16 = torch.bfloat16
@@ -2617,16 +2685,15 @@ def check_quant8_kernels(dev) -> dict:
                 w8, s = weights[0]
                 got = quant.int8_matmul(x, w8, s, act_quant=a8)
                 ref = quant.int8_matmul_plain(x, w8, s, act_quant=a8)
-                quant_check(errs, name, a8, f"{label} m {m}", got, ref)
-                if m <= quant.STREAM_MAX_ROWS:
-                    # the decode kernel: the same bits twice, and w8a8's
-                    # exact int32 sums scaled as the plain version scales
-                    # them: its bits
+                quant_check(errs, kernel_key(name, m), a8, f"{label} m {m}", got, ref)
+                # w8a8's exact int32 sums scaled as the plain version
+                # scales them: its bits, from both kernels
+                if a8 and not torch.equal(got, ref):
+                    raise AssertionError(f"{name} {label} m {m}: not int8_matmul_plain's "
+                                         f"bits ({int((got != ref).sum())} differ)")
+                if m in (decode, QUANT_B32, prefill) and label in ("qkv_proj", "o_proj"):
                     repeatable(f"{name} {label} m {m}",
                                lambda: quant.int8_matmul(x, w8, s, act_quant=a8))
-                    if a8 and not torch.equal(got, ref):
-                        raise AssertionError(f"{name} {label} m {m}: not int8_matmul_plain's "
-                                             f"bits ({int((got != ref).sum())} differ)")
                 if m not in rows_timed:
                     continue
                 it = itertools.cycle(weights)
@@ -2639,18 +2706,25 @@ def check_quant8_kernels(dev) -> dict:
                                       PEAK_INT8_OPS if a8 else PEAK_BF16_FLOPS)
                 library, note = int8_yardstick(a8, weights, x)
                 lib_ms = None
-                if library is not None:
+                if library is not None and not a8 and m > edge:
+                    # _weight_int8pack_mm took 224 ms at qkv_proj's prefill:
+                    # one call
+                    lib_ms = single_ms(library)
+                    note = f"{lib_ms:.4f} ms, one call ({note})"
+                elif library is not None:
                     lib_ms = cuda_ms(library, iters=2 * len(weights))
                     note = (f"{lib_ms:.4f} ms, device {device_ms(library, 2 * len(weights)):.4f} "
                             f"({note})")
+                if m > edge:
+                    note += f"; {dense_yardstick(x, weights, quant.dequantize_int8)}"
                 table[name, label, m] = (ms, plain_ms, b_ms, b_by, lib_ms)
                 print(f"    {name} {label} (m {m}, {d_in} -> {d_out}, "
                       f"{quant.int8_matmul_plan_on(x, d_out, a8)}): {ms:.4f} ms (device "
                       f"{dev_ms:.4f})  plain {plain_ms:.4f} ms  bound {b_ms * 1e3:.2f} us "
                       f"({b_by})  library {note}")
         if label in ("qkv_proj", "o_proj"):
-            stream_or_tiled("K4", lambda x, w, a8: quant.int8_matmul(x, *w, act_quant=a8),
-                            weights, d_in, (decode, QUANT_B32, QUANT_B32 + 1), ("w8", "w8a8"))
+            threshold_table("K4", lambda x, w, a8: quant.int8_matmul(x, *w, act_quant=a8),
+                            weights, d_in, (decode, 16, QUANT_B32, edge + 1), ("w8", "w8a8"))
         if label == "qkv_proj":
             x = torch.randn(decode, d_in, generator=gen, device=dev).to(bf16)
             plain = quant.int8_matmul_plain(x, *weights[0])
@@ -2659,6 +2733,14 @@ def check_quant8_kernels(dev) -> dict:
                           lambda got: quant_check(collections.defaultdict(float), "int8_matmul",
                                                   False, f"{label} m {decode}, planted fault",
                                                   got, plain))
+            x = torch.randn(prefill, d_in, generator=gen, device=dev).to(bf16)
+            plain = quant.int8_matmul_plain(x, *weights[0], act_quant=True)
+            fault_refused("K4 prefill", "column scales of the pair's other column",
+                          lambda: quant.int8_matmul(x, *weights[0], act_quant=True),
+                          lambda got: quant_check(collections.defaultdict(float),
+                                                  "int8_matmul_a8", True,
+                                                  f"{label} m {prefill}, planted fault", got,
+                                                  plain))
         del weights
     ffn = _int8_copies(gen, dev, ((d, i), (d, i), (i, d)))
     per_row = {}
@@ -2666,7 +2748,7 @@ def check_quant8_kernels(dev) -> dict:
         x = torch.randn(m, d, generator=gen, device=dev).to(bf16)
         for name, a8, _, _ in QUANT8_FORMS[2:]:
             plain = quant.int8_ffn_plain(x, *ffn[0], act_quant=a8)
-            quant_check(errs, ffn_key(name, m), a8, f"m {m}",
+            quant_check(errs, kernel_key(name, m), a8, f"m {m}",
                         quant.int8_ffn(x, *ffn[0], act_quant=a8), plain)
             if a8 and m in (decode, prefill):
                 per_row[m] = a8_atol_needed(
@@ -2710,66 +2792,53 @@ def check_quant8_kernels(dev) -> dict:
     return kernel_rows(QUANT8_FORMS, table, errs, decode, prefill)
 
 
-def quant_kernel_names(cfg) -> tuple[str, str, str]:
-    """The launch keys of a quantized LLM's projection kernel, FFN kernel and
-    reduction: K4 / K6 for int8 weights, K5 / K7 for int4, "_a8" with
-    quant_act."""
+def quant_kernel_names(cfg) -> tuple[str, str]:
+    """The launch keys of a quantized LLM's projection kernel and FFN kernel:
+    K4 / K6 for int8 weights, K5 / K7 for int4, "_a8" with quant_act."""
     bits = "int8" if cfg.weight_quant == "int8" else "int4"
     a8 = "_a8" if cfg.quant_act else ""
-    return f"{bits}_matmul{a8}", f"{bits}_ffn{a8}", f"{bits}_reduce"
+    return f"{bits}_matmul{a8}", f"{bits}_ffn{a8}"
 
 
-def quant_kernel_launches(cfg, rows: int, head_rows: int, sms: int) -> dict:
+def quant_kernel_launches(cfg, rows: int, head_rows: int) -> dict:
     """The quantized kernels' launches in one forward of a quantized LLM
-    (fused qkv, the fused FFN) over ``rows`` token rows with the lm_head on
-    ``head_rows``: per layer one projection launch (K4 or K5) each for
-    qkv_proj and o_proj, one projection launch for the lm_head, and per
-    layer the FFN's: K6 or K7 two launches at any row count, no reduction
-    (``ops/quant.py:int8_ffn_launches``, ``int4_ffn_launches``); one
-    reduction for each prefill K4 or K5 call whose contraction is split
-    (``int8_matmul_launches`` / ``int4_matmul_launches`` on ``sms`` SMs; at
-    decode both add their splits in their own launch); with int8
-    activations one activation quantization per projection and FFN call."""
+    (fused qkv, the fused FFN) on ``rows`` token rows, prefill or decode
+    step, whose lm_head takes ``head_rows`` (a prefill's last prompt
+    tokens): per layer one projection launch (K4 or K5) each for qkv_proj
+    and o_proj and one for the lm_head (``ops/quant.py:int8_matmul_launches``
+    / ``int4_matmul_launches``: a split contraction is added inside the
+    launch, no reduction kernel), and per layer the FFN's two (K6 or K7,
+    ``int8_ffn_launches`` / ``int4_ffn_launches``), each under its decode
+    or its prefill kernel's name by its rows; with int8 activations one
+    activation quantization per projection and FFN call."""
     from ctpa_torch.ops import quant
 
-    d, i, layers = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
-    qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
-    attn = cfg.num_heads * cfg.head_dim
-    mm = quant_kernel_names(cfg)[0]
-    launches = collections.Counter({mm: 2 * layers + 1})
+    layers, a8 = cfg.num_layers, cfg.quant_act
     if cfg.weight_quant == "int8":
-        def projection(m, d_in, d_out):
-            return quant.int8_matmul_launches(m, d_in, d_out, sms, cfg.quant_act)
-
-        ffn = quant.int8_ffn_launches(rows, d, i, cfg.quant_act)
+        projection = quant.int8_matmul_launches
+        ffn = quant.int8_ffn_launches(rows, cfg.hidden_size, cfg.intermediate_size, a8)
     else:
-        def projection(m, d_in, d_out):
-            g = quant._int4_group(d_in, quant.GROUP)
-            return quant.int4_matmul_launches(m, d_in, d_out, g, sms, cfg.quant_act)
-
-        ffn = quant.int4_ffn_launches(rows, d, i, quant.GROUP, cfg.quant_act)
-    for key, count in ffn.items():
-        launches[key] += count * layers
-    for m, d_in, d_out, times in ((rows, d, qkv, layers), (rows, attn, d, layers),
-                                  (head_rows, d, cfg.vocab_size, 1)):
-        for key, count in projection(m, d_in, d_out).items():
-            if key != mm:
-                launches[key] += count * times
+        projection = quant.int4_matmul_launches
+        ffn = quant.int4_ffn_launches(rows, cfg.hidden_size, cfg.intermediate_size, quant.GROUP,
+                                      a8)
+    launches = collections.Counter()
+    for calls in ({k: v * 2 * layers for k, v in projection(rows, a8).items()},
+                  projection(head_rows, a8), {k: v * layers for k, v in ffn.items()}):
+        launches.update(calls)
     return {k: v for k, v in launches.items() if v}
 
 
 def quant_generate(model, video, ids, mask, new_tokens: int, label: str) -> tuple:
     """One timed generate on a quantized model; checks the launches of every
     prefill and decode step exactly (``quant_kernel_launches``).  ->
-    (tokens, launches by kernel and the prefill's FFN launches under
-    "<ffn>_prefill", the vision feature generate computed)."""
+    (tokens, launches by kernel, the prefill kernels' under
+    "<projection>_prefill" and "<ffn>_prefill", the vision feature generate
+    computed)."""
     import torch
-
-    from ctpa_torch.ops import quant
 
     cfg = model.llm_cfg
     layers = cfg.num_layers
-    mm, ffn, reduce = quant_kernel_names(cfg)
+    mm, ffn = quant_kernel_names(cfg)
     with torch.inference_mode():
         model.generate(video[:1], ids[:1, :8], mask[:1, :8], 2, -1, greedy=True)   # warm-up
         torch.cuda.synchronize()
@@ -2799,9 +2868,8 @@ def quant_generate(model, video, ids, mask, new_tokens: int, label: str) -> tupl
     per_step = [{k: z[k] - a[k] for k in a} for a, z in zip(counts, counts[1:])]
     # the intervals: vision, prefill (with the lm_head on the last prompt
     # tokens), then one per decode step
-    sms = quant._sm_count(ids)
-    want_prefill = {**quant_kernel_launches(cfg, b * n, b, sms), "decode_attention": 0}
-    want_step = {**quant_kernel_launches(cfg, b, b, sms), "decode_attention": layers}
+    want_prefill = {**quant_kernel_launches(cfg, b * n, b), "decode_attention": 0}
+    want_step = {**quant_kernel_launches(cfg, b, b), "decode_attention": layers}
     for j, got in enumerate(per_step[1:]):
         want = want_prefill if j == 0 else want_step
         got = {k: v for k, v in got.items() if v}
@@ -2811,17 +2879,17 @@ def quant_generate(model, video, ids, mask, new_tokens: int, label: str) -> tupl
     if any(per_step[0].values()):
         raise AssertionError(f"{label}: the vision extractor launched {per_step[0]}")
     total = {k: counts[-1][k] - counts[0][k] for k in counts[0]}
-    total[f"{ffn}_prefill"] = per_step[1][ffn]      # the prefill kernels (ffn_wgmma.cuh)
-    act = "int4_act_quant"
-    print(f"    launches: {mm} {total[mm]}, {ffn} {total[ffn]}, {reduce} {total[reduce]}, "
-          f"{act} {total[act]}, decode_attention {total['decode_attention']} (per prefill "
-          f"{want_prefill[mm]} / {want_prefill[ffn]} / {want_prefill.get(reduce, 0)} / "
-          f"{want_prefill.get(act, 0)}, per decode step {want_step[mm]} / {want_step[ffn]} / "
-          f"{want_step.get(reduce, 0)} / {want_step.get(act, 0)} / {layers}, exactly)")
+    keys = (mm, f"{mm}_prefill", ffn, f"{ffn}_prefill", "int4_act_quant")
+    print("    launches: " + ", ".join(f"{k} {total[k]}" for k in keys)
+          + f", decode_attention {total['decode_attention']} (per prefill "
+          + " / ".join(str(want_prefill.get(k, 0)) for k in keys) + ", per decode step "
+          + " / ".join(str(want_step.get(k, 0)) for k in keys)
+          + f" / {layers}, exactly; no reduction kernel)")
     if tokens.shape != (b, new_tokens) or not ((tokens >= 0) & (tokens < model.llm_cfg.vocab_size)
                                                ).all() or not (res.lengths == new_tokens).all():
         raise AssertionError(f"{label}: tokens {tuple(tokens.shape)}, lengths {res.lengths}")
-    if not all(total[k] for k in (mm, ffn, f"{ffn}_prefill", "decode_attention")):
+    if not all(total[k] for k in (mm, ffn, f"{mm}_prefill", f"{ffn}_prefill",
+                                  "decode_attention")):
         raise AssertionError(f"{label}: a kernel of the path never launched: {total}")
     return tokens, total, vision[0]
 
@@ -3013,9 +3081,9 @@ def quant_report(dev, rows: dict, model, inputs, base: str, bits: int) -> tuple:
                                  f"{tiers[1]} batch {QUANT_B32}")
     launched.update(total)
     for name, _, _, _ in (QUANT_FORMS if bits == 4 else QUANT8_FORMS):
-        rows[name]["launches"] = launched[name]
-        if "ffn" in name:
-            rows[f"{name}_prefill"]["launches"] = launched[f"{name}_prefill"]
+        # the decode kernels' launches, and the prefill kernels' apart
+        for key in (name, f"{name}_prefill"):
+            rows[key]["launches"] = launched[key]
     # the activation quantization serves both tiers' int8-activation forms
     rows["int4_act_quant"]["launches"] = (rows["int4_act_quant"].get("launches", 0)
                                           + launched["int4_act_quant"])
@@ -3344,7 +3412,7 @@ def main() -> int:
                   "flash_attention_bwd_dkv_d128")
                + tuple(f[0] for f in QUANT_FORMS) + ("int4_act_quant",)
                + tuple(f[0] for f in QUANT8_FORMS)
-               + tuple(f"{f[0]}_prefill" for f in QUANT_FORMS + QUANT8_FORMS if "ffn" in f[0])]
+               + tuple(f"{f[0]}_prefill" for f in QUANT_FORMS + QUANT8_FORMS)]
     for row in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(row[key]):

@@ -1,7 +1,7 @@
 // Fused int4 SwiGLU FFN: out = down(silu(x . Wg) * (x . Wu)), with gate/up
 // (hidden/2, inter) and down (inter/2, hidden) stored as packed int4 with
 // fp32 scales per (input group, output column) (ctpa's quantize_int4
-// layout, int4_common.cuh).
+// layout, prefill_wgmma.cuh).
 //
 // Replaces the TPU kernels ctpa/ops/quant.py:int4_ffn, `_ffn_kernel_q4`
 // (weight-only, "w4") and `_ffn_kernel_q4_a8` (int8 activations, "w4a8").
@@ -57,7 +57,7 @@
 //   (bf16, or for w4a8 its int8 form per row over exactly the j-block's bj
 //   columns and sh; 88 KB or 44 KB at m = 4, read back from L2).
 //
-// Prefill (m > 32): ffn_wgmma.cuh's Hopper kernels, shared with K6.  A
+// Prefill (m > 32): prefill_wgmma.cuh's Hopper kernels, shared with K6.  A
 // gate/up kernel (grid: token tiles x j-blocks) computes g and u for one
 // j-block's window of 256 columns over the whole hidden axis and writes h
 // (bf16, or for w4a8 its int8 form over exactly the j-block's bj columns
@@ -77,7 +77,7 @@
 // m64n32k32 on nibbles as 16 q, each scale group's exact int32 dot waited
 // for and scaled before it joins the fp32 sum (two accumulator sets, 32
 // tokens a block).  On the card (NVIDIA H100 80GB HBM3, 700 W;
-// profile_ffn_prefill.py) at 2,048 rows: 1.62 ms (w4) and 1.64-1.67 ms
+// profile_quant_prefill.py) at 2,048 rows: 1.62 ms (w4) and 1.64-1.67 ms
 // (w4a8), gate/up at 0.33 / 0.19 of its bound, down at 0.37 / 0.14.
 
 #include <cooperative_groups.h>
@@ -86,7 +86,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "ffn_wgmma.cuh"
+#include "prefill_wgmma.cuh"
 #include "stream_common.cuh"
 #include "warp_mma.cuh"
 
@@ -543,22 +543,22 @@ namespace {
 
 template <bool A8, int G>
 cudaError_t prefill_gateup(const void* x, const void* wg, const void* wu, const void* sg,
-                           const void* su, const ffn_wgmma::Args& a, cudaStream_t s) {
-  return ffn_wgmma::launch_gateup<ffn_wgmma::Form<true, A8, G>>(
+                           const void* su, const prefill_wgmma::Args& a, cudaStream_t s) {
+  return prefill_wgmma::launch_gateup<prefill_wgmma::Form<true, A8, G>>(
       x, static_cast<const int8_t*>(wg), static_cast<const int8_t*>(wu),
       static_cast<const float*>(sg), static_cast<const float*>(su), a, s);
 }
 
 template <bool A8, int G>
-cudaError_t prefill_down(const void* wd, const void* sd, const ffn_wgmma::Args& a,
+cudaError_t prefill_down(const void* wd, const void* sd, const prefill_wgmma::Args& a,
                          cudaStream_t s) {
-  return ffn_wgmma::launch_down<ffn_wgmma::Form<true, A8, G>>(
+  return prefill_wgmma::launch_down<prefill_wgmma::Form<true, A8, G>>(
       static_cast<const int8_t*>(wd), static_cast<const float*>(sd), a, s);
 }
 
 }  // namespace
 
-// The prefill kernels (ffn_wgmma.cuh): two launches on `stream`, gate/up
+// The prefill kernels (prefill_wgmma.cuh): two launches on `stream`, gate/up
 // (scale group gh) then down (gi); returns the first CUDA error (0 when both
 // were accepted).  x is bf16 (w4) or int8 with sx (w4a8), (m, hidden); out
 // (m, hidden) bf16; h (m, bj n_j) bf16 or int8 scratch, n_j = ceil(inter /
@@ -576,7 +576,7 @@ extern "C" int int4_ffn_prefill_launch(const void* x, const void* sx, const void
       ((inter + bj - 1) / bj > 1 && bj != kBJ) || (act_quant && (sx == nullptr || sh == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_j = (inter + bj - 1) / bj;
-  const ffn_wgmma::Args a{static_cast<const float*>(sx), nullptr, nullptr, nullptr, nullptr,
+  const prefill_wgmma::Args a{static_cast<const float*>(sx), nullptr, nullptr, nullptr, nullptr,
                           nullptr, h, static_cast<float*>(sh), static_cast<__nv_bfloat16*>(out),
                           m, hidden, inter, bj, n_j, n_j * bj, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -71,7 +71,7 @@
 //   down kernel's splits stop at 8 and 43 j-blocks fill 48 split slots;
 //   its w8 form is the slowest part at m = 4.
 //
-// Prefill (m > 32): ffn_wgmma.cuh's Hopper kernels, shared with K7.  A
+// Prefill (m > 32): prefill_wgmma.cuh's Hopper kernels, shared with K7.  A
 // gate/up kernel (grid: token tiles of 64 x the 43 j-blocks) computes g and
 // u for one j-block's 256 columns over the whole hidden axis and writes h
 // (bf16, or for w8a8 its int8 form over the j-block's 256 columns and sh)
@@ -86,7 +86,7 @@
 // 64 or 128 contraction rows a stage).  TMA cannot describe gate/up rows of
 // inter bytes when inter % 16 != 0; the producer's threads then copy those
 // windows by plain loads.  On the card (NVIDIA H100 80GB HBM3, 700 W;
-// profile_ffn_prefill.py) at 2,048 rows: 1.35-1.37 ms (w8) and 0.81 ms
+// profile_quant_prefill.py) at 2,048 rows: 1.35-1.37 ms (w8) and 0.81 ms
 // (w8a8), gate/up at 0.42 / 0.39 of its bound, down at 0.38 / 0.28.
 
 #include <cooperative_groups.h>
@@ -95,7 +95,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "ffn_wgmma.cuh"
+#include "prefill_wgmma.cuh"
 #include "stream_common.cuh"
 #include "warp_mma.cuh"
 
@@ -479,7 +479,7 @@ extern "C" int int8_ffn_stream_clusters(int m, int act_quant, int down, int spli
                    : rows_clusters<false>(m, down != 0, splits);
 }
 
-// The prefill kernels (ffn_wgmma.cuh): two launches on `stream`, gate/up
+// The prefill kernels (prefill_wgmma.cuh): two launches on `stream`, gate/up
 // then down; returns the first CUDA error (0 when both were accepted).  x is
 // bf16 (w8) or int8 with sx (w8a8), (m, hidden); out (m, hidden) bf16; h
 // (m, 256 n_j) bf16 or int8 scratch, n_j = ceil(inter / 256); sh (m, n_j)
@@ -494,7 +494,7 @@ extern "C" int int8_ffn_prefill_launch(const void* x, const void* sx, const void
       (act_quant && (sx == nullptr || sh == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_j = (inter + kBJ - 1) / kBJ;
-  const ffn_wgmma::Args a{static_cast<const float*>(sx), static_cast<const float*>(sg),
+  const prefill_wgmma::Args a{static_cast<const float*>(sx), static_cast<const float*>(sg),
                           static_cast<const float*>(su), static_cast<const float*>(sd),
                           static_cast<const int8_t*>(wg), static_cast<const int8_t*>(wu), h,
                           static_cast<float*>(sh), static_cast<__nv_bfloat16*>(out), m, hidden,
@@ -505,13 +505,13 @@ extern "C" int int8_ffn_prefill_launch(const void* x, const void* sx, const void
   const auto* w_d = static_cast<const int8_t*>(wd);
   cudaError_t err;
   if (act_quant) {
-    using F = ffn_wgmma::Form<false, true, 0>;
-    err = ffn_wgmma::launch_gateup<F>(x, w_g, w_u, nullptr, nullptr, a, s);
-    if (err == cudaSuccess) err = ffn_wgmma::launch_down<F>(w_d, nullptr, a, s);
+    using F = prefill_wgmma::Form<false, true, 0>;
+    err = prefill_wgmma::launch_gateup<F>(x, w_g, w_u, nullptr, nullptr, a, s);
+    if (err == cudaSuccess) err = prefill_wgmma::launch_down<F>(w_d, nullptr, a, s);
   } else {
-    using F = ffn_wgmma::Form<false, false, 0>;
-    err = ffn_wgmma::launch_gateup<F>(x, w_g, w_u, nullptr, nullptr, a, s);
-    if (err == cudaSuccess) err = ffn_wgmma::launch_down<F>(w_d, nullptr, a, s);
+    using F = prefill_wgmma::Form<false, false, 0>;
+    err = prefill_wgmma::launch_gateup<F>(x, w_g, w_u, nullptr, nullptr, a, s);
+    if (err == cudaSuccess) err = prefill_wgmma::launch_down<F>(w_d, nullptr, a, s);
   }
   return static_cast<int>(err);
 }

@@ -1,19 +1,35 @@
-// The prefill kernels (m > 32 token rows) of the fused quantized SwiGLU FFNs,
-// K6 (int8_ffn.cu: w8, w8a8) and K7 (int4_ffn.cu: w4, w4a8): two launches of
-// Hopper kernels that feed warpgroup MMA (wgmma) from a ring of shared-memory
-// stages filled by the Tensor Memory Accelerator (TMA).  The PTX they use is
-// hopper_ptx.cuh's.
+// The prefill kernels (m > 32 token rows) of the quantized projections, K4
+// (int8_matmul.cu: w8, w8a8) and K5 (int4_matmul.cu: w4, w4a8), and of the
+// fused quantized SwiGLU FFNs, K6 (int8_ffn.cu: w8, w8a8) and K7
+// (int4_ffn.cu: w4, w4a8): Hopper kernels that feed warpgroup MMA (wgmma)
+// from a ring of shared-memory stages filled by the Tensor Memory
+// Accelerator (TMA).  The PTX they use is hopper_ptx.cuh's.
 //
-// What they compute is ctpa's (ctpa/ops/quant.py `_ffn_kernel`,
-// `_ffn_kernel_a8`, `_ffn_kernel_q4`, `_ffn_kernel_q4_a8`; the headers of
-// int8_ffn.cu and int4_ffn.cu spell it out).  ctpa keeps h = silu(x Wg) *
-// (x Wu) in VMEM because its j grid axis runs in order; on the card that
-// axis would leave an fp32 partial of (n_j, m, hidden) per call.  Here h
-// goes to device memory once in the layout the decode kernels give it, (m,
-// n_j bj) bf16, or int8 per row per j-block with its row scales sh (m,
-// n_j): 45 MB or 22.5 MB at Meditron-7B and m = 2,048, about 27 us of
-// traffic beside a 0.28-0.56 ms bound.
+// What they compute is ctpa's (ctpa/ops/quant.py `_q_kernel`,
+// `_q_kernel_a8`, `_q4_kernel`, `_q4_kernel_a8`, `_ffn_kernel`,
+// `_ffn_kernel_a8`, `_ffn_kernel_q4`, `_ffn_kernel_q4_a8`; the headers of the
+// four .cu files spell it out).  ctpa keeps the FFN's h = silu(x Wg) (x Wu)
+// in VMEM because its j grid axis runs in order; on the card that axis
+// would leave an fp32 partial of (n_j, m, hidden) per call.  Here h goes to
+// device memory once in the layout the decode kernels give it, (m, n_j bj)
+// bf16, or int8 per row per j-block with its row scales sh (m, n_j): 45 MB
+// or 22.5 MB at Meditron-7B and m = 2,048, about 27 us of traffic beside a
+// 0.28-0.56 ms bound.
 //
+//   proj_kernel: grid (token tiles x 256-column strips of the output,
+//     splits), in clusters of the splits.  A block owns 256 output columns
+//     and BN tokens (ProjForm: 128 for w8, w8a8 and w4, 64 for w4a8) over
+//     its split of the contraction: w8 and w4 sum in fp32, w8a8 one exact
+//     int32 dot, w4a8 each scale group's exact dot times its scale row in
+//     group order; then w8 times scale[column], w8a8 (float(dot) * sx[token])
+//     * scale[column], w4a8 times sx[token].  Where the token tiles and
+//     strips alone are fewer than the card runs at once (m 33-128), the
+//     contraction is split across the blocks of a thread-block cluster
+//     (ops/quant.py asks the card's cluster occupancy): each block leaves
+//     its split's sums in its shared memory and block z finishes token rows
+//     z, z + splits, ... of the tile, adding the splits in split order
+//     through distributed shared memory.  One launch, no reduction kernel,
+//     no atomics, the same bits on every call.
 //   gateup_kernel: grid (token tiles, j-blocks).  A block owns one j-block
 //     (its window of 256 columns of both gate and up; a j-block is 256
 //     columns, or one narrower j-block when inter <= 256) and BN tokens,
@@ -37,9 +53,10 @@
 // the weight window's 128-byte rows in the same swizzle, int4's scale rows
 // unswizzled), each stage bound to a `full` mbarrier; the consumers free a
 // stage through an `empty` mbarrier.  Warpgroups 1 and 2 are the consumers,
-// 128 columns each.  Where K6's gate/up weight rows are not a multiple of 16
-// bytes (inter % 16 != 0), TMA cannot describe them, and the producer's 128
-// threads copy that stage's window by plain loads into the same layout.
+// 128 columns each.  Where TMA cannot describe a tile (a row of x not a
+// multiple of 16 bytes: K4 at k % 8 != 0, or k % 16 != 0 for w8a8; weight
+// rows of n or inter % 16 != 0 bytes), the producer's 128 threads copy that
+// stage's part by plain loads into the same layout.
 //
 // Operand majorness.  8-bit wgmma reads only K-major operands from shared
 // memory, and the weights are stored (in, out) with the output column
@@ -55,24 +72,30 @@
 //         int8 converted exactly by a byte permute under 2^23;
 //   w8a8: s8 m64nNk32, the 4 x 4 byte transpose of rows k0 + 4t .. + 3 and
 //         k0 + 16 + 4t .. + 3 (natural order: B cannot be permuted);
-//   w4:   a packed byte holds rows j and j + G/2 of its scale group, so the
-//         low nibbles of a stage's packed rows contract against x's first
-//         G/2 columns of the group and the high nibbles against the next
-//         G/2, both in natural order; each nibble times its column's scale,
-//         rounded to bf16 (ctpa's dequantized tile);
+//   w4:   a packed byte holds rows j and j + G/2 of its scale group (ctpa's
+//         quantize_int4 layout: byte j of group g holds row g G + j in its
+//         low nibble and row g G + G/2 + j in its high nibble, signed in
+//         [-7, 7]), so the low nibbles of a stage's packed rows contract
+//         against x's first G/2 columns of the group and the high nibbles
+//         against the next G/2, both in natural order; each nibble times its
+//         column's scale, rounded to bf16 (ctpa's dequantized tile);
 //   w4a8: s8 m64nNk32 on nibbles held as 16 q (an exact int32 dot, 16 times
 //         the true one), the four k of a register from four packed rows of
 //         one nibble half; a scale group's dot (G / 32 k-steps) is complete,
 //         waited for, before float(dot) * s / 16 joins the fp32 sum, so two
-//         accumulator sets live in registers and the token tile is 32.
+//         accumulator sets live in registers and the token tile is smaller
+//         (32 in the FFN, whose gate/up keeps two matrices, 64 in the
+//         projection).
 // The lanes' weight reads go through the same 128-byte swizzle, which puts a
 // bf16 k-step's rows on distinct banks.
 //
-// Bound on the H100 (989 TFLOP/s bf16, 1,979 TOPS int8, 3.35 TB/s) at
-// Meditron-7B, m = 2,048: 6 m hidden inter = 554 GFLOP, 0.56 ms in bf16 (w8,
-// w4) and 0.28 ms in int8 (w8a8, w4a8).  The design is a first form that
-// overlaps the loads with the products: no persistent blocks, and a
-// block's epilogue does not overlap the next block's loads.
+// Bounds on the H100 (989 TFLOP/s bf16, 1,979 TOPS int8, 3.35 TB/s) at
+// Meditron-7B, m = 2,048: the FFN's 6 m hidden inter = 554 GFLOP, 0.56 ms in
+// bf16 (w8, w4) and 0.28 ms in int8 (w8a8, w4a8); the fused qkv_proj's 2 m
+// 4096 12288 = 206 GFLOP, 0.21 ms and 0.10 ms; o_proj's 69 GFLOP, 0.069 ms
+// and 0.035 ms.  The design is a first form that overlaps the loads with
+// the products: no persistent blocks, and a block's epilogue does not
+// overlap the next block's loads.
 
 #pragma once
 
@@ -82,13 +105,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
 #include <type_traits>
 
 #include "hopper_ptx.cuh"
 #include "stream_common.cuh"
 
-namespace ffn_wgmma {
+namespace prefill_wgmma {
 namespace {  // each kernel source gets its own copy
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreads = 384;      // warpgroup 0 produces, 1 and 2 consume
 constexpr int kCols = 256;         // a block's weight columns: a j-block's window, or a strip
@@ -97,9 +123,10 @@ constexpr int kConsumerRegs = 232;
 constexpr int kMaxStages = 8;
 constexpr int kRingBudget = 220 * 1024;
 
-// A form of the two kernels: int4 or int8 weights, int8 activations (a8),
-// the int4 scale group G (0 for int8).
-template <bool kInt4, bool kA8, int kG>
+// A form of the kernels: int4 or int8 weights, int8 activations (a8), the
+// int4 scale group G (0 for int8), the token tile kBN (wgmma's N; the FFN's
+// by default)
+template <bool kInt4, bool kA8, int kG, int kBN = kInt4 && kA8 ? 32 : 64>
 struct Form {
   static constexpr bool int4 = kInt4;
   static constexpr bool a8 = kA8;
@@ -110,7 +137,7 @@ struct Form {
   static constexpr int XAtoms = KS / XAtom;            // x boxes a stage
   static constexpr int WRows = kInt4 ? KS / 2 : KS;    // weight rows a stage (packed for int4)
   static constexpr int SRows = kInt4 ? KS / kG : 0;    // scale rows a stage (int4)
-  static constexpr int BN = kInt4 && kA8 ? 32 : 64;    // tokens a block: wgmma's N
+  static constexpr int BN = kBN;                       // tokens a block: wgmma's N
   static constexpr int Regs = BN / 2;                  // accumulators of one 64 x BN tile
   static_assert(!kInt4 || kG == 32 || kG == 64 || kG == 128, "int4 groups are 32, 64 or 128");
 };
@@ -407,20 +434,24 @@ __device__ __forceinline__ void release(uint64_t* empty) {
   if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(empty);
 }
 
-// K6's gate/up window of stage k0 by plain loads (inter % 16 != 0), zero
-// past hidden and inter, in the TMA layout
-template <class F>
-__device__ __forceinline__ void copy_window(unsigned char* st, const Args& a, int j0, int k0) {
-  for (int e = threadIdx.x; e < 2 * F::WRows * kCols; e += 128) {
-    const int mat = e / (F::WRows * kCols);
-    const int rem = e - mat * F::WRows * kCols;
+// The windows of kWRows rows from row r0 and 256 columns from column c0 of
+// kMats byte matrices w0 (and w1), each rows x cols with rows of cols bytes,
+// by the producer's plain loads (rows not a multiple of 16 bytes), zero past
+// their edges, in the TMA layout: two 128-byte-swizzled halves of kWRows
+// rows each, matrix after matrix
+template <int kWRows, int kMats>
+__device__ __forceinline__ void copy_window(unsigned char* st, const int8_t* w0, const int8_t* w1,
+                                            int rows, int cols, int r0, int c0) {
+  for (int e = threadIdx.x; e < kMats * kWRows * kCols; e += 128) {
+    const int mat = e / (kWRows * kCols);
+    const int rem = e - mat * kWRows * kCols;
     const int r = rem / kCols;
     const int col = rem - r * kCols;
-    const int k = k0 + r, j = j0 + col;
-    const int8_t* w = mat ? a.wu : a.wg;
-    st[(mat * 2 + col / 128) * F::WRows * 128 + hopper::swizzle128(r, col & 127)] =
-        k < a.hidden && j < a.inter
-            ? static_cast<unsigned char>(w[static_cast<long long>(k) * a.inter + j]) : 0;
+    const int k = r0 + r, j = c0 + col;
+    const int8_t* w = mat ? w1 : w0;
+    st[(mat * 2 + col / 128) * kWRows * 128 + hopper::swizzle128(r, col & 127)] =
+        k < rows && j < cols ? static_cast<unsigned char>(w[static_cast<long long>(k) * cols + j])
+                             : 0;
   }
 }
 
@@ -455,7 +486,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       unsigned char* st = ring + s * R::kStage;
       const int k0 = it * F::KS;
       if constexpr (!F::int4) {
-        if (a.copy_w) copy_window<F>(st, a, j0, k0);
+        if (a.copy_w)   // K6's gate/up rows of inter % 16 != 0 bytes
+          copy_window<F::WRows, 2>(st, a.wg, a.wu, a.hidden, a.inter, k0, j0);
       }
       if (threadIdx.x == 0) {
         hopper::mbar_arrive_expect_tx(&full[s], (a.copy_w ? 0 : R::kW) + R::kX + R::kS);
@@ -733,6 +765,226 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ------------------------------------------------------------------ projection
+
+// the projection's token tile (wgmma's N): w8, w8a8 and w4 keep one set of
+// accumulators (2 x 64 registers a consumer thread at 128 tokens), w4a8 two
+// (each group's int32 dot beside the fp32 sum)
+constexpr int kProjBN = 128;
+constexpr int kProjBNA8 = 64;
+// the unit of a split contraction: 128 rows, one to two ring stages
+constexpr int kProjKC = 128;
+
+template <bool kInt4, bool kA8, int kG>
+using ProjForm = Form<kInt4, kA8, kG, kInt4 && kA8 ? kProjBNA8 : kProjBN>;
+
+struct ProjArgs {
+  const void* x;        // (m, k) bf16, or int8 (a8): the producer's copies (copy_x)
+  const float* sx;      // (m,) row scales of x (a8)
+  const int8_t* w;      // (k, n) int8 or (k/2, n) packed int4: the producer's copies (copy_w)
+  const float* scale;   // int8: (n,) column scales; int4: (k/G, n), the producer's copies
+  __nv_bfloat16* out;   // (m, n)
+  int m, k, n;
+  int tiles;            // token tiles, ceil(m / BN)
+  int per;              // kProjKC-row chunks of the contraction a split
+  int copy_x;           // x's rows by the producer's loads, not TMA
+  int copy_w;           // the weight rows (and int4's scales) by the producer's loads
+};
+
+// x's box of stage k0 (BN rows x KS values) by the producer's plain loads,
+// zero past m and k, in the TMA layout; then the proxy fence that makes the
+// writes visible to wgmma's reads of B
+template <class F>
+__device__ __forceinline__ void copy_tokens(unsigned char* xs, const ProjArgs& a, int m0, int k0) {
+  const unsigned char* x = static_cast<const unsigned char*>(a.x);
+  for (int e = threadIdx.x; e < F::BN * F::KS; e += 128) {
+    const int r = e / F::KS;
+    const int kx = e - r * F::KS;
+    const int tok = m0 + r, k = k0 + kx;
+    unsigned char* dst =
+        xs + (kx / F::XAtom) * (F::BN * 128) + hopper::swizzle128(r, (kx % F::XAtom) * F::XB);
+    const bool in = tok < a.m && k < a.k;
+    const long long at = (static_cast<long long>(tok) * a.k + k) * F::XB;
+    if constexpr (F::XB == 2)
+      *reinterpret_cast<uint16_t*>(dst) = in ? *reinterpret_cast<const uint16_t*>(x + at) : 0;
+    else
+      *dst = in ? x[at] : 0;
+  }
+  hopper::fence_proxy_async();
+}
+
+// int4's scale rows [q0, q0 + SRows) of the block's 256 columns by the
+// producer's plain loads, zero past k/G and n
+template <class F>
+__device__ __forceinline__ void copy_scales(float* ss, const ProjArgs& a, int q0, int n0) {
+  for (int e = threadIdx.x; e < F::SRows * kCols; e += 128) {
+    const int r = e / kCols;
+    const int col = e - r * kCols;
+    ss[e] = q0 + r < a.k / F::G && n0 + col < a.n
+                ? a.scale[static_cast<long long>(q0 + r) * a.n + n0 + col] : 0.f;
+  }
+}
+
+// grid (tiles x ceil(n / 256), splits) in clusters of (1, splits, 1),
+// kThreads threads, Ring<F, 1>::kSmem bytes of dynamic shared memory.  Block
+// (x, z) owns token tile x % tiles, the 256 output columns of strip x /
+// tiles and the kProjKC-row chunks [z per, (z + 1) per) of the contraction.
+// tx: x (m, k) bf16 or int8, boxes of XAtom values x BN rows; tw: the weight
+// (k or k/2 rows of n bytes), boxes of 128 columns x WRows rows; ts: int4's
+// scales (k/G, n) fp32, boxes of 256 x SRows.  Writes out.
+template <class F>
+__global__ void __launch_bounds__(kThreads, 1)
+    proj_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                const __grid_constant__ CUtensorMap ts, const ProjArgs a) {
+  using R = Ring<F, 1>;
+  __shared__ __align__(8) uint64_t full[R::kStages], empty[R::kStages];
+  unsigned char* ring = ring_base();
+  const int m0 = (blockIdx.x % a.tiles) * F::BN;
+  const int n0 = (blockIdx.x / a.tiles) * kCols;
+  const int splits = gridDim.y;
+  const int n_it = (a.k + F::KS - 1) / F::KS;
+  const int it0 = blockIdx.y * a.per * (kProjKC / F::KS);   // the split's first stage
+  const int cnt = min(n_it, it0 + a.per * (kProjKC / F::KS)) - it0;
+  init_ring<R::kStages>(full, empty);
+
+  if (threadIdx.x < 128) {   // the producer
+    hopper::regs_dec<kProducerRegs>();
+    for (int j = 0; j < cnt; ++j) {
+      const int s = j % R::kStages;
+      hopper::mbar_wait(&empty[s], ((j / R::kStages) & 1) ^ 1);
+      unsigned char* st = ring + s * R::kStage;
+      const int k0 = (it0 + j) * F::KS;
+      const int wr = F::int4 ? k0 / 2 : k0;
+      if (a.copy_x) copy_tokens<F>(st + R::kW, a, m0, k0);
+      if (a.copy_w) {
+        copy_window<F::WRows, 1>(st, a.w, nullptr, F::int4 ? a.k / 2 : a.k, a.n, wr, n0);
+        if constexpr (F::int4)
+          copy_scales<F>(reinterpret_cast<float*>(st + R::kW + R::kX), a, k0 / F::G, n0);
+      }
+      if (threadIdx.x == 0) {
+        hopper::mbar_arrive_expect_tx(&full[s],
+                                      (a.copy_w ? 0 : R::kW + R::kS) + (a.copy_x ? 0 : R::kX));
+        if (!a.copy_w) {
+          hopper::tma_load_2d(st, &tw, n0, wr, &full[s]);
+          hopper::tma_load_2d(st + F::WRows * 128, &tw, n0 + 128, wr, &full[s]);
+          if constexpr (F::int4)
+            hopper::tma_load_2d(st + R::kW + R::kX, &ts, n0, k0 / F::G, &full[s]);
+        }
+        if (!a.copy_x) {
+#pragma unroll
+          for (int q = 0; q < F::XAtoms; ++q)
+            hopper::tma_load_2d(st + R::kW + q * F::BN * 128, &tx, k0 + q * F::XAtom, m0,
+                                &full[s]);
+        }
+      } else {
+        hopper::mbar_arrive(&full[s]);
+      }
+    }
+    if (splits > 1) {   // the consumers' two cluster barriers
+      cg::this_cluster().sync();
+      cg::this_cluster().sync();
+    }
+    return;
+  }
+
+  hopper::regs_inc<kConsumerRegs>();
+  const int c = threadIdx.x / 128 - 1;
+  const int w = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int cb = 32 * w + 4 * g;
+  using Acc = typename std::conditional<F::a8 && !F::int4, int, float>::type;
+  // the 256 consumer threads' sums, 2 x Regs each, are split_sum's source
+  static_assert(2 * F::Regs * 256 * sizeof(Acc) <= R::kStages * R::kStage,
+                "a split's sums fit the ring");
+  Acc acc[1][2][F::Regs];   // the split's sums: fp32, or w8a8's exact int32 dot
+  zero<F, 1>(acc);
+  for (int j = 0; j < cnt; ++j) {
+    const int s = j % R::kStages;
+    hopper::mbar_wait(&full[s], (j / R::kStages) & 1);
+    const unsigned char* st = ring + s * R::kStage;
+    const unsigned char* const win[1] = {st + c * F::WRows * 128};
+    const unsigned char* xs = st + R::kW;
+    if constexpr (F::int4) {
+      const float* const sw[1] = {reinterpret_cast<const float*>(st + R::kW + R::kX) + 128 * c +
+                                  cb};
+      const int groups = min(F::KS / F::G, a.k / F::G - (it0 + j) * (F::KS / F::G));
+      if constexpr (F::a8)
+        stage_w4a8<F, 1>(acc, win, sw, xs, cb, t, groups, [](int) {});
+      else
+        stage_w4<F, 1>(acc, win, sw, xs, cb, t, groups);
+    } else if constexpr (F::a8) {
+      stage_w8a8<F, 1>(acc, win, xs, cb, t);
+    } else {
+      stage_w8<F, 1>(acc, win, xs, cb, t);
+    }
+    release(&empty[s]);
+  }
+
+  // token slot ts of the lane: token m0 + 8 (ts / 2) + 2t + ts % 2, its sums
+  // v0 .. v3 over the lane's columns col .. col + 3 (registers r, r + 2 of
+  // tiles 0 and 1, r = 4 (ts / 2) + ts % 2), scaled and written
+  const int col = n0 + 128 * c + cb;
+  float cs[4];   // int8's column scales, 0 past n
+#pragma unroll
+  for (int q = 0; q < 4; ++q) cs[q] = !F::int4 && col + q < a.n ? a.scale[col + q] : 0.f;
+  auto put = [&](int ts, Acc v0, Acc v1, Acc v2, Acc v3) {
+    const int tok = m0 + 8 * (ts >> 1) + 2 * t + (ts & 1);
+    if (tok >= a.m || col >= a.n) return;
+    const float rs = F::a8 ? a.sx[tok] : 1.f;
+    const Acc v[4] = {v0, v1, v2, v3};
+    float y[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if constexpr (F::int4)
+        y[q] = F::a8 ? __fmul_rn(v[q], rs) : v[q];
+      else if constexpr (F::a8)
+        y[q] = __fmul_rn(__fmul_rn(static_cast<float>(v[q]), rs), cs[q]);
+      else
+        y[q] = __fmul_rn(v[q], cs[q]);
+    }
+    __nv_bfloat16* o = a.out + static_cast<long long>(tok) * a.n + col;
+    if (a.n % 4 == 0) {
+      *reinterpret_cast<uint2*>(o) =
+          make_uint2(warp_mma::pack_bf16(y[0], y[1]), warp_mma::pack_bf16(y[2], y[3]));
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (col + q < a.n) o[q] = __float2bfloat16_rn(y[q]);
+    }
+  };
+  if (splits == 1) {
+#pragma unroll
+    for (int ts = 0; ts < F::Regs / 2; ++ts) {
+      const int r = 4 * (ts >> 1) + (ts & 1);
+      put(ts, acc[0][0][r], acc[0][0][r + 2], acc[0][1][r], acc[0][1][r + 2]);
+    }
+    return;
+  }
+
+  // the split's sums into this block's ring, register-major over the 256
+  // consumer threads, once both warpgroups are done with it; block z then
+  // finishes token slots z, z + splits, ..., adding the splits in order
+  hopper::named_barrier(1, 256);
+  Acc* part = reinterpret_cast<Acc*>(ring);
+  const int ct = threadIdx.x - 128;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int r = 0; r < F::Regs; ++r) part[(i * F::Regs + r) * 256 + ct] = acc[0][i][r];
+  const cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  for (int ts = static_cast<int>(cluster.block_rank()); ts < F::Regs / 2; ts += splits) {
+    const int at = (4 * (ts >> 1) + (ts & 1)) * 256 + ct;   // register r's sums
+    put(ts, wstream::split_sum(cluster, part, at, splits),
+        wstream::split_sum(cluster, part, at + 2 * 256, splits),
+        wstream::split_sum(cluster, part, at + F::Regs * 256, splits),
+        wstream::split_sum(cluster, part, at + (F::Regs + 2) * 256, splits));
+  }
+  cluster.sync();   // the other blocks read this block's sums until here
+}
+
 // ------------------------------------------------------------------ host
 
 // the tensor map of a (rows, inner) matrix of `bytes`-byte values cut into
@@ -806,5 +1058,37 @@ cudaError_t launch_down(const int8_t* wd, const float* sd, const Args& a, cudaSt
   return cudaGetLastError();
 }
 
+// The projection's launch on `st`, in clusters of `splits` blocks: x (m, k)
+// bf16 or int8; w the (k or k/2, n) weight; scale int8's (n,) or int4's
+// (k/G, n) scales.  cudaSuccess, the launch's error, or
+// cudaErrorInvalidValue where a tensor map cannot be made.
+template <class F>
+cudaError_t launch_proj(const ProjArgs& a, int splits, cudaStream_t st) {
+  using R = Ring<F, 1>;
+  CUtensorMap tx{}, tw{}, ts{};   // the maps a call does not read stay zero
+  bool ok = true;
+  if (!a.copy_x)
+    ok = tensor_map(&tx, F::a8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    F::XB, a.x, a.k, a.m, F::XAtom, F::BN, true);
+  if (!a.copy_w) {
+    ok = ok && tensor_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.w, a.n,
+                          F::int4 ? a.k / 2 : a.k, 128, F::WRows, true);
+    if constexpr (F::int4)
+      ok = ok && tensor_map(&ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.scale, a.n, a.k / F::G,
+                            kCols, F::SRows, false);
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  return wstream::launch_clusters(proj_kernel<F>, dim3(a.tiles * ((a.n + kCols - 1) / kCols),
+                                                       splits),
+                                  kThreads, R::kSmem, st, tx, tw, ts, a);
+}
+
+// How many clusters of `splits` blocks of the projection's form the card
+// runs at once, or -1 on a CUDA error.
+template <class F>
+int proj_clusters(int splits) {
+  return wstream::active_clusters(proj_kernel<F>, kThreads, Ring<F, 1>::kSmem, splits);
+}
+
 }  // namespace
-}  // namespace ffn_wgmma
+}  // namespace prefill_wgmma

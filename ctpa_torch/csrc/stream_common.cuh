@@ -11,7 +11,7 @@
 // 4g + 2i, row g + 8 column 4g + 2i + 1.  No dequantized tile ever sits in
 // shared memory: a lane builds its A registers from the raw words.
 //
-//   int4 (ctpa's packed layout, int4_common.cuh): a byte holds rows j and
+//   int4 (ctpa's packed layout, prefill_wgmma.cuh): a byte holds rows j and
 //   j + G/2 of one column, so
 //     w4:   m16n8k16 bf16 takes that pair as the two k of one bf16
 //           register, and x is read in the same order (a permutation of k
@@ -387,9 +387,9 @@ __device__ __forceinline__ void stage_tokens(unsigned char* dst, const void* x, 
 
 // A launch in clusters of (1, grid.y, 1): the splits of one output strip
 // share a cluster.
-template <typename K, typename Args>
+template <typename K, typename... Args>
 cudaError_t launch_clusters(K kernel, dim3 grid, int threads, int smem, cudaStream_t st,
-                            const Args& a) {
+                            const Args&... args) {
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -405,7 +405,7 @@ cudaError_t launch_clusters(K kernel, dim3 grid, int threads, int smem, cudaStre
   cfg.stream = st;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, a);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // How many clusters of (1, splits, 1) blocks of a kernel the card runs at

@@ -43,16 +43,18 @@ SIGNATURES = {
     "flash_attention_bwd_dq_d128_launch": (_P,) * 10 + (_I,) * 8 + (_F, _I, _P),
     "flash_attention_bwd_dkv_d128_launch": (_P,) * 11 + (_I,) * 8 + (_F, _I, _P),
     "decode_attention_launch": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
-    "int4_matmul_launch": (_P,) * 6 + (_I,) * 7 + (_P,),
     "int4_matmul_stream_launch": (_P,) * 7 + (_I,) * 7 + (_P,),
     "int4_act_quant_launch": (_P,) * 3 + (_I,) * 2 + (_P,),
     "int4_matmul_stream_residency": (_I,) * 3,
+    "int4_matmul_prefill_launch": (_P,) * 5 + (_I,) * 7 + (_P,),
+    "int4_matmul_prefill_clusters": (_I,) * 3,
     "int4_ffn_stream_launch": (_P,) * 11 + (_I,) * 11 + (_P,),
     "int4_ffn_stream_clusters": (_I,) * 6,
     "int4_ffn_prefill_launch": (_P,) * 11 + (_I,) * 7 + (_P,),
-    "int8_matmul_launch": (_P,) * 6 + (_I,) * 6 + (_P,),
     "int8_matmul_stream_launch": (_P,) * 5 + (_I,) * 6 + (_P,),
     "int8_matmul_stream_clusters": (_I,) * 3,
+    "int8_matmul_prefill_launch": (_P,) * 5 + (_I,) * 6 + (_P,),
+    "int8_matmul_prefill_clusters": (_I,) * 2,
     "int8_ffn_stream_launch": (_P,) * 11 + (_I,) * 8 + (_P,),
     "int8_ffn_stream_clusters": (_I,) * 4,
     "int8_ffn_prefill_launch": (_P,) * 11 + (_I,) * 4 + (_P,),

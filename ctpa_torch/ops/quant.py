@@ -61,30 +61,28 @@ _KERNEL_GROUPS = (32, 64, 128)
 _BJ_MAX = 256
 
 # launches of each CUDA kernel form, under the name chip_smoke.py reports it
-# by; a wrapper adds one where it launches, and nowhere else.  A prefill K4
-# or K5 call whose contraction is split also launches the fixed-order
-# reduction of its partials (``int4_common.cuh``: ``reduce_partials_kernel``),
-# counted under "int8_reduce" or "int4_reduce"; at decode K4 and K5 add their
-# split partials inside their one launch.  K6 and K7 launch twice at any row
-# count (gate/up, then down; at decode each adds its own splits in its
-# clusters, at prefill no kernel splits its contraction).  Every
-# int8-activation call (K4, K5, K6, K7) first quantizes x in one launch
-# ("int4_act_quant")
-LAUNCHES = dict.fromkeys(("int4_matmul", "int4_matmul_a8", "int4_ffn", "int4_ffn_a8",
-                          "int4_reduce", "int4_act_quant", "int8_matmul", "int8_matmul_a8",
-                          "int8_ffn", "int8_ffn_a8", "int8_reduce"), 0)
+# by (``kernel_name``: a form's decode kernel under its own name, its
+# prefill kernel under "<form>_prefill"); a wrapper adds one where it
+# launches, and nowhere else.  K4 and K5 launch once a call at any row
+# count: a split contraction is added inside that launch, by the blocks of
+# a thread-block cluster at decode and at prefill alike.  K6 and K7 launch
+# twice at any row count (gate/up, then down; at decode each adds its own
+# splits in its clusters, at prefill no kernel splits its contraction).
+# Every int8-activation call (K4, K5, K6, K7) first quantizes x in one
+# launch ("int4_act_quant")
+_FORMS = ("int4_matmul", "int4_matmul_a8", "int4_ffn", "int4_ffn_a8", "int8_matmul",
+          "int8_matmul_a8", "int8_ffn", "int8_ffn_a8")
+LAUNCHES = dict.fromkeys((*_FORMS, *(f"{f}_prefill" for f in _FORMS), "int4_act_quant"), 0)
 # K5 takes its weight-streaming kernel for at most this many rows (decode at
-# batch 4 and 32) and its tiled kernel above (prefill); the streaming
-# kernel's blocks own STREAM_COLUMNS output columns, and its contraction is
-# split until the blocks fill what the card holds at once (its residency
-# for the kernel's registers and shared memory, queried once per form),
-# keeping at least STREAM_MIN_GROUPS scale groups a split
+# batch 4 and 32) and its prefill kernel above; the streaming kernel's
+# blocks own STREAM_COLUMNS output columns, and its contraction is split
+# until the blocks fill what the card holds at once (its residency for the
+# kernel's registers and shared memory, queried once per form), keeping at
+# least STREAM_MIN_GROUPS scale groups a split
 STREAM_MAX_ROWS = 32
 STREAM_COLUMNS = 128
 STREAM_MIN_GROUPS = 4
-# the int8 kernels' contraction chunk (K4 splits its contraction in whole
-# chunks) and K6's j-block (ctpa's int8_ffn block_j)
-INT8_KC = 128
+# K6's j-block (ctpa's int8_ffn block_j)
 INT8_BLOCK_J = 256
 # K6 at up to STREAM_MAX_ROWS rows: the gate/up kernel's blocks own one
 # j-block and walk the hidden rows in ring stages of FFN_STREAM_KC, at least
@@ -101,8 +99,24 @@ FFN_STREAM_COLUMNS = 128
 FFN_STREAM_MAX_SPLITS = 8
 INT8_STREAM_KC = 64
 # K6 and K7 above STREAM_MAX_ROWS rows: the down kernel's blocks own
-# PREFILL_COLUMNS output columns (the gate/up kernel's one j-block)
+# PREFILL_COLUMNS output columns (the gate/up kernel's one j-block).  K4 and
+# K5 above STREAM_MAX_ROWS rows: the prefill kernel's blocks own
+# PREFILL_COLUMNS output columns and PREFILL_TOKENS tokens
+# (PREFILL_TOKENS_W4A8 for w4a8); where those blocks are fewer than the
+# card runs at once, the contraction is split in chunks of PREFILL_KC rows,
+# at least PREFILL_MIN_CHUNKS a split, across a cluster of at most
+# FFN_STREAM_MAX_SPLITS blocks
 PREFILL_COLUMNS = 256
+PREFILL_TOKENS = 128
+PREFILL_TOKENS_W4A8 = 64
+PREFILL_KC = 128
+PREFILL_MIN_CHUNKS = 4
+
+
+def kernel_name(form: str, m: int) -> str:
+    """The ``LAUNCHES`` key of a K4-K7 form's kernel on m rows: the decode
+    kernel's up to STREAM_MAX_ROWS rows, else the prefill kernel's."""
+    return form if m <= STREAM_MAX_ROWS else f"{form}_prefill"
 
 
 # ------------------------------------------------------------------ host side
@@ -301,41 +315,47 @@ def _kernel_limits(x, g: int) -> None:
     _bf16_only(x, "int4")
 
 
-def _matmul_rows_tile(m: int) -> int:
-    return 16 if m <= 16 else 64
+def prefill_plan(m: int, d_in: int, d_out: int, clusters: tuple,
+                 tokens: int = PREFILL_TOKENS) -> tuple[str, int, int, int, int]:
+    """("wgmma", token tiles, column strips, splits, PREFILL_KC-row chunks per
+    split) of K4's or K5's prefill kernel on m rows: a block a tile of
+    ``tokens`` rows and a PREFILL_COLUMNS-column strip; where those blocks
+    are fewer than the card runs at once, the most splits (up to
+    FFN_STREAM_MAX_SPLITS, at least PREFILL_MIN_CHUNKS chunks each) with
+    which every block's cluster runs at once (``clusters[s - 1]``: how many
+    clusters of s blocks of the kernel the card runs at once)."""
+    tiles, strips = math.ceil(m / tokens), math.ceil(d_out / PREFILL_COLUMNS)
+    chunks = math.ceil(d_in / PREFILL_KC)
+    splits = cluster_splits(clusters, chunks // PREFILL_MIN_CHUNKS, tiles * strips)
+    per = math.ceil(chunks / splits)
+    return "wgmma", tiles, strips, math.ceil(chunks / per), per
 
 
-def matmul_splits(m: int, d_in: int, d_out: int, group: int, sms: int) -> tuple[int, int]:
-    """(splits of the contraction, scale groups per split): enough blocks for
-    two per SM when the output tiles alone are fewer (decode)."""
-    tiles = math.ceil(d_out / 64) * math.ceil(m / _matmul_rows_tile(m))
-    n_g = d_in // group
-    splits = min(n_g, max(1, math.ceil(2 * sms / tiles)))
-    per = math.ceil(n_g / splits)
-    return math.ceil(n_g / per), per
-
-
-def stream_splits(d_in: int, d_out: int, group: int, sms: int,
-                  resident: int) -> tuple[int, int]:
+def stream_splits(d_in: int, d_out: int, group: int, blocks: int) -> tuple[int, int]:
     """(splits, scale groups per split) of the decode kernel: as many blocks
-    as ``resident`` a SM holds on every SM, in whole splits of at least
+    as the card holds at once (``blocks``), in whole splits of at least
     STREAM_MIN_GROUPS groups, when its column strips alone are fewer."""
     strips = math.ceil(d_out / STREAM_COLUMNS)
     n_g = d_in // group
-    splits = max(1, min(n_g // STREAM_MIN_GROUPS, resident * sms // strips))
+    splits = max(1, min(n_g // STREAM_MIN_GROUPS, blocks // strips))
     per = math.ceil(n_g / splits)
     return math.ceil(n_g / per), per
 
 
-def int4_matmul_plan(m: int, d_in: int, d_out: int, group: int, sms: int,
-                     resident: int = 2) -> tuple[str, int, int]:
-    """(kernel, splits, scale groups per split) of a K5 call on m rows: the
-    weight-streaming kernel ("stream") up to STREAM_MAX_ROWS rows, adding its
-    splits in its own launch (``resident``: its blocks an SM holds); else the
-    tiled kernel ("tiled"), whose split contraction takes a second launch."""
+def int4_matmul_plan(m: int, d_in: int, d_out: int, group: int, occupancy: tuple,
+                     act_quant: bool = False) -> tuple:
+    """The kernel of a K5 call on m rows, one launch either way: ("stream",
+    splits, scale groups per split) up to STREAM_MAX_ROWS rows, the
+    weight-streaming kernel adding its splits itself; else
+    ``prefill_plan``'s ("wgmma", token tiles, strips, splits, chunks per
+    split) on the prefill kernel's token tile (w4a8's is smaller).
+    ``occupancy``: the chosen kernel's, ``occupancy[s - 1]`` clusters of s
+    blocks the card runs at once (the decode kernel forms no clusters: only
+    ``occupancy[0]``, its blocks at once, is read)."""
     if m <= STREAM_MAX_ROWS:
-        return ("stream", *stream_splits(d_in, d_out, group, sms, resident))
-    return ("tiled", *matmul_splits(m, d_in, d_out, group, sms))
+        return ("stream", *stream_splits(d_in, d_out, group, occupancy[0]))
+    return prefill_plan(m, d_in, d_out, occupancy,
+                        PREFILL_TOKENS_W4A8 if act_quant else PREFILL_TOKENS)
 
 
 _RESIDENCY: dict = {}
@@ -353,12 +373,11 @@ def _stream_residency(x: torch.Tensor, m: int, group: int, act_quant: bool) -> i
     return _RESIDENCY[key]
 
 
-def int4_matmul_launches(m: int, d_in: int, d_out: int, group: int, sms: int,
-                         act_quant: bool) -> dict:
-    """The launches of one K5 call on m rows, under ``LAUNCHES``' names."""
-    kernel, splits, _ = int4_matmul_plan(m, d_in, d_out, group, sms)
-    return {"int4_matmul_a8" if act_quant else "int4_matmul": 1,
-            "int4_reduce": int(kernel == "tiled" and splits > 1),
+def int4_matmul_launches(m: int, act_quant: bool) -> dict:
+    """The launches of one K5 call on m rows, under ``LAUNCHES``' names: its
+    kernel once (``kernel_name``), and the activation quantization for
+    w4a8."""
+    return {kernel_name("int4_matmul_a8" if act_quant else "int4_matmul", m): 1,
             "int4_act_quant": int(act_quant)}
 
 
@@ -385,12 +404,19 @@ def _stream_partials(device, numel: int) -> torch.Tensor:
     return buf
 
 
-def int4_matmul_plan_on(xm: torch.Tensor, d_out: int, group: int,
-                        act_quant: bool) -> tuple[str, int, int]:
-    """``int4_matmul_plan`` of a K5 call on the (m, in) rows xm on its card."""
+def int4_matmul_plan_on(xm: torch.Tensor, d_out: int, group: int, act_quant: bool) -> tuple:
+    """``int4_matmul_plan`` of a K5 call on the (m, in) rows xm on its card
+    (the decode kernel's residency on every SM, or the prefill kernel's
+    cluster occupancy, queried once per form)."""
     m, d_in = xm.shape
-    resident = _stream_residency(xm, m, group, act_quant) if m <= STREAM_MAX_ROWS else 0
-    return int4_matmul_plan(m, d_in, d_out, group, _sm_count(xm), resident)
+    if m <= STREAM_MAX_ROWS:
+        occupancy = (_sm_count(xm) * _stream_residency(xm, m, group, act_quant),)
+    else:
+        lib = build.library().lib
+        occupancy = _cluster_occupancy(
+            ("int4_matmul_prefill", xm.device, group, act_quant),
+            lambda _, s: lib.int4_matmul_prefill_clusters(group, int(act_quant), s), 1)[0]
+    return int4_matmul_plan(m, d_in, d_out, group, occupancy, act_quant)
 
 
 def _quantize_act_kernel(xm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -417,7 +443,7 @@ def _int4_matmul_kernel(x, w4, scale, g: int, act_quant: bool):
     if act_quant:
         xm, sx = _quantize_act_kernel(xm)
     out = torch.empty(m, d_out, dtype=x.dtype, device=x.device)
-    kernel, splits, per = int4_matmul_plan_on(xm, d_out, g, act_quant)
+    kernel, *_, splits, per = int4_matmul_plan_on(xm, d_out, g, act_quant)
     ptrs = (xm.data_ptr(), sx.data_ptr() if act_quant else None, w4.data_ptr(),
             scale.data_ptr(), out.data_ptr())
     lib = build.library().lib
@@ -429,13 +455,11 @@ def _int4_matmul_kernel(x, w4, scale, g: int, act_quant: bool):
         rc = lib.int4_matmul_stream_launch(*ptrs, work, counters, m, d_in, d_out, g, per, splits,
                                            int(act_quant), _stream(x))
     else:
-        work = torch.empty(splits, m, d_out, device=x.device) if splits > 1 else None
-        rc = lib.int4_matmul_launch(*ptrs, work.data_ptr() if work is not None else None, m,
-                                    d_in, d_out, g, per, splits, int(act_quant), _stream(x))
-    name = "int4_matmul_a8" if act_quant else "int4_matmul"
+        rc = lib.int4_matmul_prefill_launch(*ptrs, m, d_in, d_out, g, per, splits,
+                                            int(act_quant), _stream(x))
+    name = kernel_name("int4_matmul_a8" if act_quant else "int4_matmul", m)
     build.check_launch(rc, name)
     LAUNCHES[name] += 1
-    LAUNCHES["int4_reduce"] += kernel == "tiled" and splits > 1
     return out.reshape(*lead, d_out)
 
 
@@ -557,10 +581,11 @@ def int4_ffn_plan(m: int, hidden: int, inter: int, group: int, clusters: tuple) 
 
 def int4_ffn_launches(m: int, hidden: int, inter: int, group: int, act_quant: bool) -> dict:
     """The launches of one K7 call on m rows, under ``LAUNCHES``' names: two
-    (gate/up, down) at any row count, no reduction, and the activation
-    quantization for w4a8."""
+    (gate/up, down) at any row count, of its decode or its prefill kernels
+    (``kernel_name``), no reduction, and the activation quantization for
+    w4a8."""
     name = "int4_ffn_a8" if act_quant else "int4_ffn"
-    return {name: 2, "int4_reduce": 0, "int4_act_quant": int(act_quant)}
+    return {kernel_name(name, m): 2, "int4_act_quant": int(act_quant)}
 
 
 def int4_ffn_plan_on(xm: torch.Tensor, inter: int, group: int, act_quant: bool) -> tuple:
@@ -601,7 +626,7 @@ def _int4_ffn_kernel(x, wg4, sg, wu4, su, wd4, sd, group: int, act_quant: bool):
     ptrs = (xm.data_ptr(), sx.data_ptr() if act_quant else None, *(t.data_ptr() for t in ws),
             out.data_ptr(), h.data_ptr(), sh.data_ptr() if act_quant else None)
     lib, stream = build.library().lib, _stream(x)
-    name = "int4_ffn_a8" if act_quant else "int4_ffn"
+    name = kernel_name("int4_ffn_a8" if act_quant else "int4_ffn", m)
     plan = int4_ffn_plan_on(xm, inter, group, act_quant)
     if plan[0] == "stream":
         _, gu, gu_per, dn, dn_per = plan
@@ -668,12 +693,6 @@ def int8_matmul_plain(x, w8, scale, act_quant: bool = False):
     return y.to(x.dtype).reshape(*lead, w8.shape[1])
 
 
-def int8_matmul_splits(m: int, d_in: int, d_out: int, sms: int) -> tuple[int, int]:
-    """(splits of the contraction, ``INT8_KC`` chunks per split) of the
-    tiled kernel: K5's rule (``matmul_splits``) over whole chunks."""
-    return matmul_splits(m, _rup(d_in, INT8_KC), d_out, INT8_KC, sms)
-
-
 def int8_matmul_stream_splits(d_in: int, d_out: int, clusters: tuple) -> tuple[int, int]:
     """(splits, ring stages per split) of K4's decode kernel: its contraction
     in stages of INT8_STREAM_KC rows, at least FFN_STREAM_MIN_STAGES a split;
@@ -688,36 +707,38 @@ def int8_matmul_stream_splits(d_in: int, d_out: int, clusters: tuple) -> tuple[i
     return math.ceil(stages / per), per
 
 
-def int8_matmul_plan(m: int, d_in: int, d_out: int, sms: int,
-                     clusters: tuple) -> tuple[str, int, int]:
-    """(kernel, splits, stages or chunks per split) of a K4 call on m rows:
-    the weight-streaming kernel ("stream") up to STREAM_MAX_ROWS rows, adding
-    its splits in its own launch; else the tiled kernel ("tiled"), whose
-    split contraction takes a second launch."""
+def int8_matmul_plan(m: int, d_in: int, d_out: int, clusters: tuple) -> tuple:
+    """The kernel of a K4 call on m rows, one launch either way: ("stream",
+    splits, stages per split) up to STREAM_MAX_ROWS rows, the
+    weight-streaming kernel adding its splits in its clusters; else
+    ``prefill_plan``'s ("wgmma", token tiles, strips, splits, chunks per
+    split).  ``clusters``: the chosen kernel's cluster occupancy table."""
     if m <= STREAM_MAX_ROWS:
         return ("stream", *int8_matmul_stream_splits(d_in, d_out, clusters))
-    return ("tiled", *int8_matmul_splits(m, d_in, d_out, sms))
+    return prefill_plan(m, d_in, d_out, clusters)
 
 
-def int8_matmul_launches(m: int, d_in: int, d_out: int, sms: int, act_quant: bool) -> dict:
-    """The launches of one K4 call on m rows, under ``LAUNCHES``' names."""
-    tiled = m > STREAM_MAX_ROWS and int8_matmul_splits(m, d_in, d_out, sms)[0] > 1
-    return {"int8_matmul_a8" if act_quant else "int8_matmul": 1, "int8_reduce": int(tiled),
+def int8_matmul_launches(m: int, act_quant: bool) -> dict:
+    """The launches of one K4 call on m rows, under ``LAUNCHES``' names: its
+    kernel once (``kernel_name``), and the activation quantization for
+    w8a8."""
+    return {kernel_name("int8_matmul_a8" if act_quant else "int8_matmul", m): 1,
             "int4_act_quant": int(act_quant)}
 
 
-def int8_matmul_plan_on(xm: torch.Tensor, d_out: int, act_quant: bool) -> tuple[str, int, int]:
+def int8_matmul_plan_on(xm: torch.Tensor, d_out: int, act_quant: bool) -> tuple:
     """``int8_matmul_plan`` of a K4 call on the (m, in) rows xm on its card
     (the decode kernel's cluster occupancy queried once per row tier and
-    form)."""
+    form, the prefill kernel's once per form)."""
     m, d_in = xm.shape
-    clusters = ()
+    lib = build.library().lib
     if m <= STREAM_MAX_ROWS:
-        lib = build.library().lib
-        clusters = _cluster_occupancy(
-            ("int8_matmul", xm.device, _row_tier(m), act_quant),
-            lambda _, s: lib.int8_matmul_stream_clusters(m, int(act_quant), s), 1)[0]
-    return int8_matmul_plan(m, d_in, d_out, _sm_count(xm), clusters)
+        key, query = (("int8_matmul", xm.device, _row_tier(m), act_quant),
+                      lambda _, s: lib.int8_matmul_stream_clusters(m, int(act_quant), s))
+    else:
+        key, query = (("int8_matmul_prefill", xm.device, act_quant),
+                      lambda _, s: lib.int8_matmul_prefill_clusters(int(act_quant), s))
+    return int8_matmul_plan(m, d_in, d_out, _cluster_occupancy(key, query, 1)[0])
 
 
 def _int8_matmul_kernel(x, w8, scale, act_quant: bool):
@@ -731,24 +752,15 @@ def _int8_matmul_kernel(x, w8, scale, act_quant: bool):
     if act_quant:
         xm, sx = _quantize_act_kernel(xm)
     out = torch.empty(m, d_out, dtype=x.dtype, device=x.device)
-    kernel, splits, per = int8_matmul_plan_on(xm, d_out, act_quant)
-    ptrs = (xm.data_ptr(), sx.data_ptr() if act_quant else None, w8.data_ptr(),
-            scale.data_ptr(), out.data_ptr())
-    lib = build.library().lib
-    if kernel == "stream":
-        rc = lib.int8_matmul_stream_launch(*ptrs, m, d_in, d_out, per, splits, int(act_quant),
-                                           _stream(x))
-    else:
-        # the splits' partial sums: exact int32 (w8a8) or fp32 (w8)
-        work = (torch.empty(splits, m, d_out, device=x.device,
-                            dtype=torch.int32 if act_quant else torch.float32)
-                if splits > 1 else None)
-        rc = lib.int8_matmul_launch(*ptrs, work.data_ptr() if work is not None else None, m,
-                                    d_in, d_out, per, splits, int(act_quant), _stream(x))
-    name = "int8_matmul_a8" if act_quant else "int8_matmul"
+    kernel, *_, splits, per = int8_matmul_plan_on(xm, d_out, act_quant)
+    launch = (build.library().lib.int8_matmul_stream_launch if kernel == "stream"
+              else build.library().lib.int8_matmul_prefill_launch)
+    rc = launch(xm.data_ptr(), sx.data_ptr() if act_quant else None, w8.data_ptr(),
+                scale.data_ptr(), out.data_ptr(), m, d_in, d_out, per, splits, int(act_quant),
+                _stream(x))
+    name = kernel_name("int8_matmul_a8" if act_quant else "int8_matmul", m)
     build.check_launch(rc, name)
     LAUNCHES[name] += 1
-    LAUNCHES["int8_reduce"] += kernel == "tiled" and splits > 1
     return out.reshape(*lead, d_out)
 
 
@@ -850,10 +862,11 @@ def int8_ffn_plan(m: int, hidden: int, inter: int, clusters: tuple) -> tuple:
 
 def int8_ffn_launches(m: int, hidden: int, inter: int, act_quant: bool) -> dict:
     """The launches of one K6 call on m rows, under ``LAUNCHES``' names: two
-    (gate/up, down) at any row count, no reduction, and the activation
-    quantization for w8a8."""
+    (gate/up, down) at any row count, of its decode or its prefill kernels
+    (``kernel_name``), no reduction, and the activation quantization for
+    w8a8."""
     name = "int8_ffn_a8" if act_quant else "int8_ffn"
-    return {name: 2, "int8_reduce": 0, "int4_act_quant": int(act_quant)}
+    return {kernel_name(name, m): 2, "int4_act_quant": int(act_quant)}
 
 
 def int8_ffn_plan_on(xm: torch.Tensor, inter: int, act_quant: bool) -> tuple:
@@ -893,7 +906,7 @@ def _int8_ffn_kernel(x, wg8, sg, wu8, su, wd8, sd, act_quant: bool):
     ptrs = (xm.data_ptr(), sx.data_ptr() if act_quant else None, *(t.data_ptr() for t in ws),
             out.data_ptr(), h.data_ptr(), sh.data_ptr() if act_quant else None)
     lib, stream = build.library().lib, _stream(x)
-    name = "int8_ffn_a8" if act_quant else "int8_ffn"
+    name = kernel_name("int8_ffn_a8" if act_quant else "int8_ffn", m)
     plan = int8_ffn_plan_on(xm, inter, act_quant)
     if plan[0] == "stream":
         _, gu, gu_per, dn, dn_per = plan

@@ -173,7 +173,7 @@ def profile_k5(libs: dict, results: dict) -> None:
                 if "K5" not in VARIANTS[name][0]:
                     continue
                 blocks = lib.int4_matmul_stream_residency(m, 128, int(a8))
-                _, splits, per = quant.int4_matmul_plan(m, d_in, d_out, 128, sms, blocks)
+                _, splits, per = quant.int4_matmul_plan(m, d_in, d_out, 128, (sms * blocks,))
                 work = torch.empty(splits, m, d_out, device="cuda")
                 it = itertools.cycle(weights)
 

@@ -211,7 +211,7 @@ def profile_k4(libs: dict, results: dict) -> None:
                     continue
                 clusters = tuple(lib.int8_matmul_stream_clusters(m, int(a8), s)
                                  for s in range(1, 9))
-                _, splits, per = quant.int8_matmul_plan(m, d_in, d_out, 132, clusters)
+                _, splits, per = quant.int8_matmul_plan(m, d_in, d_out, clusters)
                 it = itertools.cycle(weights)
 
                 def call():

@@ -893,7 +893,7 @@ def test_int4_matmul_kernel_matches_plain(cuda, shape, act_quant):
     m, d_in, d_out = shape
     w4, s = quant.quantize_int4(0.05 * torch.randn(d_in, d_out, generator=cuda, device="cuda"))
     x = torch.randn(m, d_in, generator=cuda, device="cuda").to(torch.bfloat16)
-    name = "int4_matmul_a8" if act_quant else "int4_matmul"
+    name = quant.kernel_name("int4_matmul_a8" if act_quant else "int4_matmul", m)
     before = quant.LAUNCHES[name]
     got = quant.int4_matmul(x, w4, s, act_quant=act_quant)
     torch.cuda.synchronize()
@@ -904,7 +904,7 @@ def test_int4_matmul_kernel_matches_plain(cuda, shape, act_quant):
 
 
 # (m, in, out) around K5's decode kernel: 1, 3, 4, 17, 31 and 32 rows take
-# it, 33 the tiled kernel; groups of 128, 64 (in 192) and 32 (in 160); a
+# it, 33 the prefill kernel; groups of 128, 64 (in 192) and 32 (in 160); a
 # ragged width (1000, 520); 11 groups (in 1408), whose splits cannot all be
 # equal
 INT4_DECODE_SHAPES = [(1, 4096, 4096), (3, 160, 1000), (4, 1408, 4096), (4, 4096, 12288),
@@ -926,14 +926,16 @@ def test_int4_matmul_decode_kernel_matches_plain(cuda, shape, act_quant):
     w4, s = quant.quantize_int4(0.05 * torch.randn(d_in, d_out, generator=cuda, device="cuda"))
     x = torch.randn(m, d_in, generator=cuda, device="cuda").to(torch.bfloat16)
     g = quant._int4_group(d_in, quant.GROUP)
-    kernel, splits, per = quant.int4_matmul_plan_on(x, d_out, g, act_quant)
-    assert kernel == ("stream" if m <= 32 else "tiled")
-    assert (splits - 1) * per < d_in // g <= splits * per
+    plan = quant.int4_matmul_plan_on(x, d_out, g, act_quant)
+    assert plan[0] == ("stream" if m <= 32 else "wgmma")
+    if plan[0] == "stream":
+        _, splits, per = plan
+        assert (splits - 1) * per < d_in // g <= splits * per
     before = dict(quant.LAUNCHES)
     got = quant.int4_matmul(x, w4, s, act_quant=act_quant)
     torch.cuda.synchronize()
     launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
-    want = quant.int4_matmul_launches(m, d_in, d_out, g, quant._sm_count(x), act_quant)
+    want = quant.int4_matmul_launches(m, act_quant)
     assert launched == dict(dict.fromkeys(quant.LAUNCHES, 0), **want)
     _int8_close(got, quant.int4_matmul_plain(x, w4, s, act_quant=act_quant), act_quant)
 
@@ -952,6 +954,57 @@ def test_int4_matmul_decode_kernel_is_deterministic(cuda, m, act_quant):
     second = quant.int4_matmul(x, w4, s, act_quant=act_quant)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# (m, in, out, group) of K5's prefill kernel: 33, 70 and 2,053 rows at
+# Meditron-7B's qkv_proj and o_proj; small ragged widths (n % 16 != 0: the
+# producer copies the packed rows and scales), groups of 32, 64 and 128, one
+# and two column strips, a partial ring stage (192 at group 64)
+INT4_PREFILL_SHAPES = [(33, 4096, 12288, 128), (70, 4096, 4096, 128), (2053, 4096, 12288, 128),
+                       (33, 4096, 4096, 128), (70, 384, 520, 128), (300, 512, 200, 32),
+                       (65, 192, 136, 64), (129, 1024, 256, 32)]
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("shape", INT4_PREFILL_SHAPES)
+def test_int4_matmul_prefill_kernel_matches_plain(cuda, shape, act_quant):
+    """K5's prefill kernel (``prefill_wgmma.cuh``) against its plain version:
+    w4 in bf16's bound, w4a8 in the int8 bound (its group dots are exact; a
+    split contraction changes the fp32 order of the group sum).  Exactly one
+    K5 launch, and the activation quantization for w4a8: no reduction."""
+    from ctpa_torch.ops import quant
+
+    m, d_in, d_out, group = shape
+    w4, s = quant.quantize_int4(0.05 * torch.randn(d_in, d_out, generator=cuda, device="cuda"),
+                                group)
+    x = torch.randn(m, d_in, generator=cuda, device="cuda").to(torch.bfloat16)
+    g = quant._int4_group(d_in, group)
+    assert quant.int4_matmul_plan_on(x, d_out, g, act_quant)[0] == "wgmma"
+    before = dict(quant.LAUNCHES)
+    got = quant.int4_matmul(x, w4, s, group, act_quant=act_quant)
+    torch.cuda.synchronize()
+    launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
+    assert launched == dict(dict.fromkeys(quant.LAUNCHES, 0), **quant.int4_matmul_launches(
+        m, act_quant))
+    _int8_close(got, quant.int4_matmul_plain(x, w4, s, group, act_quant=act_quant), act_quant)
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+def test_int4_matmul_prefill_kernel_is_deterministic(cuda, act_quant):
+    """K5's prefill kernel at the fused qkv_proj and 2,048 rows, called twice,
+    gives the same bits (each output tile is one block's), and so does its
+    split form at 33 rows of o_proj (a cluster adds the splits in order)."""
+    from ctpa_torch.ops import quant
+
+    for m, d_out in ((2048, 12288), (33, 4096)):
+        w4, s = quant.quantize_int4(0.05 * torch.randn(4096, d_out, generator=cuda,
+                                                       device="cuda"))
+        x = torch.randn(m, 4096, generator=cuda, device="cuda").to(torch.bfloat16)
+        first = quant.int4_matmul(x, w4, s, act_quant=act_quant)
+        second = quant.int4_matmul(x, w4, s, act_quant=act_quant)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+    assert quant.int4_matmul_plan_on(x, 4096, 128, act_quant)[3] > 1
 
 
 # the last, 513 columns (K4's ragged d_in), takes the element loads
@@ -1106,7 +1159,7 @@ def test_int4_ffn_prefill_kernels_match_plain(cuda, shape, act_quant):
     got = quant.int4_ffn(x, *ws, act_quant=act_quant)
     torch.cuda.synchronize()
     launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
-    name = "int4_ffn_a8" if act_quant else "int4_ffn"
+    name = "int4_ffn_a8_prefill" if act_quant else "int4_ffn_prefill"
     assert launched == dict(dict.fromkeys(quant.LAUNCHES, 0), **{name: 2},
                             int4_act_quant=int(act_quant))
     _int8_close(got, quant.int4_ffn_plain(x, *ws, act_quant=act_quant), act_quant)
@@ -1131,8 +1184,8 @@ def test_int4_report_generator_kernel_path_matches_plain_path(cuda, act_quant):
     step; the kernel path teacher-forced on its tokens gives them back, and
     the same bundle with quant_impl="xla" agrees with it (every step's max
     |diff| within 5e-2 of its max |logit|, top-1 agreement >= 0.8).  The
-    launches, reductions and w4a8's activation quantization included, are those
-    ``chip_smoke.quant_kernel_launches`` derives from the contraction splits."""
+    launches, w4a8's activation quantization included, are those
+    ``chip_smoke.quant_kernel_launches`` gives: no reduction kernel."""
     import chip_smoke as cs
     from ctpa_torch.core.config import LLMConfig, ReportGenConfig
     from ctpa_torch.models.layers import set_compute_dtype
@@ -1160,9 +1213,7 @@ def test_int4_report_generator_kernel_path_matches_plain_path(cuda, act_quant):
     mask[1, 6:] = 0
     inputs = (video, ids * mask, mask)
     k5, k7 = ("int4_matmul_a8", "int4_ffn_a8") if act_quant else ("int4_matmul", "int4_ffn")
-    sms = quant._sm_count(ids)
-    prefill = cs.quant_kernel_launches(cfg, ids.numel(), 2, sms)
-    step = cs.quant_kernel_launches(cfg, 2, 2, sms)
+    prefill, step = cs.quant_kernel_launches(cfg, 18, 2), cs.quant_kernel_launches(cfg, 2, 2)
     assert prefill[k5] == step[k5] == 2 * base.num_layers + 1
     # 18 prompt rows and 2 decode rows: K7's two decode launches a layer
     assert prefill[k7] == step[k7] == 2 * base.num_layers
@@ -1215,13 +1266,13 @@ def test_int8_matmul_kernel_matches_plain(cuda, shape, act_quant):
     got = quant.int8_matmul(x, w8, s, act_quant=act_quant)
     torch.cuda.synchronize()
     launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
-    want = quant.int8_matmul_launches(m, d_in, d_out, quant._sm_count(x), act_quant)
+    want = quant.int8_matmul_launches(m, act_quant)
     assert launched == dict(dict.fromkeys(quant.LAUNCHES, 0), **want)
     _int8_close(got, quant.int8_matmul_plain(x, w8, s, act_quant=act_quant), act_quant)
 
 
 # (m, in, out) around K4's decode kernel: 1, 4, 17 and 32 rows take it, 33
-# the tiled kernel; Meditron-7B's qkv_proj (12288), o_proj and lm_head
+# the prefill kernel; Meditron-7B's qkv_proj (12288), o_proj and lm_head
 # (32000) and the unfused FFN's down projection (11008 -> 4096); a ragged
 # contraction (513: x's element loads, a last ring stage of 1 row), ragged
 # widths (1000: byte copies of the weights; 33), a short contraction (72)
@@ -1243,8 +1294,8 @@ def test_int8_matmul_decode_kernel_matches_plain(cuda, shape, act_quant):
     m, d_in, d_out = shape
     w8, s = quant.quantize_int8(0.05 * torch.randn(d_in, d_out, generator=cuda, device="cuda"))
     x = torch.randn(m, d_in, generator=cuda, device="cuda").to(torch.bfloat16)
-    kernel, splits, per = quant.int8_matmul_plan_on(x, d_out, act_quant)
-    assert kernel == ("stream" if m <= 32 else "tiled")
+    kernel, *_, splits, per = quant.int8_matmul_plan_on(x, d_out, act_quant)
+    assert kernel == ("stream" if m <= 32 else "wgmma")
     if kernel == "stream":
         stages = -(-d_in // quant.INT8_STREAM_KC)
         assert (splits - 1) * per < stages <= splits * per
@@ -1252,10 +1303,10 @@ def test_int8_matmul_decode_kernel_matches_plain(cuda, shape, act_quant):
     got = quant.int8_matmul(x, w8, s, act_quant=act_quant)
     torch.cuda.synchronize()
     launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
-    want = quant.int8_matmul_launches(m, d_in, d_out, quant._sm_count(x), act_quant)
+    want = quant.int8_matmul_launches(m, act_quant)
     assert launched == dict(dict.fromkeys(quant.LAUNCHES, 0), **want)
     ref = quant.int8_matmul_plain(x, w8, s, act_quant=act_quant)
-    if act_quant and kernel == "stream":
+    if act_quant:
         assert torch.equal(got, ref)
     _int8_close(got, ref, act_quant)
 
@@ -1275,6 +1326,58 @@ def test_int8_matmul_decode_kernel_is_deterministic(cuda, m, act_quant):
     second = quant.int8_matmul(x, w8, s, act_quant=act_quant)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# (m, in, out) of K4's prefill kernel: 33, 70 and 2,053 rows at Meditron-7B's
+# qkv_proj and o_proj and the unfused FFN's gateup and down shapes; small
+# ragged widths: k 100 and 513 (x's rows copied by the producer for both
+# forms), n % 16 != 0 (the weight rows copied), n odd, one and two strips
+INT8_PREFILL_SHAPES = [(33, 4096, 12288), (70, 4096, 4096), (2053, 4096, 12288),
+                       (33, 4096, 4096), (300, 4096, 22016), (70, 11008, 4096), (70, 100, 300),
+                       (130, 513, 1000), (40, 256, 45), (2053, 384, 520)]
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("shape", INT8_PREFILL_SHAPES)
+def test_int8_matmul_prefill_kernel_matches_plain(cuda, shape, act_quant):
+    """K4's prefill kernel (``prefill_wgmma.cuh``) against its plain version:
+    w8 in bf16's bound, w8a8 bit for bit (one exact int32 dot over the whole
+    contraction, split or not, scaled in the plain version's order).
+    Exactly one K4 launch, and the activation quantization for w8a8: no
+    reduction."""
+    from ctpa_torch.ops import quant
+
+    m, d_in, d_out = shape
+    w8, s = quant.quantize_int8(0.05 * torch.randn(d_in, d_out, generator=cuda, device="cuda"))
+    x = torch.randn(m, d_in, generator=cuda, device="cuda").to(torch.bfloat16)
+    assert quant.int8_matmul_plan_on(x, d_out, act_quant)[0] == "wgmma"
+    before = dict(quant.LAUNCHES)
+    got = quant.int8_matmul(x, w8, s, act_quant=act_quant)
+    torch.cuda.synchronize()
+    launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
+    assert launched == dict(dict.fromkeys(quant.LAUNCHES, 0), **quant.int8_matmul_launches(
+        m, act_quant))
+    ref = quant.int8_matmul_plain(x, w8, s, act_quant=act_quant)
+    if act_quant:
+        assert torch.equal(got, ref)
+    _int8_close(got, ref, act_quant)
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+def test_int8_matmul_prefill_kernel_is_deterministic(cuda, act_quant):
+    """K4's prefill kernel at the fused qkv_proj and 2,048 rows, called twice,
+    gives the same bits, and so does its split form at 33 rows of o_proj."""
+    from ctpa_torch.ops import quant
+
+    for m, d_out in ((2048, 12288), (33, 4096)):
+        w8, s = quant.quantize_int8(0.05 * torch.randn(4096, d_out, generator=cuda,
+                                                       device="cuda"))
+        x = torch.randn(m, 4096, generator=cuda, device="cuda").to(torch.bfloat16)
+        first = quant.int8_matmul(x, w8, s, act_quant=act_quant)
+        second = quant.int8_matmul(x, w8, s, act_quant=act_quant)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+    assert quant.int8_matmul_plan_on(x, 4096, act_quant)[3] > 1
 
 
 # (m, hidden, inter): decode and prefill rows; a padded last j-block (384,
@@ -1386,7 +1489,7 @@ def test_int8_ffn_prefill_kernels_match_plain(cuda, shape, act_quant):
     got = quant.int8_ffn(x, *ws, act_quant=act_quant)
     torch.cuda.synchronize()
     launched = {k: quant.LAUNCHES[k] - before[k] for k in quant.LAUNCHES}
-    name = "int8_ffn_a8" if act_quant else "int8_ffn"
+    name = "int8_ffn_a8_prefill" if act_quant else "int8_ffn_prefill"
     assert launched == dict(dict.fromkeys(quant.LAUNCHES, 0), **{name: 2},
                             int4_act_quant=int(act_quant))
     _int8_close(got, quant.int8_ffn_plain(x, *ws, act_quant=act_quant), act_quant)
@@ -1428,9 +1531,9 @@ def test_int8_kernels_refuse_what_they_do_not_take(cuda):
 @pytest.mark.parametrize("act_quant", [False, True])
 def test_int8_report_generator_kernel_path_matches_plain_path(cuda, act_quant):
     """A small int8 report generator (fused qkv, the fused FFN, int8 KV cache,
-    flash_decode) in bf16: the launches of K4, K6 and their reductions per
-    prefill and per decode step are those ``chip_smoke.quant_kernel_launches``
-    derives; the kernel path teacher-forced on its tokens gives them back,
+    flash_decode) in bf16: the launches of K4 and K6 per prefill and per
+    decode step are those ``chip_smoke.quant_kernel_launches`` gives (no
+    reduction kernel); the kernel path teacher-forced on its tokens gives them back,
     and the same bundle with quant_impl="xla" agrees with it (every step's
     max |diff| within 5e-2 of its max |logit|, top-1 agreement >= 0.8)."""
     import chip_smoke as cs
@@ -1459,10 +1562,8 @@ def test_int8_report_generator_kernel_path_matches_plain_path(cuda, act_quant):
     mask = torch.ones_like(ids)
     mask[1, 6:] = 0
     inputs = (video, ids * mask, mask)
-    mm, ffn, _ = cs.quant_kernel_names(cfg)
-    sms = quant._sm_count(ids)
-    prefill = cs.quant_kernel_launches(cfg, ids.numel(), 2, sms)
-    step = cs.quant_kernel_launches(cfg, 2, 2, sms)
+    mm, ffn = cs.quant_kernel_names(cfg)
+    prefill, step = cs.quant_kernel_launches(cfg, 18, 2), cs.quant_kernel_launches(cfg, 2, 2)
     assert prefill[mm] == step[mm] == 2 * base.num_layers + 1
     # 18 prompt rows and 2 decode rows: K6's two decode launches a layer
     assert prefill[ffn] == step[ffn] == 2 * base.num_layers

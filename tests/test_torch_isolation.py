@@ -35,7 +35,7 @@ for name in names:
     importlib.import_module(name)
 for script in ("chip_smoke", "bench_torch", "profile_zeroshot", "profile_clip_train",
                "profile_resample_patchify", "profile_int4_decode", "profile_int8_decode",
-               "profile_ffn_prefill"):
+               "profile_quant_prefill"):
     spec = importlib.util.spec_from_file_location(script, script + ".py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -60,10 +60,10 @@ def test_port_sources_avoid_torch_extensions_and_library_attention():
                                           "int8_matmul.cu", "patchify.cu",
                                           "resample_patchify.cu"]
     headers = list((ROOT / "ctpa_torch" / "csrc").glob("*.cuh"))
-    assert sorted(p.name for p in headers) == ["ffn_wgmma.cuh", "flash_masks.cuh",
-                                               "flash_tiles.cuh", "hopper_ptx.cuh",
-                                               "int4_common.cuh", "patch_project.cuh",
-                                               "stream_common.cuh", "warp_mma.cuh"]
+    assert sorted(p.name for p in headers) == ["flash_masks.cuh", "flash_tiles.cuh",
+                                               "hopper_ptx.cuh", "patch_project.cuh",
+                                               "prefill_wgmma.cuh", "stream_common.cuh",
+                                               "warp_mma.cuh"]
     banned_py = ("import torch.utils.cpp_extension", "from torch.utils.cpp_extension",
                  "cpp_extension.load", "torch.compile(", "scaled_dot_product_attention(",
                  "_weight_int4pack_mm(", "_weight_int8pack_mm(", "_int_mm(")

@@ -146,34 +146,56 @@ def test_int4_group_and_block_rules():
         assert tq.ffn_block_j(inter, g_i) == want
 
 
-# (m, in, out, sms, resident, want): Meditron-7B's qkv_proj, o_proj and
-# lm_head on 132 SMs at decode (batch 4 and 32: the streaming kernel, as
-# many blocks as the SMs hold at once, in whole splits, added in its own
-# launch), at the threshold's far side (33 rows) and at prefill (the tiled
-# kernel, one reduction launch when its contraction splits)
-K5_PLANS = [(4, 4096, 12288, 132, 4, ("stream", 5, 7)), (32, 4096, 12288, 132, 2, ("stream", 2, 16)),
-            (4, 4096, 4096, 132, 4, ("stream", 8, 4)), (1, 4096, 32000, 132, 3, ("stream", 1, 32)),
-            (33, 4096, 4096, 132, 4, ("tiled", 5, 7)), (2048, 4096, 12288, 132, 4, ("tiled", 1, 32)),
-            (4, 1408, 4096, 132, 2, ("stream", 2, 6)), (4, 4096, 200000, 132, 4, ("stream", 1, 32))]
+# How many clusters of 1-8 blocks of K5's prefill kernel a card with one
+# block an SM runs at once
+K5_CARD_1 = (132, 66, 44, 33, 26, 22, 18, 16)
+# (m, in, out, sms, resident, act_quant, want): Meditron-7B's qkv_proj,
+# o_proj and lm_head on 132 SMs at decode (batch 4 and 32: the streaming
+# kernel, as many blocks as the SMs hold at once, in whole splits, added in
+# its own launch); past the threshold (33 rows: the prefill kernel's 48 or
+# 16 blocks, too few for the card, so its contraction splits across
+# clusters), at prefill (4 x 512 rows, no split; w4a8's token tile is 64
+# rows) and at the batch-32 prefill (16,384 rows)
+K5_PLANS = [(4, 4096, 12288, 132, 4, False, ("stream", 5, 7)),
+            (32, 4096, 12288, 132, 2, False, ("stream", 2, 16)),
+            (4, 4096, 4096, 132, 4, False, ("stream", 8, 4)),
+            (1, 4096, 32000, 132, 3, False, ("stream", 1, 32)),
+            (33, 4096, 4096, 132, 4, False, ("wgmma", 1, 16, 8, 4)),
+            (33, 4096, 12288, 132, 4, True, ("wgmma", 1, 48, 2, 16)),
+            (2048, 4096, 12288, 132, 4, False, ("wgmma", 16, 48, 1, 32)),
+            (2048, 4096, 12288, 132, 4, True, ("wgmma", 32, 48, 1, 32)),
+            (16384, 4096, 12288, 132, 4, False, ("wgmma", 128, 48, 1, 32)),
+            (4, 1408, 4096, 132, 2, False, ("stream", 2, 6)),
+            (4, 4096, 200000, 132, 4, False, ("stream", 1, 32))]
 
 
-@pytest.mark.parametrize("m, d_in, d_out, sms, resident, want", K5_PLANS)
-def test_int4_matmul_plan_takes_the_kernel_by_rows(m, d_in, d_out, sms, resident, want):
+@pytest.mark.parametrize("m, d_in, d_out, sms, resident, act_quant, want", K5_PLANS)
+def test_int4_matmul_plan_takes_the_kernel_by_rows(m, d_in, d_out, sms, resident, act_quant,
+                                                   want):
     """K5's dispatch: up to ``STREAM_MAX_ROWS`` rows the streaming kernel,
-    whose splits cost no launch; above, the tiled kernel, whose split
-    contraction adds a reduction launch.  Every split holds groups, the last
-    one possibly fewer; w4a8 adds one activation-quantization launch."""
+    above the prefill kernel; either adds its splits inside its one launch
+    (the prefill kernel's in a cluster), so a call is one launch at any row
+    count, with no reduction, and w4a8 adds one activation-quantization
+    launch.  Every split holds groups or 128-row chunks, the last one
+    possibly fewer."""
     g = tq._int4_group(d_in, tq.GROUP)
-    plan = tq.int4_matmul_plan(m, d_in, d_out, g, sms, resident)
+    occupancy = (sms * resident,) if m <= tq.STREAM_MAX_ROWS else K5_CARD_1
+    plan = tq.int4_matmul_plan(m, d_in, d_out, g, occupancy, act_quant)
     assert plan == want
-    kernel, splits, per = plan
+    kernel, *_, splits, per = plan
     assert (kernel == "stream") == (m <= tq.STREAM_MAX_ROWS)
-    assert (splits - 1) * per < d_in // g <= splits * per
-    for act_quant in (False, True):
-        assert tq.int4_matmul_launches(m, d_in, d_out, g, sms, act_quant) == {
-            "int4_matmul_a8" if act_quant else "int4_matmul": 1,
-            "int4_reduce": int(kernel == "tiled" and splits > 1),
-            "int4_act_quant": int(act_quant)}
+    if kernel == "stream":
+        assert (splits - 1) * per < d_in // g <= splits * per
+    else:
+        _, tiles, strips, _, _ = plan
+        tokens = tq.PREFILL_TOKENS_W4A8 if act_quant else tq.PREFILL_TOKENS
+        assert (tiles, strips) == (-(-m // tokens), -(-d_out // tq.PREFILL_COLUMNS))
+        assert (splits - 1) * per < -(-d_in // tq.PREFILL_KC) <= splits * per
+        assert splits == 1 or K5_CARD_1[splits - 1] >= tiles * strips
+    suffix = "" if m <= tq.STREAM_MAX_ROWS else "_prefill"
+    for a8 in (False, True):
+        assert tq.int4_matmul_launches(m, a8) == {
+            ("int4_matmul_a8" if a8 else "int4_matmul") + suffix: 1, "int4_act_quant": int(a8)}
 
 
 # ------------------------------------------------------- K5
@@ -183,6 +205,8 @@ K5_CASES = [  # (m, in, out, pallas block_in, block_out): tests/test_quant.py's 
     (8, 512, 384, 256, 128),      # two in-blocks of two groups
     (3, 64, 48, 2048, 512),       # the group clamps to 64, one block
     (4, 256, 300, 256, 128),      # ragged out over three out-blocks
+    (70, 384, 520, 128, 256),     # the prefill kernel: 70 rows, ragged out
+    (300, 256, 200, 128, 128),    # the prefill kernel over two of ctpa's row blocks
 ]
 
 
@@ -319,9 +343,10 @@ def test_int4_ffn_plan_takes_the_kernel_by_rows(m, hidden, inter, group, cluster
         assert dn == 1 or clusters[1][dn - 1] >= strips
     else:
         assert plan == ("wgmma", n_j, -(-hidden // tq.PREFILL_COLUMNS))
+    suffix = "" if m <= tq.STREAM_MAX_ROWS else "_prefill"
     for act_quant in (False, True):
         assert tq.int4_ffn_launches(m, hidden, inter, group, act_quant) == {
-            "int4_ffn_a8" if act_quant else "int4_ffn": 2, "int4_reduce": 0,
+            ("int4_ffn_a8" if act_quant else "int4_ffn") + suffix: 2,
             "int4_act_quant": int(act_quant)}
 
 

@@ -118,6 +118,8 @@ K4_CASES = [  # (m, in, out, pallas block_in, block_out): tests/test_quant.py's 
     (8, 512, 384, 256, 128),
     (17, 192, 136, 128, 128),     # more rows than one bf16 row tile
     (32, 384, 300, 128, 128),     # the decode kernel's largest row count (batch 32)
+    (70, 384, 520, 128, 256),     # the prefill kernel: 70 rows, ragged out
+    (300, 256, 200, 128, 128),    # the prefill kernel over two of ctpa's row blocks
 ]
 
 
@@ -142,50 +144,61 @@ def test_int8_matmul_matches_ctpa(case, act_quant):
 
 # How many clusters of 1-8 blocks of K4's decode kernel example cards run at
 # once: two blocks an SM (96 strips' clusters of 2 fit, not of 3), one
-# block an SM, and a card that fits too few
+# block an SM, and a card that fits too few.  The prefill kernel holds one
+# block an SM (K4_CARD_1)
 K4_CARD_2 = (264, 132, 88, 66, 52, 44, 36, 32)
 K4_CARD_1 = (132, 66, 44, 33, 26, 22, 18, 16)
 K4_CARD_0 = (40, 20, 13, 10, 8, 6, 5, 5)
-# (m, in, out, sms, clusters, want): Meditron-7B's qkv_proj, o_proj and
-# lm_head at decode (the streaming kernel, as many splits of 64-row stages
-# as let every strip's cluster run at once, added in its own launch), the
-# unfused FFN's down projection at 32 rows on a one-block card, past the
-# threshold (33 rows) and at prefill (the tiled kernel, one reduction launch
-# when its contraction splits); a ragged contraction (513: a last stage of
-# one row) and a contraction too short to split
-K4_PLANS = [(4, 4096, 12288, 132, K4_CARD_2, ("stream", 2, 32)),
-            (4, 4096, 4096, 132, K4_CARD_2, ("stream", 8, 8)),
-            (4, 4096, 32000, 132, K4_CARD_2, ("stream", 1, 64)),
-            (32, 11008, 4096, 132, K4_CARD_1, ("stream", 4, 43)),
-            (33, 4096, 4096, 132, (), ("tiled", 5, 7)),
-            (2048, 4096, 12288, 132, (), ("tiled", 1, 32)),
-            (5, 513, 1000, 132, K4_CARD_2, ("stream", 2, 5)),
-            (2, 72, 40, 132, K4_CARD_0, ("stream", 1, 2))]
+# (m, in, out, clusters, want): Meditron-7B's qkv_proj, o_proj and lm_head
+# at decode (the streaming kernel, as many splits of 64-row stages as let
+# every strip's cluster run at once, added in its own launch), the unfused
+# FFN's down projection at 32 rows on a one-block card; past the threshold
+# (33 rows: the prefill kernel's 48 or 16 blocks, too few for the card, so
+# its contraction splits across clusters of 2 or 8), at prefill (4 x 512
+# rows: 16 token tiles x 48 strips, no split) and at the batch-32 prefill
+# (16,384 rows); a ragged contraction (513: a last stage of one row) and a
+# contraction too short to split
+K4_PLANS = [(4, 4096, 12288, K4_CARD_2, ("stream", 2, 32)),
+            (4, 4096, 4096, K4_CARD_2, ("stream", 8, 8)),
+            (4, 4096, 32000, K4_CARD_2, ("stream", 1, 64)),
+            (32, 11008, 4096, K4_CARD_1, ("stream", 4, 43)),
+            (33, 4096, 4096, K4_CARD_1, ("wgmma", 1, 16, 8, 4)),
+            (33, 4096, 12288, K4_CARD_1, ("wgmma", 1, 48, 2, 16)),
+            (2048, 4096, 12288, K4_CARD_1, ("wgmma", 16, 48, 1, 32)),
+            (16384, 4096, 12288, K4_CARD_1, ("wgmma", 128, 48, 1, 32)),
+            (5, 513, 1000, K4_CARD_2, ("stream", 2, 5)),
+            (2, 72, 40, K4_CARD_0, ("stream", 1, 2))]
 
 
-@pytest.mark.parametrize("m, d_in, d_out, sms, clusters, want", K4_PLANS)
-def test_int8_matmul_plan_takes_the_kernel_by_rows(m, d_in, d_out, sms, clusters, want):
+@pytest.mark.parametrize("m, d_in, d_out, clusters, want", K4_PLANS)
+def test_int8_matmul_plan_takes_the_kernel_by_rows(m, d_in, d_out, clusters, want):
     """K4's dispatch: up to ``STREAM_MAX_ROWS`` rows the streaming kernel,
-    whose splits (a strip's cluster adds them) cost no launch; above, the
-    tiled kernel, whose split contraction adds a reduction launch.  Every
-    split holds stages or chunks, the last one possibly fewer; w8a8 adds one
-    activation-quantization launch."""
-    plan = tq.int8_matmul_plan(m, d_in, d_out, sms, clusters)
+    above the prefill kernel; either adds its splits (a cluster's blocks)
+    inside its one launch, so a call is one launch at any row count, with
+    no reduction, and w8a8 adds one activation-quantization launch.  The
+    splits cut the contraction in stages or 128-row chunks, the last split
+    possibly shorter, and every cluster runs at once."""
+    plan = tq.int8_matmul_plan(m, d_in, d_out, clusters)
     assert plan == want
-    kernel, splits, per = plan
+    kernel, *_, splits, per = plan
     assert (kernel == "stream") == (m <= tq.STREAM_MAX_ROWS)
+    assert splits <= tq.FFN_STREAM_MAX_SPLITS
     if kernel == "stream":
         stages, strips = -(-d_in // tq.INT8_STREAM_KC), -(-d_out // tq.STREAM_COLUMNS)
         assert (splits - 1) * per < stages <= splits * per
-        assert splits <= tq.FFN_STREAM_MAX_SPLITS
         assert splits == 1 or (clusters[splits - 1] >= strips
                                and per >= tq.FFN_STREAM_MIN_STAGES)
     else:
-        assert (splits, per) == tq.int8_matmul_splits(m, d_in, d_out, sms)
+        _, tiles, strips, _, _ = plan
+        chunks = -(-d_in // tq.PREFILL_KC)
+        assert (tiles, strips) == (-(-m // tq.PREFILL_TOKENS), -(-d_out // tq.PREFILL_COLUMNS))
+        assert (splits - 1) * per < chunks <= splits * per
+        assert splits == 1 or (clusters[splits - 1] >= tiles * strips
+                               and per >= tq.PREFILL_MIN_CHUNKS)
+    suffix = "" if m <= tq.STREAM_MAX_ROWS else "_prefill"
     for act_quant in (False, True):
-        assert tq.int8_matmul_launches(m, d_in, d_out, sms, act_quant) == {
-            "int8_matmul_a8" if act_quant else "int8_matmul": 1,
-            "int8_reduce": int(kernel == "tiled" and splits > 1),
+        assert tq.int8_matmul_launches(m, act_quant) == {
+            ("int8_matmul_a8" if act_quant else "int8_matmul") + suffix: 1,
             "int4_act_quant": int(act_quant)}
 
 
@@ -334,9 +347,10 @@ def test_int8_ffn_plan_takes_the_kernel_by_rows(m, hidden, inter, clusters, want
         assert dn == 1 or clusters[1][dn - 1] >= strips
     else:
         assert plan == ("wgmma", n_j, -(-hidden // tq.PREFILL_COLUMNS))
+    suffix = "" if m <= tq.STREAM_MAX_ROWS else "_prefill"
     for act_quant in (False, True):
         assert tq.int8_ffn_launches(m, hidden, inter, act_quant) == {
-            "int8_ffn_a8" if act_quant else "int8_ffn": 2, "int8_reduce": 0,
+            ("int8_ffn_a8" if act_quant else "int8_ffn") + suffix: 2,
             "int4_act_quant": int(act_quant)}
 
 
