@@ -13,10 +13,14 @@ Phases, each printing its seconds:
   3. kernels       — K1 and the K2 forward against their plain PyTorch
                      versions at the shapes the serving path gives them
                      (K2 also at head dims 16 and 64),
-                     called twice on one input (the bits must repeat), then
-                     timed with CUDA events beside the plain version, a
-                     one-call PyTorch yardstick where one exists, and the
-                     card's bound for the same work;
+                     called twice on one input (the bits must repeat), K1
+                     once more from a library with a planted fault (a patch
+                     row's chunks one place off in the swizzle), which the
+                     gate must refuse, then timed with CUDA events (K1 after
+                     an idle second) beside the plain version, a one-call
+                     PyTorch yardstick where one exists, and the card's bound
+                     for the same work (K1 with its fraction of it and its
+                     ptxas registers and spills);
   4. serving       — CTCLIP at the shipped geometry in bf16 with seeded
                      random weights: the 36 prompt latents are encoded once,
                      then 4 inference-path requests and one train-path raw
@@ -27,10 +31,14 @@ Phases, each printing its seconds:
   6. raw-kernels   — the fused resample-patchify kernel (K9) against its
                      plain version at the shipped raw (x2 (240, 480, 512))
                      and at a bucketed raw (width 640, 600 real columns),
-                     each called twice (the bits must repeat), then timed
-                     (x2 cycled past the L2 cache) beside its plain version
-                     and the shipped front end for the same work (torch
-                     stage 3, window, mask, bf16 cast, K1);
+                     each called twice (the bits must repeat), once from a
+                     library with a planted fault (each patch's last
+                     k-block left out of its statistics), which the gate
+                     must refuse, then timed after an idle second (x2
+                     cycled past the L2 cache) beside its plain version and
+                     the shipped front end for the same work (torch stage
+                     3, window, mask, bf16 cast, K1), with its fraction of
+                     the bound and its ptxas registers and spills;
   7. raw-serving   — bench_torch.pipeline, the headline raw-volume program
                      (preprocess, CTViT, VQ, temporal mean, latent,
                      l2norm), on the serving model: a shipped raw through
@@ -396,6 +404,32 @@ def device_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def idle_ms(fn) -> float:
+    """``device_ms(fn)`` after the card has idled a second: a timing taken
+    right after dense tensor-core work reads slow (the card at its power
+    limit)."""
+    import torch
+
+    torch.cuda.synchronize()
+    time.sleep(1.0)
+    return device_ms(fn)
+
+
+def ptxas_report(kernel: str) -> str:
+    """nvcc's -Xptxas -v lines for the entry function whose name holds
+    ``kernel``: registers, shared memory, spills."""
+    from ctpa_torch.kernels import build
+
+    lines = build.library().ptxas_log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            rest = [ln.split(":", 1)[-1].strip() for ln in lines[i + 1:i + 4]
+                    if "Compiling entry" not in ln and ("registers" in ln or "spill" in ln
+                                                        or "stack frame" in ln)]
+            return "; ".join(rest)
+    raise AssertionError(f"ptxas reported no entry function {kernel}")
+
+
 def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -454,14 +488,18 @@ def check_kernels(dev) -> dict:
     g = 1 + 0.1 * torch.randn(pd, generator=gen, device=dev)
     K = 0.02 * torch.randn(pd, dim, generator=gen, device=dev)
     v_, g_, K_ = vol.to(bf16), g.to(bf16), K.to(bf16)
+    k1_ref = patchify_project_plain(v_, g_, K_, pt, p, p, out_dtype=bf16)
     k1_err = compare("patchify_project bf16",
-                     patchify_project(v_, g_, K_, pt, p, p, out_dtype=bf16),
-                     patchify_project_plain(v_, g_, K_, pt, p, p, out_dtype=bf16),
+                     patchify_project(v_, g_, K_, pt, p, p, out_dtype=bf16), k1_ref,
                      BF16_ATOL, BF16_RTOL)
     repeatable("patchify_project bf16",
                lambda: patchify_project(v_, g_, K_, pt, p, p, out_dtype=bf16))
-    ms = cuda_ms(lambda: patchify_project(v_, g_, K_, pt, p, p, out_dtype=bf16))
-    plain_ms = cuda_ms(lambda: patchify_project_plain(v_, g_, K_, pt, p, p, out_dtype=bf16))
+    fault_refused("K1", "a patch row's 16-byte chunks one place off in the swizzle",
+                  lambda: patchify_project(v_, g_, K_, pt, p, p, out_dtype=bf16),
+                  lambda got: compare("patchify_project, planted fault", got, k1_ref,
+                                      BF16_ATOL, BF16_RTOL))
+    ms = idle_ms(lambda: patchify_project(v_, g_, K_, pt, p, p, out_dtype=bf16))
+    plain_ms = idle_ms(lambda: patchify_project_plain(v_, g_, K_, pt, p, p, out_dtype=bf16))
     t, h, w = T // pt, H // p, W // p
     nbytes = T * H * W * 2 + pd * 4 + pd * dim * 2 + dim * 4 + t * h * w * dim * 2
     b_ms, b_by = bound_ms(nbytes, 2.0 * t * h * w * pd * dim)
@@ -469,8 +507,10 @@ def check_kernels(dev) -> dict:
         name="patchify_project", route="cuda", source="ctpa_torch/csrc/patchify.cu",
         replaces="ctpa/ops/pallas/patchify.py:180", max_abs_err=k1_err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    print(f"  patchify_project: {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms * 1e3:.1f} us "
-          f"({b_by})  library none")
+    print(f"  patchify_project: {ms:.4f} ms (device, after an idle second)  plain "
+          f"{plain_ms:.4f} ms  bound {b_ms * 1e3:.1f} us ({b_by}, {b_ms / ms:.3f} of it)  "
+          f"library none")
+    print(f"    ptxas: {ptxas_report('patchify_project_kernel')}")
 
     # K2 at the spatial fold's shape: (24, 8, 576, 32), CPB bias (8, 576, 576)
     b, heads, n, d = cfg.temporal_tokens, cfg.heads, cfg.spatial_tokens, cfg.dim_head
@@ -670,15 +710,19 @@ def check_raw_kernels(dev) -> dict:
         ops = k9_operands(gen, dev, raw_shape, true_shape, spacing)
         args = (*ops[:5], g, K, pt, p, p)
         kw = dict(window=ops.window, pad_value=ops.pad_value)
-        got = rp.resample3_patchify_project(*args, **kw)
+        got = rp.resample3_patchify_project(*args, taps=ops.taps, **kw)
         ref = rp.resample3_patchify_project_plain(*args, **kw)
         err = compare(f"resample3_patchify_project bf16, {label} raw {raw_shape}"
                       f"{'' if true_shape is None else f' (true {true_shape})'}, x2 "
                       f"{tuple(ops.x2.shape)}", got, ref, BF16_ATOL, BF16_RTOL)
         repeatable(f"resample3_patchify_project bf16, {label} raw",
-                   lambda: rp.resample3_patchify_project(*args, **kw))
+                   lambda: rp.resample3_patchify_project(*args, taps=ops.taps, **kw))
         if label == "shipped":
             shipped, k9_err = ops, err
+            fault_refused("K9", "each patch's last k-block left out of its statistics",
+                          lambda: rp.resample3_patchify_project(*args, taps=ops.taps, **kw),
+                          lambda out: compare("resample3_patchify_project, planted fault", out,
+                                              ref, BF16_ATOL, BF16_RTOL))
             # ctpa's rounding: a constant patch gets rsig * (sum(g*K) - sum(bf16(g*K)))
             pad = ~ops.vd.reshape(-1, pt).any(1)
             if pad.any() and not pad.all():
@@ -694,10 +738,11 @@ def check_raw_kernels(dev) -> dict:
         video = resample_stage3(x2, *ops[1:]).to(bf16)
         return patchify_project(video, g, K, pt, p, p, out_dtype=bf16)
 
-    ms = cuda_ms(lambda: rp.resample3_patchify_project(next(x2s), *ops[1:5], g, K, pt, p, p, **kw))
-    plain_ms = cuda_ms(lambda: rp.resample3_patchify_project_plain(next(x2s), *ops[1:5], g, K, pt,
+    ms = idle_ms(lambda: rp.resample3_patchify_project(next(x2s), *ops[1:5], g, K, pt, p, p,
+                                                       taps=ops.taps, **kw))
+    plain_ms = idle_ms(lambda: rp.resample3_patchify_project_plain(next(x2s), *ops[1:5], g, K, pt,
                                                                    p, p, **kw))
-    front_ms = cuda_ms(lambda: front_end(next(x2s)))
+    front_ms = idle_ms(lambda: front_end(next(x2s)))
     taps_ms = cuda_ms(lambda: bool(rp.stage3_taps(ops.wwp)[2]))
     D, H, ws = ops.x2.shape
     W = ops.wwp.shape[0]
@@ -706,11 +751,13 @@ def check_raw_kernels(dev) -> dict:
               + t * h * w * dim * 2)
     flops = 2.0 * t * h * w * pd * dim
     b_ms, b_by = bound_ms(nbytes, flops)
-    print(f"  resample3_patchify_project: {ms:.4f} ms  plain {plain_ms:.4f} ms  shipped front "
-          f"end (torch stage 3, window, mask, cast, K1) {front_ms:.4f} ms  taps with their host "
-          f"sync {taps_ms:.4f} ms  library none")
+    print(f"  resample3_patchify_project: {ms:.4f} ms (device, after an idle second)  plain "
+          f"{plain_ms:.4f} ms  shipped front end (torch stage 3, window, mask, cast, K1) "
+          f"{front_ms:.4f} ms  library none; taps read from the matrix with their host sync "
+          f"{taps_ms:.4f} ms (the main path takes preprocess's)")
+    print(f"    ptxas: {ptxas_report('resample3_patchify_project_kernel')}")
     taps_flops = 4.0 * D * H * W
-    print(f"    bound {b_ms * 1e3:.1f} us ({b_by}): {nbytes / 1e6:.1f} MB "
+    print(f"    bound {b_ms * 1e3:.1f} us ({b_by}, {b_ms / ms:.3f} of it): {nbytes / 1e6:.1f} MB "
           f"({nbytes / PEAK_BYTES * 1e6:.1f} us), projection {flops / 1e9:.1f} GFLOP bf16 "
           f"({flops / PEAK_BF16_FLOPS * 1e6:.1f} us); two-tap stage 3 {taps_flops / 1e9:.3f} "
           f"GFLOP fp32 ({taps_flops / PEAK_FP32_FLOPS * 1e6:.1f} us, beside it); a dense stage 3 "
@@ -738,25 +785,21 @@ def planted_k9_fault(kind: str):
     "taps shifted" (every stage-3 tap reads the next source column) or
     "window left out" (the HU window is not applied)."""
     from ctpa_torch.models import ctvit
-    from ctpa_torch.ops import resample_patchify as rp
 
-    taps, kernel = rp.stage3_taps, ctvit.resample3_patchify_project
+    kernel = ctvit.resample3_patchify_project
 
-    def shifted(wwp):
-        i, w, too_many = taps(wwp)
-        return (i + 1).clamp(max=wwp.shape[1] - 1), w, too_many
+    def shifted(x2, *args, taps, **kw):
+        i, w = taps
+        return kernel(x2, *args, taps=((i + 1).clamp(max=x2.shape[2] - 1), w), **kw)
 
     def no_window(*args, **kw):
         return kernel(*args, **dict(kw, window=None))
 
-    if kind == "taps shifted":
-        rp.stage3_taps = shifted
-    else:
-        ctvit.resample3_patchify_project = no_window
+    ctvit.resample3_patchify_project = shifted if kind == "taps shifted" else no_window
     try:
         yield
     finally:
-        rp.stage3_taps, ctvit.resample3_patchify_project = taps, kernel
+        ctvit.resample3_patchify_project = kernel
 
 
 def raw_serving(model, plain, vq, clf, dev, rows: dict) -> None:
@@ -2519,6 +2562,10 @@ def int8_yardstick(a8: bool, weights: list, x):
 # background from phase build (one nvcc each) and swapped in for one call,
 # which the kernel's gate must refuse.  {fault: (source, the file changed,
 # (text, faulty text), entry points)}
+#   K1: the staging writes each patch row's 16-byte chunk q where chunk q + 1
+#       belongs in the 128-byte swizzle (patchify.cu);
+#   K9: each patch's last k-block is left out of its LayerNorm sums
+#       (resample_patchify.cu);
 #   K6: the w8a8 decode requantization of h takes its row maximum over 128 of
 #       a j-block's 256 columns, so the other half's larger values clip;
 #   K7: the same in the w4a8 decode gate/up kernel;
@@ -2532,6 +2579,15 @@ def int8_yardstick(a8: bool, weights: list, x):
 #   K5 prefill: the projection kernel scales each token by its pair's other
 #       token's row scale (w4a8; prefill_wgmma.cuh).
 KERNEL_FAULTS = {
+    "K1": ("patchify.cu", "patchify.cu",
+           ("swizzle128(s * geo.w + wi, 16 * q)) =\n",
+            "swizzle128(s * geo.w + wi, 16 * ((q + 1) & 7))) =\n"),
+           ("patchify_project_launch",)),
+    "K9": ("resample_patchify.cu", "resample_patchify.cu",
+           ("          sum[s] += y[e];\n          sq[s] += y[e] * y[e];",
+            "          sum[s] += (kb + 1) * kKB < geo.pd ? y[e] : 0.f;\n"
+            "          sq[s] += (kb + 1) * kKB < geo.pd ? y[e] * y[e] : 0.f;"),
+           ("resample3_patchify_project_launch",)),
     "K6": ("int8_ffn.cu", "int8_ffn.cu",
            ("      for (int w = 1; w < kGuWarps; ++w) mx = fmaxf(mx, red[w]);",
             "      for (int w = 1; w < kGuWarps / 2; ++w) mx = fmaxf(mx, red[w]);"),

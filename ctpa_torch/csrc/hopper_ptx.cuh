@@ -2,7 +2,8 @@
 // tiles with the Tensor Memory Accelerator (TMA) and multiply them with
 // warpgroup MMA (wgmma): the prefill kernels of the quantized projections
 // and FFNs (prefill_wgmma.cuh, for int8_matmul.cu, int4_matmul.cu,
-// int8_ffn.cu and int4_ffn.cu).
+// int8_ffn.cu and int4_ffn.cu) and the patch-embed projection of K1 and K9
+// (patch_wgmma.cuh, for patchify.cu and resample_patchify.cu).
 //
 // mbarrier: a barrier in shared memory that counts arrivals and the bytes of
 // the TMA copies bound to it (`expect_tx`, `complete_tx`); a phase
@@ -37,6 +38,17 @@
 // row of x) in the 128-byte swizzle: N rows of 128 bytes, eight-row groups
 // 1024 bytes apart; the descriptor (desc_sw128) points at the first k of
 // the step, 32 bytes (16 bf16, 32 s8) on for each k-step inside the row.
+// Shared-memory ("SS") form with a transposed A (wgmma_bf16_ss_n96_ta): A
+// is read through a descriptor too, M-major (each k row holds 64 values of
+// M in 128 bytes, 128-byte swizzle, eight-row groups 1024 bytes apart:
+// desc_mn_sw128), as a TMA box of a row-major (K, M) matrix lands.
+//
+// Thread-block clusters: a TMA copy with `.multicast::cluster` lands at the
+// same shared-memory offset in every block of its mask and completes bytes
+// on the mbarrier at the same offset in each; `mbar_arrive_remote` arrives
+// on the mbarrier at this block's offset in another block of the cluster
+// (mapa); `cluster_sync` is a barrier over every thread of the cluster.
+//
 // The accumulators are used as "+f"/"+r" operands, so successive wgmma on
 // one accumulator need no wait; `wgmma_fence` orders register writes
 // (A fragments, zeroed accumulators) before the next wgmma, and
@@ -91,6 +103,19 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
   return done != 0;
 }
 
+// as mbar_try_wait, but never suspends the thread
+__device__ __forceinline__ bool mbar_test_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   while (!mbar_try_wait(bar, parity)) {
   }
@@ -107,6 +132,41 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
+}
+
+// as tma_load_2d, the box landing in every block of the cluster whose bit is
+// set in `mask`, each block's barrier at the same offset taking its bytes
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map, int c0,
+                                                      int c1, uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
+
+// `bytes` contiguous bytes of device memory into shared memory (both
+// addresses and the size multiples of 16), completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// an arrival on the barrier at bar's offset in block `rank` of the cluster
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // the byte offset of byte c (0-127) of row r in a 128-byte-swizzled tile
@@ -127,6 +187,15 @@ __device__ __forceinline__ void fence_proxy_async() {
 // 1024 bytes between eight-row groups, layout type 1 (128-byte swizzle)
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   return ((static_cast<uint64_t>(smem_u32(p)) & 0x3FFFFu) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+// an M-major A tile in the 128-byte swizzle starting at p (the step's first
+// k row): start address >> 4, leading offset 8192 bytes (the next 64 values
+// of M, unused at M 64), stride 1024 bytes between eight-row groups of k,
+// layout type 1 (128-byte swizzle)
+__device__ __forceinline__ uint64_t desc_mn_sw128(const void* p) {
+  return ((static_cast<uint64_t>(smem_u32(p)) & 0x3FFFFu) >> 4) | (512ull << 16) |
          (64ull << 32) | (1ull << 62);
 }
 
@@ -275,6 +344,32 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], const uint32_t (&a)[
         "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 96) += A . B, both from shared memory through descriptors, A
+// M-major (desc_mn_sw128, the transpose bit set), B K-major (desc_sw128);
+// bf16 in, fp32 sums
+__device__ __forceinline__ void wgmma_bf16_ss_n96_ta(float (&d)[48], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(1));
 }
 
 // D (64 x N) += A . B: bf16 in, fp32 sums (K 16), or s8 in, exact s32 sums

@@ -17,89 +17,124 @@
 // dim 512): 2 * 13,824 * 4,000 * 512 = 56.6 GFLOP against ~129 MB of
 // traffic, so it is bound by operations: 57 us at the bf16 tensor-core rate.
 //
-// What the design does about it: the products run on the tensor cores
-// (WMMA 16x16x16 bf16 tiles with fp32 accumulators, i.e. mma.sync; wgmma
-// and TMA are later work).  The inner contiguous run of a patch is only
-// p2 = 20 elements (40 bytes), so nothing gathers per patch: a block owns
-// two (pt, p1, W) row slabs (hi, hi+1), 2 * 24 = 48 patches = three 16-row
-// tiles, reads whole image rows, which are contiguous across W, and regroups
-// them into the (patch, feature) layout in shared memory; the patch layout
-// never reaches device memory.  K (4 MB) does not fit in shared memory: it
-// is tiled over 128 output columns per block and over chunks of whole slab
-// rows (80 features at p2 = 20), and is served from the 50 MB L2; taking two
-// slabs per block halves how often K is read.  The LayerNorm statistics
-// come from the same staging pass: each thread loads one patch's p2-run of
-// an image row in one burst of independent loads, so a chunk costs one
-// memory round trip, not p2, and leaves the run's sums as a (patch, row)
-// partial that the projection adds in a fixed order.  The variance is m2 - mu^2 in fp32, clamped at
-// 0 before rsqrt.  The block's projection and epilogue are patch_project.cuh,
-// which K9 (resample_patchify.cu) shares; this file stages the patches.
+// What the design does about it: the projection is patch_wgmma.cuh's
+// (wgmma on a TMA-fed ring, the window multicast across a cluster of two
+// blocks, 96 patches x 256 columns a block), which K9 (resample_patchify.cu)
+// shares.  This file forms the patch rows: the image rows a k-block touches
+// are in the block's row slot (whole rows of W, contiguous across the
+// patches of a slab row; the patch layout never reaches device memory), and
+// staging task (wi, q) takes features 8q .. 8q + 7 of the k-block for patch
+// column wi of every slab row: x from the slot, its sums of x and x^2 for
+// the statistics, x * g rounded to bf16 into the patch tile.  The variance
+// is m2 - mu^2 in fp32, clamped at 0 before rsqrt.
 
-#include "patch_project.cuh"
+#include "patch_wgmma.cuh"
 
-namespace {
+namespace patch_wgmma {
+namespace {  // the kernel beside the header's types: nvcc's host stub names both
 
-using namespace patch_project;
+struct PatchifyStage {
+  const float* g;   // (pd,) fp32
 
-// grid grid_of(t, h, dim); block kThreads.
-__global__ void __launch_bounds__(kThreads)
-patchify_project_kernel(const __nv_bfloat16* __restrict__ vol, const float* __restrict__ g,
-                        const __nv_bfloat16* __restrict__ kmat, const float* __restrict__ v2,
-                        __nv_bfloat16* __restrict__ out, int H, int W, int pt, int p1, int p2,
-                        int dim, float eps) {
-  const Tile tile = tile_of(H / p1, W / p2, pt * p1, p2);
-  const int w = tile.w;
-  const int tid = threadIdx.x;
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
+  __device__ __forceinline__ void setup(unsigned char*, const Geometry&, const Tile&) const {}
 
-  // slab s, row r is image row (ti * pt + r / p1, (h0 + s) * p1 + r % p1)
-  auto row_ptr = [&](int s, int r) -> const __nv_bfloat16* {
-    const long long frame = (long long)tile.ti * pt + r / p1;
-    const long long y = (long long)(tile.h0 + s) * p1 + r % p1;
-    return vol + (frame * H + y) * W;
-  };
-  // A chunk: nr whole image rows of each slab, scaled by g and rounded to
-  // bf16; one task is one patch's p2-run of one row, and leaves its sums of
-  // x and x^2 as the (patch, row) partial
-  auto stage = [&](int r0, int nr, __nv_bfloat16* a_s, float2* part_s) {
-    for (int e = tid; e < tile.slabs * w * nr; e += kThreads) {
-      const int m = e % (tile.slabs * w);     // patch row in the block: s * w + wi
-      const int rr = e / (tile.slabs * w);
-      const int s = m / w;
-      const __nv_bfloat16* src = row_ptr(s, r0 + rr) + (m - s * w) * p2;
-      const float* gr = g + (r0 + rr) * p2;
-      float x[kMaxP2];
+  __device__ __forceinline__ void form(unsigned char*, const Geometry& geo, const Tile& tile,
+                                       int kb, int2 rc, const __nv_bfloat16* rows, int wi,
+                                       int q, unsigned char* btile, float (&sum)[kSlabs],
+                                       float (&sq)[kSlabs]) const {
+    const int f0 = kb * kKB + 8 * q;
+    int r = rc.x, c = rc.y;
+    float x[kSlabs][8];
+    float gv[8];
+    if (geo.p2 % 4 == 0 && geo.L % 4 == 0 && f0 + 8 <= geo.pd) {
+      // two runs of 4 features, each inside one slab row and 8-byte aligned
+      // in the row ring: one 8-byte load a run and slab row
+      int off[2];
 #pragma unroll
-      for (int c = 0; c < kMaxP2; ++c) x[c] = c < p2 ? __bfloat162float(src[c]) : 0.f;
-      float sum = 0.f, sq = 0.f;
+      for (int h = 0; h < 2; ++h) {
+        off[h] = unit_row(geo, r, 0) + wi * geo.p2 + c;
+        if ((c += 4) == geo.p2) c = 0, ++r;
+      }
+      const float4 g0 = *reinterpret_cast<const float4*>(g + f0);
+      const float4 g1 = *reinterpret_cast<const float4*>(g + f0 + 4);
+      gv[0] = g0.x, gv[1] = g0.y, gv[2] = g0.z, gv[3] = g0.w;
+      gv[4] = g1.x, gv[5] = g1.y, gv[6] = g1.z, gv[7] = g1.w;
 #pragma unroll
-      for (int c = 0; c < kMaxP2; ++c) {
-        if (c < p2) {
-          sum += x[c];
-          sq += x[c] * x[c];
-          a_s[m * kLdA + rr * p2 + c] = __float2bfloat16(x[c] * gr[c]);
+      for (int s = 0; s < kSlabs; ++s) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint2 v = make_uint2(0, 0);
+          if (s < tile.slabs) v = *reinterpret_cast<const uint2*>(rows + off[h] + s * geo.L);
+          x[s][4 * h] = __uint_as_float(v.x << 16);
+          x[s][4 * h + 1] = __uint_as_float(v.x & 0xffff0000u);
+          x[s][4 * h + 2] = __uint_as_float(v.y << 16);
+          x[s][4 * h + 3] = __uint_as_float(v.y & 0xffff0000u);
         }
       }
-      part_s[rr * kM + m] = make_float2(sum, sq);
+    } else {
+      // feature f0 + e at slab row r, column c of the patch (-1 past pd)
+      int off[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const bool in = f0 + e < geo.pd;
+        off[e] = in ? unit_row(geo, r, 0) + wi * geo.p2 + c : -1;
+        gv[e] = in ? g[f0 + e] : 0.f;
+        if (++c == geo.p2) c = 0, ++r;
+      }
+#pragma unroll
+      for (int s = 0; s < kSlabs; ++s)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          x[s][e] = s < tile.slabs && off[e] >= 0
+                        ? __bfloat162float(rows[off[e] + s * geo.L]) : 0.f;
     }
-  };
-  project<true>(tile, stage, smem, kmat, v2, out, dim, eps);
+#pragma unroll
+    for (int s = 0; s < kSlabs; ++s) {
+      float y[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        sum[s] += x[s][e];
+        sq[s] += x[s][e] * x[s][e];
+        y[e] = x[s][e] * gv[e];
+      }
+      *reinterpret_cast<uint4*>(btile + hopper::swizzle128(s * geo.w + wi, 16 * q)) =
+          make_uint4(warp_mma::pack_bf16(y[0], y[1]), warp_mma::pack_bf16(y[2], y[3]),
+                     warp_mma::pack_bf16(y[4], y[5]), warp_mma::pack_bf16(y[6], y[7]));
+    }
+  }
+};
+
+// grid and block from patch_wgmma::launch
+__global__ void __launch_bounds__(kThreads, 1)
+    patchify_project_kernel(const __grid_constant__ CUtensorMap tk, const Geometry geo,
+                            const PatchifyStage stage) {
+  run<true>(&tk, geo, stage);
 }
 
 }  // namespace
+}  // namespace patch_wgmma
 
-// Launches on `stream`; returns cudaGetLastError() (0 when the launch was
+// Launches on `stream`; returns a cudaError_t (0 when the launch was
 // accepted).  The caller has checked: bf16 volume and K, fp32 g and v2,
-// T % pt == 0, H % p1 == 0, W % p2 == 0, W / p2 <= 24, p2 <= 32,
-// dim % 128 == 0, contiguous buffers.
+// T % pt == 0, H % p1 == 0, W % p2 == 0, W / p2 <= 24, dim % 128 == 0,
+// contiguous buffers.
 extern "C" int patchify_project_launch(const void* vol, const void* g, const void* kmat,
                                        const void* v2, void* out, int T, int H, int W,
                                        int pt, int p1, int p2, int dim, float eps,
                                        void* stream) {
-  patchify_project_kernel<<<grid_of(T / pt, H / p1, dim), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(vol), static_cast<const float*>(g),
-      static_cast<const __nv_bfloat16*>(kmat), static_cast<const float*>(v2),
-      static_cast<__nv_bfloat16*>(out), H, W, pt, p1, p2, dim, eps);
-  return static_cast<int>(cudaGetLastError());
+  using namespace patch_wgmma;
+  Geometry geo{};
+  geo.src = static_cast<const __nv_bfloat16*>(vol);
+  geo.v2 = static_cast<const float*>(v2);
+  geo.out = static_cast<__nv_bfloat16*>(out);
+  geo.L = W;
+  geo.frame_rows = H;
+  geo.pt = pt, geo.p1 = p1, geo.p2 = p2;
+  geo.t = T / pt, geo.h = H / p1, geo.w = W / p2, geo.dim = dim;
+  geo.eps = eps;
+  const cudaError_t err =
+      launch(patchify_project_kernel, geo, static_cast<const __nv_bfloat16*>(kmat),
+             PatchifyStage{static_cast<const float*>(g)}, 0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) cudaGetLastError();   // leave no stale error for the next launch
+  return static_cast<int>(err);
 }

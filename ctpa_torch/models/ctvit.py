@@ -75,7 +75,7 @@ class PatchEmbed3D(nn.Module):
         y = resample3_patchify_project(ops.x2, ops.wwp, ops.vd, ops.vh, ops.vw,
                                        self.norm_in_scale, kernel, pt, p, p, eps=self.eps,
                                        window=ops.window, pad_value=ops.pad_value,
-                                       out_dtype=dtype)[None]
+                                       out_dtype=dtype, taps=ops.taps)[None]
         return self.norm_out(y + shift.to(y.dtype))
 
 

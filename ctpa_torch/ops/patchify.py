@@ -56,6 +56,17 @@ def kernel_limits(volume, kernel, p2, out_dtype):
                          f"got W={W}, p2={p2}, dim={dim}")
 
 
+def _device(t: torch.Tensor) -> str:
+    """"cpu" (the plain version) or "cuda" (the kernel)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def _fold_terms(g, kernel, out_dtype):
     """(g in fp32, K in the compute dtype, v2 = g @ K in fp32)."""
     gf = g.to(torch.float32).contiguous()
@@ -84,20 +95,16 @@ def patchify_project(volume, g, kernel, pt: int, p1: int, p2: int,
     pre-bias and pre-norm_out; on the card in bf16 only.  ``g`` is the (patch_dim,) LayerNorm scale and
     ``kernel`` the (patch_dim, dim) projection, features ordered (pt, p1, p2)."""
     _check(volume, g, kernel, pt, p1, p2, out_dtype)
-    if volume.device.type == "cpu":
+    if _device(volume) == "cpu":
         return patchify_project_plain(volume, g, kernel, pt, p1, p2, eps, out_dtype)
-    if volume.device.type != "cuda":
-        raise ValueError(f"unsupported device {volume.device}")
     kernel_limits(volume, kernel, p2, out_dtype)
     T, H, W = volume.shape
     dim = kernel.shape[1]
     gf, kv, v2 = _fold_terms(g, kernel, out_dtype)
     out = torch.empty((T // pt, H // p1, W // p2, dim), dtype=out_dtype, device=volume.device)
-    lib = build.library().lib
-    stream = torch.cuda.current_stream(volume.device).cuda_stream
-    rc = lib.patchify_project_launch(
+    rc = build.library().lib.patchify_project_launch(
         volume.data_ptr(), gf.data_ptr(), kv.data_ptr(), v2.data_ptr(), out.data_ptr(),
-        T, H, W, pt, p1, p2, dim, eps, stream)
+        T, H, W, pt, p1, p2, dim, eps, _stream(volume))
     build.check_launch(rc, "patchify_project")
     patchify_project.launches += 1
     return out

@@ -42,15 +42,10 @@ def _resampled_len(extent: int, spacing: float, target_spacing: float) -> int:
     return int(np.float32(extent) * ratio)
 
 
-def _interp_matrix(source: int, n: int, target: int, *, pad_mask_out: bool = True,
-                   true_len: int | None = None, device="cuda"):
-    """Dense (target, source) trilinear-interp matrix for one axis with the
-    crop/pad offset folded in; half-pixel centers (align_corners=False) with
-    edge clamping.  ``true_len`` (<= source) marks how many leading source
-    entries are real when the axis is end-padded to a bucket size.
-
-    Returns (W, valid): W float32 (target, source); valid (target,) bool marks
-    rows inside the virtual resampled extent."""
+def _interp_rows(source: int, n: int, target: int, true_len: int | None, device):
+    """Each target row's two source columns (i0c <= i1c, edge-clamped), the
+    fraction of the second, and whether the row lies inside the virtual
+    resampled extent."""
     eff = source if true_len is None else int(true_len)
     offset = (n - target) // 2 if n >= target else -((target - n) // 2)
     idx = torch.arange(target, device=device) + offset
@@ -61,13 +56,52 @@ def _interp_matrix(source: int, n: int, target: int, *, pad_mask_out: bool = Tru
     frac = src - i0
     i0c = torch.clamp(i0, 0, eff - 1).long()
     i1c = torch.clamp(i0 + 1, 0, eff - 1).long()
+    return i0c, i1c, frac, valid
+
+
+def _interp_matrix_and_taps(source: int, n: int, target: int, *, pad_mask_out: bool = True,
+                            true_len: int | None = None, device="cuda"):
+    """``_interp_matrix`` and its taps from the same rows: (W, valid, taps)
+    with taps = ((target, 2) int32 source columns, (target, 2) fp32 weights),
+    the values ``ops/resample_patchify.py:stage3_taps`` reads from W.  The
+    matrix is built from these two taps a row, so no row of it has more than
+    two non-zeros; nothing here waits for the device."""
+    i0c, i1c, frac, valid = _interp_rows(source, n, target, true_len, device)
     s = torch.arange(source, device=device)
     # when i0c == i1c (edge clamp) the two weights add up to 1
     w = (torch.where(s[None, :] == i0c[:, None], 1.0 - frac[:, None], 0.0)
          + torch.where(s[None, :] == i1c[:, None], frac[:, None], 0.0))
+    # the same entries, one a tap: the merged weight where the columns meet
+    merged = i0c == i1c
+    a0 = torch.where(merged, (1.0 - frac) + frac, 1.0 - frac)
+    a1 = torch.where(merged, 0.0, frac)
     if pad_mask_out:
         w = w * valid[:, None]
-    return w.to(torch.float32), valid
+        a0, a1 = a0 * valid, a1 * valid
+    # stage3_taps' reading: the first and last non-zero column (both 0 in an
+    # empty row), the second weight 0 where they are one column
+    nz0, nz1 = a0 != 0, a1 != 0
+    i0 = torch.where(nz0, i0c, torch.where(nz1, i1c, 0))
+    i1 = torch.where(nz1, i1c, torch.where(nz0, i0c, 0))
+    w0 = torch.where(nz0, a0, torch.where(nz1, a1, 0.0))
+    w1 = torch.where(nz0 & nz1, a1, 0.0)
+    taps = (torch.stack([i0, i1], 1).to(torch.int32),
+            torch.stack([w0, w1], 1).to(torch.float32).contiguous())
+    return w.to(torch.float32), valid, taps
+
+
+def _interp_matrix(source: int, n: int, target: int, *, pad_mask_out: bool = True,
+                   true_len: int | None = None, device="cuda"):
+    """Dense (target, source) trilinear-interp matrix for one axis with the
+    crop/pad offset folded in; half-pixel centers (align_corners=False) with
+    edge clamping.  ``true_len`` (<= source) marks how many leading source
+    entries are real when the axis is end-padded to a bucket size.
+
+    Returns (W, valid): W float32 (target, source); valid (target,) bool marks
+    rows inside the virtual resampled extent."""
+    w, valid, _ = _interp_matrix_and_taps(source, n, target, pad_mask_out=pad_mask_out,
+                                          true_len=true_len, device=device)
+    return w, valid
 
 
 class Stage3Operands(NamedTuple):
@@ -81,6 +115,7 @@ class Stage3Operands(NamedTuple):
     vw: torch.Tensor                # (W,) bool
     window: tuple | None            # (hu_min, hu_max, hu_shift, hu_scale); None: not applied
     pad_value: float
+    taps: tuple | None = None       # wwp's two taps a row, ((W, 2) int32, (W, 2) fp32), for K9
 
 
 def resample_stage12(volume: torch.Tensor, spacing, cfg: PreprocessConfig, *,
@@ -106,19 +141,21 @@ def resample_stage12(volume: torch.Tensor, spacing, cfg: PreprocessConfig, *,
     dev = volume.device
     wd, vd = _interp_matrix(d, n[0], td, true_len=true[0], device=dev)
     wh, vh = _interp_matrix(h, n[1], th, true_len=true[1], device=dev)
-    ww, vw = _interp_matrix(w, n[2], tw, true_len=true[2], device=dev)
+    ww, vw, taps = _interp_matrix_and_taps(w, n[2], tw, true_len=true[2], device=dev)
 
     x = volume.to(torch.float32)
     x = torch.einsum("Dd,dhw->Dhw", wd, x)
     # (H, h) @ (D, h, w): the product comes out contiguous, as the kernel reads x2
     x = torch.matmul(wh, x)
     window = (cfg.hu_min, cfg.hu_max, cfg.hu_shift, cfg.hu_scale) if apply_window else None
-    return Stage3Operands(x.to(dtype), ww, vd, vh, vw, window, cfg.pad_value)
+    return Stage3Operands(x.to(dtype), ww, vd, vh, vw, window, cfg.pad_value, taps)
 
 
-def resample_stage3(x2, wwp, vd, vh, vw, window, pad_value) -> torch.Tensor:
+def resample_stage3(x2, wwp, vd, vh, vw, window, pad_value, taps=None) -> torch.Tensor:
     """Stage 3 in fp32 (the width contraction of ``x2`` as it is, against
-    fp32 ``wwp``), then the window and the pad mask -> (D, H, W) fp32."""
+    fp32 ``wwp``), then the window and the pad mask -> (D, H, W) fp32.
+    ``taps`` (K9's form of ``wwp``) is not read: the dense product is the
+    plain one."""
     x = torch.einsum("Ww,DHw->DHW", wwp, x2.to(torch.float32))
     if window is not None:
         lo, hi, shift, scale = window

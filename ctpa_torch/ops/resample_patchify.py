@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ctpa_torch.kernels import build
+from ctpa_torch.ops.patchify import _device, _stream
 from ctpa_torch.ops.preprocess import resample_stage3
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -97,6 +98,22 @@ def stage3_taps(wwp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Te
             (nz.sum(1) > 2).any())
 
 
+def _check_taps(taps, wwp) -> tuple[torch.Tensor, torch.Tensor]:
+    """Given taps ((W, 2) int32 columns, (W, 2) fp32 weights) on wwp's
+    device, as ``ops/preprocess.py`` builds them with the matrix; checked by
+    their shapes alone (reading their values would wait for the device)."""
+    taps_i, taps_w = taps
+    W = wwp.shape[0]
+    if (taps_i.shape != (W, 2) or taps_w.shape != (W, 2) or taps_i.dtype != torch.int32
+            or taps_w.dtype != torch.float32):
+        raise ValueError(f"taps must be ({W}, 2) int32 and ({W}, 2) fp32, got "
+                         f"{tuple(taps_i.shape)} {taps_i.dtype} and {tuple(taps_w.shape)} "
+                         f"{taps_w.dtype}")
+    if taps_i.device != wwp.device or taps_w.device != wwp.device:
+        raise ValueError("taps must be on wwp's device")
+    return taps_i.contiguous(), taps_w.contiguous()
+
+
 def _fold_terms(g, kernel, dtype):
     """(kg = g * K rounded to ``dtype``, v2 = sum over features of the fp32
     g * K), as ctpa folds them on the host."""
@@ -124,38 +141,41 @@ def resample3_patchify_project_plain(x2, wwp, vd, vh, vw, g, kernel, pt: int, p1
 
 def resample3_patchify_project(x2, wwp, vd, vh, vw, g, kernel, pt: int, p1: int, p2: int,
                                eps: float = 1e-5, window=None, pad_value: float = -1.0,
-                               out_dtype=torch.bfloat16) -> torch.Tensor:
+                               out_dtype=torch.bfloat16, taps=None) -> torch.Tensor:
     """(D, H, ws) stage-1/2 intermediate -> (t, h, w, dim) patch embeddings,
     pre-bias and pre-norm_out; on the card bf16 in and out only.  ``wwp`` is
     the (W, ws) fp32 stage-3 matrix, ``vd``/``vh``/``vw`` the bool extents,
     ``window`` (hu_min, hu_max, hu_shift, hu_scale) or None, ``g`` the
     (patch_dim,) LayerNorm scale and ``kernel`` the (patch_dim, dim)
-    projection, features ordered (pt, p1, p2)."""
+    projection, features ordered (pt, p1, p2).  ``taps``, wwp's two taps a
+    row as ``ops/preprocess.py`` builds them with the matrix
+    (``Stage3Operands.taps``), lets the call enqueue with no host sync;
+    without them the wrapper derives them from wwp and waits for the check
+    that no row has more than two non-zeros.  The plain version reads wwp."""
     _check(x2, wwp, vd, vh, vw, g, kernel, pt, p1, p2, out_dtype)
-    if x2.device.type == "cpu":
+    if _device(x2) == "cpu":
         return resample3_patchify_project_plain(x2, wwp, vd, vh, vw, g, kernel, pt, p1, p2, eps,
                                                 window, pad_value, out_dtype)
-    if x2.device.type != "cuda":
-        raise ValueError(f"unsupported device {x2.device}")
     kernel_limits(x2, wwp, kernel, p2, out_dtype)
     D, H, ws = x2.shape
     W, dim = wwp.shape[0], kernel.shape[1]
-    taps_i, taps_w, too_many = stage3_taps(wwp)
+    if taps is None:
+        taps_i, taps_w, too_many = stage3_taps(wwp)
+    else:
+        (taps_i, taps_w), too_many = _check_taps(taps, wwp), None
     kg, v2 = _fold_terms(g, kernel, x2.dtype)
     vd8, vh8, vw8 = (m.to(torch.uint8).contiguous() for m in (vd, vh, vw))
     lo, hi, shift, scale = window if window is not None else (0.0, 0.0, 0.0, 1.0)
     out = torch.empty((D // pt, H // p1, W // p2, dim), dtype=out_dtype, device=x2.device)
-    # the call's one host sync, after everything else is enqueued
-    if bool(too_many):
+    # without taps, the call's one host sync, after everything else is enqueued
+    if too_many is not None and bool(too_many):
         raise ValueError("stage-3 matrix has a row with more than two non-zeros; the "
                          "resample-patchify kernel takes two-tap (trilinear) rows only")
-    lib = build.library().lib
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
-    rc = lib.resample3_patchify_project_launch(
+    rc = build.library().lib.resample3_patchify_project_launch(
         x2.data_ptr(), taps_i.data_ptr(), taps_w.data_ptr(), vd8.data_ptr(), vh8.data_ptr(),
         vw8.data_ptr(), kg.data_ptr(), v2.data_ptr(), out.data_ptr(),
         D, H, ws, W, pt, p1, p2, dim, int(window is not None),
-        lo, hi, shift, scale, pad_value, eps, stream)
+        lo, hi, shift, scale, pad_value, eps, _stream(x2))
     build.check_launch(rc, "resample3_patchify_project")
     resample3_patchify_project.launches += 1
     return out

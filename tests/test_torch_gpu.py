@@ -46,9 +46,13 @@ def cuda():
 
 
 @pytest.mark.parametrize("shape", [(240, 480, 480, 10, 20, 512), (16, 48, 40, 4, 8, 128),
-                                   (12, 36, 48, 4, 12, 256)])
+                                   (12, 36, 48, 4, 12, 256), (9, 60, 60, 3, 12, 128),
+                                   (10, 30, 30, 2, 5, 128)])
 def test_patchify_kernel_matches_plain(cuda, shape):
-    T, H, W, pt, p, dim = shape          # the last two: odd h, a ragged feature chunk
+    # the third: odd h, a ragged feature chunk; the fourth: h 5 (a ragged
+    # last tile of 4 slab rows), 120-byte image rows (no bulk copies), a
+    # ragged last k-block (pd 432); the last: p2 5 (the scalar staging path)
+    T, H, W, pt, p, dim = shape
     bf16 = torch.bfloat16
     vol = (torch.rand(T, H, W, generator=cuda, device="cuda") * 2 - 1).to(bf16)
     g = (1 + 0.1 * torch.randn(pt * p * p, generator=cuda, device="cuda")).to(bf16)
@@ -97,6 +101,8 @@ K9_CASES = {
                                               (16, 32, 32), 4, 8, 128, False),
     "odd patch run, odd h": ((12, 40, 36), None, (2.0, 0.75, 0.6), (16, 35, 35), 4, 5, 128,
                              False),
+    "dim 128, ragged k-block": ((12, 40, 36), None, (2.0, 0.75, 0.6), (18, 36, 36), 3, 12, 128,
+                                False),
 }
 
 
@@ -137,6 +143,25 @@ def test_resample_patchify_kernel_is_deterministic(cuda, case):
     second = rp.resample3_patchify_project(*args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("case", ["shipped", "dim 128, ragged k-block"])
+def test_resample_patchify_kernel_with_operand_taps_waits_for_nothing(cuda, case):
+    """With the taps preprocess_stage12 builds beside the matrix, a K9 call
+    enqueues without a host sync, and gives the bits of a call that derives
+    the taps from the matrix."""
+    ops, g, K, pt, p = _k9_operands(cuda, case)
+    args = (*ops[:5], g, K, pt, p, p)
+    kw = dict(window=ops.window, pad_value=ops.pad_value)
+    ref = rp.resample3_patchify_project(*args, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = rp.resample3_patchify_project(*args, taps=ops.taps, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 def test_resample_patchify_kernel_refuses_what_it_does_not_take(cuda):

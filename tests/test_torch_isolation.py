@@ -61,7 +61,7 @@ def test_port_sources_avoid_torch_extensions_and_library_attention():
                                           "resample_patchify.cu"]
     headers = list((ROOT / "ctpa_torch" / "csrc").glob("*.cuh"))
     assert sorted(p.name for p in headers) == ["flash_masks.cuh", "flash_tiles.cuh",
-                                               "hopper_ptx.cuh", "patch_project.cuh",
+                                               "hopper_ptx.cuh", "patch_wgmma.cuh",
                                                "prefill_wgmma.cuh", "stream_common.cuh",
                                                "warp_mma.cuh"]
     banned_py = ("import torch.utils.cpp_extension", "from torch.utils.cpp_extension",

@@ -226,6 +226,27 @@ def test_stage3_taps_flag_a_row_with_three_non_zeros():
     assert bool(rp.stage3_taps(wwp)[2])
 
 
+@pytest.mark.parametrize("raw_shape, true, spacing, width", [
+    ((2, 2, 512), None, (2.0, 0.75, 0.75), 480),        # the shipped raw's width: a crop
+    ((2, 2, 640), (2, 2, 600), (2.0, 0.8, 0.7), 480),   # bucketed: columns 600-639 are padding
+    ((2, 2, 9), None, (2.0, 0.75, 1.2), 12),            # upsampled, edge-clamped rows
+    ((2, 2, 28), None, (2.0, 0.75, 0.75), 32),          # pad rows at both ends
+])
+def test_operand_taps_are_stage3_taps_of_the_matrix(raw_shape, true, spacing, width):
+    """The taps preprocess_stage12 builds beside the width matrix are, bit
+    for bit, the ones stage3_taps reads from that matrix: K9 takes them
+    without the matrix check's host sync."""
+    raw = np.random.default_rng(2).integers(-24, 3000, size=raw_shape).astype(np.float32)
+    pre = PreprocessConfig(target_shape=(4, 4, width))
+    ops = preprocess_stage12(raw, 1.0, -1024.0, spacing, pre, src_shape=true, device="cpu")
+    taps_i, taps_w, too_many = rp.stage3_taps(ops.wwp)
+    assert not bool(too_many)
+    assert ops.taps[0].dtype == torch.int32 and ops.taps[1].dtype == torch.float32
+    assert torch.equal(ops.taps[0], taps_i)
+    assert torch.equal(ops.taps[1].view(torch.int32), taps_w.view(torch.int32))
+    assert bool((ops.wwp == 0).all(1).any()) == (width == 32)     # the pad case has empty rows
+
+
 # -------------------------------------------------- the wrapper's checks
 
 def _k9_args(**over):
