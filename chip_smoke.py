@@ -64,10 +64,17 @@ Phases, each printing its seconds:
                      spatial fold's gradients bounded against the kernel
                      path's;
  11. report-kernels — the decode-attention kernel (K8) against its plain
-                     version at the decode shape of Meditron-7B (batch 4, a
-                     608-slot cache), bf16 and int8 caches, a GQA case and
-                     a cache with holes; timed as in phase 3 beside
-                     scaled_dot_product_attention (float cache);
+                     version at the decode shape of Meditron-7B (a 608-slot
+                     cache): batch 4 with a bf16 cache, with holes, with an
+                     int8 cache and GQA rep 4; batch 32 at the quant
+                     headline's validity with int8 and bf16 caches; each
+                     form called twice (the bits must repeat); K8 built
+                     again with a planted fault (KERNEL_FAULTS: the
+                     cluster's merge one rank short), which the gate must
+                     refuse; the four batch 4 / 32, bf16 / int8 caches
+                     timed after an idle second (call and device time)
+                     beside the plain version, scaled_dot_product_attention
+                     (float caches) and the bound;
  12. report        — CTReportGenerator at Meditron-7B width (LLMConfig()),
                      the shipped CTViT with pallas_patchify, bf16 weights
                      built on the card from a seed, flash_decode: 4
@@ -404,15 +411,15 @@ def device_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def idle_ms(fn) -> float:
-    """``device_ms(fn)`` after the card has idled a second: a timing taken
-    right after dense tensor-core work reads slow (the card at its power
-    limit)."""
+def idle_ms(fn, iters: int = 20) -> float:
+    """``device_ms(fn, iters)`` after the card has idled a second: a timing
+    taken right after dense tensor-core work reads slow (the card at its
+    power limit)."""
     import torch
 
     torch.cuda.synchronize()
     time.sleep(1.0)
-    return device_ms(fn)
+    return device_ms(fn, iters)
 
 
 def ptxas_report(kernel: str) -> str:
@@ -1244,9 +1251,16 @@ def prompt_validity(dev, m: int):
 
 
 def check_report_kernels(dev) -> dict:
-    """Phase 11: K8 against its plain version at the decode shape, then timed
-    (cycling over the 32 layers, so each launch reads planes that are not in
-    the L2 cache, as on the decode path)."""
+    """Phase 11: K8 against its plain version at the decode shape of
+    Meditron-7B (a 608-slot cache): b 4 with a bf16 cache, with holes, with
+    an int8 cache and GQA rep 4, b 32 (the quant headline's prompts repeated)
+    with int8 and bf16 caches; each form called twice for bits; the kernel
+    with its planted fault (KERNEL_FAULTS["K8"]) refused by the gate.  Then
+    each of the b 4 / b 32, bf16 / int8 caches timed after an idle second,
+    call and device time, cycling over the 32 layers (so each launch reads
+    planes that are not in the L2 cache, as on the decode path), beside the
+    plain version, scaled_dot_product_attention (float caches) and the
+    bound."""
     import torch
     import torch.nn.functional as F
 
@@ -1255,64 +1269,78 @@ def check_report_kernels(dev) -> dict:
 
     cfg = LLMConfig()
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    b, m, h, hd, L = len(PROMPT_LENS), max(PROMPT_LENS) + NEW_TOKENS, cfg.num_heads, \
-        cfg.head_dim, cfg.num_layers
+    m, h, hd, L, kvh = max(PROMPT_LENS) + NEW_TOKENS, cfg.num_heads, cfg.head_dim, \
+        cfg.num_layers, cfg.num_kv_heads
     scale = hd ** -0.5
-    holes = prompt_validity(dev, m)
-    full = torch.ones_like(holes)
-    q = torch.randn(b, h, hd, generator=gen, device=dev).to(torch.bfloat16)
-    errs = {}
-    for label, kvh, quant, valid in (("bf16", cfg.num_kv_heads, False, full),
-                                     ("bf16 holes", cfg.num_kv_heads, False, holes),
-                                     ("int8 holes", cfg.num_kv_heads, True, holes),
-                                     ("bf16 GQA rep 4 holes", cfg.num_kv_heads // 4, False, holes)):
-        ck, cv, ks, vs = decode_cache(gen, dev, cfg, b, m, kvh, quant)
-        for layer in (0, L - 1):
-            errs[label, layer] = compare(
-                f"decode_attention {label}, layer {layer}",
-                da.decode_attention(q, ck, cv, valid, layer, ks, vs, scale),
-                da.decode_attention_plain(q, ck, cv, valid, layer, ks, vs, scale),
-                BF16_ATOL, BF16_RTOL)
-        del ck, cv, ks, vs
+    b4, b32 = len(PROMPT_LENS), QUANT_B32
+    holes = {b4: prompt_validity(dev, m), b32: prompt_validity(dev, m).repeat(b32 // b4, 1)}
+    qs = {b: torch.randn(b, h, hd, generator=gen, device=dev).to(torch.bfloat16) for b in (b4, b32)}
 
     def cycled(fn):
         it = itertools.cycle(range(L))
         return lambda: fn(next(it))
 
-    times = {}
-    for quant in (False, True):
-        ck, cv, ks, vs = decode_cache(gen, dev, cfg, b, m, cfg.num_kv_heads, quant)
-        times[quant] = (
-            cuda_ms(cycled(lambda i: da.decode_attention(q, ck, cv, holes, i, ks, vs, scale)),
-                    iters=2 * L),
-            cuda_ms(cycled(lambda i: da.decode_attention_plain(q, ck, cv, holes, i, ks, vs,
-                                                               scale)), iters=2 * L))
-        if not quant:
-            # yardstick only, never called by the port
-            lib_ms = cuda_ms(cycled(lambda i: F.scaled_dot_product_attention(
-                q[:, :, None], ck[i], cv[i], attn_mask=holes[:, None, None, :], scale=scale)),
-                iters=2 * L)
+    errs, timed = {}, {}
+    # (label, batch, kv heads, int8 cache, all slots valid, timed)
+    for label, b, heads, quant, full, timing in (
+            ("b 4 bf16 full", b4, kvh, False, True, False),
+            ("b 4 bf16", b4, kvh, False, False, True),
+            ("b 4 int8", b4, kvh, True, False, True),
+            ("b 4 bf16 GQA rep 4", b4, kvh // 4, False, False, False),
+            ("b 32 int8", b32, kvh, True, False, True),
+            ("b 32 bf16", b32, kvh, False, False, True)):
+        ck, cv, ks, vs = decode_cache(gen, dev, cfg, b, m, heads, quant)
+        q, valid = qs[b], torch.ones_like(holes[b]) if full else holes[b]
+
+        def kernel(i):
+            return da.decode_attention(q, ck, cv, valid, i, ks, vs, scale)
+
+        def plain(i):
+            return da.decode_attention_plain(q, ck, cv, valid, i, ks, vs, scale)
+
+        splits = da.split_count(b * heads, m, hd, torch.cuda.get_device_properties(0)
+                                .multi_processor_count)
+        print(f"  {label}: b {b}, h {h}, kvh {heads}, m {m}, hd {hd}, "
+              f"{int(valid.sum().item())} of {b * m} slots valid, clusters of {splits}")
+        for layer in (0, L - 1):
+            errs[label, layer] = compare(f"decode_attention {label}, layer {layer}",
+                                         kernel(layer), plain(layer), BF16_ATOL, BF16_RTOL)
+        repeatable(f"decode_attention {label}", lambda: kernel(L - 1))
+        if label == "b 4 bf16":
+            ref = plain(L - 1)
+            fault_refused("K8", "the cluster merge one rank short", lambda: kernel(L - 1),
+                          lambda got: compare("decode_attention with the planted fault", got, ref,
+                                              BF16_ATOL, BF16_RTOL))
+        if timing:
+            n_valid = int(valid.sum().item())
+            rows_ = n_valid * heads
+            io = 2 * b * h * hd * 2 + b * m               # q and out in bf16, valid
+            nbytes = 2 * rows_ * hd + 2 * rows_ * 4 if quant else 2 * rows_ * hd * 2
+            # the kernel loads the K and V rows (and scales) of the valid
+            # slots only, so the bound counts this run's valid rows
+            bound = bound_ms(nbytes + io, 4.0 * n_valid * h * hd)
+            call_ms = cuda_ms(cycled(kernel), iters=2 * L)
+            dev_ms = idle_ms(cycled(kernel), iters=2 * L)
+            plain_ms = cuda_ms(cycled(plain), iters=4, warmup=1)
+            lib_ms = None
+            if not quant:
+                # yardstick only, never called by the port
+                lib_ms = idle_ms(cycled(lambda i: F.scaled_dot_product_attention(
+                    q[:, :, None], ck[i], cv[i], attn_mask=valid[:, None, None, :],
+                    scale=scale)), iters=2 * L)
+            timed[label] = (call_ms, dev_ms, plain_ms, bound, lib_ms)
         del ck, cv, ks, vs
-    # the kernel loads the K and V rows (and scales) of the valid slots only,
-    # so the bound counts this run's valid rows
-    kvh = cfg.num_kv_heads
-    n_valid = int(holes.sum().item())
-    n_rows = n_valid * kvh
-    io = 2 * b * h * hd * 2 + b * m                   # q and out in bf16, valid
-    flops = 4.0 * n_valid * h * hd                    # two products, a multiply and an add each
-    bounds = {False: bound_ms(2 * n_rows * hd * 2 + io, flops),
-              True: bound_ms(2 * n_rows * hd + 2 * n_rows * 4 + io, flops)}
-    print(f"  timed on the main path's last-step validity: {n_valid} of {b * m} slots valid")
-    for quant, label in ((False, "bf16"), (True, "int8")):
-        (ms, plain_ms), (b_ms, b_by) = times[quant], bounds[quant]
-        print(f"  decode_attention {label} cache (b {b}, h {h}, kvh {kvh}, m {m}, hd {hd}): "
-              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms * 1e3:.2f} us ({b_by})  "
-              f"library {'%.4f ms (scaled_dot_product_attention)' % lib_ms if not quant else 'none'}")
-    (ms, plain_ms), (b_ms, b_by) = times[False], bounds[False]
+        torch.cuda.empty_cache()
+    for label, (call_ms, dev_ms, plain_ms, (b_ms, b_by), lib_ms) in timed.items():
+        print(f"  decode_attention {label} cache: {call_ms:.4f} ms a call, device {dev_ms:.4f} "
+              f"ms ({b_ms / dev_ms:.2f} of the bound {b_ms * 1e3:.2f} us, {b_by})  plain "
+              f"{plain_ms:.4f} ms  library "
+              f"{'%.4f ms (scaled_dot_product_attention)' % lib_ms if lib_ms else 'none'}")
+    _, dev_ms, plain_ms, (b_ms, b_by), lib_ms = timed["b 4 bf16"]
     return {"decode_attention": dict(
         name="decode_attention", route="cuda", source="ctpa_torch/csrc/decode_attention.cu",
         replaces="ctpa/ops/pallas/decode_attention.py:124", max_abs_err=max(errs.values()),
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)}
+        ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)}
 
 
 def report_inputs(vit_cfg, llm_cfg, dev):
@@ -2577,7 +2605,9 @@ def int8_yardstick(a8: bool, weights: list, x):
 #   K4 prefill: the projection kernel reads each column's scale from its
 #       pair's other column (w8, w8a8; prefill_wgmma.cuh);
 #   K5 prefill: the projection kernel scales each token by its pair's other
-#       token's row scale (w4a8; prefill_wgmma.cuh).
+#       token's row scale (w4a8; prefill_wgmma.cuh);
+#   K8: rank 0's merge of the cluster stops one rank short, so the last
+#       block's slots add nothing (decode_attention.cu).
 KERNEL_FAULTS = {
     "K1": ("patchify.cu", "patchify.cu",
            ("swizzle128(s * geo.w + wi, 16 * q)) =\n",
@@ -2616,6 +2646,10 @@ KERNEL_FAULTS = {
                    ("const float rs = F::a8 ? a.sx[tok] : 1.f;",
                     "const float rs = F::a8 ? a.sx[tok ^ 1] : 1.f;"),
                    ("int4_matmul_prefill_launch", "int4_matmul_prefill_clusters")),
+    "K8": ("decode_attention.cu", "decode_attention.cu",
+           ("if (k == a.ranks) break;   // the cluster merge, rank by rank",
+            "if (k == a.ranks - 1) break;   // the cluster merge, rank by rank"),
+           ("decode_attention_launch",)),
 }
 # the background builds of KERNEL_FAULTS, started in phase build
 FAULT_BUILDS: dict = {}

@@ -2,8 +2,10 @@
 // tiles with the Tensor Memory Accelerator (TMA) and multiply them with
 // warpgroup MMA (wgmma): the prefill kernels of the quantized projections
 // and FFNs (prefill_wgmma.cuh, for int8_matmul.cu, int4_matmul.cu,
-// int8_ffn.cu and int4_ffn.cu) and the patch-embed projection of K1 and K9
-// (patch_wgmma.cuh, for patchify.cu and resample_patchify.cu).
+// int8_ffn.cu and int4_ffn.cu), the patch-embed projection of K1 and K9
+// (patch_wgmma.cuh, for patchify.cu and resample_patchify.cu) and the
+// split-KV decode attention of K8 (decode_attention.cu: bulk copies,
+// mbarriers, cluster barriers and distributed shared memory).
 //
 // mbarrier: a barrier in shared memory that counts arrivals and the bytes of
 // the TMA copies bound to it (`expect_tx`, `complete_tx`); a phase
@@ -47,7 +49,10 @@
 // same shared-memory offset in every block of its mask and completes bytes
 // on the mbarrier at the same offset in each; `mbar_arrive_remote` arrives
 // on the mbarrier at this block's offset in another block of the cluster
-// (mapa); `cluster_sync` is a barrier over every thread of the cluster.
+// (mapa); `ld_cluster_f32` reads a float at this block's offset in another
+// block's shared memory; `cluster_sync` is a barrier over every thread of
+// the cluster (release and acquire: shared-memory writes before it are seen
+// by reads after it anywhere in the cluster).
 //
 // The accumulators are used as "+f"/"+r" operands, so successive wgmma on
 // one accumulator need no wait; `wgmma_fence` orders register writes
@@ -163,6 +168,20 @@ __device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank)
       "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)),
       "r"(rank)
       : "memory");
+}
+
+// the float at p's offset in the shared memory of block `rank` of the
+// cluster (distributed shared memory)
+__device__ __forceinline__ float ld_cluster_f32(const float* p, uint32_t rank) {
+  float v;
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %1, %2;\n"
+      "ld.shared::cluster.f32 %0, [remote];\n}\n"
+      : "=f"(v)
+      : "r"(smem_u32(p)), "r"(rank)
+      : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void cluster_sync() {

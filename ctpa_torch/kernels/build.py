@@ -42,7 +42,7 @@ SIGNATURES = {
     "flash_attention_fwd_lse_d128_launch": (_P,) * 9 + (_I,) * 8 + (_F, _I, _P),
     "flash_attention_bwd_dq_d128_launch": (_P,) * 10 + (_I,) * 8 + (_F, _I, _P),
     "flash_attention_bwd_dkv_d128_launch": (_P,) * 11 + (_I,) * 8 + (_F, _I, _P),
-    "decode_attention_launch": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
+    "decode_attention_launch": (_P,) * 7 + (_I,) * 6 + (_F, _I, _I, _P),
     "int4_matmul_stream_launch": (_P,) * 7 + (_I,) * 7 + (_P,),
     "int4_act_quant_launch": (_P,) * 3 + (_I,) * 2 + (_P,),
     "int4_matmul_stream_residency": (_I,) * 3,

@@ -14,9 +14,15 @@ a_m v_m`` in q's dtype.  A row with no valid slot gives zeros.  The dots
 take the cache values exactly (bf16 and int8 values are exact in fp32) and
 sum in fp32.  ctpa's kernel rounds the softmax weights to the dot dtype
 before the second product; the port keeps them in fp32, in both versions.
+
+The kernel splits the slots of one (batch row, kv head) over a cluster of
+``split_count(...)`` blocks, each owning the tiles ``rank_slots`` gives it;
+rank 0 merges the blocks' softmax states in rank order.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -31,6 +37,57 @@ _TYPES = {(torch.bfloat16, torch.bfloat16): 0, (torch.float32, torch.float32): 1
 # launches of the CUDA kernel, under the name chip_smoke.py reports it by;
 # the wrapper adds one where it launches, and nowhere else
 LAUNCHES = {"decode_attention": 0}
+# the grid (b * kvh * splits blocks) stays within this many blocks an SM, so
+# that it runs in one wave: clusters of 4 or 8 at b 4 ran in two waves and
+# were slower than clusters of 2 (profile_decode_attention.py on an H100)
+BLOCKS_PER_SM = 2
+SPLITS = (1, 2, 4, 8)
+
+
+def tile_slots(hd: int) -> int:
+    """Slots of one tile of the kernel's ring (csrc/decode_attention.cu:Geo::T)."""
+    return 32 if hd == 128 else 64
+
+
+def split_count(rows: int, m: int, hd: int, sms: int) -> int:
+    """The blocks that share one (batch row, kv head), for ``rows`` = b * kvh
+    such pairs on a card of ``sms`` SMs: the most in SPLITS that keep the
+    grid within BLOCKS_PER_SM blocks an SM (1 if none does), and no more
+    than the plane has tiles."""
+    n_tiles = -(-m // tile_slots(hd))
+    fit = [s for s in SPLITS if rows * s <= BLOCKS_PER_SM * sms and s <= n_tiles]
+    return fit[-1] if fit else 1
+
+
+def rank_slots(m: int, hd: int, splits: int) -> list[tuple[int, int]]:
+    """The slots [start, stop) each rank of a cluster owns, as the kernel cuts
+    them: rank r the tiles [r n / splits, (r + 1) n / splits) of the n =
+    ceil(m / T), the last tile cut at m (an empty range where r n / splits
+    meets (r + 1) n / splits)."""
+    tile = tile_slots(hd)
+    n_tiles = -(-m // tile)
+    return [(min(r * n_tiles // splits * tile, m), min((r + 1) * n_tiles // splits * tile, m))
+            for r in range(splits)]
+
+
+def _device(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _sm_count(t: torch.Tensor) -> int:
+    return _sms(t.device.index if t.device.index is not None else torch.cuda.current_device())
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    # cached: a decode step calls the wrapper 32 times and is host-bound
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q, ck, cv, valid, layer_idx, k_scale, v_scale):
@@ -102,10 +159,8 @@ def decode_attention(q, ck, cv, valid, layer_idx: int, k_scale=None, v_scale=Non
     int8 caches take their (L, b, kvh, m) fp32 ``k_scale`` and ``v_scale``.
     Returns (b, h, hd) in q's dtype."""
     _check(q, ck, cv, valid, layer_idx, k_scale, v_scale)
-    if q.device.type == "cpu":
+    if _device(q) == "cpu":
         return decode_attention_plain(q, ck, cv, valid, layer_idx, k_scale, v_scale, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     kernel_limits(q, ck, cv, valid, k_scale, v_scale)
     L, b, kvh, m, hd = ck.shape
     q = q.contiguous()
@@ -116,7 +171,7 @@ def decode_attention(q, ck, cv, valid, layer_idx: int, k_scale=None, v_scale=Non
         q.data_ptr(), ck.data_ptr(), cv.data_ptr(), valid.data_ptr(),
         k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
         out.data_ptr(), b, q.shape[1], kvh, m, hd, layer_idx, float(scale),
-        _TYPES[(q.dtype, ck.dtype)], torch.cuda.current_stream(q.device).cuda_stream)
+        _TYPES[(q.dtype, ck.dtype)], split_count(b * kvh, m, hd, _sm_count(q)), _stream(q))
     build.check_launch(rc, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return out

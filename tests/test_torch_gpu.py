@@ -782,7 +782,7 @@ def _decode(gen, q_dtype, cache_dtype, hd, rep, m, b=3, kvh=4, L=3):
                                    (torch.bfloat16, torch.int8), (torch.float32, torch.int8)])
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("rep", [1, 4])
-@pytest.mark.parametrize("m", [37, 608])
+@pytest.mark.parametrize("m", [37, 608, 2432])
 def test_decode_attention_kernel_matches_plain(cuda, types, hd, rep, m):
     from ctpa_torch.ops import decode_attention as da
 
@@ -795,6 +795,62 @@ def test_decode_attention_kernel_matches_plain(cuda, types, hd, rep, m):
     tol = TOL[types[0]]
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
     assert not got[-1].any()                                  # the empty row
+
+
+def _prompt_validity(b, m):
+    """chip_smoke's last-step validity: prompts of 512/448/384/320 tokens
+    padded to 512, repeated over the batch, then the decode slots."""
+    slot = torch.arange(m, device="cuda")
+    lens = torch.tensor([512, 448, 384, 320], device="cuda").repeat(b // 4 + 1)[:b]
+    return (slot[None] < lens[:, None]) | (slot[None] >= 512)
+
+
+@pytest.mark.parametrize("types", [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8),
+                                   (torch.float32, torch.int8)])
+@pytest.mark.parametrize("case", ["b32", "m2432", "rank empty", "row empty", "one slot"])
+def test_decode_attention_kernel_split_edges(cuda, types, case):
+    """The split-KV cluster's edges at head dim 128: batch 32 (one block a
+    head), a 2,432-slot plane, a cluster rank whose whole range holds no
+    valid slot (it must add exactly nothing), rows with no valid slot (zeros,
+    no NaN) and a single valid slot in the last tile."""
+    from ctpa_torch.ops import decode_attention as da
+
+    b, m = (32, 608) if case == "b32" else (4, 2432 if case == "m2432" else 608)
+    q, ck, cv, _, ks, vs = _decode(cuda, *types, 128, 1, m, b=b, kvh=4, L=2)
+    valid = _prompt_validity(b, m)
+    splits = da.split_count(b * 4, m, 128, torch.cuda.get_device_properties(0).multi_processor_count)
+    if case == "rank empty":
+        assert splits > 1
+        lo, hi = da.rank_slots(m, 128, splits)[splits // 2]
+        valid[:, lo:hi] = False
+    elif case == "row empty":
+        valid[1] = False
+        valid[3] = False
+    elif case == "one slot":
+        valid[:] = False
+        valid[:, m - 1] = True
+    got = da.decode_attention(q, ck, cv, valid, 1, ks, vs, scale=128 ** -0.5)
+    ref = da.decode_attention_plain(q, ck, cv, valid, 1, ks, vs, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    tol = TOL[types[0]]
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    assert not got[~valid.any(1)].any()
+
+
+@pytest.mark.parametrize("types", [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8),
+                                   (torch.float32, torch.float32)])
+@pytest.mark.parametrize("b", [4, 32])
+def test_decode_attention_kernel_is_deterministic(cuda, types, b):
+    """Every sum runs in a fixed order (slots in a group, groups in a block,
+    ranks in a cluster): two calls give the same bits."""
+    from ctpa_torch.ops import decode_attention as da
+
+    q, ck, cv, _, ks, vs = _decode(cuda, *types, 128, 1, 608, b=b, kvh=4, L=2)
+    valid = _prompt_validity(b, 608)
+    first = da.decode_attention(q, ck, cv, valid, 1, ks, vs, scale=128 ** -0.5)
+    second = da.decode_attention(q, ck, cv, valid, 1, ks, vs, scale=128 ** -0.5)
+    assert torch.equal(first, second)
 
 
 def test_decode_attention_kernel_refuses_what_it_does_not_take(cuda):

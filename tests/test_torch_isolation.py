@@ -35,7 +35,7 @@ for name in names:
     importlib.import_module(name)
 for script in ("chip_smoke", "bench_torch", "profile_zeroshot", "profile_clip_train",
                "profile_resample_patchify", "profile_int4_decode", "profile_int8_decode",
-               "profile_quant_prefill"):
+               "profile_quant_prefill", "profile_decode_attention"):
     spec = importlib.util.spec_from_file_location(script, script + ".py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
