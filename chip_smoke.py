@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's zero-shot serving, raw-volume encode
 (bench_torch.py's program), contrastive training, report generation, report
-training and int4 and int8 report serving paths once on one CUDA card.
+training, int4 and int8 report serving and streaming report serving paths
+once on one CUDA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -189,6 +190,31 @@ Phases, each printing its seconds:
                      roll the per-column scales by one or shift the
                      contraction by one row.
 
+ 23. stream        — bench_stream.py's config 5 through
+                     StreamingReportPipeline.run: a burst of 6 raw (160, 512,
+                     512) int16 volumes (the port's preprocess_volume and
+                     extract_vision, K1 once a volume), one shared 16-token
+                     prompt, 64 greedy tokens, 4 lanes, 8 steps a chunk; the
+                     plain ring tier and the speculative tier (K = 8, one
+                     verify over 4 x 9 rows a chunk) on the report phase's
+                     bf16 model (flash_decode) and on quant-report's int4
+                     w4a8 bundle (K4-K7's 36-row verify forms), then one
+                     plain wave of 4 volumes with the int4 KV cache and one
+                     with the int8 cache's integer dots (no flash_decode);
+                     prints volumes/s, tokens/s, the median chunk, tokens
+                     per verify, the device reads (exactly one a chunk) and
+                     each chunk's launches (exactly its steps', beside each
+                     admission's lm_head);
+ 24. stream-plain  — the plain tiers' recorded fused logits against fp32
+                     references on their tokens, beside generate at batch 4
+                     teacher-forced on them (report-plain's bounds for the
+                     bf16 model, quant-plain's for the bundle and the
+                     quantized caches); the speculative tiers' tokens equal
+                     to the plain tiers' up to the first near tie, and
+                     teacher-forced within the same bounds; then a ring
+                     rotated one slot too far and a rollback skipped, each
+                     served on one wave, must fail the gates.
+
 The line before the last is nvidia-smi's "name, power.limit"; the one before
 that a JSON object with one entry per kernel.  The last line is
 {"ok": true, "device": {...}}.  A failed check raises, so the exit code is
@@ -210,6 +236,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 # NVIDIA H100 SXM data-sheet peaks (dense, 700 W)
 PEAK_BF16_FLOPS = 989e12
@@ -364,6 +391,50 @@ QUANT_A8_ATOL = 1e-3
 # twice and transposed at 1.05-1.08 and -0.0002, 2.0004 and 0.6644.
 QUANT_MERGE_ERR_MAX = 1.02
 QUANT_MERGE_COEF = 0.05
+
+# streaming report serving, bench_stream.py's config 5 at its defaults
+# (bench_stream.py:40-42, 103-113, 190-201; README.md:80-85): a burst of 6
+# raw int16 volumes (slope 1, intercept -1024, spacing (2.0, 0.75, 0.75)),
+# one shared 16-token prompt, 64 new tokens, 4 lanes, 8 decode steps a
+# chunk; the speculative tier drafts 8 tokens (a chunk of ceil(8 / 9) = 1
+# verify over 4 x 9 rows).  The caches hold prompt + budget + the larger of
+# a chunk's overshoot and a verify's rows.
+STREAM_VOLUMES = 6
+STREAM_LANES = 4
+STREAM_PROMPT_LEN = 16
+STREAM_NEW_TOKENS = 64
+STREAM_STEPS = 8
+STREAM_K = 8
+STREAM_RAW = dict(slope=1.0, intercept=-1024.0, spacing=(2.0, 0.75, 0.75))
+# the planted faults serve one wave of this many tokens
+STREAM_FAULT_TOKENS = 16
+# config 5's plain tier samples (bench_stream.py:299-303): temperature 0.7,
+# EOS id 2.  One wave of 4 is served so on the bf16 model.
+STREAM_TEMPERATURE = 0.7
+STREAM_EOS = 2
+# random weights accept no draft, so the speculative tier is also served on
+# a twin whose lm_head keeps rows 0 and 1 of the model's, times 16 (a power
+# of two: exact in bf16 and fp32), and zeros elsewhere: its greedy tokens
+# lie in {0, 1, 2} (2 the first of the tied zero logits), the history
+# repeats its bigrams and the drafts are accepted in part.  Its near ties
+# are judged on logits 0-2 alone, since argmax never picks a token past 2.
+# A sampled speculative wave on it ends requests at EOS id 1.
+STREAM_HEAD_ROWS = 2
+STREAM_HEAD_SCALE = 16.0
+STREAM_HEAD_EOS = 1
+# stream gates.  The plain tier's fused logits, recorded as it serves, are
+# held against an fp32 reference on the same tokens exactly as
+# report_gate holds the kernel path, with generate at batch = lanes,
+# teacher-forced on the same tokens, in the plain path's place: the bf16
+# model's runs at report-plain's bounds, the int4 bundle and the quantized
+# KV caches at quant-plain's.  The speculative tier (no logits recorded:
+# its verifies emit a varying number of positions) is held by its tokens:
+# (1) equal to the plain tier's up to the first position where the fp32
+# reference's top-2 gap is below twice the plain tier's worst |logit -
+# fp32 logit| at that position (a near tie: two paths each that far from
+# fp32 can order those tokens either way); (2) teacher-forced, its tokens
+# are generate's argmax on at least the gate's top-1 share, and fp32's
+# argmax at most the gate's slack less often than generate's own argmax is.
 
 
 @contextlib.contextmanager
@@ -1470,16 +1541,17 @@ def report(dev, rows: dict):
     return model, (video, ids, mask), tokens
 
 
-def teacher_forced_logits(model, video, ids, mask, tokens, vision=None):
+def teacher_forced_logits(model, video, ids, mask, tokens, vision=None, steps=None):
     """The fused logits generate computes at each of its steps, with
     ``tokens`` (b, steps) fed back in: (b, steps, vocab) fp32.  ``vision``:
-    a vision feature to use instead of extracting one from ``video``."""
+    a vision feature to use instead of extracting one from ``video``.  With
+    ``tokens`` None, generate's greedy tokens are fed back for ``steps``."""
     import torch
 
     from ctpa_torch.models.llm import KVCache
 
     b, n = ids.shape
-    steps = tokens.shape[1]
+    steps = steps if tokens is None else tokens.shape[1]
     if vision is None:
         vision = model.extract_vision(video)
     cache = KVCache.create(model.llm_cfg, b, max_len=n + steps, dtype=model.cache_dtype(),
@@ -1488,7 +1560,8 @@ def teacher_forced_logits(model, video, ids, mask, tokens, vision=None):
     last = torch.clamp(mask.sum(-1) - 1, min=0)
     out = [model._fused_logits(hidden[torch.arange(b), last][:, None], vision)[:, 0].float()]
     for i in range(1, steps):
-        hidden, cache = model.llm.model(tokens[:, i - 1:i], None, cache, shared_kv_offset=True)
+        fed = out[-1].argmax(-1, keepdim=True) if tokens is None else tokens[:, i - 1:i]
+        hidden, cache = model.llm.model(fed, None, cache, shared_kv_offset=True)
         out.append(model._fused_logits(hidden, vision)[:, 0].float())
     return torch.stack(out, 1)
 
@@ -3358,6 +3431,601 @@ def quant_plain(model, qmodels: dict, inputs, tokens: dict, vision: dict) -> Non
         del kernel, plain, fp32, bf16, faults
     del reference, bf16_lora
 
+class FixedPrompt:
+    """bench_stream.py's prompt as a tokenizer: 16 seeded random ids, every
+    one real (``bench_stream.py:333-335``)."""
+
+    def __init__(self, vocab_size: int):
+        import numpy as np
+
+        self.ids = np.random.default_rng(1).integers(3, vocab_size, size=STREAM_PROMPT_LEN)
+
+    def __call__(self, texts, max_length=None):
+        import numpy as np
+
+        return {"input_ids": self.ids[None], "attention_mask": np.ones((1, self.ids.size), np.int64)}
+
+
+def stream_scans(count: int) -> list:
+    """bench_stream.py's burst: raw int16 (160, 512, 512) volumes from a seed
+    (``bench_stream.py:49-63``) with its rescale tags and spacing."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 20)
+    return [dict(volume=rng.integers(-24, 3000, size=RAW_SHAPE).astype(np.int16), **STREAM_RAW)
+            for _ in range(count)]
+
+
+def stream_launches() -> dict:
+    """The serving path's kernel counters: K1, K8, and K4-K7 by
+    ``ops/quant.py:kernel_name``."""
+    from ctpa_torch.ops import decode_attention as da
+    from ctpa_torch.ops import quant
+    from ctpa_torch.ops.patchify import patchify_project
+
+    return {**quant.LAUNCHES, "decode_attention": da.LAUNCHES["decode_attention"],
+            "patchify_project": patchify_project.launches}
+
+
+def launch_delta(after: dict, before: dict) -> collections.Counter:
+    return collections.Counter({k: after[k] - before[k] for k in after if after[k] != before[k]})
+
+
+def stream_step_launches(cfg, tier: str) -> dict:
+    """One step of a chunk over STREAM_LANES lanes: a plain decode step (K8
+    a layer with flash_decode; the quantized kernels at ``lanes`` rows) or a
+    verify over lanes x (K + 1) rows (the quantized kernels' prefill forms
+    above 32 rows; the attention dense)."""
+    rows = STREAM_LANES if tier == "plain" else STREAM_LANES * (STREAM_K + 1)
+    out = collections.Counter(quant_kernel_launches(cfg, rows, rows) if cfg.weight_quant else {})
+    if tier == "plain" and cfg.flash_decode:
+        out["decode_attention"] += cfg.num_layers
+    return {k: v for k, v in out.items() if v}
+
+
+def admission_launches(cfg, rows: int) -> dict:
+    """A first-token sample on ``rows`` rows: the quantized lm_head alone."""
+    from ctpa_torch.ops import quant
+
+    if cfg.weight_quant is None:
+        return {}
+    fn = quant.int4_matmul_launches if cfg.weight_quant == "int4" else quant.int8_matmul_launches
+    return {k: v for k, v in fn(rows, cfg.quant_act).items() if v}
+
+
+def stream_pipeline(model, dev, tier: str, new_tokens: int, visions: list, sampled: bool = False,
+                    eos: int = -1):
+    """bench_stream's pipeline on one tier: a ContinuousBatcher of
+    STREAM_LANES lanes (greedy, or sampled at STREAM_TEMPERATURE from a
+    seeded generator on the card) behind StreamingReportPipeline, whose
+    encoder (preprocess_volume, then extract_vision) appends each feature
+    to ``visions``."""
+    import torch
+
+    from ctpa_torch.core.config import PreprocessConfig
+    from ctpa_torch.ops.preprocess import preprocess_volume
+    from ctpa_torch.pipelines import streaming
+
+    spec = tier == "spec"
+    slack = STREAM_K + 1 if spec else STREAM_STEPS
+    batcher = streaming.ContinuousBatcher(
+        model, num_lanes=STREAM_LANES, max_len=STREAM_PROMPT_LEN + new_tokens + slack,
+        eos_token_id=eos, greedy=not sampled, temperature=STREAM_TEMPERATURE,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 22),
+        steps_per_sync=STREAM_STEPS, spec_lookup=STREAM_K if spec else None)
+    pre = PreprocessConfig.train()
+
+    def encode_fn(vol, slope, intercept, spacing):
+        video = preprocess_volume(vol, slope, intercept, spacing, pre, device=dev)
+        visions.append(model.extract_vision(video[None].to(torch.bfloat16))[0])
+        return visions[-1]
+
+    return batcher, lambda: streaming.StreamingReportPipeline(
+        encode_fn, batcher, FixedPrompt(model.llm_cfg.vocab_size), "",
+        max_new_tokens=new_tokens, prompt_len=STREAM_PROMPT_LEN)
+
+
+def stream_wall(model, dev, tier: str, volumes: int = STREAM_VOLUMES) -> tuple:
+    """The burst served greedily with nothing recorded or patched ->
+    (seconds on the host clock, the (volumes, tokens) tokens)."""
+    import torch
+
+    pipe = stream_pipeline(model, dev, tier, STREAM_NEW_TOKENS, [])[1]()
+    scans = stream_scans(volumes)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = pipe.run(scans)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, torch.tensor([results[r].tokens for r in range(volumes)], device=dev)
+
+
+class StreamRun:
+    """One ``StreamingReportPipeline.run`` of bench_stream's burst on one
+    tier, instrumented from outside the batcher: each chunk's host time and
+    launches, each admission's launches, the device reads (the module's
+    ``fetch``), the vision features, and on the plain tier the fused logits
+    of each request's steps in order.  ``faults``: (module, name, value)
+    set for the run.  Greedy with no EOS, every request fills its budget;
+    ``sampled`` or ``eos`` >= 0, each request's tokens are held to its
+    budget, to valid ids and to no EOS among them, and ``tokens`` is None."""
+
+    def __init__(self, model, dev, tier: str, label: str, volumes: int = STREAM_VOLUMES,
+                 new_tokens: int = STREAM_NEW_TOKENS, faults=(), sampled: bool = False,
+                 eos: int = -1):
+        import torch
+
+        from ctpa_torch.pipelines import streaming
+
+        self.model, self.tier, self.label, self.new_tokens = model, tier, label, new_tokens
+        spec = tier == "spec"
+        self.visions, self.chunk_ms, self.chunk_launches, self.admissions = [], [], [], []
+        batcher, pipeline = stream_pipeline(model, dev, tier, new_tokens, self.visions,
+                                            sampled, eos)
+        self.steps = batcher.spec_steps if spec else STREAM_STEPS
+        # the synchronizing CUDA calls of each chunk (torch's sync debug
+        # mode): the fetch of its wire, and nothing else
+        self.syncs, self.sync_sites = [], []
+        self.logits, self.wires, admitting = collections.defaultdict(list), [], []
+
+        real_fetch, real_step = streaming.fetch, batcher.step
+        real_first, real_admit = batcher._first_token, batcher._admit_shared_batch
+        fused = model._fused_logits
+
+        def fetch(t):
+            self.wires.append(real_fetch(t))
+            return self.wires[-1]
+
+        def step():
+            before = stream_launches()
+            with warnings.catch_warnings(record=True) as caught:
+                # every one, not the first at each line; other warnings as
+                # they were
+                warnings.filterwarnings("always", message=".*synchronizing CUDA operation")
+                torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                try:
+                    out = real_step()
+                finally:
+                    self.chunk_ms.append((time.perf_counter() - t0) * 1e3)
+                    torch.cuda.set_sync_debug_mode("default")
+            sites = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                     if "synchronizing CUDA operation" in str(w.message)]
+            self.syncs.append(len(sites))
+            if len(sites) != 1:
+                self.sync_sites.append(sites)
+            self.chunk_launches.append(launch_delta(stream_launches(), before))
+            return out
+
+        def first_token(h, vision, generator):
+            before = stream_launches()
+            out = real_first(h, vision, generator)
+            self.admissions.append((len(self.chunk_ms), h.shape[0],
+                                    launch_delta(stream_launches(), before)))
+            return out
+
+        def admit(batch):
+            admitting[:] = [req.request_id for _, req in batch]
+            try:
+                real_admit(batch)
+            finally:
+                admitting.clear()
+
+        def record(hidden, vision):
+            out = fused(hidden, vision)
+            if not spec and hidden.shape[1] == 1:
+                ids = admitting or [r.request_id if r else None for r in batcher.lane_req]
+                for row, rid in enumerate(ids):
+                    if rid is not None:
+                        self.logits[rid].append(out[row, 0].float())
+            return out
+
+        batcher.step, batcher._first_token = step, first_token
+        batcher._admit_shared_batch = admit
+        model._fused_logits = record
+        patched = [(streaming, "fetch", fetch), *faults]
+        undo = [(module, name, getattr(module, name)) for module, name, _ in patched]
+        for module, name, value in patched:
+            setattr(module, name, value)
+        try:
+            pipe = pipeline()
+            scans = stream_scans(volumes)
+            with torch.inference_mode():
+                torch.cuda.synchronize()
+                start = stream_launches()
+                t0 = time.perf_counter()
+                results = pipe.run(scans)
+                torch.cuda.synchronize()
+                self.wall = time.perf_counter() - t0
+                self.total = launch_delta(stream_launches(), start)
+        finally:
+            for module, name, value in reversed(undo):
+                setattr(module, name, value)
+            del model._fused_logits
+        self.prompt = torch.as_tensor(pipe.prompt_ids, device=dev)
+        self.vision = torch.stack(self.visions)
+        served = [results[r].tokens for r in range(volumes)]
+        self.lengths = [len(t) for t in served]
+        full = not sampled and eos < 0
+        if not all(results[r].finished for r in range(volumes)) or any(
+                n > new_tokens or (full and n != new_tokens) for n in self.lengths) or any(
+                not 0 <= t < model.llm_cfg.vocab_size or t == eos for t in sum(served, [])):
+            raise AssertionError(f"{label}: {len(results)} results, token counts "
+                                 f"{self.lengths} for a budget of {new_tokens}")
+        self.tokens = torch.tensor(served, device=dev) if full else None
+
+    def recorded_logits(self):
+        """(requests, tokens, vocab) fp32: the plain tier's fused logits of
+        each request's first token and of each of its decode steps."""
+        import torch
+
+        return torch.stack([torch.stack(self.logits[r][:self.new_tokens])
+                            for r in range(self.tokens.shape[0])])
+
+    def emits(self) -> collections.Counter:
+        """Tokens emitted per (live lane, verify) -> their counts, from the
+        wires: a live lane emits at least one a verify, a finished one none."""
+        out = collections.Counter()
+        for w in self.wires:
+            e = w[1:].reshape(-1, STREAM_K + 2, w.shape[1])[:, 0]
+            out.update(int(n) for n in e.ravel() if n > 0)
+        return out
+
+    def tokens_per_verify(self) -> float:
+        emits = self.emits()
+        return sum(n * c for n, c in emits.items()) / max(sum(emits.values()), 1)
+
+    def report(self) -> None:
+        """Print the run's numbers and hold its launches and device reads: one
+        read a chunk; each admission's launches its lm_head's; each chunk's,
+        less its admissions', exactly its steps'; K1 once a volume; every
+        kernel of the tier launched."""
+        cfg = self.model.llm_cfg
+        chunks = len(self.chunk_ms)
+        reqs, toks = len(self.lengths), sum(self.lengths)
+        ms = sorted(self.chunk_ms)
+        extra = (f", {self.tokens_per_verify():.3f} tokens emitted per verify"
+                 if self.tier == "spec" else "")
+        print(f"  {self.label}: {reqs} volumes in {self.wall:.3f} s ({reqs / self.wall:.3f} "
+              f"volumes/s), {toks} tokens ({toks / self.wall:.1f} tokens/s), "
+              f"{chunks} chunks, chunk median {ms[chunks // 2]:.2f} ms (min {ms[0]:.2f}, max "
+              f"{ms[-1]:.2f}){extra}")
+        print(f"    host reads: {len(self.wires)} fetches in {chunks} chunks; synchronizing CUDA "
+              f"calls a chunk (torch's sync debug mode): "
+              + ", ".join(f"{n} in {c} chunks" for n, c in sorted(collections.Counter(
+                  self.syncs).items())))
+        for sites in self.sync_sites:
+            print("    a chunk's synchronizing calls at: " + ", ".join(sites))
+        if len(self.wires) != chunks or any(n != 1 for n in self.syncs):
+            raise AssertionError(f"{self.label}: {len(self.wires)} fetches and {sum(self.syncs)} "
+                                 f"synchronizing calls in {chunks} chunks, one each expected")
+        step = stream_step_launches(cfg, self.tier)
+        want = {k: v * self.steps for k, v in step.items()}
+        for i, got in enumerate(self.chunk_launches):
+            got = collections.Counter(got)
+            for chunk, rows, adm in self.admissions:
+                if chunk != i:
+                    continue
+                if dict(adm) != admission_launches(cfg, rows):
+                    raise AssertionError(f"{self.label}: an admission of {rows} rows launched "
+                                         f"{dict(adm)}, expected {admission_launches(cfg, rows)}")
+                got.subtract(adm)
+            got = {k: v for k, v in got.items() if v}
+            if got != want:
+                raise AssertionError(f"{self.label}: chunk {i} launched {got} besides its "
+                                     f"admissions, expected {want}")
+        kind = "decode steps" if self.tier == "plain" else "verify" + ("s" if self.steps > 1 else "")
+        print(f"    launches a chunk ({self.steps} {kind} of {STREAM_LANES} lanes, exactly): "
+              + (", ".join(f"{k} {v}" for k, v in sorted(want.items())) or "none")
+              + "; an admission: " + ", ".join(f"{rows} rows {dict(adm) or 'none'}"
+                                               for _, rows, adm in self.admissions[:2]))
+        print("    launches in the run: " + ", ".join(f"{k} {v}" for k, v in
+                                                      sorted(self.total.items())))
+        if self.total.get("patchify_project", 0) != reqs:
+            raise AssertionError(f"{self.label}: patchify_project launched "
+                                 f"{self.total.get('patchify_project')} times for {reqs} volumes")
+        missing = [k for k in step if not self.total.get(k)]
+        if missing:
+            raise AssertionError(f"{self.label}: {missing} never launched")
+
+
+def sequence_logits(model, prompt, tokens, vision):
+    """The fused logits that predict each of ``tokens`` (b, t) after the
+    shared prompt, from one forward over prompt + tokens[:-1] without a
+    cache: the fp32 references' teacher forcing."""
+    import torch
+
+    b = tokens.shape[0]
+    n = prompt.shape[0]
+    seq = torch.cat([prompt[None].expand(b, n), tokens[:, :-1]], 1)
+    hidden, _ = model.llm.model(seq)
+    return model._fused_logits(hidden[:, n - 1:], vision.float()).float()
+
+
+def lanes_forced(model, run, tokens=None):
+    """generate's fused logits teacher-forced on a run's tokens, at batch =
+    lanes (``teacher_forced_logits`` with the run's vision features)."""
+    import torch
+
+    tokens = run.tokens if tokens is None else tokens
+    b = tokens.shape[0]
+    ids = run.prompt[None].expand(b, -1)
+    mask = torch.ones_like(ids)
+    return torch.cat([teacher_forced_logits(model, None, ids[i:i + STREAM_LANES],
+                                            mask[i:i + STREAM_LANES], tokens[i:i + STREAM_LANES],
+                                            run.vision[i:i + STREAM_LANES])
+                      for i in range(0, b, STREAM_LANES)])
+
+
+def stream_logit_gate(label: str, run, model, reference, bounds: dict) -> tuple:
+    """The plain tier's recorded logits against the fp32 ``reference`` on its
+    tokens, within ``bounds`` of generate at batch = lanes teacher-forced on
+    them (report_gate) -> (passed, recorded logits, fp32 logits)."""
+    import torch
+
+    with torch.inference_mode():
+        got = run.recorded_logits()
+        if not torch.equal(got.argmax(-1), run.tokens):
+            raise AssertionError(f"{label}: the recorded logits do not give the served tokens")
+        plain = lanes_forced(model, run)
+        fp32 = sequence_logits(reference, run.prompt, run.tokens, run.vision)
+    p_f = logit_distance(plain, fp32)
+    print(f"    {label}: {run.tokens.numel()} (request, step) pairs; generate at batch "
+          f"{STREAM_LANES} vs fp32 {p_f[0]:.4f}  {p_f[1]:.5f}  {p_f[2]:.4f}")
+    return report_gate(label, got, plain, fp32, p_f, **bounds), got, fp32
+
+
+def stream_spec_gate(label: str, spec, plain_tokens, plain_got, plain_fp32, model, reference,
+                     bounds: dict, plain_name: str = "the plain tier") -> bool:
+    """The speculative tier's tokens: (1) the plain tier's (or another
+    greedy path's: ``plain_name``) up to the first near tie of the fp32
+    reference (top-2 gap below twice the plain tier's worst |logit - fp32|
+    at that position); (2) teacher-forced, generate's argmax on at least
+    bounds["top1_min"] of them, and fp32's at most bounds["slack"] less
+    often than generate's argmax is fp32's."""
+    import torch
+
+    ok = True
+    firsts = []
+    for r in range(spec.tokens.shape[0]):
+        diff = (spec.tokens[r] != plain_tokens[r]).nonzero()
+        if not diff.numel():
+            firsts.append("equal")
+            continue
+        t = int(diff[0, 0])
+        top2 = plain_fp32[r, t].topk(2).values
+        gap = float(top2[0] - top2[1])
+        margin = 2 * float((plain_got[r, t] - plain_fp32[r, t]).abs().max())
+        ok &= gap < margin
+        firsts.append(f"{t} (gap {gap:.4f}, margin {margin:.4f})")
+    print(f"    {label}: first position differing from {plain_name}, per request: "
+          + "; ".join(firsts))
+    with torch.inference_mode():
+        forced = lanes_forced(model, spec).argmax(-1)
+        fp32 = sequence_logits(reference, spec.prompt, spec.tokens, spec.vision).argmax(-1)
+    g_p = (spec.tokens == forced).float().mean().item()
+    g_f = (spec.tokens == fp32).float().mean().item()
+    p_f = (forced == fp32).float().mean().item()
+    ok &= g_p >= bounds["top1_min"] and g_f >= p_f - bounds["slack"]
+    print(f"    {label}: tokens = generate's teacher-forced argmax {g_p:.4f} (>= "
+          f"{bounds['top1_min']}), = fp32's {g_f:.4f} against generate's {p_f:.4f} (slack "
+          f"{bounds['slack']}): {'pass' if ok else 'FAIL'}")
+    return ok
+
+
+STREAM_REPORT_BOUNDS = dict(ratio=REPORT_FP32_RATIO, slack=REPORT_FP32_TOP1_SLACK,
+                            top1_min=REPORT_TOP1_MIN)
+STREAM_QUANT_BOUNDS = dict(ratio=QUANT_FP32_RATIO, slack=QUANT_FP32_TOP1_SLACK,
+                           top1_min=QUANT_TOP1_MIN)
+
+
+def check_stream_kernels(dev, qmodel) -> None:
+    """The stream's kernel shapes that no earlier phase checks, against the
+    plain versions: K8 at b 4 on the plain tier's 88-slot ring (not a
+    multiple of its 32-slot tile) with each lane's valid window wrapped
+    round the plane's end, bf16 and int8 caches; K5 and K7 w4a8 on the
+    verify's 4 x 9 = 36 rows (their prefill kernels' cluster-split forms) on
+    the bundle's first layer."""
+    import torch
+
+    from ctpa_torch.ops import decode_attention as da
+    from ctpa_torch.ops import quant
+
+    cfg = qmodel.llm_cfg
+    m = STREAM_PROMPT_LEN + STREAM_NEW_TOKENS + STREAM_STEPS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    slot = torch.arange(m, device=dev)
+    start = torch.tensor([m - 16, m - 40, 50, 7], device=dev)[:, None]
+    valid = (slot[None] - start) % m < torch.tensor([80, 64, 45, 3], device=dev)[:, None]
+    q = torch.randn(STREAM_LANES, cfg.num_heads, cfg.head_dim, generator=gen, device=dev)
+    q = q.to(torch.bfloat16)
+    for quant_cache in (False, True):
+        ck, cv, ks, vs = decode_cache(gen, dev, cfg, STREAM_LANES, m, cfg.num_kv_heads,
+                                      quant_cache)
+        for layer in (0, cfg.num_layers - 1):
+            args = (q, ck, cv, valid, layer, ks, vs, cfg.head_dim ** -0.5)
+            compare(f"decode_attention b 4 m {m} wrapped {'int8' if quant_cache else 'bf16'}, "
+                    f"layer {layer}", da.decode_attention(*args), da.decode_attention_plain(*args),
+                    BF16_ATOL, BF16_RTOL)
+        del ck, cv, ks, vs
+    rows = STREAM_LANES * (STREAM_K + 1)
+    x = torch.randn(rows, cfg.hidden_size, generator=gen, device=dev).to(torch.bfloat16)
+    attn, mlp = qmodel.llm.model.layers[0].self_attn, qmodel.llm.model.layers[0].mlp
+    errs = collections.defaultdict(float)
+    w = (attn.qkv_proj.kernel_q, attn.qkv_proj.scale_g)
+    quant_check(errs, "int4_matmul_a8", True, f"qkv_proj m {rows}",
+                quant.int4_matmul(x, *w, quant.GROUP, "pallas", True),
+                quant.int4_matmul_plain(x, *w, quant.GROUP, True))
+    f = (mlp.gate_proj.kernel_q, mlp.gate_proj.scale_g, mlp.up_proj.kernel_q, mlp.up_proj.scale_g,
+         mlp.down_proj.kernel_q, mlp.down_proj.scale_g)
+    quant_check(errs, "int4_ffn_a8", True, f"m {rows}",
+                quant.int4_ffn(x, *f, group=quant.GROUP, impl="pallas", act_quant=True),
+                quant.int4_ffn_plain(x, *f, group=quant.GROUP, act_quant=True))
+
+
+def head_twin(model):
+    """``twin(model)`` with the lm_head of STREAM_HEAD_ROWS of the model's
+    rows times STREAM_HEAD_SCALE and zeros elsewhere (a new weight; the
+    model's stays as it is)."""
+    import torch
+
+    out = twin(model)
+    weight = model.llm.lm_head.weight
+    head = torch.zeros_like(weight)
+    head[:STREAM_HEAD_ROWS] = weight[:STREAM_HEAD_ROWS] * STREAM_HEAD_SCALE
+    out.llm.lm_head.weight = torch.nn.Parameter(head, requires_grad=False)
+    return out
+
+
+def stream(dev, model, qmodel) -> dict:
+    """Phase 23: bench_stream's burst through StreamingReportPipeline.run on
+    the plain and speculative tiers of the report phase's bf16 model and of
+    quant-report's int4 w4a8 bundle; one wave of 4 volumes on the plain tier
+    with the int4 KV cache, with the int8 cache's integer dots, and sampled
+    as config 5 samples; on ``head_twin(model)`` a greedy speculative wave,
+    where drafts must be accepted in part, and a sampled one that must end
+    a request at EOS.  Then the bf16 model's burst again on each tier with
+    nothing recorded, for its times."""
+    import torch
+
+    with torch.inference_mode():
+        check_stream_kernels(dev, qmodel)
+    head = head_twin(model)
+    runs = {}
+    for label, m, tier, volumes, sampling in (
+            ("bf16 plain", model, "plain", STREAM_VOLUMES, {}),
+            ("bf16 spec", model, "spec", STREAM_VOLUMES, {}),
+            ("int4 w4a8 plain", qmodel, "plain", STREAM_VOLUMES, {}),
+            ("int4 w4a8 spec", qmodel, "spec", STREAM_VOLUMES, {}),
+            ("bf16 int4 KV plain", twin(model, kv_quant="int4", flash_decode=False), "plain",
+             STREAM_LANES, {}),
+            ("bf16 int8 KV dots plain", twin(model, kv_quant="int8", kv_int8_dots=True,
+                                             flash_decode=False), "plain", STREAM_LANES, {}),
+            ("bf16 sampled plain", model, "plain", STREAM_LANES,
+             dict(sampled=True, eos=STREAM_EOS)),
+            ("head twin spec", head, "spec", STREAM_LANES, {}),
+            ("head twin sampled spec", head, "spec", STREAM_LANES,
+             dict(sampled=True, eos=STREAM_HEAD_EOS))):
+        runs[label] = StreamRun(m, dev, tier, label, volumes, **sampling)
+        runs[label].report()
+        if sampling:
+            print(f"    {label}: tokens a request {runs[label].lengths} (budget "
+                  f"{STREAM_NEW_TOKENS}; EOS id {sampling['eos']} never among them)")
+    if all(n == STREAM_NEW_TOKENS for n in runs["head twin sampled spec"].lengths):
+        raise AssertionError("head twin sampled spec: no request ended at EOS")
+    for label in ("head twin spec", "head twin sampled spec"):
+        emits = runs[label].emits()
+        print(f"  {label}: tokens emitted per verify: "
+              + ", ".join(f"{n}: {c}" for n, c in sorted(emits.items())))
+    emits = runs["head twin spec"].emits()
+    if runs["head twin spec"].tokens_per_verify() <= 1 or not any(
+            1 < n <= STREAM_K for n in emits):
+        raise AssertionError("head twin spec: no verify accepted part of its drafts")
+    for label in ("bf16", "int4 w4a8"):
+        same = (runs[f"{label} spec"].tokens == runs[f"{label} plain"].tokens).float().mean()
+        print(f"  {label}: speculative tokens equal to the plain tier's on {same.item():.1%} of "
+              f"positions")
+    print("  the burst with nothing recorded (no sync debug mode, launch counters, logits or "
+          "wire copies), host clock:")
+    for label, tier in (("bf16 plain", "plain"), ("bf16 spec", "spec")):
+        wall, tokens = stream_wall(model, dev, tier)
+        same = (tokens == runs[label].tokens).float().mean().item()
+        print(f"    {label}: {STREAM_VOLUMES} volumes in {wall:.3f} s ({STREAM_VOLUMES / wall:.3f} "
+              f"volumes/s, {tokens.numel() / wall:.1f} tokens/s; instrumented "
+              f"{runs[label].wall:.3f} s); tokens equal to the instrumented run's on {same:.1%}")
+    return runs
+
+
+def ring_rotated_too_far(lane, clock):
+    """Planted fault: the lane rotated one slot further than the clock asks
+    (its offset still the clock), so the first decode write lands on its
+    last prompt row."""
+    from ctpa_torch.models.llm import align_lane_to_clock
+
+    out = align_lane_to_clock(lane, clock + 1)
+    return out._replace(write_offset=out.write_offset - 1)
+
+
+def rollback_skipped(cache, pre_off, pre_tl, committed, draft_len):
+    """Planted fault: the rejected rows stay valid and the offsets stay past
+    them.  (Leaving them valid alone is harmless: the next verify writes its
+    K + 1 rows from the committed offset, over every rejected slot.)"""
+    return cache
+
+
+def stream_plain(dev, model, qmodel, runs: dict) -> None:
+    """Phase 24: the stream phase's gates (the plain tiers' logits and the
+    speculative tiers' tokens against fp32 references, beside generate at
+    batch = lanes), then two planted faults, each served on one wave of the
+    bf16 model, which the gates must fail."""
+    import torch
+
+    from ctpa_torch.pipelines import streaming
+
+    reference = fp32_twin(model)
+    failed = []
+    plain = runs["bf16 plain"]
+    ok, got, fp32 = stream_logit_gate("bf16 plain", plain, model, reference, STREAM_REPORT_BOUNDS)
+    failed += [] if ok else ["bf16 plain"]
+    if not stream_spec_gate("bf16 spec", runs["bf16 spec"], plain.tokens, got, fp32, model,
+                            reference, STREAM_REPORT_BOUNDS):
+        failed.append("bf16 spec")
+    # the head twin's greedy speculative wave against generate's greedy
+    # tokens for the same requests at batch = lanes, near ties judged by
+    # the fp32 reference with the same head on logits 0-2 (argmax never
+    # picks a token past 2)
+    spec = runs["head twin spec"]
+    head, head_ref = head_twin(model), head_twin(reference)
+    ids = spec.prompt[None].expand(spec.tokens.shape[0], -1)
+    with torch.inference_mode():
+        gen = teacher_forced_logits(head, None, ids, torch.ones_like(ids), None, spec.vision,
+                                    STREAM_NEW_TOKENS)
+        gen_fp32 = sequence_logits(head_ref, spec.prompt, gen.argmax(-1), spec.vision)
+    keep = slice(0, STREAM_HEAD_ROWS + 1)
+    if not stream_spec_gate("head twin spec", spec, gen.argmax(-1), gen[..., keep],
+                            gen_fp32[..., keep], head, head_ref, STREAM_REPORT_BOUNDS,
+                            "generate's greedy tokens"):
+        failed.append("head twin spec")
+    del head, head_ref, gen, gen_fp32
+    for label, changes in (("bf16 int4 KV plain", dict(kv_quant="int4", flash_decode=False)),
+                           ("bf16 int8 KV dots plain", dict(kv_quant="int8", kv_int8_dots=True,
+                                                           flash_decode=False))):
+        if not stream_logit_gate(label, runs[label], twin(model, **changes), reference,
+                                 STREAM_QUANT_BOUNDS)[0]:
+            failed.append(label)
+    # the faults serve the first wave's first STREAM_FAULT_TOKENS tokens;
+    # the sound plain tier's are the prefix of its run (causal: the same
+    # logits)
+    wave = (slice(0, STREAM_LANES), slice(0, STREAM_FAULT_TOKENS))
+    for label, tier, fault in (
+            ("planted fault: ring rotated one slot too far", "plain",
+             (streaming, "align_lane_to_clock", ring_rotated_too_far)),
+            ("planted fault: rollback skipped", "spec", (streaming, "_rollback", rollback_skipped))):
+        bad = StreamRun(model, dev, tier, label, STREAM_LANES, STREAM_FAULT_TOKENS, [fault])
+        if tier == "plain":
+            caught = not stream_logit_gate(label, bad, model, reference, STREAM_REPORT_BOUNDS)[0]
+        else:
+            caught = not stream_spec_gate(label, bad, plain.tokens[wave], got[wave], fp32[wave],
+                                          model, reference, STREAM_REPORT_BOUNDS)
+        if not caught:
+            raise AssertionError(f"the stream gates do not see a planted fault ({label})")
+    del got, fp32
+    del reference
+    torch.cuda.empty_cache()
+    reference = dequantized_fp32(qmodel)
+    ok, got, fp32 = stream_logit_gate("int4 w4a8 plain", runs["int4 w4a8 plain"], qmodel,
+                                      reference, STREAM_QUANT_BOUNDS)
+    failed += [] if ok else ["int4 w4a8 plain"]
+    if not stream_spec_gate("int4 w4a8 spec", runs["int4 w4a8 spec"],
+                            runs["int4 w4a8 plain"].tokens, got, fp32, qmodel, reference,
+                            STREAM_QUANT_BOUNDS):
+        failed.append("int4 w4a8 spec")
+    del reference
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"stream gates failed: {failed}")
+
 
 def main() -> int:
     import torch
@@ -3475,7 +4143,9 @@ def main() -> int:
         qmodels, qtokens, qvision = quant_report(dev, rows, model, inputs, base, 4)
     with phase("quant-plain"):
         quant_plain(model, qmodels, inputs, qtokens, qvision)
-    # the int4 models go before the int8 ones load
+    # the int4 models go before the int8 ones load, but for the w4a8
+    # bundle, which the stream phases serve
+    stream_q = qmodels["w4a8"]
     del qmodels, qtokens, qvision
     torch.cuda.empty_cache()
 
@@ -3489,7 +4159,14 @@ def main() -> int:
     with phase("quant8-plain"):
         quant_plain(model, qmodels, inputs, qtokens, qvision)
     shutil.rmtree(QUANT_DIR, ignore_errors=True)
-    del model, inputs, qmodels, qtokens, qvision
+    del inputs, qmodels, qtokens, qvision
+    torch.cuda.empty_cache()
+
+    with phase("stream"):
+        runs = stream(dev, model, stream_q)
+    with phase("stream-plain"):
+        stream_plain(dev, model, stream_q, runs)
+    del model, stream_q, runs
     torch.cuda.empty_cache()
 
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

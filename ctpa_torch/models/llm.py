@@ -30,7 +30,19 @@ the whole SwiGLU FFN through ``int8_ffn`` (kernel K6) or ``int4_ffn``
 ctpa's plain composition instead of the kernels.  The trees come from
 ``ops/quant.py:quantize_tree``.
 
-Not ported (the model raises): the int4 KV cache and int8 attention dots.
+Quantized KV caches (``kv_quant``): "int8" stores int8 rows with per-(kv
+head, slot) fp32 scales; "int4" stores nibble-packed rows with per-(kv head,
+slot, head_dim group) scales (``ops/quant.py:quantize_kv_int4``, groups of
+``kv_quant_group``, scales in ``kv_scale_dtype``), read by grouped partial
+dots with the scales folded in.  ``kv_int8_dots`` runs the int8 cache's
+attention as int8 x int8 dots with exact integer sums.  Those attentions
+are ctpa's XLA einsums, not kernels, and stay plain torch here; the decode
+kernel takes the float and int8 caches only.
+
+Continuous batching (``pipelines/streaming.py``) keeps one batched cache on
+a ring: ``align_lane_to_clock`` rotates a prefilled one-lane cache onto the
+shared clock and ``insert_lane``/``insert_lanes`` copy it into lanes, in
+place.
 """
 
 from __future__ import annotations
@@ -48,31 +60,37 @@ from ctpa_torch.models.lora import LoRADense
 from ctpa_torch.ops.decode_attention import decode_attention
 from ctpa_torch.ops.flash_attention import flash_attention
 from ctpa_torch.ops.quant import (GROUP, _int4_group, int4_ffn, int4_matmul, int8_ffn,
-                                  int8_matmul)
+                                  int8_matmul, quantize_kv_int4, unpack_kv_int4)
 from ctpa_torch.ops.rotary import apply_rope, rope_frequencies
 
 
 def check_ported(cfg: LLMConfig) -> None:
-    """Raise on configuration values whose paths the port does not have."""
+    """Raise on configuration values whose paths the port does not have, or
+    that would act on nothing."""
     if cfg.weight_quant not in (None, "int8", "int4"):
         raise ValueError(f"unknown weight_quant {cfg.weight_quant!r}")
     if cfg.quant_impl not in ("pallas", "xla"):
         raise ValueError(f"unknown quant_impl {cfg.quant_impl!r}")
-    unported = [name for name, on in (
-        ("kv_quant='int4'", cfg.kv_quant == "int4"), ("kv_int8_dots", cfg.kv_int8_dots)) if on]
-    # settings that act only on the quantized-weight and int4-cache paths:
-    # where those are off, a value other than the default would be ignored,
-    # so it is refused
+    if cfg.kv_quant not in (None, "int8", "int4"):
+        raise ValueError(f"unknown kv_quant {cfg.kv_quant!r}")
+    if cfg.kv_scale_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown kv_scale_dtype {cfg.kv_scale_dtype!r}")
+    # settings that act only on the quantized-weight, int4-cache and
+    # int8-cache paths: where those are off, a value other than the default
+    # would be ignored, so it is refused
     default = LLMConfig()
-    ignored = ["kv_quant_group", "kv_scale_dtype"]
+    ignored = []
+    if cfg.kv_quant != "int4":
+        ignored += ["kv_quant_group", "kv_scale_dtype"]
+    if cfg.kv_quant != "int8":
+        ignored += ["kv_int8_dots"]
     if cfg.weight_quant is None:
         ignored += ["quant_impl", "quant_fused", "quant_ffn_kernel", "quant_act"]
-    unported += [name for name in ignored if getattr(cfg, name) != getattr(default, name)]
+    unported = [name for name in ignored if getattr(cfg, name) != getattr(default, name)]
     if unported:
-        raise NotImplementedError(f"LLMConfig {unported} are not ported yet, or act only "
-                                  "with settings that are off")
-    if cfg.kv_quant not in (None, "int8"):
-        raise ValueError(f"unknown kv_quant {cfg.kv_quant!r}")
+        raise NotImplementedError(f"LLMConfig {unported} act only with settings that are off")
+    if cfg.kv_quant == "int4":
+        _int4_group(cfg.head_dim, cfg.kv_quant_group)
 
 
 class _QuantDense(nn.Module):
@@ -164,12 +182,15 @@ class RMSNorm(nn.Module):
 class KVCache(NamedTuple):
     """Static-shape KV cache, head-major: k, v (L, b, kvh, m, hd).
 
-    ``write_offset`` (b,) is each sequence's next free slot; ``true_len``
-    (b,) counts its real tokens and gives the RoPE positions; ``valid`` (b,
-    m) marks the slots that hold a real token's key and value.  The int8
-    cache stores int8 rows with per-(kv head, slot) fp32 absmax scales
-    ``k_scale``, ``v_scale`` (L, b, kvh, m).  A forward writes k, v and the
-    scales in place."""
+    ``write_offset`` (b,) is each sequence's next free slot (an unwrapped
+    clock on the serving ring: slots are taken modulo m); ``true_len`` (b,)
+    counts its real tokens and gives the RoPE positions; ``valid`` (b, m)
+    marks the slots that hold a real token's key and value.  The int8 cache
+    stores int8 rows with per-(kv head, slot) fp32 absmax scales
+    ``k_scale``, ``v_scale`` (L, b, kvh, m); the int4 cache packed rows (L,
+    b, kvh, m, hd/2) with per-(kv head, slot, group) scales (L, b, kvh, m,
+    hd/group).  Every slot operation treats the scales by their slot axis
+    (3), which both share.  A forward writes k, v and the scales in place."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -184,15 +205,76 @@ class KVCache(NamedTuple):
                dtype=torch.bfloat16, device="cuda") -> "KVCache":
         max_len = max_len or cfg.max_seq_len
         shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-        quant = cfg.kv_quant == "int8"
-        store = torch.int8 if quant else dtype
-        scales = (lambda: torch.zeros(shape[:-1], device=device)) if quant else (lambda: None)
+        store, scale_shape, scale_dtype = dtype, None, torch.float32
+        if cfg.kv_quant == "int8":
+            store, scale_shape = torch.int8, shape[:-1]
+        elif cfg.kv_quant == "int4":
+            gs = _int4_group(cfg.head_dim, cfg.kv_quant_group)
+            store, scale_shape = torch.int8, shape[:-1] + (cfg.head_dim // gs,)
+            shape = shape[:-1] + (cfg.head_dim // 2,)
+            scale_dtype = getattr(torch, cfg.kv_scale_dtype)
+
+        def scales():
+            return (None if scale_shape is None
+                    else torch.zeros(scale_shape, dtype=scale_dtype, device=device))
+
         return cls(k=torch.zeros(shape, dtype=store, device=device),
                    v=torch.zeros(shape, dtype=store, device=device),
                    write_offset=torch.zeros(batch, dtype=torch.int32, device=device),
                    true_len=torch.zeros(batch, dtype=torch.int32, device=device),
                    valid=torch.zeros(batch, max_len, dtype=torch.bool, device=device),
                    k_scale=scales(), v_scale=scales())
+
+
+def _planes(cache: KVCache) -> tuple:
+    """The cache's per-lane tensors with a slot axis: k, v and the scales."""
+    return tuple(t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None)
+
+
+def align_lane_to_clock(lane: KVCache, clock) -> KVCache:
+    """Rotate a freshly prefilled one-lane cache (slots [0, n)) so its last
+    written token lands at slot (clock - 1) mod m, and stamp its
+    write_offset with the unwrapped clock: new[s] = old[(s - shift) mod m],
+    shift = (clock - n) mod m, for k, v, the scales and the validity alike.
+    Every lane of the serving ring then writes at one shared slot.  The
+    shift is taken on the device (``clock`` a Python int or a 0-d tensor):
+    nothing is read back to the host.  Returns new tensors; ``lane`` is
+    left as it was."""
+    m = lane.k.shape[3]
+    dev = lane.k.device
+    shift = (clock - lane.write_offset[0]) % m
+    perm = (torch.arange(m, device=dev) - shift) % m
+    k, v, ks, vs = (None if t is None else t.index_select(3, perm)
+                    for t in (lane.k, lane.v, lane.k_scale, lane.v_scale))
+    return KVCache(k=k, v=v, write_offset=torch.zeros_like(lane.write_offset) + clock,
+                   true_len=lane.true_len, valid=lane.valid.index_select(1, perm),
+                   k_scale=ks, v_scale=vs)
+
+
+def insert_lane(big: KVCache, lane: KVCache, idx) -> KVCache:
+    """Copy a one-lane cache into lane ``idx`` of a batched cache, in place;
+    returns ``big`` with the lane's offsets and validity."""
+    return insert_lanes(big, lane, torch.full((1,), idx, device=big.k.device))
+
+
+def insert_lanes(big: KVCache, lane: KVCache, idxs: torch.Tensor) -> KVCache:
+    """Copy ONE one-lane cache into every lane of ``idxs`` of a batched
+    cache, in place (batched shared-prefix admission).  ``idxs`` may repeat
+    a lane (the caller pads it by repeating the last real lane): every
+    write of a lane carries the same content, which is the only reason the
+    duplicates are safe under ``index_put_(accumulate=False)``, whose write
+    order among duplicates is unspecified."""
+    idxs = idxs.to(device=big.k.device, dtype=torch.long)
+    q = idxs.shape[0]
+    for dst, src in zip(_planes(big), _planes(lane)):
+        dst[:, idxs] = src.expand(src.shape[0], q, *src.shape[2:])   # index_put_, no accumulate
+    meta = []
+    for dst, src in ((big.write_offset, lane.write_offset), (big.true_len, lane.true_len),
+                     (big.valid, lane.valid)):
+        out = dst.clone()
+        out.index_put_((idxs,), src.expand(q, *src.shape[1:]), accumulate=False)
+        meta.append(out)
+    return big._replace(write_offset=meta[0], true_len=meta[1], valid=meta[2])
 
 
 def _write(cache: torch.Tensor, layer: int, new: torch.Tensor, index: torch.Tensor) -> None:
@@ -273,17 +355,33 @@ class LlamaAttention(nn.Module):
         if cache_k is not None:
             (ck, ksc), (cv, vsc) = cache_k, cache_v
             k_hm, v_hm = k.transpose(1, 2), v.transpose(1, 2)               # (b, kvh, n, hd)
+            int4 = c.kv_quant == "int4"
             if ksc is not None:
-                (k8, k_rows), (v8, v_rows) = _quant_rows(k_hm), _quant_rows(v_hm)
+                if int4:
+                    sdt = getattr(torch, c.kv_scale_dtype)
+                    (k8, k_rows), (v8, v_rows) = (quantize_kv_int4(t, c.kv_quant_group, sdt)
+                                                  for t in (k_hm, v_hm))
+                else:
+                    (k8, k_rows), (v8, v_rows) = _quant_rows(k_hm), _quant_rows(v_hm)
                 for buf, new in ((ck, k8), (cv, v8), (ksc, k_rows), (vsc, v_rows)):
                     _write(buf, self.layer_idx, new, kv_write_index)
             else:
                 _write(ck, self.layer_idx, k_hm.to(ck.dtype), kv_write_index)
                 _write(cv, self.layer_idx, v_hm.to(cv.dtype), kv_write_index)
             if n == 1 and key_mask is not None and c.flash_decode:
+                if int4:
+                    raise ValueError("flash_decode does not support kv_quant='int4' (the "
+                                     "kernel folds scalar per-row scales, not head_dim "
+                                     "groups); use kv_quant='int8' or None")
                 out = decode_attention(q[:, 0], ck, cv, key_mask, self.layer_idx,
                                        k_scale=ksc, v_scale=vsc, scale=1.0 / math.sqrt(hd))
                 return self.o_proj(out.reshape(b, 1, h * hd).to(x.dtype))
+            if int4:
+                out = self._int4_attention(q, ck, cv, ksc, vsc, attn_mask)
+                return self.o_proj(out.reshape(b, n, h * hd))
+            if ksc is not None and c.kv_int8_dots:
+                out = self._int8_dot_attention(q, ck, cv, ksc, vsc, attn_mask)
+                return self.o_proj(out.reshape(b, n, h * hd).to(x.dtype))
             if ksc is not None:
                 k_sc, v_sc = ksc[self.layer_idx], vsc[self.layer_idx]        # (b, kvh, m)
             k_full, v_full = ck[self.layer_idx].to(dt), cv[self.layer_idx].to(dt)
@@ -313,6 +411,55 @@ class LlamaAttention(nn.Module):
             attn = attn * v_sc[:, :, None, None, :]
         out = torch.einsum("bgrnm,bgmd->bngrd", attn.to(v_full.dtype), v_full)
         return self.o_proj(out.reshape(b, n, h * hd))
+
+    def _int4_attention(self, q, ck, cv, ksc, vsc, attn_mask):
+        """Grouped attention over the int4 cache -> (b, n, kvh, rep, G, gs) in
+        q's dtype.  The group scales vary along the contractions (head_dim
+        for QK, slots for PV), so QK runs as per-group partial dots with the
+        K scales contracted second, and the V scales fold into the weights
+        per group before the PV dots: sum_d q_d k_d = sum_G s_G sum_{d in G}
+        q_d k8_d, exactly."""
+        c = self.cfg
+        b, n, h, hd = q.shape
+        kvh = c.num_kv_heads
+        gq = _int4_group(hd, c.kv_quant_group)
+        layer = self.layer_idx
+        k8 = unpack_kv_int4(ck[layer], gq)                             # (b, kvh, m, G, gs)
+        v8 = unpack_kv_int4(cv[layer], gq)
+        k_sg, v_sg = ksc[layer].float(), vsc[layer].float()             # (b, kvh, m, G)
+        qg4 = q.reshape(b, n, kvh, h // kvh, hd // gq, gq)
+        simg = torch.einsum("bngrGd,bgmGd->bgrnmG", qg4.float(), k8.float())
+        sim = torch.einsum("bgrnmG,bgmG->bgrnm", simg, k_sg) / math.sqrt(hd)
+        if attn_mask is not None:
+            sim = sim.masked_fill(~attn_mask[:, :, None], torch.finfo(torch.float32).min)
+        attn = torch.softmax(sim, dim=-1)
+        attng = (attn[..., None] * v_sg[:, :, None, None]).to(q.dtype)  # (b, g, r, n, m, G)
+        return torch.einsum("bgrnmG,bgmGd->bngrGd", attng, v8.to(q.dtype))
+
+    def _int8_dot_attention(self, q, ck, cv, ksc, vsc, attn_mask):
+        """Attention with the int8 cache rows as the dots' operands -> (b, n,
+        kvh, rep, hd) fp32: q quantized per (b, n, head) absmax, the QK dot
+        int8 x int8 with exact integer sums, then the q and k scales; for PV
+        the v scales fold into the fp32 weights before their row
+        quantization (weights >= 0, levels 0-127), so the exact int dot
+        times the row scale recovers the fold.  The integer sums run in fp64,
+        which holds them exactly (|sum| <= m 127^2), as ctpa's int32 dots."""
+        c = self.cfg
+        b, n, h, hd = q.shape
+        kvh, layer = c.num_kv_heads, self.layer_idx
+        qg8 = q.reshape(b, n, kvh, h // kvh, hd).float()
+        q_sc = torch.clamp(qg8.abs().amax(-1) / 127.0, min=1e-12)        # (b, n, g, r)
+        qq = torch.clamp(torch.round(qg8 / q_sc[..., None]), -127, 127)
+        sim = torch.einsum("bngrd,bgmd->bgrnm", qq.double(), ck[layer].double()).float()
+        sim = (sim * q_sc.permute(0, 2, 3, 1)[..., None]
+               * ksc[layer][:, :, None, None, :]) / math.sqrt(hd)
+        if attn_mask is not None:
+            sim = sim.masked_fill(~attn_mask[:, :, None], torch.finfo(torch.float32).min)
+        attn = torch.softmax(sim, dim=-1) * vsc[layer][:, :, None, None, :]
+        a_sc = torch.clamp(attn.amax(-1) / 127.0, min=1e-30)              # (b, g, r, n)
+        a8 = torch.clamp(torch.round(attn / a_sc[..., None]), 0, 127)
+        out = torch.einsum("bgrnm,bgmd->bngrd", a8.double(), cv[layer].double()).float()
+        return out * a_sc.permute(0, 3, 1, 2)[..., None]
 
 
 class LlamaMLP(nn.Module):

@@ -1,5 +1,6 @@
 """Quantized serving weights (port of ``ctpa/ops/quant.py``): the host
-quantizers, the int8 projection (kernel K4), the fused int8 SwiGLU FFN
+quantizers (and the int4 KV cache's, ``quantize_kv_int4`` and
+``unpack_kv_int4``), the int8 projection (kernel K4), the fused int8 SwiGLU FFN
 (kernel K6), the int4 projection (kernel K5), the fused int4 SwiGLU FFN
 (kernel K7), and ``quantize_tree`` on a ``state_dict``.
 
@@ -170,6 +171,36 @@ def dequantize_int4(packed: torch.Tensor, scale: torch.Tensor, group: int = GROU
     g = _int4_group(d_in, group)
     w = _unpack_int4(packed, g).float() * scale[:, None, :]
     return w.reshape(d_in, -1).to(dtype)
+
+
+def quantize_kv_int4(rows: torch.Tensor, group: int = 32,
+                     scale_dtype=torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+    """KV-cache rows (..., hd) -> (packed int8 (..., hd/2), group scales
+    (..., hd/group) in ``scale_dtype``): symmetric absmax per contiguous
+    group of head_dim, values in [-7, 7].  Byte j of group g holds elements
+    g*gs + j (low nibble) and g*gs + gs/2 + j (high nibble), so
+    ``unpack_kv_int4`` restores natural order.  A bf16 scale is rounded
+    first and the nibbles quantized against the rounded value, so the
+    attention's fold of the scales stays exact."""
+    hd = rows.shape[-1]
+    gs = _int4_group(hd, group)
+    rf = rows.float().reshape(*rows.shape[:-1], hd // gs, gs)
+    s = torch.clamp(rf.abs().amax(-1) / 7.0, min=1e-12).to(scale_dtype)
+    q = torch.clamp(torch.round(rf / s[..., None].float()), -7, 7).to(torch.int32)
+    lo, hi = q[..., : gs // 2], q[..., gs // 2:]
+    packed = ((lo & 0xF) | ((hi & 0xF) << 4)).to(torch.uint8).view(torch.int8)
+    return packed.reshape(*rows.shape[:-1], hd // 2), s
+
+
+def unpack_kv_int4(packed: torch.Tensor, group: int) -> torch.Tensor:
+    """(..., hd/2) packed -> (..., hd/group, group) int8, natural order inside
+    each group (the inverse of ``quantize_kv_int4``'s pairing)."""
+    hd = packed.shape[-1] * 2
+    gs = _int4_group(hd, group)
+    p = packed.reshape(*packed.shape[:-1], hd // gs, gs // 2).to(torch.int32)
+    lo = torch.bitwise_right_shift(torch.bitwise_left_shift(p, 28), 28)
+    hi = torch.bitwise_right_shift(p, 4)
+    return torch.cat([lo, hi], dim=-1).to(torch.int8)
 
 
 def quantize_act_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -47,7 +47,13 @@ def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator] = N
     ignores every other knob."""
     if greedy:
         return torch.argmax(logits, dim=-1)
-    filtered = filter_logits(logits, temperature=temperature, top_k=top_k, top_p=top_p)
-    u = torch.rand(filtered.shape, generator=generator, device=filtered.device)
+    return categorical(filter_logits(logits, temperature=temperature, top_k=top_k, top_p=top_p),
+                       generator)
+
+
+def categorical(logits: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One draw per row from softmax(logits) (int64; -inf entries are never
+    drawn), by Gumbel-max as ``jax.random.categorical``."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
-    return torch.argmax(filtered + gumbel, dim=-1)
+    return torch.argmax(logits.float() + gumbel, dim=-1)

@@ -28,7 +28,9 @@ report = ["ctpa_torch.ops.decode_attention", "ctpa_torch.ops.rotary", "ctpa_torc
           "ctpa_torch.models.lora", "ctpa_torch.models.llm", "ctpa_torch.models.report_generator",
           "ctpa_torch.ops.flash_attention", "ctpa_torch.train.report_trainer",
           "ctpa_torch.train.train_state", "ctpa_torch.core.checkpoint", "ctpa_torch.ops.quant",
-          "ctpa_torch.cli", "ctpa_torch.cli.export_serving", "ctpa_torch.ops.resample_patchify"]
+          "ctpa_torch.cli", "ctpa_torch.cli.export_serving", "ctpa_torch.ops.resample_patchify",
+          "ctpa_torch.pipelines.streaming", "ctpa_torch.data.ingest", "ctpa_torch.data.nifti",
+          "ctpa_torch.data.dicom"]
 missing = sorted(set(report) - set(names))
 assert not missing, missing
 for name in names:

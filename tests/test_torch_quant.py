@@ -539,11 +539,10 @@ def test_quantized_settings_are_accepted_or_refused():
     for over in (dict(weight_quant="int4"), dict(weight_quant="int4", quant_act=True),
                  dict(weight_quant="int4", quant_ffn_kernel=True, quant_impl="xla"),
                  dict(weight_quant="int4", quant_fused=False, kv_quant="int8"),
-                 dict(weight_quant="int8")):
+                 dict(weight_quant="int8"), dict(weight_quant="int8", kv_quant="int4"),
+                 dict(weight_quant="int4", kv_quant="int4")):
         tllm.LlamaForCausalLM(dataclasses.replace(TLLM, **over), device="cpu")
-    for over in (dict(weight_quant="int8", kv_quant="int4"),
-                 dict(weight_quant="int4", kv_quant="int4"),
-                 dict(weight_quant="int4", kv_int8_dots=True),
+    for over in (dict(weight_quant="int4", kv_int8_dots=True),
                  dict(weight_quant="int4", kv_quant_group=16)):
         with pytest.raises(NotImplementedError):
             tllm.LlamaForCausalLM(dataclasses.replace(TLLM, **over), device="cpu")

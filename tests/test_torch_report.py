@@ -296,13 +296,16 @@ def test_llm_prefill_and_cached_decode_match_ctpa(llm_params, kv_quant, flash_de
 
 
 def test_llm_raises_on_unported_paths():
-    for over in (dict(kv_quant="int4"), dict(kv_int8_dots=True),
+    for over in (dict(kv_int8_dots=True),
                  dict(quant_act=True), dict(quant_ffn_kernel=True),
                  # these act only on the paths above, so a non-default is refused
                  dict(quant_impl="xla"), dict(quant_fused=False), dict(kv_quant_group=16),
                  dict(kv_scale_dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             tllm.LlamaForCausalLM(dataclasses.replace(TLLM, **over), device="cpu")
+    # the int4 KV cache is ported (tests/test_torch_kv_quant.py)
+    assert tllm.LlamaForCausalLM(dataclasses.replace(TLLM, kv_quant="int4"),
+                                 device="cpu").cfg.kv_quant == "int4"
     # int8 weights are ported (tests/test_torch_quant_int8.py)
     assert isinstance(tllm.LlamaForCausalLM(dataclasses.replace(TLLM, weight_quant="int8"),
                                             device="cpu").lm_head, tllm.Int8Dense)
