@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's zero-shot serving, raw-volume encode
 (bench_torch.py's program), contrastive training, report generation, report
-training, int4 and int8 report serving and streaming report serving paths
-once on one CUDA card.
+training, int4 and int8 report serving, streaming report serving and
+zero-shot evaluation from files once on one CUDA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -214,6 +214,20 @@ Phases, each printing its seconds:
                      teacher-forced within the same bounds; then a ring
                      rotated one slot too far and a rollback skipped, each
                      served on one wave, must fail the gates.
+ 25. zeroshot-files — zero-shot evaluation from files at the shipped
+                     geometry, in a temporary directory: a reference-layout
+                     CT-CLIP_v2.pt written from a seed (1.2 GB fp32), 4 raw
+                     NIfTI volumes through ctpa_torch.cli.preprocess
+                     (--window inference, sharded npz, metadata CSVs), a
+                     reports and an 18-pathology labels CSV; build_ctclip on
+                     the .pt in bf16 with K1 and K2, run_zeroshot (1 K1 and
+                     4 K2 a volume; load time, time a volume, mean_auc, peak
+                     memory) held against the kernel-free path within
+                     PROB_ATOL; then the model saved through
+                     CheckpointManager and ctpa_torch.cli.zeroshot_infer.main
+                     (fp32 CTViTConfig(), no kernels) held against
+                     run_zeroshot on the restored state, every artifact
+                     present.
 
 The line before the last is nvidia-smi's "name, power.limit"; the one before
 that a JSON object with one entry per kernel.  The last line is
@@ -435,6 +449,21 @@ STREAM_HEAD_EOS = 1
 # fp32 can order those tokens either way); (2) teacher-forced, its tokens
 # are generate's argmax on at least the gate's top-1 share, and fp32's
 # argmax at most the gate's slack less often than generate's own argmax is.
+
+# zero-shot evaluation from files (phase zeroshot-files): a reference-layout
+# CT-CLIP_v2.pt at the shipped widths (std 0.02 weights, gains near 1, so
+# 12 BERT layers and the 294,912 -> 512 projection stay finite), 4 raw
+# NIfTI volumes (x, y, z) int16 at (0.75, 0.75, 2.0) mm, stored values with
+# intercept -1024, through the preprocess CLI's inference window; the
+# zero-shot run scores one volume a batch, so K2 runs spatial_depth times a
+# volume
+ZS_VOLUMES = 4
+ZS_NIFTI_SHAPE = (512, 512, 160)
+ZS_SPACING = (0.75, 0.75, 2.0)
+ZS_WEIGHT_STD = 0.02
+# main() against run_zeroshot on the same saved state and config, in one
+# process: the same fp32 program on the same inputs
+ZS_CLI_ATOL = 1e-5
 
 
 @contextlib.contextmanager
@@ -4027,6 +4056,254 @@ def stream_plain(dev, model, qmodel, runs: dict) -> None:
         raise AssertionError(f"stream gates failed: {failed}")
 
 
+def reference_ctclip_state(vit_cfg, bert_cfg, clip_cfg, gen, dev, std: float = ZS_WEIGHT_STD):
+    """A CT-CLIP_v2.pt state dict from ``gen``: the reference's parameter
+    names and torch layouts (ct_clip.py, ctvit.py and attention.py module
+    trees; tests/test_ctclip_import.py's state dict at any widths), every
+    tensor ``ctpa_torch.data.hf_import.import_ctclip`` reads.  Weights and
+    biases normal(0, std); LayerNorm weights, RMS gains and q/k scales 1 +
+    normal(0, std); the log-temperature 1; the VQ codebook l2-normalised
+    rows."""
+    import torch
+
+    from ctpa_torch.ops.attention_ops import l2norm
+
+    d, dh, heads = vit_cfg.dim, vit_cfg.dim_head, vit_cfg.heads
+    inner, pd, hid = dh * heads, vit_cfg.patch_dim, bert_cfg.hidden_size
+    ff_inner = int(d * vit_cfg.ff_mult * 2 / 3)
+    side = vit_cfg.image_size // vit_cfg.patch_size
+
+    def t(*shape):
+        return std * torch.randn(shape, generator=gen, device=dev)
+
+    def gain(*shape):
+        return 1 + t(*shape)
+
+    sd = {"temperature": torch.ones((), device=dev),
+          "to_text_latent.weight": t(clip_cfg.dim_latent, hid),
+          "to_visual_latent.weight": t(clip_cfg.dim_latent, side * side * d)}
+    p = "text_transformer."
+    sd[p + "embeddings.word_embeddings.weight"] = t(bert_cfg.vocab_size, hid)
+    sd[p + "embeddings.position_embeddings.weight"] = t(bert_cfg.max_position_embeddings, hid)
+    sd[p + "embeddings.token_type_embeddings.weight"] = t(bert_cfg.type_vocab_size, hid)
+    sd[p + "embeddings.LayerNorm.weight"] = gain(hid)
+    sd[p + "embeddings.LayerNorm.bias"] = t(hid)
+    for i in range(bert_cfg.num_layers):
+        lp = p + f"encoder.layer.{i}."
+        for name in ("attention.self.query", "attention.self.key", "attention.self.value",
+                     "attention.output.dense"):
+            sd[lp + name + ".weight"] = t(hid, hid)
+            sd[lp + name + ".bias"] = t(hid)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[lp + name + ".weight"] = gain(hid)
+            sd[lp + name + ".bias"] = t(hid)
+        sd[lp + "intermediate.dense.weight"] = t(bert_cfg.intermediate_size, hid)
+        sd[lp + "intermediate.dense.bias"] = t(bert_cfg.intermediate_size)
+        sd[lp + "output.dense.weight"] = t(hid, bert_cfg.intermediate_size)
+        sd[lp + "output.dense.bias"] = t(hid)
+    v = "visual_transformer."
+    sd[v + "to_patch_emb.1.weight"] = gain(pd)
+    sd[v + "to_patch_emb.1.bias"] = t(pd)
+    sd[v + "to_patch_emb.2.weight"] = t(d, pd)
+    sd[v + "to_patch_emb.2.bias"] = t(d)
+    sd[v + "to_patch_emb.3.weight"] = gain(d)
+    sd[v + "to_patch_emb.3.bias"] = t(d)
+    sd[v + "spatial_rel_pos_bias.net.0.0.weight"] = t(d, 2)
+    sd[v + "spatial_rel_pos_bias.net.0.0.bias"] = t(d)
+    sd[v + "spatial_rel_pos_bias.net.1.0.weight"] = t(d, d)
+    sd[v + "spatial_rel_pos_bias.net.1.0.bias"] = t(d)
+    sd[v + "spatial_rel_pos_bias.net.2.weight"] = t(heads, d)
+    sd[v + "spatial_rel_pos_bias.net.2.bias"] = t(heads)
+    for name, depth in (("enc_spatial_transformer", vit_cfg.spatial_depth),
+                        ("enc_temporal_transformer", vit_cfg.temporal_depth)):
+        base = v + name
+        sd[base + ".norm_out.gamma"] = gain(d)
+        for i in range(depth):
+            lp = f"{base}.layers.{i}"
+            sd[lp + ".0.dsconv.weight"] = t(d, 1, 3, 3, 3)
+            sd[lp + ".0.dsconv.bias"] = t(d)
+            sd[lp + ".1.norm.gamma"] = gain(d)
+            sd[lp + ".1.to_q.weight"] = t(inner, d)
+            sd[lp + ".1.to_kv.weight"] = t(inner * 2, d)
+            sd[lp + ".1.to_out.weight"] = t(d, inner)
+            sd[lp + ".1.q_scale"] = gain(dh)
+            sd[lp + ".1.k_scale"] = gain(dh)
+            sd[lp + ".3.0.weight"] = gain(d)
+            sd[lp + ".3.0.bias"] = t(d)
+            sd[lp + ".3.1.weight"] = t(ff_inner * 2, d)
+            sd[lp + ".3.4.weight"] = t(d, ff_inner)
+    sd[v + "vq._codebook.embed"] = l2norm(
+        torch.randn(1, vit_cfg.codebook_size, d, generator=gen, device=dev))
+    return sd
+
+
+def zeroshot_files(dev) -> None:
+    """Phase zeroshot-files: the zero-shot evaluation a user runs from files,
+    at the shipped CT-CLIP geometry, in a temporary directory."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ctpa_torch.cli import preprocess as pre_cli
+    from ctpa_torch.cli import zeroshot_infer as zs_cli
+    from ctpa_torch.core.checkpoint import CheckpointManager
+    from ctpa_torch.core.config import BertConfig, CTCLIPConfig, CTViTConfig, PreprocessConfig
+    from ctpa_torch.data import nifti
+    from ctpa_torch.data.datasets import CTReportInferenceDataset
+    from ctpa_torch.data.manifests import write_csv
+    from ctpa_torch.data.tokenizer import SimpleWordTokenizer
+    from ctpa_torch.eval.zeroshot import PATHOLOGIES
+    from ctpa_torch.models.ctclip import CTCLIP
+    from ctpa_torch.models.pretrained import build_ctclip
+    from ctpa_torch.ops.flash_attention import LAUNCHES
+    from ctpa_torch.ops.patchify import patchify_project
+    from ctpa_torch.ops.vq import VQState
+
+    vit_cfg, bert_cfg, clip_cfg = CTViTConfig(), BertConfig(), CTCLIPConfig()
+    kernel_cfg = dataclasses.replace(vit_cfg, pallas_patchify=True, flash_axial=True,
+                                     peg_reference_layout=True)
+    bf16 = torch.bfloat16
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zeroshot_") as tmp:
+        pt = os.path.join(tmp, "CT-CLIP_v2.pt")
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+        sd = reference_ctclip_state(vit_cfg, bert_cfg, clip_cfg, gen, dev)
+        n_params = sum(x.numel() for x in sd.values())
+        torch.save({k: x.cpu() for k, x in sd.items()}, pt)
+        del sd
+        print(f"  CT-CLIP_v2.pt: {n_params / 1e6:.1f} M values, "
+              f"{os.path.getsize(pt) / 1e9:.3f} GB, written in {time.perf_counter() - t0:.2f} s")
+
+        raw_dir, data_dir = os.path.join(tmp, "nifti"), os.path.join(tmp, "npz")
+        os.makedirs(raw_dir)
+        rng = np.random.default_rng(SEED + 31)
+        names = [f"zs{i:03d}" for i in range(ZS_VOLUMES)]
+        for name in names:
+            stored = rng.integers(0, 3000, size=ZS_NIFTI_SHAPE, dtype=np.int16)
+            nifti.save(os.path.join(raw_dir, name + ".nii"), stored, spacing=ZS_SPACING,
+                       scl_slope=1.0, scl_inter=-1024.0)
+        t0 = time.perf_counter()
+        grid = (vit_cfg.temporal_size, vit_cfg.image_size, vit_cfg.image_size)
+        pre_cli.main(["--input-dir", raw_dir, "--output-dir", data_dir, "--split", "valid",
+                      "--window", "inference", "--target-shape", *map(str, grid)], device=dev)
+        torch.cuda.synchronize()
+        npz = sorted(f for _, _, files in os.walk(data_dir) for f in files if f.endswith(".npz"))
+        meta = [f for f in ("train_metadata.csv", "test_metadata.csv")
+                if os.path.exists(os.path.join(data_dir, f))]
+        print(f"  preprocess CLI: {len(npz)} npz, {meta}, {time.perf_counter() - t0:.2f} s")
+        if npz != [n + ".npz" for n in names] or len(meta) != 2:
+            raise AssertionError(f"preprocess CLI wrote {npz} and {meta}")
+
+        reports, labels = os.path.join(tmp, "reports.csv"), os.path.join(tmp, "labels.csv")
+        write_csv(reports, [{"impression_id": n, "impressions": f"Findings of {n}."}
+                            for n in names])
+        # every column holds both classes
+        onehot = [[(i + j) % 2 for j in range(len(PATHOLOGIES))] for i in range(len(names))]
+        write_csv(labels, [{"VolumeName": n, **dict(zip(PATHOLOGIES, row))}
+                           for n, row in zip(names, onehot)])
+        dataset = CTReportInferenceDataset(data_dir, reports, labels, PATHOLOGIES)
+        if len(dataset) != len(names):
+            raise AssertionError(f"the dataset found {len(dataset)} of {len(names)} volumes")
+        pre_cfg = dataclasses.replace(PreprocessConfig.inference(), target_shape=grid)
+        tok = SimpleWordTokenizer(bert_cfg.vocab_size, bert_cfg.max_position_embeddings)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre = build_ctclip(pt, vit_cfg=kernel_cfg, dtype=bf16, device=dev)
+        torch.cuda.synchronize()
+        print(f"  build_ctclip({os.path.basename(pt)}, bf16): {time.perf_counter() - t0:.2f} s, "
+              f"skipped {pre.skipped}")
+        if pre.skipped:
+            raise AssertionError(f"the import skipped {pre.skipped}")
+        model, vq = pre.model.eval(), pre.vq_state
+
+        encode = model.encode_image
+        encode_s = []
+
+        def timed_encode(video, vq_state=None):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = encode(video, vq_state)
+            torch.cuda.synchronize()
+            encode_s.append(time.perf_counter() - t)
+            return out
+
+        model.encode_image = timed_encode
+        out_k, out_p = os.path.join(tmp, "kernels"), os.path.join(tmp, "plain")
+        torch.cuda.reset_peak_memory_stats()
+        patchify_project.launches = 0
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+        t0 = time.perf_counter()
+        summary = zs_cli.run_zeroshot(model, vq, dataset, tok, out_k, pre_cfg=pre_cfg,
+                                      batch_size=1)
+        wall = time.perf_counter() - t0
+        k1, k2 = patchify_project.launches, LAUNCHES["flash_attention_fwd"]
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  run_zeroshot (kernels): {summary}, {wall:.2f} s for {len(names)} volumes "
+              f"({wall / len(names) * 1e3:.1f} ms a volume, prompts and evaluation included); "
+              f"encode_image {statistics.median(encode_s) * 1e3:.1f} ms a volume (median, "
+              f"preprocess excluded); peak memory {peak / 2**30:.2f} GiB; launches "
+              f"patchify_project {k1}, flash_attention_fwd {k2}")
+        if (k1, k2) != (len(names), vit_cfg.spatial_depth * len(names)):
+            raise AssertionError(f"launches (patchify, flash) {(k1, k2)}, expected "
+                                 f"{(len(names), vit_cfg.spatial_depth * len(names))}")
+        if not math.isfinite(summary["mean_auc"]) or summary["n"] != len(names):
+            raise AssertionError(f"run_zeroshot returned {summary}")
+
+        plain = CTCLIP(clip_cfg, dataclasses.replace(kernel_cfg, pallas_patchify=False,
+                                                     flash_axial=False),
+                       bert_cfg, device=dev, dtype=bf16).eval()
+        plain.load_state_dict(model.state_dict())
+        zs_cli.run_zeroshot(plain, vq, dataset, tok, out_p, pre_cfg=pre_cfg, batch_size=1)
+        if (patchify_project.launches, LAUNCHES["flash_attention_fwd"]) != (k1, k2):
+            raise AssertionError("the plain path launched a kernel")
+        got = np.load(os.path.join(out_k, "predicted_weights.npz"))["data"]
+        ref = np.load(os.path.join(out_p, "predicted_weights.npz"))["data"]
+        dp = float(np.abs(got - ref).max())
+        print(f"  kernels vs plain: max |prob diff| {dp:.3e} (<= {PROB_ATOL}) over "
+              f"{got.shape} probabilities")
+        if got.shape != (len(names), len(PATHOLOGIES)) or not dp <= PROB_ATOL:
+            raise AssertionError(f"kernel path and plain path disagree by {dp}")
+        del plain
+
+        ckpt, out_cli, out_ref = (os.path.join(tmp, d) for d in ("ckpt", "cli", "ref"))
+        CheckpointManager(ckpt).save(0, {"params": model.state_dict(),
+                                         "vq_state": vq._asdict()})
+        del model, pre
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rc = zs_cli.main(["--data-dir", data_dir, "--reports-csv", reports, "--labels-csv",
+                          labels, "--checkpoint-dir", ckpt, "--out-dir", out_cli], device=dev)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        missing = [f for f in ("labels_weights.npz", "predicted_weights.npz", "accessions.txt",
+                               "aurocs.csv", "bootstrap_cis.csv")
+                   if not os.path.exists(os.path.join(out_cli, f))]
+        if rc != 0 or missing:
+            raise AssertionError(f"zeroshot_infer.main returned {rc}, missing {missing}")
+        state = CheckpointManager(ckpt).restore(map_location=dev)
+        twin = CTCLIP(clip_cfg, vit_cfg, bert_cfg, device=dev).eval()
+        twin.load_state_dict(state["params"])
+        vq32 = VQState(**{k: torch.as_tensor(x, device=dev)
+                          for k, x in state["vq_state"].items()})
+        zs_cli.run_zeroshot(twin, vq32, dataset, tok, out_ref, pre_cfg=pre_cfg)
+        got = np.load(os.path.join(out_cli, "predicted_weights.npz"))["data"]
+        ref = np.load(os.path.join(out_ref, "predicted_weights.npz"))["data"]
+        dcli = float(np.abs(got - ref).max())
+        # the rows come in the dataset's order, which os.walk gives
+        want = np.asarray([onehot[names.index(vid)] for _, vid in dataset.samples], np.float32)
+        same_labels = np.array_equal(np.load(os.path.join(out_cli, "labels_weights.npz"))["data"],
+                                     want)
+        print(f"  zeroshot_infer.main (CTViTConfig() fp32, no kernels): {cli_s:.2f} s, "
+              f"artifacts complete; predictions vs run_zeroshot on the restored state: "
+              f"max |diff| {dcli:.3e} (<= {ZS_CLI_ATOL}); labels equal {same_labels}")
+        if not dcli <= ZS_CLI_ATOL or not same_labels:
+            raise AssertionError("zeroshot_infer.main disagrees with run_zeroshot")
+        del twin, state
+
+
 def main() -> int:
     import torch
 
@@ -4167,6 +4444,11 @@ def main() -> int:
     with phase("stream-plain"):
         stream_plain(dev, model, stream_q, runs)
     del model, stream_q, runs
+    torch.cuda.empty_cache()
+
+    with phase("zeroshot-files"):
+        with torch.inference_mode():
+            zeroshot_files(dev)
     torch.cuda.empty_cache()
 
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -24,14 +24,18 @@ module.  The layout rules:
   with trained adapters, its ``cross_attention`` and the vision
   ``proj``/``norm`` converts whole (``tests/test_torch_report_train.py``).
 
-Conversion is strict: an unused flax leaf, a missing torch entry or a shape
-mismatch raises.  Integer leaves are copied as they are; float leaves go
+``load_flax_params`` is strict: an unused flax leaf, a missing torch entry
+or a shape mismatch raises.  ``overlay_flax_params`` grafts a partial tree
+(an imported checkpoint) the way ctpa's ``overlay_base`` grafts it onto an
+initialized flax tree, leaving the entries it does not name as they are.
+Integer leaves are copied as they are; float leaves go
 through fp32 to the parameter's dtype.  It imports no JAX: leaves are
 anything ``numpy.asarray`` takes.
 """
 
 from __future__ import annotations
 
+import logging
 import re
 
 import numpy as np
@@ -53,14 +57,20 @@ def _flatten(tree, prefix=()):
             yield prefix + (key,), np.asarray(val)
 
 
-def _torch_key(path: tuple[str, ...], value: np.ndarray,
-               quantized: bool) -> tuple[str, np.ndarray]:
-    """``quantized``: the leaf sits beside a ``kernel_q``."""
-    *mods, leaf = path
+def _module_parts(mods) -> list[str]:
+    """A flax module path as the torch module path's parts."""
     parts = []
     for mod in mods:
         m = _LISTS.match(mod)
         parts += [_LIST_NAMES[m.group(1)], m.group(2)] if m else [mod]
+    return parts
+
+
+def _torch_key(path: tuple[str, ...], value: np.ndarray,
+               quantized: bool) -> tuple[str, np.ndarray]:
+    """``quantized``: the leaf sits beside a ``kernel_q``."""
+    *mods, leaf = path
+    parts = _module_parts(mods)
     if leaf == "kernel" and value.ndim == 2:
         leaf, value = "weight", value.T
     elif leaf == "embedding" or (leaf == "scale" and not quantized):
@@ -81,6 +91,17 @@ def flax_to_state_dict(params: dict) -> dict[str, np.ndarray]:
     return out
 
 
+def _as_param(key: str, value: np.ndarray, ref: torch.Tensor) -> torch.Tensor:
+    """``value`` as a tensor of ``ref``'s dtype and device: integers exactly,
+    floats through fp32."""
+    if np.issubdtype(value.dtype, np.integer):
+        exact = torch.from_numpy(np.array(value))
+        if exact.dtype != ref.dtype:
+            raise TypeError(f"{key}: flax {value.dtype} into torch {ref.dtype}")
+        return exact.to(device=ref.device)
+    return torch.from_numpy(np.array(value, np.float32)).to(device=ref.device, dtype=ref.dtype)
+
+
 def load_flax_params(module: nn.Module, params: dict) -> nn.Module:
     """Load a flax param tree into ``module`` (strict), casting each value to
     the dtype and device of the parameter it replaces."""
@@ -95,16 +116,61 @@ def load_flax_params(module: nn.Module, params: dict) -> nn.Module:
         value = converted[key]
         if tuple(value.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: flax shape {value.shape} != torch shape {tuple(ref.shape)}")
-        if np.issubdtype(value.dtype, np.integer):
-            exact = torch.from_numpy(np.array(value))
-            if exact.dtype != ref.dtype:
-                raise TypeError(f"{key}: flax {value.dtype} into torch {ref.dtype}")
-            state[key] = exact.to(device=ref.device)
-        else:
-            state[key] = torch.from_numpy(np.array(value, np.float32)).to(
-                device=ref.device, dtype=ref.dtype)
+        state[key] = _as_param(key, value, ref)
     module.load_state_dict(state, strict=True)
     return module
+
+
+def overlay_flax_params(module: nn.Module, params: dict, allow_missing: bool = False) -> list[str]:
+    """Graft a flax-shaped tree (an import, possibly partial) onto ``module``
+    in place, with ctpa's ``overlay_base`` semantics: the module's entries the
+    tree does not name keep their values; with ``allow_missing`` (torch's
+    ``strict=False``) a subtree or leaf the module does not have, or a leaf
+    of another shape, is skipped, else it raises.  Returns the skipped
+    entries as ``overlay_base`` names them ("/a/b", "/a/b/c (shape s vs d)",
+    flax layouts), and logs them as it does."""
+    own = module.state_dict()
+    prefixes = {".".join(key.split(".")[:i]) for key in own for i in range(1, key.count(".") + 1)}
+    skipped: list[str] = []
+    state = {}
+
+    def skip(entry: str, error: Exception) -> None:
+        if not allow_missing:
+            raise error
+        skipped.append(entry)
+
+    def walk(tree: dict, path: tuple) -> None:
+        quantized = "kernel_q" in tree
+        for name, val in tree.items():
+            sub = path + (name,)
+            flat = "/" + "/".join(sub)
+            if isinstance(val, dict):
+                if ".".join(_module_parts(sub)) not in prefixes:
+                    skip(flat, KeyError(f"imported key {flat} not in model tree"))
+                else:
+                    walk(val, sub)
+                continue
+            value = np.asarray(val)
+            key, tval = _torch_key(sub, value, quantized)
+            if key not in own:
+                skip(flat, KeyError(f"imported key {flat} not in model tree"))
+                continue
+            ref = own[key]
+            if tuple(tval.shape) != tuple(ref.shape):
+                transposed = name == "kernel" and value.ndim == 2
+                d = tuple(ref.shape)[::-1] if transposed else tuple(ref.shape)
+                skip(f"{flat} (shape {value.shape} vs {d})",
+                     ValueError(f"shape mismatch at {flat}: {d} vs {value.shape}"))
+                continue
+            state[key] = _as_param(key, tval, ref)
+
+    walk(params, ())
+    module.load_state_dict(state, strict=False)
+    if skipped:
+        logging.getLogger("ctpa_torch").warning(
+            "overlay_base skipped %d keys (strict=False): %s%s", len(skipped),
+            ", ".join(skipped[:5]), "..." if len(skipped) > 5 else "")
+    return skipped
 
 
 def vq_state_from_numpy(state, device="cuda") -> VQState:

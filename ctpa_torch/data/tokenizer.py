@@ -1,6 +1,7 @@
-"""Self-contained tokenizer for tests and offline smoke runs — an own copy of
-``ctpa/data/tokenizer.py:SimpleWordTokenizer`` (the port imports nothing of
-``ctpa``).  Production serving uses a real WordPiece tokenizer snapshot."""
+"""Tokenization — an own copy of ``ctpa/data/tokenizer.py`` (the port imports
+nothing of ``ctpa``): ``HFTokenizer`` wraps a local ``transformers``
+tokenizer snapshot (CXR-BERT in production); ``SimpleWordTokenizer`` is the
+self-contained tokenizer for tests and offline smoke runs."""
 
 from __future__ import annotations
 
@@ -50,3 +51,39 @@ class SimpleWordTokenizer:
     def decode(self, ids: Sequence[int]) -> str:
         return " ".join(f"<{i}>" for i in ids
                         if i not in (self.pad_token_id, self.cls_token_id, self.sep_token_id))
+
+
+class HFTokenizer:
+    """Thin wrapper over a local ``transformers`` tokenizer snapshot, exposing
+    the call contract of ``SimpleWordTokenizer`` (numpy arrays, fixed
+    max_length padding).  ``transformers`` is imported here, not with the
+    module: a machine without it (the card's) raises ImportError naming it,
+    and nothing falls back to another tokenizer."""
+
+    def __init__(self, path_or_name: str, max_length: int = 512):
+        try:
+            from transformers import AutoTokenizer
+        except ImportError as e:
+            raise ImportError(f"HFTokenizer({path_or_name!r}) needs the `transformers` "
+                              f"package, which is not installed") from e
+
+        self.tok = AutoTokenizer.from_pretrained(path_or_name)
+        self.max_length = max_length
+        self.pad_token_id = self.tok.pad_token_id or 0
+        self.cls_token_id = getattr(self.tok, "cls_token_id", None)
+        self.sep_token_id = getattr(self.tok, "sep_token_id", None)
+        self.eos_token_id = getattr(self.tok, "eos_token_id", None)
+
+    def __call__(self, texts, max_length=None, padding="max_length"):
+        out = self.tok(
+            list(texts) if not isinstance(texts, str) else [texts],
+            padding=padding, truncation=True,
+            max_length=max_length or self.max_length,
+            return_tensors="np",
+        )
+        return {"input_ids": out["input_ids"].astype(np.int32),
+                "attention_mask": out["attention_mask"].astype(np.int32)}
+
+    def decode(self, ids):
+        return self.tok.decode([i for i in ids if i != self.pad_token_id],
+                               skip_special_tokens=True)

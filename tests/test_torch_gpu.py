@@ -1661,3 +1661,60 @@ def test_int8_report_generator_kernel_path_matches_plain_path(cuda, act_quant):
     assert torch.equal(kernel.argmax(-1), tokens)
     rel, _, top1 = cs.logit_distance(kernel, plain)
     assert rel <= 5e-2 and top1 >= 0.8, (rel, top1)
+
+
+def test_zeroshot_from_files_kernel_path_matches_plain_path(cuda, tmp_path):
+    """build_ctclip on a reference-layout .pt (chip_smoke.reference_ctclip_state at small
+    widths the kernels take) in bf16 with the patchify and flash kernels, and
+    run_zeroshot over npz files: one K1 launch a volume, spatial_depth K2
+    launches a batch, and probabilities within chip_smoke's PROB_ATOL of the
+    same weights on the plain path."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from ctpa_torch.cli.zeroshot_infer import run_zeroshot
+    from ctpa_torch.core.config import BertConfig, CTCLIPConfig
+    from ctpa_torch.data.datasets import CTReportInferenceDataset
+    from ctpa_torch.data.manifests import write_csv
+    from ctpa_torch.data.tokenizer import SimpleWordTokenizer
+    from ctpa_torch.eval.zeroshot import PATHOLOGIES
+    from ctpa_torch.models.ctclip import CTCLIP
+    from ctpa_torch.models.pretrained import build_ctclip
+
+    vit = CTViTConfig(dim=128, codebook_size=64, image_size=48, patch_size=8, temporal_size=16,
+                      temporal_patch_size=4, spatial_depth=2, temporal_depth=1, dim_head=32,
+                      heads=4, pallas_patchify=True, flash_axial=True, peg_reference_layout=True)
+    bert = BertConfig.tiny()
+    clip = CTCLIPConfig.tiny(vit, bert)
+    sd = cs.reference_ctclip_state(vit, bert, clip, cuda, "cuda", std=0.05)
+    torch.save({k: v.cpu() for k, v in sd.items()}, str(tmp_path / "CT-CLIP_v2.pt"))
+    rng = np.random.default_rng(0)
+    names = [f"v{i}" for i in range(5)]
+    for name in names:
+        np.savez(tmp_path / f"{name}.npz", rng.uniform(-1.1, 0.3, (50, 44, 20)).astype(np.float32))
+    write_csv(str(tmp_path / "reports.csv"), [{"impression_id": n, "impressions": n} for n in names])
+    write_csv(str(tmp_path / "labels.csv"),
+              [{"VolumeName": n, **{p: (i + j) % 2 for j, p in enumerate(PATHOLOGIES)}}
+               for i, n in enumerate(names)])
+    dataset = CTReportInferenceDataset(str(tmp_path), str(tmp_path / "reports.csv"),
+                                       str(tmp_path / "labels.csv"), PATHOLOGIES)
+    pre_cfg = dataclasses.replace(PreprocessConfig.inference(), target_shape=(16, 48, 48))
+    tok = SimpleWordTokenizer(bert.vocab_size, 64)
+    pre = build_ctclip(str(tmp_path / "CT-CLIP_v2.pt"), vit_cfg=vit, bert_cfg=bert,
+                       clip_cfg=clip, dtype=torch.bfloat16)
+    assert pre.skipped == []
+    plain = CTCLIP(clip, dataclasses.replace(vit, pallas_patchify=False, flash_axial=False),
+                   bert, device="cuda", dtype=torch.bfloat16)
+    plain.load_state_dict(pre.model.state_dict())
+    k1, k2 = patchify_project.launches, LAUNCHES["flash_attention_fwd"]
+    got = run_zeroshot(pre.model, pre.vq_state, dataset, tok, str(tmp_path / "k"),
+                       pre_cfg=pre_cfg, batch_size=2)
+    assert patchify_project.launches - k1 == len(names)
+    assert LAUNCHES["flash_attention_fwd"] - k2 == vit.spatial_depth * 3
+    ref = run_zeroshot(plain, pre.vq_state, dataset, tok, str(tmp_path / "p"),
+                       pre_cfg=pre_cfg, batch_size=2)
+    assert got["n"] == ref["n"] == len(names) and np.isfinite(got["mean_auc"])
+    pk = np.load(tmp_path / "k" / "predicted_weights.npz")["data"]
+    pp = np.load(tmp_path / "p" / "predicted_weights.npz")["data"]
+    assert pk.shape == (len(names), len(PATHOLOGIES))
+    assert np.abs(pk - pp).max() <= cs.PROB_ATOL

@@ -1,7 +1,9 @@
 """The port stands alone: ctpa_torch (its cli too), chip_smoke.py,
-bench_torch.py and the profile scripts import neither JAX, flax nor
-anything of ctpa, build no kernel through PyTorch's C++ extension
-machinery, and call no library attention or quantized matmul."""
+bench_torch.py and the profile scripts import neither JAX, flax, pandas nor
+anything of ctpa (nor, when a module loads, sklearn, safetensors,
+transformers or matplotlib, which the card's machine lacks), build no
+kernel through PyTorch's C++ extension machinery, and call no library
+attention or quantized matmul."""
 
 import os
 import subprocess
@@ -13,7 +15,10 @@ ROOT = Path(__file__).resolve().parent.parent
 _PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
 
-BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "pandas", "ctpa"}
+# the card's machine has none of these; sklearn, safetensors, transformers
+# and matplotlib may only be imported inside functions
+BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "pandas", "ctpa", "sklearn",
+           "safetensors", "transformers", "matplotlib"}
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -30,7 +35,11 @@ report = ["ctpa_torch.ops.decode_attention", "ctpa_torch.ops.rotary", "ctpa_torc
           "ctpa_torch.train.train_state", "ctpa_torch.core.checkpoint", "ctpa_torch.ops.quant",
           "ctpa_torch.cli", "ctpa_torch.cli.export_serving", "ctpa_torch.ops.resample_patchify",
           "ctpa_torch.pipelines.streaming", "ctpa_torch.data.ingest", "ctpa_torch.data.nifti",
-          "ctpa_torch.data.dicom"]
+          "ctpa_torch.data.dicom", "ctpa_torch.data.hf_import", "ctpa_torch.models.pretrained",
+          "ctpa_torch.data.tokenizer", "ctpa_torch.data.reports", "ctpa_torch.data.manifests",
+          "ctpa_torch.data.datasets", "ctpa_torch.eval.classification",
+          "ctpa_torch.eval.artifacts", "ctpa_torch.cli.zeroshot_infer",
+          "ctpa_torch.cli.preprocess"]
 missing = sorted(set(report) - set(names))
 assert not missing, missing
 for name in names:
