@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's zero-shot serving, raw-volume encode
 (bench_torch.py's program), contrastive training, report generation, report
-training, int4 and int8 report serving, streaming report serving and
-zero-shot evaluation from files once on one CUDA card.
+training, int4 and int8 report serving, streaming report serving,
+zero-shot evaluation from files and the report workload from files once on
+one CUDA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -156,7 +157,8 @@ Phases, each printing its seconds:
                      dequantized weights, teacher-forced on the kernel path's
                      tokens, against gates of report-plain's shape; the kernel
                      path fed tampered inputs (nibble halves swapped, scale_g
-                     rolled by one group) must fail them.
+                     rolled by one group) over the first QUANT_FAULT_STEPS
+                     steps must fail them, read over those steps.
  20. quant8-kernels — the int8 projection (K4) and the fused int8 FFN (K6),
                      weight-only and w8a8, against their plain versions at
                      Meditron-7B's shapes (K4 also at the unfused FFN's
@@ -228,6 +230,33 @@ Phases, each printing its seconds:
                      (fp32 CTViTConfig(), no kernels) held against
                      run_zeroshot on the restored state, every artifact
                      present.
+ 26. report-files  — the report workload from files (run before stream, while
+                     quant8-report's w8a8 bundle is on disk), in a temporary
+                     directory of seeded npz volumes and JSONL manifests:
+                     ctpa_torch.cli.generate_report.main at Meditron-7B
+                     width from that bundle (3 items, 4 lanes, 32 greedy
+                     tokens; K4, K6 and K8 counted), its tokens
+                     teacher-forced through the bundle's kernel path, its
+                     plain path (quant_impl "xla", flash_decode off) and an
+                     fp32 model of the dequantized weights under
+                     quant-plain's gates, given back by the kernel path
+                     (RF_GIVE_BACK_MIN; a prompt shifted by a token is
+                     not), the vision feature each request carried its
+                     item's (RF_VISION_RTOL; its neighbour's is not), and
+                     one item through --speculative (16 tokens);
+                     evaluate.main nlg on its results with BERTScore from
+                     a BF16 safetensors snapshot of a seeded
+                     BertConfig() encoder (and --compute-baseline);
+                     train_report's loader, eval_fn and a ReportTrainer
+                     epoch of 2 partitioned --flash-prefill steps at 2 x 512
+                     tokens on the report phase's base (the four d128 flash
+                     kernels, 32 launches each a step), the first loss
+                     within report-train-plain's gate of the dense path's;
+                     the three CLIs again at --tiny on the card (train_report
+                     in report and vqa mode, generate_report from its
+                     base.pt and latest step, evaluate); MedicalVQAModel at
+                     BertConfig() width (logits, loss, one optimizer step,
+                     a greedy generate).
 
 The line before the last is nvidia-smi's "name, power.limit"; the one before
 that a JSON object with one entry per kernel.  The last line is
@@ -241,6 +270,8 @@ import atexit
 import collections
 import contextlib
 import dataclasses
+import functools
+import io
 import itertools
 import json
 import math
@@ -374,11 +405,15 @@ QUANT_DIR = "build/chip_smoke/quant"
 # report-plain.  Read on the H100 (PERF.md): the sound kernel paths at
 # distance ratios 0.796-1.057, top-1 0.026 below the xla path's (w4) and
 # 0.073 above it (w4a8), top-1 with the xla path 0.8255 (w4) and 0.5911
-# (w4a8); the planted faults at ratios 11.5-15.7 and top-1 0.0000-0.0052.
-# Each limit lies between the two.
+# (w4a8); the planted faults of the int4 and int8 tiers, over the first
+# QUANT_FAULT_STEPS steps, at ratios 3.699-15.624 and top-1 0.0000.  Each
+# limit lies between the two.
 QUANT_FP32_RATIO = 1.25
 QUANT_FP32_TOP1_SLACK = 0.15
 QUANT_TOP1_MIN = 0.3
+# the planted faults of quant-plain and quant8-plain run the first
+# QUANT_FAULT_STEPS of the QUANT_NEW_TOKENS steps and are gated over them
+QUANT_FAULT_STEPS = 24
 # quant-kernels: the w4a8 forms against their plain versions p within
 # QUANT_A8_ATOL * max|p| + QUANT_A8_RTOL |p|.  Both sum the same exact
 # int32 group dots times the same fp32 scales, in another order, and round
@@ -464,6 +499,46 @@ ZS_WEIGHT_STD = 0.02
 # main() against run_zeroshot on the same saved state and config, in one
 # process: the same fp32 program on the same inputs
 ZS_CLI_ATOL = 1e-5
+
+# the report workload from files (phase report-files): generate_report.main
+# at Meditron-7B width from quant8-report's w8a8 bundle (K4, K6 and K8;
+# kept on disk until this phase), greedy, RF_ITEMS inference-path volumes
+# through RF_LANES lanes, RF_NEW_TOKENS new tokens, then one item of
+# RF_SPEC_TOKENS through the --speculative tier; evaluate.main nlg on its
+# results with a BF16 snapshot of a seeded CXR-BERT-geometry encoder;
+# train_report's loader, eval_fn and a ReportTrainer epoch of
+# RF_TRAIN_ITEMS / 2 partitioned --flash-prefill steps at 512 tokens on the
+# report phase's model (the four d128 flash kernels); the three CLIs once
+# more at --tiny; MedicalVQAModel at BertConfig() width.  The CLI's
+# predictions are held, teacher-forced, by quant-plain's gates and by the
+# give-back and vision checks below; the training loss by
+# report-train-plain's.  Its word ids come from CRC-32
+# (stable_word_tokenizer), so every run decodes and trains on the same ids.
+RF_ITEMS = 3
+RF_LANES = 4
+RF_NEW_TOKENS = 32
+RF_SPEC_K = 4
+RF_SPEC_TOKENS = 16
+RF_TRAIN_ITEMS = 4
+RF_BUNDLE = os.path.join(QUANT_DIR, "bundle_w8a8")
+# the CLI's tokens, teacher-forced through the bundle's kernel path, come back
+# on at least RF_GIVE_BACK_MIN of the (item, step) pairs, and those of a
+# planted CLI fault (the prompt's first token dropped) on less; the vision
+# feature each request carried lies within RF_VISION_RTOL of max |feature|
+# of the twin's for its item, and its neighbour's does not.  The faults are
+# read over their first RF_FAULT_STEPS steps.  Read on the H100 (PERF.md):
+# the CLI's tokens 0.9271 (1.0000 over the first 8 steps; 0.82-0.92 under
+# salted word ids), the shifted prompt's 0.0000, each item given its
+# neighbour's lane 0.8750, which the give-back cannot tell from the sound
+# run (the seeded model's tokens hang on the prompt, hardly on the vision),
+# hence the vision check: 0 from the twin's own, 0.1947 from its
+# neighbour's.
+RF_GIVE_BACK_MIN = 0.6
+RF_VISION_RTOL = 1e-2
+RF_FAULT_STEPS = 8
+RF_BERT_STD = 0.02
+RF_WORDS = ("the lung is clear no nodule pleural effusion small opacity right left lobe "
+            "pulmonary embolism present in segmental arteries filling defect").split()
 
 
 @contextlib.contextmanager
@@ -1463,14 +1538,14 @@ def report_inputs(vit_cfg, llm_cfg, dev):
     return video, ids * mask, mask.long()
 
 
-def twin(model, **llm_changes):
+def twin(model, vit_cfg=None, **llm_changes):
     """A CTReportGenerator on the same tensors (no copy), computing in the same
-    dtype, with other LLM settings."""
+    dtype, with other LLM settings (and another CTViT configuration)."""
     from ctpa_torch.models.layers import set_compute_dtype
     from ctpa_torch.models.report_generator import CTReportGenerator
 
-    out = CTReportGenerator(dataclasses.replace(model.llm_cfg, **llm_changes), model.vit_cfg,
-                            model.gen_cfg, device="meta")
+    out = CTReportGenerator(dataclasses.replace(model.llm_cfg, **llm_changes),
+                            vit_cfg or model.vit_cfg, model.gen_cfg, device="meta")
     out.load_state_dict(model.state_dict(), assign=True)
     return set_compute_dtype(out, getattr(model, "compute_dtype", None)).eval()
 
@@ -3210,7 +3285,8 @@ def quant_report(dev, rows: dict, model, inputs, base: str, bits: int) -> tuple:
     model then shares the first's tensors, which must be equal) and run
     through generate: weight-only and with int8 activations at batch 4 x 512
     tokens, then with int8 activations at batch 32 (the report phase's
-    volumes and prompts repeated), 96 greedy tokens each."""
+    volumes and prompts repeated), 96 greedy tokens each.  The w8a8 bundle's
+    directory (``RF_BUNDLE``) stays for phase report-files."""
     import torch
 
     from ctpa_torch.cli import export_serving
@@ -3235,7 +3311,8 @@ def quant_report(dev, rows: dict, model, inputs, base: str, bits: int) -> tuple:
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(out) for f in fs)
-        shutil.rmtree(out)
+        if out != RF_BUNDLE:           # phase report-files serves that one from disk
+            shutil.rmtree(out)
         state = qmodel.state_dict()
         qbytes = sum(t.numel() * t.element_size() for n, t in state.items()
                      if n.rsplit(".", 1)[0] + ".kernel_q" in state
@@ -3398,7 +3475,8 @@ def quant_plain(model, qmodels: dict, inputs, tokens: dict, vision: dict) -> Non
     bundle with quant_impl="xla" (ctpa's plain composition) and an fp32
     reference of the same dequantized weights, teacher-forced on the kernel
     path's tokens, against the gates; then the kernel path fed each of two
-    planted faults (``QUANT_FAULTS``), which the gates must reject.  Prints,
+    planted faults (``QUANT_FAULTS``) over the first ``QUANT_FAULT_STEPS``
+    steps, which the gates, read over those steps, must reject.  Prints,
     ungated, the top-1 agreement with the bf16 model the bundle was made
     from (its LoRA adapters unmerged).
 
@@ -3435,8 +3513,8 @@ def quant_plain(model, qmodels: dict, inputs, tokens: dict, vision: dict) -> Non
             faults = {}
             for kind in kinds:
                 with planted(kind):
-                    faults[kind] = teacher_forced_logits(qmodel, *inputs, tokens[label],
-                                                         vision[label])
+                    faults[kind] = teacher_forced_logits(
+                        qmodel, *inputs, tokens[label][:, :QUANT_FAULT_STEPS], vision[label])
         if not all(torch.isfinite(x).all() for x in (kernel, plain, fp32)):
             raise AssertionError(f"{label}: non-finite logits")
         if not torch.equal(kernel.argmax(-1), tokens[label]):
@@ -3451,8 +3529,10 @@ def quant_plain(model, qmodels: dict, inputs, tokens: dict, vision: dict) -> Non
         if not report_gate(f"{label} kernel", kernel, plain, fp32, p_f, **gate):
             raise AssertionError(f"{label}: the {bits} kernel path is farther from the fp32 "
                                  "reference than the xla path")
+        first = (plain[:, :QUANT_FAULT_STEPS], fp32[:, :QUANT_FAULT_STEPS])
         for kind, got in faults.items():
-            if report_gate(f"{label} planted fault: {kind}", got, plain, fp32, p_f, **gate):
+            if report_gate(f"{label} planted fault: {kind}", got, *first, logit_distance(*first),
+                           **gate):
                 raise AssertionError(f"the gates do not see a planted {bits} fault ({kind})")
         rel, mean, top1 = logit_distance(kernel, bf16)
         print(f"    {label} kernel vs the bf16 model (LoRA unmerged), not gated: {rel:.4f}  "
@@ -4304,6 +4384,506 @@ def zeroshot_files(dev) -> None:
         del twin, state
 
 
+def rf_volume(gen, shape) -> "np.ndarray":
+    """A seeded uniform(-1, 1) fp32 volume drawn on the card's generator."""
+    import torch
+
+    return (torch.rand(shape, generator=gen, device=gen.device) * 2 - 1).cpu().numpy()
+
+
+def rf_write_files(root: str, dev) -> dict:
+    """Phase report-files' inputs under ``root``, from a seed: RF_ITEMS
+    pre-normalised inference volumes (INFER_SHAPE, (h, w, d)) with reports
+    (gen.jsonl); RF_TRAIN_ITEMS + 1 volumes on the training grid (240, 480,
+    480) (train.jsonl, val.jsonl), their reports 100-600 words (cut at 512
+    tokens); the tiny (16, 32, 32) ones for the --tiny runs, and a VQA
+    manifest.  -> the manifests' paths."""
+    import numpy as np
+    import torch
+
+    from ctpa_torch.core.config import CTViTConfig
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    rng = np.random.default_rng(SEED + 30)
+    vit, tiny = CTViTConfig(), CTViTConfig.tiny()
+    train_grid = (vit.temporal_size, vit.image_size, vit.image_size)
+    tiny_grid = (tiny.temporal_size, tiny.image_size, tiny.image_size)
+    paths = {}
+
+    def manifest(name, shape, count, words, vqa=False):
+        rows = []
+        for i in range(count):
+            vol = os.path.join(root, f"{name}_{i}.npz")
+            np.savez(vol, rf_volume(gen, shape))
+            text = " ".join(rng.choice(RF_WORDS, size=int(rng.integers(*words))))
+            rows.append({"image_path": vol, "question": "Is there a pulmonary embolism?",
+                         "answer": text} if vqa else {"image_path": vol, "report": text})
+        paths[name] = os.path.join(root, f"{name}.jsonl")
+        with open(paths[name], "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in rows)
+
+    manifest("gen", INFER_SHAPE, RF_ITEMS, (20, 60))
+    manifest("train", train_grid, RF_TRAIN_ITEMS, (100, 600))
+    manifest("val", train_grid, 1, (20, 60))
+    manifest("tiny_train", tiny_grid, 4, (4, 12))
+    manifest("tiny_val", tiny_grid, 1, (4, 12))
+    manifest("tiny_vqa", tiny_grid, 4, (2, 6), vqa=True)
+    return paths
+
+
+@functools.cache
+def stable_word_tokenizer():
+    """SimpleWordTokenizer with its word ids from CRC-32 in place of Python's
+    salted ``hash``: the same ids in every process, so phase report-files
+    generates, trains and gates on the same tokens in every run."""
+    import zlib
+
+    from ctpa_torch.data.tokenizer import SimpleWordTokenizer
+
+    class StableWordTokenizer(SimpleWordTokenizer):
+        def _tok(self, word: str) -> int:
+            return self._reserved + zlib.crc32(word.encode()) % (self.vocab_size - self._reserved)
+
+    return StableWordTokenizer
+
+
+@contextlib.contextmanager
+def recording_decode():
+    """generate_report's SimpleWordTokenizer replaced by the stable one,
+    recording the ids of every ``decode`` (the CLI's generated tokens, in
+    item order); yields the list they go to."""
+    from ctpa_torch.cli import generate_report
+
+    plain, decoded = generate_report.SimpleWordTokenizer, []
+
+    class Recording(stable_word_tokenizer()):
+        def decode(self, ids):
+            decoded.append([int(i) for i in ids])
+            return super().decode(ids)
+
+    generate_report.SimpleWordTokenizer = Recording
+    try:
+        yield decoded
+    finally:
+        generate_report.SimpleWordTokenizer = plain
+
+
+@contextlib.contextmanager
+def recording_requests():
+    """generate_report's Request replaced by a function that records each
+    request's vision feature (in item order) and makes the request; yields
+    the list they go to."""
+    from ctpa_torch.cli import generate_report
+
+    plain, visions = generate_report.Request, []
+
+    def recording(**fields):
+        visions.append(fields["vision"])
+        return plain(**fields)
+
+    generate_report.Request = recording
+    try:
+        yield visions
+    finally:
+        generate_report.Request = plain
+
+
+def rf_results(out_dir: str) -> tuple[list, dict]:
+    with open(os.path.join(out_dir, "evaluation_results.json")) as f:
+        payload = json.load(f)
+    return payload["samples"], payload["metrics"]
+
+
+def rf_generate(dev, rows: dict, root: str, paths: dict, qmodel) -> str:
+    """generate_report.main at Meditron-7B width from the w8a8 bundle: the
+    launches of K4, K6 and K8, the predictions and metrics; then the CLI's
+    tokens teacher-forced through the bundle's model (the CLI's plain patch
+    embed), through the same tensors with the plain versions (quant_impl
+    "xla", flash_decode off) and through an fp32 model of the dequantized
+    weights, under quant-plain's gates; the give-back of the CLI's tokens
+    and the vision feature each request carried, each against a planted CLI
+    fault; then one item through --speculative.  -> the results JSON."""
+    import torch
+
+    from ctpa_torch.cli import generate_report
+    from ctpa_torch.core.config import CTViTConfig, PreprocessConfig
+    from ctpa_torch.data.datasets import ReportGenDataset
+    from ctpa_torch.ops import decode_attention as da
+    from ctpa_torch.ops import quant
+    from ctpa_torch.ops.preprocess import preprocess_volume_inference
+
+    argv = ["--jsonl", paths["gen"], "--serving-bundle", RF_BUNDLE, "--greedy",
+            "--max-new-tokens", str(RF_NEW_TOKENS), "--num-lanes", str(RF_LANES)]
+    out = os.path.join(root, "generated")
+    torch.cuda.synchronize()
+    for counts in (quant.LAUNCHES, da.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    t0 = time.perf_counter()
+    with recording_decode() as decoded, recording_requests() as visions:
+        rc = generate_report.main(argv + ["--out-dir", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {**{k: v for k, v in quant.LAUNCHES.items() if v}, **da.LAUNCHES}
+    samples, metrics = rf_results(out)
+    print(f"  generate_report.main (w8a8 bundle, {RF_ITEMS} items, {RF_LANES} lanes, "
+          f"{RF_NEW_TOKENS} greedy tokens; bundle load included): {wall:.2f} s; tokens "
+          f"{[r['tokens'] for r in samples]}; launches {launched}")
+    print("  metrics " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+    need = ("int8_matmul_a8", "int8_matmul_a8_prefill", "int8_ffn_a8", "int8_ffn_a8_prefill",
+            "decode_attention")
+    if rc != 0 or any(not launched.get(k) for k in need) or len(samples) != RF_ITEMS \
+            or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"generate_report: rc {rc}, launches {launched}, "
+                             f"{len(samples)} records, metrics {metrics}")
+    for key, n in launched.items():
+        rows[key]["launches"] += n
+
+    # the gates, teacher-forced on the CLI's tokens
+    t0 = time.perf_counter()
+    steps = min(len(t) for t in decoded[:RF_ITEMS])
+    tokens = torch.tensor([t[:steps] for t in decoded[:RF_ITEMS]], device=dev)
+    ds = ReportGenDataset(paths["gen"])
+    items = [ds[i] for i in range(RF_ITEMS)]
+    video = torch.stack([preprocess_volume_inference(it["volume"], PreprocessConfig.inference(),
+                                                     device=dev) for it in items])
+    toks = stable_word_tokenizer()(vocab_size=qmodel.llm_cfg.vocab_size)(
+        [it["prompt"] for it in items], max_length=64)
+    ids, mask = (torch.as_tensor(toks[k], device=dev).long()
+                 for k in ("input_ids", "attention_mask"))
+    cli = twin(qmodel, vit_cfg=CTViTConfig())
+    with torch.inference_mode():
+        vision = cli.extract_vision(video)
+        kernel = teacher_forced_logits(cli, video, ids, mask, tokens, vision)
+        plain = teacher_forced_logits(twin(cli, quant_impl="xla", flash_decode=False), video,
+                                      ids, mask, tokens, vision)
+        reference = dequantized_fp32(cli)
+        fp32 = teacher_forced_logits(reference, video, ids, mask, tokens)
+        del reference
+        # planted CLI faults, over their first RF_FAULT_STEPS steps: the
+        # tokens a CLI that drops the prompt's first token would emit, and
+        # the records of a CLI that gives each item its neighbour's lane (not
+        # gated by the give-back: the seeded model's tokens hang on the
+        # prompt far more than on the vision feature)
+        pad = torch.zeros_like(ids[:, :1])
+        shifted = teacher_forced_logits(cli, video, torch.cat([ids[:, 1:], pad], 1),
+                                        torch.cat([mask[:, 1:], pad], 1), None, vision,
+                                        RF_FAULT_STEPS)
+        give_back = {label: (teacher_forced_logits(cli, video, ids, mask, t, vision).argmax(-1)
+                             == t).float().mean().item()
+                     for label, t in (("prompt shifted", shifted.argmax(-1)),
+                                      ("neighbour lane", tokens.roll(1, 0)[:, :RF_FAULT_STEPS]))}
+        del shifted
+    again = (kernel.argmax(-1) == tokens).float().mean().item()
+    again_first = (kernel.argmax(-1) == tokens)[:, :RF_FAULT_STEPS].float().mean().item()
+    # the vision feature each request carried against the twin's for its item
+    # (the twin extracts at batch RF_ITEMS, the CLI one item at a time)
+    carried, own = torch.stack(visions[:RF_ITEMS]).float(), vision.float()
+
+    def vision_err(v) -> float:
+        return ((v - own).flatten(1).abs().amax(1) / own.flatten(1).abs().amax(1)).max().item()
+
+    v_err, v_fault = vision_err(carried), vision_err(carried.roll(1, 0))
+    p_f = logit_distance(plain, fp32)
+    print(f"  the CLI's {tokens.numel()} (item, step) tokens, teacher-forced: the bundle's "
+          f"kernel path gives {again:.4f} of them back (>= {RF_GIVE_BACK_MIN}); over the first "
+          f"{RF_FAULT_STEPS} steps {again_first:.4f}, and planted, the prompt shifted by one "
+          f"token {give_back['prompt shifted']:.4f} (< {RF_GIVE_BACK_MIN}), each item given its "
+          f"neighbour's lane {give_back['neighbour lane']:.4f} (not gated)")
+    print(f"  the vision feature each request carried: max |diff| / max |feature| from the "
+          f"twin's for its item {v_err:.3e} (<= {RF_VISION_RTOL}); planted, its neighbour's "
+          f"{v_fault:.3e} (> {RF_VISION_RTOL})")
+    print("  worst max |diff| / max |logit| per step, mean |diff|, top-1")
+    print(f"    {'plain vs fp32':<30} {p_f[0]:.4f}  {p_f[1]:.5f}  {p_f[2]:.4f}")
+    ok = report_gate("generate_report w8a8", kernel, plain, fp32, p_f, ratio=QUANT_FP32_RATIO,
+                     slack=QUANT_FP32_TOP1_SLACK, top1_min=QUANT_TOP1_MIN)
+    if not ok or again < RF_GIVE_BACK_MIN or v_err > RF_VISION_RTOL:
+        raise AssertionError("generate_report's kernel path fails the plain path's gates")
+    if give_back["prompt shifted"] >= RF_GIVE_BACK_MIN or v_fault <= RF_VISION_RTOL:
+        raise AssertionError(f"a planted CLI fault passes: give-back {give_back}, vision "
+                             f"{v_fault:.3e}")
+    print(f"  gates: {time.perf_counter() - t0:.2f} s")
+    del kernel, plain, fp32, cli
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    spec_out = os.path.join(root, "speculative")
+    spec_argv = argv[:argv.index("--max-new-tokens")] + ["--max-new-tokens", str(RF_SPEC_TOKENS)]
+    with recording_decode() as spec_tokens:
+        rc = generate_report.main(spec_argv + ["--speculative", str(RF_SPEC_K), "--max-samples",
+                                               "1", "--out-dir", spec_out])
+    spec, spec_metrics = rf_results(spec_out)
+    first = next((j for j, (a, b) in enumerate(zip(spec_tokens[0], decoded[0])) if a != b), None)
+    print(f"  generate_report.main --speculative {RF_SPEC_K} (1 item, {RF_SPEC_TOKENS} tokens; "
+          f"bundle load included): {time.perf_counter() - t0:.2f} s; {spec[0]['tokens']} tokens "
+          f"in {spec[0]['verify_steps']} verifies; the batcher's tokens "
+          f"{'throughout' if first is None else f'up to position {first}'} (not gated: the "
+          f"verify's 5-row forms and dense attention round otherwise than the decode steps)")
+    if rc != 0 or spec[0]["tokens"] < 1 or spec[0]["verify_steps"] < 1 \
+            or not all(math.isfinite(v) for v in spec_metrics.values()):
+        raise AssertionError(f"generate_report --speculative: rc {rc}, {spec}")
+    torch.cuda.empty_cache()
+    return os.path.join(out, "evaluation_results.json")
+
+
+BERT_LAYER_SHAPES = {"attention.self.query": "hh", "attention.self.key": "hh",
+                     "attention.self.value": "hh", "attention.output.dense": "hh",
+                     "intermediate.dense": "ih", "output.dense": "hi"}
+
+
+def bert_snapshot(root: str, gen) -> str:
+    """A seeded BERT at BertConfig() geometry (CXR-BERT's) as a local HF
+    snapshot: every tensor in one BF16 safetensors shard (normal(0,
+    RF_BERT_STD), LayerNorm gains 1), and a BERT WordPiece tokenizer as
+    files (vocab.txt and tokenizer_config.json, as a hub snapshot has them;
+    transformers 5 drops the vocabulary of a tokenizer built from
+    ``vocab_file`` and saved, so nothing is built here)."""
+    import torch
+
+    from ctpa_torch.core.config import BertConfig
+
+    cfg = BertConfig()
+    dims = {"h": cfg.hidden_size, "i": cfg.intermediate_size}
+    shapes = {"embeddings.word_embeddings.weight": (cfg.vocab_size, cfg.hidden_size),
+              "embeddings.position_embeddings.weight": (cfg.max_position_embeddings,
+                                                        cfg.hidden_size),
+              "embeddings.token_type_embeddings.weight": (cfg.type_vocab_size, cfg.hidden_size),
+              "embeddings.LayerNorm.weight": (cfg.hidden_size,),
+              "embeddings.LayerNorm.bias": (cfg.hidden_size,)}
+    for i in range(cfg.num_layers):
+        for name, (o, n) in BERT_LAYER_SHAPES.items():
+            shapes[f"encoder.layer.{i}.{name}.weight"] = (dims[o], dims[n])
+            shapes[f"encoder.layer.{i}.{name}.bias"] = (dims[o],)
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            shapes[f"encoder.layer.{i}.{ln}.weight"] = (cfg.hidden_size,)
+            shapes[f"encoder.layer.{i}.{ln}.bias"] = (cfg.hidden_size,)
+    snap = os.path.join(root, "cxr_bert")
+    os.makedirs(snap)
+    header, blobs, offset = {}, [], 0
+    for name, shape in shapes.items():
+        value = (torch.ones(shape, device=gen.device) if name.endswith("LayerNorm.weight")
+                 else RF_BERT_STD * torch.randn(shape, generator=gen, device=gen.device))
+        raw = value.to(torch.bfloat16).view(torch.int16).cpu().numpy().tobytes()
+        header[name] = {"dtype": "BF16", "shape": list(shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    text = json.dumps(header).encode()
+    with open(os.path.join(snap, "model.safetensors"), "wb") as f:
+        f.write(len(text).to_bytes(8, "little") + text + b"".join(blobs))
+    with open(os.path.join(snap, "vocab.txt"), "w") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *RF_WORDS]) + "\n")
+    with open(os.path.join(snap, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "BertTokenizer", "do_lower_case": True,
+                   "model_max_length": cfg.max_position_embeddings}, f)
+    return snap
+
+
+def rf_evaluate(dev, root: str, results: str) -> None:
+    """evaluate.main nlg on generate_report's results with BERTScore from a
+    BF16 CXR-BERT-geometry snapshot (IDF weighted), then --compute-baseline
+    over the references and predictions."""
+    import numpy as np
+    import torch
+
+    from ctpa_torch.cli import evaluate
+    from ctpa_torch.data.hf_import import load_safetensors
+
+    t0 = time.perf_counter()
+    snap = bert_snapshot(root, torch.Generator(device=dev).manual_seed(SEED + 31))
+    st = load_safetensors(os.path.join(snap, "model.safetensors"))
+    word = st["embeddings.word_embeddings.weight"]
+    print(f"  BF16 snapshot: {len(st)} tensors, {sum(v.size for v in st.values()) / 1e6:.1f} M "
+          f"values, {os.path.getsize(os.path.join(snap, 'model.safetensors')) / 1e6:.1f} MB, "
+          f"read as {word.dtype}; written and read back in {time.perf_counter() - t0:.2f} s")
+    if word.dtype != np.float32 or np.any(word.view(np.uint32) & 0xFFFF):
+        raise AssertionError("the BF16 shard did not read as its bf16 values in fp32")
+    del st, word
+    from ctpa_torch.data.tokenizer import HFTokenizer
+
+    ids = HFTokenizer(snap, max_length=8)([" ".join(RF_WORDS[:3])])["input_ids"][0].tolist()
+    if ids != [2, 5, 6, 7, 3, 0, 0, 0]:
+        raise AssertionError(f"the snapshot's tokenizer gives {ids} for {RF_WORDS[:3]}")
+    samples, _ = rf_results(os.path.dirname(results))
+    corpus = os.path.join(root, "corpus.txt")
+    with open(corpus, "w") as f:
+        f.write("\n".join(r[k] for r in samples for k in ("reference", "prediction")) + "\n")
+    outputs = {}
+    for label, argv in (("nlg --idf", ["nlg", "--results", results, "--encoder-path", snap,
+                                       "--idf"]),
+                        ("nlg --compute-baseline", ["nlg", "--compute-baseline",
+                                                    "--encoder-path", snap, "--corpus", corpus,
+                                                    "--baseline-out",
+                                                    os.path.join(root, "baseline.json")])):
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = evaluate.main(argv)
+        torch.cuda.synchronize()
+        outputs[label] = json.loads(buf.getvalue())
+        print(f"  evaluate.main {label}: {time.perf_counter() - t0:.2f} s; "
+              + ", ".join(f"{k} {v:.4f}" for k, v in outputs[label].items()))
+        if rc != 0 or not all(math.isfinite(v) for v in outputs[label].values()):
+            raise AssertionError(f"evaluate {label}: rc {rc}, {outputs[label]}")
+    if not 0 < outputs["nlg --idf"].get("bertscore_f1", 0) < 1:
+        raise AssertionError("evaluate nlg gave no BERTScore")
+
+
+def rf_train(dev, rows: dict, paths: dict, root: str, model) -> None:
+    """train_report's pieces at Meditron-7B width with --flash-prefill on the
+    report phase's bf16 base (LoRA rank 16; trainable tensors fp32): its
+    loader (batch 2 x 512 tokens) and eval_fn, and a ReportTrainer epoch of
+    partitioned steps; the first step's loss against the dense path's on
+    the same state and batch (report-train-plain's loss gate)."""
+    import torch
+
+    from ctpa_torch.cli import train_report
+    from ctpa_torch.core.config import TrainConfig
+    from ctpa_torch.data.datasets import ReportGenDataset
+    from ctpa_torch.ops.flash_attention import LAUNCHES
+    from ctpa_torch.train.report_trainer import ReportTrainer, make_partitioned_report_step
+    from ctpa_torch.train.train_state import SimpleTrainState
+
+    t0 = time.perf_counter()
+    start = report_train_start(model, dev, seed=SEED + 32)
+    kernel_m = report_train_model(model, start)
+    tok = stable_word_tokenizer()(vocab_size=model.llm_cfg.vocab_size, max_length=512)
+    train_ds, val_ds = ReportGenDataset(paths["train"]), ReportGenDataset(paths["val"])
+    loader = train_report.make_loader(train_ds, tok, 2, 512)
+    first = {k: torch.as_tensor(v).to(dev) for k, v in next(loader()).items()}
+    lens = first["attention_mask"].sum(-1).tolist()
+    with torch.no_grad():
+        dense = report_train_model(model, start, flash_prefill=False)
+        ref_loss = float(dense.loss(first["video"], first["input_ids"], first["attention_mask"]))
+        del dense
+    steps = RF_TRAIN_ITEMS // 2
+    step_fn, tx = make_partitioned_report_step(kernel_m, kernel_m.gen_cfg, total_steps=steps)
+    trainer = ReportTrainer(
+        kernel_m, SimpleTrainState.create(kernel_m, tx), tx,
+        cfg=TrainConfig(results_dir=os.path.join(root, "train_results"),
+                        checkpoint_dir=os.path.join(root, "train_checkpoints")),
+        eval_fn=train_report.make_eval_fn(kernel_m, tok, val_ds, kernel_m.gen_cfg),
+        step_fn=step_fn)
+    torch.cuda.synchronize()
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t1 = time.perf_counter()
+    res = trainer.train_epoch(loader(), 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    trainer.close()
+    hist = trainer.metrics.history
+    losses = [v for _, v in hist["loss"]]
+    launched = {k: LAUNCHES[k] for k in REPORT_TRAIN_KERNELS}
+    val = {k.removeprefix("val/"): v[-1][1] for k, v in hist.items() if k.startswith("val/")}
+    print(f"  train_report pieces (--flash-prefill, batch 2 x 512, real lengths {lens}): "
+          f"{steps} steps and eval_fn in {wall:.2f} s (set-up {t1 - t0:.2f} s); losses "
+          f"{[round(x, 6) for x in losses]}, dense path's first {ref_loss:.6f} (|diff| "
+          f"{abs(losses[0] - ref_loss):.2e} <= {REPORT_TRAIN_LOSS_ATOL}); val composite "
+          f"{val.get('composite', float('nan')):.4f}; checkpoints {trainer.ckpt.all_steps()}; "
+          f"launches {launched}")
+    expect = model.llm_cfg.num_layers * steps
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses) \
+            or abs(losses[0] - ref_loss) > REPORT_TRAIN_LOSS_ATOL \
+            or any(n != expect for n in launched.values()) or "composite" not in val \
+            or trainer.ckpt.all_steps() != [steps, steps + 1] \
+            or not math.isfinite(res["mean_loss"]):
+        raise AssertionError(f"train_report pieces: losses {losses} vs {ref_loss}, launches "
+                             f"{launched} (expected {expect} each), val {val}")
+    for name, n in launched.items():
+        rows[name + ("_d128" if name == "flash_attention_bwd_delta" else "")]["launches"] += n
+    del trainer, kernel_m, step_fn, tx, first
+    torch.cuda.empty_cache()
+
+
+def rf_tiny(dev, root: str, paths: dict) -> None:
+    """The three CLIs' main() at --tiny on the card: train_report (an epoch,
+    then its VQA mode), generate_report from that checkpoint directory (its
+    base.pt and latest step), evaluate nlg on the results."""
+    import torch
+
+    from ctpa_torch.cli import evaluate, generate_report, train_report
+
+    t0 = time.perf_counter()
+    ckpt, res, gen = (os.path.join(root, f"tiny_{n}") for n in ("ckpt", "results", "generated"))
+    common = ["--tiny", "--epochs", "1", "--max-length", "32"]
+    rcs = [train_report.main(["--train-jsonl", paths["tiny_train"], "--val-jsonl",
+                              paths["tiny_val"], "--checkpoint-dir", ckpt, "--results-dir", res,
+                              *common]),
+           train_report.main(["--train-jsonl", paths["tiny_vqa"], "--mode", "vqa",
+                              "--checkpoint-dir", ckpt + "_vqa", "--results-dir", res + "_vqa",
+                              *common]),
+           generate_report.main(["--jsonl", paths["tiny_val"], "--tiny", "--checkpoint-dir", ckpt,
+                                 "--greedy", "--max-new-tokens", "8", "--out-dir", gen])]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rcs.append(evaluate.main(["nlg", "--results",
+                                  os.path.join(gen, "evaluation_results.json")]))
+    torch.cuda.synchronize()
+    metrics = json.loads(buf.getvalue())
+    print(f"  --tiny on the card: train_report (report, vqa), generate_report, evaluate: exit "
+          f"codes {rcs}, {time.perf_counter() - t0:.2f} s; checkpoint directory "
+          f"{sorted(os.listdir(ckpt))}; composite {metrics['composite']:.4f}")
+    if any(rcs) or "base.pt" not in os.listdir(ckpt):
+        raise AssertionError(f"--tiny CLIs: exit codes {rcs}")
+
+
+def rf_vqa(dev) -> None:
+    """MedicalVQAModel at BertConfig() width with the shipped CTViT patch
+    embed (LoRA rank 16 on the BERT q/k/v), seeded: logits, loss, one
+    make_vqa_optimizer step and a short greedy generate."""
+    import torch
+
+    from ctpa_torch.core.config import BertConfig, CTViTConfig
+    from ctpa_torch.core.init import random_init_
+    from ctpa_torch.models.vqa_bert import MedicalVQAModel, make_vqa_optimizer
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+    bert, vit = BertConfig(), CTViTConfig()
+    model = random_init_(MedicalVQAModel(bert, vit, lora_rank=16, lora_alpha=32.0, device=dev),
+                         gen)
+    video = torch.rand(1, 1, vit.temporal_size, vit.image_size, vit.image_size, generator=gen,
+                       device=dev) * 2 - 1
+    ids = torch.randint(1, bert.vocab_size, (1, 24), generator=gen, device=dev)
+    mask = torch.ones_like(ids)
+    opt = make_vqa_optimizer(model)
+    logits = model(video, ids, mask)
+    loss = model.loss(video, ids, mask)
+    loss.backward()
+    opt.step(0)
+    out, lengths = model.generate(video, ids[:, :16], mask[:, :16], 4, sep_token_id=102)
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for p in opt.params)
+    print(f"  MedicalVQAModel (BertConfig(), CTViTConfig() patch embed): "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters, "
+          f"{n_train / 1e6:.2f} M trainable; logits {tuple(logits.shape)}, loss "
+          f"{loss.item():.4f}, generated {out[0, 16:].tolist()}; {time.perf_counter() - t0:.2f} s")
+    if tuple(logits.shape) != (1, 24, bert.vocab_size) or not torch.isfinite(logits).all() \
+            or not math.isfinite(loss.item()) or not 16 < int(lengths[0]) <= 20 \
+            or not all(torch.isfinite(p).all() for p in opt.params):
+        raise AssertionError("MedicalVQAModel at BertConfig() width")
+    del model, opt, logits, loss
+    torch.cuda.empty_cache()
+
+
+def report_files(dev, rows: dict, model, qmodel, card: str) -> None:
+    """Phase report-files: the report workload a user runs from files, in a
+    temporary directory; ``card`` is nvidia-smi's name and power limit."""
+    import tempfile
+
+    print(f"  on {card}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_report_files_") as root:
+        t0 = time.perf_counter()
+        paths = rf_write_files(root, dev)
+        print(f"  files: {time.perf_counter() - t0:.2f} s")
+        results = rf_generate(dev, rows, root, paths, qmodel)
+        rf_evaluate(dev, root, results)
+        rf_train(dev, rows, paths, root, model)
+        rf_tiny(dev, root, paths)
+        rf_vqa(dev)
+
+
 def main() -> int:
     import torch
 
@@ -4435,6 +5015,8 @@ def main() -> int:
         os.remove(base)
     with phase("quant8-plain"):
         quant_plain(model, qmodels, inputs, qtokens, qvision)
+    with phase("report-files"):
+        report_files(dev, rows, model, qmodels["w8a8"], smi)
     shutil.rmtree(QUANT_DIR, ignore_errors=True)
     del inputs, qmodels, qtokens, qvision
     torch.cuda.empty_cache()

@@ -3,15 +3,17 @@ a trained report-generator checkpoint once, offline, and store the quantized
 state with the serving configuration it was prepared for, so serving loads it
 directly (``load_serving_bundle``) instead of quantizing at every start.
 
-    python -m ctpa_torch.cli.export_serving --checkpoint-dir CKPT --base BASE.pt \\
-        --out BUNDLE --quant int4 --ffn-kernel --act-quant --kv-quant int8 --flash-decode
+    python -m ctpa_torch.cli.export_serving --checkpoint-dir CKPT --out BUNDLE \\
+        --quant int4 --ffn-kernel --act-quant --kv-quant int8 --flash-decode [--base BASE.pt]
 
 The port's report checkpoints hold only the tensors the fine-tune trained
 (LoRA adapters and cross-attention; ``train/train_state.py``:
-``SimpleTrainState``), not the frozen base, which ctpa writes into every
-checkpoint.  So ``--base`` names a ``torch.save``d ``state_dict`` of the
-``CTReportGenerator`` the fine-tune started from; the trained tensors replace
-their entries, the LoRA deltas are merged, and the projections quantized
+``SimpleTrainState``); the frozen base, which ctpa writes into every
+checkpoint, lies once beside them as ``CKPT/base.pt``
+(``cli/train_report.py``; ``core/checkpoint.py:load_base``).  ``--base``
+names another ``torch.save``d ``state_dict`` of the ``CTReportGenerator`` the
+fine-tune started from, in its place.  The trained tensors replace their
+entries, the LoRA deltas are merged, and the projections quantized
 (``ops/quant.py:quantize_tree``), on ``--device`` (the card by default).
 The bundle's metadata has ctpa's keys, so the loader cannot pair int4
 weights with an int8 model or the other way round.
@@ -35,10 +37,11 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--checkpoint-dir", required=True,
                    help="report-training checkpoints (the trained tensors only)")
-    p.add_argument("--base", required=True,
+    p.add_argument("--base", default=None,
                    help="torch.save'd state_dict of the CTReportGenerator the fine-tune "
-                        "started from: the port's checkpoints do not hold the frozen base "
-                        "(ctpa's do, so its export has no such flag)")
+                        "started from (default: the base.pt that train_report writes into "
+                        "--checkpoint-dir; ctpa's checkpoints hold the base, so its export "
+                        "has no such flag)")
     p.add_argument("--out", required=True, help="bundle output directory")
     p.add_argument("--step", type=int, default=None,
                    help="checkpoint step to export (default: latest)")
@@ -61,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    from ctpa_torch.core.checkpoint import CheckpointManager
+    from ctpa_torch.core.checkpoint import CheckpointManager, load_base
     from ctpa_torch.core.config import LoRAConfig
     from ctpa_torch.ops.quant import quantize_tree
 
@@ -72,7 +75,8 @@ def main(argv=None) -> int:
         print("no checkpoint found", file=sys.stderr)
         return 1
     trained = state["params"] if isinstance(state, dict) and "params" in state else state
-    full = torch.load(args.base, map_location=args.device, weights_only=True, mmap=True)
+    full = (load_base(args.checkpoint_dir, map_location=args.device) if args.base is None
+            else torch.load(args.base, map_location=args.device, weights_only=True, mmap=True))
     full.update(trained)
     lora = LoRAConfig(rank=args.lora_rank, alpha=args.lora_alpha) if args.lora_rank > 0 else None
     with torch.no_grad():

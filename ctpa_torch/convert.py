@@ -22,7 +22,11 @@ module.  The layout rules:
 * the LLM's RMSNorm ``weight`` and LoRA's (in, r) ``lora_a`` and (r, out)
   ``lora_b`` keep their names and layout, so a report generator's tree
   with trained adapters, its ``cross_attention`` and the vision
-  ``proj``/``norm`` converts whole (``tests/test_torch_report_train.py``).
+  ``proj``/``norm`` converts whole (``tests/test_torch_report_train.py``);
+  so do BERT's adapters, which ctpa keeps beside the projections
+  (``attention_self/query_lora_a`` and ``_b``, the same for ``key`` and
+  ``value``) and the port as parameters of ``BertSelfAttention``
+  (``layers.i.attention_self.query_lora_a``).
 
 ``load_flax_params`` is strict: an unused flax leaf, a missing torch entry
 or a shape mismatch raises.  ``overlay_flax_params`` grafts a partial tree
@@ -128,7 +132,9 @@ def overlay_flax_params(module: nn.Module, params: dict, allow_missing: bool = F
     ``strict=False``) a subtree or leaf the module does not have, or a leaf
     of another shape, is skipped, else it raises.  Returns the skipped
     entries as ``overlay_base`` names them ("/a/b", "/a/b/c (shape s vs d)",
-    flax layouts), and logs them as it does."""
+    flax layouts), and logs them as it does.  Each leaf of ``params`` is set
+    to None once it is copied onto the module's device: every caller passes
+    a tree it does not read again."""
     own = module.state_dict()
     prefixes = {".".join(key.split(".")[:i]) for key in own for i in range(1, key.count(".") + 1)}
     skipped: list[str] = []
@@ -163,6 +169,8 @@ def overlay_flax_params(module: nn.Module, params: dict, allow_missing: bool = F
                      ValueError(f"shape mismatch at {flat}: {d} vs {value.shape}"))
                 continue
             state[key] = _as_param(key, tval, ref)
+            del value, tval
+            tree[name] = None
 
     walk(params, ())
     module.load_state_dict(state, strict=False)

@@ -5,6 +5,12 @@ CLIP trainer uses on ``torch.save``/``torch.load``: one ``<step>/state.pt``
 per step under the directory, the newest ``max_to_keep`` kept.  Writes are
 synchronous, so ``wait`` and ``close`` have nothing to do.  A step may
 carry JSON metadata (``metadata.json`` beside its state), as ctpa's.
+
+The report trainer's steps hold only the tensors it trains; the frozen base
+they were trained on is written once per run beside them, as ``base.pt``
+in the same directory (``save_base``; ``cli/train_report.py``), where
+``cli/generate_report.py`` and ``cli/export_serving.py`` read it
+(``load_base``).  ctpa writes the whole tree into every step instead.
 """
 
 from __future__ import annotations
@@ -18,6 +24,28 @@ import torch
 
 _STATE = "state.pt"
 _METADATA = "metadata.json"
+BASE = "base.pt"
+
+
+def save_base(directory: str, state: dict) -> str:
+    """Write a run's frozen base (a ``state_dict``) as ``<directory>/base.pt``;
+    returns the path."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(os.path.abspath(directory), BASE)
+    torch.save(state, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    return path
+
+
+def load_base(directory: str, map_location=None) -> dict:
+    """The frozen base written by ``save_base`` into ``directory``.  A
+    directory without one raises FileNotFoundError naming the file: a
+    trained step alone does not make a model."""
+    path = os.path.join(os.path.abspath(directory), BASE)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{path}: no frozen base beside the checkpoints (the report "
+                                "trainer's steps hold only the trained tensors)")
+    return torch.load(path, map_location=map_location, weights_only=True, mmap=True)
 
 
 class CheckpointManager:

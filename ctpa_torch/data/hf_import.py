@@ -366,12 +366,14 @@ def import_report_generator(sd: Mapping[str, Array], llm_cfg: LLMConfig) -> dict
 
 
 # safetensors dtype codes -> numpy (little-endian), the set
-# ``safetensors.numpy`` maps; BF16 and the F8 types have no numpy dtype
-# (the package reads BF16 only where ml_dtypes has registered one)
+# ``safetensors.numpy`` maps, plus BF16, which it reads wherever ml_dtypes has
+# registered a bfloat16 with numpy (a JAX process, as ctpa's): here BF16 is
+# widened exactly to fp32, the value ctpa casts it to.  The F8 codes (F8_E4M3,
+# F8_E5M2) stay refused: ctpa's reader has no numpy dtype for them either.
 _ST_DTYPES = {
     "F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8", "U64": "<u8",
     "I32": "<i4", "U32": "<u4", "I16": "<i2", "U16": "<u2", "I8": "i1", "U8": "u1",
-    "BOOL": "?", "C64": "<c8",
+    "BOOL": "?", "C64": "<c8", "BF16": "<u2",
 }
 
 
@@ -379,7 +381,9 @@ def load_safetensors(path: str) -> dict:
     """One ``*.safetensors`` file -> name -> numpy array, without the
     ``safetensors`` package: an 8-byte little-endian header length, the JSON
     header ({name: {dtype, shape, data_offsets}}, offsets relative to the
-    end of the header), then each tensor's bytes."""
+    end of the header), then each tensor's bytes.  A BF16 tensor comes back
+    as fp32 (its 16 bits become the high half of an fp32, which is exact),
+    so it takes twice its size in memory."""
     out: dict[str, np.ndarray] = {}
     with open(path, "rb") as f:
         (n,) = np.frombuffer(f.read(8), "<u8")
@@ -399,7 +403,10 @@ def load_safetensors(path: str) -> dict:
                 raise ValueError(f"{path}: tensor {name!r} spans {end - begin} bytes, "
                                  f"not {count} x {dtype.itemsize}")
             f.seek(base + begin)
-            out[name] = np.fromfile(f, dtype, count).reshape(info["shape"])
+            value = np.fromfile(f, dtype, count)
+            if code == "BF16":
+                value = (value.astype("<u4") << 16).view("<f4")
+            out[name] = value.reshape(info["shape"])
     return out
 
 

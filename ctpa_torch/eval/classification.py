@@ -5,16 +5,19 @@ point, bootstrap confidence intervals (port of
 ctpa computes these with sklearn and returns DataFrames; the card's machine
 has neither sklearn nor pandas, so here they are numpy and the results are
 plain tables: dicts of columns (lists) with ctpa's column names in ctpa's
-order.  AUROC is the Mann-Whitney statistic with average ranks for ties,
-which equals sklearn's trapezoidal ROC area; ``roc_curve`` is sklearn's
-(``drop_intermediate=True``, a leading ``inf`` threshold), so the Youden
-threshold is the one ctpa picks.  The ROC/PR plots are drawn when
-``matplotlib`` imports and skipped, with a note on stderr, where it does not;
-every number is computed either way.
+order.  ``roc_curve`` is sklearn's (``drop_intermediate=True``, a leading
+``inf`` threshold), so the Youden threshold is the one ctpa picks, and AUROC
+is sklearn's trapezoidal area under it, computed as ``numpy.trapz`` does, so
+it equals ctpa's bit for bit and the tables write the same bytes.
+``table_json`` prints a table as pandas' ``DataFrame.to_json()`` does.  The
+ROC/PR plots are drawn when ``matplotlib`` imports and skipped, with a note
+on stderr, where it does not; every number is computed either way.
 """
 
 from __future__ import annotations
 
+import json
+import math
 import os
 import sys
 from typing import Optional, Sequence
@@ -22,29 +25,13 @@ from typing import Optional, Sequence
 import numpy as np
 
 
-def _rank_average(x: np.ndarray) -> np.ndarray:
-    """1-based ranks, ties sharing the average of their ranks."""
-    order = np.argsort(x, kind="mergesort")
-    xs = x[order]
-    starts = np.r_[0, np.flatnonzero(np.diff(xs)) + 1]
-    ends = np.r_[starts[1:], len(xs)]
-    avg = (starts + ends + 1) / 2.0           # mean of ranks start+1 .. end
-    ranks = np.empty(len(x), np.float64)
-    ranks[order] = np.repeat(avg, ends - starts)
-    return ranks
-
-
 def roc_auc(y_true: np.ndarray, y_score: np.ndarray) -> float:
     """Area under the ROC curve of the scores against 0/1 labels; NaN when
     the labels hold one class."""
-    y_true = np.asarray(y_true)
-    if len(np.unique(y_true)) < 2:
+    if len(np.unique(np.asarray(y_true))) < 2:
         return float("nan")
-    pos = y_true == 1
-    n_pos = int(pos.sum())
-    n_neg = len(y_true) - n_pos
-    ranks = _rank_average(np.asarray(y_score, np.float64))
-    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
+    fpr, tpr, _ = roc_curve(y_true, y_score)
+    return float((np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2.0).sum())
 
 
 def _binary_clf_curve(y_true, y_score):
@@ -205,3 +192,39 @@ def accuracy_f1_at_youden(predictions: np.ndarray, labels: np.ndarray,
 def table_rows(table: dict[str, list]) -> list[dict]:
     """A dict of columns as rows, for ``data.manifests.write_csv``."""
     return [dict(zip(table, vals)) for vals in zip(*table.values())]
+
+
+def _json_float(value: float) -> str:
+    """A float as pandas' ujson writes it at ``double_precision=10``: fixed
+    point with at most 10 decimals (the last rounded half to odd, trailing
+    zeros dropped, at least one), ``%.10g`` below 1e-15 or from 1e16 on,
+    ``null`` for NaN."""
+    if math.isnan(value):
+        return "null"
+    if math.isinf(value):
+        raise ValueError("pandas refuses an infinite value in to_json")
+    neg, value = value < 0, abs(value)
+    if value > 1e16 - 1 or (value != 0.0 and value < 1e-15):
+        return "%.10g" % (-value if neg else value)
+    whole = int(value)
+    tmp = (value - whole) * 1e10
+    frac = int(tmp)
+    diff = tmp - frac
+    if diff > 0.5 or (diff == 0.5 and (frac == 0 or frac & 1)):
+        frac += 1
+    if frac >= 10 ** 10:
+        frac, whole = 0, whole + 1
+    text = f"{whole}." + (f"{frac:010d}".rstrip("0") or "0")
+    return "-" + text if neg else text
+
+
+def table_json(table: dict[str, list]) -> str:
+    """``pd.DataFrame(table).to_json()`` (orient "columns", a RangeIndex) for
+    a table of float columns."""
+    def key(name):
+        return json.dumps(str(name)).replace("/", "\\/")
+
+    cols = (f"{key(name)}:{{" + ",".join(f'"{i}":{_json_float(float(v))}'
+                                          for i, v in enumerate(vals)) + "}"
+            for name, vals in table.items())
+    return "{" + ",".join(cols) + "}"

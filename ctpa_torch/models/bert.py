@@ -1,8 +1,14 @@
 """BERT text encoder (port of ``ctpa/models/bert.py``), HF BertModel geometry.
 Attention is plain scaled dot-product with fp32 scores and softmax; no
 hand-written kernel is involved.  Parameters are cast to the compute dtype
-at use (``models/layers.py``).  ``remat`` recomputes each layer in the backward, as
-ctpa's ``nn.remat``.  LoRA overlays and the MLM head belong to later slices."""
+at use (``models/layers.py``).  ``remat`` recomputes each layer in the
+backward, as ctpa's ``nn.remat``.  ``lora_rank > 0`` adds LoRA deltas on the
+query, key and value projections, ``W x + b + (alpha / rank) (x A) B``, as
+ctpa's (the VQA model's peft r=16, alpha=32): A (in, rank) ~ N(0, 1/rank)
+and B (rank, out) zero, both fp32, held beside the projections as
+``query_lora_a`` / ``query_lora_b`` and so on, ctpa's names, so the HF
+import and the converter are unchanged.  The MLM head belongs to a later
+slice."""
 
 from __future__ import annotations
 
@@ -41,19 +47,33 @@ class BertEmbeddings(nn.Module):
 
 
 class BertSelfAttention(nn.Module):
-    def __init__(self, cfg: BertConfig, device=None, dtype=None):
+    def __init__(self, cfg: BertConfig, device=None, dtype=None, lora_rank: int = 0,
+                 lora_alpha: float = 1.0):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
+        hs = cfg.hidden_size
         self.heads = cfg.num_heads
-        self.query = Dense(cfg.hidden_size, cfg.hidden_size, **fk)
-        self.key = Dense(cfg.hidden_size, cfg.hidden_size, **fk)
-        self.value = Dense(cfg.hidden_size, cfg.hidden_size, **fk)
+        self.lora_rank, self.lora_alpha = lora_rank, lora_alpha
+        for name in ("query", "key", "value"):
+            setattr(self, name, Dense(hs, hs, **fk))
+            if lora_rank > 0:
+                setattr(self, f"{name}_lora_a", nn.Parameter(
+                    torch.randn(hs, lora_rank, device=device) / lora_rank))
+                setattr(self, f"{name}_lora_b", nn.Parameter(
+                    torch.zeros(lora_rank, hs, device=device)))
+
+    def _proj(self, x, name: str):
+        y = getattr(self, name)(x)
+        if self.lora_rank > 0:
+            a, b = getattr(self, f"{name}_lora_a"), getattr(self, f"{name}_lora_b")
+            y = y + (x @ a.to(x.dtype)) @ b.to(x.dtype) * (self.lora_alpha / self.lora_rank)
+        return y
 
     def forward(self, x, attn_bias):
         b, n, hidden = x.shape
         dh = hidden // self.heads
-        q, k, v = (t.reshape(b, n, self.heads, dh).transpose(1, 2)
-                   for t in (self.query(x), self.key(x), self.value(x)))
+        q, k, v = (self._proj(x, name).reshape(b, n, self.heads, dh).transpose(1, 2)
+                   for name in ("query", "key", "value"))
         # fp32 scores from the compute-dtype q and k (preferred_element_type)
         sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(dh) + attn_bias
         attn = torch.softmax(sim, dim=-1).to(v.dtype)
@@ -61,11 +81,13 @@ class BertSelfAttention(nn.Module):
 
 
 class BertLayer(nn.Module):
-    def __init__(self, cfg: BertConfig, device=None, dtype=None):
+    def __init__(self, cfg: BertConfig, device=None, dtype=None, lora_rank: int = 0,
+                 lora_alpha: float = 1.0):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         hs, eps = cfg.hidden_size, cfg.layer_norm_eps
-        self.attention_self = BertSelfAttention(cfg, **fk)
+        self.attention_self = BertSelfAttention(cfg, **fk, lora_rank=lora_rank,
+                                                lora_alpha=lora_alpha)
         self.attention_output_dense = Dense(hs, hs, **fk)
         self.attention_output_LayerNorm = AffineLayerNorm(hs, eps=eps, **fk)
         self.intermediate_dense = Dense(hs, cfg.intermediate_size, **fk)
@@ -82,13 +104,16 @@ class BertLayer(nn.Module):
 class BertEncoder(nn.Module):
     """forward(input_ids, attention_mask) -> (last_hidden_state, CLS embedding)."""
 
-    def __init__(self, cfg: BertConfig, device="cuda", dtype=torch.float32, remat: bool = False):
+    def __init__(self, cfg: BertConfig, device="cuda", dtype=torch.float32, remat: bool = False,
+                 lora_rank: int = 0, lora_alpha: float = 1.0):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.remat = remat
         self.embeddings = BertEmbeddings(cfg, **fk)
-        self.layers = nn.ModuleList([BertLayer(cfg, **fk) for _ in range(cfg.num_layers)])
+        self.layers = nn.ModuleList([BertLayer(cfg, **fk, lora_rank=lora_rank,
+                                               lora_alpha=lora_alpha)
+                                     for _ in range(cfg.num_layers)])
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None):
         if attention_mask is None:

@@ -53,6 +53,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ctpa_torch.core.config import LLMConfig, LoRAConfig
 from ctpa_torch.models.layers import Dense, compute_dtype
@@ -522,14 +523,17 @@ class LlamaBlock(nn.Module):
 class LlamaModel(nn.Module):
     """Embeddings, blocks and the final norm.  forward -> (hidden, new cache
     or None): a full-sequence forward without a cache, a prefill with one,
-    or a single-token decode step (n == 1 with a cache)."""
+    or a single-token decode step (n == 1 with a cache).  ``remat``
+    recomputes each block in the backward (``torch.utils.checkpoint``, ctpa's
+    ``nn.remat`` per block), keeping only the blocks' inputs for it."""
 
     def __init__(self, cfg: LLMConfig, lora: Optional[LoRAConfig] = None, device=None,
-                 dtype=None):
+                 dtype=None, remat: bool = False):
         super().__init__()
         check_ported(cfg)
         fk = dict(device=device, dtype=dtype)
         self.cfg = cfg
+        self.remat = remat
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **fk)
         self.layers = nn.ModuleList([LlamaBlock(cfg, lora, i, **fk)
                                      for i in range(cfg.num_layers)])
@@ -586,7 +590,11 @@ class LlamaModel(nn.Module):
                 mask = mask & (attention_mask[:, None, None, :] > 0)
         rope = rope_frequencies(c.head_dim, c.max_seq_len, c.rope_theta, device=dev)
         for layer in self.layers:
-            x = layer(x, positions, rope, write_idx, ck, cv, mask, key_mask, flash)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, positions, rope, write_idx, ck, cv, mask, key_mask,
+                               flash, use_reentrant=False)
+            else:
+                x = layer(x, positions, rope, write_idx, ck, cv, mask, key_mask, flash)
         x = self.norm(x)
         if cache is None:
             return x, None
@@ -600,10 +608,10 @@ class LlamaForCausalLM(nn.Module):
     compute dtype (ctpa's ``dtype``) is set with ``set_compute_dtype``."""
 
     def __init__(self, cfg: LLMConfig, lora: Optional[LoRAConfig] = None, device="cuda",
-                 dtype=torch.float32):
+                 dtype=torch.float32, remat: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.model = LlamaModel(cfg, lora, device=device, dtype=dtype)
+        self.model = LlamaModel(cfg, lora, device=device, dtype=dtype, remat=remat)
         if not cfg.tie_embeddings:
             self.lm_head = _proj(cfg, cfg.hidden_size, cfg.vocab_size,
                                  dict(device=device, dtype=dtype))

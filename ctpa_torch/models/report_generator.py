@@ -212,15 +212,16 @@ class CTReportGenerator(nn.Module):
     """The LLM with vision cross-attention.  ``dtype`` is the parameters'
     dtype; the compute dtype (ctpa's ``dtype``) is set with
     ``models.layers.set_compute_dtype``.  The KV cache is kept in the
-    compute dtype (or int8 with ``llm_cfg.kv_quant``)."""
+    compute dtype (or int8 with ``llm_cfg.kv_quant``).  ``remat``
+    recomputes the LLM's blocks in the backward, as ctpa's."""
 
     def __init__(self, llm_cfg: LLMConfig, vit_cfg: CTViTConfig,
                  gen_cfg: ReportGenConfig = ReportGenConfig(), lora: Optional[LoRAConfig] = None,
-                 device="cuda", dtype=torch.float32):
+                 device="cuda", dtype=torch.float32, remat: bool = False):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         self.llm_cfg, self.vit_cfg, self.gen_cfg = llm_cfg, vit_cfg, gen_cfg
-        self.llm = LlamaForCausalLM(llm_cfg, lora, **fk)
+        self.llm = LlamaForCausalLM(llm_cfg, lora, **fk, remat=remat)
         self.vision_feature_extractor = VisionFeatureExtractor(vit_cfg, gen_cfg.vision_dim, **fk)
         self.cross_attention = CrossAttentionLayer(llm_cfg.hidden_size, gen_cfg.vision_dim, **fk)
 

@@ -51,7 +51,10 @@ class SimpleTrainState:
     ``state_dict`` holds the parameters the optimizer updates, not the
     frozen base: a LoRA fine-tune of a 7B model would otherwise write 13.5
     GB of unchanged weights per checkpoint (ctpa writes them); a restore
-    loads into a model built on the same base."""
+    loads into a model built on the same base.  ``frozen_state_dict`` is
+    that base (every other entry of the model's ``state_dict``), which
+    ``cli/train_report.py`` writes once per run beside the checkpoints
+    (``core/checkpoint.py:save_base``)."""
 
     model: nn.Module
     optimizer: Optimizer
@@ -68,6 +71,10 @@ class SimpleTrainState:
     def state_dict(self) -> dict:
         return {"params": {n: p.detach() for n, p in self._trained().items()},
                 "opt_state": self.optimizer.state_dict(), "step": self.step}
+
+    def frozen_state_dict(self) -> dict[str, torch.Tensor]:
+        trained = self._trained()
+        return {n: t for n, t in self.model.state_dict().items() if n not in trained}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:

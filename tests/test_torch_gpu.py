@@ -1718,3 +1718,94 @@ def test_zeroshot_from_files_kernel_path_matches_plain_path(cuda, tmp_path):
     pp = np.load(tmp_path / "p" / "predicted_weights.npz")["data"]
     assert pk.shape == (len(names), len(PATHOLOGIES))
     assert np.abs(pk - pp).max() <= cs.PROB_ATOL
+
+
+@pytest.mark.parametrize("source", ["bundle-w8a8", "quant-int4", "quant-int4-a8"])
+def test_generate_report_kernel_path_matches_plain_path(cuda, tmp_path, monkeypatch, source):
+    """generate_report.main on a small report generator the kernels take (the
+    CLI's configurations replaced by it): from a w8a8 bundle (fused FFN,
+    int8 KV cache, flash_decode), where K4, K6 and K8 launch, or from the
+    checkpoint directory with --quant int4, weight-only or w4a8, where K5
+    launches (--quant sets no fused FFN, as in ctpa, so K7 does not; the
+    FFN width 768 gives K5 its 128-column scale groups); the
+    CLI's greedy tokens, teacher-forced, come back from the kernel path, and
+    the same model on the plain path (quant_impl "xla", flash_decode off)
+    agrees with it (every step's max |diff| within 5e-2 of its max |logit|,
+    top-1 agreement >= 0.8)."""
+    import json
+
+    import numpy as np
+
+    import chip_smoke as cs
+    from ctpa_torch.cli import export_serving, generate_report
+    from ctpa_torch.core.checkpoint import CheckpointManager, load_base, save_base
+    from ctpa_torch.core.config import LLMConfig, ReportGenConfig
+    from ctpa_torch.data.datasets import ReportGenDataset
+    from ctpa_torch.models.report_generator import CTReportGenerator
+    from ctpa_torch.ops import decode_attention as da
+    from ctpa_torch.ops import quant
+    from ctpa_torch.ops.preprocess import preprocess_volume_inference
+
+    llm = LLMConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=2, num_kv_heads=2,
+                    intermediate_size=768, max_seq_len=256)
+    vit = CTViTConfig(dim=128, codebook_size=64, image_size=48, patch_size=8, temporal_size=16,
+                      temporal_patch_size=4, spatial_depth=1, temporal_depth=1, dim_head=32,
+                      heads=4)
+    pre = dataclasses.replace(PreprocessConfig.inference(), target_shape=(16, 48, 48))
+    monkeypatch.setattr(generate_report, "LLMConfig", lambda: llm)
+    monkeypatch.setattr(generate_report, "CTViTConfig", lambda: vit)
+    monkeypatch.setattr(generate_report.PreprocessConfig, "inference", staticmethod(lambda: pre))
+    base = random_init_(CTReportGenerator(llm, vit, ReportGenConfig(), device="cuda",
+                                          dtype=torch.bfloat16), cuda)
+    ckpt = str(tmp_path / "ckpt")
+    save_base(ckpt, base.state_dict())
+    CheckpointManager(ckpt).save(1, {"params": {}, "step": 1})
+    if source == "bundle-w8a8":
+        bundle = str(tmp_path / "bundle")
+        assert export_serving.main(["--checkpoint-dir", ckpt, "--out", bundle, "--ffn-kernel",
+                                    "--act-quant", "--kv-quant", "int8", "--flash-decode",
+                                    "--lora-rank", "0"]) == 0
+        flags = ["--serving-bundle", bundle]
+        need = ("int8_matmul_a8", "int8_matmul_a8_prefill", "int8_ffn_a8",
+                "int8_ffn_a8_prefill", "decode_attention")
+    else:
+        a8 = source.endswith("-a8")
+        flags = ["--checkpoint-dir", ckpt, "--quant", "int4", "--lora-rank", "0"]
+        flags += ["--act-quant"] if a8 else []
+        need = (("int4_matmul_a8", "int4_matmul_a8_prefill", "int4_act_quant") if a8
+                else ("int4_matmul", "int4_matmul_prefill"))
+    rng = np.random.default_rng(0)
+    with open(tmp_path / "gen.jsonl", "w") as f:
+        for i in range(3):
+            np.savez(tmp_path / f"v{i}.npz", rng.uniform(-1, 1, (50, 44, 20)).astype(np.float32))
+            f.write(json.dumps({"image_path": str(tmp_path / f"v{i}.npz"), "report": "x"}) + "\n")
+    before = {**quant.LAUNCHES, **da.LAUNCHES}
+    with cs.recording_decode() as decoded:
+        assert generate_report.main(["--jsonl", str(tmp_path / "gen.jsonl"), *flags,
+                                     "--greedy", "--max-new-tokens", "12",
+                                     "--out-dir", str(tmp_path / "out")]) == 0
+    launched = {k: v - before[k] for k, v in {**quant.LAUNCHES, **da.LAUNCHES}.items()}
+    for key in need:
+        assert launched[key] > 0, launched
+    if source == "bundle-w8a8":
+        model, _ = export_serving.load_serving_bundle(bundle, llm, vit, ReportGenConfig())
+    else:
+        cfg = dataclasses.replace(llm, weight_quant="int4", quant_act=a8)
+        model = generate_report.quantized_model(load_base(ckpt, map_location="cuda"), cfg, vit,
+                                                ReportGenConfig(), None)
+    items = [ReportGenDataset(str(tmp_path / "gen.jsonl"))[i] for i in range(3)]
+    video = torch.stack([preprocess_volume_inference(it["volume"], pre) for it in items])
+    toks = cs.stable_word_tokenizer()(vocab_size=512)([it["prompt"] for it in items],
+                                                      max_length=64)
+    ids, mask = (torch.as_tensor(toks[k], device="cuda").long()
+                 for k in ("input_ids", "attention_mask"))
+    steps = min(len(t) for t in decoded)
+    tokens = torch.tensor([t[:steps] for t in decoded], device="cuda")
+    with torch.inference_mode():
+        vision = model.extract_vision(video)
+        kernel = cs.teacher_forced_logits(model, video, ids, mask, tokens, vision)
+        plain = cs.teacher_forced_logits(cs.twin(model, quant_impl="xla", flash_decode=False),
+                                         video, ids, mask, tokens, vision)
+    assert (kernel.argmax(-1) == tokens).float().mean() >= 0.8
+    rel, _, top1 = cs.logit_distance(kernel, plain)
+    assert rel <= 5e-2 and top1 >= 0.8, (rel, top1)

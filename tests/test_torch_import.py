@@ -433,23 +433,43 @@ def test_safetensors_reader_matches_the_package(tmp_path):
         assert np.array_equal(got[k], ref[k]), k
 
 
-def _bf16_file(path):
-    header = json.dumps({"w": {"dtype": "BF16", "shape": [2], "data_offsets": [0, 4]},
-                         "b": {"dtype": "F32", "shape": [1], "data_offsets": [4, 8]}}).encode()
+def _bf16_shard(path, seed):
+    """A shard with a BF16 tensor (normal draws, and the bit patterns of NaN,
+    -0, +-inf and a subnormal), an F32 tensor beside it and ``__metadata__``."""
+    rng = np.random.default_rng(seed)
+    fp32 = (rng.normal(size=(3, 7)) * 50).astype(np.float32)
+    bits = (fp32.view(np.uint32) >> 16).astype(np.uint16)     # truncated to bf16
+    bits.flat[:5] = [0x7FC1, 0x8000, 0x7F80, 0xFF80, 0x0003]
+    other = rng.normal(size=(4,)).astype(np.float32)
+    header = json.dumps({"__metadata__": {"format": "pt"},
+                         "w": {"dtype": "BF16", "shape": [3, 7], "data_offsets": [0, 42]},
+                         "b": {"dtype": "F32", "shape": [4], "data_offsets": [42, 58]}}).encode()
     with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(header)) + header + bytes(8))
+        f.write(struct.pack("<Q", len(header)) + header + bits.tobytes() + other.tobytes())
 
 
 def test_safetensors_reader_refuses_bf16(tmp_path):
-    """BF16 has no numpy dtype: the reader names the tensor and the dtype.
-    (The safetensors package refuses it too, unless ml_dtypes, which JAX
-    loads, has registered a bfloat16 with numpy.)"""
-    path = str(tmp_path / "model.safetensors")
-    _bf16_file(path)
-    with pytest.raises(ValueError, match="'w'.*BF16"):
-        thf.load_safetensors(path)
-    with pytest.raises(ValueError, match="BF16"):
-        thf.load_hf_snapshot(str(tmp_path))
+    """The reader's BF16 case.  (The name is kept from when the reader refused
+    BF16.)  ctpa's ``load_hf_snapshot`` reads BF16 through
+    ``safetensors.numpy`` because JAX's ml_dtypes registers a bfloat16 with
+    numpy; the port's reader widens it to fp32, bit for bit equal to ctpa's
+    values cast to fp32 (NaN payloads, -0, infinities and subnormals
+    included).  What ctpa cannot read either, the F8 codes, is still refused
+    with the tensor's name and dtype."""
+    snap = tmp_path / "snapshot"
+    snap.mkdir()
+    _bf16_shard(str(snap / "model-00001-of-00001.safetensors"), 49)
+    ref, got = jhf.load_hf_snapshot(str(snap)), thf.load_hf_snapshot(str(snap))
+    assert sorted(got) == sorted(ref) == ["b", "w"]
+    assert got["w"].dtype == np.float32 and got["w"].shape == (3, 7)
+    want = np.asarray(ref["w"]).astype(np.float32)
+    assert np.array_equal(got["w"].view(np.uint32), want.view(np.uint32))
+    assert np.array_equal(got["b"], ref["b"]) and got["b"].dtype == ref["b"].dtype
+    header = json.dumps({"q": {"dtype": "F8_E4M3", "shape": [2], "data_offsets": [0, 2]}})
+    f8 = tmp_path / "f8.safetensors"
+    f8.write_bytes(struct.pack("<Q", len(header)) + header.encode() + bytes(2))
+    with pytest.raises(ValueError, match="'q'.*F8_E4M3"):
+        thf.load_safetensors(str(f8))
 
 
 WORDS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "the", "lung", "is", "not", "present",

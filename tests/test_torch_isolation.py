@@ -39,7 +39,9 @@ report = ["ctpa_torch.ops.decode_attention", "ctpa_torch.ops.rotary", "ctpa_torc
           "ctpa_torch.data.tokenizer", "ctpa_torch.data.reports", "ctpa_torch.data.manifests",
           "ctpa_torch.data.datasets", "ctpa_torch.eval.classification",
           "ctpa_torch.eval.artifacts", "ctpa_torch.cli.zeroshot_infer",
-          "ctpa_torch.cli.preprocess"]
+          "ctpa_torch.cli.preprocess", "ctpa_torch.cli.train_report",
+          "ctpa_torch.cli.generate_report", "ctpa_torch.cli.evaluate", "ctpa_torch.eval.nlg",
+          "ctpa_torch.models.vqa_bert", "ctpa_torch.models.bert"]
 missing = sorted(set(report) - set(names))
 assert not missing, missing
 for name in names:
@@ -51,6 +53,14 @@ for script in ("chip_smoke", "bench_torch", "profile_zeroshot", "profile_clip_tr
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
+# HFTokenizer imports transformers only when it is built
+from ctpa_torch.data.tokenizer import HFTokenizer
+try:
+    HFTokenizer("/nonexistent/snapshot")
+except ImportError as e:
+    assert "transformers" in str(e), e
+else:
+    raise AssertionError("HFTokenizer built without transformers")
 print("imported", len(names), "modules")
 """
 
