@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's zero-shot serving, raw-volume encode
 (bench_torch.py's program), contrastive training, report generation, report
 training, int4 and int8 report serving, streaming report serving,
-zero-shot evaluation from files and the report workload from files once on
-one CUDA card.
+zero-shot evaluation from files, the report workload from files, CT-CLIP
+training from files and the fused full-sequence encoder once on one CUDA
+card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -257,6 +258,33 @@ Phases, each printing its seconds:
                      base.pt and latest step, evaluate); MedicalVQAModel at
                      BertConfig() width (logits, loss, one optimizer step,
                      a greedy generate).
+ 27. clip-files    — CT-CLIP training from files, in a temporary directory:
+                     4 raw (160, 512, 512) int16 npz volumes with their
+                     metadata CSV, 2 pre-normalised validation volumes with
+                     labels, one reports CSV; ctpa_torch.cli.train_clip.main
+                     at full width (fp32 model, bf16 video, as ctpa's CLI;
+                     no remat), batch 2, 3 steps, the zero-shot eval at step
+                     2, --profile-dir: each step's time and launches
+                     (exactly 4 of K2-lse and of each K3 pass), the eval's
+                     seconds, mean AUROC, peak memory and flash launches,
+                     the checkpoint, the trace's size; then one step of
+                     make_clip_train_step with use_mlm and use_visual_ssl and
+                     CLOOB's projections (bf16, remat; 3 encodes, exactly 24
+                     K2-lse and 12 of each K3 pass), timed beside a plain
+                     CLIP step, and the same first step with flash_axial off
+                     under the CLIP gates (and SSL_LOSS_ATOL on the MLM and
+                     SimCLR losses);
+ 28. fused-encoder — K2-lse and K3's delta, dQ and dK/dV at one volume's
+                     13,824 tokens (1, 8, 13,824, 32), bf16, no bias, the
+                     cosine bound, against their plain versions (one head
+                     at a time) under a limit scaled by the reference's RMS
+                     that must reject a planted kernel skipping the last
+                     32 keys or queries, twice for bits, timed beside
+                     scaled_dot_product_attention and the bound; then a CLIP
+                     step with fused_attention at depth 4 (batch 2, bf16,
+                     remat; exactly 8 K2-lse and 4 of each pass), twice, and
+                     the first step again on the plain cosine attention at
+                     the same depth under the CLIP gates.
 
 The line before the last is nvidia-smi's "name, power.limit"; the one before
 that a JSON object with one entry per kernel.  The last line is
@@ -499,6 +527,48 @@ ZS_WEIGHT_STD = 0.02
 # main() against run_zeroshot on the same saved state and config, in one
 # process: the same fp32 program on the same inputs
 ZS_CLI_ATOL = 1e-5
+
+# CT-CLIP training from files (phase clip-files): train_clip.main at full
+# width on CF_VOLUMES raw (160, 512, 512) int16 npz volumes with their
+# metadata and CF_VALID pre-normalised validation volumes with labels, batch
+# 2, CF_STEPS steps, the zero-shot eval every CF_EVAL_EVERY steps, under
+# --profile-dir; as ctpa's CLI, an fp32 model under the bf16 policy with no
+# remat, so each step launches K2-lse and each K3 pass spatial_depth times
+# (the fp32 forms).  Then one step of make_clip_train_step with the MLM and
+# SimCLR objectives and CLOOB's projections (bf16, remat: 3 encodes a step)
+# on the kernel path and the plain path, under the CLIP gates above.
+CF_VOLUMES = 4
+CF_VALID = 2
+# the SSL step's two objectives, gated beside the total loss (they enter it
+# with weight 0.05 each, below TRAIN_LOSS_ATOL's reach): the SimCLR loss
+# over the two encoded views is a bf16 value near 1 (an ulp of 2^-8 below 1,
+# 2^-7 above), the MLM loss fp32 from the text tower alone.  Both read a gap
+# of 0 on the H100 (PERF.md); the limit admits a few bf16 ulps.
+SSL_LOSS_ATOL = 2e-2
+CF_STEPS = 3
+CF_EVAL_EVERY = 2
+# the fused full-sequence encoder (phase fused-encoder): K2-lse and the
+# three K3 passes it runs at one volume's t*h*w tokens, with no bias and the
+# cosine bound, against their plain versions (taken one head at a time: the
+# (1, 8, n, n) fp32 scores are 6.1 GB); then a CLIP step with
+# fused_attention at FUSED_DEPTH blocks (batch 2, bf16, remat) on the kernel
+# path and on the plain cosine attention, under the CLIP gates
+FUSED_SHAPE = (1, 8, 13824, 32)
+FUSED_DEPTH = 4
+# the fused form's bf16 limit: at n 13,824 the output and dV are ~1/sqrt(n)
+# in size (a std near 0.023), so BF16_ATOL would be as large as a typical
+# value.  The absolute limit is FUSED_ATOL_RMS times the reference's RMS
+# instead, rtol BF16_RTOL.  A kernel that skips the last FUSED_FAULT_ROWS
+# keys (forward, dQ) or queries (dK/dV) -- the smallest tile any of these
+# kernels walks -- is planted from the plain versions and must fail it.
+# Read on the H100 (PERF.md): the kernels need an atol of at most 0.0093
+# RMS (the output; dV 0.0078, dQ and dK 0.0001), the planted faults at least
+# 1.2458 (the output).  The limit lies 5x above the one and 25x below the
+# other; at this form it is about 1e-3 for the output and dV.
+FUSED_ATOL_RMS = 0.05
+FUSED_FAULT_ROWS = 32
+FUSED_KERNELS = ("flash_attention_fwd_lse", "flash_attention_bwd_delta",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 # the report workload from files (phase report-files): generate_report.main
 # at Meditron-7B width from quant8-report's w8a8 bundle (K4, K6 and K8;
@@ -1065,6 +1135,18 @@ def raw_serving(model, plain, vq, clf, dev, rows: dict) -> None:
 TRAIN_KERNELS = ("flash_attention_fwd_lse", "flash_attention_bwd_delta", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "flash_attention_bwd_dbias")
 ATTN_FAMILY = ("fmha", "flash", "attention", "attn", "cudnn", "sdp")
+# each training flash kernel's source and the TPU kernel it replaces
+FLASH_SOURCES = {
+    "flash_attention_fwd_lse": ("ctpa_torch/csrc/flash_attention.cu",
+                                "ctpa/ops/pallas/flash_attention.py:270"),
+    "flash_attention_bwd_delta": ("ctpa_torch/csrc/flash_attention_bwd.cu",
+                                  "ctpa/ops/pallas/flash_attention.py:597"),
+    "flash_attention_bwd_dq": ("ctpa_torch/csrc/flash_attention_bwd.cu",
+                               "ctpa/ops/pallas/flash_attention.py:505"),
+    "flash_attention_bwd_dkv": ("ctpa_torch/csrc/flash_attention_bwd.cu",
+                                "ctpa/ops/pallas/flash_attention.py:451"),
+    "flash_attention_bwd_dbias": ("ctpa_torch/csrc/flash_attention_bwd.cu",
+                                  "ctpa/ops/pallas/flash_attention.py:550")}
 
 
 def sdpa_backend(fn) -> str:
@@ -1205,16 +1287,6 @@ def check_train_kernels(dev) -> dict:
             "flash_attention_bwd_dq": (5 * qkv + slab + 2 * rowf, 3 * prod),
             "flash_attention_bwd_dkv": (6 * qkv + slab + 2 * rowf, 4 * prod),
             "flash_attention_bwd_dbias": (4 * qkv + 2 * slab + 2 * rowf, 2 * prod)}
-    sources = {"flash_attention_fwd_lse": ("ctpa_torch/csrc/flash_attention.cu",
-                                           "ctpa/ops/pallas/flash_attention.py:270"),
-               "flash_attention_bwd_delta": ("ctpa_torch/csrc/flash_attention_bwd.cu",
-                                             "ctpa/ops/pallas/flash_attention.py:597"),
-               "flash_attention_bwd_dq": ("ctpa_torch/csrc/flash_attention_bwd.cu",
-                                          "ctpa/ops/pallas/flash_attention.py:505"),
-               "flash_attention_bwd_dkv": ("ctpa_torch/csrc/flash_attention_bwd.cu",
-                                           "ctpa/ops/pallas/flash_attention.py:451"),
-               "flash_attention_bwd_dbias": ("ctpa_torch/csrc/flash_attention_bwd.cu",
-                                             "ctpa/ops/pallas/flash_attention.py:550")}
     err_key = {"flash_attention_fwd_lse": "fwd", "flash_attention_bwd_delta": "delta",
                "flash_attention_bwd_dq": "dq", "flash_attention_bwd_dkv": "dkv",
                "flash_attention_bwd_dbias": "dbias"}
@@ -1224,7 +1296,7 @@ def check_train_kernels(dev) -> dict:
         ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
         b_ms, b_by = bound_ms(*work[name])
         lib_ms = lib_fwd_ms if name == "flash_attention_fwd_lse" else lib_bwd_ms
-        source, replaces = sources[name]
+        source, replaces = FLASH_SOURCES[name]
         rows[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
                           max_abs_err=max(errs[err_key[name]], errs["lse"])
                           if name == "flash_attention_fwd_lse" else errs[err_key[name]],
@@ -4884,6 +4956,498 @@ def report_files(dev, rows: dict, model, qmodel, card: str) -> None:
         rf_vqa(dev)
 
 
+def fused_name(kernel: str) -> str:
+    """The kernels line's name of a flash kernel at the fused sequence."""
+    return f"{kernel}_n{FUSED_SHAPE[2]}"
+
+
+def by_head(fn, *args):
+    """A plain flash function one head at a time, the heads concatenated:
+    the 4-d and 3-d (lse, delta) tensors among ``args`` are sliced."""
+    import torch
+
+    outs = []
+    for i in range(args[0].shape[1]):
+        part = [a[:, i:i + 1] if torch.is_tensor(a) and a.ndim in (3, 4) else a for a in args]
+        outs.append(fn(*part))
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(xs, dim=1) for xs in zip(*outs))
+    return torch.cat(outs, dim=1)
+
+
+def fused_tolerance(ref, dtype) -> tuple[float, float]:
+    """(atol, rtol) of a fused-form kernel's output against its plain
+    version ``ref``: FP32's in fp32, else an atol of FUSED_ATOL_RMS times
+    the RMS of ``ref``."""
+    import torch
+
+    if dtype == torch.float32:
+        return FP32_ATOL, FP32_RTOL
+    return FUSED_ATOL_RMS * ref.float().square().mean().sqrt().item(), BF16_RTOL
+
+
+def rejects(got, ref, atol: float, rtol: float) -> bool:
+    """Whether |got - ref| > atol + rtol * |ref| anywhere."""
+    got, ref = got.float(), ref.float()
+    return bool(((got - ref).abs() > atol + rtol * ref.abs()).any())
+
+
+def fused_faults(q, k, v, lse, delta, do, scale: float, bound) -> dict:
+    """What kernels that skip the last FUSED_FAULT_ROWS keys (the forward's
+    output, dQ) or queries (dK, dV) would return at the fused form, from the
+    plain versions: {"out", "dq", "dk", "dv"}."""
+    from ctpa_torch.ops import flash_attention as fa
+
+    r = FUSED_FAULT_ROWS
+    out = by_head(fa.flash_attention_plain, q, k[:, :, :-r], v[:, :, :-r], None, scale, bound)
+    dq = by_head(fa.flash_attention_bwd_dq_plain, q, k[:, :, :-r], v[:, :, :-r], None, lse,
+                 delta, do, scale)
+    dk, dv = by_head(fa.flash_attention_bwd_dkv_plain, q[:, :, :-r], k, v, None,
+                     lse[:, :, :-r], delta[:, :, :-r], do[:, :, :-r], scale)
+    return {"out": out, "dq": dq, "dk": dk, "dv": dv}
+
+
+def fused_compare(name: str, got, ref, fault) -> float:
+    """``compare`` under the fused form's bf16 limit, after checking that
+    the limit rejects ``fault`` (a kernel that skips a tile); prints the
+    least atol, in RMS of ``ref``, that each of the two needs."""
+    atol, rtol = fused_tolerance(ref, got.dtype)
+    rms = ref.float().square().mean().sqrt()
+
+    def need(x) -> float:
+        return (((x.float() - ref.float()).abs() - rtol * ref.float().abs()).max() / rms).item()
+
+    print(f"  {name}: least atol the kernel needs {need(got):.4f} RMS, a kernel skipping the "
+          f"last {FUSED_FAULT_ROWS} rows {need(fault):.4f} RMS (limit {FUSED_ATOL_RMS} RMS "
+          f"= {atol:.3e})")
+    if not rejects(fault, ref, atol, rtol):
+        raise AssertionError(f"{name}: the limit passes a kernel that skips the last tile")
+    return compare(name, got, ref, atol, rtol)
+
+
+def clip_cli_files(root: str) -> dict:
+    """CF_VOLUMES raw int16 training volumes with a metadata CSV and CF_VALID
+    pre-normalised validation volumes with an 18-pathology labels CSV, one
+    reports CSV for both, under ``root``; the paths by role."""
+    import numpy as np
+
+    from ctpa_torch.data.manifests import write_csv
+    from ctpa_torch.eval.zeroshot import PATHOLOGIES
+
+    paths = {k: os.path.join(root, k) for k in ("train", "valid")}
+    paths.update({k: os.path.join(root, f"{k}.csv") for k in ("reports", "meta", "labels")})
+    os.makedirs(paths["train"])
+    os.makedirs(paths["valid"])
+    rng = np.random.default_rng(SEED + 40)
+    reports, meta, labels = [], [], []
+    for i in range(CF_VOLUMES):
+        name = f"cf{i:03d}"
+        np.savez(os.path.join(paths["train"], name + ".npz"),
+                 rng.integers(-24, 3000, size=RAW_SHAPE, dtype=np.int16))
+        reports.append({"impression_id": name,
+                        "impressions": f"Findings of {name}: no pulmonary embolism."})
+        meta.append({"VolumeName": name + ".nii.gz", "RescaleSlope": 1.0,
+                     "RescaleIntercept": -1024.0, "ZSpacing": RAW_SPACING[0],
+                     "XYSpacing": RAW_SPACING[1]})
+    for i in range(CF_VALID):
+        name = f"cv{i:03d}"
+        np.savez(os.path.join(paths["valid"], name + ".npz"),
+                 rng.uniform(-1, 1, size=INFER_SHAPE).astype(np.float32))
+        reports.append({"impression_id": name, "impressions": f"Findings of {name}."})
+        # every column holds both classes
+        labels.append({"VolumeName": name, **{p: (i + j) % 2 for j, p in enumerate(PATHOLOGIES)}})
+    write_csv(paths["reports"], reports)
+    write_csv(paths["meta"], meta)
+    write_csv(paths["labels"], labels)
+    return paths
+
+
+def clip_files(dev) -> None:
+    """Phase clip-files: train_clip.main at full width from files, then the
+    SSL step's kernel and plain paths."""
+    import tempfile
+
+    import torch
+
+    from ctpa_torch.cli import train_clip as tc_cli
+    from ctpa_torch.core.checkpoint import CheckpointManager
+    from ctpa_torch.core.config import CTViTConfig
+    from ctpa_torch.core.profiling import TRACE_FILE
+    from ctpa_torch.ops.flash_attention import LAUNCHES
+
+    depth = CTViTConfig().spatial_depth
+    steps, evals = [], []
+
+    class Timed(tc_cli.CTClipTrainer):
+        """The CLI's trainer, each step and eval timed with its launches."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            inner = self.eval_fn
+
+            def timed_eval(state, step):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = LAUNCHES["flash_attention_fwd"]
+                t = time.perf_counter()
+                out = inner(state, step)
+                torch.cuda.synchronize()
+                evals.append((step, time.perf_counter() - t, out,
+                              torch.cuda.max_memory_allocated(),
+                              LAUNCHES["flash_attention_fwd"] - before))
+                return out
+
+            self.eval_fn = None if inner is None else timed_eval
+
+        def train_step(self):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(LAUNCHES)
+            t = time.perf_counter()
+            metrics = super().train_step()
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t, {k: LAUNCHES[k] - before[k] for k in LAUNCHES},
+                          {k: float(v) for k, v in metrics.items()},
+                          torch.cuda.max_memory_allocated()))
+            return metrics
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_clip_") as tmp:
+        t0 = time.perf_counter()
+        paths = clip_cli_files(tmp)
+        print(f"  files: {CF_VOLUMES} raw {RAW_SHAPE} int16 volumes with metadata, {CF_VALID} "
+              f"pre-normalised {INFER_SHAPE} validation volumes with labels, written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        res, ckpt, prof = (os.path.join(tmp, d) for d in ("results", "ckpt", "profile"))
+        argv = ["--data-dir", paths["train"], "--reports-csv", paths["reports"],
+                "--metadata-csv", paths["meta"], "--valid-data-dir", paths["valid"],
+                "--valid-labels-csv", paths["labels"], "--eval-every", str(CF_EVAL_EVERY),
+                "--batch-size", str(TRAIN_BATCH), "--num-steps", str(CF_STEPS),
+                "--results-dir", res, "--checkpoint-dir", ckpt, "--profile-dir", prof]
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+        tc_cli.CTClipTrainer, plain_trainer = Timed, tc_cli.CTClipTrainer
+        try:
+            t0 = time.perf_counter()
+            rc = tc_cli.main(argv, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            tc_cli.CTClipTrainer = plain_trainer
+        expect = dict.fromkeys(LAUNCHES, 0)
+        for name in TRAIN_KERNELS:
+            expect[name] = depth
+        for i, (s, launched, m, peak) in enumerate(steps):
+            print(f"  step {i + 1}: wall {s * 1e3:.1f} ms (profiler on)  loss {m['loss']:.6f}  "
+                  f"grad norm {m['grad_norm']:.6f}  temperature {m['temperature']:.6f}  vq "
+                  f"commit {m['vq_commit']:.6f}  peak memory {peak / 2**30:.2f} GiB")
+            print("    launches " + " ".join(f"{k.removeprefix('flash_attention_')} {v}"
+                                             for k, v in launched.items() if v))
+            if launched != expect or not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"CLI step {i + 1}: launches {launched} (expected "
+                                     f"{expect}), metrics {m}")
+        trace = os.path.join(prof, TRACE_FILE)
+        size = os.path.getsize(trace) if os.path.exists(trace) else 0
+        artifacts = os.path.join(res, f"zeroshot_step{CF_EVAL_EVERY}")
+        missing = [f for f in ("labels_weights.npz", "predicted_weights.npz", "accessions.txt",
+                               "aurocs.csv", "bootstrap_cis.csv")
+                   if not os.path.exists(os.path.join(artifacts, f))]
+        saved = CheckpointManager(ckpt).all_steps()
+        for step, secs, out, peak, k2 in evals:
+            print(f"  eval at step {step}: {secs:.2f} s, {out}, peak memory "
+                  f"{peak / 2**30:.2f} GiB, flash_attention_fwd {k2}")
+        print(f"  train_clip.main: rc {rc}, {wall:.2f} s in all (the profiler on); checkpoints "
+              f"{saved}; trace {trace.removeprefix(tmp)} {size / 2**20:.1f} MiB; eval "
+              f"artifacts {'complete' if not missing else f'missing {missing}'}")
+        if rc != 0 or len(steps) != CF_STEPS or saved != [CF_STEPS] or not size or missing:
+            raise AssertionError("train_clip.main did not train, evaluate, trace and save")
+        if [e[0] for e in evals] != [CF_EVAL_EVERY] or evals[0][2]["n"] != CF_VALID \
+                or not math.isfinite(evals[0][2]["mean_auc"]) \
+                or evals[0][4] != depth * -(-CF_VALID // 4):
+            raise AssertionError(f"the periodic eval: {evals}")
+    ssl_step(dev)
+
+
+def ssl_step(dev) -> None:
+    """One step with the MLM and SimCLR objectives and CLOOB's projections at
+    full width (bf16, remat) on the kernel path, a plain CLIP step and a
+    second SSL step for the time ratio, then the first step again from the
+    same state with flash_axial off, under the CLIP gates."""
+    import torch
+
+    from ctpa_torch.core.config import (BertConfig, CTCLIPConfig, CTViTConfig,
+                                        OptimizerConfig)
+    from ctpa_torch.core.init import random_init_
+    from ctpa_torch.core.precision import Policy
+    from ctpa_torch.models.ctclip import CTCLIP
+    from ctpa_torch.ops.flash_attention import LAUNCHES
+    from ctpa_torch.ops.vq import vq_init
+    from ctpa_torch.train.clip_trainer import make_clip_train_step
+    from ctpa_torch.train.optim import get_optimizer
+    from ctpa_torch.train.train_state import CLIPTrainState
+
+    clip_cfg = dataclasses.replace(CTCLIPConfig(), extra_latent_projection=True, use_mlm=True)
+
+    def build(flash: bool):
+        vit = dataclasses.replace(CTViTConfig(), flash_axial=flash, pallas_patchify=False)
+        return CTCLIP(clip_cfg, vit, BertConfig(), device=dev, dtype=torch.float32, remat=True)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    model = random_init_(build(True), gen)
+    vit_cfg = model.visual_transformer.cfg
+    vq = vq_init(gen, vit_cfg.codebook_size, vit_cfg.dim, device=dev)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = make_train_batch(model, dev)
+
+    def step(model, ssl: bool):
+        tx = get_optimizer(OptimizerConfig(), model)
+        fn = make_clip_train_step(model, tx, vq_decay=vit_cfg.vq_decay, policy=Policy(),
+                                  use_mlm=ssl, use_visual_ssl=ssl)
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        _, m = fn(CLIPTrainState.create(model, tx, vq), batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        m = {k: float(v) for k, v in m.items()}
+        print(f"    {'SSL' if ssl else 'CLIP'} step: wall {wall * 1e3:.1f} ms  "
+              + "  ".join(f"{k} {v:.6f}" for k, v in m.items())
+              + f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return wall, m, dict(LAUNCHES)
+
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  SSL step: CTCLIP + MLM head + CLOOB projections, {n_params / 1e6:.1f} M "
+          f"parameters (fp32), bf16 compute, remat, batch {TRAIN_BATCH}; kernel path:")
+    _, first, launched = step(model, True)
+    expect = dict.fromkeys(LAUNCHES, 0)
+    expect["flash_attention_fwd_lse"] = 2 * 3 * vit_cfg.spatial_depth   # remat, 3 encodes
+    for name in TRAIN_KERNELS[1:]:
+        expect[name] = 3 * vit_cfg.spatial_depth
+    print("    launches " + " ".join(f"{k.removeprefix('flash_attention_')} {v}"
+                                     for k, v in launched.items() if v))
+    if launched != expect:
+        raise AssertionError(f"SSL step launches {launched}, expected {expect}")
+    grads = spatial_fold_grads(model)
+    clip_wall, _, _ = step(model, False)
+    ssl_wall, _, _ = step(model, True)
+    print(f"  SSL step {ssl_wall * 1e3:.1f} ms against a CLIP step {clip_wall * 1e3:.1f} ms on "
+          f"the same model: {ssl_wall / clip_wall:.2f}x")
+    del model
+    torch.cuda.empty_cache()
+    plain = build(False)
+    plain.load_state_dict(start)
+    print("  plain path (flash_axial off), the first step from the same state:")
+    _, ref, launched = step(plain, True)
+    if any(launched.values()):
+        raise AssertionError(f"the plain path launched hand kernels: {launched}")
+    worst = min(torch.nn.functional.cosine_similarity(g.flatten(), grads_p.flatten(),
+                                                      dim=0).item()
+                for g, grads_p in zip(grads.values(), spatial_fold_grads(plain).values()))
+    gaps = {k: abs(first[k] - ref[k]) for k in ("loss", "mlm_loss", "visual_ssl_loss")}
+    print(f"  kernel vs plain: |loss diff| {gaps['loss']:.3e} (<= {TRAIN_LOSS_ATOL}), mlm_loss "
+          f"{gaps['mlm_loss']:.3e}, visual_ssl_loss {gaps['visual_ssl_loss']:.3e} (each <= "
+          f"{SSL_LOSS_ATOL}); spatial-fold gradients: min cosine {worst:.6f} "
+          f"(>= {TRAIN_GRAD_MIN_COS}) over {len(grads)} tensors")
+    if gaps["loss"] > TRAIN_LOSS_ATOL or worst < TRAIN_GRAD_MIN_COS \
+            or max(gaps["mlm_loss"], gaps["visual_ssl_loss"]) > SSL_LOSS_ATOL:
+        raise AssertionError("SSL step: kernel path and plain path disagree")
+
+
+def check_fused_kernels(dev) -> dict:
+    """K2-lse and the delta, dQ and dK/dV passes of K3 at the fused encoder's
+    form (FUSED_SHAPE, bf16, no bias, the cosine bound) against their plain
+    versions, twice for bits, then timed beside scaled_dot_product_attention
+    and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from ctpa_torch.ops import flash_attention as fa
+    from ctpa_torch.ops.attention_ops import l2norm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    b, h, n, d = FUSED_SHAPE
+    bf16, scale = torch.bfloat16, 8.0
+
+    def randn():
+        return torch.randn(b, h, n, d, generator=gen, device=dev)
+
+    q, k = l2norm(randn()).to(bf16), l2norm(randn()).to(bf16)
+    v, do = randn().to(bf16), randn().to(bf16)
+    # |s| <= scale * max|q_scale| * max|k_scale|, unit scales here
+    bound = torch.tensor(scale, device=dev)
+    out, lse = fa.flash_attention(q, k, v, scale=scale, logit_bound=bound, return_lse=True)
+    ref_out, ref_lse = by_head(lambda *a: fa.flash_attention_plain(*a, return_lse=True),
+                               q, k, v, None, scale, bound)
+    tag = f"n {n}, no bias"
+    delta = fa.flash_attention_bwd_delta(out, do)
+    args = (q, k, v, None, lse, delta, do, scale)
+    fault = fused_faults(q, k, v, lse, delta, do, scale, bound)
+    errs = {"fwd": fused_compare(f"flash_attention_fwd_lse out {tag}", out, ref_out,
+                                 fault["out"]),
+            "lse": compare(f"flash_attention_fwd_lse lse {tag}", lse, ref_lse, LSE_ATOL,
+                           LSE_RTOL)}
+    del ref_out, ref_lse
+    errs["delta"] = compare(f"flash_attention_bwd_delta {tag}", delta,
+                            fa.flash_attention_bwd_delta_plain(out, do), FP32_ATOL, FP32_RTOL)
+    errs["dq"] = fused_compare(f"flash_attention_bwd_dq {tag}", fa.flash_attention_bwd_dq(*args),
+                               by_head(fa.flash_attention_bwd_dq_plain, *args), fault["dq"])
+    (dk, dv), (rdk, rdv) = fa.flash_attention_bwd_dkv(*args), by_head(
+        fa.flash_attention_bwd_dkv_plain, *args)
+    errs["dkv"] = max(fused_compare(f"flash_attention_bwd_dkv dk {tag}", dk, rdk, fault["dk"]),
+                      fused_compare(f"flash_attention_bwd_dkv dv {tag}", dv, rdv, fault["dv"]))
+    del dk, dv, rdk, rdv, fault
+    timed = {
+        "flash_attention_fwd_lse": (
+            lambda: fa.flash_attention(q, k, v, scale=scale, logit_bound=bound, return_lse=True),
+            lambda: by_head(lambda *a: fa.flash_attention_plain(*a, return_lse=True),
+                            q, k, v, None, scale, bound)),
+        "flash_attention_bwd_delta": (lambda: fa.flash_attention_bwd_delta(out, do),
+                                      lambda: fa.flash_attention_bwd_delta_plain(out, do)),
+        "flash_attention_bwd_dq": (lambda: fa.flash_attention_bwd_dq(*args),
+                                   lambda: by_head(fa.flash_attention_bwd_dq_plain, *args)),
+        "flash_attention_bwd_dkv": (lambda: fa.flash_attention_bwd_dkv(*args),
+                                    lambda: by_head(fa.flash_attention_bwd_dkv_plain, *args)),
+    }
+    for name in FUSED_KERNELS:
+        repeatable(f"{name} {tag}", timed[name][0])
+    # yardsticks, never called by the port: the library forward and its backward alone
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+    lib_bwd = sdpa_backward(lambda: F.scaled_dot_product_attention(*leaves, scale=scale),
+                            leaves, do)
+    lib_bwd_ms = cuda_ms(lib_bwd)
+    backend = sdpa_backend(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, scale=scale), leaves, grad_outputs=do))
+    print(f"  scaled_dot_product_attention forward {lib_fwd_ms:.4f} ms, backward alone "
+          f"{lib_bwd_ms:.4f} ms; its kernels: {backend}")
+    qkv, rowf = b * h * n * d * 2, b * h * n * 4
+    prod = 2.0 * b * h * n * n * d
+    work = {"flash_attention_fwd_lse": (4 * qkv + rowf + 4, 2 * prod),
+            "flash_attention_bwd_delta": (2 * qkv + rowf, 2.0 * b * h * n * d),
+            "flash_attention_bwd_dq": (5 * qkv + 2 * rowf, 3 * prod),
+            "flash_attention_bwd_dkv": (6 * qkv + 2 * rowf, 4 * prod)}
+    err = {"flash_attention_fwd_lse": max(errs["fwd"], errs["lse"]),
+           "flash_attention_bwd_delta": errs["delta"], "flash_attention_bwd_dq": errs["dq"],
+           "flash_attention_bwd_dkv": errs["dkv"]}
+    exps = b * h * n * n
+    print(f"  bounds count the tensor-core products at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; the "
+          f"softmax's {exps:.3e} exponentials (once in the forward, again in dQ and in dK/dV) "
+          f"are not counted")
+    rows = {}
+    for name in FUSED_KERNELS:
+        kernel_fn, plain_fn = timed[name]
+        ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn, iters=3, warmup=1)
+        b_ms, b_by = bound_ms(*work[name])
+        source, replaces = FLASH_SOURCES[name]
+        lib_ms = lib_fwd_ms if name == "flash_attention_fwd_lse" else lib_bwd_ms
+        rows[fused_name(name)] = dict(
+            name=fused_name(name), route="cuda", source=source, replaces=replaces,
+            max_abs_err=err[name], ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None if name == "flash_attention_bwd_delta" else lib_ms)
+        print(f"  {name} at n {n}: {ms:.4f} ms (device {device_ms(kernel_fn, 5):.4f})  plain "
+              f"{plain_ms:.4f} ms (one head at a time)  bound {b_ms:.4f} ms ({b_by}: "
+              f"{work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.1f} GFLOP; "
+              f"{b_ms / ms:.2f} of it)")
+    k3 = sum(rows[fused_name(name)]["ms"] for name in FUSED_KERNELS[1:])
+    print(f"  K3 in all (delta + dq + dkv): {k3:.4f} ms; scaled_dot_product_attention backward "
+          f"{lib_bwd_ms:.4f} ms")
+    return rows
+
+
+def fused_grads(model) -> dict:
+    """Gradients of the fused stack's parameters whose gradient passes
+    through the flash kernels: its attention projections and scales."""
+    return {name: p.grad.detach().float().clone() for name, p in model.named_parameters()
+            if "enc_fused_transformer" in name and any(
+                key in name for key in ("attn.to_q", "attn.to_kv", "attn.q_scale", "attn.k_scale"))}
+
+
+def fused_step(dev, rows: dict) -> None:
+    """A CLIP step with the fused encoder (FUSED_DEPTH blocks over all
+    13,824 tokens of each volume; fp32 parameters, bf16 compute, remat,
+    batch 2) on the kernel path, twice, then the first step again from the
+    same state with the fused stack's attention on the plain cosine
+    attention, under the CLIP gates, at the same depth (remat keeps one
+    block's (2, 8, n, n) fp32 scores and their gradients live at a time)."""
+    import torch
+
+    from ctpa_torch.core.config import BertConfig, CTCLIPConfig, CTViTConfig, OptimizerConfig
+    from ctpa_torch.core.init import random_init_
+    from ctpa_torch.core.precision import Policy
+    from ctpa_torch.models.ctclip import CTCLIP
+    from ctpa_torch.ops.flash_attention import LAUNCHES
+    from ctpa_torch.ops.vq import vq_init
+    from ctpa_torch.train.clip_trainer import make_clip_train_step
+    from ctpa_torch.train.optim import get_optimizer
+    from ctpa_torch.train.train_state import CLIPTrainState
+
+    vit_cfg = dataclasses.replace(CTViTConfig(), fused_attention=True, fused_depth=FUSED_DEPTH)
+
+    def build():
+        return CTCLIP(CTCLIPConfig(), vit_cfg, BertConfig(), device=dev, dtype=torch.float32,
+                      remat=True)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    model = random_init_(build(), gen)
+    vq = vq_init(gen, vit_cfg.codebook_size, vit_cfg.dim, device=dev)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = make_train_batch(model, dev)
+
+    def step(model, label: str):
+        tx = get_optimizer(OptimizerConfig(), model)
+        fn = make_clip_train_step(model, tx, vq_decay=vit_cfg.vq_decay, policy=Policy())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        _, m = fn(CLIPTrainState.create(model, tx, vq), batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        m = {k: float(v) for k, v in m.items()}
+        print(f"  {label}: wall {wall * 1e3:.1f} ms  loss {m['loss']:.6f}  grad norm "
+              f"{m['grad_norm']:.6f}  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB")
+        return m
+
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    first = step(model, f"kernel path, fused_depth {FUSED_DEPTH}, step 1")
+    launched = dict(LAUNCHES)
+    expect = dict.fromkeys(LAUNCHES, 0)
+    expect["flash_attention_fwd_lse"] = 2 * FUSED_DEPTH          # remat runs it twice
+    for name in FUSED_KERNELS[1:]:
+        expect[name] = FUSED_DEPTH
+    print("    launches " + " ".join(f"{k.removeprefix('flash_attention_')} {v}"
+                                     for k, v in launched.items() if v))
+    if launched != expect or not math.isfinite(first["loss"]):
+        raise AssertionError(f"fused step: launches {launched} (expected {expect}), {first}")
+    for name in FUSED_KERNELS:
+        rows[fused_name(name)]["launches"] = launched[name]
+    grads = fused_grads(model)
+    step(model, "kernel path, step 2")
+    del model
+    torch.cuda.empty_cache()
+    plain = build()
+    plain.load_state_dict(start)
+    for block in plain.visual_transformer.enc_fused_transformer.blocks:
+        block.attn.use_flash = False
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    ref = step(plain, f"plain path (cosine attention), fused_depth {FUSED_DEPTH}, step 1")
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"the plain path launched hand kernels: {LAUNCHES}")
+    worst = 1.0
+    for (name, g), g_p in zip(grads.items(), fused_grads(plain).values()):
+        worst = min(worst, torch.nn.functional.cosine_similarity(
+            g.flatten(), g_p.flatten(), dim=0).item())
+    gap = abs(first["loss"] - ref["loss"])
+    print(f"  kernel vs plain: |loss diff| {gap:.3e} (<= {TRAIN_LOSS_ATOL}); fused-stack "
+          f"attention gradients: min cosine {worst:.6f} (>= {TRAIN_GRAD_MIN_COS}) over "
+          f"{len(grads)} tensors")
+    if gap > TRAIN_LOSS_ATOL or worst < TRAIN_GRAD_MIN_COS:
+        raise AssertionError("fused step: kernel path and plain path disagree")
+
+
 def main() -> int:
     import torch
 
@@ -5033,6 +5597,15 @@ def main() -> int:
             zeroshot_files(dev)
     torch.cuda.empty_cache()
 
+    with phase("clip-files"):
+        clip_files(dev)
+    torch.cuda.empty_cache()
+    with phase("fused-encoder"):
+        rows.update(check_fused_kernels(dev))
+        torch.cuda.empty_cache()
+        fused_step(dev, rows)
+    torch.cuda.empty_cache()
+
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{key: rows[k][key] for key in order}
@@ -5043,7 +5616,8 @@ def main() -> int:
                   "flash_attention_bwd_dkv_d128")
                + tuple(f[0] for f in QUANT_FORMS) + ("int4_act_quant",)
                + tuple(f[0] for f in QUANT8_FORMS)
-               + tuple(f"{f[0]}_prefill" for f in QUANT_FORMS + QUANT8_FORMS)]
+               + tuple(f"{f[0]}_prefill" for f in QUANT_FORMS + QUANT8_FORMS)
+               + tuple(fused_name(k) for k in FUSED_KERNELS)]
     for row in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(row[key]):

@@ -28,6 +28,15 @@ module.  The layout rules:
   ``value``) and the port as parameters of ``BertSelfAttention``
   (``layers.i.attention_self.query_lora_a``).
 
+The CLIP model's optional heads carry ctpa's names as they are
+(``to_text_latent_extra``, ``to_visual_latent_extra``, the (4, 4, c)
+``downsample_depthwise``, ``downsample_pointwise``, ``mlm_head``), and so does
+the fused encoder (``visual_transformer.enc_fused_transformer``).  flax's
+automatic names (``Dense_0``, ``BatchNorm_0``, the SSL projector's) are kept
+too; ``load_flax_variables`` merges a ``batch_stats`` collection (a flax
+BatchNorm's ``mean`` and ``var``) into the params before loading, onto the
+port's buffers of those names.
+
 ``load_flax_params`` is strict: an unused flax leaf, a missing torch entry
 or a shape mismatch raises.  ``overlay_flax_params`` grafts a partial tree
 (an imported checkpoint) the way ctpa's ``overlay_base`` grafts it onto an
@@ -39,13 +48,13 @@ anything ``numpy.asarray`` takes.
 
 from __future__ import annotations
 
-import logging
 import re
 
 import numpy as np
 import torch
 from torch import nn
 
+from ctpa_torch.core.logging import get_logger
 from ctpa_torch.ops.vq import VQState
 
 _LISTS = re.compile(r"^(peg|block|layers?|mlp)_(\d+)$")
@@ -125,6 +134,25 @@ def load_flax_params(module: nn.Module, params: dict) -> nn.Module:
     return module
 
 
+def _merge(a: dict, b: dict) -> dict:
+    out = dict(a)
+    for key, val in b.items():
+        if isinstance(val, dict) and isinstance(out.get(key), dict):
+            out[key] = _merge(out[key], val)
+        elif key in out:
+            raise KeyError(f"{key} is in both collections")
+        else:
+            out[key] = val
+    return out
+
+
+def load_flax_variables(module: nn.Module, variables: dict) -> nn.Module:
+    """``load_flax_params`` of a flax variables dict: its ``params`` and, where
+    there is one, its ``batch_stats`` merged into one tree."""
+    return load_flax_params(module, _merge(variables["params"],
+                                           variables.get("batch_stats", {})))
+
+
 def overlay_flax_params(module: nn.Module, params: dict, allow_missing: bool = False) -> list[str]:
     """Graft a flax-shaped tree (an import, possibly partial) onto ``module``
     in place, with ctpa's ``overlay_base`` semantics: the module's entries the
@@ -175,7 +203,7 @@ def overlay_flax_params(module: nn.Module, params: dict, allow_missing: bool = F
     walk(params, ())
     module.load_state_dict(state, strict=False)
     if skipped:
-        logging.getLogger("ctpa_torch").warning(
+        get_logger().warning(
             "overlay_base skipped %d keys (strict=False): %s%s", len(skipped),
             ", ".join(skipped[:5]), "..." if len(skipped) > 5 else "")
     return skipped

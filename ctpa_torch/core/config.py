@@ -1,8 +1,8 @@
 """Typed configuration — an own copy of the dataclasses of
 ``ctpa/core/config.py`` that this package needs (the port imports nothing of
 ``ctpa``).  Field names and defaults are the same, so a ``ctpa`` config maps
-field by field; fields of parts not ported yet (dropout, the decoder, the
-fused encoder) are left out.  The LLM configs are copied whole; the models
+field by field; fields of parts not ported yet (dropout, the decoder) are
+left out.  The LLM configs are copied whole; the models
 raise on the values whose paths are not ported (``models/llm.py``).
 """
 
@@ -59,6 +59,10 @@ class CTViTConfig:
     # reference quirk: K/V from the un-normalized input)
     attn_kv_from_normed: bool = False
     vq_decay: float = 0.99          # EMA codebook decay
+    # exact full-sequence attention over all t*h*w tokens through the flash
+    # kernels (no bias), fused_depth blocks, instead of the axial folds
+    fused_attention: bool = False
+    fused_depth: int = 4
     # route the spatial fold's attention through the flash-attention kernel
     # (csrc/flash_attention.cu) on CUDA tensors
     flash_axial: bool = False
@@ -108,9 +112,12 @@ class BertConfig:
 
 @dataclass(frozen=True)
 class CTCLIPConfig:
-    """Dual-encoder CLIP.  The port trains the shipped form: the FILIP,
-    CLOOB, downsample and MLM switches raise in ``models/ctclip.py`` until
-    their slice lands."""
+    """Dual-encoder CLIP with ctpa's loss variants: decoupled contrastive
+    learning, CLOOB-style extra projections, the downsampled image embedding,
+    FILIP all-token similarity, the MLM head, and the SSL weights of the
+    train step (``train/clip_trainer.py``).  ``gather_negatives`` is kept so
+    a ctpa config maps field by field; on one device there is nothing to
+    gather."""
 
     dim_latent: int = 512
     dim_text: int = 768
@@ -119,8 +126,12 @@ class CTCLIPConfig:
     decoupled_contrastive_learning: bool = False
     extra_latent_projection: bool = False   # CLOOB-style
     downsample_image_embeds: bool = False
-    use_all_token_embeds: bool = False      # FILIP
+    use_all_token_embeds: bool = False      # FILIP (dim_image = the token width)
     use_mlm: bool = False
+    text_ssl_loss_weight: float = 0.05
+    image_ssl_loss_weight: float = 0.05
+    multiview_loss_weight: float = 0.1      # weight of the augmented-view InfoNCE
+    gather_negatives: bool = True
 
     @staticmethod
     def tiny(vit: CTViTConfig, bert: BertConfig) -> "CTCLIPConfig":

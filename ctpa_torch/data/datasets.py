@@ -26,13 +26,13 @@ silent corruption, SURVEY.md §4 — deliberately not reproduced).
 
 from __future__ import annotations
 
-import logging
 import os
 from dataclasses import dataclass
 from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 
+from ctpa_torch.core.logging import get_logger
 from ctpa_torch.data.manifests import iterrows, metadata_lookup, read_csv, read_jsonl
 from ctpa_torch.data.reports import normalize_for_training
 
@@ -298,7 +298,7 @@ def batch_iterator(
                 except Exception as e:  # noqa: BLE001
                     if on_error == "raise":
                         raise
-                    logging.getLogger("ctpa_torch").warning("skipping sample %d: %s", idx, e)
+                    get_logger().warning("skipping sample %d: %s", idx, e)
             if len(samples) == batch_size or (samples and not drop_last):
                 yield collate(samples)
         if not cycle:

@@ -21,13 +21,13 @@ from __future__ import annotations
 
 import glob
 import json
-import logging
 import os
 from typing import Any, Mapping
 
 import numpy as np
 
 from ctpa_torch.core.config import BertConfig, LLMConfig
+from ctpa_torch.core.logging import get_logger
 
 
 Array = Any
@@ -164,7 +164,7 @@ def overlay_base(init_params: dict, imported: dict, allow_missing: bool = False)
 
     merged = merge(init_params, imported)
     if skipped:
-        logging.getLogger("ctpa_torch").warning(
+        get_logger().warning(
             "overlay_base skipped %d keys (strict=False): %s%s", len(skipped),
             ", ".join(skipped[:5]), "..." if len(skipped) > 5 else "")
     return merged

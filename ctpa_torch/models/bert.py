@@ -127,3 +127,20 @@ class BertEncoder(nn.Module):
             else:
                 x = layer(x, bias)
         return x, x[:, 0]
+
+
+class BertMLMHead(nn.Module):
+    """Masked-LM prediction head: dense -> exact GELU -> LayerNorm -> decoder
+    to the vocabulary (ctpa's names: ``transform_dense``,
+    ``transform_LayerNorm``, ``decoder``)."""
+
+    def __init__(self, cfg: BertConfig, device="cuda", dtype=torch.float32):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        self.transform_dense = Dense(cfg.hidden_size, cfg.hidden_size, **fk)
+        self.transform_LayerNorm = AffineLayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **fk)
+        self.decoder = Dense(cfg.hidden_size, cfg.vocab_size, **fk)
+
+    def forward(self, hidden):
+        x = F.gelu(self.transform_dense(hidden))
+        return self.decoder(self.transform_LayerNorm(x))

@@ -1,7 +1,9 @@
 """CTViT encoder — factorized spatial/temporal 3D vision transformer with a
-cosine VQ bottleneck (port of ``ctpa/models/ctvit.py``, encode side, axial
-path).  The decoder, ``reconstruct`` and the fused full-sequence encoder
-belong to later slices."""
+cosine VQ bottleneck (port of ``ctpa/models/ctvit.py``, encode side): the
+axial path (spatial fold, then temporal fold) and, with
+``cfg.fused_attention``, the fused full-sequence encoder (exact attention
+over all t*h*w tokens through the flash kernels).  The decoder and
+``reconstruct`` belong to a later slice."""
 
 from __future__ import annotations
 
@@ -86,18 +88,31 @@ class CTViT(nn.Module):
     recomputes each transformer block in the backward.  Training keeps
     ``cfg.pallas_patchify`` off: the patchify kernel is forward-only.
     ``dtype`` is the parameters' dtype; the compute dtype (ctpa's module
-    ``dtype``) is set with ``models.layers.set_compute_dtype``."""
+    ``dtype``) is set with ``models.layers.set_compute_dtype``.
+
+    With ``cfg.fused_attention`` the encoder is ``enc_fused_transformer``
+    (``cfg.fused_depth`` blocks, flash attention with no bias, PEG on the
+    full grid) and the axial stacks and the position bias are not built:
+    ctpa's parameter tree has none of them then.  Context parallelism
+    (``cp_mesh``) is not ported."""
 
     def __init__(self, cfg: CTViTConfig, device="cuda", dtype=torch.float32,
-                 remat: bool = False):
+                 remat: bool = False, cp_mesh=None):
         super().__init__()
+        if cp_mesh is not None:
+            raise NotImplementedError("context parallelism (cp_mesh) is not ported "
+                                      "(ROADMAP Queue A item 10)")
         fk = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.patch_embed = PatchEmbed3D(cfg, **fk)
-        self.spatial_rel_pos_bias = ContinuousPositionBias(cfg.dim, cfg.heads, **fk)
         tkw = dict(dim=cfg.dim, heads=cfg.heads, dim_head=cfg.dim_head, ff_mult=cfg.ff_mult,
                    peg=True, peg_causal=True, peg_reference_layout=cfg.peg_reference_layout,
                    kv_from_normed=cfg.attn_kv_from_normed, remat=remat, **fk)
+        if cfg.fused_attention:
+            self.enc_fused_transformer = Transformer(depth=cfg.fused_depth, use_flash=True,
+                                                     **tkw)
+            return
+        self.spatial_rel_pos_bias = ContinuousPositionBias(cfg.dim, cfg.heads, **fk)
         # the 576-token spatial fold goes through the flash kernel with
         # flash_axial; the 24-token temporal fold stays plain
         self.enc_spatial_transformer = Transformer(depth=cfg.spatial_depth,
@@ -110,8 +125,13 @@ class CTViT(nn.Module):
         return (c.temporal_tokens, c.image_size // c.patch_size, c.image_size // c.patch_size)
 
     def encode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Axial encode: spatial fold, then temporal fold."""
+        """Axial encode: spatial fold, then temporal fold; or, with
+        ``cfg.fused_attention``, one stack over all t*h*w tokens."""
         b, t, h, w, d = tokens.shape
+        if self.cfg.fused_attention:
+            x = rearrange(tokens, "b t h w d -> b (t h w) d")
+            x = self.enc_fused_transformer(x, shape3d=(t, h, w), fold="full")
+            return rearrange(x, "b (t h w) d -> b t h w d", t=t, h=h, w=w)
         bias = self.spatial_rel_pos_bias(h, w)                   # (heads, hw, hw)
         x = rearrange(tokens, "b t h w d -> (b t) (h w) d")
         x = self.enc_spatial_transformer(x, shape3d=(t, h, w), fold="spatial", bias=bias)

@@ -2,20 +2,25 @@
 device.
 
 One step: forward of both towers in the policy's compute dtype,
-bidirectional InfoNCE (plus the weighted VQ commitment loss when asked),
-backward, gradient clipping and AdamW (``train/optim.py``), then the VQ EMA
-codebook update.  ctpa compiles this into one XLA program; the port runs it
-eagerly, updates the parameters and moments in place, and reads nothing back
-to the host: the metrics stay device tensors.  Data parallelism (``mesh``,
-``contrastive_loss_sharded``), the MLM and visual-SSL losses wait for later
-slices and raise.
+bidirectional InfoNCE (plus the weighted VQ commitment loss when asked, and
+the MLM and SimCLR objectives with their config weights), backward,
+gradient clipping and AdamW (``train/optim.py``), then the VQ EMA codebook
+update.  ctpa compiles this into one XLA program; the port runs it eagerly,
+updates the parameters and moments in place, and reads nothing back to the
+host: the metrics stay device tensors.  Data parallelism (``mesh``,
+``contrastive_loss_sharded``) is not ported and raises.
+
+The SSL objectives' random draws (the MLM masks, the two augmented views)
+come from ``ssl_draws``, seeded by (seed, step) as ctpa folds the step into
+its key; it is the one place they are drawn, so a test can put ctpa's own
+draws in its stead.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Any, Callable, Iterator, Optional
+from typing import Any, Callable, Iterator, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -25,15 +30,48 @@ from ctpa_torch.core.config import OptimizerConfig, TrainConfig
 from ctpa_torch.core.precision import Policy, policy as precision_policy
 from ctpa_torch.models.ctclip import CTCLIP
 from ctpa_torch.models.layers import set_compute_dtype
+from ctpa_torch.models.mlm import mlm_draws, mlm_loss
+from ctpa_torch.models.visual_ssl import AugmentDraws, augment_draws, simclr_ssl_loss
 from ctpa_torch.ops.vq import ema_update
 from ctpa_torch.train.metrics import MetricsTracker
 from ctpa_torch.train.optim import Optimizer, get_optimizer, global_norm
 from ctpa_torch.train.train_state import CLIPTrainState
 
 
+class SSLDraws(NamedTuple):
+    """One step's draws: the MLM's (selection scores, replacement draws)
+    and the two SimCLR views' ``AugmentDraws``; None where the objective is
+    off."""
+
+    mlm: Optional[tuple[torch.Tensor, torch.Tensor]]
+    views: Optional[tuple[AugmentDraws, AugmentDraws]]
+
+
+def _generator(device, seed: int, index: int) -> torch.Generator:
+    if not 0 <= index < 2 ** 32:
+        raise ValueError(f"draw index {index} out of range")
+    return torch.Generator(device=device).manual_seed(seed * 2 ** 32 + index)
+
+
+def ssl_draws(seed: int, step: int, input_ids: torch.Tensor, video: torch.Tensor,
+              use_mlm: bool, use_visual_ssl: bool) -> SSLDraws:
+    """The step's draws on the batch's device: the MLM's from a generator
+    seeded by (seed, 2 step + 1), the views' from one seeded by (seed,
+    2 step + 2), the indices ctpa folds into its key."""
+    mlm = views = None
+    if use_mlm:
+        mlm = mlm_draws(input_ids, _generator(input_ids.device, seed, 2 * step + 1))
+    if use_visual_ssl:
+        gen = _generator(video.device, seed, 2 * step + 2)
+        views = (augment_draws(video, gen), augment_draws(video, gen))
+    return SSLDraws(mlm, views)
+
+
 def make_clip_train_step(model: CTCLIP, tx: Optimizer, vq_decay: float = 0.99,
                          commit_weight: float = 0.0, policy: Optional[Policy] = None,
-                         use_mlm: bool = False, use_visual_ssl: bool = False):
+                         use_mlm: bool = False, use_visual_ssl: bool = False,
+                         mask_token_id: int = 103, seed: int = 0,
+                         model_dtype: Optional[torch.dtype] = None):
     """The (state, batch) -> (state, metrics) step.
 
     batch: {"input_ids": (B, L), "attention_mask": (B, L), "video": (B, c, T, H, W)},
@@ -41,26 +79,42 @@ def make_clip_train_step(model: CTCLIP, tx: Optimizer, vq_decay: float = 0.99,
     and optimizer; their parameters and moments are updated in place, the
     returned state carries the new VQ state and step.  Metrics are 0-d
     tensors: loss, grad_norm (of the unclipped gradients), temperature
-    (before the update) and vq_commit.  The model computes in the policy's
-    compute dtype from here on (``policy("bf16")``: ctpa's
+    (before the update), mlm_loss and visual_ssl_loss where on, and
+    vq_commit.  The video is cast to the policy's compute dtype, and the
+    model computes in ``model_dtype`` (ctpa's ``CTCLIP(dtype=...)``), by
+    default the policy's compute dtype too (``policy("bf16")``: ctpa's
     ``CTCLIP(dtype=jnp.bfloat16)``; ``policy("fp32")``: its fp32 modules).
-    The global norm is computed once and serves the metric and the clip."""
-    if use_mlm or use_visual_ssl:
-        raise NotImplementedError("the MLM and visual-SSL losses are not ported yet")
+    With ``use_mlm`` (the model built with ``use_mlm``) and
+    ``use_visual_ssl`` the loss adds ``text_ssl_loss_weight`` times the MLM
+    loss and ``image_ssl_loss_weight`` times SimCLR's over two augmented
+    views of the video.  The global norm is computed once and serves the
+    metric and the clip."""
     policy = policy or Policy()
-    set_compute_dtype(model, policy.compute_dtype)
+    set_compute_dtype(model, policy.compute_dtype if model_dtype is None else model_dtype)
 
     def train_step(state: CLIPTrainState, batch: dict):
         model.zero_grad(set_to_none=True)
-        out = model(batch["input_ids"], batch["attention_mask"],
-                    policy.cast_to_compute(batch["video"]), state.vq_state, return_loss=True)
+        ids, mask = batch["input_ids"], batch["attention_mask"]
+        video = policy.cast_to_compute(batch["video"])
+        out = model(ids, mask, video, state.vq_state, return_loss=True)
         loss = out.loss
         if out.vq_commit_loss is not None and commit_weight > 0:
             loss = loss + commit_weight * out.vq_commit_loss
+        extra = {}
+        if use_mlm or use_visual_ssl:
+            draws = ssl_draws(seed, state.step, ids, video, use_mlm, use_visual_ssl)
+        if use_mlm:
+            tl = mlm_loss(model.mlm_logits, ids, mask, draws.mlm, mask_token_id=mask_token_id)
+            loss = loss + model.cfg.text_ssl_loss_weight * tl
+            extra["mlm_loss"] = tl.detach()
+        if use_visual_ssl:
+            vl = simclr_ssl_loss(model.visual_ssl_embed, video, draws.views)
+            loss = loss + model.cfg.image_ssl_loss_weight * vl
+            extra["visual_ssl_loss"] = vl.detach()
         loss.backward()
         norm = global_norm([p.grad for p in model.parameters() if p.grad is not None])
         metrics = {"loss": loss.detach(), "grad_norm": norm,
-                   "temperature": torch.exp(model.temperature.detach())}
+                   "temperature": torch.exp(model.temperature.detach()), **extra}
         tx.step(state.step, grad_norm=norm)
         vq_state = state.vq_state
         if vq_state is not None and out.vq_counts is not None:
@@ -90,12 +144,15 @@ class CTClipTrainer:
     ``eval_fn(state, step)`` is the zero-shot evaluation hook, run every
     ``cfg.save_results_every`` steps.  ``trainable_mask`` (name -> bool, or
     a callable model -> that) freezes the False parameters, e.g.
-    ``clip_finetune_mask``."""
+    ``clip_finetune_mask``.  ``model_dtype`` as in ``make_clip_train_step``
+    (ctpa's training CLI trains an fp32 CTCLIP under the bf16 policy: the
+    video is rounded to bf16, the model computes in fp32)."""
 
     def __init__(self, model: CTCLIP, state: CLIPTrainState, train_loader: Iterator,
                  cfg: TrainConfig = TrainConfig(), opt_cfg: OptimizerConfig = OptimizerConfig(),
                  mesh=None, eval_fn: Optional[Callable[[CLIPTrainState, int], dict]] = None,
-                 commit_weight: float = 0.0, trainable_mask: Optional[Any] = None):
+                 commit_weight: float = 0.0, trainable_mask: Optional[Any] = None,
+                 model_dtype: Optional[torch.dtype] = None):
         if mesh is not None:
             raise NotImplementedError("data-parallel training (mesh) is not ported yet")
         self.model = model
@@ -116,7 +173,8 @@ class CTClipTrainer:
         # default, 0.99, which the config's default equals)
         self._step = make_clip_train_step(
             model, self.tx, vq_decay=model.visual_transformer.cfg.vq_decay,
-            commit_weight=commit_weight, policy=precision_policy(cfg.precision))
+            commit_weight=commit_weight, policy=precision_policy(cfg.precision),
+            model_dtype=model_dtype)
         self.ckpt = CheckpointManager(cfg.checkpoint_dir)
         self.metrics = MetricsTracker(os.path.join(cfg.results_dir, "train_metrics.json"))
 

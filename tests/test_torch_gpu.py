@@ -9,6 +9,8 @@ the card's machine does not have)
 Tolerances: kernel and plain version sum the same rounded products in fp32
 in another order; in bf16 the result is rounded once more (2e-2 abs + rel),
 in fp32 they agree to 1e-4.  The logsumexp is fp32 in both dtypes (1e-4).
+At the fused encoder's 13,824 tokens the bf16 outputs are small, and the
+absolute limit scales with the reference's RMS (chip_smoke.fused_tolerance).
 """
 
 import dataclasses
@@ -750,6 +752,82 @@ def test_ctvit_training_gradients_kernel_path_vs_plain_path(cuda):
                       if is_spatial_fold_param(n)})
     assert LAUNCHES["flash_attention_fwd_lse"] - before["flash_attention_fwd_lse"] == 2 * 2
     assert LAUNCHES["flash_attention_bwd_dkv"] - before["flash_attention_bwd_dkv"] == 2
+    for name, g in grads[0].items():
+        cos = torch.nn.functional.cosine_similarity(g.flatten(), grads[1][name].flatten(), dim=0)
+        assert cos >= 0.99, (name, cos.item())
+
+
+# ------------------------------------- K2-lse and K3 at the fused sequence
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_fused_sequence_kernels_match_plain(cuda, dtype):
+    """The fused encoder's form: no bias, no mask, n = m = 13,824, head dim
+    32, the cosine bound; K2-lse and the delta, dQ and dK/dV passes of K3
+    against their plain versions (one head at a time: the (1, 8, n, n) fp32
+    scores are 6.1 GB) under chip_smoke.py's fused-form limits, each called
+    twice for the same bits.  The limits must reject what kernels that skip
+    the last keys (out, dQ) or queries (dK, dV) would return."""
+    import chip_smoke as cs
+
+    b, h, n, d = cs.FUSED_SHAPE
+    q = l2norm(torch.randn(b, h, n, d, generator=cuda, device="cuda")).to(dtype)
+    k = l2norm(torch.randn(b, h, n, d, generator=cuda, device="cuda")).to(dtype)
+    v, do = (torch.randn(b, h, n, d, generator=cuda, device="cuda").to(dtype) for _ in range(2))
+    bound = torch.tensor(8.0, device="cuda")
+    out, lse = flash_attention(q, k, v, scale=8.0, logit_bound=bound, return_lse=True)
+    again = flash_attention(q, k, v, scale=8.0, logit_bound=bound, return_lse=True)
+    delta = fa.flash_attention_bwd_delta(out, do)
+    args = (q, k, v, None, lse, delta, do, 8.0)
+    dq, (dk, dv) = fa.flash_attention_bwd_dq(*args), fa.flash_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert torch.equal(delta, fa.flash_attention_bwd_delta(out, do))
+    assert torch.equal(dq, fa.flash_attention_bwd_dq(*args))
+    assert all(torch.equal(x, y) for x, y in zip((dk, dv), fa.flash_attention_bwd_dkv(*args)))
+    ref_out, ref_lse = cs.by_head(lambda *a: flash_attention_plain(*a, return_lse=True),
+                                  q, k, v, None, 8.0, bound)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(delta, fa.flash_attention_bwd_delta_plain(out, do), atol=1e-4,
+                               rtol=1e-4)
+    rdk, rdv = cs.by_head(fa.flash_attention_bwd_dkv_plain, *args)
+    fault = cs.fused_faults(q, k, v, lse, delta, do, 8.0, bound)
+    for name, got, ref in (("out", out, ref_out),
+                           ("dq", dq, cs.by_head(fa.flash_attention_bwd_dq_plain, *args)),
+                           ("dk", dk, rdk), ("dv", dv, rdv)):
+        atol, rtol = cs.fused_tolerance(ref, dtype)
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol, msg=name)
+        assert cs.rejects(fault[name], ref, atol, rtol), name
+
+
+def test_ctvit_fused_encoder_kernel_path_vs_plain_path(cuda):
+    """The shipped CTViT with fused_attention at fused_depth 1, one volume,
+    fp32 parameters and bf16 compute: tokens and every gradient of the
+    fused stack through K2-lse and K3 against the same stack with its
+    attention taken by the plain cosine attention."""
+    cfg = dataclasses.replace(CTViTConfig(), fused_attention=True, fused_depth=1)
+    bf16 = torch.bfloat16
+    fast = set_compute_dtype(random_init_(CTViT(cfg, device="cuda"), cuda), bf16)
+    plain = set_compute_dtype(CTViT(cfg, device="cuda"), bf16)
+    plain.load_state_dict(fast.state_dict())
+    for block in plain.enc_fused_transformer.blocks:
+        block.attn.use_flash = False
+    video = torch.rand(1, 1, cfg.temporal_size, cfg.image_size, cfg.image_size,
+                       generator=cuda, device="cuda") * 2 - 1
+    t, hh, ww = plain.grid
+    target = torch.randn(1, t, hh, ww, cfg.dim, generator=cuda, device="cuda")
+    before = dict(LAUNCHES)
+    outs, grads = [], []
+    for model in (fast, plain):
+        tokens, _ = model(video.to(bf16))
+        (tokens.float() * target).sum().backward()
+        outs.append(tokens.float())
+        grads.append({n: p.grad.float() for n, p in model.named_parameters()
+                      if "enc_fused_transformer" in n})
+    launched = {key: LAUNCHES[key] - before[key] for key in LAUNCHES}
+    assert launched["flash_attention_fwd_lse"] == launched["flash_attention_bwd_dq"] == 1
+    assert launched["flash_attention_bwd_dbias"] == 0
+    cos = torch.nn.functional.cosine_similarity(outs[0].flatten(), outs[1].flatten(), dim=0)
+    assert cos >= 0.999, cos.item()
     for name, g in grads[0].items():
         cos = torch.nn.functional.cosine_similarity(g.flatten(), grads[1][name].flatten(), dim=0)
         assert cos >= 0.99, (name, cos.item())
@@ -1809,3 +1887,27 @@ def test_generate_report_kernel_path_matches_plain_path(cuda, tmp_path, monkeypa
     assert (kernel.argmax(-1) == tokens).float().mean() >= 0.8
     rel, _, top1 = cs.logit_distance(kernel, plain)
     assert rel <= 5e-2 and top1 >= 0.8, (rel, top1)
+
+
+def test_prefetch_stages_batches_on_a_side_stream(cuda):
+    """PrefetchIterator on the card: host arrays arrive on the device from
+    pinned memory, device work of the source runs on the side stream, and
+    the consumer's stream waits for it (the batch reads back exactly)."""
+    import numpy as np
+
+    from ctpa_torch.data.prefetch import PrefetchIterator
+
+    def source():
+        for i in range(4):
+            host = np.full((1024, 1024), i, np.float32)
+            dev = torch.full((4096, 1024), float(i), device="cuda")
+            for _ in range(8):          # queue some work on the producer's stream
+                dev = dev * 1.0
+            assert torch.cuda.current_stream() != torch.cuda.default_stream()
+            yield {"host": host, "dev": dev, "tag": i}
+
+    got = list(PrefetchIterator(source(), device="cuda", depth=2))
+    assert [b["tag"] for b in got] == [0, 1, 2, 3]
+    for i, b in enumerate(got):
+        assert b["host"].is_cuda and b["dev"].is_cuda
+        assert bool((b["host"] == i).all()) and bool((b["dev"] == i).all())

@@ -41,7 +41,10 @@ report = ["ctpa_torch.ops.decode_attention", "ctpa_torch.ops.rotary", "ctpa_torc
           "ctpa_torch.eval.artifacts", "ctpa_torch.cli.zeroshot_infer",
           "ctpa_torch.cli.preprocess", "ctpa_torch.cli.train_report",
           "ctpa_torch.cli.generate_report", "ctpa_torch.cli.evaluate", "ctpa_torch.eval.nlg",
-          "ctpa_torch.models.vqa_bert", "ctpa_torch.models.bert"]
+          "ctpa_torch.models.vqa_bert", "ctpa_torch.models.bert", "ctpa_torch.cli.train_clip",
+          "ctpa_torch.data.prefetch", "ctpa_torch.core.logging", "ctpa_torch.core.profiling",
+          "ctpa_torch.models.mlm", "ctpa_torch.models.visual_ssl", "ctpa_torch.models.ctclip",
+          "ctpa_torch.models.ctvit", "ctpa_torch.train.clip_trainer"]
 missing = sorted(set(report) - set(names))
 assert not missing, missing
 for name in names:

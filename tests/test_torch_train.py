@@ -510,11 +510,11 @@ def test_trainer_steps_saves_and_resumes(clip_pair, tmp_path):
     trainer.close()
     with pytest.raises(NotImplementedError):
         CTClipTrainer(model, trainer.state, loader, cfg=cfg, mesh=object())
-    with pytest.raises(NotImplementedError):
-        make_clip_train_step(model, tx, use_mlm=True)
-    with pytest.raises(NotImplementedError):
-        CTCLIP(dataclasses.replace(tc.CTCLIPConfig.tiny(VIT, BERT), use_all_token_embeds=True),
-               VIT, BERT, device="cpu")
+    # the MLM objective and the CLIP variants are ported
+    # (tests/test_torch_clip_variants.py)
+    make_clip_train_step(model, tx, use_mlm=True)
+    assert CTCLIP(dataclasses.replace(tc.CTCLIPConfig.tiny(VIT, BERT), use_all_token_embeds=True),
+                  VIT, BERT, device="cpu").cfg.use_all_token_embeds
     frozen = CTClipTrainer(model, trainer.state, iter([_batch(23)]), cfg=cfg,
                            trainable_mask=clip_finetune_mask)
     before = model.to_visual_latent.weight.detach().clone()
