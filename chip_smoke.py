@@ -3,8 +3,8 @@
 (bench_torch.py's program), contrastive training, report generation, report
 training, int4 and int8 report serving, streaming report serving,
 zero-shot evaluation from files, the report workload from files, CT-CLIP
-training from files and the fused full-sequence encoder once on one CUDA
-card.
+training from files, the fused full-sequence encoder and the generative
+(VQGAN) path once on one CUDA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -285,6 +285,24 @@ Phases, each printing its seconds:
                      remat; exactly 8 K2-lse and 4 of each pass), twice, and
                      the first step again on the plain cosine attention at
                      the same depth under the CLIP gates.
+ 29. vqgan         — the VQGAN step (train/vqgan_trainer.py) at
+                     CTViTConfig() with the decoder, Discriminator() and
+                     PerceptualNet(), batch 2 (240, 480, 480) volumes, from
+                     one set of seeded weights: the spatial fold on K2-lse
+                     and K3 with d(bias), exactly 4 launches of each a step,
+                     against the plain attention, both quantizing to the
+                     plain path's codes, with R1 and without, in bf16 (each
+                     loss term within 0.05, each group's gradient cosine
+                     >= 0.99) and in fp32 (1e-4, 0.9999); planted flash
+                     faults (causal on; the last 32 keys masked, in fp32)
+                     must fail the gates; reconstruct under no_grad on K1
+                     and K2, its encoder tokens gated against the plain
+                     path's (the same fault refused), the voxels and
+                     decode_from_codebook_indices printed beside them;
+                     then train_vqgan.main from npz files as ctpa's CLI runs
+                     (fp32, no kernel): 2 steps, --resume to 3, against an
+                     uninterrupted run; step times, peak memory, the
+                     checkpoint's size.
 
 The line before the last is nvidia-smi's "name, power.limit"; the one before
 that a JSON object with one entry per kernel.  The last line is
@@ -569,6 +587,61 @@ FUSED_ATOL_RMS = 0.05
 FUSED_FAULT_ROWS = 32
 FUSED_KERNELS = ("flash_attention_fwd_lse", "flash_attention_bwd_delta",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+# the generative path (phase vqgan): the VQGAN step (train/vqgan_trainer.py)
+# at CTViTConfig() with the decoder, Discriminator() and PerceptualNet(),
+# VQGAN_BATCH volumes of (1, 240, 480, 480), from one set of seeded weights
+# (train_vqgan.init_state; the discriminator and perceptual net drawn again
+# at He's scale, vqgan_nets) on the kernel path (flash_axial: K2-lse and K3
+# with d(bias) on the spatial fold) and on the plain path, with R1 (step
+# count 0) and without (count 1), in fp32 and in bf16 compute.  Both paths
+# quantize to the plain path's codes (pinned_codes): the two paths' tokens
+# differ by rounding noise before the VQ argmax over 8192 random codes, and
+# in bf16 that noise sends 1.34% of the tokens to other codes (read on the
+# H100, PERF.md), whose patches the decoder, the discriminator and their
+# gradients then follow.  With the codes pinned the decoder sees the same
+# quantized tokens on both paths, and the kernels' part is what differs:
+# the encoder's gradients (through the straight-through VQ and the
+# commitment loss) and the commitment loss.  In bf16 each loss term lies
+# within TRAIN_LOSS_ATOL and each parameter group's gradient cosine
+# (VQGAN_GROUPS) is at least TRAIN_GRAD_MIN_COS, the CLIP step's gates; in
+# fp32 within VQGAN_FP32_LOSS_ATOL and VQGAN_FP32_MIN_COS, set from the
+# readings.  The kernel path with a planted flash fault must fail the gate:
+# in fp32 both of VQGAN_FAULTS, the smaller one a kernel that skips the
+# last FUSED_FAULT_ROWS keys of each slab (the bias masks them); in bf16
+# the first.  Read on the H100 (PERF.md): fp32 loss gaps at most 7.2e-7,
+# cosines at least 0.9999993; the masked keys' least cosine 0.968 (the
+# CPB), causal on's 0.518; bf16 loss gaps at most 1.0e-2 (disc_loss),
+# cosines at least 0.9971, causal on's 0.487.
+# Then train_vqgan.main from canonical-grid npz files as ctpa's CLI runs
+# (fp32, plain attention, no kernel): VQGAN_CLI_STEPS steps, --resume to one
+# more, against an uninterrupted run within VQGAN_CLI_RTOL relative plus
+# VQGAN_CLI_ATOL (the same volumes, batched in another order, and the card's
+# unordered float sums (index_add_'s atomics in the VQ sums, cuDNN's weight
+# gradients): fp32 noise through two Adam steps; read on the H100: at most
+# 7.8e-4 relative on gen_gan, -0.064 at the CLI's 0.02 weights, 5.0e-5
+# absolute, the other terms 2.4e-5 or less).  Then reconstruct under
+# no_grad with pallas_patchify and flash_axial (K1, K2) in bf16: the
+# encoder's tokens before the VQ against the plain path's within
+# VQGAN_TOKENS_RMS relative RMS, and each spatial block's attention output
+# within VQGAN_ATTN_RMS; the planted key-skipping fault must exceed one of
+# them.  Read on the H100 (PERF.md): the tokens 8.6e-3, the attention
+# outputs at most 1.19e-2; with the fault 1.26e-2 and 0.191 (the residual
+# stream carries the tokens, so the fault shows in the attention outputs).
+# The voxels of reconstruct and of decode_from_codebook_indices on its
+# codes are printed beside the plain path's, not gated (a flipped code
+# changes its whole patch).
+VQGAN_BATCH = 2
+VQGAN_CLI_STEPS = 2
+VQGAN_CLI_RTOL, VQGAN_CLI_ATOL = 1e-3, 1e-4
+VQGAN_FP32_LOSS_ATOL = 1e-4
+VQGAN_FP32_MIN_COS = 0.9999
+VQGAN_FAULTS = ("causal on", f"last {FUSED_FAULT_ROWS} keys masked")
+VQGAN_TOKENS_RMS = 0.02
+VQGAN_ATTN_RMS = 0.05
+VQGAN_GROUPS = ("enc_spatial_transformer", "spatial_rel_pos_bias", "enc_temporal_transformer",
+                "decoder", "discriminator")
+VQGAN_METRICS = ("gen_loss", "disc_loss", "recon", "perceptual", "gen_gan", "commit", "r1")
 
 # the report workload from files (phase report-files): generate_report.main
 # at Meditron-7B width from quant8-report's w8a8 bundle (K4, K6 and K8;
@@ -2327,26 +2400,38 @@ def report_train(dev, rows: dict, model):
 
 
 @contextlib.contextmanager
-def planted_flash_fault(kind: str):
-    """The flash-prefill path with a deliberate fault in what it hands the
-    kernels: "q_offset 1" (each query sees the next token too) or "causal
-    off" (every query sees every real key)."""
+def planted_flash_fault(kind: str, module=None):
+    """A flash path with a deliberate fault in what it hands the kernels, in
+    ``module`` (by default the LLM's flash prefill, ``models.llm``): "q_offset
+    1" (each query sees the next token too), "causal off" (every query sees
+    every real key), "causal on" (each query sees only the keys up to its
+    own position: a non-causal fold made causal) or "last FUSED_FAULT_ROWS
+    keys masked" (a biased call's bias hides the last keys of each slab, as
+    a kernel that skips its last key tile would)."""
+    import torch
+
     from ctpa_torch.models import llm
 
-    kernel = llm.flash_attention
+    module = module or llm
+    kernel = module.flash_attention
 
     def faulty(*args, **kw):
         if kind == "q_offset 1":
             kw["q_offset"] = 1
+        elif kind == f"last {FUSED_FAULT_ROWS} keys masked":
+            skipped = torch.zeros(kw["bias"].shape[-1], dtype=torch.bool,
+                                  device=kw["bias"].device)
+            skipped[-FUSED_FAULT_ROWS:] = True
+            kw["bias"] = kw["bias"].masked_fill(skipped, -3e4)
         else:
-            kw["causal"] = False
+            kw["causal"] = kind == "causal on"
         return kernel(*args, **kw)
 
-    llm.flash_attention = faulty
+    module.flash_attention = faulty
     try:
         yield
     finally:
-        llm.flash_attention = kernel
+        module.flash_attention = kernel
 
 
 def report_train_gate(label: str, loss, grads, ref_loss, ref_grads) -> bool:
@@ -5448,6 +5533,469 @@ def fused_step(dev, rows: dict) -> None:
         raise AssertionError("fused step: kernel path and plain path disagree")
 
 
+# ------------------------------------------------------------ the VQGAN path
+
+def vqgan_config(**over):
+    """ctpa's VQGAN CLI's CTViT: CTViTConfig() with the decoder."""
+    from ctpa_torch.core.config import CTViTConfig
+
+    return dataclasses.replace(CTViTConfig(), use_decoder=True, **over)
+
+
+def vqgan_nets(cfg, dev, seed: int):
+    """The generator (fp32 parameters, bf16 compute), Discriminator() and
+    PerceptualNet() on ``dev``, seeded as train_vqgan's init_state seeds
+    them, and the VQ state; then the discriminator's and the perceptual
+    net's weights drawn again at sqrt(2 / fan_in) (He's scale): at
+    init_state's 0.02 their features die out layer by layer, the logits
+    are their last biases and R1 is about 0, so the gates would not see
+    them."""
+    import torch
+
+    from ctpa_torch.cli.train_vqgan import init_state
+    from ctpa_torch.models.ctvit import CTViT
+    from ctpa_torch.models.discriminator import Discriminator, PerceptualNet
+    from ctpa_torch.models.layers import set_compute_dtype
+
+    model = CTViT(cfg, device=dev)
+    disc = Discriminator(image_size=cfg.image_size, device=dev)
+    perc = PerceptualNet(device=dev)
+    vq = init_state(model, disc, perc, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        for net in (disc, perc):
+            for p in net.parameters():
+                if p.ndim >= 2:
+                    p.copy_(torch.randn(p.shape, generator=gen, device=dev)
+                            * math.sqrt(2.0 / (p[0].numel())))
+    return set_compute_dtype(model, torch.bfloat16), disc, perc, vq
+
+
+def vqgan_video(cfg, dev, seed: int, batch: int = VQGAN_BATCH):
+    """Canonical-grid volumes (batch, 1, T, H, W) in [-1, 1], fp32."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (batch, 1, cfg.temporal_size, cfg.image_size, cfg.image_size)
+    return torch.rand(shape, generator=gen, device=dev) * 2 - 1
+
+
+def vqgan_group(name: str, disc: bool = False):
+    """The gate's parameter group of a generator (or discriminator)
+    parameter, or None for the patch embed and the CPB's to_heads.bias,
+    which shifts every logit of a head alike: softmax ignores it, and its
+    gradient is zero up to rounding noise (as in spatial_fold_grads)."""
+    if disc:
+        return "discriminator"
+    if name == "spatial_rel_pos_bias.to_heads.bias":
+        return None
+    if name.startswith(("dec_", "to_pixels")):
+        return "decoder"
+    head = name.split(".", 1)[0]
+    return head if head in VQGAN_GROUPS else None
+
+
+@contextlib.contextmanager
+def pinned_codes(indices):
+    """CTViT's VQ (``models.ctvit.vq_encode``) with its argmax replaced by
+    ``indices`` (b, n): the rest of ``ops.vq.vq_encode`` as it is -- the
+    straight-through quantized tokens, the commitment loss, the counts and
+    sums -- on the pinned codes."""
+    import torch
+
+    from ctpa_torch.models import ctvit
+    from ctpa_torch.ops.attention_ops import l2norm
+    from ctpa_torch.ops.vq import VQOutput
+
+    encode = ctvit.vq_encode
+
+    def pinned(state, x, mask=None):
+        shape, d = x.shape, x.shape[-1]
+        flat = x.reshape(-1, d).to(torch.float32)
+        nf, cb = l2norm(flat), l2norm(state.codebook.to(torch.float32))
+        idx = indices.reshape(-1).long()
+        quant = cb[idx]
+        m = (mask.reshape(-1).to(torch.float32) if mask is not None
+             else torch.ones(flat.shape[0], device=x.device))
+        diff = torch.sum((nf - quant.detach()) ** 2, dim=-1)
+        commit = torch.sum(diff * m) / torch.clamp(torch.sum(m), min=1.0)
+        counts = torch.zeros(cb.shape[0], device=x.device).index_add_(0, idx, m)
+        sums = torch.zeros_like(cb).index_add_(0, idx, nf * m[:, None])
+        quant_st = flat + (quant - flat).detach()
+        return VQOutput(quantized=quant_st.reshape(shape).to(x.dtype),
+                        indices=idx.reshape(shape[:-1]).to(torch.int32),
+                        commit_loss=commit, counts=counts, sums=sums)
+
+    ctvit.vq_encode = pinned
+    try:
+        yield
+    finally:
+        ctvit.vq_encode = encode
+
+
+def vqgan_step_run(nets, start, video, counter: int, flash: bool, codes) -> dict:
+    """One VQGAN step from the ``start`` weights at step count ``counter``
+    (R1 where it is a multiple of 16), with the spatial fold's attention on
+    the flash kernels or on the plain cosine attention, quantizing to
+    ``codes``: the metrics, wall ms, peak GiB, flash launches and each
+    group's gradients."""
+    import torch
+
+    from ctpa_torch.ops.flash_attention import LAUNCHES
+    from ctpa_torch.train.vqgan_trainer import VQGANState, adam, make_vqgan_train_step
+
+    model, disc, perc, vq = nets
+    model.load_state_dict(start[0])
+    disc.load_state_dict(start[1])
+    for block in model.enc_spatial_transformer.blocks:
+        block.attn.use_flash = flash
+    gen_tx, disc_tx = adam(model, 3e-4), adam(disc, 3e-4)
+    step = make_vqgan_train_step(model, disc, perc, gen_tx, disc_tx)
+    state = VQGANState(gen=model, disc=disc, perc=perc, gen_opt=gen_tx, disc_opt=disc_tx,
+                       vq_state=vq, step=counter)
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with pinned_codes(codes):
+        _, m = step(state, video)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    grads = collections.defaultdict(list)
+    for net, is_disc in ((model, False), (disc, True)):
+        for name, p in net.named_parameters():
+            group = vqgan_group(name, is_disc)
+            if group is not None:
+                grads[group].append(p.grad.detach().float().clone())
+    return dict(metrics={k: float(v) for k, v in m.items()}, ms=wall,
+                peak=torch.cuda.max_memory_allocated() / 2**30, launches=dict(LAUNCHES),
+                grads=dict(grads))
+
+
+def vqgan_cosines(got: dict, ref: dict) -> dict:
+    """Each group's gradient cosine, over all of its tensors at once."""
+    out = {}
+    for group in VQGAN_GROUPS:
+        dot = na = nb = 0.0
+        for a, b in zip(got[group], ref[group]):
+            a, b = a.double(), b.double()
+            dot, na, nb = dot + (a * b).sum().item(), na + (a * a).sum().item(), \
+                nb + (b * b).sum().item()
+        out[group] = dot / max(math.sqrt(na * nb), 1e-300)
+    return out
+
+
+def vqgan_gate(label: str, got: dict, ref: dict, tag: str) -> bool:
+    """Print each loss term's gap and each group's gradient cosine of a step
+    against the plain path's, and whether they pass the ``tag`` ("fp32" or
+    "bf16") gates."""
+    atol, min_cos = ((VQGAN_FP32_LOSS_ATOL, VQGAN_FP32_MIN_COS) if tag == "fp32"
+                     else (TRAIN_LOSS_ATOL, TRAIN_GRAD_MIN_COS))
+    gaps = {k: abs(got["metrics"][k] - ref["metrics"][k]) for k in VQGAN_METRICS}
+    cos = vqgan_cosines(got["grads"], ref["grads"])
+    ok = max(gaps.values()) <= atol and min(cos.values()) >= min_cos
+    print(f"    {label}: loss gaps " + " ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f" (each <= {atol}); gradient cosines "
+          + " ".join(f"{k} {v:.8f}" for k, v in cos.items())
+          + f" (each >= {min_cos}): {'pass' if ok else 'FAIL'}")
+    return ok
+
+
+def vqgan_codes(model, vq, video, flash: bool):
+    """The VQ codes of ``video`` with the spatial fold on the flash kernels
+    or on the plain attention."""
+    import torch
+
+    for block in model.enc_spatial_transformer.blocks:
+        block.attn.use_flash = flash
+    with torch.no_grad():
+        return model(video, vq)[1].indices
+
+
+def vqgan_steps(dev, cfg=None, batch: int = VQGAN_BATCH) -> tuple:
+    """Part 1 of phase vqgan: the step on the kernel path and on the plain
+    path, in fp32 and in bf16, with R1 and without, both quantizing to the
+    plain path's codes, gated; the planted faults refused.  Returns the
+    networks (bf16 compute), their start weights and the volumes."""
+    import torch
+
+    from ctpa_torch.models import attention
+    from ctpa_torch.models.layers import set_compute_dtype
+    from ctpa_torch.ops.patchify import patchify_project
+
+    cfg = cfg or vqgan_config(flash_axial=True)
+    nets = vqgan_nets(cfg, dev, SEED + 50)
+    model, disc, perc, vq = nets
+    start = ({k: v.clone() for k, v in model.state_dict().items()},
+             {k: v.clone() for k, v in disc.state_dict().items()})
+    video = vqgan_video(cfg, dev, SEED + 51, batch)
+    sizes = [sum(p.numel() for p in net.parameters()) / 1e6 for net in (model, disc, perc)]
+    print(f"  generator {sizes[0]:.1f} M parameters (fp32), discriminator {sizes[1]:.1f} M, "
+          f"perceptual net {sizes[2]:.2f} M (frozen); video {tuple(video.shape)}")
+    expect = dict.fromkeys(TRAIN_KERNELS, cfg.spatial_depth)
+    k1 = patchify_project.launches
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    runs, codes = {}, {}
+    for tag, dtype in dtypes.items():
+        set_compute_dtype(model, dtype)
+        model.load_state_dict(start[0])
+        both = [vqgan_codes(model, vq, video, flash) for flash in (True, False)]
+        codes[tag] = both[1]
+        print(f"  {tag} compute: the kernel and plain paths' own codes equal on "
+              f"{(both[0] == both[1]).float().mean().item():.5f} of the tokens; both steps "
+              f"quantize to the plain path's")
+        for flash in (True, False):
+            for counter in (0, 1):
+                run = vqgan_step_run(nets, start, video, counter, flash, codes[tag])
+                runs[tag, flash, counter] = run
+                launched = {k: v for k, v in run["launches"].items() if v}
+                m = run["metrics"]
+                print(f"  {tag} {'kernel' if flash else 'plain'} path, step count {counter} "
+                      f"({'R1' if counter == 0 else 'no R1'}): wall {run['ms']:.1f} ms  peak "
+                      f"{run['peak']:.2f} GiB  "
+                      + "  ".join(f"{k} {m[k]:.6f}" for k in VQGAN_METRICS))
+                print("    launches " + (" ".join(f"{k.removeprefix('flash_attention_')} {v}"
+                                                  for k, v in launched.items()) or "none"))
+                if launched != (expect if flash else {}) \
+                        or not all(math.isfinite(v) for v in m.values()):
+                    raise AssertionError(f"VQGAN step: launches {launched} (expected "
+                                         f"{expect if flash else {}}), metrics {m}")
+                if (m["r1"] > 0) != (counter == 0):
+                    raise AssertionError(f"VQGAN step count {counter}: r1 {m['r1']}")
+    if patchify_project.launches != k1:
+        raise AssertionError("the VQGAN step launched K1")
+    failed = [f"{tag} step count {counter}: kernel path and plain path disagree"
+              for tag in dtypes for counter in (0, 1)
+              if not vqgan_gate(f"{tag}, kernel vs plain, step count {counter}",
+                                runs[tag, True, counter], runs[tag, False, counter], tag)]
+    for tag, faults in (("fp32", VQGAN_FAULTS), ("bf16", VQGAN_FAULTS[:1])):
+        set_compute_dtype(model, dtypes[tag])
+        for fault in faults:
+            with planted_flash_fault(fault, attention):
+                faulty = vqgan_step_run(nets, start, video, 0, True, codes[tag])
+            if vqgan_gate(f"{tag}, planted fault: {fault}", faulty, runs[tag, False, 0], tag):
+                failed.append(f"the {tag} gate does not see a planted flash fault ({fault})")
+    print(f"  bf16 step wall: kernel path {runs['bf16', True, 1]['ms']:.1f} ms, plain path "
+          f"{runs['bf16', False, 1]['ms']:.1f} ms (no R1; with R1 "
+          f"{runs['bf16', True, 0]['ms']:.1f} and {runs['bf16', False, 0]['ms']:.1f} ms); peak "
+          f"{runs['bf16', True, 1]['peak']:.2f} and {runs['bf16', False, 1]['peak']:.2f} GiB")
+    del runs, faulty
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("VQGAN step: " + "; ".join(failed))
+    return nets, start, video
+
+
+def vqgan_cli(dev) -> None:
+    """Part 2 of phase vqgan: train_vqgan.main from canonical-grid npz files
+    (ctpa's configuration), VQGAN_CLI_STEPS steps, --resume to one more,
+    and an uninterrupted run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ctpa_torch.cli import train_vqgan as tv_cli
+    from ctpa_torch.core.checkpoint import CheckpointManager
+    from ctpa_torch.ops.flash_attention import LAUNCHES
+    from ctpa_torch.ops.patchify import patchify_project
+
+    cfg = vqgan_config()
+    runs = []
+    inner = tv_cli.make_vqgan_train_step
+
+    def timed(*args, **kwargs):
+        step_fn, record = inner(*args, **kwargs), []
+        runs.append(record)
+
+        def step(state, video):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, video)
+            torch.cuda.synchronize()
+            record.append((state.step, (time.perf_counter() - t0) * 1e3,
+                           {k: float(v) for k, v in m.items()}))
+            return state, m
+        return step
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vqgan_") as tmp:
+        rng = np.random.default_rng(SEED + 52)
+        data = os.path.join(tmp, "volumes")
+        os.makedirs(data)
+        t0 = time.perf_counter()
+        for i in range(VQGAN_BATCH):
+            np.savez(os.path.join(data, f"vq{i:03d}.npz"), rng.uniform(
+                -1, 1, size=(cfg.temporal_size, cfg.image_size, cfg.image_size)).astype(np.float32))
+        print(f"  files: {VQGAN_BATCH} canonical-grid ({cfg.temporal_size}, {cfg.image_size}, "
+              f"{cfg.image_size}) fp32 npz volumes, written in {time.perf_counter() - t0:.2f} s")
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+        k1 = patchify_project.launches
+
+        def run(ckpt: str, steps: int, *extra) -> list:
+            argv = ["--data-dir", data, "--batch-size", str(VQGAN_BATCH), "--num-steps",
+                    str(steps), "--save-every", str(VQGAN_CLI_STEPS), "--log-every", "1",
+                    "--checkpoint-dir", os.path.join(tmp, ckpt), *extra]
+            t = time.perf_counter()
+            if tv_cli.main(argv, device=dev) != 0:
+                raise AssertionError(f"train_vqgan.main {argv}: not 0")
+            print(f"  train_vqgan.main {' '.join(extra) or ''}--num-steps {steps}: "
+                  f"{time.perf_counter() - t:.2f} s in all")
+            for step, ms, m in runs[-1]:
+                print(f"    step {step}: {ms:.1f} ms  " + "  ".join(
+                    f"{k} {m[k]:.6f}" for k in VQGAN_METRICS))
+            return runs[-1]
+
+        tv_cli.make_vqgan_train_step = timed
+        try:
+            first = run("a", VQGAN_CLI_STEPS)
+            mgr = CheckpointManager(os.path.join(tmp, "a"))
+            saved = mgr.all_steps()
+            size = sum(os.path.getsize(os.path.join(r, f))
+                       for r, _, fs in os.walk(os.path.join(tmp, "a", str(VQGAN_CLI_STEPS)))
+                       for f in fs)
+            resumed = run("a", VQGAN_CLI_STEPS + 1, "--resume")
+            whole = run("c", VQGAN_CLI_STEPS + 1)
+        finally:
+            tv_cli.make_vqgan_train_step = inner
+        steps_after = mgr.all_steps()
+        print(f"  checkpoints {saved} then {steps_after}; step {VQGAN_CLI_STEPS}'s on disk "
+              f"{size / 2**20:.1f} MiB (deleted with the directory)")
+        if [s for s, _, _ in first] != list(range(1, VQGAN_CLI_STEPS + 1)) \
+                or [s for s, _, _ in resumed] != [VQGAN_CLI_STEPS + 1] \
+                or saved != [VQGAN_CLI_STEPS] or steps_after != [VQGAN_CLI_STEPS,
+                                                                 VQGAN_CLI_STEPS + 1]:
+            raise AssertionError(f"train_vqgan.main did not train, save and resume: {first}, "
+                                 f"{resumed}, {saved}, {steps_after}")
+        got, ref = resumed[0][2], whole[-1][2]
+        gaps = {k: abs(got[k] - ref[k]) for k in VQGAN_METRICS}
+        print(f"  resumed step {VQGAN_CLI_STEPS + 1} against the uninterrupted run's: gaps "
+              + " ".join(f"{k} {v:.3e} ({v / max(abs(ref[k]), 1e-30):.3e} relative)"
+                         for k, v in gaps.items())
+              + f" (each <= {VQGAN_CLI_ATOL} + {VQGAN_CLI_RTOL} relative)")
+        if any(gaps[k] > VQGAN_CLI_ATOL + VQGAN_CLI_RTOL * abs(ref[k]) for k in gaps):
+            raise AssertionError("the resumed run's step differs from the uninterrupted run's")
+        if any(LAUNCHES.values()) or patchify_project.launches != k1:
+            raise AssertionError(f"ctpa's configuration launched hand kernels: {LAUNCHES}")
+
+
+def rel_rms(got, ref) -> float:
+    """RMS of got - ref over the RMS of ref."""
+    got, ref = got.float(), ref.float()
+    return ((got - ref).square().mean().sqrt() / ref.square().mean().sqrt()).item()
+
+
+def encoder_taps(model, video, vq) -> tuple:
+    """``model.reconstruct(video, vq)`` under no_grad, keeping on the way
+    the encoder's tokens before the VQ (``enc_temporal_transformer``'s
+    output) and each spatial block's attention output: (recon, VQOutput,
+    tokens, [attention outputs])."""
+    import torch
+
+    taps = []
+    hooks = [block.attn.register_forward_hook(lambda m, i, o: taps.append(o))
+             for block in model.enc_spatial_transformer.blocks]
+    hooks.append(model.enc_temporal_transformer.register_forward_hook(
+        lambda m, i, o: taps.append(o)))
+    try:
+        with torch.no_grad():
+            recon, vq_out = model.reconstruct(video, vq)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    depth = len(model.enc_spatial_transformer.blocks)
+    return recon, vq_out, taps[depth], taps[:depth]
+
+
+def vqgan_reconstruct(dev, nets, start, video) -> None:
+    """Part 3 of phase vqgan: reconstruct under no_grad with pallas_patchify
+    and flash_axial (K1 and K2) and decode_from_codebook_indices on its
+    codes, against the plain path.  Gated by relative RMS: the encoder's
+    tokens before the VQ (VQGAN_TOKENS_RMS) and each spatial block's
+    attention output (VQGAN_ATTN_RMS), limits the planted key-skipping
+    fault must exceed.  Printed: the share of tokens whose codes agree and
+    the voxels' relative RMS."""
+    import torch
+
+    from ctpa_torch.models import attention
+    from ctpa_torch.ops.flash_attention import LAUNCHES
+    from ctpa_torch.ops.patchify import patchify_project
+
+    model, _, _, vq = nets
+    model.load_state_dict(start[0])
+    b = video.shape[0]
+
+    def use(fast: bool):
+        cfg = dataclasses.replace(model.cfg, pallas_patchify=fast, flash_axial=fast)
+        model.cfg = model.patch_embed.cfg = cfg
+        for block in model.enc_spatial_transformer.blocks:
+            block.attn.use_flash = fast
+        return cfg
+
+    out = {}
+    for fast in (True, False):
+        cfg = use(fast)
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+        k1 = patchify_project.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recon, vq_out, tokens, attn = encoder_taps(model, video, vq)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            indices = vq_out.indices.reshape(b, -1)
+            dec = model.decode_from_codebook_indices(indices, vq)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launched = (patchify_project.launches - k1, LAUNCHES["flash_attention_fwd"])
+        print(f"  reconstruct ({'K1 + K2' if fast else 'plain'}): {(t1 - t0) * 1e3:.1f} ms, "
+              f"decode_from_codebook_indices {(t2 - t1) * 1e3:.1f} ms; launches "
+              f"patchify_project {launched[0]}, flash_attention_fwd {launched[1]}")
+        others = sum(v for k, v in LAUNCHES.items() if k != "flash_attention_fwd")
+        if launched != ((b, cfg.spatial_depth) if fast else (0, 0)) or others:
+            raise AssertionError(f"reconstruct launches {launched}, {dict(LAUNCHES)}")
+        if recon.shape != video.shape or not torch.isfinite(recon).all():
+            raise AssertionError(f"reconstruct: shape {tuple(recon.shape)} or non-finite voxels")
+        out[fast] = (tokens, attn, recon, indices, dec)
+    use(True)
+    fault = VQGAN_FAULTS[1]
+    with planted_flash_fault(fault, attention):
+        _, _, *faulty = encoder_taps(model, video, vq)
+    (tk, ak, rk, ik, dk), (tp, ap, rp, ip, dp) = out[True], out[False]
+
+    def errs(tokens, attn) -> tuple:
+        return rel_rms(tokens, tp), max(rel_rms(a, r) for a, r in zip(attn, ap))
+
+    (tok, att), (tok_f, att_f) = errs(tk, ak), errs(*faulty)
+    print(f"  kernel vs plain, relative RMS: encoder tokens before the VQ {tok:.4e} (<= "
+          f"{VQGAN_TOKENS_RMS}), spatial attention outputs at most {att:.4e} (<= "
+          f"{VQGAN_ATTN_RMS}); with the planted fault ({fault}) {tok_f:.4e} and {att_f:.4e}")
+    print(f"  voxels, kernel vs plain (not gated): codes equal on "
+          f"{(ik == ip).float().mean().item():.4f} of the tokens; relative RMS reconstruct "
+          f"{rel_rms(rk, rp):.3e}, decode_from_codebook_indices {rel_rms(dk, dp):.3e}; the "
+          f"kernel path's decode of its codes against its reconstruct {rel_rms(dk, rk):.3e}")
+    failed = []
+    if tok > VQGAN_TOKENS_RMS or att > VQGAN_ATTN_RMS:
+        failed.append("the kernel path's encoder disagrees with the plain path's")
+    if tok_f <= VQGAN_TOKENS_RMS and att_f <= VQGAN_ATTN_RMS:
+        failed.append(f"the gate does not see a planted flash fault ({fault})")
+    if failed:
+        raise AssertionError("reconstruct: " + "; ".join(failed))
+
+
+def vqgan(dev) -> None:
+    """Phase vqgan: the step, the CLI, reconstruct."""
+    import torch
+
+    nets, start, video = vqgan_steps(dev)
+    vqgan_reconstruct(dev, nets, start, video)
+    del nets, start, video
+    torch.cuda.empty_cache()
+    vqgan_cli(dev)
+
+
 def main() -> int:
     import torch
 
@@ -5604,6 +6152,9 @@ def main() -> int:
         rows.update(check_fused_kernels(dev))
         torch.cuda.empty_cache()
         fused_step(dev, rows)
+    torch.cuda.empty_cache()
+    with phase("vqgan"):
+        vqgan(dev)
     torch.cuda.empty_cache()
 
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -6,6 +6,10 @@ module.  The layout rules:
 
 * a 2-D ``kernel`` is a flax ``Dense`` weight, stored (in, out); a torch
   ``Linear`` stores (out, in), so it is transposed into ``weight``;
+* a 4-D ``kernel`` is a flax 2-D ``Conv`` weight, stored (kh, kw, in, out);
+  ``F.conv2d`` takes (out, in, kh, kw), so it is permuted into ``weight``
+  (the discriminator's and the perceptual net's convolutions; the PEG's
+  5-D depthwise kernel is not a ``Conv`` and keeps its layout, below);
 * ``embedding`` becomes ``weight``; a flax ``LayerNorm`` ``scale`` becomes
   ``weight``;
 * a quantized projection (``quantize_tree``'s leaves) keeps ctpa's names
@@ -27,6 +31,12 @@ module.  The layout rules:
   (``attention_self/query_lora_a`` and ``_b``, the same for ``key`` and
   ``value``) and the port as parameters of ``BertSelfAttention``
   (``layers.i.attention_self.query_lora_a``).
+
+The discriminator and the perceptual net keep flax's automatic names
+(``Conv_i``, ``DiscriminatorBlock_i``, ``Dense_i``) and ctpa's
+``conv_{i}{a,b,c}``; the decoder's ``dec_spatial_transformer``,
+``dec_temporal_transformer`` and ``to_pixels`` carry over as the encoder's
+stacks do.
 
 The CLIP model's optional heads carry ctpa's names as they are
 (``to_text_latent_extra``, ``to_visual_latent_extra``, the (4, 4, c)
@@ -86,6 +96,8 @@ def _torch_key(path: tuple[str, ...], value: np.ndarray,
     parts = _module_parts(mods)
     if leaf == "kernel" and value.ndim == 2:
         leaf, value = "weight", value.T
+    elif leaf == "kernel" and value.ndim == 4:
+        leaf, value = "weight", value.transpose(3, 2, 0, 1)
     elif leaf == "embedding" or (leaf == "scale" and not quantized):
         leaf = "weight"
     return ".".join(parts + [leaf]), value
@@ -191,8 +203,11 @@ def overlay_flax_params(module: nn.Module, params: dict, allow_missing: bool = F
                 continue
             ref = own[key]
             if tuple(tval.shape) != tuple(ref.shape):
-                transposed = name == "kernel" and value.ndim == 2
-                d = tuple(ref.shape)[::-1] if transposed else tuple(ref.shape)
+                d = tuple(ref.shape)
+                if name == "kernel" and value.ndim == 2:
+                    d = d[::-1]
+                elif name == "kernel" and value.ndim == 4:
+                    d = (d[2], d[3], d[1], d[0])
                 skip(f"{flat} (shape {value.shape} vs {d})",
                      ValueError(f"shape mismatch at {flat}: {d} vs {value.shape}"))
                 continue

@@ -1,8 +1,7 @@
 """Typed configuration — an own copy of the dataclasses of
 ``ctpa/core/config.py`` that this package needs (the port imports nothing of
 ``ctpa``).  Field names and defaults are the same, so a ``ctpa`` config maps
-field by field; fields of parts not ported yet (dropout, the decoder) are
-left out.  The LLM configs are copied whole; the models
+field by field; fields of parts not ported yet (dropout) are left out.  The LLM configs are copied whole; the models
 raise on the values whose paths are not ported (``models/llm.py``).
 """
 
@@ -52,6 +51,8 @@ class CTViTConfig:
     channels: int = 1
     ff_mult: int = 4
     use_vq: bool = True
+    # build the generative decoder (decode_tokens, reconstruct)
+    use_decoder: bool = False
     # reproduce the reference PEG's temporal-fold layout scramble (needed for
     # checkpoints trained with it; see ctpa's CTViTConfig)
     peg_reference_layout: bool = False

@@ -9,8 +9,11 @@ flax modules cast theirs to their ``dtype``: in bf16 the LayerNorm outputs,
 the projections, PEG (its kernel and bias too) and the residual stream are
 bf16, while the attention scores stay fp32.  ``Transformer(remat=True)``
 recomputes each block in the backward (``torch.utils.checkpoint``), as
-ctpa's ``nn.remat``.  Cross-attention (null key/values, a context input)
-is not ported yet.
+ctpa's ``nn.remat``.  ``cross_attend`` adds a cross-attention to each
+block (a ``context`` input, two learned null key/values), and ``causal``
+makes the self-attention causal: ALiBi plus the triangular mask on the
+plain path, the flash kernel's causal mask without ALiBi under
+``use_flash``, as in ctpa.
 """
 
 from __future__ import annotations
@@ -104,38 +107,59 @@ class PEG(nn.Module):
 
 
 class CosineAttention(nn.Module):
-    """Multi-head self-attention with QK l2-norm and learned (dim_head,) q/k
-    scales shared across heads.  K/V are projected from the UN-normalized
-    input unless ``kv_from_normed`` (the reference quirk, kept so imported
-    checkpoints reproduce).  ``use_flash`` routes the attention through the
-    flash-attention kernel with the analytic logit bound of cosine attention."""
+    """Multi-head attention with QK l2-norm and learned (dim_head,) q/k scales
+    shared across heads.  Self-attention K/V are projected from the
+    UN-normalized input unless ``kv_from_normed`` (the reference quirk, kept
+    so imported checkpoints reproduce).  With ``context_dim`` the module
+    attends to a ``context`` of that width instead, LayerNormed by
+    ``context_norm`` when ``norm_context``.  ``num_null_kv`` learned null
+    key/values (``null_kv``: (2, heads, n_null, dim_head)) are prepended to
+    the keys.  ``causal`` adds ALiBi and the triangular mask.  ``use_flash``
+    routes an unmasked attention without null key/values through the
+    flash-attention kernel with the analytic logit bound of cosine
+    attention; there ``causal`` is the kernel's mask, without ALiBi (ctpa's
+    split)."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, scale: float = 8.0,
-                 kv_from_normed: bool = False, use_flash: bool = False,
-                 device=None, dtype=None):
+                 causal: bool = False, num_null_kv: int = 0, context_dim: int | None = None,
+                 norm_context: bool = True, kv_from_normed: bool = False,
+                 use_flash: bool = False, device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         inner = heads * dim_head
         self.heads = heads
         self.scale = scale
+        self.causal = causal
         self.kv_from_normed = kv_from_normed
         self.use_flash = use_flash
         self.norm = LayerNorm(dim, **fk)
+        if context_dim is not None and norm_context:
+            self.context_norm = LayerNorm(context_dim, **fk)
+        self.norm_context = norm_context
         self.to_q = Dense(dim, inner, bias=False, **fk)
-        self.to_kv = Dense(dim, inner * 2, bias=False, **fk)
+        self.to_kv = Dense(dim if context_dim is None else context_dim, inner * 2, bias=False,
+                           **fk)
         self.q_scale = nn.Parameter(torch.ones(dim_head, **fk))
         self.k_scale = nn.Parameter(torch.ones(dim_head, **fk))
+        self.null_kv = (nn.Parameter(torch.zeros(2, heads, num_null_kv, dim_head, **fk))
+                        if num_null_kv > 0 else None)
         self.to_out = Dense(inner, dim, bias=False, **fk)
 
-    def forward(self, x, mask=None, bias=None):
+    def forward(self, x, context=None, mask=None, bias=None):
         raw = x
         x = self.norm(x)
-        kv_in = x if self.kv_from_normed else raw
+        if context is not None:
+            kv_in = self.context_norm(context) if self.norm_context else context
+        else:
+            kv_in = x if self.kv_from_normed else raw
         q = self.to_q(x)
         k, v = self.to_kv(kv_in).chunk(2, dim=-1)
         q, k, v = (split_heads(t, self.heads) for t in (q, k, v))
+        null_kv = None
+        if self.null_kv is not None:
+            null_kv = self.null_kv.to(compute_dtype(self, self.null_kv))
 
-        if self.use_flash and mask is None:
+        if self.use_flash and mask is None and null_kv is None:
             qn = (l2norm(q) * self.q_scale).to(q.dtype).contiguous()
             kn = (l2norm(k) * self.k_scale).to(k.dtype).contiguous()
             # |s| <= scale * max|q_scale| * max|k_scale| (+ max bias): the
@@ -144,11 +168,12 @@ class CosineAttention(nn.Module):
                      * self.k_scale.abs().max().float())
             if bias is not None:
                 bound = bound + bias.max().float()
-            out = flash_attention(qn, kn, v.contiguous(), bias=bias, scale=self.scale,
-                                  logit_bound=bound)
+            out = flash_attention(qn, kn, v.contiguous(), bias=bias, causal=self.causal,
+                                  scale=self.scale, logit_bound=bound)
         else:
             out = cosine_attention(q, k, v, q_scale=self.q_scale, k_scale=self.k_scale,
-                                   scale=self.scale, bias=bias, mask=mask)
+                                   null_kv=null_kv, scale=self.scale, bias=bias, mask=mask,
+                                   causal=self.causal)
         return self.to_out(merge_heads(out))
 
 
@@ -174,27 +199,40 @@ class ContinuousPositionBias(nn.Module):
 
 
 class TransformerBlock(nn.Module):
+    """Pre-norm residual block: self-attention, with ``cross_attend`` a
+    cross-attention to the context (2 null key/values), then the
+    feed-forward."""
+
     def __init__(self, dim: int, heads: int, dim_head: int, ff_mult: int = 4,
-                 use_flash: bool = False, kv_from_normed: bool = False,
-                 device=None, dtype=None):
+                 causal: bool = False, cross_attend: bool = False,
+                 context_dim: int | None = None, use_flash: bool = False,
+                 kv_from_normed: bool = False, device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
-        self.attn = CosineAttention(dim, heads, dim_head, use_flash=use_flash,
+        self.attn = CosineAttention(dim, heads, dim_head, causal=causal, use_flash=use_flash,
                                     kv_from_normed=kv_from_normed, **fk)
+        self.cross_attn = (CosineAttention(dim, heads, dim_head, num_null_kv=2,
+                                           context_dim=context_dim or dim, **fk)
+                           if cross_attend else None)
         self.ff = FeedForward(dim, ff_mult, **fk)
 
-    def forward(self, x, mask=None, bias=None):
+    def forward(self, x, context=None, mask=None, bias=None):
         x = x + self.attn(x, mask=mask, bias=bias)
+        if self.cross_attn is not None:
+            x = x + self.cross_attn(x, context=context)
         return x + self.ff(x)
 
 
 class Transformer(nn.Module):
     """Pre-norm stack with a PEG before every block (when ``peg``) and a final
     gamma-only LayerNorm.  The 3D grid shape comes with the call, so one stack
-    serves the spatial (b*t, h*w, d) and temporal (b*h*w, t, d) folds."""
+    serves the spatial (b*t, h*w, d) and temporal (b*h*w, t, d) folds.
+    ``causal`` and ``cross_attend`` (with ``context_dim``, the context's width,
+    ``dim`` by default) as in ``TransformerBlock``."""
 
     def __init__(self, dim: int, depth: int, heads: int = 8, dim_head: int = 32,
-                 ff_mult: int = 4, peg: bool = False, peg_causal: bool = True,
+                 ff_mult: int = 4, causal: bool = False, cross_attend: bool = False,
+                 context_dim: int | None = None, peg: bool = False, peg_causal: bool = True,
                  peg_reference_layout: bool = False, use_flash: bool = False,
                  kv_from_normed: bool = False, remat: bool = False, device=None, dtype=None):
         super().__init__()
@@ -204,16 +242,18 @@ class Transformer(nn.Module):
             [PEG(dim, causal=peg_causal, reference_layout=peg_reference_layout, **fk)
              for _ in range(depth)] if peg else [])
         self.blocks = nn.ModuleList(
-            [TransformerBlock(dim, heads, dim_head, ff_mult, use_flash=use_flash,
-                              kv_from_normed=kv_from_normed, **fk) for _ in range(depth)])
+            [TransformerBlock(dim, heads, dim_head, ff_mult, causal=causal,
+                              cross_attend=cross_attend, context_dim=context_dim,
+                              use_flash=use_flash, kv_from_normed=kv_from_normed, **fk)
+             for _ in range(depth)])
         self.norm_out = LayerNorm(dim, **fk)
 
-    def forward(self, x, shape3d=None, fold: str = "full", mask=None, bias=None):
+    def forward(self, x, shape3d=None, fold: str = "full", mask=None, bias=None, context=None):
         for i, block in enumerate(self.blocks):
             if self.pegs:
                 x = self.pegs[i](x, shape3d, fold)
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, mask, bias, use_reentrant=False)
+                x = checkpoint(block, x, context, mask, bias, use_reentrant=False)
             else:
-                x = block(x, mask=mask, bias=bias)
+                x = block(x, context=context, mask=mask, bias=bias)
         return self.norm_out(x)

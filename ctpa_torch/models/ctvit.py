@@ -1,9 +1,10 @@
-"""CTViT encoder — factorized spatial/temporal 3D vision transformer with a
-cosine VQ bottleneck (port of ``ctpa/models/ctvit.py``, encode side): the
-axial path (spatial fold, then temporal fold) and, with
-``cfg.fused_attention``, the fused full-sequence encoder (exact attention
-over all t*h*w tokens through the flash kernels).  The decoder and
-``reconstruct`` belong to a later slice."""
+"""CTViT — factorized spatial/temporal 3D vision transformer with a cosine
+VQ bottleneck (port of ``ctpa/models/ctvit.py``): the axial encoder
+(spatial fold, then temporal fold) or, with ``cfg.fused_attention``, the
+fused full-sequence encoder (exact attention over all t*h*w tokens through
+the flash kernels); and, with ``cfg.use_decoder``, the generative decoder
+(temporal fold, then spatial fold, then the pixel projection) behind
+``decode_tokens``, ``decode_from_codebook_indices`` and ``reconstruct``."""
 
 from __future__ import annotations
 
@@ -13,11 +14,11 @@ from torch import nn
 
 from ctpa_torch.core.config import CTViTConfig
 from ctpa_torch.models.attention import ContinuousPositionBias, Transformer
-from ctpa_torch.models.layers import AffineLayerNorm, compute_dtype
+from ctpa_torch.models.layers import AffineLayerNorm, Dense, compute_dtype
 from ctpa_torch.ops.patchify import patchify_project
 from ctpa_torch.ops.preprocess import Stage3Operands
 from ctpa_torch.ops.resample_patchify import resample3_patchify_project
-from ctpa_torch.ops.vq import VQOutput, VQState, vq_encode
+from ctpa_torch.ops.vq import VQOutput, VQState, vq_encode, vq_lookup
 
 
 class PatchEmbed3D(nn.Module):
@@ -92,9 +93,13 @@ class CTViT(nn.Module):
 
     With ``cfg.fused_attention`` the encoder is ``enc_fused_transformer``
     (``cfg.fused_depth`` blocks, flash attention with no bias, PEG on the
-    full grid) and the axial stacks and the position bias are not built:
-    ctpa's parameter tree has none of them then.  Context parallelism
-    (``cp_mesh``) is not ported."""
+    full grid) and the axial stacks are not built: ctpa's parameter tree has
+    none of them then.  ``cfg.use_decoder`` adds ``dec_temporal_transformer``,
+    ``dec_spatial_transformer`` (plain attention, as ctpa's, whose decoder
+    stacks have no flash option) and ``to_pixels``; the decoder's spatial
+    fold takes ``spatial_rel_pos_bias``, which is built whenever the axial
+    encoder or the decoder is.  Context parallelism (``cp_mesh``) is not
+    ported."""
 
     def __init__(self, cfg: CTViTConfig, device="cuda", dtype=torch.float32,
                  remat: bool = False, cp_mesh=None):
@@ -111,13 +116,18 @@ class CTViT(nn.Module):
         if cfg.fused_attention:
             self.enc_fused_transformer = Transformer(depth=cfg.fused_depth, use_flash=True,
                                                      **tkw)
-            return
-        self.spatial_rel_pos_bias = ContinuousPositionBias(cfg.dim, cfg.heads, **fk)
-        # the 576-token spatial fold goes through the flash kernel with
-        # flash_axial; the 24-token temporal fold stays plain
-        self.enc_spatial_transformer = Transformer(depth=cfg.spatial_depth,
-                                                   use_flash=cfg.flash_axial, **tkw)
-        self.enc_temporal_transformer = Transformer(depth=cfg.temporal_depth, **tkw)
+        if not cfg.fused_attention or cfg.use_decoder:
+            self.spatial_rel_pos_bias = ContinuousPositionBias(cfg.dim, cfg.heads, **fk)
+        if not cfg.fused_attention:
+            # the 576-token spatial fold goes through the flash kernel with
+            # flash_axial; the 24-token temporal fold stays plain
+            self.enc_spatial_transformer = Transformer(depth=cfg.spatial_depth,
+                                                       use_flash=cfg.flash_axial, **tkw)
+            self.enc_temporal_transformer = Transformer(depth=cfg.temporal_depth, **tkw)
+        if cfg.use_decoder:
+            self.dec_spatial_transformer = Transformer(depth=cfg.spatial_depth, **tkw)
+            self.dec_temporal_transformer = Transformer(depth=cfg.temporal_depth, **tkw)
+            self.to_pixels = Dense(cfg.dim, cfg.patch_dim, **fk)
 
     @property
     def grid(self) -> tuple[int, int, int]:
@@ -138,6 +148,37 @@ class CTViT(nn.Module):
         x = rearrange(x, "(b t) (h w) d -> (b h w) t d", b=b, h=h, w=w)
         x = self.enc_temporal_transformer(x, shape3d=(t, h, w), fold="temporal")
         return rearrange(x, "(b h w) t d -> b t h w d", b=b, h=h, w=w)
+
+    def decode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Tokens (b, t, h, w, d) -> voxels (b, c, T, H, W): temporal fold,
+        spatial fold with the position bias, the pixel projection and the
+        inverse patch layout."""
+        if not self.cfg.use_decoder:
+            raise ValueError("decode_tokens needs a CTViT built with use_decoder=True")
+        b, t, h, w, d = tokens.shape
+        x = rearrange(tokens, "b t h w d -> (b h w) t d")
+        x = self.dec_temporal_transformer(x, shape3d=(t, h, w), fold="temporal")
+        x = rearrange(x, "(b h w) t d -> (b t) (h w) d", b=b, h=h, w=w)
+        bias = self.spatial_rel_pos_bias(h, w)
+        x = self.dec_spatial_transformer(x, shape3d=(t, h, w), fold="spatial", bias=bias)
+        x = rearrange(x, "(b t) (h w) d -> b t h w d", b=b, h=h, w=w)
+        c, pt, p = self.cfg.channels, self.cfg.temporal_patch_size, self.cfg.patch_size
+        return rearrange(self.to_pixels(x), "b t h w (c pt p1 p2) -> b c (t pt) (h p1) (w p2)",
+                         c=c, pt=pt, p1=p, p2=p)
+
+    def decode_from_codebook_indices(self, indices: torch.Tensor, vq_state: VQState):
+        """Code ids (b, t*h*w) -> reconstructed voxels, the codes cast to the
+        decoder's compute dtype."""
+        t, h, w = self.grid
+        codes = vq_lookup(vq_state, indices).reshape(indices.shape[0], t, h, w, self.cfg.dim)
+        return self.decode_tokens(codes.to(compute_dtype(self.to_pixels, self.to_pixels.weight)))
+
+    def reconstruct(self, video: torch.Tensor, vq_state: VQState | None = None,
+                    frame_mask: torch.Tensor | None = None):
+        """Encode, quantize (where a VQ state is given) and decode: returns
+        (recon_video, VQOutput | None)."""
+        tokens, vq_out = self(video, vq_state, frame_mask)
+        return self.decode_tokens(tokens), vq_out
 
     def token_mask(self, frame_mask: torch.Tensor) -> torch.Tensor:
         """(b, T) frame validity -> (b, t*h*w) token mask: a temporal patch is

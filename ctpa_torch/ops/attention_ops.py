@@ -1,9 +1,12 @@
 """Attention-adjacent primitives of the CTViT tower in PyTorch (port of
 ``ctpa/ops/attention_ops.py``): QK-l2norm cosine attention with learned
-scales and optional null key/values, the continuous-position-bias feature
-grid, and the PEG depthwise 3x3x3 convolution."""
+scales, optional null key/values and the causal mode with ALiBi, the ALiBi
+slopes and bias, the continuous-position-bias feature grid, and the PEG
+depthwise 3x3x3 convolution."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -30,11 +33,10 @@ def cosine_attention(
     """QK-l2-normalised attention: null k/v (if any) are prepended before the
     l2norm, q/k are l2-normalised over head-dim and multiplied by their
     learned scales, the similarity is multiplied by ``scale`` and the bias
-    (zero over the null columns) is added before the fp32 softmax.
-
-    Causal mode (ALiBi plus the triangular mask) is not ported yet."""
-    if causal:
-        raise NotImplementedError("causal cosine attention (ALiBi) is not ported yet")
+    (zero over the null columns) is added before the fp32 softmax.  Causal
+    mode adds ALiBi over the real-key columns and masks key j of query i
+    unless j <= i + (m - n) (bottom-right aligned; null columns stay
+    visible)."""
     b, h, n, d = q.shape
     n_null = 0
     if null_kv is not None:
@@ -57,9 +59,47 @@ def cosine_attention(
         if n_null:
             keep = F.pad(keep, (n_null, 0), value=True)
         sim = sim.masked_fill(~keep[:, None, None, :], torch.finfo(sim.dtype).min)
+    if causal:
+        m = k.shape[2]
+        sim = sim + _causal_alibi(h, n, m, n_null, sim.device)
+        row = torch.arange(n, device=sim.device)[:, None]
+        col = torch.arange(m - n_null, device=sim.device)[None, :]
+        cm = F.pad(col <= row + (m - n_null) - n, (n_null, 0), value=True)
+        sim = sim.masked_fill(~cm, torch.finfo(sim.dtype).min)
 
     attn = torch.softmax(sim, dim=-1).to(v.dtype)
     return torch.matmul(attn, v)
+
+
+def _causal_alibi(heads: int, n: int, m: int, n_null: int, device) -> torch.Tensor:
+    """(1, heads, n, m) ALiBi over the real-key columns, zero over the
+    ``n_null`` leading null columns."""
+    return F.pad(alibi_bias(heads, n, m - n_null, device=device), (n_null, 0))[None]
+
+
+def alibi_slopes(heads: int, device="cuda") -> torch.Tensor:
+    """ALiBi's per-head slopes, fp32: the geometric series from
+    2^(-8 / heads) for a power of two; otherwise the closest lower power's
+    series followed by every other slope of the double's."""
+
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    if math.log2(heads).is_integer():
+        s = pow2_slopes(heads)
+    else:
+        closest = 2 ** int(math.floor(math.log2(heads)))
+        s = pow2_slopes(closest) + pow2_slopes(2 * closest)[0::2][: heads - closest]
+    return torch.tensor(s, dtype=torch.float32, device=device)
+
+
+def alibi_bias(heads: int, n: int, m: int | None = None, device="cuda") -> torch.Tensor:
+    """(heads, n, m) ALiBi bias: -slope * |j - i|."""
+    m = n if m is None else m
+    dist = -(torch.arange(m, device=device)[None, :]
+             - torch.arange(n, device=device)[:, None]).abs().to(torch.float32)
+    return dist[None] * alibi_slopes(heads, device=device)[:, None, None]
 
 
 def continuous_position_bias_grid(height: int, width: int, device="cuda") -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Cosine-similarity vector quantization (port of ``ctpa/ops/vq.py``): the
-encode with its straight-through estimator and the EMA codebook update.  The
-codebook state is explicit, as in ctpa; the decode lookup belongs to the
-generative slice.  The (n, d) x (d, K) nearest-code search is one
+encode with its straight-through estimator, the EMA codebook update and
+the decode lookup of the generative path.  The codebook state is explicit,
+as in ctpa.  The (n, d) x (d, K) nearest-code search is one
 ``torch.matmul`` in fp32 whatever the input's dtype, as ctpa computes it."""
 
 from __future__ import annotations
@@ -79,3 +79,8 @@ def ema_update(state: VQState, counts: torch.Tensor, sums: torch.Tensor,
     dead = cluster < eps
     codebook = torch.where(dead[:, None], state.codebook, codebook)
     return VQState(codebook=codebook, cluster_size=cluster, embed_avg=embed_avg)
+
+
+def vq_lookup(state: VQState, indices: torch.Tensor) -> torch.Tensor:
+    """Code ids (...) -> their l2-normalised embeddings (..., d)."""
+    return l2norm(state.codebook)[indices.long()]

@@ -43,7 +43,9 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # fp32 references in full fp32, not TF32 (chip_smoke.main does the same)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.Generator(device="cuda").manual_seed(0)
 
 
@@ -831,6 +833,23 @@ def test_ctvit_fused_encoder_kernel_path_vs_plain_path(cuda):
     for name, g in grads[0].items():
         cos = torch.nn.functional.cosine_similarity(g.flatten(), grads[1][name].flatten(), dim=0)
         assert cos >= 0.99, (name, cos.item())
+
+
+# ------------------------------------------- K2-lse and K3 in the VQGAN step
+
+def test_vqgan_step_kernel_path_vs_plain_path(cuda):
+    """The VQGAN step (train/vqgan_trainer.py) at CTViTConfig()'s width
+    with the decoder, one block a fold and one volume: the spatial fold on
+    K2-lse and K3 with d(bias) against the plain cosine attention, both
+    quantizing to the plain path's codes, with R1 and without, under phase
+    vqgan's gates (chip_smoke.vqgan_steps: in bf16 each loss term within
+    0.05 and each group's gradient cosine >= 0.99, in fp32 1e-4 and 0.9999;
+    exact launches); the kernel path with chip_smoke's planted flash faults
+    (causal on; in fp32 also the last 32 keys masked) must fail them."""
+    import chip_smoke as cs
+
+    cfg = cs.vqgan_config(flash_axial=True, spatial_depth=1, temporal_depth=1)
+    cs.vqgan_steps("cuda", cfg, batch=1)
 
 
 # ------------------------------------------------------- K8: decode attention

@@ -44,7 +44,11 @@ report = ["ctpa_torch.ops.decode_attention", "ctpa_torch.ops.rotary", "ctpa_torc
           "ctpa_torch.models.vqa_bert", "ctpa_torch.models.bert", "ctpa_torch.cli.train_clip",
           "ctpa_torch.data.prefetch", "ctpa_torch.core.logging", "ctpa_torch.core.profiling",
           "ctpa_torch.models.mlm", "ctpa_torch.models.visual_ssl", "ctpa_torch.models.ctclip",
-          "ctpa_torch.models.ctvit", "ctpa_torch.train.clip_trainer"]
+          "ctpa_torch.models.ctvit", "ctpa_torch.train.clip_trainer",
+          "ctpa_torch.cli.train_vqgan", "ctpa_torch.models.discriminator",
+          "ctpa_torch.models.fallback_transformers", "ctpa_torch.models.attention",
+          "ctpa_torch.ops.attention_ops", "ctpa_torch.ops.vq", "ctpa_torch.train.gan_losses",
+          "ctpa_torch.train.vqgan_trainer"]
 missing = sorted(set(report) - set(names))
 assert not missing, missing
 for name in names:

@@ -124,10 +124,18 @@ def test_cosine_attention_matches_ctpa(case):
 
 
 def test_cosine_attention_causal_is_not_ported():
-    q = torch.zeros(1, 1, 2, 16)
-    with pytest.raises(NotImplementedError):
-        tops.cosine_attention(q, q, q, q_scale=torch.ones(16), k_scale=torch.ones(16),
-                              causal=True)
+    """The name is kept from when the port refused causal mode.  Causal
+    mode (ALiBi and the triangular mask) is ported now, so this checks that
+    it matches ctpa's; tests/test_torch_cross_attention.py holds its other
+    forms."""
+    rng = np.random.default_rng(4)
+    q, k, v = _qkv(rng)
+    ones = np.ones(16, np.float32)
+    ref = jops.cosine_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                q_scale=jnp.asarray(ones), k_scale=jnp.asarray(ones), causal=True)
+    got = tops.cosine_attention(_t(q), _t(k), _t(v), q_scale=_t(ones), k_scale=_t(ones),
+                                causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
 
 
 def test_continuous_position_bias_grid_matches_ctpa():
