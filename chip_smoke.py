@@ -285,7 +285,22 @@ Phases, each printing its seconds:
                      remat; exactly 8 K2-lse and 4 of each pass), twice, and
                      the first step again on the plain cosine attention at
                      the same depth under the CLIP gates.
- 29. vqgan         — the VQGAN step (train/vqgan_trainer.py) at
+ 29. parallel      — on one rank of an NCCL group: train_clip.main at full
+                     width with --coordinator on one rank (2 steps) against
+                     the same run alone, within 1e-5 relative; K2-lse and K3
+                     rank by rank through parallel/context.py:rank_attention
+                     on 4 emulated ranks, at the fused encoder's form (3,456
+                     of 13,824 query rows each; outputs concatenated, dK/dV
+                     partials summed, against the unsharded call) and at the
+                     LLM's causal form (32 heads, d 128, 512 tokens, q_offset
+                     0/128/256/384, against the plain versions); planted
+                     faults (every rank at q_offset 0, a dK/dV partial left
+                     unsummed) must fail the gates; the fused encoder under
+                     cp_mesh and context_parallel_attention on the one-rank
+                     mesh against the unsharded paths; ContinuousBatcher
+                     (mesh=...) at Meditron-7B width, 4 lanes x 16 greedy
+                     tokens, equal to the unmeshed batcher's.
+ 30. vqgan         — the VQGAN step (train/vqgan_trainer.py) at
                      CTViTConfig() with the decoder, Discriminator() and
                      PerceptualNet(), batch 2 (240, 480, 480) volumes, from
                      one set of seeded weights: the spatial fold on K2-lse
@@ -616,11 +631,13 @@ FUSED_KERNELS = ("flash_attention_fwd_lse", "flash_attention_bwd_delta",
 # Then train_vqgan.main from canonical-grid npz files as ctpa's CLI runs
 # (fp32, plain attention, no kernel): VQGAN_CLI_STEPS steps, --resume to one
 # more, against an uninterrupted run within VQGAN_CLI_RTOL relative plus
-# VQGAN_CLI_ATOL (the same volumes, batched in another order, and the card's
-# unordered float sums (index_add_'s atomics in the VQ sums, cuDNN's weight
-# gradients): fp32 noise through two Adam steps; read on the H100: at most
-# 7.8e-4 relative on gen_gan, -0.064 at the CLI's 0.02 weights, 5.0e-5
-# absolute, the other terms 2.4e-5 or less).  Then reconstruct under
+# VQGAN_CLI_ATOL.  The three runs take deterministic algorithms
+# (deterministic_algorithms): with the card's unordered float sums
+# (index_add_'s atomics in the VQ sums, cuDNN's weight gradients) fp32 noise
+# went through two Adam steps, read on the H100 at 5.0e-5 absolute on
+# gen_gan (-0.064 at the CLI's 0.02 weights) in earlier runs and 2.7e-4 in
+# a later one, past the limit; the two runs see the same batches in the
+# same order (the loader's shuffle of two volumes is [0, 1] each epoch).  Then reconstruct under
 # no_grad with pallas_patchify and flash_axial (K1, K2) in bf16: the
 # encoder's tokens before the VQ against the plain path's within
 # VQGAN_TOKENS_RMS relative RMS, and each spatial block's attention output
@@ -642,6 +659,36 @@ VQGAN_ATTN_RMS = 0.05
 VQGAN_GROUPS = ("enc_spatial_transformer", "spatial_rel_pos_bias", "enc_temporal_transformer",
                 "decoder", "discriminator")
 VQGAN_METRICS = ("gen_loss", "disc_loss", "recon", "perceptual", "gen_gan", "commit", "r1")
+
+# parallelism (phase parallel), on one card: one rank of an NCCL group.
+# (a) train_clip.main at full width on clip-files' volumes with --coordinator
+# on one rank, PAR_STEPS steps, against the same run without it: losses and
+# parameters within PAR_RTOL relative (bit equality printed).  (b) Context
+# parallelism rank by rank on the factored per-rank body
+# (parallel/context.py:rank_attention), CP_RANKS emulated ranks: the fused
+# encoder's form (FUSED_SHAPE, bf16, no bias, the cosine bound), each rank's
+# n/p query rows over all n keys, the concatenated K2-lse outputs and the
+# summed K3 dK/dV partials against the unsharded kernel call under
+# fused_tolerance's limits; the LLM form (CP_LLM_SHAPE: Meditron-7B's 32
+# heads at head dim 128, causal), each rank at q_offset = r n/p against the
+# plain versions under the kernel gate (BF16_ATOL / BF16_RTOL), and the
+# ranks together against the unsharded kernel call.  Planted faults that
+# the gates must refuse: every rank at q_offset 0, and a dK/dV partial left
+# unsummed.  Then on the one-rank NCCL mesh (the phase's main path): the
+# fused encoder (CP_FUSED_DEPTH blocks, one volume, forward and backward)
+# under cp_mesh against cp_mesh=None, and context_parallel_attention at the
+# LLM form against flash_attention.  (c) ContinuousBatcher(mesh=...) on
+# the one-rank group with a Meditron-7B-width bf16 model (flash_decode off:
+# ctpa refuses the decode kernel under a mesh), TP_LANES lanes,
+# TP_NEW_TOKENS greedy tokens: the tokens equal the unmeshed batcher's.
+PAR_STEPS = 2
+PAR_RTOL = 1e-5
+CP_RANKS = 4
+CP_LLM_SHAPE = (2, 32, 512, 128)
+CP_FUSED_DEPTH = 1
+TP_LANES = 4
+TP_PROMPT = 64
+TP_NEW_TOKENS = 16
 
 # the report workload from files (phase report-files): generate_report.main
 # at Meditron-7B width from quant8-report's w8a8 bundle (K4, K6 and K8;
@@ -5787,6 +5834,28 @@ def vqgan_steps(dev, cfg=None, batch: int = VQGAN_BATCH) -> tuple:
     return nets, start, video
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's deterministic convolutions and PyTorch's deterministic
+    algorithms (warnings, not errors, where an op has none), restored after:
+    the resumed and the uninterrupted CLI runs then differ only by what
+    resuming changes, not by the card's unordered sums (index_add_'s
+    atomics, cuDNN's weight gradients), which Adam turns into moves of lr
+    where a gradient is noise-sized."""
+    import torch
+
+    before = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+              torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before[:2]
+        torch.use_deterministic_algorithms(before[2], warn_only=before[3])
+
+
 def vqgan_cli(dev) -> None:
     """Part 2 of phase vqgan: train_vqgan.main from canonical-grid npz files
     (ctpa's configuration), VQGAN_CLI_STEPS steps, --resume to one more,
@@ -5849,14 +5918,15 @@ def vqgan_cli(dev) -> None:
 
         tv_cli.make_vqgan_train_step = timed
         try:
-            first = run("a", VQGAN_CLI_STEPS)
-            mgr = CheckpointManager(os.path.join(tmp, "a"))
-            saved = mgr.all_steps()
-            size = sum(os.path.getsize(os.path.join(r, f))
-                       for r, _, fs in os.walk(os.path.join(tmp, "a", str(VQGAN_CLI_STEPS)))
-                       for f in fs)
-            resumed = run("a", VQGAN_CLI_STEPS + 1, "--resume")
-            whole = run("c", VQGAN_CLI_STEPS + 1)
+            with deterministic_algorithms():
+                first = run("a", VQGAN_CLI_STEPS)
+                mgr = CheckpointManager(os.path.join(tmp, "a"))
+                saved = mgr.all_steps()
+                size = sum(os.path.getsize(os.path.join(r, f))
+                           for r, _, fs in os.walk(os.path.join(tmp, "a", str(VQGAN_CLI_STEPS)))
+                           for f in fs)
+                resumed = run("a", VQGAN_CLI_STEPS + 1, "--resume")
+                whole = run("c", VQGAN_CLI_STEPS + 1)
         finally:
             tv_cli.make_vqgan_train_step = inner
         steps_after = mgr.all_steps()
@@ -5994,6 +6064,467 @@ def vqgan(dev) -> None:
     del nets, start, video
     torch.cuda.empty_cache()
     vqgan_cli(dev)
+
+
+# ------------------------------------------------------------- parallelism
+
+def free_port() -> int:
+    """A free TCP port on the loopback interface (the NCCL group's
+    rendezvous; nothing leaves the host)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_clip_cli(dev, port: int) -> None:
+    """(a): train_clip.main on one NCCL rank (--coordinator) and alone, from
+    the same files and weights; the first call starts the process group."""
+    import tempfile
+
+    import torch
+
+    from ctpa_torch.cli import train_clip as tc_cli
+    from ctpa_torch.core.config import CTViTConfig
+    from ctpa_torch.ops.flash_attention import LAUNCHES
+
+    runs = {}
+
+    class Kept(tc_cli.CTClipTrainer):
+        """The CLI's trainer, its metrics kept."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.steps = []
+
+        def train_step(self):
+            metrics = super().train_step()
+            self.steps.append({k: float(v) for k, v in metrics.items()})
+            return metrics
+
+        def close(self):
+            super().close()
+            runs[label] = ([dict(s) for s in self.steps],
+                           {k: v.detach().clone() for k, v in self.model.state_dict().items()})
+
+    depth = CTViTConfig().spatial_depth
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        paths = clip_cli_files(tmp)
+        for label, extra in (("nccl", ["--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                                       "1", "--process-id", "0"]), ("alone", [])):
+            argv = ["--data-dir", paths["train"], "--reports-csv", paths["reports"],
+                    "--metadata-csv", paths["meta"], "--batch-size", str(TRAIN_BATCH),
+                    "--num-steps", str(PAR_STEPS), "--results-dir", os.path.join(tmp, label),
+                    "--checkpoint-dir", os.path.join(tmp, label, "ckpt"), *extra]
+            for key in LAUNCHES:
+                LAUNCHES[key] = 0
+            tc_cli.CTClipTrainer, plain_trainer = Kept, tc_cli.CTClipTrainer
+            try:
+                t0 = time.perf_counter()
+                rc = tc_cli.main(argv, device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                tc_cli.CTClipTrainer = plain_trainer
+            launched = {k: v for k, v in LAUNCHES.items() if v}
+            print(f"  train_clip.main {label}{' ' + ' '.join(extra) if extra else ''}: rc {rc}, "
+                  f"{wall:.2f} s, launches {launched}")
+            if rc != 0 or any(launched.get(k, 0) != depth * PAR_STEPS for k in TRAIN_KERNELS):
+                raise AssertionError(f"train_clip.main {label}: rc {rc}, launches {launched}")
+            torch.cuda.empty_cache()
+    (m_n, p_n), (m_a, p_a) = runs["nccl"], runs["alone"]
+    worst, bits = 0.0, True
+    for i, (a, b) in enumerate(zip(m_n, m_a)):
+        for key in ("loss", "grad_norm", "temperature", "vq_commit"):
+            rel = abs(a[key] - b[key]) / max(abs(b[key]), 1e-30)
+            worst, bits = max(worst, rel), bits and a[key] == b[key]
+        print(f"  step {i + 1}: loss {a['loss']:.6f} / {b['loss']:.6f}, grad norm "
+              f"{a['grad_norm']:.6f} / {b['grad_norm']:.6f} (one NCCL rank / alone)")
+    for key, ref in p_a.items():
+        got = p_n[key]
+        rel = ((got.float() - ref.float()).abs().max() / ref.float().abs().max().clamp_min(
+            1e-30)).item()
+        worst, bits = max(worst, rel), bits and torch.equal(got, ref)
+    print(f"  --coordinator on one NCCL rank against the run alone: largest relative difference "
+          f"{worst:.3e} over the metrics and {len(p_a)} parameter tensors (<= {PAR_RTOL}); "
+          f"bit-equal: {bits}")
+    if len(m_n) != PAR_STEPS or len(m_a) != PAR_STEPS or worst > PAR_RTOL:
+        raise AssertionError("train_clip --coordinator on one rank differs from the run alone")
+
+
+def cp_rank_run(q, k, v, do, r: int, p: int, **kw):
+    """Rank r of p through the factored per-rank body: its n/p query rows
+    over all n keys forward (K2-lse) and backward (K3) by autograd; (out,
+    lse, dq, dk partial, dv partial)."""
+    import torch
+
+    from ctpa_torch.parallel.context import rank_attention
+
+    nl = q.shape[2] // p
+    rows = slice(r * nl, (r + 1) * nl)
+    leaves = [q[:, :, rows].detach().clone().requires_grad_(),
+              k.detach().clone().requires_grad_(), v.detach().clone().requires_grad_()]
+    with torch.enable_grad():
+        out, lse = rank_attention(*leaves, return_lse=True, impl="flash", **kw)
+        out.backward(do[:, :, rows])
+    return out.detach(), lse, leaves[0].grad, leaves[1].grad, leaves[2].grad
+
+
+def cp_unsharded(q, k, v, do, scale: float, bound, masks):
+    """The unsharded kernel call: K2-lse and the three K3 passes."""
+    from ctpa_torch.ops import flash_attention as fa
+
+    out, lse = fa._forward(q, k, v, None, scale, bound, True, masks)
+    delta = fa.flash_attention_bwd_delta(out, do)
+    args = (q, k, v, None, lse, delta, do, scale, masks)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    return out, lse, fa.flash_attention_bwd_dq(*args), dk, dv
+
+
+def cp_rows(tag: str, names: dict, q_r, k, v, do_r, scale: float, bound, masks, work: dict,
+            tols, launches_form: str, lib_mask=None) -> dict:
+    """Kernel-line rows of one rank's form: each kernel held against its
+    plain version on the same inputs (``tols(part, ref)``: the gate's atol
+    and rtol for out, lse, delta, dq, dk, dv) and timed beside it, the bound
+    of this rank's work and the library's call.  ``launches_form`` says
+    which form the launches that the main path adds to each row are of."""
+    import torch
+    import torch.nn.functional as F
+
+    from ctpa_torch.ops import flash_attention as fa
+
+    out, lse = fa._forward(q_r, k, v, None, scale, bound, True, masks)
+    delta = fa.flash_attention_bwd_delta(out, do_r)
+    args = (q_r, k, v, None, lse, delta, do_r, scale, masks)
+    plain = (lambda fn, *a: by_head(fn, *a)) if q_r.shape[-1] < 128 else (lambda fn, *a: fn(*a))
+    timed = {
+        "fwd": (lambda: fa._forward(q_r, k, v, None, scale, bound, True, masks),
+                lambda: plain(lambda *a: fa.flash_attention_plain(*a, return_lse=True,
+                                                                  masks=masks),
+                              q_r, k, v, None, scale, bound)),
+        "delta": (lambda: fa.flash_attention_bwd_delta(out, do_r),
+                  lambda: fa.flash_attention_bwd_delta_plain(out, do_r)),
+        "dq": (lambda: fa.flash_attention_bwd_dq(*args),
+               lambda: plain(fa.flash_attention_bwd_dq_plain, *args)),
+        "dkv": (lambda: fa.flash_attention_bwd_dkv(*args),
+                lambda: plain(fa.flash_attention_bwd_dkv_plain, *args))}
+    parts = {"fwd": ("out", "lse"), "delta": ("delta",), "dq": ("dq",), "dkv": ("dk", "dv")}
+    leaves = [t.detach().clone().requires_grad_() for t in (q_r, k, v)]
+    kw = dict(scale=scale) if lib_mask is None else dict(scale=scale, attn_mask=lib_mask)
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q_r, k, v, **kw))
+    with torch.enable_grad():
+        lib_bwd = cuda_ms(sdpa_backward(lambda: F.scaled_dot_product_attention(*leaves, **kw),
+                                        leaves, do_r))
+    rows = {}
+    for part, name in names.items():
+        kernel_fn, plain_fn = timed[part]
+        got, ref = kernel_fn(), plain_fn()
+        if not isinstance(got, tuple):
+            got, ref = (got,), (ref,)
+        err = max(compare(f"{name} {what} ({tag}) against its plain version", g, r_,
+                          *tols(what, r_)) for what, g, r_ in zip(parts[part], got, ref))
+        del got, ref
+        ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn, iters=3, warmup=1)
+        b_ms, b_by = bound_ms(*work[part])
+        source, replaces = FLASH_SOURCES[name.split("_cp")[0].replace("_d128", "")]
+        lib = None if part == "delta" else (lib_fwd if part == "fwd" else lib_bwd)
+        rows[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
+                          max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib, launches_form=launches_form)
+        print(f"  {name} ({tag}): {ms:.4f} ms (device {device_ms(kernel_fn, 5):.4f})  plain "
+              f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}: {work[part][0] / 1e6:.1f} MB, "
+              f"{work[part][1] / 1e9:.2f} GFLOP)  library "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}")
+    return rows
+
+
+def check_cp_kernels(dev, rows: dict) -> dict:
+    """(b), rank by rank: K2-lse and K3 at each emulated rank's form of the
+    fused encoder and of the LLM's causal sequence, against the unsharded
+    call and the plain versions; the planted faults; the new rows."""
+    import torch
+
+    from ctpa_torch.ops import flash_attention as fa
+    from ctpa_torch.ops.attention_ops import l2norm
+    from ctpa_torch.parallel.context import rank_offset
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    bf16, p = torch.bfloat16, CP_RANKS
+    new = {}
+
+    # the fused encoder's form: no bias, no mask, the cosine bound
+    b, h, n, d = FUSED_SHAPE
+    nl = n // p
+    q, k = (l2norm(torch.randn(b, h, n, d, generator=gen, device=dev)).to(bf16) for _ in "qk")
+    v, do = (torch.randn(b, h, n, d, generator=gen, device=dev).to(bf16) for _ in "vd")
+    scale, bound = 8.0, torch.tensor(8.0, device=dev)
+    full = cp_unsharded(q, k, v, do, scale, bound, fa.NO_MASKS)
+    ranks = [cp_rank_run(q, k, v, do, r, p, scale=scale, logit_bound=bound) for r in range(p)]
+    got = (torch.cat([x[0] for x in ranks], 2), torch.cat([x[1] for x in ranks], 2),
+           torch.cat([x[2] for x in ranks], 2), sum(x[3] for x in ranks), sum(x[4] for x in ranks))
+    tag = f"{p} ranks of {nl} x {n} keys"
+    for i, part in enumerate(("out", "lse", "dq", "dk", "dv")):
+        if part == "lse":
+            compare(f"K2-lse lse, {tag}", got[1], full[1], LSE_ATOL, LSE_RTOL)
+            continue
+        atol, rtol = fused_tolerance(full[i], bf16)
+        how = "summed over ranks" if part in ("dk", "dv") else "ranks concatenated"
+        compare(f"{part} ({how}), {tag}", got[i], full[i], atol, rtol)
+    bits = all(torch.equal(a, b_) for a, b_ in zip(got[:3], full[:3]))
+    print(f"  the ranks' out, lse and dq bit-equal to the unsharded call's: {bits}")
+    atol, rtol = fused_tolerance(full[3], bf16)
+    if not rejects(ranks[0][3], full[3], atol, rtol):
+        raise AssertionError("the fused form's gate passes rank 0's dK partial alone")
+    print("  planted: rank 0's dK partial left unsummed: refused")
+    qkv_r, kv, rowf_r = b * h * nl * d * 2, b * h * n * d * 2, b * h * nl * 4
+    prod = 2.0 * b * h * nl * n * d
+    work = {"fwd": (2 * qkv_r + 2 * kv + rowf_r + 4, 2 * prod),
+            "delta": (2 * qkv_r + rowf_r, 2.0 * b * h * nl * d),
+            "dq": (3 * qkv_r + 2 * kv + 2 * rowf_r, 3 * prod),
+            "dkv": (2 * qkv_r + 4 * kv + 2 * rowf_r, 4 * prod)}
+    names = {part: f"{base}_cp{p}_n{nl}x{n}"
+             for part, base in zip(("fwd", "delta", "dq", "dkv"), FUSED_KERNELS)}
+    def fused_tols(what, ref):
+        return {"lse": (LSE_ATOL, LSE_RTOL), "delta": (FP32_ATOL, FP32_RTOL)}.get(
+            what) or fused_tolerance(ref, bf16)
+
+    new.update(cp_rows(f"rank 0, {nl} of {n} rows", names, q[:, :, :nl].contiguous(), k, v,
+                       do[:, :, :nl].contiguous(), scale, bound, fa.NO_MASKS, work, fused_tols,
+                       f"p=1: {n} x {n}, the fused encoder under cp_mesh on one NCCL rank"))
+    print("  unsharded at n 13,824 (phase fused-encoder): " + ", ".join(
+        f"{k_} {rows[fused_name(k_)]['ms']:.4f} ms" for k_ in FUSED_KERNELS
+        if fused_name(k_) in rows))
+    del q, k, v, do, full, ranks, got
+
+    # the LLM's causal sequence at head dim 128
+    b, h, n, d = CP_LLM_SHAPE
+    nl, scale = n // p, d ** -0.5
+    q, k, v, do = (torch.randn(b, h, n, d, generator=gen, device=dev).to(bf16) for _ in "qkvd")
+    causal = fa.make_masks(True, None, None, b, n, dev)
+    full = cp_unsharded(q, k, v, do, scale, None, causal)
+    ranks = []
+    for r in range(p):
+        off = rank_offset(r, nl, dev)
+        ranks.append(cp_rank_run(q, k, v, do, r, p, scale=scale, causal=True, q_offset=off))
+        rows_r = slice(r * nl, (r + 1) * nl)
+        masks = fa.make_masks(True, None, off, b, n, dev)
+        ref_out, ref_lse = fa.flash_attention_plain(q[:, :, rows_r], k, v, None, scale,
+                                                    return_lse=True, masks=masks)
+        ref_dq, ref_dk, ref_dv, _ = fa.flash_attention_bwd_plain(
+            q[:, :, rows_r], k, v, None, ref_out, ref_lse, do[:, :, rows_r], scale, masks)
+        label = f"rank {r} (q_offset {r * nl}, {nl} x {n})"
+        for part, g, ref in zip(("out", "lse", "dq", "dk", "dv"), ranks[-1],
+                                (ref_out, ref_lse, ref_dq, ref_dk, ref_dv)):
+            tol = (LSE_ATOL, LSE_RTOL) if part == "lse" else (BF16_ATOL, BF16_RTOL)
+            compare(f"d128 causal {part} {label}", g, ref, *tol)
+        if r:
+            # planted: this rank's block taken as rows 0 .. n/p - 1
+            fault = cp_rank_run(q, k, v, do, r, p, scale=scale, causal=True, q_offset=None)
+            if not rejects(fault[0], ref_out, BF16_ATOL, BF16_RTOL):
+                raise AssertionError(f"the kernel gate passes rank {r} at q_offset 0")
+    print("  planted: ranks 1-3 at q_offset 0: each refused")
+    summed = (torch.cat([x[0] for x in ranks], 2), sum(x[3] for x in ranks),
+              sum(x[4] for x in ranks))
+    for part, g, ref in zip(("out", "dk", "dv"), summed, (full[0], full[3], full[4])):
+        compare(f"d128 causal {part}, {p} ranks against the unsharded call", g, ref, BF16_ATOL,
+                BF16_RTOL)
+    if not rejects(ranks[-1][3], full[3], BF16_ATOL, BF16_RTOL):
+        raise AssertionError("the kernel gate passes the last rank's dK partial alone")
+    print("  planted: the last rank's dK partial left unsummed: refused")
+    # the rows at the last rank: q_offset 384, the most tiles of any rank
+    r, off = p - 1, (p - 1) * nl
+    q_r, do_r = q[:, :, off:].contiguous(), do[:, :, off:].contiguous()
+    masks = fa.make_masks(True, None, rank_offset(r, nl, dev), b, n, dev)
+    ones = torch.ones(b, n, dtype=torch.bool, device=dev)
+    fwd_tiles, dkv_tiles = visited_tiles(ones, True, off, nl, n)
+    tile = 2.0 * 64 * 64 * d * h
+    qkv_r, kv, rowf_r = b * h * nl * d * 2, b * h * n * d * 2, b * h * nl * 4
+    work = {"fwd": (2 * qkv_r + 2 * kv + rowf_r + 4, 2 * tile * fwd_tiles),
+            "delta": (2 * qkv_r + rowf_r, 2.0 * b * h * nl * d),
+            "dq": (3 * qkv_r + 2 * kv + 2 * rowf_r + 4, 3 * tile * fwd_tiles),
+            "dkv": (2 * qkv_r + 4 * kv + 2 * rowf_r + 4, 4 * tile * dkv_tiles)}
+    allowed = (torch.arange(n, device=dev)[None] <= torch.arange(off, n, device=dev)[:, None])
+    names = {"fwd": f"flash_attention_fwd_lse_d128_cp{p}_causal",
+             "delta": f"flash_attention_bwd_delta_d128_cp{p}_causal",
+             "dq": f"flash_attention_bwd_dq_d128_cp{p}_causal",
+             "dkv": f"flash_attention_bwd_dkv_d128_cp{p}_causal"}
+    def llm_tols(what, ref):
+        return {"lse": (LSE_ATOL, LSE_RTOL), "delta": (FP32_ATOL, FP32_RTOL)}.get(
+            what, (BF16_ATOL, BF16_RTOL))
+
+    new.update(cp_rows(f"rank {r}, q_offset {off}, {nl} x {n}", names, q_r, k, v, do_r, scale,
+                       None, masks, work, llm_tols,
+                       f"p=1: {n} x {n} causal, context_parallel_attention on one NCCL rank",
+                       lib_mask=allowed[None, None]))
+    for r in range(p):
+        o = r * nl
+        m_r = fa.make_masks(True, None, rank_offset(r, nl, dev), b, n, dev)
+        q_i = q[:, :, o:o + nl].contiguous()
+        print(f"  rank {r} (q_offset {o}): K2-lse-d128 "
+              f"{cuda_ms(lambda: fa._forward(q_i, k, v, None, scale, None, True, m_r)):.4f} ms")
+    print("  unsharded (" + ", ".join(map(str, CP_LLM_SHAPE)) + ", causal): K2-lse-d128 "
+          f"{cuda_ms(lambda: fa._forward(q, k, v, None, scale, None, True, causal)):.4f} ms")
+    return new
+
+
+def cp_main_path(dev, mesh, rows: dict) -> None:
+    """The phase's main path on the one-rank NCCL mesh: the fused encoder
+    forward and backward under cp_mesh against cp_mesh=None, then
+    context_parallel_attention at the LLM form against flash_attention;
+    each one's launches counted into its rows."""
+    import torch
+
+    from ctpa_torch.core.config import CTViTConfig
+    from ctpa_torch.core.init import random_init_
+    from ctpa_torch.models.ctvit import CTViT
+    from ctpa_torch.models.layers import set_compute_dtype
+    from ctpa_torch.ops.flash_attention import LAUNCHES, flash_attention
+    from ctpa_torch.parallel.context import context_parallel_attention
+
+    cfg = dataclasses.replace(CTViTConfig(), fused_attention=True, fused_depth=CP_FUSED_DEPTH)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    video = torch.rand(1, 1, cfg.temporal_size, cfg.image_size, cfg.image_size, generator=gen,
+                       device=dev) * 2 - 1
+    results = {}
+    for label, kw in (("cp_mesh", dict(cp_mesh=mesh, cp_axis="data")), ("alone", {})):
+        model = CTViT(cfg, device=dev, **kw)
+        random_init_(model, torch.Generator(device=dev).manual_seed(SEED + 52))
+        set_compute_dtype(model, torch.bfloat16)
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            tokens = model.encode_tokens(model.patch_embed(video.to(torch.bfloat16)))
+            tokens.float().square().mean().backward()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in LAUNCHES.items() if v}
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                 if "enc_fused_transformer" in n and p.grad is not None}
+        results[label] = (tokens.detach(), grads, launched)
+        print(f"  fused encoder (depth {CP_FUSED_DEPTH}, {label}): forward and backward "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms, launches {launched}")
+        del model
+    (tok_c, g_c, launched), (tok_a, g_a, _) = results["cp_mesh"], results["alone"]
+    atol, rtol = fused_tolerance(tok_a, torch.bfloat16)
+    compare("fused encoder tokens, cp_mesh (one NCCL rank) against cp_mesh=None", tok_c, tok_a,
+            atol, rtol)
+    worst = min(torch.nn.functional.cosine_similarity(g_c[n].flatten().float(),
+                                                      g_a[n].flatten().float(), dim=0).item()
+                for n in g_a)
+    bits = torch.equal(tok_c, tok_a) and all(torch.equal(g_c[n], g_a[n]) for n in g_a)
+    print(f"  fused-stack gradients: least cosine {worst:.7f} (>= {TRAIN_GRAD_MIN_COS}) over "
+          f"{len(g_a)} tensors; tokens and gradients bit-equal: {bits}")
+    if worst < TRAIN_GRAD_MIN_COS:
+        raise AssertionError("the fused encoder under cp_mesh differs from cp_mesh=None")
+    b, h, n, d = FUSED_SHAPE
+    for base in FUSED_KERNELS:
+        rows[f"{base}_cp{CP_RANKS}_n{n // CP_RANKS}x{n}"]["launches"] = launched.get(base, 0)
+
+    b, h, n, d = CP_LLM_SHAPE
+    q, k, v, do = (torch.randn(b, h, n, d, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in "qkvd")
+    outs = {}
+    for label in ("context_parallel_attention", "flash_attention"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+        with torch.enable_grad():
+            if label == "flash_attention":
+                out = flash_attention(*leaves, causal=True)
+            else:
+                out = context_parallel_attention(*leaves, mesh, "data", impl="flash",
+                                                 causal=True)
+            out.backward(do)
+        torch.cuda.synchronize()
+        outs[label] = (out.detach(), *(t.grad for t in leaves), dict(LAUNCHES))
+    got, ref = outs["context_parallel_attention"], outs["flash_attention"]
+    for part, g, r in zip(("out", "dq", "dk", "dv"), got, ref):
+        compare(f"context_parallel_attention (one NCCL rank, causal d128) {part}", g, r,
+                BF16_ATOL, BF16_RTOL)
+    launched = got[4]
+    print(f"  context_parallel_attention launches {({k: v for k, v in launched.items() if v})}")
+    for key, row in (("flash_attention_fwd_lse_d128", "flash_attention_fwd_lse_d128"),
+                     ("flash_attention_bwd_delta", "flash_attention_bwd_delta_d128"),
+                     ("flash_attention_bwd_dq_d128", "flash_attention_bwd_dq_d128"),
+                     ("flash_attention_bwd_dkv_d128", "flash_attention_bwd_dkv_d128")):
+        rows[f"{row}_cp{CP_RANKS}_causal"]["launches"] = launched.get(key, 0)
+    for name, row in rows.items():
+        if "_cp" in name and not row.get("launches"):
+            raise AssertionError(f"{name}: never launched on the phase's main path")
+
+
+def tp_serving(dev, mesh) -> None:
+    """(c): ContinuousBatcher(mesh=...) on the one-rank NCCL group against
+    the unmeshed batcher, Meditron-7B width, bf16, greedy."""
+    import numpy as np
+    import torch
+
+    from ctpa_torch.core.config import CTViTConfig, LLMConfig, ReportGenConfig
+    from ctpa_torch.core.init import random_init_
+    from ctpa_torch.models.report_generator import CTReportGenerator
+    from ctpa_torch.pipelines.streaming import ContinuousBatcher, Request
+
+    llm_cfg = dataclasses.replace(LLMConfig(), flash_decode=False)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = random_init_(CTReportGenerator(llm_cfg, CTViTConfig(), ReportGenConfig(), device=dev,
+                                           dtype=torch.bfloat16), gen).eval()
+    torch.cuda.synchronize()
+    print(f"  CTReportGenerator at Meditron-7B width (bf16) built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ids = torch.randint(3, llm_cfg.vocab_size, (TP_LANES, TP_PROMPT), generator=gen, device=dev)
+    vision = torch.randn(TP_LANES, model.gen_cfg.vision_dim, generator=gen, device=dev)
+    tokens = {}
+    with torch.inference_mode():
+        for label, kw in (("alone", {}), ("mesh", dict(mesh=mesh))):
+            batcher = ContinuousBatcher(model, num_lanes=TP_LANES,
+                                        max_len=TP_PROMPT + TP_NEW_TOKENS + 16, eos_token_id=-1,
+                                        greedy=True, steps_per_sync=8, **kw)
+            for i in range(TP_LANES):
+                batcher.submit(Request(request_id=i, input_ids=ids[i].cpu().numpy(),
+                                       attention_mask=np.ones(TP_PROMPT, np.int32),
+                                       vision=vision[i], max_new_tokens=TP_NEW_TOKENS))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = batcher.run_until_done()
+            torch.cuda.synchronize()
+            tokens[label] = [res[i].tokens for i in range(TP_LANES)]
+            print(f"  ContinuousBatcher ({label}): {TP_LANES} lanes x {TP_NEW_TOKENS} greedy "
+                  f"tokens in {(time.perf_counter() - t0) * 1e3:.1f} ms; lane 0: "
+                  f"{tokens[label][0]}")
+            del batcher
+    if tokens["mesh"] != tokens["alone"] or any(len(t) != TP_NEW_TOKENS for t in tokens["mesh"]):
+        raise AssertionError(f"TP serving tokens {tokens['mesh']} != {tokens['alone']}")
+    print("  TP serving on one NCCL rank: every lane's tokens equal the unmeshed batcher's")
+    del model
+    torch.cuda.empty_cache()
+
+
+def parallel(dev, rows: dict) -> None:
+    """Phase parallel: (a) the CLIP CLI on one NCCL rank, (b) the CP forms
+    rank by rank and the CP main path, (c) TP serving."""
+    import torch
+    import torch.distributed as dist
+
+    from ctpa_torch.core.mesh import create_mesh
+
+    parallel_clip_cli(dev, free_port())
+    if not dist.is_initialized() or dist.get_backend() != ("nccl" if dev == "cuda" else "gloo"):
+        raise AssertionError("train_clip --coordinator started no process group of the device's "
+                             "backend")
+    mesh = create_mesh()
+    print(f"  mesh: {mesh.shape} over {dist.get_world_size()} rank(s), backend "
+          f"{dist.get_backend()}")
+    torch.cuda.empty_cache()
+    new = check_cp_kernels(dev, rows)
+    rows.update(new)
+    torch.cuda.empty_cache()
+    cp_main_path(dev, mesh, rows)
+    torch.cuda.empty_cache()
+    tp_serving(dev, mesh)
+    dist.destroy_process_group()
 
 
 def main() -> int:
@@ -6153,13 +6684,19 @@ def main() -> int:
         torch.cuda.empty_cache()
         fused_step(dev, rows)
     torch.cuda.empty_cache()
+    with phase("parallel"):
+        parallel(dev, rows)
+    torch.cuda.empty_cache()
     with phase("vqgan"):
         vqgan(dev)
     torch.cuda.empty_cache()
 
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{key: rows[k][key] for key in order}
+    # a row whose main-path launches are of another form than it is timed
+    # at (the CP rank forms: one rank launches the p=1 form) says which
+    kernels = [{key: rows[k][key] for key in order
+                + (("launches_form",) if "launches_form" in rows[k] else ())}
                for k in ("patchify_project", "flash_attention_fwd", "resample3_patchify_project")
                + TRAIN_KERNELS
                + ("decode_attention", "flash_attention_fwd_lse_d128",
@@ -6168,7 +6705,8 @@ def main() -> int:
                + tuple(f[0] for f in QUANT_FORMS) + ("int4_act_quant",)
                + tuple(f[0] for f in QUANT8_FORMS)
                + tuple(f"{f[0]}_prefill" for f in QUANT_FORMS + QUANT8_FORMS)
-               + tuple(fused_name(k) for k in FUSED_KERNELS)]
+               + tuple(fused_name(k) for k in FUSED_KERNELS)
+               + tuple(k for k in rows if "_cp" in k)]
     for row in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(row[key]):

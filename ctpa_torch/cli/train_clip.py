@@ -13,8 +13,19 @@ the video is rounded to bf16, the towers compute in fp32.  At full width
 the spatial fold's attention runs through the flash kernels (K2 with its
 logsumexp, K3 for the backward) wherever the device is not the CPU;
 ``--tiny`` takes the tiny configurations.  The command line runs on the
-card; ``main(argv, device="cpu")`` runs on the CPU.  Multi-host training
-(``--coordinator``) is not ported.
+card; ``main(argv, device="cpu")`` runs on the CPU.
+
+Multi-process training, one process per card (on one host or several):
+
+    python -m ctpa_torch.cli.train_clip ... --coordinator HOST:PORT \
+        --num-processes P --process-id I
+
+on every process (I = 0 .. P-1; HOST:PORT is where process 0 listens; a
+``file:///path`` URL on a shared file system works as well).  Each process
+reads a disjoint ``ProcessShard`` of the dataset, ``--batch-size`` is the
+global batch (it must divide by P), the step is the global batch's
+(``train/clip_trainer.py``), and only process 0 evaluates and writes
+checkpoints.  On the card the group is NCCL, on the CPU gloo.
 """
 
 from __future__ import annotations
@@ -29,8 +40,10 @@ import torch
 from ctpa_torch.core.config import (BertConfig, CTCLIPConfig, CTViTConfig, OptimizerConfig,
                                     PreprocessConfig, TrainConfig)
 from ctpa_torch.core.init import random_init_
+from ctpa_torch.core.mesh import batch_sharding, create_mesh, initialize_distributed, process_count
 from ctpa_torch.core.profiling import trace
-from ctpa_torch.data.datasets import CTReportDataset, batch_iterator, collate_clip
+from ctpa_torch.data.datasets import (CTReportDataset, ProcessShard, batch_iterator,
+                                     collate_clip)
 from ctpa_torch.data.prefetch import PrefetchIterator, to_device
 from ctpa_torch.data.tokenizer import HFTokenizer, SimpleWordTokenizer
 from ctpa_torch.models.ctclip import CTCLIP
@@ -43,11 +56,12 @@ from ctpa_torch.train.train_state import CLIPTrainState
 
 def build_loader(dataset, tokenizer, batch_size: int, pre_cfg: PreprocessConfig, device,
                  max_length: int = 512, preprocessed: bool = False,
-                 process_local: bool = False) -> PrefetchIterator:
+                 process_local: bool = False, mesh=None) -> PrefetchIterator:
     """Batches of {"input_ids", "attention_mask", "video"} on ``device``,
     prepared ahead on the prefetcher's thread: the raw volumes go to the
     device and are preprocessed there (``preprocessed``: they are on the
-    canonical grid already)."""
+    canonical grid already).  ``process_local`` (with ``mesh``): the
+    dataset is this process's shard and ``batch_size`` its rows."""
     raw_iter = batch_iterator(dataset, batch_size,
                               lambda s: collate_clip(s, tokenizer, max_length))
 
@@ -62,7 +76,9 @@ def build_loader(dataset, tokenizer, batch_size: int, pre_cfg: PreprocessConfig,
             yield {"input_ids": batch["input_ids"], "attention_mask": batch["attention_mask"],
                    "video": video}
 
-    return PrefetchIterator(device_side(), device=device, process_local=process_local)
+    sharding = None if mesh is None else batch_sharding(mesh)
+    return PrefetchIterator(device_side(), device=device, sharding=sharding,
+                            process_local=process_local)
 
 
 @torch.no_grad()
@@ -99,7 +115,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace (trace.json) here")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="multi-host training (not ported)")
+                   help="multi-process training: the address process 0 listens on (pass on "
+                        "every process, with --num-processes and --process-id); each process "
+                        "then reads a disjoint ProcessShard of the dataset and --batch-size is "
+                        "the GLOBAL batch (must divide by the process count)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     return p
@@ -111,9 +130,11 @@ def main(argv=None, device="cuda") -> int:
     p = build_parser()
     args = p.parse_args(argv)
     if args.coordinator:
-        raise NotImplementedError("multi-host training (--coordinator) is data parallelism, "
-                                  "which is not ported (ROADMAP Queue A item 10)")
-    if args.num_processes is not None or args.process_id is not None:
+        if args.num_processes is None or args.process_id is None:
+            p.error("--coordinator needs --num-processes and --process-id")
+        initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                               device=device)
+    elif args.num_processes is not None or args.process_id is not None:
         # without a coordinator each host would train alone on the whole dataset
         p.error("--num-processes/--process-id require --coordinator")
 
@@ -138,8 +159,18 @@ def main(argv=None, device="cuda") -> int:
     print(f"dataset: {len(dataset)} volumes", file=sys.stderr)
     # the position table bounds the tokenization
     max_length = min(512, bert_cfg.max_position_embeddings)
-    loader = build_loader(dataset, tokenizer, args.batch_size, pre_cfg, device,
-                          max_length=max_length, preprocessed=args.preprocessed)
+    mesh, local_batch = None, args.batch_size
+    if args.coordinator:
+        # one data-parallel rank per process; each reads its own shard
+        nproc = process_count()
+        if args.batch_size % nproc:
+            p.error(f"--batch-size {args.batch_size} must divide by the process count {nproc}")
+        mesh = create_mesh()
+        local_batch = args.batch_size // nproc
+        dataset = ProcessShard(dataset)
+    loader = build_loader(dataset, tokenizer, local_batch, pre_cfg, device,
+                          max_length=max_length, preprocessed=args.preprocessed,
+                          process_local=mesh is not None, mesh=mesh)
 
     first = next(loader)
     model, vq_state = init_state(model, seed=0)
@@ -171,7 +202,7 @@ def main(argv=None, device="cuda") -> int:
         model, state, itertools.chain([first], loader),
         cfg=TrainConfig(num_train_steps=args.num_steps, save_results_every=args.eval_every,
                         results_dir=args.results_dir, checkpoint_dir=args.checkpoint_dir),
-        opt_cfg=opt_cfg, eval_fn=eval_fn, model_dtype=torch.float32)
+        opt_cfg=opt_cfg, mesh=mesh, eval_fn=eval_fn, model_dtype=torch.float32)
     if args.resume:
         trainer.load()
     with trace(args.profile_dir):

@@ -10,8 +10,12 @@ As ctpa's CLI: ``CTViTConfig()`` with the decoder, fp32, plain attention
 (ctpa's CLI turns on no kernel), ``Discriminator()`` and ``PerceptualNet()``
 (``--vgg``: the VGG16 geometry; ``--tiny``: the tiny configurations), Adam
 with b1 0.5 and b2 0.9 for both.  Volumes are canonical-grid npz files.
-One device: ctpa's batch is data-parallel over gcd(batch, devices)
-devices, which is one here.  ``--resume`` continues the step count, both
+As ctpa's, the batch is data-parallel over dp = gcd(batch, devices)
+devices: where the caller has started a process group of several ranks
+(``core/mesh.py:initialize_distributed``, one process per card), ranks
+0 .. dp-1 each take their rows of every global batch, the gradients and the
+VQ statistics are reduced over them (``train/vqgan_trainer.py``), rank 0
+alone writes checkpoints, and the other ranks idle.  ``--resume`` continues the step count, both
 optimizers, the VQ state and with them the R1 schedule.  The command line
 runs on the card; ``main(argv, device="cpu")`` runs on the CPU.
 """
@@ -20,14 +24,16 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import sys
 
 import numpy as np
 import torch
 
 from ctpa_torch.core.checkpoint import CheckpointManager
-from ctpa_torch.core.config import CTViTConfig
+from ctpa_torch.core.config import CTViTConfig, MeshConfig
 from ctpa_torch.core.init import random_init_
+from ctpa_torch.core.mesh import batch_sharding, create_mesh, is_primary, process_count
 from ctpa_torch.data.datasets import VolumeDataset, batch_iterator
 from ctpa_torch.data.prefetch import PrefetchIterator
 from ctpa_torch.models.ctvit import CTViT
@@ -83,6 +89,15 @@ def main(argv=None, device="cuda") -> int:
     # ctpa enables XLA's persistent compilation cache here; eager PyTorch
     # has no such cache, and the nvcc-built kernels keep their own
     args = build_parser().parse_args(argv)
+    # data-parallel over as many ranks as the batch divides into
+    mesh = None
+    world = process_count()
+    if world > 1:
+        dp = math.gcd(args.batch_size, world)
+        mesh = create_mesh(MeshConfig(data_parallel=dp, model_parallel=1), ranks=range(dp))
+        if mesh is None:
+            print(f"rank outside the {dp} data-parallel ranks: idle", file=sys.stderr)
+            return 0
     vit_cfg = dataclasses.replace(CTViTConfig.tiny() if args.tiny else CTViTConfig(),
                                   use_decoder=True)
     model = CTViT(vit_cfg, device=device)
@@ -93,7 +108,8 @@ def main(argv=None, device="cuda") -> int:
 
     dataset = VolumeDataset(args.data_dir)
     print(f"dataset: {len(dataset)} volumes", file=sys.stderr)
-    loader = PrefetchIterator(batch_iterator(dataset, args.batch_size, collate), device=device)
+    loader = PrefetchIterator(batch_iterator(dataset, args.batch_size, collate), device=device,
+                              sharding=None if mesh is None else batch_sharding(mesh))
 
     batch = next(loader)
     vq_state = init_state(model, disc, perc)
@@ -109,20 +125,20 @@ def main(argv=None, device="cuda") -> int:
 
     step_fn = make_vqgan_train_step(model, disc, perc, gen_tx, disc_tx, use_hinge=not args.bce,
                                     gan_weight=args.gan_weight,
-                                    perceptual_weight=args.perceptual_weight)
+                                    perceptual_weight=args.perceptual_weight, mesh=mesh)
     while state.step < args.num_steps:
         state, metrics = step_fn(state, batch["video"])
         step = state.step
         if step % args.log_every == 0 or step == 1:
             m = {k: round(float(v), 4) for k, v in metrics.items()}
             print(f"step {step}: {m}", file=sys.stderr)
-        if step % args.save_every == 0 or step == args.num_steps:
+        if (step % args.save_every == 0 or step == args.num_steps) and is_primary():
             mgr.save(step, state.state_dict())
         try:
             batch = next(loader)
         except StopIteration:
             break
-    if mgr.latest_step() != state.step:
+    if mgr.latest_step() != state.step and is_primary():
         mgr.save(state.step, state.state_dict(), force=True)
     mgr.wait()
     print(f"done at step {state.step}", file=sys.stderr)

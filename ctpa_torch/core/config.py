@@ -142,6 +142,17 @@ class CTCLIPConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The (data, model) mesh's axis names and sizes: data parallelism and
+    tensor parallelism (``core/mesh.py:create_mesh``)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1     # -1: every rank the model axis leaves
+    model_parallel: int = 1
+
+
+@dataclass(frozen=True)
 class OptimizerConfig:
     """AdamW with weight decay on parameters of ndim >= 2 only, global-norm
     gradient clipping and a per-step learning rate."""

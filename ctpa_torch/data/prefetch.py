@@ -9,8 +9,13 @@ event marks the batch's end.  ``__next__`` makes the consumer's current
 stream wait on that event and ``record_stream``s every tensor of the batch
 on it, so the caching allocator does not hand their memory out again while
 the consumer still reads it.  A loader exception is raised again at
-``__next__``.  Data parallelism (``sharding``, ``process_local``) is not
-ported.
+``__next__``.
+
+Data parallelism: with a ``sharding`` (``core/mesh.py:batch_sharding``)
+the source yields global batches and this rank's rows of each go to the
+device (sliced on the host, before the pinned copy); with
+``process_local`` the source yields this rank's rows already (e.g. off a
+``datasets.ProcessShard``), and they go to the device as they are.
 """
 
 from __future__ import annotations
@@ -45,10 +50,10 @@ class PrefetchIterator:
 
     def __init__(self, source: Iterator, device="cuda", depth: int = 2,
                  name: str = "prefetch", sharding=None, process_local: bool = False):
-        if sharding is not None or process_local:
-            raise NotImplementedError("sharded and process-local prefetch belong to data "
-                                      "parallelism, which is not ported (ROADMAP Queue A "
-                                      "item 10)")
+        if process_local and sharding is None:
+            raise ValueError("process_local prefetch requires a sharding")
+        # process-local rows are this rank's already
+        self._rows = None if sharding is None or process_local else sharding.rows
         self._source = source
         self._device = torch.device(device)
         self._cuda = self._device.type == "cuda"
@@ -60,6 +65,8 @@ class PrefetchIterator:
         self._thread.start()
 
     def _stage(self, batch: dict) -> dict:
+        if self._rows is not None:
+            batch = {k: self._rows(v) for k, v in batch.items()}
         return {k: to_device(v, self._device) for k, v in batch.items()}
 
     def _worker(self):

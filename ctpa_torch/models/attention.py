@@ -33,6 +33,7 @@ from ctpa_torch.ops.attention_ops import (
 )
 from ctpa_torch.models.layers import AffineLayerNorm, Dense, compute_dtype, layer_norm
 from ctpa_torch.ops.flash_attention import flash_attention
+from ctpa_torch.parallel.context import context_parallel_attention
 
 # flax's LayerNorm default epsilon, which ctpa's blocks use
 LN_EPS = 1e-6
@@ -118,12 +119,14 @@ class CosineAttention(nn.Module):
     routes an unmasked attention without null key/values through the
     flash-attention kernel with the analytic logit bound of cosine
     attention; there ``causal`` is the kernel's mask, without ALiBi (ctpa's
-    split)."""
+    split).  ``cp_mesh``/``cp_axis`` shard that non-causal flash attention's
+    sequence over the axis (``parallel/context.py``)."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, scale: float = 8.0,
                  causal: bool = False, num_null_kv: int = 0, context_dim: int | None = None,
                  norm_context: bool = True, kv_from_normed: bool = False,
-                 use_flash: bool = False, device=None, dtype=None):
+                 use_flash: bool = False, cp_mesh=None, cp_axis: str | None = None,
+                 device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         inner = heads * dim_head
@@ -132,6 +135,7 @@ class CosineAttention(nn.Module):
         self.causal = causal
         self.kv_from_normed = kv_from_normed
         self.use_flash = use_flash
+        self.cp_mesh, self.cp_axis = cp_mesh, cp_axis
         self.norm = LayerNorm(dim, **fk)
         if context_dim is not None and norm_context:
             self.context_norm = LayerNorm(context_dim, **fk)
@@ -168,8 +172,13 @@ class CosineAttention(nn.Module):
                      * self.k_scale.abs().max().float())
             if bias is not None:
                 bound = bound + bias.max().float()
-            out = flash_attention(qn, kn, v.contiguous(), bias=bias, causal=self.causal,
-                                  scale=self.scale, logit_bound=bound)
+            if self.cp_mesh is not None and not self.causal:
+                out = context_parallel_attention(qn, kn, v.contiguous(), self.cp_mesh,
+                                                 self.cp_axis, bias=bias, scale=self.scale,
+                                                 impl="flash", logit_bound=bound)
+            else:
+                out = flash_attention(qn, kn, v.contiguous(), bias=bias, causal=self.causal,
+                                      scale=self.scale, logit_bound=bound)
         else:
             out = cosine_attention(q, k, v, q_scale=self.q_scale, k_scale=self.k_scale,
                                    null_kv=null_kv, scale=self.scale, bias=bias, mask=mask,
@@ -206,11 +215,13 @@ class TransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int, ff_mult: int = 4,
                  causal: bool = False, cross_attend: bool = False,
                  context_dim: int | None = None, use_flash: bool = False,
-                 kv_from_normed: bool = False, device=None, dtype=None):
+                 kv_from_normed: bool = False, cp_mesh=None, cp_axis: str | None = None,
+                 device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         self.attn = CosineAttention(dim, heads, dim_head, causal=causal, use_flash=use_flash,
-                                    kv_from_normed=kv_from_normed, **fk)
+                                    kv_from_normed=kv_from_normed, cp_mesh=cp_mesh,
+                                    cp_axis=cp_axis, **fk)
         self.cross_attn = (CosineAttention(dim, heads, dim_head, num_null_kv=2,
                                            context_dim=context_dim or dim, **fk)
                            if cross_attend else None)
@@ -234,7 +245,8 @@ class Transformer(nn.Module):
                  ff_mult: int = 4, causal: bool = False, cross_attend: bool = False,
                  context_dim: int | None = None, peg: bool = False, peg_causal: bool = True,
                  peg_reference_layout: bool = False, use_flash: bool = False,
-                 kv_from_normed: bool = False, remat: bool = False, device=None, dtype=None):
+                 kv_from_normed: bool = False, remat: bool = False, cp_mesh=None,
+                 cp_axis: str | None = None, device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         self.remat = remat
@@ -244,7 +256,8 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(
             [TransformerBlock(dim, heads, dim_head, ff_mult, causal=causal,
                               cross_attend=cross_attend, context_dim=context_dim,
-                              use_flash=use_flash, kv_from_normed=kv_from_normed, **fk)
+                              use_flash=use_flash, kv_from_normed=kv_from_normed,
+                              cp_mesh=cp_mesh, cp_axis=cp_axis, **fk)
              for _ in range(depth)])
         self.norm_out = LayerNorm(dim, **fk)
 

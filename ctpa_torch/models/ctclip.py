@@ -6,7 +6,12 @@ similarity.  The variants of ``CTCLIPConfig``: CLOOB's extra latent
 projections for the image->text direction, the stride-2 depthwise
 downsample of the pooled token grid, FILIP's all-token similarity, the MLM
 head (``mlm_logits``), the visual-SSL embedding and the multi-view loss.
-``contrastive_loss_sharded`` (data parallelism) is not ported."""
+
+Data parallelism: with a ``mesh``, ``forward`` all-gathers the latents over
+its data axis before the similarity (``comms/collectives.py:
+all_gather_batch``, a reduce-scatter in the backward), so every rank's loss
+is the global batch's InfoNCE, as ctpa's under pjit; a rank's local rows
+alone would give the reference repo's local negatives."""
 
 from __future__ import annotations
 
@@ -17,7 +22,9 @@ import torch.nn.functional as F
 from einops import rearrange
 from torch import nn
 
+from ctpa_torch.comms.collectives import all_gather_batch
 from ctpa_torch.core.config import BertConfig, CTCLIPConfig, CTViTConfig
+from ctpa_torch.core.mesh import DATA_AXIS
 from ctpa_torch.models.bert import BertEncoder, BertMLMHead
 from ctpa_torch.models.ctvit import CTViT
 from ctpa_torch.models.layers import Dense
@@ -79,6 +86,17 @@ def infonce_loss(sim: torch.Tensor, decoupled: bool = False,
     i2t = infonce_directional(sim if sim_image_to_text is None else sim_image_to_text,
                               axis=0, decoupled=decoupled)
     return (t2i + i2t) / 2
+
+
+def contrastive_loss_sharded(text_lat: torch.Tensor, img_lat: torch.Tensor,
+                             temp: torch.Tensor, mesh, axis: str = DATA_AXIS,
+                             decoupled: bool = False) -> torch.Tensor:
+    """InfoNCE over the global batch from this rank's latent rows: both are
+    all-gathered over ``axis`` and the global similarity scored; the loss is
+    the same on every rank."""
+    gt = all_gather_batch(text_lat, mesh, axis).float()
+    gi = all_gather_batch(img_lat, mesh, axis).float()
+    return infonce_loss(torch.matmul(gt, gi.t()) * temp, decoupled=decoupled)
 
 
 class CTCLIP(nn.Module):
@@ -189,23 +207,29 @@ class CTCLIP(nn.Module):
         return (1.0 - w) * loss + w * (sum(views) / len(views))
 
     def forward(self, input_ids, attention_mask, video, vq_state: VQState | None = None,
-                return_loss: bool = True) -> CLIPOutput:
+                return_loss: bool = True, mesh=None, axis: str = DATA_AXIS) -> CLIPOutput:
         """Both towers and, with ``return_loss``, the InfoNCE loss over the
         (b, b) similarity (FILIP's with ``use_all_token_embeds``; CLOOB's
         extra projections score the image->text direction); without it the
-        elementwise text-image score."""
+        elementwise text-image score.  With ``mesh`` the batch is this
+        rank's rows: the latents (FILIP's token latents and text mask) are
+        gathered over ``axis`` first, and ``sim`` is the global one; the
+        returned latents and VQ statistics are this rank's."""
         cfg = self.cfg
         temp = torch.exp(self.temperature).float()
         text_hidden, text_cls = self.text_transformer(input_ids, attention_mask)
         tokens, vq_out = self.encode_image_tokens(video, vq_state)
         vq = (None, None, None) if vq_out is None else (vq_out.commit_loss, vq_out.counts,
                                                         vq_out.sums)
+        gather = ((lambda x: x) if mesh is None or not return_loss
+                  else (lambda x: all_gather_batch(x, mesh, axis)))
         if cfg.use_all_token_embeds:
             if not return_loss:
                 raise ValueError("FILIP's token latents have no elementwise score")
             text_lat = self.text_latent(text_hidden)
             img_lat = self.image_latent(rearrange(tokens, "b t h w d -> b (t h w) d"))
-            sim = filip_similarity(text_lat, img_lat, attention_mask > 0) * temp
+            sim = filip_similarity(gather(text_lat), gather(img_lat),
+                                   gather(attention_mask) > 0) * temp
         else:
             pooled = self.pool_image_tokens(tokens)
             text_lat, img_lat = self.text_latent(text_cls), self.image_latent(pooled)
@@ -214,12 +238,12 @@ class CTCLIP(nn.Module):
             if not return_loss:
                 score = (t * i.expand_as(t)).sum(-1) * temp
                 return CLIPOutput(None, score, text_lat, img_lat, *vq)
-            sim = torch.matmul(t, i.t()) * temp
+            sim = torch.matmul(gather(t), gather(i).t()) * temp
         sim_i2t = None
         if cfg.extra_latent_projection and not cfg.use_all_token_embeds:
-            text_extra = l2norm(self.to_text_latent_extra(text_cls))
-            img_extra = l2norm(self.to_visual_latent_extra(pooled))
-            sim_i2t = torch.matmul(text_extra.float(), img_extra.float().t()) * temp
+            text_extra = gather(l2norm(self.to_text_latent_extra(text_cls)).float())
+            img_extra = gather(l2norm(self.to_visual_latent_extra(pooled)).float())
+            sim_i2t = torch.matmul(text_extra, img_extra.t()) * temp
         loss = infonce_loss(sim, decoupled=cfg.decoupled_contrastive_learning,
                             sim_image_to_text=sim_i2t)
         return CLIPOutput(loss, sim, text_lat, img_lat, *vq)

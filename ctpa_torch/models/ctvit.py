@@ -98,15 +98,14 @@ class CTViT(nn.Module):
     ``dec_spatial_transformer`` (plain attention, as ctpa's, whose decoder
     stacks have no flash option) and ``to_pixels``; the decoder's spatial
     fold takes ``spatial_rel_pos_bias``, which is built whenever the axial
-    encoder or the decoder is.  Context parallelism (``cp_mesh``) is not
-    ported."""
+    encoder or the decoder is.  ``cp_mesh``/``cp_axis`` shard the fused
+    encoder's t*h*w token axis over that mesh axis (context parallelism,
+    ``parallel/context.py``); every rank holds the whole sequence outside
+    the attention, as ctpa's global arrays."""
 
     def __init__(self, cfg: CTViTConfig, device="cuda", dtype=torch.float32,
-                 remat: bool = False, cp_mesh=None):
+                 remat: bool = False, cp_mesh=None, cp_axis: str | None = None):
         super().__init__()
-        if cp_mesh is not None:
-            raise NotImplementedError("context parallelism (cp_mesh) is not ported "
-                                      "(ROADMAP Queue A item 10)")
         fk = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.patch_embed = PatchEmbed3D(cfg, **fk)
@@ -115,7 +114,7 @@ class CTViT(nn.Module):
                    kv_from_normed=cfg.attn_kv_from_normed, remat=remat, **fk)
         if cfg.fused_attention:
             self.enc_fused_transformer = Transformer(depth=cfg.fused_depth, use_flash=True,
-                                                     **tkw)
+                                                     cp_mesh=cp_mesh, cp_axis=cp_axis, **tkw)
         if not cfg.fused_attention or cfg.use_decoder:
             self.spatial_rel_pos_bias = ContinuousPositionBias(cfg.dim, cfg.heads, **fk)
         if not cfg.fused_attention:

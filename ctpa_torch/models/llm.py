@@ -39,6 +39,14 @@ attention as int8 x int8 dots with exact integer sums.  Those attentions
 are ctpa's XLA einsums, not kernels, and stay plain torch here; the decode
 kernel takes the float and int8 caches only.
 
+Tensor parallelism (``parallel/sharding.py:shard_llm_``, ctpa's
+Megatron-style ``LLM_RULES`` under GSPMD): each rank of the model axis
+holds its columns of q/k/v, gate and up (its heads and FFN columns; the
+attention's ``cfg`` then counts its own heads) and its rows of o_proj and
+down, whose partial products (LoRA's too) are summed by one all-reduce
+each (``tp``); a column-parallel lm_head's logits are all-gathered before
+anything reads them.  The KV cache holds the rank's kv heads.
+
 Continuous batching (``pipelines/streaming.py``) keeps one batched cache on
 a ring: ``align_lane_to_clock`` rotates a prefilled one-lane cache onto the
 shared clock and ``insert_lane``/``insert_lanes`` copy it into lanes, in
@@ -55,6 +63,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ctpa_torch.comms.collectives import all_reduce, gather_replicated
 from ctpa_torch.core.config import LLMConfig, LoRAConfig
 from ctpa_torch.models.layers import Dense, compute_dtype
 from ctpa_torch.models.lora import LoRADense
@@ -327,6 +336,13 @@ class LlamaAttention(nn.Module):
             for name, out in (("q_proj", h * hd), ("k_proj", kvh * hd), ("v_proj", kvh * hd)):
                 setattr(self, name, _proj(cfg, d, out, fk, lora, name))
         self.o_proj = _proj(cfg, h * hd, d, fk, lora, "o_proj")
+        self.tp = None           # (mesh, axis) of a row-parallel o_proj
+
+    def _out(self, x):
+        """o_proj, its partial products summed over the model axis when it
+        is row-parallel."""
+        y = self.o_proj(x)
+        return y if self.tp is None else all_reduce(y, *self.tp)
 
     def _qkv(self, x):
         if not self.fused:
@@ -376,13 +392,13 @@ class LlamaAttention(nn.Module):
                                      "groups); use kv_quant='int8' or None")
                 out = decode_attention(q[:, 0], ck, cv, key_mask, self.layer_idx,
                                        k_scale=ksc, v_scale=vsc, scale=1.0 / math.sqrt(hd))
-                return self.o_proj(out.reshape(b, 1, h * hd).to(x.dtype))
+                return self._out(out.reshape(b, 1, h * hd).to(x.dtype))
             if int4:
                 out = self._int4_attention(q, ck, cv, ksc, vsc, attn_mask)
-                return self.o_proj(out.reshape(b, n, h * hd))
+                return self._out(out.reshape(b, n, h * hd))
             if ksc is not None and c.kv_int8_dots:
                 out = self._int8_dot_attention(q, ck, cv, ksc, vsc, attn_mask)
-                return self.o_proj(out.reshape(b, n, h * hd).to(x.dtype))
+                return self._out(out.reshape(b, n, h * hd).to(x.dtype))
             if ksc is not None:
                 k_sc, v_sc = ksc[self.layer_idx], vsc[self.layer_idx]        # (b, kvh, m)
             k_full, v_full = ck[self.layer_idx].to(dt), cv[self.layer_idx].to(dt)
@@ -398,7 +414,7 @@ class LlamaAttention(nn.Module):
                 out = flash_attention(q.transpose(1, 2).contiguous(), k_full.contiguous(),
                                       v_full.contiguous(), causal=True, kv_mask=key_mask,
                                       scale=1.0 / math.sqrt(hd))
-                return self.o_proj(out.transpose(1, 2).reshape(b, n, h * hd).to(x.dtype))
+                return self._out(out.transpose(1, 2).reshape(b, n, h * hd).to(x.dtype))
         # grouped-query attention against the un-repeated K/V: q head
         # g * rep + r attends kv head g; fp32 scores (preferred_element_type)
         qg = q.reshape(b, n, kvh, h // kvh, hd)
@@ -411,7 +427,7 @@ class LlamaAttention(nn.Module):
         if v_sc is not None:
             attn = attn * v_sc[:, :, None, None, :]
         out = torch.einsum("bgrnm,bgmd->bngrd", attn.to(v_full.dtype), v_full)
-        return self.o_proj(out.reshape(b, n, h * hd))
+        return self._out(out.reshape(b, n, h * hd))
 
     def _int4_attention(self, q, ck, cv, ksc, vsc, attn_mask):
         """Grouped attention over the int4 cache -> (b, n, kvh, rep, G, gs) in
@@ -483,6 +499,7 @@ class LlamaMLP(nn.Module):
             self.gate_proj = _proj(cfg, d, i, fk)
             self.up_proj = _proj(cfg, d, i, fk)
         self.down_proj = _proj(cfg, i, d, fk)
+        self.tp = None           # (mesh, axis) of a row-parallel down_proj
 
     def forward(self, x):
         if self.ffn_kernel:
@@ -498,7 +515,8 @@ class LlamaMLP(nn.Module):
             gate, up = self.gateup_proj(x).chunk(2, dim=-1)
         else:
             gate, up = self.gate_proj(x), self.up_proj(x)
-        return self.down_proj(F.silu(gate) * up)
+        y = self.down_proj(F.silu(gate) * up)
+        return y if self.tp is None else all_reduce(y, *self.tp)
 
 
 class LlamaBlock(nn.Module):
@@ -615,11 +633,13 @@ class LlamaForCausalLM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = _proj(cfg, cfg.hidden_size, cfg.vocab_size,
                                  dict(device=device, dtype=dtype))
+        self.tp = None           # (mesh, axis) of a column-parallel lm_head
 
     def apply_lm_head(self, hidden):
         if self.cfg.tie_embeddings:
             raise NotImplementedError("tied embeddings not needed for Meditron/llama-2")
-        return self.lm_head(hidden)
+        logits = self.lm_head(hidden)
+        return logits if self.tp is None else gather_replicated(logits, *self.tp, dim=-1)
 
     def forward(self, input_ids=None, attention_mask=None, cache: Optional[KVCache] = None,
                 positions=None, inputs_embeds=None, shared_kv_offset: bool = False):

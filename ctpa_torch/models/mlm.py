@@ -49,13 +49,26 @@ def mlm_draws(input_ids: torch.Tensor, generator: Optional[torch.Generator] = No
 
 def mlm_loss(apply_fn: Callable, input_ids: torch.Tensor, attention_mask: torch.Tensor,
              draws, mask_prob: float = 0.15, replace_prob: float = 0.90,
-             mask_token_id: int = 103, pad_token_id: int = 0) -> torch.Tensor:
+             mask_token_id: int = 103, pad_token_id: int = 0, mesh=None,
+             axis: str = "data") -> torch.Tensor:
     """Mean cross-entropy (fp32 log-softmax) of the original tokens over the
     selected positions: ``apply_fn(masked_ids, attention_mask)`` gives the
-    (b, n, vocab) logits; ``draws`` is the pair ``mlm_draws`` returns."""
+    (b, n, vocab) logits; ``draws`` is the pair ``mlm_draws`` returns.
+
+    With ``mesh`` the rows are this rank's of a global batch, and the mean
+    is the global one: the selected count is summed over ``axis``, and this
+    rank returns p times its own sum over that count, so that the mean over
+    ranks of the returned values, and of their gradients, is the global
+    mean and its gradient (a mean of per-rank means would weigh each rank's
+    tokens by its own count)."""
     masked, selected = mask_tokens_from(input_ids, *draws, mask_prob, replace_prob,
                                         mask_token_id, pad_token_id)
     logp = torch.log_softmax(apply_fn(masked, attention_mask).float(), dim=-1)
     nll = -torch.gather(logp, -1, input_ids.long()[..., None])[..., 0]
     sel = selected.float()
-    return (nll * sel).sum() / torch.clamp(sel.sum(), min=1.0)
+    num, den = (nll * sel).sum(), sel.sum()
+    if mesh is not None:
+        from ctpa_torch.comms.collectives import psum
+
+        num, den = num * mesh.size(axis), psum(den, mesh, axis)
+    return num / torch.clamp(den, min=1.0)

@@ -242,30 +242,43 @@ class CTReportGenerator(nn.Module):
     def _fused_logits(self, hidden, vision):
         return self.llm.apply_lm_head(self.cross_attention(hidden, vision))
 
-    def loss(self, video, input_ids, attention_mask, label_mask=None):
-        """The shifted-label cross-entropy of the training forward."""
+    def loss(self, video, input_ids, attention_mask, label_mask=None, mesh=None,
+             axis: str = "data"):
+        """The shifted-label cross-entropy of the training forward (``mesh``
+        as in ``_ce``)."""
         return self._ce(self(video, input_ids, attention_mask), input_ids, attention_mask,
-                        label_mask)
+                        label_mask, mesh, axis)
 
-    def loss_from_vision(self, vision, input_ids, attention_mask, label_mask=None):
+    def loss_from_vision(self, vision, input_ids, attention_mask, label_mask=None, mesh=None,
+                         axis: str = "data"):
         """The same loss over precomputed (b, vision_dim) vision features, so a
         fine-tune with a frozen vision trunk runs the trunk once, outside the
         training step."""
         hidden, _ = self.llm.model(input_ids, attention_mask)
         return self._ce(self._fused_logits(hidden, vision), input_ids, attention_mask,
-                        label_mask)
+                        label_mask, mesh, axis)
 
     @staticmethod
-    def _ce(logits, input_ids, attention_mask, label_mask=None):
+    def _ce(logits, input_ids, attention_mask, label_mask=None, mesh=None, axis: str = "data"):
         """Mean negative log-likelihood of tokens 1.. under the logits of
-        positions ..n-2, over the positions the masks keep."""
+        positions ..n-2, over the positions the masks keep.  With ``mesh``
+        the rows are this rank's of a global batch and the mean is the
+        global token mean: the kept-token count is summed over ``axis``,
+        and this rank returns p times its own sum over it, so the mean over
+        ranks of the returned values and of their gradients is the global
+        mean and its gradient, whatever each rank's count."""
         targets = input_ids[:, 1:].long()
         mask = attention_mask[:, 1:].float()
         if label_mask is not None:
             mask = mask * label_mask[:, 1:].float()
         logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
         nll = -logp.gather(-1, targets[..., None])[..., 0]
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        num, den = (nll * mask).sum(), mask.sum()
+        if mesh is not None:
+            from ctpa_torch.comms.collectives import psum
+
+            num, den = num * mesh.size(axis), psum(den, mesh, axis)
+        return num / torch.clamp(den, min=1.0)
 
     @torch.no_grad()
     def generate(self, video, input_ids, attention_mask, max_new_tokens: int, eos_token_id: int,

@@ -139,8 +139,14 @@ def augment_volume(video: torch.Tensor, generator: torch.Generator | None = None
 
 def simclr_ssl_loss(encode_fn: Callable[[torch.Tensor], torch.Tensor], video: torch.Tensor,
                     views: tuple[AugmentDraws, AugmentDraws],
-                    temperature: float = 0.1) -> torch.Tensor:
-    """Two augmented views -> encoder -> NT-Xent."""
+                    temperature: float = 0.1, mesh=None, axis: str = "data") -> torch.Tensor:
+    """Two augmented views -> encoder -> NT-Xent.  With ``mesh`` the video
+    and the views' noise are this rank's rows; the embeddings are gathered
+    over ``axis`` and the loss is the global batch's."""
     z1 = encode_fn(augment_volume_from(video, views[0]))
     z2 = encode_fn(augment_volume_from(video, views[1]))
+    if mesh is not None:
+        from ctpa_torch.comms.collectives import all_gather_batch
+
+        z1, z2 = all_gather_batch(z1, mesh, axis), all_gather_batch(z2, mesh, axis)
     return nt_xent_loss(z1, z2, temperature)

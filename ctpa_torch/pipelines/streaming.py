@@ -30,9 +30,17 @@ one ``torch.Generator`` on the model's device; JAX's per-step keys cannot be
 matched bit for bit, so sampled serving equals ctpa's in law, greedy
 serving token for token.
 
+Tensor-parallel serving (``mesh``): the batcher serves a copy of the model
+whose LLM is split over the mesh's 'model' axis (``parallel/sharding.py:
+tensor_parallel_copy``; one process per rank, each running the same
+batcher on the same requests), and every KV cache it makes holds the
+rank's kv heads.  The logits are all-gathered before sampling, so every
+rank samples the same tokens.  Both tiers run under it.  As ctpa's, it
+refuses ``flash_decode`` and quantized weights on the kernels
+(``quant_impl="pallas"``): those kernels are single-card programs.
+
 Not ported: ``negotiate_param_formats`` (it negotiates XLA AOT parameter
-layouts; eager PyTorch has no counterpart) and tensor-parallel serving
-(``mesh``)."""
+layouts; eager PyTorch has no counterpart)."""
 
 from __future__ import annotations
 
@@ -46,10 +54,12 @@ import numpy as np
 import torch
 
 from ctpa_torch.core.config import LLMConfig
-from ctpa_torch.models.llm import KVCache, align_lane_to_clock, insert_lane, insert_lanes
+from ctpa_torch.core.mesh import MODEL_AXIS
+from ctpa_torch.models.llm import align_lane_to_clock, insert_lane, insert_lanes
 from ctpa_torch.models.report_generator import (CTReportGenerator, _draft_lookup, _rollback,
                                                 _scatter_drop, _spec_accept)
 from ctpa_torch.ops.sampling import sample_logits
+from ctpa_torch.parallel.sharding import rank_kv_cache, tensor_parallel_copy
 
 
 @dataclass
@@ -212,11 +222,22 @@ class ContinuousBatcher:
         every ``spec_reprobe_every``-th demoted wave runs speculatively
         anyway to refresh the EWMA.
 
-        ``generator`` (on the model's device) draws every sample; ``mesh``
-        (tensor-parallel serving) is not ported: one card."""
+        ``generator`` (on the model's device) draws every sample; with the
+        same seed on every rank, every rank draws the same.  ``mesh``
+        serves the LLM tensor-parallel over its 'model' axis (the module
+        docstring); the caller's model is left as it was."""
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving (mesh) is not ported: "
-                                      "ROADMAP.md Queue A item 11")
+            cfg = model.llm_cfg
+            # the serving kernels are single-card programs (ctpa's refusals)
+            if cfg.flash_decode:
+                raise ValueError("TP serving (mesh=...) does not compose with flash_decode "
+                                 "(single-chip pallas kernel); disable one")
+            if cfg.weight_quant and cfg.quant_impl == "pallas":
+                raise ValueError("TP serving (mesh=...) requires quant_impl='xla' for "
+                                 "quantized weights (the pallas dequant kernels are "
+                                 "single-chip)")
+            model = tensor_parallel_copy(model, mesh, MODEL_AXIS)
         self.model = model
         self.cfg: LLMConfig = model.llm_cfg
         weight = model.llm.model.embed_tokens.weight
@@ -228,8 +249,7 @@ class ContinuousBatcher:
         self.generator = (generator if generator is not None
                           else torch.Generator(device=self.device).manual_seed(0))
         self.cache_dtype = model.cache_dtype()
-        self.cache = KVCache.create(self.cfg, num_lanes, max_len, dtype=self.cache_dtype,
-                                    device=self.device)
+        self.cache = self._new_cache(num_lanes)
         self.vision = torch.zeros(num_lanes, model.gen_cfg.vision_dim, device=self.device)
         self.cur_tok = torch.zeros(num_lanes, dtype=torch.long, device=self.device)
         self.active = np.zeros(num_lanes, bool)
@@ -297,8 +317,7 @@ class ContinuousBatcher:
         the fused logits, so the prompt's KV is the same for every request."""
         ids_np = np.asarray(input_ids, np.int64)
         mask_np = np.asarray(attention_mask)
-        lane_cache = KVCache.create(self.cfg, 1, self.max_len, dtype=self.cache_dtype,
-                                    device=self.device)
+        lane_cache = self._new_cache(1)
         with torch.no_grad():
             h, lane_cache = self._prefix_prefill(
                 to_device(ids_np[None], self.device),
@@ -311,6 +330,11 @@ class ContinuousBatcher:
     def has_work(self) -> bool:
         """Requests in lanes or waiting in the queue."""
         return bool(self.active.any() or self.queue)
+
+    def _new_cache(self, lanes: int):
+        """An empty cache of ``lanes`` lanes (this rank's kv heads under a
+        mesh)."""
+        return rank_kv_cache(self.model.llm, lanes, self.max_len, self.cache_dtype, self.device)
 
     def submit(self, req: Request) -> int:
         """Check and queue a request; it is admitted at the next step (so a
@@ -518,8 +542,7 @@ class ContinuousBatcher:
         else:
             ids_np = np.asarray(req.input_ids, np.int64)
             plen = int(np.asarray(req.attention_mask).sum())
-            lane_cache = KVCache.create(self.cfg, 1, self.max_len, dtype=self.cache_dtype,
-                                        device=self.device)
+            lane_cache = self._new_cache(1)
             first, lane_cache = self._prefill(
                 to_device(ids_np[None], self.device),
                 to_device(np.asarray(req.attention_mask)[None], self.device, torch.long),

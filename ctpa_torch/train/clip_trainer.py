@@ -1,5 +1,4 @@
-"""Contrastive CLIP trainer (port of ``ctpa/train/clip_trainer.py``) on one
-device.
+"""Contrastive CLIP trainer (port of ``ctpa/train/clip_trainer.py``).
 
 One step: forward of both towers in the policy's compute dtype,
 bidirectional InfoNCE (plus the weighted VQ commitment loss when asked, and
@@ -7,8 +6,20 @@ the MLM and SimCLR objectives with their config weights), backward,
 gradient clipping and AdamW (``train/optim.py``), then the VQ EMA codebook
 update.  ctpa compiles this into one XLA program; the port runs it eagerly,
 updates the parameters and moments in place, and reads nothing back to the
-host: the metrics stay device tensors.  Data parallelism (``mesh``,
-``contrastive_loss_sharded``) is not ported and raises.
+host: the metrics stay device tensors.
+
+Data parallelism (``mesh``): each rank takes its rows of the global batch,
+and the step equals ctpa's step on the global batch under pjit.  The
+InfoNCE loss is taken over all-gathered latents (``CTCLIP.forward(mesh=)``),
+whose backward sums each rank's latent gradient over the ranks, so every
+rank's gradients are p times its rows' share of the global gradient; the
+per-sample means (the commitment loss) give 1/p of the global mean's
+share, and the MLM mean is scaled so (``mlm_loss(mesh=)``): averaging the
+gradients over the ranks (``comms/collectives.py:average_gradients``) then
+gives the global gradient on every rank, and the clip's global norm is
+taken after that reduction.  The VQ assignment counts and sums are summed
+over the ranks before ``ema_update``, so every rank keeps the same
+codebook; the metrics are their means over the ranks.
 
 The SSL objectives' random draws (the MLM masks, the two augmented views)
 come from ``ssl_draws``, seeded by (seed, step) as ctpa folds the step into
@@ -18,6 +29,7 @@ draws in its stead.
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from typing import Any, Callable, Iterator, NamedTuple, Optional
@@ -25,8 +37,10 @@ from typing import Any, Callable, Iterator, NamedTuple, Optional
 import torch
 from torch import nn
 
+from ctpa_torch.comms.collectives import average_gradients, pmean, psum
 from ctpa_torch.core.checkpoint import CheckpointManager
 from ctpa_torch.core.config import OptimizerConfig, TrainConfig
+from ctpa_torch.core.mesh import DATA_AXIS, is_primary
 from ctpa_torch.core.precision import Policy, policy as precision_policy
 from ctpa_torch.models.ctclip import CTCLIP
 from ctpa_torch.models.layers import set_compute_dtype
@@ -67,11 +81,30 @@ def ssl_draws(seed: int, step: int, input_ids: torch.Tensor, video: torch.Tensor
     return SSLDraws(mlm, views)
 
 
+def rank_draws(seed: int, step: int, input_ids: torch.Tensor, video: torch.Tensor,
+               use_mlm: bool, use_visual_ssl: bool, mesh, axis: str = DATA_AXIS) -> SSLDraws:
+    """This rank's rows of ``ssl_draws`` made for the global batch (the same
+    draws on every rank), from this rank's ``input_ids`` and ``video``."""
+    p, i, b = mesh.size(axis), mesh.index(axis), input_ids.shape[0]
+
+    def whole(x):
+        return x[:1].expand((p * b,) + tuple(x.shape[1:]))
+
+    def rows(x):
+        return x[i * b:(i + 1) * b]
+
+    draws = ssl_draws(seed, step, whole(input_ids), whole(video), use_mlm, use_visual_ssl)
+    return SSLDraws(None if draws.mlm is None else tuple(rows(x) for x in draws.mlm),
+                    None if draws.views is None else
+                    tuple(v._replace(noise=rows(v.noise)) for v in draws.views))
+
+
 def make_clip_train_step(model: CTCLIP, tx: Optimizer, vq_decay: float = 0.99,
                          commit_weight: float = 0.0, policy: Optional[Policy] = None,
                          use_mlm: bool = False, use_visual_ssl: bool = False,
                          mask_token_id: int = 103, seed: int = 0,
-                         model_dtype: Optional[torch.dtype] = None):
+                         model_dtype: Optional[torch.dtype] = None, mesh=None,
+                         axis: str = DATA_AXIS):
     """The (state, batch) -> (state, metrics) step.
 
     batch: {"input_ids": (B, L), "attention_mask": (B, L), "video": (B, c, T, H, W)},
@@ -88,7 +121,11 @@ def make_clip_train_step(model: CTCLIP, tx: Optimizer, vq_decay: float = 0.99,
     ``use_visual_ssl`` the loss adds ``text_ssl_loss_weight`` times the MLM
     loss and ``image_ssl_loss_weight`` times SimCLR's over two augmented
     views of the video.  The global norm is computed once and serves the
-    metric and the clip."""
+    metric and the clip.
+
+    With ``mesh`` the batch is this rank's rows of the global batch, and
+    the step is the global batch's (the module docstring); every rank
+    returns the same metrics and keeps the same parameters and codebook."""
     policy = policy or Policy()
     set_compute_dtype(model, policy.compute_dtype if model_dtype is None else model_dtype)
 
@@ -96,35 +133,54 @@ def make_clip_train_step(model: CTCLIP, tx: Optimizer, vq_decay: float = 0.99,
         model.zero_grad(set_to_none=True)
         ids, mask = batch["input_ids"], batch["attention_mask"]
         video = policy.cast_to_compute(batch["video"])
-        out = model(ids, mask, video, state.vq_state, return_loss=True)
+        out = model(ids, mask, video, state.vq_state, return_loss=True, mesh=mesh, axis=axis)
         loss = out.loss
         if out.vq_commit_loss is not None and commit_weight > 0:
             loss = loss + commit_weight * out.vq_commit_loss
         extra = {}
-        if use_mlm or use_visual_ssl:
+        if (use_mlm or use_visual_ssl) and mesh is None:
             draws = ssl_draws(seed, state.step, ids, video, use_mlm, use_visual_ssl)
+        elif use_mlm or use_visual_ssl:
+            draws = rank_draws(seed, state.step, ids, video, use_mlm, use_visual_ssl, mesh, axis)
         if use_mlm:
-            tl = mlm_loss(model.mlm_logits, ids, mask, draws.mlm, mask_token_id=mask_token_id)
+            tl = mlm_loss(model.mlm_logits, ids, mask, draws.mlm, mask_token_id=mask_token_id,
+                          mesh=mesh, axis=axis)
             loss = loss + model.cfg.text_ssl_loss_weight * tl
             extra["mlm_loss"] = tl.detach()
         if use_visual_ssl:
-            vl = simclr_ssl_loss(model.visual_ssl_embed, video, draws.views)
+            vl = simclr_ssl_loss(model.visual_ssl_embed, video, draws.views, mesh=mesh,
+                                 axis=axis)
             loss = loss + model.cfg.image_ssl_loss_weight * vl
             extra["visual_ssl_loss"] = vl.detach()
         loss.backward()
+        if mesh is not None:
+            average_gradients(model.parameters(), mesh, axis)
         norm = global_norm([p.grad for p in model.parameters() if p.grad is not None])
         metrics = {"loss": loss.detach(), "grad_norm": norm,
                    "temperature": torch.exp(model.temperature.detach()), **extra}
         tx.step(state.step, grad_norm=norm)
         vq_state = state.vq_state
         if vq_state is not None and out.vq_counts is not None:
-            vq_state = ema_update(vq_state, out.vq_counts, out.vq_sums, decay=vq_decay)
+            counts, sums = out.vq_counts, out.vq_sums
+            if mesh is not None:
+                counts, sums = reduce_vq_stats(counts, sums, mesh, axis)
+            vq_state = ema_update(vq_state, counts, sums, decay=vq_decay)
         if out.vq_commit_loss is not None:
             metrics["vq_commit"] = out.vq_commit_loss.detach()
+        if mesh is not None:
+            for key in ("loss", "vq_commit", "mlm_loss"):
+                if key in metrics:
+                    metrics[key] = pmean(metrics[key], mesh, axis)
         return (CLIPTrainState(model=state.model, optimizer=state.optimizer, vq_state=vq_state,
                                step=state.step + 1), metrics)
 
     return train_step
+
+
+def reduce_vq_stats(counts: torch.Tensor, sums: torch.Tensor, mesh, axis: str = DATA_AXIS):
+    """The VQ assignment counts and sums of the global batch: this rank's,
+    summed over ``axis``."""
+    return psum(counts, mesh, axis), psum(sums, mesh, axis)
 
 
 def clip_finetune_mask(model: nn.Module, unfreeze: tuple[str, ...] = (
@@ -146,15 +202,19 @@ class CTClipTrainer:
     a callable model -> that) freezes the False parameters, e.g.
     ``clip_finetune_mask``.  ``model_dtype`` as in ``make_clip_train_step``
     (ctpa's training CLI trains an fp32 CTCLIP under the bf16 policy: the
-    video is rounded to bf16, the model computes in fp32)."""
+    video is rounded to bf16, the model computes in fp32).
+
+    With ``mesh`` (data parallelism) the loader yields this rank's rows
+    (``data/prefetch.py`` with a sharding or ``process_local``), the step
+    is the global batch's, and only the primary rank evaluates and writes
+    checkpoints and the metrics file."""
 
     def __init__(self, model: CTCLIP, state: CLIPTrainState, train_loader: Iterator,
                  cfg: TrainConfig = TrainConfig(), opt_cfg: OptimizerConfig = OptimizerConfig(),
                  mesh=None, eval_fn: Optional[Callable[[CLIPTrainState, int], dict]] = None,
                  commit_weight: float = 0.0, trainable_mask: Optional[Any] = None,
                  model_dtype: Optional[torch.dtype] = None):
-        if mesh is not None:
-            raise NotImplementedError("data-parallel training (mesh) is not ported yet")
+        self.mesh = mesh
         self.model = model
         self.cfg = cfg
         self.train_loader = train_loader
@@ -174,9 +234,11 @@ class CTClipTrainer:
         self._step = make_clip_train_step(
             model, self.tx, vq_decay=model.visual_transformer.cfg.vq_decay,
             commit_weight=commit_weight, policy=precision_policy(cfg.precision),
-            model_dtype=model_dtype)
+            model_dtype=model_dtype, mesh=mesh)
         self.ckpt = CheckpointManager(cfg.checkpoint_dir)
-        self.metrics = MetricsTracker(os.path.join(cfg.results_dir, "train_metrics.json"))
+        # the other ranks keep their metrics in memory only
+        self.metrics = MetricsTracker(os.path.join(cfg.results_dir, "train_metrics.json"),
+                                      flush_every=50 if is_primary() else math.inf)
 
     def _place(self, batch: dict) -> dict:
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
@@ -197,7 +259,8 @@ class CTClipTrainer:
             t0 = time.time()
             self.metrics.log(step, host)
             last = host
-            if self.eval_fn is not None and step % self.cfg.save_results_every == 0:
+            if self.eval_fn is not None and step % self.cfg.save_results_every == 0 \
+                    and is_primary():
                 eval_metrics = self.eval_fn(self.state, step)
                 self.metrics.log(step, {f"eval/{k}": v for k, v in eval_metrics.items()})
             if step % self.cfg.save_model_every == 0:
@@ -205,14 +268,19 @@ class CTClipTrainer:
         # always leave a final checkpoint (short runs never reach the interval)
         if self.state.step not in self.ckpt.all_steps():
             self.save(self.state.step)
-        self.metrics.flush()
+        self._flush()
         return last
 
+    def _flush(self) -> None:
+        if is_primary():
+            self.metrics.flush()
+
     def save(self, step: int) -> None:
-        self.ckpt.save(step, self.state.state_dict())
+        if is_primary():
+            self.ckpt.save(step, self.state.state_dict())
 
     def close(self) -> None:
-        self.metrics.flush()
+        self._flush()
         self.ckpt.wait()
         self.ckpt.close()
 

@@ -20,6 +20,13 @@ host, so the R1 branch reads nothing from the device and the step makes no
 host sync.  The generator computes in its modules' compute dtype
 (``models.layers.set_compute_dtype``; ctpa's ``CTViT(dtype=...)``); the
 discriminator and the perceptual net in their parameters' dtype.
+
+Data parallelism (``mesh``): the video is this rank's rows of the global
+batch.  Every loss is a mean over equally many items on each rank, so the
+generator's and the discriminator's gradients are each averaged over the
+ranks before their update (``comms/collectives.py:average_gradients``),
+the VQ assignment counts and sums are summed before the EMA update, and
+the metrics are means over the ranks: ctpa's step on the global batch.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ctpa_torch.comms.collectives import average_gradients, pmean, psum
+from ctpa_torch.core.mesh import DATA_AXIS
 from ctpa_torch.models.ctvit import CTViT
 from ctpa_torch.models.discriminator import Discriminator, PerceptualNet, perceptual_loss
 from ctpa_torch.ops.vq import VQState, ema_update
@@ -83,11 +92,13 @@ def make_vqgan_train_step(model: CTViT, disc: Discriminator, perc: PerceptualNet
                           recon_weight: float = 1.0, perceptual_weight: float = 1.0,
                           gan_weight: float = 1.0, commit_weight: float = 1.0,
                           r1_weight: float = 10.0, apply_r1_every: int = 16,
-                          vq_decay: float = 0.99):
+                          vq_decay: float = 0.99, mesh=None, axis: str = DATA_AXIS):
     """The (state, video) -> (state, metrics) step.  ``video`` (b, c, T, H, W)
     on the generator's device; the state's modules and optimizers are these
     ones, updated in place.  Metrics are 0-d tensors: gen_loss, disc_loss
-    (R1 included), recon, perceptual, gen_gan, commit, r1."""
+    (R1 included), recon, perceptual, gen_gan, commit, r1.  With ``mesh``
+    the video is this rank's rows and the step the global batch's (the
+    module docstring)."""
     g_loss_fn = hinge_g_loss if use_hinge else bce_g_loss
     d_loss_fn = hinge_d_loss if use_hinge else bce_d_loss
     perc.requires_grad_(False)
@@ -104,6 +115,8 @@ def make_vqgan_train_step(model: CTViT, disc: Discriminator, perc: PerceptualNet
         g_loss = (recon_weight * recon_l + perceptual_weight * perc_l + gan_weight * gan_l
                   + commit_weight * vq_out.commit_loss)
         g_loss.backward(inputs=gen_params)
+        if mesh is not None:
+            average_gradients(gen_params, mesh, axis)
         gen_tx.step(state.step)
 
         fake_mid = fake_mid.detach()
@@ -114,13 +127,20 @@ def make_vqgan_train_step(model: CTViT, disc: Discriminator, perc: PerceptualNet
             r1 = torch.zeros((), device=video.device)
         d_total = d_loss + r1
         d_total.backward(inputs=disc_params)
+        if mesh is not None:
+            average_gradients(disc_params, mesh, axis)
         disc_tx.step(state.step)
 
-        vq_state = ema_update(state.vq_state, vq_out.counts, vq_out.sums, decay=vq_decay)
+        counts, sums = vq_out.counts, vq_out.sums
+        if mesh is not None:
+            counts, sums = psum(counts, mesh, axis), psum(sums, mesh, axis)
+        vq_state = ema_update(state.vq_state, counts, sums, decay=vq_decay)
         metrics = {"gen_loss": g_loss.detach(), "disc_loss": d_total.detach(),
                    "recon": recon_l.detach(), "perceptual": perc_l.detach(),
                    "gen_gan": gan_l.detach(), "commit": vq_out.commit_loss.detach(),
                    "r1": r1.detach()}
+        if mesh is not None:
+            metrics = {k: pmean(v, mesh, axis) for k, v in metrics.items()}
         return (VQGANState(gen=state.gen, disc=state.disc, perc=state.perc,
                            gen_opt=state.gen_opt, disc_opt=state.disc_opt, vq_state=vq_state,
                            step=state.step + 1), metrics)

@@ -183,8 +183,12 @@ def test_train_clip_argument_errors_match_ctpa(files, tmp_path, extra):
                     main(args)
             codes.append(err.value.code)
     assert codes == [2, 2, 2, 2]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ttc_cli.main(_args(files, tmp_path, 1, "--coordinator", "localhost:1"), device="cpu")
+    # a coordinator needs both process flags (multi-process training is
+    # ported: tests/test_torch_parallel.py)
+    with pytest.raises(SystemExit) as err:
+        ttc_cli.main(_args(files, tmp_path, 1, "--coordinator", "localhost:1", *extra),
+                     device="cpu")
+    assert err.value.code == 2
 
 
 # ------------------------------------------------------------------ prefetch
@@ -224,7 +228,7 @@ def test_prefetch_raises_the_loader_error():
     assert torch.equal(next(it)["x"], torch.zeros(2, dtype=torch.float64))
     with pytest.raises(ValueError, match="corrupt volume"):
         next(it)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="requires a sharding"):
         PrefetchIterator(iter([]), device="cpu", process_local=True)
     assert to_device("text", "cpu") == "text"
 

@@ -39,6 +39,7 @@ from ctpa.train.clip_trainer import make_clip_train_step as j_make_step
 from ctpa.train.train_state import CLIPTrainState as JState
 from ctpa_torch.convert import load_flax_params, load_flax_variables, vq_state_from_numpy
 from ctpa_torch.core import config as tc
+from ctpa_torch.core.mesh import single_device_mesh
 from ctpa_torch.core.precision import policy
 from ctpa_torch.models import mlm as tmlm
 from ctpa_torch.models import visual_ssl as tssl
@@ -411,5 +412,11 @@ def test_fused_encoder_matches_ctpa_interpreted_flash():
         tokens, out = model(_t(video), vq_state_from_numpy(vq, device="cpu"))
     np.testing.assert_allclose(tokens.numpy(), np.asarray(ref_tokens), atol=1e-4)
     np.testing.assert_allclose(float(out.commit_loss), float(ref_vq.commit_loss), rtol=1e-4)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        CTViT(VIT, device="cpu", cp_mesh=object())
+    # context parallelism over a one-rank mesh gives the same tokens (more
+    # ranks: tests/test_torch_context_parallel.py)
+    cp = CTViT(dataclasses.replace(VIT, fused_attention=True, fused_depth=1), device="cpu",
+               cp_mesh=single_device_mesh("cpu"), cp_axis="data")
+    cp.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        cp_tokens, _ = cp(_t(video), vq_state_from_numpy(vq, device="cpu"))
+    torch.testing.assert_close(cp_tokens, tokens, atol=0, rtol=0)

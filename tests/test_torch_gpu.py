@@ -1930,3 +1930,78 @@ def test_prefetch_stages_batches_on_a_side_stream(cuda):
     for i, b in enumerate(got):
         assert b["host"].is_cuda and b["dev"].is_cuda
         assert bool((b["host"] == i).all()) and bool((b["dev"] == i).all())
+
+
+# --------------------------- context parallelism: K2/K3 at one rank's form
+
+# (label, (b, h, n, d), causal): the fused encoder's form (no bias, the
+# cosine bound) and the LLM's causal forms; n = 300 splits into 150 or 75
+# rows a rank, so the offsets fall inside key tiles
+CP_FORMS = [("fused d32", (1, 4, 512, 32), False), ("causal d128", (2, 4, 300, 128), True),
+            ("causal d64", (2, 3, 300, 64), True)]
+
+
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("label, shape, causal", CP_FORMS)
+def test_flash_cp_rank_forms_match_plain(cuda, label, shape, causal, p):
+    """Each of p ranks' n/p query rows over all n keys (rectangular), causal
+    at q_offset r n/p, through parallel/context.py:rank_attention: K2-lse
+    and K3 by autograd against the plain versions; then the ranks' outputs
+    concatenated and their dK/dV partials summed against the unsharded
+    kernel call.  A rank at q_offset 0 and a partial left unsummed must
+    miss."""
+    from ctpa_torch.parallel.context import rank_attention, rank_offset
+
+    b, h, n, d = shape
+    nl, bf16 = n // p, torch.bfloat16
+    q, k = (torch.randn(b, h, n, d, generator=cuda, device="cuda") for _ in "qk")
+    if not causal:
+        q, k = l2norm(q), l2norm(k)
+    q, k = q.to(bf16), k.to(bf16)
+    v, do = (torch.randn(b, h, n, d, generator=cuda, device="cuda").to(bf16) for _ in "vd")
+    scale = 8.0 if not causal else d ** -0.5
+    bound = None if causal else torch.tensor(8.0, device="cuda")
+    tol = TOL[bf16]
+
+    def rank(r, offset=True):
+        rows = slice(r * nl, (r + 1) * nl)
+        off = rank_offset(r, nl, "cuda") if causal and offset else None
+        leaves = [q[:, :, rows].clone().requires_grad_(), k.clone().requires_grad_(),
+                  v.clone().requires_grad_()]
+        out, lse = rank_attention(*leaves, scale=scale, causal=causal, q_offset=off,
+                                  logit_bound=bound, return_lse=True)
+        out.backward(do[:, :, rows])
+        masks = fa.make_masks(causal, None, off, b, n, "cuda")
+        ref_out, ref_lse = flash_attention_plain(q[:, :, rows], k, v, None, scale, bound,
+                                                 return_lse=True, masks=masks)
+        ref = flash_attention_bwd_plain(q[:, :, rows], k, v, None, ref_out, ref_lse,
+                                        do[:, :, rows], scale, masks)
+        return (out.detach(), lse, *(t.grad for t in leaves)), (ref_out, ref_lse, *ref[:3])
+
+    before = dict(LAUNCHES)
+    runs = [rank(r) for r in range(p)]
+    torch.cuda.synchronize()
+    suffix = "_d128" if d == 128 else ""
+    assert LAUNCHES["flash_attention_fwd_lse" + suffix] - before["flash_attention_fwd_lse"
+                                                                 + suffix] == p
+    for r, (got, ref) in enumerate(runs):
+        for name, g, e in zip(("out", "lse", "dq", "dk", "dv"), got, ref):
+            atol = 1e-4 if name == "lse" else tol
+            torch.testing.assert_close(g.float(), e.float(), atol=atol, rtol=atol,
+                                       msg=f"{label} p {p} rank {r} {name}")
+    full = _unsharded(q, k, v, do, scale, bound, causal)
+    out = torch.cat([g[0] for g, _ in runs], 2)
+    dk, dv = sum(g[3] for g, _ in runs), sum(g[4] for g, _ in runs)
+    for name, g, e in (("out", out, full[0]), ("dk", dk, full[3]), ("dv", dv, full[4])):
+        torch.testing.assert_close(g.float(), e.float(), atol=tol, rtol=tol, msg=name)
+    if causal:
+        fault, _ = rank(p - 1, offset=False)
+        assert not torch.allclose(fault[0].float(), runs[-1][1][0].float(), atol=tol, rtol=tol)
+    assert not torch.allclose(runs[0][0][3].float(), full[3].float(), atol=tol, rtol=tol)
+
+
+def _unsharded(q, k, v, do, scale, bound, causal):
+    masks = fa.make_masks(causal, None, None, q.shape[0], k.shape[2], "cuda")
+    out, lse = fa._forward(q, k, v, None, scale, bound, True, masks)
+    dq, dk, dv, _ = flash_attention_bwd(q, k, v, None, out, lse, do, scale, masks=masks)
+    return out, lse, dq, dk, dv

@@ -1,4 +1,4 @@
-"""The port stands alone: ctpa_torch (its cli too), chip_smoke.py,
+"""The port stands alone: ctpa_torch (its cli, comms and parallel too), chip_smoke.py,
 bench_torch.py and the profile scripts import neither JAX, flax, pandas nor
 anything of ctpa (nor, when a module loads, sklearn, safetensors,
 transformers or matplotlib, which the card's machine lacks), build no
@@ -48,14 +48,16 @@ report = ["ctpa_torch.ops.decode_attention", "ctpa_torch.ops.rotary", "ctpa_torc
           "ctpa_torch.cli.train_vqgan", "ctpa_torch.models.discriminator",
           "ctpa_torch.models.fallback_transformers", "ctpa_torch.models.attention",
           "ctpa_torch.ops.attention_ops", "ctpa_torch.ops.vq", "ctpa_torch.train.gan_losses",
-          "ctpa_torch.train.vqgan_trainer"]
+          "ctpa_torch.train.vqgan_trainer", "ctpa_torch.core.mesh", "ctpa_torch.comms",
+          "ctpa_torch.comms.collectives", "ctpa_torch.parallel", "ctpa_torch.parallel.context",
+          "ctpa_torch.parallel.sharding"]
 missing = sorted(set(report) - set(names))
 assert not missing, missing
 for name in names:
     importlib.import_module(name)
 for script in ("chip_smoke", "bench_torch", "profile_zeroshot", "profile_clip_train",
                "profile_resample_patchify", "profile_int4_decode", "profile_int8_decode",
-               "profile_quant_prefill", "profile_decode_attention"):
+               "profile_quant_prefill", "profile_decode_attention", "profile_parallel"):
     spec = importlib.util.spec_from_file_location(script, script + ".py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)

@@ -32,6 +32,7 @@ from ctpa.models import report_generator as jrg
 from ctpa.pipelines import streaming as jstream
 from ctpa_torch.convert import load_flax_params
 from ctpa_torch.core import config as tc
+from ctpa_torch.core.mesh import single_device_mesh
 from ctpa_torch.data import ingest, nifti
 from ctpa_torch.data.dicom import save_series
 from ctpa_torch.data.tokenizer import SimpleWordTokenizer
@@ -372,8 +373,10 @@ def test_window_checks_raise_ctpas_messages(world, kw):
 
 
 def test_batcher_refuses_what_is_not_ported(world):
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        ContinuousBatcher(world.models[None], mesh=object())
+    # tensor-parallel serving is ported (tests/test_torch_tp.py) but for
+    # ctpa's own refusal of the single-card decode kernel under a mesh
+    with pytest.raises(ValueError, match="flash_decode"):
+        ContinuousBatcher(world.models[None], mesh=single_device_mesh("cpu"))
     with pytest.raises(ValueError):
         ContinuousBatcher(world.models[None], spec_policy="auto")
 

@@ -41,6 +41,7 @@ from ctpa.train.train_state import CLIPTrainState as JState
 from ctpa_torch.convert import flax_to_state_dict, load_flax_params, vq_state_from_numpy
 from ctpa_torch.core import config as tc
 from ctpa_torch.core.checkpoint import CheckpointManager
+from ctpa_torch.core.mesh import single_device_mesh
 from ctpa_torch.core.precision import Policy, policy
 from ctpa_torch.models.ctclip import CTCLIP, infonce_loss
 from ctpa_torch.models.ctvit import PatchEmbed3D
@@ -508,8 +509,11 @@ def test_trainer_steps_saves_and_resumes(clip_pair, tmp_path):
     for k, v in model.state_dict().items():
         torch.testing.assert_close(v, saved[k], atol=0, rtol=0)
     trainer.close()
-    with pytest.raises(NotImplementedError):
-        CTClipTrainer(model, trainer.state, loader, cfg=cfg, mesh=object())
+    # data parallelism is ported (tests/test_torch_parallel.py): over a
+    # one-rank mesh the trainer steps as without one
+    dp = CTClipTrainer(model, trainer.state, iter([_batch(22)]), cfg=cfg,
+                       mesh=single_device_mesh("cpu"))
+    assert dp.mesh is not None and np.isfinite(float(dp.train_step()["loss"]))
     # the MLM objective and the CLIP variants are ported
     # (tests/test_torch_clip_variants.py)
     make_clip_train_step(model, tx, use_mlm=True)
